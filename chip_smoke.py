@@ -1,0 +1,359 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port on one NVIDIA card.
+
+Runs the port's main path, the PHOLD device-plane loop, through its
+hand-written CUDA kernels, in phases; any failure exits non-zero before
+the result lines are printed:
+
+1. require a CUDA card; print its name and power limit (nvidia-smi);
+2. build the kernels from `shadow_tpu_torch/csrc` (one nvcc per source,
+   in parallel) and print the build seconds and ptxas' resource report;
+3. kernel A (egress_rank) against its plain PyTorch version on the card,
+   bitwise, at N=32768 and CE in {8, 16, 32, 64}, and timed with its
+   inputs in HBM (L2 flushed before each launch: `ms`) and in L2
+   (back-to-back launches: `warm_ms`);
+4. kernel B (route_place) likewise at N=32768, CE=16, CI=32, with rows
+   whose arrivals overflow the ring;
+5. the golden digest: `run_phold` at N=1024, R=16 must end in the state
+   the JAX package's pallas_fused run ends in (pinned by the CPU tests);
+6. the main path: `run_phold` at N=32768, CE=16, CI=32, M=64, R=192
+   after one untimed warm-up run, with the launch counters reset just
+   before and read just after (each kernel must have launched R times),
+   then a R=16 run through the kernels against the same run through the
+   plain versions, bitwise;
+7. one JSON line describing every kernel, then the result line.
+
+Usage: python3 chip_smoke.py   (from the repository root; one card).
+A fuller record of every measurement is printed on the `record:` line.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+N_HOSTS = 32768
+ROUNDS = 192
+EGRESS_CAP = 16
+INGRESS_CAP = 32
+N_NODES = 64
+CHECK_ROUNDS = 16
+# H100 SXM peaks (700 W). Bytes: NVIDIA's data sheet. The data sheet's
+# 67 TFLOP/s float32 is 128 FMA lanes a clock on 132 SMs at 1.98 GHz; the
+# CUDA programming guide's throughput table gives compute capability 9.0
+# 64 int32 results a clock an SM (add, compare, shift, logic) and 32 warp
+# shuffle results, so a quarter and an eighth of that flop rate.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_INT32_OPS_PER_S = 67e12 / 4
+PEAK_SHUFFLES_PER_S = 67e12 / 8
+L2_FLUSH_BYTES = 128 << 20  # over twice the H100's 50 MB L2
+NO_CLAMP = -(2**30)
+MS = 1_000_000
+
+
+def fail(msg: str):
+    raise SystemExit(f"chip_smoke: FAIL: {msg}")
+
+
+def gpu_identity() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True).stdout.strip()
+    if not out:
+        fail("nvidia-smi printed no card")
+    return out.splitlines()[0]
+
+
+def time_device(torch, fn, reps: int = 50) -> tuple[float, float]:
+    """Milliseconds of device time per call of `fn`: (warm, cold). Warm
+    is CUDA events around `reps` back-to-back calls on the same inputs,
+    which then sit in L2. Cold puts events around each call, after a
+    write of L2_FLUSH_BYTES that evicts them, so its bytes come from
+    HBM. A spin kernel queued first keeps the card busy while the host
+    enqueues, so host overhead does not show as idle."""
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32,
+                        device="cuda")
+    fn()
+    flush.fill_(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        flush.fill_(0)
+        fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    spin = lambda: torch.cuda._sleep(int(min(2.5 * host_s + 1e-3, 4.0) * 2e9))
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    spin()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    warm = start.elapsed_time(end) / reps
+    pairs = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    spin()
+    for s, e in pairs:
+        flush.fill_(0)
+        s.record()
+        fn()
+        e.record()
+    torch.cuda.synchronize()
+    cold = sum(s.elapsed_time(e) for s, e in pairs) / reps
+    return warm, cold
+
+
+def max_abs_err(torch, got, ref) -> int:
+    err = 0
+    for a, b in zip(got, ref):
+        if a.dtype != b.dtype or a.shape != b.shape:
+            fail(f"dtype/shape mismatch {a.dtype}{tuple(a.shape)} vs "
+                 f"{b.dtype}{tuple(b.shape)}")
+        d = (a.to(torch.int64) - b.to(torch.int64)).abs().max()
+        err = max(err, int(d))
+    return err
+
+
+def nbytes(ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def bound(n_bytes: float, int_ops: float,
+          shuffles: float = 0) -> tuple[float, str]:
+    """The least time (ms) and what sets it: the bytes over HBM's rate,
+    or the int32 operations and warp shuffles, each over its own rate
+    (the slower of the two, since they may overlap)."""
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = max(int_ops / PEAK_INT32_OPS_PER_S,
+                shuffles / PEAK_SHUFFLES_PER_S) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def egress_inputs(torch, n, ce, seed):
+    rng = np.random.default_rng(seed)
+    valid = rng.random((n, ce)) < 0.7
+    clamp = np.where(rng.random((n, ce)) < 0.5, NO_CLAMP,
+                     rng.integers(-5 * MS, 20 * MS, (n, ce)))
+    cols = dict(
+        valid=valid,
+        prio=rng.integers(0, 8, (n, ce)),  # duplicates: ties by column
+        nbytes=rng.integers(60, 1500, (n, ce)),
+        tsend=rng.integers(-20 * MS, 10 * MS, (n, ce)),
+        clamp=clamp,
+        dst=rng.integers(-1, n, (n, ce)),
+        seq=rng.integers(0, 4 * ce, (n, ce)),  # duplicates too
+        sock=rng.integers(0, 64, (n, ce)),
+        ctrl=rng.random((n, ce)) < 0.2,
+    )
+    dev = torch.device("cuda")
+    t = {k: torch.from_numpy(np.ascontiguousarray(
+        v, bool if v.dtype == bool else np.int32)).to(dev)
+        for k, v in cols.items()}
+    balance = torch.from_numpy(
+        rng.integers(0, ce * 1500, n).astype(np.int32)).to(dev)
+    return (*t.values(), balance, 10 * MS)
+
+
+def check_kernel_a(torch, pipeline, record):
+    rows = []
+    for ce in (8, 16, 32, 64):
+        args = egress_inputs(torch, N_HOSTS, ce, seed=ce)
+        got = pipeline.egress_rank_stage(*args)
+        ref = pipeline.egress_rank_plain(*args)
+        torch.cuda.synchronize()
+        err = max_abs_err(torch, got, ref)
+        if err != 0:
+            fail(f"egress_rank_kernel CE={ce} disagrees with its plain "
+                 f"version (max abs err {err})")
+        warm_ms, ms = time_device(
+            torch, lambda: pipeline.egress_rank_stage(*args))
+        _, plain_ms = time_device(
+            torch, lambda: pipeline.egress_rank_plain(*args), reps=10)
+        moved = nbytes(args[:10]) + nbytes(got)
+        lg = int(math.log2(ce))
+        stages = lg * (lg + 1) // 2  # compare-exchange stages a network
+        # per slot and stage of the two networks ~6 int ops (pair compare,
+        # direction, two selects); the scan 2 a step, the row sum 1, ~16
+        # of rebase and packing. The warp path (CE <= 32) exchanges through
+        # shuffles: 2 a stage, 8 for the payload permutation, lg each for
+        # the scan and the row sum; the block path through shared memory.
+        ops = N_HOSTS * ce * (2 * 6 * stages + 3 * lg + 16)
+        shuffles = N_HOSTS * ce * (2 * 2 * stages + 8 + 2 * lg) \
+            if ce <= 32 else 0
+        bound_ms, bound_by = bound(moved, ops, shuffles)
+        row = dict(ce=ce, n=N_HOSTS, max_abs_err=err, ms=ms, warm_ms=warm_ms,
+                   plain_ms=plain_ms, bytes=moved, ops=ops, shuffles=shuffles,
+                   bound_ms=bound_ms, bound_by=bound_by,
+                   share_of_bound=bound_ms / ms)
+        rows.append(row)
+        print(f"kernel A egress_rank CE={ce}: bitwise ok, kernel_ms={ms:.5f}"
+              f" (cold L2; warm {warm_ms:.5f}) plain_ms={plain_ms:.5f} "
+              f"bound_ms={bound_ms:.5f} ({bound_by}, {moved} B, {ops} int "
+              f"ops, {shuffles} shuffles) share={bound_ms / ms:.3f} "
+              f"library_ms=null")
+    record["kernel_a"] = rows
+    return next(r for r in rows if r["ce"] == EGRESS_CAP)
+
+
+def check_kernel_b(torch, pipeline, record):
+    n, ce, ci = N_HOSTS, EGRESS_CAP, INGRESS_CAP
+    rng = np.random.default_rng(5)
+    nv = rng.integers(0, ci + 1, n)
+    # arrivals per destination: mostly near the mean, 1 in 16 rows hot
+    counts = rng.poisson(ce * 0.8, n)
+    hot = rng.random(n) < 1 / 16
+    counts[hot] += rng.integers(ci, 2 * ci, hot.sum())
+    counts = np.minimum(counts, np.maximum(
+        0, n * ce - (np.cumsum(counts) - counts)))  # fit the N*CE slots
+    offsets = np.cumsum(counts) - counts
+    take = np.minimum(counts, ci - nv)
+    if not (counts > ci - nv).any():
+        fail("kernel B check built no overflowing row")
+    b2 = n * ce + 2 * ci
+    dev = torch.device("cuda")
+    i32 = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+    streams = [i32(rng.integers(-2**31, 2**31 - 1, b2)) for _ in range(5)]
+    bases = [i32(rng.integers(-2**31, 2**31 - 1, (n, ci))) for _ in range(5)]
+    b_valid = torch.from_numpy(rng.random((n, ci)) < 0.5).to(dev)
+    args = (i32(nv), i32(offsets - nv), i32(take), *streams, *bases, b_valid)
+    got = pipeline.place(*args)
+    ref = pipeline.place_plain(*args)
+    torch.cuda.synchronize()
+    err = max_abs_err(torch, got, ref)
+    if err != 0:
+        fail(f"route_place_kernel disagrees with its plain version "
+             f"(max abs err {err})")
+    warm_ms, ms = time_device(torch, lambda: pipeline.place(*args))
+    _, plain_ms = time_device(torch, lambda: pipeline.place_plain(*args),
+                              reps=20)
+    placed = int(take.sum())
+    # each slot reads its 5 words from the stream (placed) or from its
+    # bases plus the base valid byte, and writes 5 words + a valid byte
+    moved = 3 * n * 4 + placed * 20 + (n * ci - placed) * 21 + n * ci * 21
+    ops = n * ci * 8
+    bound_ms, bound_by = bound(moved, ops)
+    row = dict(n=n, ci=ci, placed=placed,
+               overflow_rows=int((counts > ci - nv).sum()), max_abs_err=err,
+               ms=ms, warm_ms=warm_ms, plain_ms=plain_ms, bytes=moved,
+               ops=ops, bound_ms=bound_ms, bound_by=bound_by,
+               share_of_bound=bound_ms / ms)
+    record["kernel_b"] = row
+    print(f"kernel B route_place N={n} CI={ci}: bitwise ok "
+          f"({row['overflow_rows']} overflowing rows), kernel_ms={ms:.5f} "
+          f"(cold L2; warm {warm_ms:.5f}) plain_ms={plain_ms:.5f} "
+          f"bound_ms={bound_ms:.5f} ({bound_by}, {moved} B, {ops} int ops) "
+          f"share={bound_ms / ms:.3f} library_ms=null")
+    return row
+
+
+def check_state(torch, state, n, ce, ci):
+    for name, t in state._asdict().items():
+        if name == "router":
+            continue
+        want = {"eg": (n, ce), "in": (n, ci)}.get(name[:2])
+        if want is not None and tuple(t.shape) != want:
+            fail(f"state.{name} has shape {tuple(t.shape)}, want {want}")
+        if t.device.type != "cuda":
+            fail(f"state.{name} left the card")
+    if int(state.n_sent.sum()) <= 0 or int(state.n_delivered.sum()) <= 0:
+        fail("the main path sent or delivered nothing")
+
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this needs a CUDA card")
+    from shadow_tpu_torch import _build, bench, convert
+    from shadow_tpu_torch.tpu import pipeline
+
+    ident = gpu_identity()
+    kind = torch.cuda.get_device_name(0)
+    print(f"gpu: {ident}")
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"devices {torch.cuda.device_count()}")
+    record = {"gpu": ident, "kind": kind, "torch": torch.__version__}
+
+    t0 = time.perf_counter()
+    build_s = _build.build(verbose_ptxas=True)
+    record["build_s"] = build_s
+    print(f"build: {json.dumps(build_s)} wall {time.perf_counter() - t0:.2f}s")
+
+    a = check_kernel_a(torch, pipeline, record)
+    b = check_kernel_b(torch, pipeline, record)
+
+    g = dict(bench.GOLDEN_PHOLD)
+    golden = bench.run_phold(g.pop("n_hosts"), rounds=g.pop("rounds"),
+                             warmup=False, **g)
+    digest = convert.state_digest(golden["state"])
+    if digest != bench.GOLDEN_PHOLD_DIGEST:
+        fail(f"golden PHOLD digest {digest} != {bench.GOLDEN_PHOLD_DIGEST}")
+    print(f"golden digest: ok ({digest[:16]}..., N=1024, R=16)")
+
+    size = dict(n_nodes=N_NODES, egress_cap=EGRESS_CAP,
+                ingress_cap=INGRESS_CAP)
+    bench.run_phold(N_HOSTS, rounds=ROUNDS, warmup=False, **size)  # warm-up
+    pipeline.reset_launches()
+    main_run = bench.run_phold(N_HOSTS, rounds=ROUNDS, warmup=False, **size)
+    launches = dict(pipeline.LAUNCHES)
+    for name, count in launches.items():
+        if count != ROUNDS:
+            fail(f"kernel {name} launched {count} times on the main path, "
+                 f"expected {ROUNDS}")
+    check_state(torch, main_run["state"], N_HOSTS, EGRESS_CAP, INGRESS_CAP)
+    rate = main_run["packet_events_per_sec"]
+    record["main_path"] = {k: v for k, v in main_run.items() if k != "state"}
+    record["main_path"]["launches"] = launches
+    print(f"main path: N={N_HOSTS} CE={EGRESS_CAP} CI={INGRESS_CAP} "
+          f"M={N_NODES} R={ROUNDS}: packet_events_per_sec={rate:.1f} "
+          f"(events {main_run['events']}, wall {main_run['wall_s']:.4f}s, "
+          f"launches {launches}) on {ident}")
+
+    fused = bench.run_phold(N_HOSTS, rounds=CHECK_ROUNDS, warmup=False,
+                            **size)
+    plain = bench.run_phold(N_HOSTS, rounds=CHECK_ROUNDS, warmup=False,
+                            plain_kernels=True, **size)
+    d_fused = convert.state_digest(fused["state"])
+    d_plain = convert.state_digest(plain["state"])
+    if d_fused != d_plain or fused["delivered"] != plain["delivered"]:
+        fail("the R=16 run through the kernels differs from the run "
+             "through their plain versions")
+    record["plain_vs_kernels"] = {
+        "rounds": CHECK_ROUNDS, "digest": d_fused,
+        "kernel_wall_s": fused["wall_s"], "plain_wall_s": plain["wall_s"]}
+    print(f"kernels vs plain versions, R={CHECK_ROUNDS}: bitwise ok "
+          f"(wall {fused['wall_s']:.4f}s vs {plain['wall_s']:.4f}s)")
+
+    kernels = [
+        {"name": "egress_rank_kernel", "route": "cuda",
+         "source": "shadow_tpu_torch/csrc/egress_rank.cu",
+         "replaces": "shadow_tpu/tpu/pallas_pipeline.py:77",
+         "launches": launches["egress_rank"], "max_abs_err": a["max_abs_err"],
+         "ms": a["ms"], "warm_ms": a["warm_ms"], "plain_ms": a["plain_ms"],
+         "bound_ms": a["bound_ms"], "bound_by": a["bound_by"],
+         "library_ms": None},
+        {"name": "route_place_kernel", "route": "cuda",
+         "source": "shadow_tpu_torch/csrc/route_place.cu",
+         "replaces": "shadow_tpu/tpu/pallas_pipeline.py:188",
+         "launches": launches["route_place"], "max_abs_err": b["max_abs_err"],
+         "ms": b["ms"], "warm_ms": b["warm_ms"], "plain_ms": b["plain_ms"],
+         "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+         "library_ms": None},
+    ]
+    print(f"record: {json.dumps(record, default=str)}")
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,514 @@
+"""Batched network-plane state and the per-window step, in PyTorch.
+
+The port of `shadow_tpu/tpu/plane.py` along the PHOLD main path: the
+params/state SoA, the flat and row-shaped egress appends, and the FIFO
+direct-delivery `window_step` (`rr_enabled=False`, `router_aqm=False`,
+packed sort keys, no presence planes), whose egress stage and routing
+placement run through the CUDA kernels of `tpu/pipeline.py`.
+
+Every result is bitwise the JAX plane's `window_step(kernel=
+"pallas_fused")`: int32 state, int32 arithmetic that wraps where the
+JAX plane's does, and the float32 loss draw computed from the same
+threefry bits. Sorts that the JAX plane runs outside its Pallas kernels
+stay `torch.sort` (stable) on composite int64 keys that give the same
+permutation. Nothing in `window_step` reads a tensor back to the host.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from . import codel
+from .prims import (_SIGN32, I32_MAX, NO_CLAMP, _pack_rank_key,
+                    _pack_time_key, _pkt_uniform, _row_perm_sort, floordiv,
+                    floormod, take, u32)
+
+# per-host socket-slot space of the round-robin qdisc's counters
+RR_SOCK_SLOTS = 16
+
+
+class NetPlaneParams(NamedTuple):
+    """Static per-simulation data (node-level [M, M] path tables and a
+    [N] host -> node map)."""
+
+    latency_ns: torch.Tensor  # [M, M] int32
+    loss: torch.Tensor  # [M, M] float32
+    host_node: torch.Tensor  # [N] int32
+    tb_rate: torch.Tensor  # [N] int32 egress bytes per millisecond
+    tb_cap: torch.Tensor  # [N] int32 bucket capacity
+    qdisc_rr: torch.Tensor  # [N] bool
+    dn_rate: torch.Tensor  # [N] int32 ingress bytes per millisecond
+    dn_cap: torch.Tensor  # [N] int32
+
+
+class NetPlaneState(NamedTuple):
+    """Mutable SoA state, axis 0 = host; field order is the JAX plane's."""
+
+    # egress queues [N, CE]
+    eg_dst: torch.Tensor
+    eg_bytes: torch.Tensor
+    eg_prio: torch.Tensor
+    eg_seq: torch.Tensor
+    eg_ctrl: torch.Tensor  # bool
+    eg_tsend: torch.Tensor
+    eg_clamp: torch.Tensor
+    eg_sock: torch.Tensor
+    eg_valid: torch.Tensor  # bool
+    # ingress queues [N, CI]
+    in_src: torch.Tensor
+    in_bytes: torch.Tensor
+    in_seq: torch.Tensor
+    in_sock: torch.Tensor
+    in_deliver_rel: torch.Tensor
+    in_valid: torch.Tensor  # bool
+    # per host [N]
+    tb_balance: torch.Tensor
+    tb_rem_ns: torch.Tensor
+    rng_counter: torch.Tensor
+    rr_sent: torch.Tensor  # [N, RR_SOCK_SLOTS]
+    router: codel.RouterDownState
+    n_sent: torch.Tensor
+    n_loss_dropped: torch.Tensor
+    n_overflow_dropped: torch.Tensor
+    n_delivered: torch.Tensor
+    n_fault_dropped: torch.Tensor
+
+
+def make_params(latency_ns, loss, up_bw_bps, mtu: int = 1500,
+                qdisc_rr=None, down_bw_bps=None, host_node=None, *,
+                device=None) -> NetPlaneParams:
+    """Params from node-level [M, M] latency/loss tables and per-host
+    up-bandwidths in bits/s; `host_node` None means host-pair tables."""
+    device = resolve_device(device)
+    lat = np.asarray(latency_ns)
+    if lat.size and (lat.min() < 0 or lat.max() > (2**31 - 1) // 2):
+        raise ValueError(
+            f"latency_ns out of the device budget [0, I32_MAX//2 ns]: "
+            f"min={lat.min()}, max={lat.max()}")
+    # per-ms rate capped at 2^30 - mtu so the refill arithmetic stays
+    # inside int32
+    rate = np.minimum(
+        np.maximum(1, (np.asarray(up_bw_bps) // 8) // 1000), 2**30 - mtu
+    ).astype(np.int32)
+    if host_node is None:
+        host_node = np.arange(lat.shape[0], dtype=np.int32)
+    n = np.asarray(host_node).shape[0]
+    rate = np.broadcast_to(rate, (n,))
+    if down_bw_bps is None:
+        dn_rate = np.full(n, 2**30 - mtu, np.int32)
+    else:
+        dn_rate = np.broadcast_to(np.minimum(
+            np.maximum(1, (np.asarray(down_bw_bps) // 8) // 1000),
+            2**30 - mtu).astype(np.int32), (n,))
+    t = lambda a, dt: torch.as_tensor(np.array(a, dt), device=device)
+    return NetPlaneParams(
+        latency_ns=t(lat, np.int32),
+        loss=t(loss, np.float32),
+        host_node=t(host_node, np.int32),
+        tb_rate=t(rate, np.int32),
+        tb_cap=t(rate + mtu, np.int32),
+        qdisc_rr=(t(qdisc_rr, bool) if qdisc_rr is not None
+                  else torch.zeros(n, dtype=torch.bool, device=device)),
+        dn_rate=t(dn_rate, np.int32),
+        dn_cap=t(dn_rate + mtu, np.int32),
+    )
+
+
+def make_state(n_hosts: int, egress_cap: int = 32, ingress_cap: int = 64,
+               initial_tokens=None, initial_dn_tokens=None,
+               params: NetPlaneParams | None = None, *,
+               device=None) -> NetPlaneState:
+    """Empty rings with the canonical dead-lane fills (-1 dst/src,
+    I32_MAX priority and deliver, NO_CLAMP). `params` starts the
+    down-bandwidth bucket full, like the JAX plane."""
+    device = resolve_device(device)
+    if initial_dn_tokens is None and params is not None:
+        initial_dn_tokens = params.dn_cap
+    N, CE, CI = n_hosts, egress_cap, ingress_cap
+    i32 = dict(dtype=torch.int32, device=device)
+    z = lambda *shape: torch.zeros(shape, **i32)
+    full = lambda shape, v: torch.full(shape, v, **i32)
+    as_i32 = lambda a: torch.as_tensor(a).to(**i32).clone()
+    return NetPlaneState(
+        eg_dst=full((N, CE), -1),
+        eg_bytes=z(N, CE),
+        eg_prio=full((N, CE), I32_MAX),
+        eg_seq=z(N, CE),
+        eg_ctrl=torch.zeros(N, CE, dtype=torch.bool, device=device),
+        eg_tsend=z(N, CE),
+        eg_clamp=full((N, CE), NO_CLAMP),
+        eg_sock=z(N, CE),
+        eg_valid=torch.zeros(N, CE, dtype=torch.bool, device=device),
+        in_src=full((N, CI), -1),
+        in_bytes=z(N, CI),
+        in_seq=z(N, CI),
+        in_sock=z(N, CI),
+        in_deliver_rel=full((N, CI), I32_MAX),
+        in_valid=torch.zeros(N, CI, dtype=torch.bool, device=device),
+        tb_balance=(as_i32(initial_tokens) if initial_tokens is not None
+                    else z(N)),
+        tb_rem_ns=z(N),
+        rng_counter=z(N),
+        rr_sent=z(N, RR_SOCK_SLOTS),
+        router=codel.make_router_state(
+            N, (as_i32(initial_dn_tokens) if initial_dn_tokens is not None
+                else None), device=device),
+        n_sent=z(N),
+        n_loss_dropped=z(N),
+        n_overflow_dropped=z(N),
+        n_delivered=z(N),
+        n_fault_dropped=z(N),
+    )
+
+
+def _arange(n: int, like: torch.Tensor, dtype=torch.int32) -> torch.Tensor:
+    return torch.arange(n, dtype=dtype, device=like.device)
+
+
+def ingest(state: NetPlaneState, src, dst, nbytes, prio, seq, ctrl,
+           valid=None, send_rel=None, clamp_rel=None,
+           sock=None) -> NetPlaneState:
+    """Append a flat batch of packets ([B] tensors, src = emitting host)
+    to the egress rings after each row's valid entries, in (src, seq,
+    batch position) order; what overflows a row is counted and dropped.
+    The JAX plane's packed bucketed append: one stable sort on the
+    composite key (src << 32 | seq ^ SIGN), binary-searched row bounds,
+    and one stacked gather of the payload columns."""
+    N, CE = state.eg_dst.shape
+    if valid is not None:
+        src = torch.where(valid, src, N)
+    if send_rel is None:
+        send_rel = torch.zeros_like(seq)
+    if clamp_rel is None:
+        clamp_rel = torch.full_like(seq, NO_CLAMP)
+    if sock is None:
+        sock = torch.zeros_like(seq)
+
+    n_valid = state.eg_valid.sum(dim=1, dtype=torch.int32)
+    B = src.shape[0]
+    src_b = torch.where((src >= 0) & (src < N), src, N).to(torch.int64)
+    o_key, o_pos = torch.sort((src_b << 32) | (u32(seq) ^ _SIGN32),
+                              stable=True)
+    bounds = torch.searchsorted(o_key >> 32, _arange(N + 1, src_b,
+                                                     torch.int64))
+    offsets = bounds[:-1].to(torch.int32)
+    counts = (bounds[1:] - bounds[:-1]).to(torch.int32)
+    take_n = torch.minimum(counts, CE - n_valid)
+    overflow = torch.clamp(counts + n_valid - CE, min=0)
+    i32 = lambda a: a.to(torch.int32)
+    flat = lambda a: i32(a).reshape(-1)
+    streams = torch.stack([
+        dst[o_pos], nbytes[o_pos], prio[o_pos], seq[o_pos],
+        i32(ctrl[o_pos]), send_rel[o_pos], clamp_rel[o_pos], sock[o_pos],
+        torch.ones(B, dtype=torch.int32, device=src.device)])
+    bases = torch.stack([
+        flat(state.eg_dst), flat(state.eg_bytes), flat(state.eg_prio),
+        flat(state.eg_seq), flat(state.eg_ctrl), flat(state.eg_tsend),
+        flat(state.eg_clamp), flat(state.eg_sock), flat(state.eg_valid)])
+    combined = torch.cat([bases, streams], dim=1)
+    ce_col = _arange(CE, src)[None, :]
+    nv = n_valid[:, None]
+    append = (ce_col >= nv) & (ce_col < nv + take_n[:, None])
+    stream_idx = torch.clamp(offsets[:, None] + ce_col - nv, 0, B - 1)
+    rows = _arange(N, src)[:, None]
+    gidx = torch.where(append, N * CE + stream_idx, rows * CE + ce_col)
+    (eg_dst, eg_bytes, eg_prio, eg_seq, eg_ctrl_i, eg_tsend, eg_clamp,
+     eg_sock, eg_valid_i) = combined[:, gidx.to(torch.int64)]
+    return state._replace(
+        eg_dst=eg_dst, eg_bytes=eg_bytes, eg_prio=eg_prio, eg_seq=eg_seq,
+        eg_ctrl=eg_ctrl_i != 0, eg_tsend=eg_tsend, eg_clamp=eg_clamp,
+        eg_sock=eg_sock, eg_valid=eg_valid_i != 0,
+        n_overflow_dropped=state.n_overflow_dropped + overflow,
+    )
+
+
+def ingest_rows(state: NetPlaneState, dst, nbytes, prio, seq, ctrl, valid,
+                send_rel=None, clamp_rel=None, sock=None) -> NetPlaneState:
+    """Append per-host batches ([N, K] tensors, row = emitting host)
+    after each row's existing entries, in column order: the packed
+    single-key merge (validity | column rank). The JAX plane's idle gate
+    is not taken; the merge of an entry-free batch is the identity
+    (SL505), and skipping the gate avoids a host read."""
+    N, CE = state.eg_dst.shape
+    if send_rel is None:
+        send_rel = torch.zeros_like(seq)
+    if clamp_rel is None:
+        clamp_rel = torch.full_like(seq, NO_CLAMP)
+    if sock is None:
+        sock = torch.zeros_like(seq)
+    cat = lambda a, b: torch.cat([a, b], dim=1)
+    valid_all = cat(state.eg_valid, valid)
+    W = valid_all.shape[1]
+    rank = _arange(W, valid, torch.int64).expand(N, W)
+    key = torch.sort(_pack_rank_key(valid_all, rank, W), dim=1).values
+    perm = (key & 0x7FFFFFFF)[:, :CE]
+    tk = lambda a, b: take(cat(a, b), perm)
+    overflow = torch.clamp(valid_all.sum(dim=1, dtype=torch.int32) - CE,
+                           min=0)
+    return state._replace(
+        eg_dst=tk(state.eg_dst, dst), eg_bytes=tk(state.eg_bytes, nbytes),
+        eg_prio=tk(state.eg_prio, prio), eg_seq=tk(state.eg_seq, seq),
+        eg_ctrl=tk(state.eg_ctrl, ctrl),
+        eg_tsend=tk(state.eg_tsend, send_rel),
+        eg_clamp=tk(state.eg_clamp, clamp_rel),
+        eg_sock=tk(state.eg_sock, sock),
+        eg_valid=tk(state.eg_valid, valid),
+        n_overflow_dropped=state.n_overflow_dropped + overflow,
+    )
+
+
+# ---------------------------------------------------------------------------
+# window_step sections (the JAX plane's section helpers, FIFO packed path)
+# ---------------------------------------------------------------------------
+
+
+def _refill_tokens(state: NetPlaneState, params: NetPlaneParams, shift_ns):
+    """Section 1b: lazy 1 ms token refill with the sub-ms remainder
+    carried; elapsed is clamped to the headroom before multiplying.
+    Returns (balance, tb_rem_ns)."""
+    rate, cap = params.tb_rate, params.tb_cap
+    rem_total = state.tb_rem_ns + floormod(shift_ns, 1_000_000)
+    elapsed_ms = floordiv(shift_ns, 1_000_000) + floordiv(rem_total,
+                                                          1_000_000)
+    tb_rem_ns = floormod(rem_total, 1_000_000)
+    headroom = torch.clamp(cap - state.tb_balance, min=0)
+    need_ms = floordiv(headroom + rate - 1, rate)
+    elapsed_eff = torch.minimum(elapsed_ms, need_ms)
+    balance = cap - torch.clamp(headroom - rate * elapsed_eff, min=0)
+    return balance, tb_rem_ns
+
+
+def _loss_latency(state: NetPlaneState, params: NetPlaneParams, seed: int,
+                  eg_dst, eg_ctrl, eg_tsend, eg_clamp, sendable, window_ns,
+                  *, no_loss: bool):
+    """Section 3: the counter-based Bernoulli loss draw and the
+    node-table latency lookup. Returns (sent, lost, rng_counter',
+    deliver_rel)."""
+    N, CE = eg_dst.shape
+    col = _arange(CE, eg_dst)
+    node_src = params.host_node.to(torch.int64)[:, None].expand(N, CE)
+    node_dst = params.host_node[
+        torch.clamp(eg_dst, 0, N - 1).to(torch.int64)].to(torch.int64)
+    if no_loss:
+        lost = torch.zeros_like(sendable)
+        sent = sendable
+    else:
+        host = _arange(N, eg_dst, torch.int64)[:, None].expand(N, CE)
+        # the JAX counter is int32 and wraps; the draw reads its bits
+        counter = state.rng_counter.to(torch.int64)[:, None] + col
+        u = _pkt_uniform(seed, host, counter)
+        p_loss = params.loss[node_src, node_dst]
+        lost = sendable & (u < p_loss) & ~eg_ctrl
+        sent = sendable & ~lost
+    rng_counter = state.rng_counter + sendable.sum(dim=1, dtype=torch.int32)
+    latency = params.latency_ns[node_src, node_dst]
+    clamp_eff = torch.where(eg_clamp == NO_CLAMP, window_ns, eg_clamp)
+    deliver_rel = torch.maximum(eg_tsend + latency, clamp_eff)
+    return sent, lost, rng_counter, deliver_rel
+
+
+def _compact_ingress(state: NetPlaneState, in_deliver):
+    """Section 4: surviving ingress front-packed by (validity, deliver)
+    through one packed key. The JAX plane skips the sort when rows are
+    already ordered; the stable sort of an ordered key is the identity
+    (SL505), so the port always sorts. Returns (deliver_c, src_c, seq_c,
+    sock_c, bytes_c, valid_c, n_valid_in)."""
+    key_deliver = torch.where(state.in_valid, in_deliver, I32_MAX)
+    perm = _row_perm_sort(_pack_time_key(state.in_valid, key_deliver))
+    in_valid_c = take(state.in_valid, perm)
+    return (take(key_deliver, perm), take(state.in_src, perm),
+            take(state.in_seq, perm), take(state.in_sock, perm),
+            take(state.in_bytes, perm), in_valid_c,
+            in_valid_c.sum(dim=1, dtype=torch.int32))
+
+
+def _routing_order(sent, eg_dst, deliver_rel, row_perm):
+    """Bucketed routing, phase A, with the row-local seq order `row_perm`
+    from kernel A: one flat stable sort on (bucket << 32 | sign-biased
+    deliver) over the seq-permuted slots. (dst, deliver, slot) is a total
+    order, so this is the JAX plane's permutation. Unsent slots go to
+    bucket N, which is never placed. Returns (o_pos [B] int64, offsets,
+    counts [N] int32)."""
+    N, CE = eg_dst.shape
+    perm = row_perm.to(torch.int64)
+    sent_p, dst_p = take(sent, perm), take(eg_dst, perm)
+    flat_dst = torch.where(sent_p & (dst_p >= 0) & (dst_p < N), dst_p,
+                           N).reshape(-1).to(torch.int64)
+    deliver_key = u32(take(deliver_rel, perm)).reshape(-1) ^ _SIGN32
+    o_key, o_pos = torch.sort((flat_dst << 32) | deliver_key, stable=True)
+    bounds = torch.searchsorted(o_key >> 32,
+                                _arange(N + 1, o_key, torch.int64))
+    offsets = bounds[:-1].to(torch.int32)
+    counts = (bounds[1:] - bounds[:-1]).to(torch.int32)
+    return o_pos, offsets, counts
+
+
+def _routing_rank(sent, eg_dst, deliver_rel, n_valid_in, ingress_cap: int,
+                  row_perm):
+    """Section 5a: each destination row takes the first `take` items of
+    its bucket. Returns (o_pos, offsets, take [N], overflow [N])."""
+    o_pos, offsets, counts = _routing_order(sent, eg_dst, deliver_rel,
+                                            row_perm)
+    take_n = torch.minimum(counts, ingress_cap - n_valid_in)
+    overflow = torch.clamp(counts + n_valid_in - ingress_cap, min=0)
+    return o_pos, offsets, take_n, overflow
+
+
+def _release_due(in_deliver_m, in_src_m, in_seq_m, in_sock_m, in_bytes_m,
+                 in_valid_m, window_ns):
+    """Section 5b: split the merged ingress into this window's due
+    deliveries (row tail, in (deliver, src, seq) order) and the
+    front-packed survivors. The JAX plane's wrapped key
+    `biased(deliver) - biased(window)` orders not-due before due, each
+    ascending; it is masked back into [0, 2**32) after the subtraction.
+    (wkey, src, seq, column) is a total order, realised here as two
+    stable passes: by seq, then by (wkey << 32 | biased src). Returns
+    (delivered, due, deliver', src', seq', sock', bytes', valid')."""
+    in_deliver_key = torch.where(in_valid_m, in_deliver_m, I32_MAX)
+    due = in_valid_m & (in_deliver_key < window_ns)
+    w_bias = (window_ns & 0xFFFFFFFF) ^ _SIGN32
+    wkey = ((u32(in_deliver_key) ^ _SIGN32) - w_bias) & 0xFFFFFFFF
+    hi = (wkey - _SIGN32) << 32  # signed high word keeps unsigned order
+    perm = _row_perm_sort(hi | (u32(in_src_m) ^ _SIGN32), in_seq_m)
+    d_t = take(in_deliver_key, perm)  # == the key unwrapped (bijective)
+    d_src, d_seq = take(in_src_m, perm), take(in_seq_m, perm)
+    d_sock, d_bytes = take(in_sock_m, perm), take(in_bytes_m, perm)
+    d_due, d_valid = take(due, perm), take(in_valid_m, perm)
+    delivered = {
+        "mask": d_due, "src": d_src, "seq": d_seq, "sock": d_sock,
+        "bytes": d_bytes, "deliver_rel": d_t,
+    }
+    in_valid_new = d_valid & ~d_due
+    in_deliver_new = torch.where(in_valid_new, d_t, I32_MAX)
+    return (delivered, due, in_deliver_new, d_src, d_seq, d_sock, d_bytes,
+            in_valid_new)
+
+
+def _compact_egress(eg_prio, eg_dst, eg_bytes, eg_seq, eg_ctrl, eg_tsend,
+                    eg_clamp, eg_sock, eg_valid_left):
+    """Section 6: leftover egress front-packed by (validity, priority)."""
+    eg_prio_left = torch.where(eg_valid_left, eg_prio, I32_MAX)
+    perm = _row_perm_sort(_pack_time_key(eg_valid_left, eg_prio_left))
+    return tuple(take(a, perm) for a in (
+        eg_prio_left, eg_dst, eg_bytes, eg_seq, eg_ctrl, eg_tsend,
+        eg_clamp, eg_sock, eg_valid_left))
+
+
+_PRESENCE_PLANES = ("faults", "metrics", "guards", "hist", "flightrec",
+                    "flows", "compute")
+
+
+def window_step(state: NetPlaneState, params: NetPlaneParams, rng_seed: int,
+                shift_ns: int, window_ns: int, *, rr_enabled: bool = True,
+                router_aqm: bool = False, no_loss: bool = False,
+                packed_sort: bool = True, plain_kernels: bool = False,
+                **planes):
+    """Advance one scheduling round [t, t + window_ns): the FIFO
+    direct-delivery path of the JAX `window_step(kernel="pallas_fused")`.
+
+    `rng_seed` is the int seed of the JAX run's `jax.random.key(seed)`;
+    `shift_ns` is this window's start minus the previous one's.
+    `plain_kernels=True` runs the plain PyTorch versions of kernels A
+    and B even on CUDA tensors (the reference a card run is held
+    against); otherwise CUDA tensors go through the CUDA kernels.
+
+    Returns (state', delivered, next_event_rel): `delivered` is a dict of
+    [N, CI] tensors masked by delivered["mask"], and next_event_rel a 0-d
+    int32 tensor (I32_MAX when idle). No tensor is read back to the host.
+    """
+    if rr_enabled:
+        raise NotImplementedError(
+            "window_step: the round-robin qdisc (rr_enabled=True) is not "
+            "ported yet (ROADMAP.md, queue A); pass rr_enabled=False")
+    if router_aqm:
+        raise NotImplementedError(
+            "window_step: the router AQM path (router_aqm=True) is not "
+            "ported yet (ROADMAP.md, queue A)")
+    if not packed_sort:
+        raise NotImplementedError(
+            "window_step: only the packed sort path is ported; "
+            "packed_sort=False is a JAX-side parity reference (ROADMAP.md)")
+    threaded = [k for k in _PRESENCE_PLANES if planes.get(k) is not None]
+    unknown = sorted(set(planes) - set(_PRESENCE_PLANES))
+    if unknown:
+        raise TypeError(f"window_step: unexpected arguments {unknown}")
+    if threaded:
+        raise NotImplementedError(
+            f"window_step: presence planes {threaded} are not ported yet "
+            "(ROADMAP.md, queue A)")
+    from . import pipeline
+
+    egress_rank = (pipeline.egress_rank_plain if plain_kernels
+                   else pipeline.egress_rank_stage)
+
+    # --- 1. rebase clocks + refill token buckets ------------------------
+    in_deliver = torch.where(state.in_valid,
+                             state.in_deliver_rel - shift_ns, I32_MAX)
+    balance, tb_rem_ns = _refill_tokens(state, params, shift_ns)
+    rt = codel.rebase_router_state(state.router, shift_ns, params.dn_rate,
+                                   params.dn_cap)
+
+    # --- 2. egress: FIFO order, token gate, routing row order (kernel A) -
+    (eg_prio, eg_sock, eg_dst, eg_bytes, eg_seq, eg_ctrl, eg_tsend,
+     eg_clamp, eg_valid, sendable, spent, row_perm) = egress_rank(
+        state.eg_valid, state.eg_prio, state.eg_bytes, state.eg_tsend,
+        state.eg_clamp, state.eg_dst, state.eg_seq, state.eg_sock,
+        state.eg_ctrl, balance, shift_ns)
+    balance = balance - spent
+
+    # --- 3. loss sampling + latency lookup -------------------------------
+    sent, lost, rng_counter, deliver_rel = _loss_latency(
+        state, params, rng_seed, eg_dst, eg_ctrl, eg_tsend, eg_clamp,
+        sendable, window_ns, no_loss=no_loss)
+    eg_valid_left = eg_valid & ~sendable
+
+    # --- 4 + 5. compact surviving ingress, route (kernel B) --------------
+    (in_deliver_c, in_src_c, in_seq_c, in_sock_c, in_bytes_c, in_valid_c,
+     n_valid_in) = _compact_ingress(state, in_deliver)
+    (in_src_m, in_seq_m, in_sock_m, in_bytes_m, in_deliver_m, in_valid_m,
+     overflowed) = pipeline.route_place(
+        sent, eg_dst, eg_seq, eg_bytes, eg_sock, deliver_rel, in_deliver_c,
+        in_src_c, in_seq_c, in_sock_c, in_bytes_c, in_valid_c, n_valid_in,
+        row_perm, plain=plain_kernels)
+
+    # --- 5b. release what this window hands the hosts --------------------
+    (delivered, due, in_deliver_new, in_src_new, in_seq_new, in_sock_new,
+     in_bytes_new, in_valid_new) = _release_due(
+        in_deliver_m, in_src_m, in_seq_m, in_sock_m, in_bytes_m,
+        in_valid_m, window_ns)
+
+    # --- 6. compact leftover egress --------------------------------------
+    (eg_prio_c, eg_dst_c, eg_bytes_c, eg_seq_c, eg_ctrl_c, eg_tsend_c,
+     eg_clamp_c, eg_sock_c, eg_valid_c) = _compact_egress(
+        eg_prio, eg_dst, eg_bytes, eg_seq, eg_ctrl, eg_tsend, eg_clamp,
+        eg_sock, eg_valid_left)
+
+    # --- 7. stats + next-event reduction ---------------------------------
+    per_host_in_next = torch.where(in_valid_new, in_deliver_new,
+                                   I32_MAX).amin(dim=1)
+    idle = torch.full((), I32_MAX, dtype=torch.int32,
+                      device=eg_valid_c.device)
+    next_event = torch.minimum(
+        per_host_in_next.amin(),
+        torch.where(eg_valid_c.any(), idle.new_full((), window_ns), idle))
+
+    new_state = state._replace(
+        eg_dst=eg_dst_c, eg_bytes=eg_bytes_c, eg_prio=eg_prio_c,
+        eg_seq=eg_seq_c, eg_ctrl=eg_ctrl_c, eg_tsend=eg_tsend_c,
+        eg_clamp=eg_clamp_c, eg_sock=eg_sock_c, eg_valid=eg_valid_c,
+        in_src=in_src_new, in_bytes=in_bytes_new, in_seq=in_seq_new,
+        in_sock=in_sock_new, in_deliver_rel=in_deliver_new,
+        in_valid=in_valid_new,
+        tb_balance=balance, tb_rem_ns=tb_rem_ns, rng_counter=rng_counter,
+        router=rt,
+        n_sent=state.n_sent + sent.sum(dim=1, dtype=torch.int32),
+        n_loss_dropped=state.n_loss_dropped
+        + lost.sum(dim=1, dtype=torch.int32),
+        n_overflow_dropped=state.n_overflow_dropped + overflowed,
+        n_delivered=state.n_delivered + due.sum(dim=1, dtype=torch.int32),
+    )
+    return new_state, delivered, next_event

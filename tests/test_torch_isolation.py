@@ -1,0 +1,136 @@
+"""The PyTorch port stands alone: it imports neither JAX nor the JAX
+package, imports without nvcc or triton, refuses to fall back to the CPU
+when no card is present unless asked, and carries state through numpy
+without change."""
+
+from __future__ import annotations
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from shadow_tpu_torch import bench, convert, resolve_device  # noqa: E402
+from shadow_tpu_torch.tpu import plane, profiling  # noqa: E402
+
+REPO = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((REPO / "shadow_tpu_torch").rglob("*.py")) + [
+    REPO / "chip_smoke.py"]
+
+
+def imported_modules(path: Path) -> set[str]:
+    tree = ast.parse(path.read_text(encoding="utf-8"), str(path))
+    mods = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            mods.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            mods.add(node.module or "")
+    return mods
+
+
+def test_port_imports_no_jax_and_nothing_of_shadow_tpu():
+    assert len(PORT_FILES) > 10
+    for path in PORT_FILES:
+        for mod in imported_modules(path):
+            top = mod.split(".")[0]
+            assert top not in ("jax", "jaxlib", "shadow_tpu"), (path, mod)
+
+
+def test_device_path_reads_nothing_back_to_the_host():
+    """The host-sync fence (docs/performance.md, SL603) for the step and
+    everything it calls: no tensor is read back inside a window."""
+    banned = {"item", "cpu", "tolist", "numpy", "nonzero", "synchronize"}
+    step_files = [REPO / "shadow_tpu_torch" / "tpu" / f for f in (
+        "plane.py", "pipeline.py", "prims.py", "codel.py")]
+    step_files.append(REPO / "shadow_tpu_torch" / "workloads" / "phold.py")
+    for path in step_files:
+        tree = ast.parse(path.read_text(encoding="utf-8"), str(path))
+        for node in ast.walk(tree):
+            if not isinstance(node, ast.Call):
+                continue
+            f = node.func
+            name = (f.attr if isinstance(f, ast.Attribute)
+                    else f.id if isinstance(f, ast.Name) else "")
+            assert name not in banned and name != "bool", (
+                path.name, node.lineno, name)
+
+
+def test_package_imports_without_nvcc_or_triton():
+    """A fresh interpreter with no CUDA toolkit on its path imports every
+    module of the port; nothing builds and triton is never loaded."""
+    mods = sorted(
+        ".".join(p.relative_to(REPO).with_suffix("").parts)
+        for p in PORT_FILES if p.parent != REPO)
+    mods = [m.removesuffix(".__init__") for m in mods]
+    code = (
+        "import importlib, shutil, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "assert shutil.which('nvcc') is None\n"
+        "assert 'triton' not in sys.modules and 'jax' not in sys.modules\n"
+        "from shadow_tpu_torch import _build\n"
+        "assert not _build._loaded\n")
+    env = {"PATH": os.path.dirname(sys.executable), "PYTHONPATH": str(REPO),
+           "HOME": os.environ.get("HOME", "/tmp")}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_entry_points_default_to_cuda_and_refuse_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: device=None runs on it")
+    lat = np.full((2, 2), 1000, np.int32)
+    calls = [
+        lambda: resolve_device(None),
+        lambda: plane.make_params(lat, np.zeros((2, 2), np.float32),
+                                  np.full(2, 10**9)),
+        lambda: plane.make_state(2, 4, 4),
+        lambda: profiling.build_world(4, n_nodes=2, egress_cap=4,
+                                      ingress_cap=4),
+        lambda: bench.run_phold(4, n_nodes=2, egress_cap=4, ingress_cap=4,
+                                rounds=1),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_convert_round_trip_is_identity():
+    rng = np.random.default_rng(0)
+    st = plane.make_state(6, 4, 8, device="cpu")
+    d = {}
+    for f, v in convert.state_to_numpy(st).items():
+        if f == "router":
+            continue
+        d[f] = (rng.random(v.shape) < 0.5 if v.dtype == bool
+                else rng.integers(-2**31, 2**31 - 1, v.shape).astype(v.dtype))
+    d["router"] = {
+        f: (rng.random(v.shape) < 0.5 if v.dtype == bool
+            else rng.integers(-9, 9, v.shape).astype(v.dtype))
+        for f, v in convert.state_to_numpy(st)["router"].items()}
+    back = convert.state_to_numpy(convert.state_from_numpy(d, "cpu"))
+    assert back.keys() == d.keys()
+    for f in d:
+        pairs = (d[f].items() if f == "router" else [(f, d[f])])
+        for g, a in pairs:
+            b = back[f][g] if f == "router" else back[f]
+            assert a.dtype == b.dtype and np.array_equal(a, b), (f, g)
+    assert convert.state_digest(d) == convert.state_digest(
+        convert.state_from_numpy(d, "cpu"))
+
+    params = plane.make_params(np.full((3, 3), 5, np.int32),
+                               np.full((3, 3), 0.25, np.float32),
+                               np.full(3, 8_000_000), device="cpu")
+    pd = {f: getattr(params, f).numpy() for f in params._fields}
+    again = convert.params_from_numpy(pd, "cpu")
+    for f in params._fields:
+        assert torch.equal(getattr(again, f), getattr(params, f)), f

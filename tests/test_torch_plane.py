@@ -1,0 +1,165 @@
+"""The port's plane against the JAX plane, bitwise: the flat `ingest`,
+`ingest_rows`, and chained `window_step`s on the sort-diet test's busy
+world, compared with `window_step(kernel="pallas_fused")` (interpret
+mode) leaf by leaf, garbage lanes included, plus every delivered column
+and the next-event scalar. Also pins the step's refusals of what is not
+ported yet."""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+torch = pytest.importorskip("torch")
+import jax.numpy as jnp  # noqa: E402
+from torch_parity import (assert_states_equal, jax_params_to_numpy,  # noqa: E402
+                          jax_state_to_numpy)
+
+from shadow_tpu.tpu import ingest, ingest_rows, make_params, make_state  # noqa: E402
+from shadow_tpu.tpu.plane import window_step  # noqa: E402
+from shadow_tpu_torch import convert  # noqa: E402
+from shadow_tpu_torch.tpu import plane as tplane  # noqa: E402
+
+MS = 1_000_000
+N = 8
+RNG_SEED = 3
+
+
+def busy_world(*, ingress_cap=8, loss=0.3, seed=7):
+    """`tests/test_plane_sortdiet.py`'s busy_world(rr_mix=False):
+    starved token buckets, real loss, duplicate priorities, colliding
+    socket slots. Returns (jax params, jax state before the ingest, the
+    ingest batch as numpy)."""
+    rng = np.random.default_rng(seed)
+    lat = rng.integers(1 * MS, 20 * MS, size=(N, N)).astype(np.int32)
+    params = make_params(lat, np.full((N, N), loss, np.float32),
+                         np.full((N,), 80_000, np.int64),
+                         qdisc_rr=np.zeros(N, bool),
+                         down_bw_bps=np.full((N,), 400_000))
+    state = make_state(N, egress_cap=8, ingress_cap=ingress_cap,
+                       params=params,
+                       initial_tokens=np.asarray(params.tb_cap))
+    b = 48
+    batch = dict(
+        src=rng.integers(0, N, b).astype(np.int32),
+        dst=rng.integers(0, N, b).astype(np.int32),
+        nbytes=rng.integers(100, 1500, b).astype(np.int32),
+        prio=rng.integers(0, 6, b).astype(np.int32),
+        seq=np.arange(b, dtype=np.int32),
+        ctrl=rng.integers(0, 3, b) == 0,
+        sock=rng.integers(0, 40, b).astype(np.int32),
+    )
+    return params, state, batch
+
+
+def both_worlds(**kw):
+    params, state, batch = busy_world(**kw)
+    jst = ingest(state, **{k: jnp.asarray(v) for k, v in batch.items()})
+    tst = convert.state_from_numpy(jax_state_to_numpy(state), "cpu")
+    tst = tplane.ingest(tst, **{k: torch.from_numpy(v)
+                                for k, v in batch.items()})
+    tparams = convert.params_from_numpy(jax_params_to_numpy(params), "cpu")
+    return (params, jst), (tparams, tst)
+
+
+def test_ingest_matches_jax():
+    (_p, jst), (_tp, tst) = both_worlds()
+    assert_states_equal(jax_state_to_numpy(jst),
+                        convert.state_to_numpy(tst))
+
+
+def test_ingest_with_dead_slots_and_overflow():
+    """A valid mask routes dead slots nowhere; a hot source overflows."""
+    params, state, batch = busy_world()
+    rng = np.random.default_rng(9)
+    batch["src"][:20] = 3  # 20 packets for one 8-slot row
+    valid = rng.random(batch["src"].shape[0]) < 0.8
+    jst = ingest(state, **{k: jnp.asarray(v) for k, v in batch.items()},
+                 valid=jnp.asarray(valid))
+    tst = tplane.ingest(
+        convert.state_from_numpy(jax_state_to_numpy(state), "cpu"),
+        **{k: torch.from_numpy(v) for k, v in batch.items()},
+        valid=torch.from_numpy(valid))
+    ref = jax_state_to_numpy(jst)
+    assert ref["n_overflow_dropped"].sum() > 0
+    assert_states_equal(ref, convert.state_to_numpy(tst))
+
+
+def test_ingest_rows_matches_jax():
+    """New entries, a full batch that overflows, and an all-invalid
+    batch (the JAX idle gate's skip branch)."""
+    (_p, jst), (_tp, tst) = both_worlds()
+    rng = np.random.default_rng(5)
+    K = 12
+    cols = dict(
+        dst=rng.integers(0, N, (N, K)).astype(np.int32),
+        nbytes=rng.integers(100, 900, (N, K)).astype(np.int32),
+        prio=rng.integers(0, 30, (N, K)).astype(np.int32),
+        seq=rng.integers(100, 200, (N, K)).astype(np.int32),
+        ctrl=rng.random((N, K)) < 0.3,
+    )
+    for valid in (rng.random((N, K)) < 0.4, np.ones((N, K), bool),
+                  np.zeros((N, K), bool)):
+        ref = ingest_rows(jst, **{k: jnp.asarray(v) for k, v in cols.items()},
+                          valid=jnp.asarray(valid))
+        got = tplane.ingest_rows(
+            tst, **{k: torch.from_numpy(v) for k, v in cols.items()},
+            valid=torch.from_numpy(valid))
+        assert_states_equal(jax_state_to_numpy(ref),
+                            convert.state_to_numpy(got))
+
+
+def run_both(windows, **kw):
+    (params, jst), (tparams, tst) = both_worlds(**kw.pop("world", {}))
+    key = jax.random.key(RNG_SEED)
+    step = jax.jit(lambda s, sh: window_step(
+        s, params, key, sh, jnp.int32(10 * MS), rr_enabled=False,
+        kernel="pallas_fused", **kw))
+    shift = 0
+    for w in range(windows):
+        jst, jd, jn = step(jst, jnp.int32(shift))
+        tst, td, tn = tplane.window_step(tst, tparams, RNG_SEED, shift,
+                                         10 * MS, rr_enabled=False, **kw)
+        assert_states_equal(jax_state_to_numpy(jst),
+                            convert.state_to_numpy(tst), w)
+        assert jd.keys() == td.keys()
+        for k in jd:
+            assert np.array_equal(np.asarray(jd[k]), td[k].numpy()), (w, k)
+            assert np.asarray(jd[k]).dtype == td[k].numpy().dtype, (w, k)
+        assert tn.dtype == torch.int32 and tn.dim() == 0
+        assert int(jn) == int(tn), w
+        shift = 10 * MS
+    return jax_state_to_numpy(jst)
+
+
+@pytest.mark.parametrize("no_loss", [False, True])
+def test_window_steps_match_pallas_fused(no_loss):
+    final = run_both(4, no_loss=no_loss)
+    assert final["n_sent"].sum() > 0 and final["n_delivered"].sum() > 0
+    if not no_loss:
+        assert final["n_loss_dropped"].sum() > 0, "no loss drawn: dead test"
+
+
+def test_window_steps_with_ingress_overflow():
+    """A 4-slot ingress ring overflows: the placement's take/overflow
+    arithmetic and the per-host overflow counter."""
+    final = run_both(3, world=dict(ingress_cap=4, loss=0.0, seed=11))
+    assert final["n_overflow_dropped"].sum() > 0, "no overflow: dead test"
+
+
+def test_window_step_refuses_what_is_not_ported():
+    (_p, _j), (tparams, tst) = both_worlds()
+    step = lambda **kw: tplane.window_step(tst, tparams, 0, 0, MS, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        step()  # rr_enabled defaults to True, as in the JAX plane
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        step(rr_enabled=False, router_aqm=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        step(rr_enabled=False, packed_sort=False)
+    for plane_name in ("faults", "metrics", "guards", "hist", "flightrec",
+                       "flows", "compute"):
+        with pytest.raises(NotImplementedError, match=plane_name):
+            step(rr_enabled=False, **{plane_name: object()})
+    with pytest.raises(TypeError, match="unexpected"):
+        step(rr_enabled=False, kernel="xla")
