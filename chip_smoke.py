@@ -12,16 +12,25 @@ the result lines are printed:
    bitwise, at N=32768 and CE in {8, 16, 32, 64}, and timed with its
    inputs in HBM (L2 flushed before each launch: `ms`) and in L2
    (back-to-back launches: `warm_ms`);
-4. kernel B (route_place) likewise at N=32768, CE=16, CI=32, with rows
-   whose arrivals overflow the ring;
-5. the golden digest: `run_phold` at N=1024, R=16 must end in the state
-   the JAX package's pallas_fused run ends in (pinned by the CPU tests);
-6. the main path: `run_phold` at N=32768, CE=16, CI=32, M=64, R=192
-   after one untimed warm-up run, with the launch counters reset just
-   before and read just after (each kernel must have launched R times),
-   then a R=16 run through the kernels against the same run through the
-   plain versions, bitwise;
-7. one JSON line describing every kernel, then the result line.
+4. kernel C (egress_gate) likewise at N=32768 and CE in {4, 8, 16, 32,
+   64};
+5. kernels B (route_place) and D (route_scatter) likewise on one input
+   set at N=32768, CE=16, CI=32, with rows whose arrivals overflow the
+   ring; D and B agree, and both are timed on it;
+6. the golden digest: `run_phold` at N=1024, R=16 through each kernel
+   pair must end in the state the JAX package's run ends in (pinned by
+   the CPU tests);
+7. the main path through each kernel pair, fused (A, B) and split (C,
+   D): `run_phold` at N=32768, CE=16, CI=32, M=64, R=192 after one
+   untimed warm-up run, with the launch counters reset just before and
+   read just after (each kernel of the pair must have launched R times,
+   the other pair's none), then a R=16 run through the kernels against
+   the same run through the plain versions, bitwise;
+8. the capacity policy on the split path at N=32768 from CE=4, CI=8:
+   elastic over R=192 in chains of 16 must grow a ring and end in the
+   canonical state and delivered total of a fixed run pre-provisioned at
+   its final caps; strict must raise CapacityError naming the chain;
+9. one JSON line describing every kernel, then the result line.
 
 Usage: python3 chip_smoke.py   (from the repository root; one card).
 A fuller record of every measurement is printed on the `record:` line.
@@ -43,6 +52,8 @@ EGRESS_CAP = 16
 INGRESS_CAP = 32
 N_NODES = 64
 CHECK_ROUNDS = 16
+GROW_EVERY = 16
+SMALL_CAPS = dict(egress_cap=4, ingress_cap=8)
 # H100 SXM peaks (700 W). Bytes: NVIDIA's data sheet. The data sheet's
 # 67 TFLOP/s float32 is 128 FMA lanes a clock on 132 SMs at 1.98 GHz; the
 # CUDA programming guide's throughput table gives compute capability 9.0
@@ -203,7 +214,51 @@ def check_kernel_a(torch, pipeline, record):
     return next(r for r in rows if r["ce"] == EGRESS_CAP)
 
 
-def check_kernel_b(torch, pipeline, record):
+def check_kernel_c(torch, pipeline, record):
+    rows = []
+    for ce in (4, 8, 16, 32, 64):
+        full = egress_inputs(torch, N_HOSTS, ce, seed=100 + ce)
+        args = (*full[:5], full[9], full[10])  # valid..clamp, balance, shift
+        got = pipeline.egress_order_gate(*args)
+        ref = pipeline.egress_gate_plain(*args)
+        torch.cuda.synchronize()
+        err = max_abs_err(torch, got, ref)
+        if err != 0:
+            fail(f"egress_gate_kernel CE={ce} disagrees with its plain "
+                 f"version (max abs err {err})")
+        warm_ms, ms = time_device(
+            torch, lambda: pipeline.egress_order_gate(*args))
+        _, plain_ms = time_device(
+            torch, lambda: pipeline.egress_gate_plain(*args), reps=10)
+        moved = nbytes(args[:6]) + nbytes(got)
+        lg = int(math.log2(ce))
+        stages = lg * (lg + 1) // 2
+        # kernel A's count for one network: ~6 int ops a slot and stage,
+        # 3 a scan step and row-sum step, ~16 of rebase and packing; the
+        # warp path's shuffles: 2 a stage, 3 for the carried columns, lg
+        # each for the scan and the row sum
+        ops = N_HOSTS * ce * (6 * stages + 3 * lg + 16)
+        shuffles = N_HOSTS * ce * (2 * stages + 3 + 2 * lg) \
+            if ce <= 32 else 0
+        bound_ms, bound_by = bound(moved, ops, shuffles)
+        row = dict(ce=ce, n=N_HOSTS, max_abs_err=err, ms=ms, warm_ms=warm_ms,
+                   plain_ms=plain_ms, bytes=moved, ops=ops, shuffles=shuffles,
+                   bound_ms=bound_ms, bound_by=bound_by,
+                   share_of_bound=bound_ms / ms)
+        rows.append(row)
+        print(f"kernel C egress_gate CE={ce}: bitwise ok, kernel_ms={ms:.5f}"
+              f" (cold L2; warm {warm_ms:.5f}) plain_ms={plain_ms:.5f} "
+              f"bound_ms={bound_ms:.5f} ({bound_by}, {moved} B, {ops} int "
+              f"ops, {shuffles} shuffles) share={bound_ms / ms:.3f} "
+              f"library_ms=null")
+    record["kernel_c"] = rows
+    return next(r for r in rows if r["ce"] == EGRESS_CAP)
+
+
+def placement_inputs(torch):
+    """Kernel B's and D's inputs at the main path's shape: bucket
+    segments that tile the N*CE arrival slots, 1 in 16 destination rows
+    hot enough to overflow the ring. Returns (args, counts, nv, take)."""
     n, ce, ci = N_HOSTS, EGRESS_CAP, INGRESS_CAP
     rng = np.random.default_rng(5)
     nv = rng.integers(0, ci + 1, n)
@@ -216,7 +271,7 @@ def check_kernel_b(torch, pipeline, record):
     offsets = np.cumsum(counts) - counts
     take = np.minimum(counts, ci - nv)
     if not (counts > ci - nv).any():
-        fail("kernel B check built no overflowing row")
+        fail("the placement check built no overflowing row")
     b2 = n * ce + 2 * ci
     dev = torch.device("cuda")
     i32 = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
@@ -224,16 +279,22 @@ def check_kernel_b(torch, pipeline, record):
     bases = [i32(rng.integers(-2**31, 2**31 - 1, (n, ci))) for _ in range(5)]
     b_valid = torch.from_numpy(rng.random((n, ci)) < 0.5).to(dev)
     args = (i32(nv), i32(offsets - nv), i32(take), *streams, *bases, b_valid)
-    got = pipeline.place(*args)
-    ref = pipeline.place_plain(*args)
+    return args, counts, nv, take
+
+
+def check_placement(torch, pipeline, record, tag, name, kernel, plain):
+    """One placement kernel (B or D) on `placement_inputs`: bitwise
+    against its plain version, timed cold and warm, with its bound."""
+    n, ci = N_HOSTS, INGRESS_CAP
+    args, counts, nv, take = placement_inputs(torch)
+    got = kernel(*args)
+    ref = plain(*args)
     torch.cuda.synchronize()
     err = max_abs_err(torch, got, ref)
     if err != 0:
-        fail(f"route_place_kernel disagrees with its plain version "
-             f"(max abs err {err})")
-    warm_ms, ms = time_device(torch, lambda: pipeline.place(*args))
-    _, plain_ms = time_device(torch, lambda: pipeline.place_plain(*args),
-                              reps=20)
+        fail(f"{name} disagrees with its plain version (max abs err {err})")
+    warm_ms, ms = time_device(torch, lambda: kernel(*args))
+    _, plain_ms = time_device(torch, lambda: plain(*args), reps=20)
     placed = int(take.sum())
     # each slot reads its 5 words from the stream (placed) or from its
     # bases plus the base valid byte, and writes 5 words + a valid byte
@@ -245,13 +306,13 @@ def check_kernel_b(torch, pipeline, record):
                ms=ms, warm_ms=warm_ms, plain_ms=plain_ms, bytes=moved,
                ops=ops, bound_ms=bound_ms, bound_by=bound_by,
                share_of_bound=bound_ms / ms)
-    record["kernel_b"] = row
-    print(f"kernel B route_place N={n} CI={ci}: bitwise ok "
+    record[tag] = row
+    print(f"{name} N={n} CI={ci}: bitwise ok "
           f"({row['overflow_rows']} overflowing rows), kernel_ms={ms:.5f} "
           f"(cold L2; warm {warm_ms:.5f}) plain_ms={plain_ms:.5f} "
           f"bound_ms={bound_ms:.5f} ({bound_by}, {moved} B, {ops} int ops) "
           f"share={bound_ms / ms:.3f} library_ms=null")
-    return row
+    return row, got
 
 
 def check_state(torch, state, n, ce, ci):
@@ -267,13 +328,119 @@ def check_state(torch, state, n, ce, ci):
         fail("the main path sent or delivered nothing")
 
 
+def check_golden(bench, convert, kernel):
+    g = dict(bench.GOLDEN_PHOLD)
+    golden = bench.run_phold(g.pop("n_hosts"), rounds=g.pop("rounds"),
+                             warmup=False, kernel=kernel, **g)
+    digest = convert.state_digest(golden["state"])
+    if digest != bench.GOLDEN_PHOLD_DIGEST:
+        fail(f"golden PHOLD digest through kernel={kernel!r} {digest} != "
+             f"{bench.GOLDEN_PHOLD_DIGEST}")
+    print(f"golden digest, kernel={kernel}: ok ({digest[:16]}..., N=1024, "
+          f"R=16)")
+
+
+def check_main_path(torch, bench, convert, pipeline, record, ident, kernel,
+                    pair):
+    """The main path through one kernel pair: a warm-up run, the counted
+    and timed run, then R=16 through the kernels against the plain
+    versions. Returns the launch counts of the counted run."""
+    size = dict(n_nodes=N_NODES, egress_cap=EGRESS_CAP,
+                ingress_cap=INGRESS_CAP, kernel=kernel)
+    bench.run_phold(N_HOSTS, rounds=ROUNDS, warmup=False, **size)  # warm-up
+    pipeline.reset_launches()
+    main_run = bench.run_phold(N_HOSTS, rounds=ROUNDS, warmup=False, **size)
+    launches = dict(pipeline.LAUNCHES)
+    for name, count in launches.items():
+        want = ROUNDS if name in pair else 0
+        if count != want:
+            fail(f"kernel {name} launched {count} times on the "
+                 f"kernel={kernel!r} main path, expected {want}")
+    check_state(torch, main_run["state"], N_HOSTS, EGRESS_CAP, INGRESS_CAP)
+    rate = main_run["packet_events_per_sec"]
+    rec = {k: v for k, v in main_run.items() if k != "state"}
+    rec["launches"] = launches
+    print(f"main path, kernel={kernel}: N={N_HOSTS} CE={EGRESS_CAP} "
+          f"CI={INGRESS_CAP} M={N_NODES} R={ROUNDS}: "
+          f"packet_events_per_sec={rate:.1f} (events {main_run['events']}, "
+          f"wall {main_run['wall_s']:.4f}s, launches {launches}) on {ident}")
+
+    fused = bench.run_phold(N_HOSTS, rounds=CHECK_ROUNDS, warmup=False,
+                            **size)
+    plain = bench.run_phold(N_HOSTS, rounds=CHECK_ROUNDS, warmup=False,
+                            plain_kernels=True, **size)
+    d_kern = convert.state_digest(fused["state"])
+    d_plain = convert.state_digest(plain["state"])
+    if d_kern != d_plain or fused["delivered"] != plain["delivered"]:
+        fail(f"the R=16 kernel={kernel!r} run through the kernels differs "
+             "from the run through their plain versions")
+    rec["plain_vs_kernels"] = {
+        "rounds": CHECK_ROUNDS, "digest": d_kern,
+        "kernel_wall_s": fused["wall_s"], "plain_wall_s": plain["wall_s"]}
+    record[f"main_path_{kernel}"] = rec
+    print(f"kernels vs plain versions, kernel={kernel}, R={CHECK_ROUNDS}: "
+          f"bitwise ok (wall {fused['wall_s']:.4f}s vs "
+          f"{plain['wall_s']:.4f}s)")
+    return launches
+
+
+def check_capacity(bench, convert, elastic, record):
+    """Elastic growth on the split path ends as the pre-provisioned run;
+    strict refuses the overflow."""
+    common = dict(rounds=ROUNDS, warmup=False, n_nodes=N_NODES,
+                  kernel="pallas")
+    grown = bench.run_phold(N_HOSTS, capacity="elastic",
+                            grow_every=GROW_EVERY, **SMALL_CAPS, **common)
+    cap = grown["capacity"]
+    growth = [e for e in cap["events"] if e["kind"] == "capacity-growth"]
+    if not growth:
+        fail("elastic run from CE=4, CI=8 grew no ring: the check is dead")
+    pre = bench.run_phold(N_HOSTS, **cap["final"], **common)
+    d_grown = convert.state_digest(elastic.canonical_state(grown["state"]))
+    d_pre = convert.state_digest(elastic.canonical_state(pre["state"]))
+    if d_grown != d_pre or grown["delivered"] != pre["delivered"]:
+        fail(f"elastic run ({cap['final']}) differs from the run "
+             "pre-provisioned at its final caps")
+    try:
+        bench.run_phold(N_HOSTS, capacity="strict", grow_every=GROW_EVERY,
+                        **SMALL_CAPS, **common)
+    except elastic.CapacityError as e:
+        span = getattr(e, "chain_span", None)
+        if span is None:
+            fail("strict CapacityError carries no chain_span")
+        strict = {"chain_span": list(span), "ring": e.ring,
+                  "blamed_hosts": len(e.blame)}
+    else:
+        fail("strict run from CE=4, CI=8 raised no CapacityError")
+    record["capacity"] = {
+        "elastic": {k: v for k, v in grown.items() if k != "state"},
+        "pre_provisioned_wall_s": pre["wall_s"], "digest": d_grown,
+        "strict": strict}
+    print(f"capacity: elastic from {SMALL_CAPS} grew "
+          f"{[(e['ring'], e['from'], e['to'], e['time_ns']) for e in growth]}"
+          f" to {cap['final']}, canonical state and delivered total "
+          f"({grown['delivered']}) equal the pre-provisioned run's; "
+          f"elastic wall {grown['wall_s']:.4f}s vs {pre['wall_s']:.4f}s; "
+          f"strict raised CapacityError at chain {span} ({strict['ring']}, "
+          f"{strict['blamed_hosts']} hosts blamed)")
+
+
+def kernel_entry(name, source, replaces, launches, row):
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "warm_ms": row["warm_ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": None}
+
+
 def main():
     import torch
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this needs a CUDA card")
     from shadow_tpu_torch import _build, bench, convert
-    from shadow_tpu_torch.tpu import pipeline
+    from shadow_tpu_torch.tpu import elastic, pipeline
 
     ident = gpu_identity()
     kind = torch.cuda.get_device_name(0)
@@ -288,65 +455,44 @@ def main():
     print(f"build: {json.dumps(build_s)} wall {time.perf_counter() - t0:.2f}s")
 
     a = check_kernel_a(torch, pipeline, record)
-    b = check_kernel_b(torch, pipeline, record)
+    c = check_kernel_c(torch, pipeline, record)
+    b, b_out = check_placement(torch, pipeline, record, "kernel_b",
+                               "kernel B route_place", pipeline.place,
+                               pipeline.place_plain)
+    d, d_out = check_placement(torch, pipeline, record, "kernel_d",
+                               "kernel D route_scatter", pipeline.scatter,
+                               pipeline.scatter_plain)
+    if max_abs_err(torch, d_out, b_out) != 0:
+        fail("kernels D and B disagree on the same inputs")
+    print(f"kernels D and B on the same inputs: equal; D {d['ms']:.5f} ms "
+          f"vs B {b['ms']:.5f} ms cold, {d['warm_ms']:.5f} vs "
+          f"{b['warm_ms']:.5f} warm")
 
-    g = dict(bench.GOLDEN_PHOLD)
-    golden = bench.run_phold(g.pop("n_hosts"), rounds=g.pop("rounds"),
-                             warmup=False, **g)
-    digest = convert.state_digest(golden["state"])
-    if digest != bench.GOLDEN_PHOLD_DIGEST:
-        fail(f"golden PHOLD digest {digest} != {bench.GOLDEN_PHOLD_DIGEST}")
-    print(f"golden digest: ok ({digest[:16]}..., N=1024, R=16)")
-
-    size = dict(n_nodes=N_NODES, egress_cap=EGRESS_CAP,
-                ingress_cap=INGRESS_CAP)
-    bench.run_phold(N_HOSTS, rounds=ROUNDS, warmup=False, **size)  # warm-up
-    pipeline.reset_launches()
-    main_run = bench.run_phold(N_HOSTS, rounds=ROUNDS, warmup=False, **size)
-    launches = dict(pipeline.LAUNCHES)
-    for name, count in launches.items():
-        if count != ROUNDS:
-            fail(f"kernel {name} launched {count} times on the main path, "
-                 f"expected {ROUNDS}")
-    check_state(torch, main_run["state"], N_HOSTS, EGRESS_CAP, INGRESS_CAP)
-    rate = main_run["packet_events_per_sec"]
-    record["main_path"] = {k: v for k, v in main_run.items() if k != "state"}
-    record["main_path"]["launches"] = launches
-    print(f"main path: N={N_HOSTS} CE={EGRESS_CAP} CI={INGRESS_CAP} "
-          f"M={N_NODES} R={ROUNDS}: packet_events_per_sec={rate:.1f} "
-          f"(events {main_run['events']}, wall {main_run['wall_s']:.4f}s, "
-          f"launches {launches}) on {ident}")
-
-    fused = bench.run_phold(N_HOSTS, rounds=CHECK_ROUNDS, warmup=False,
-                            **size)
-    plain = bench.run_phold(N_HOSTS, rounds=CHECK_ROUNDS, warmup=False,
-                            plain_kernels=True, **size)
-    d_fused = convert.state_digest(fused["state"])
-    d_plain = convert.state_digest(plain["state"])
-    if d_fused != d_plain or fused["delivered"] != plain["delivered"]:
-        fail("the R=16 run through the kernels differs from the run "
-             "through their plain versions")
-    record["plain_vs_kernels"] = {
-        "rounds": CHECK_ROUNDS, "digest": d_fused,
-        "kernel_wall_s": fused["wall_s"], "plain_wall_s": plain["wall_s"]}
-    print(f"kernels vs plain versions, R={CHECK_ROUNDS}: bitwise ok "
-          f"(wall {fused['wall_s']:.4f}s vs {plain['wall_s']:.4f}s)")
+    for kernel in ("pallas_fused", "pallas"):
+        check_golden(bench, convert, kernel)
+    fused = check_main_path(torch, bench, convert, pipeline, record, ident,
+                            "pallas_fused", ("egress_rank", "route_place"))
+    split = check_main_path(torch, bench, convert, pipeline, record, ident,
+                            "pallas", ("egress_gate", "route_scatter"))
+    check_capacity(bench, convert, elastic, record)
 
     kernels = [
-        {"name": "egress_rank_kernel", "route": "cuda",
-         "source": "shadow_tpu_torch/csrc/egress_rank.cu",
-         "replaces": "shadow_tpu/tpu/pallas_pipeline.py:77",
-         "launches": launches["egress_rank"], "max_abs_err": a["max_abs_err"],
-         "ms": a["ms"], "warm_ms": a["warm_ms"], "plain_ms": a["plain_ms"],
-         "bound_ms": a["bound_ms"], "bound_by": a["bound_by"],
-         "library_ms": None},
-        {"name": "route_place_kernel", "route": "cuda",
-         "source": "shadow_tpu_torch/csrc/route_place.cu",
-         "replaces": "shadow_tpu/tpu/pallas_pipeline.py:188",
-         "launches": launches["route_place"], "max_abs_err": b["max_abs_err"],
-         "ms": b["ms"], "warm_ms": b["warm_ms"], "plain_ms": b["plain_ms"],
-         "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
-         "library_ms": None},
+        kernel_entry("egress_rank_kernel",
+                     "shadow_tpu_torch/csrc/egress_rank.cu",
+                     "shadow_tpu/tpu/pallas_pipeline.py:77",
+                     fused["egress_rank"], a),
+        kernel_entry("route_place_kernel",
+                     "shadow_tpu_torch/csrc/route_place.cu",
+                     "shadow_tpu/tpu/pallas_pipeline.py:188",
+                     fused["route_place"], b),
+        kernel_entry("egress_gate_kernel",
+                     "shadow_tpu_torch/csrc/egress_gate.cu",
+                     "shadow_tpu/tpu/pallas_egress.py:91",
+                     split["egress_gate"], c),
+        kernel_entry("route_scatter_kernel",
+                     "shadow_tpu_torch/csrc/route_scatter.cu",
+                     "shadow_tpu/tpu/pallas_route.py:48",
+                     split["route_scatter"], d),
     ]
     print(f"record: {json.dumps(record, default=str)}")
     print(json.dumps({"kernels": kernels}))

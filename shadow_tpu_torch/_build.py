@@ -3,8 +3,9 @@
 Each `csrc/<name>.cu` has a plain C interface and is compiled on its
 own by `nvcc` into a shared library, which `ctypes` loads (no PyTorch
 headers, so a build takes seconds). Libraries go into `_build_out/`
-beside this file, named by the source's content hash, so a stale build
-is never loaded. Nothing is built when the package is imported.
+beside this file, named by a hash of the source and of every `csrc/`
+header it includes, so a stale build is never loaded. Nothing is built
+when the package is imported.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -32,7 +34,13 @@ SIGNATURES = {
     "route_place": ("route_place_launch",
                     [_I, _I, ctypes.c_longlong] + [_P] * 3 + [_P] * 5
                     + [_P] * 6 + [_P] * 6 + [_P]),
+    "egress_gate": ("egress_gate_launch",
+                    [_I, _I, _I] + [_P] * 6 + [_P] * 7 + [_P]),
+    "route_scatter": ("route_scatter_launch",
+                      [_I, _I, ctypes.c_longlong] + [_P] * 3 + [_P] * 5
+                      + [_P] * 6 + [_P] * 6 + [_P]),
 }
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -51,10 +59,27 @@ def _nvcc() -> str:
     return found
 
 
+def _sources(name: str) -> list[Path]:
+    """`csrc/<name>.cu` and every header of `csrc/` it includes with
+    quotes, directly or through another header, in a fixed order."""
+    todo, seen = [CSRC / f"{name}.cu"], {}
+    while todo:
+        path = todo.pop()
+        if path.name in seen:
+            continue
+        seen[path.name] = path
+        for inc in _INCLUDE.findall(path.read_text(encoding="utf-8")):
+            todo.append(CSRC / inc)
+    return [seen[f"{name}.cu"]] + sorted(
+        p for n, p in seen.items() if n != f"{name}.cu")
+
+
 def _library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256()
+    for src in _sources(name):
+        h.update(f"{src.name}:{src.stat().st_size};".encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def _nvcc_command(name: str, out: Path, extra=()) -> list[str]:

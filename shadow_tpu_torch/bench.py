@@ -1,11 +1,17 @@
-"""PHOLD device-plane throughput: the port's twin of `bench.py`'s fixed-
-capacity solo run.
+"""PHOLD device-plane throughput: the port's twin of `bench.py`'s solo run.
 
-Every round is `window_step` (FIFO) + the PHOLD respawn + `ingest_rows`,
-driven in chains by `tpu/elastic.drive_chained_windows`. The metric is
+Every round is `window_step` (FIFO, kernel pair "pallas_fused" or
+"pallas") + the PHOLD respawn + `ingest_rows`, driven in chains by
+`tpu/elastic.drive_chained_windows`, under the capacity policy "fixed",
+"strict" or "elastic" as `bench.py`'s BENCH_CAPACITY. The metric is
 `packet_events_per_sec`, counted as `bench.py` counts it: (delivered +
 sent packets) over the wall seconds of a timed run, after one untimed
 run that builds the kernels and warms the card up.
+
+    python -m shadow_tpu_torch.bench [--kernel pallas_fused|pallas]
+        [--capacity fixed|strict|elastic] [--egress-cap CE]
+        [--ingress-cap CI] [--max-doublings K] [--grow-every R]
+        [--profile WINDOWS] [--out FILE]
 """
 
 from __future__ import annotations
@@ -15,15 +21,17 @@ import time
 import torch
 
 from . import resolve_device
+from .core.capacity import CAPACITY_MODES
 from .tpu import pipeline
-from .tpu.elastic import drive_chained_windows
-from .tpu.plane import ingest_rows, window_step
+from .tpu.elastic import RingPolicy, chain_spans, drive_chained_windows
+from .tpu.plane import KERNELS, ingest_rows, window_step
 from .tpu.profiling import build_world
 from .workloads.phold import respawn_batch
 
 # final-state digest (convert.state_digest) of the PHOLD world at
 # GOLDEN_PHOLD's size after its rounds; tests pin it against the JAX
-# package's window_step(kernel="pallas_fused") run of the same world
+# package's window_step run of the same world (its "pallas_fused",
+# "pallas" and "xla" kernels agree bitwise)
 GOLDEN_PHOLD = dict(n_hosts=1024, n_nodes=64, egress_cap=16, ingress_cap=32,
                     rounds=16)
 GOLDEN_PHOLD_DIGEST = (
@@ -31,41 +39,53 @@ GOLDEN_PHOLD_DIGEST = (
 SPAWN_SEQ0 = 10_000
 
 
-def phold_chain_fn(world: dict, *, plain_kernels: bool = False):
-    """The bench's chain body: windows r0..r1-1 of the PHOLD closed loop
-    on `world`, with one host read (the chain's delivered count) at the
-    end. extras = (spawn_seq [N] int32, delivered total int)."""
+def phold_chain_fn(world: dict, *, kernel: str = "pallas_fused",
+                   plain_kernels: bool = False):
+    """The bench's chain body: windows r0..r1-1 of the PHOLD closed loop,
+    with one host read (the chain's delivered count) at the end. extras
+    = (spawn_seq [N] int32, delivered total int). Returns the driver's
+    4-tuple; the overflows are each ring's drops over the chain, the
+    egress ring's from the respawn append and the ingress ring's from
+    the routing stage, as `bench.py`'s round body accumulates them."""
     params, seed, window = world["params"], world["rng_root"], world["window"]
 
     def chain_fn(state, extras, r0, r1):
         spawn_seq, total = extras
         N, CI = state.in_src.shape
-        n_delivered = torch.zeros((), dtype=torch.int64,
-                                  device=spawn_seq.device)
+        zeros = lambda dt: torch.zeros(N, dtype=dt, device=spawn_seq.device)
+        n_delivered = zeros(torch.int64).sum()
+        eg_acc, in_acc = zeros(torch.int32), zeros(torch.int32)
         for r in range(r0, r1):
+            dropped = state.n_overflow_dropped
             state, delivered, _next = window_step(
                 state, params, seed, 0 if r == 0 else window, window,
-                rr_enabled=False, plain_kernels=plain_kernels)
+                rr_enabled=False, kernel=kernel, plain_kernels=plain_kernels)
+            in_acc = in_acc + (state.n_overflow_dropped - dropped)
+            dropped = state.n_overflow_dropped
             mask, dst, nbytes, seq, ctrl = respawn_batch(
                 delivered, spawn_seq, r, N, CI)
             state = ingest_rows(state, dst, nbytes, seq, seq, ctrl, mask)
+            eg_acc = eg_acc + (state.n_overflow_dropped - dropped)
             spawn_seq = spawn_seq + mask.sum(dim=1, dtype=torch.int32)
             n_delivered = n_delivered + mask.sum()
-        return state, (spawn_seq, total + int(n_delivered))
+        return (state, (spawn_seq, total + int(n_delivered)), eg_acc,
+                in_acc)
     return chain_fn
 
 
 def run_chain(world: dict, rounds: int, chain_len: int | None = None, *,
-              plain_kernels: bool = False):
-    """Drive `rounds` PHOLD windows on `world`; returns (final state,
-    delivered total)."""
+              kernel: str = "pallas_fused", plain_kernels: bool = False,
+              policy: RingPolicy | None = None):
+    """Drive `rounds` PHOLD windows on `world`, under `policy` when one
+    is given; returns (final state, delivered total)."""
     state = world["state"]
     spawn_seq = torch.full((state.in_src.shape[0],), SPAWN_SEQ0,
                            dtype=torch.int32, device=state.in_src.device)
     state, (_spawn, total) = drive_chained_windows(
-        state, (spawn_seq, 0), phold_chain_fn(world,
-                                              plain_kernels=plain_kernels),
-        n_rounds=rounds, chain_len=chain_len or rounds)
+        state, (spawn_seq, 0),
+        phold_chain_fn(world, kernel=kernel, plain_kernels=plain_kernels),
+        n_rounds=rounds, chain_len=chain_len or rounds, policy=policy,
+        window_ns=world["window"])
     return state, total
 
 
@@ -76,39 +96,70 @@ def _sync(device: torch.device):
 
 def run_phold(n_hosts: int = 32768, n_nodes: int = 64, egress_cap: int = 16,
               ingress_cap: int = 32, rounds: int = 192,
-              chain_len: int | None = None, *, device=None,
-              warmup: bool = True, plain_kernels: bool = False) -> dict:
+              chain_len: int | None = None, *, kernel: str = "pallas_fused",
+              capacity: str = "fixed", max_doublings: int = 4,
+              grow_every: int = 16, device=None, warmup: bool = True,
+              plain_kernels: bool = False) -> dict:
     """The PHOLD closed loop at the bench's size, seed 0 as in `bench.py`.
-    With `warmup`, one untimed run builds and warms up before the timed
-    one. Returns the final state, the delivered and sent totals, the timed
-    run's wall seconds and packet_events_per_sec."""
+    Under capacity "strict" or "elastic" the chains are `grow_every`
+    windows long (the growth-decision unit) and a fresh `RingPolicy`
+    starts from (egress_cap, ingress_cap) in each run. With `warmup`, one
+    untimed run builds and warms up before the timed one. Returns the
+    final state, the delivered and sent totals, the timed run's wall
+    seconds and packet_events_per_sec, and the kernel, capacity and
+    driver records of `bench.py`'s JSON."""
+    if kernel not in KERNELS:
+        raise ValueError(f"kernel: expected one of {KERNELS}, got {kernel!r}")
+    if capacity not in CAPACITY_MODES:
+        raise ValueError(f"capacity: expected one of {CAPACITY_MODES}, "
+                         f"got {capacity!r}")
     device = resolve_device(device)
     size = dict(n_nodes=n_nodes, egress_cap=egress_cap,
                 ingress_cap=ingress_cap, seed=0, warmup_windows=0,
                 device=device)
+    chain_len = chain_len or (grow_every if capacity != "fixed" else rounds)
+    make_policy = lambda: (None if capacity == "fixed" else RingPolicy(
+        mode=capacity, max_doublings=max_doublings, egress_cap=egress_cap,
+        ingress_cap=ingress_cap, plane="bench"))
+    run = lambda world, policy: run_chain(
+        world, rounds, chain_len, kernel=kernel,
+        plain_kernels=plain_kernels, policy=policy)
     if warmup:
-        run_chain(build_world(n_hosts, **size), rounds, chain_len,
-                  plain_kernels=plain_kernels)
-    world = build_world(n_hosts, **size)
+        run(build_world(n_hosts, **size), make_policy())
+    world, policy = build_world(n_hosts, **size), make_policy()
     _sync(device)
     t0 = time.perf_counter()
-    state, delivered = run_chain(world, rounds, chain_len,
-                                 plain_kernels=plain_kernels)
+    state, delivered = run(world, policy)
     _sync(device)
     wall = time.perf_counter() - t0
     sent = int(state.n_sent.sum())
+    capacity_info = None
+    if policy is not None:
+        capacity_info = policy.trajectory.as_dict()
+        capacity_info["initial"] = {"egress_cap": egress_cap,
+                                    "ingress_cap": ingress_cap}
+        capacity_info["final"] = {"egress_cap": policy.egress_cap,
+                                  "ingress_cap": policy.ingress_cap}
+    n_chains = len(chain_spans(rounds, chain_len))
     return {
         "state": state, "delivered": delivered, "sent": sent,
         "events": delivered + sent, "wall_s": wall,
         "packet_events_per_sec": (delivered + sent) / wall,
-        "n_hosts": n_hosts, "rounds": rounds,
-        "chain_len": chain_len or rounds, "device": str(device),
+        "n_hosts": n_hosts, "rounds": rounds, "chain_len": chain_len,
+        "device": str(device),
+        # no fallback: the kernel pair asked for is the one that ran
+        "kernel": {"requested": kernel, "used": kernel},
+        "capacity": capacity_info,
+        "driver": {"loop": "drive_chained_windows", "chain_len": chain_len,
+                   "chains": n_chains,
+                   "windows_per_sync": rounds / max(n_chains, 1)},
     }
 
 
 def profile_windows(n_hosts: int = 32768, windows: int = 16, *,
                     n_nodes: int = 64, egress_cap: int = 16,
-                    ingress_cap: int = 32, device=None, top: int = 15) -> dict:
+                    ingress_cap: int = 32, kernel: str = "pallas_fused",
+                    device=None, top: int = 15) -> dict:
     """Where a PHOLD window's time goes on the card: `windows` windows
     after as many warm-up windows, timed bare (wall per window), then
     again under torch.profiler (device kernels by name, kernel launches
@@ -123,18 +174,20 @@ def profile_windows(n_hosts: int = 32768, windows: int = 16, *,
     world = build_world(n_hosts, n_nodes=n_nodes, egress_cap=egress_cap,
                         ingress_cap=ingress_cap, warmup_windows=0,
                         device=device)
-    chain = phold_chain_fn(world)
+    chain = phold_chain_fn(world, kernel=kernel)
     spawn_seq = torch.full((n_hosts,), SPAWN_SEQ0, dtype=torch.int32,
                            device=device)
-    state, extras = chain(world["state"], (spawn_seq, 0), 0, windows)
+    state, extras, _eg, _in = chain(world["state"], (spawn_seq, 0), 0,
+                                    windows)
     _sync(device)
     t0 = time.perf_counter()
-    state, extras = chain(state, extras, windows, 2 * windows)
+    state, extras, _eg, _in = chain(state, extras, windows, 2 * windows)
     _sync(device)
     wall_ms = (time.perf_counter() - t0) * 1e3 / windows
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        state, extras = chain(state, extras, 2 * windows, 3 * windows)
+        state, extras, _eg, _in = chain(state, extras, 2 * windows,
+                                        3 * windows)
         _sync(device)
     kernels: dict[str, list[float]] = {}
     for ev in prof.events():
@@ -143,7 +196,8 @@ def profile_windows(n_hosts: int = 32768, windows: int = 16, *,
     busy_ms = sum(sum(v) for v in kernels.values()) / 1e3 / windows
     by_time = sorted(kernels.items(), key=lambda kv: -sum(kv[1]))
     return {
-        "n_hosts": n_hosts, "windows": windows, "wall_ms_per_window": wall_ms,
+        "n_hosts": n_hosts, "windows": windows, "kernel": kernel,
+        "wall_ms_per_window": wall_ms,
         "device_busy_ms_per_window": busy_ms,
         "device_busy_share": busy_ms / wall_ms if kernels else None,
         "kernel_launches_per_window": sum(map(len, kernels.values()))
@@ -167,16 +221,33 @@ def main(argv=None):
     import json
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--kernel", choices=KERNELS, default="pallas_fused",
+                    help="the window step's kernel pair")
+    ap.add_argument("--capacity", choices=CAPACITY_MODES, default="fixed",
+                    help="the ring capacity policy")
+    ap.add_argument("--egress-cap", type=int, default=16)
+    ap.add_argument("--ingress-cap", type=int, default=32)
+    ap.add_argument("--max-doublings", type=int, default=4,
+                    help="growth budget per ring (elastic)")
+    ap.add_argument("--grow-every", type=int, default=16,
+                    help="windows a chain under strict/elastic")
     ap.add_argument("--profile", type=int, default=0, metavar="WINDOWS",
                     help="also profile this many windows on the card")
     ap.add_argument("--out", default=None, help="write the JSON here too")
     args = ap.parse_args(argv)
-    res = run_phold()
+    res = run_phold(egress_cap=args.egress_cap, ingress_cap=args.ingress_cap,
+                    kernel=args.kernel, capacity=args.capacity,
+                    max_doublings=args.max_doublings,
+                    grow_every=args.grow_every)
     rec = {k: v for k, v in res.items() if k != "state"}
     if torch.cuda.is_available():
         rec["gpu"] = torch.cuda.get_device_name(0)
     if args.profile:
-        rec["profile"] = profile_windows(windows=args.profile)
+        # at the caps the run ended with (grown, under elastic)
+        caps = (res["capacity"] or {}).get("final", {
+            "egress_cap": args.egress_cap, "ingress_cap": args.ingress_cap})
+        rec["profile"] = profile_windows(windows=args.profile,
+                                         kernel=args.kernel, **caps)
     line = json.dumps(rec)
     if args.out:
         with open(args.out, "w") as fh:

@@ -27,48 +27,17 @@
 // column are consecutive across lanes. For 64 <= CE <= 1024 one block holds
 // one row in shared memory.
 //
-// Integer arithmetic that may wrap (rebase, prefix sum, row sum) is done in
-// uint32, which wraps as the TPU kernel's int32 does.
+// The sorting networks, the scans and the rebase are row_bitonic.cuh's,
+// shared with kernel C (egress_gate.cu).
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "row_bitonic.cuh"
+
 namespace {
 
-constexpr uint32_t kSign = 0x80000000u;
-constexpr int kNoClamp = -(1 << 30);
-constexpr unsigned kFull = 0xffffffffu;
-constexpr int kWarpBlock = 256;
-
-__device__ __forceinline__ bool pair_less(uint32_t ka, int ia, uint32_t kb,
-                                          int ib) {
-  return ka < kb || (ka == kb && ia < ib);
-}
-
-__device__ __forceinline__ int wrap_sub(int a, int b) {
-  return static_cast<int>(static_cast<uint32_t>(a) - static_cast<uint32_t>(b));
-}
-
-// Ascending bitonic sort of (k, i) over the CE lanes of a warp segment;
-// lane c of the segment holds element c.
-template <int CE>
-__device__ __forceinline__ void warp_bitonic(uint32_t& k, int& i, int c) {
-#pragma unroll
-  for (int size = 2; size <= CE; size <<= 1) {
-#pragma unroll
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      const uint32_t pk = __shfl_xor_sync(kFull, k, stride);
-      const int pi = __shfl_xor_sync(kFull, i, stride);
-      // the lower element of a pair keeps the min in an ascending block
-      const bool take_min = ((c & stride) == 0) == ((c & size) == 0);
-      const bool keep = pair_less(k, i, pk, pi) == take_min;
-      if (!keep) {
-        k = pk;
-        i = pi;
-      }
-    }
-  }
-}
+using namespace row_bitonic;
 
 template <int CE>
 __global__ void __launch_bounds__(kWarpBlock) egress_rank_warp(
@@ -94,11 +63,10 @@ __global__ void __launch_bounds__(kWarpBlock) egress_rank_warp(
 
   const bool v = valid[x] != 0;
   const int p = prio[x];
-  const int ts = v ? wrap_sub(tsend[x], shift) : 0;
-  const int cl = clamp[x];
-  const int cl_rb = (v && cl != kNoClamp) ? wrap_sub(cl, shift) : cl;
+  const int ts = rebase_tsend(v, tsend[x], shift);
+  const int cl_rb = rebase_clamp(v, clamp[x], shift);
 
-  uint32_t k = (v ? 0u : kSign) | static_cast<uint32_t>(p);
+  uint32_t k = fifo_key(v, p);
   int src = c;
   warp_bitonic<CE>(k, src, c);
   const bool v_s = (k & kSign) == 0;
@@ -114,17 +82,12 @@ __global__ void __launch_bounds__(kWarpBlock) egress_rank_warp(
   const int cl_s = __shfl_sync(kFull, cl_rb, src, CE);
 
   // inclusive scan of the valid bytes -> token gate
-  uint32_t cum = v_s ? static_cast<uint32_t>(bytes_s) : 0u;
-#pragma unroll
-  for (int d = 1; d < CE; d <<= 1) {
-    const uint32_t up = __shfl_up_sync(kFull, cum, d, CE);
-    if (c >= d) cum += up;
-  }
+  const uint32_t cum = warp_inclusive_scan<CE>(
+      v_s ? static_cast<uint32_t>(bytes_s) : 0u, c);
   const int bal = balance[live ? row : 0];
   const bool sendable = v_s && static_cast<int>(cum) <= bal;
-  uint32_t spent = sendable ? static_cast<uint32_t>(bytes_s) : 0u;
-#pragma unroll
-  for (int d = CE >> 1; d > 0; d >>= 1) spent += __shfl_xor_sync(kFull, spent, d);
+  const uint32_t spent =
+      warp_sum<CE>(sendable ? static_cast<uint32_t>(bytes_s) : 0u);
 
   // routing phase A: the sorted row's (seq, column) order
   uint32_t k2 = static_cast<uint32_t>(seq_s) ^ kSign;
@@ -144,28 +107,6 @@ __global__ void __launch_bounds__(kWarpBlock) egress_rank_warp(
   sendable_o[e] = static_cast<uint8_t>(sendable);
   row_perm_o[e] = perm2;
   if (c == 0) spent_o[row] = static_cast<int>(spent);
-}
-
-// Ascending bitonic sort of (sk, si) over n elements in shared memory, one
-// thread per element; ends synchronised.
-__device__ void block_bitonic(uint32_t* sk, int* si, int n, int c) {
-  for (int size = 2; size <= n; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      const int q = c ^ stride;
-      if (q > c) {
-        const uint32_t ka = sk[c], kb = sk[q];
-        const int ia = si[c], ib = si[q];
-        const bool up = (c & size) == 0;
-        if (up != pair_less(ka, ia, kb, ib)) {
-          sk[c] = kb;
-          sk[q] = ka;
-          si[c] = ib;
-          si[q] = ia;
-        }
-      }
-      __syncthreads();
-    }
-  }
 }
 
 // One block of CE threads per row, 64 <= CE <= 1024. Dynamic shared memory:
@@ -195,16 +136,15 @@ __global__ void egress_rank_block(
 
   const bool v = valid[e] != 0;
   const int p = prio[e];
-  const int cl = clamp[e];
   pay[0 * ce + c] = p;
   pay[1 * ce + c] = sock[e];
   pay[2 * ce + c] = dst[e];
   pay[3 * ce + c] = nbytes[e];
   pay[4 * ce + c] = seq[e];
   pay[5 * ce + c] = static_cast<int>(ctrl[e]);
-  pay[6 * ce + c] = v ? wrap_sub(tsend[e], shift) : 0;
-  pay[7 * ce + c] = (v && cl != kNoClamp) ? wrap_sub(cl, shift) : cl;
-  sk[c] = (v ? 0u : kSign) | static_cast<uint32_t>(p);
+  pay[6 * ce + c] = rebase_tsend(v, tsend[e], shift);
+  pay[7 * ce + c] = rebase_clamp(v, clamp[e], shift);
+  sk[c] = fifo_key(v, p);
   si[c] = c;
   if (c == 0) spent_acc = 0u;
   __syncthreads();
@@ -223,16 +163,9 @@ __global__ void egress_rank_block(
   const int cl_s = pay[7 * ce + src];
   __syncthreads();
 
-  // Hillis-Steele inclusive scan of the valid bytes in sk
-  sk[c] = v_s ? static_cast<uint32_t>(bytes_s) : 0u;
-  __syncthreads();
-  for (int d = 1; d < ce; d <<= 1) {
-    const uint32_t up = c >= d ? sk[c - d] : 0u;
-    __syncthreads();
-    sk[c] += up;
-    __syncthreads();
-  }
-  const uint32_t cum = sk[c];
+  // inclusive scan of the valid bytes, through sk
+  const uint32_t cum = block_inclusive_scan(
+      sk, v_s ? static_cast<uint32_t>(bytes_s) : 0u, ce, c);
   const bool sendable = v_s && static_cast<int>(cum) <= balance[row];
   if (sendable) atomicAdd(&spent_acc, static_cast<uint32_t>(bytes_s));
   __syncthreads();

@@ -1,26 +1,218 @@
-"""The chained-window driver loop, fixed-capacity form (counterpart of
-`shadow_tpu/tpu/elastic.py` `chain_spans` / `drive_chained_windows`,
-without the capacity policy, memo, tracer, checkpointer or hooks)."""
+"""Elastic ring growth and the chained-window driver loop.
+
+Counterpart of `shadow_tpu/tpu/elastic.py`: `ring_dims`, `grow_state`,
+`canonical_state`, `chain_spans`, `run_elastic_window` and
+`drive_chained_windows` under the capacity policy of
+`core/capacity.py` (without the memo, run tracer, checkpointer or
+per-round inputs, ROADMAP.md queue A).
+
+Growth is invisible to the window step: live lanes are front-packed, so
+they keep their columns when a ring widens; every sort in `window_step`
+is stable with invalid-last keys, so the new all-invalid columns sort
+behind the live lanes; and every consumer masks by validity. What growth
+does not keep is the dead lanes' payload, which each run permutes from
+its own history; `canonical_state` sets those lanes to the `make_state`
+fills, so a grown run and one pre-provisioned at the final capacity
+compare bitwise.
+
+A chain is the caller's Python loop of windows r0..r1-1 that reads the
+device back at its end; the host regains control only between chains.
+Under a policy the chain is the growth-decision unit: it is attempted
+from its start state, its per-ring overflow is read back once, and an
+overflowing chain is discarded and re-run from that snapshot against
+grown rings. So nothing a chain runs may write a tensor in place.
+"""
 
 from __future__ import annotations
 
+import numpy as np
+import torch
 
-def chain_spans(n_rounds: int, chain_len: int) -> list[tuple[int, int]]:
-    """[0, n_rounds) split at every `chain_len` multiple, as [r0, r1)
-    pairs."""
+from ..core.capacity import (CAPACITY_MODES, CapacityError,  # noqa: F401
+                             CapacityTrajectory, RingPolicy, next_pow2)
+from .prims import I32_MAX, NO_CLAMP
+
+
+def ring_dims(state) -> tuple[int, int]:
+    """(egress_cap, ingress_cap) of a `plane.NetPlaneState`."""
+    return int(state.eg_dst.shape[1]), int(state.in_src.shape[1])
+
+
+def _pad_cols(t: torch.Tensor, width: int, fill) -> torch.Tensor:
+    """Widen a [N, C] ring to [N, width] with `fill` in the new lanes."""
+    n, c = t.shape
+    if width == c:
+        return t
+    block = torch.full((n, width - c), fill, dtype=t.dtype, device=t.device)
+    return torch.cat([t, block], dim=1)
+
+
+def grow_state(state, new_egress_cap: int, new_ingress_cap: int):
+    """Repack a `plane.NetPlaneState` into wider rings, bitwise: every
+    existing column moves unchanged, and the new trailing lanes carry the
+    `make_state` fills (-1 dst/src, I32_MAX priority and deliver,
+    NO_CLAMP, zeros elsewhere, invalid). Per-host tensors, the RR
+    counters and the router state pass through. Shrinking is refused: it
+    could drop live packets. Returns `state` itself when nothing grows."""
+    ce, ci = ring_dims(state)
+    if new_egress_cap < ce or new_ingress_cap < ci:
+        raise ValueError(
+            f"grow_state cannot shrink rings: have (CE={ce}, CI={ci}), "
+            f"asked for (CE={new_egress_cap}, CI={new_ingress_cap})")
+    if (new_egress_cap, new_ingress_cap) == (ce, ci):
+        return state
+    eg = lambda t, fill: _pad_cols(t, new_egress_cap, fill)
+    ing = lambda t, fill: _pad_cols(t, new_ingress_cap, fill)
+    return state._replace(
+        eg_dst=eg(state.eg_dst, -1), eg_bytes=eg(state.eg_bytes, 0),
+        eg_prio=eg(state.eg_prio, I32_MAX), eg_seq=eg(state.eg_seq, 0),
+        eg_ctrl=eg(state.eg_ctrl, False), eg_tsend=eg(state.eg_tsend, 0),
+        eg_clamp=eg(state.eg_clamp, NO_CLAMP), eg_sock=eg(state.eg_sock, 0),
+        eg_valid=eg(state.eg_valid, False),
+        in_src=ing(state.in_src, -1), in_bytes=ing(state.in_bytes, 0),
+        in_seq=ing(state.in_seq, 0), in_sock=ing(state.in_sock, 0),
+        in_deliver_rel=ing(state.in_deliver_rel, I32_MAX),
+        in_valid=ing(state.in_valid, False),
+    )
+
+
+def canonical_state(state):
+    """Set a `NetPlaneState`'s dead lanes to the `make_state` fills,
+    leaving live lanes and every per-host tensor untouched. Dead-lane
+    payload is outside the determinism contract (every consumer masks by
+    validity) and is the one thing a grown run cannot reproduce, so the
+    elastic-vs-pre-provisioned comparison is between canonical states."""
+    ev, iv = state.eg_valid, state.in_valid
+    w = torch.where
+    return state._replace(
+        eg_dst=w(ev, state.eg_dst, -1), eg_bytes=w(ev, state.eg_bytes, 0),
+        eg_prio=w(ev, state.eg_prio, I32_MAX),
+        eg_seq=w(ev, state.eg_seq, 0), eg_ctrl=state.eg_ctrl & ev,
+        eg_tsend=w(ev, state.eg_tsend, 0),
+        eg_clamp=w(ev, state.eg_clamp, NO_CLAMP),
+        eg_sock=w(ev, state.eg_sock, 0),
+        in_src=w(iv, state.in_src, -1), in_bytes=w(iv, state.in_bytes, 0),
+        in_seq=w(iv, state.in_seq, 0), in_sock=w(iv, state.in_sock, 0),
+        in_deliver_rel=w(iv, state.in_deliver_rel, I32_MAX),
+    )
+
+
+def chain_spans(n_rounds: int, chain_len: int, *, start_round: int = 0,
+                boundaries=()) -> list[tuple[int, int]]:
+    """The driver's chain partition: [start_round, n_rounds) split at
+    every absolute `chain_len` multiple and at every explicit boundary
+    round, as [r0, r1) pairs (empty spans dropped). The cuts are aligned
+    to round 0, not to `start_round`, so a run resumed at a round
+    partitions what remains as the whole run did, and under the elastic
+    policy grows the same trajectory."""
     if chain_len < 1:
         raise ValueError(f"chain_len must be >= 1, got {chain_len}")
-    edges = sorted({0, n_rounds, *range(chain_len, n_rounds, chain_len)})
+    if start_round >= n_rounds:
+        return []
+    cuts = {start_round, n_rounds}
+    first = ((start_round // chain_len) + 1) * chain_len
+    cuts.update(range(first, n_rounds, chain_len))
+    cuts.update(b for b in boundaries if start_round < b < n_rounds)
+    edges = sorted(cuts)
     return [(a, b) for a, b in zip(edges[:-1], edges[1:]) if b > a]
 
 
+def _host(x) -> np.ndarray:
+    """An overflow count (tensor or number) as a 1-d numpy array: the
+    driver's one read of the device per chain attempt."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().numpy()
+    return np.atleast_1d(np.asarray(x))
+
+
+def run_elastic_window(state, attempt_fn, policy: RingPolicy, *,
+                       time_ns: int, host_names=None):
+    """One chain of windows under the capacity policy.
+
+    `attempt_fn(state)` runs the chain from `state` and returns (out,
+    eg_overflow, in_overflow): what the driver commits, and the per-host
+    [N] (or scalar) ring-full drops of the egress (append-side) and
+    ingress (routing-side) rings. It must be a pure function of `state`
+    and what its closure holds.
+
+    fixed: commit the attempt; the first drop of a ring lands a
+    trajectory event. strict: raise `CapacityError` with per-host blame.
+    elastic: grow the overflowing ring(s) of the pre-attempt state and
+    re-run, bounded by the policy's `max_doublings` per dimension (once
+    exhausted, the overflowing attempt is committed and its drops are
+    real). Returns (out, state_used), the pre-chain state the committed
+    attempt ran from."""
+    while True:
+        out, eg_ovf, in_ovf = attempt_fn(state)
+        eg_arr, in_arr = _host(eg_ovf), _host(in_ovf)
+        eg_total, in_total = int(eg_arr.sum()), int(in_arr.sum())
+        if eg_total == 0 and in_total == 0:
+            return out, state
+        if policy.mode == "strict":
+            blame = sorted(set(np.nonzero(eg_arr)[0].tolist())
+                           | set(np.nonzero(in_arr)[0].tolist()))
+            if host_names:
+                blame = [host_names[i] if i < len(host_names) else i
+                         for i in blame]
+            ring = ("egress" if eg_total and not in_total else
+                    "ingress" if in_total and not eg_total else
+                    "egress+ingress")
+            raise CapacityError(
+                f"ring-full overflow under capacity.mode=strict: "
+                f"{eg_total} egress + {in_total} ingress drop(s) in the "
+                f"window at t={time_ns} ns (caps CE={policy.egress_cap}, "
+                f"CI={policy.ingress_cap}); raise the ring capacities or "
+                f"run capacity.mode=elastic", ring=ring, blame=blame)
+        if policy.mode != "elastic":
+            if eg_total:
+                policy.note_drop(ring="egress", overflow=eg_total,
+                                 time_ns=time_ns)
+            if in_total:
+                policy.note_drop(ring="ingress", overflow=in_total,
+                                 time_ns=time_ns)
+            return out, state
+        target = policy.plan_growth(eg_overflow=eg_total,
+                                    in_overflow=in_total, time_ns=time_ns)
+        if target is None:  # growth budget exhausted: the drops are real
+            return out, state
+        state = grow_state(state, *target)
+
+
 def drive_chained_windows(state, extras, chain_fn, *, n_rounds: int,
-                          chain_len: int):
-    """Run `chain_fn(state, extras, r0, r1) -> (state', extras')` over
-    the chain spans. A chain is the caller's Python loop of windows
-    r0..r1-1 that reads the device back once, at its end; the host
-    regains control only between chains. Returns the final
-    (state, extras)."""
-    for r0, r1 in chain_spans(n_rounds, chain_len):
-        state, extras = chain_fn(state, extras, r0, r1)
+                          chain_len: int, start_round: int = 0,
+                          boundaries=(), policy: RingPolicy | None = None,
+                          window_ns: int = 0, host_names=None,
+                          on_chain=None):
+    """The driver loop: run `chain_fn(state, extras, r0, r1) -> (state',
+    extras', eg_overflow, in_overflow)` over the `chain_spans`, the
+    overflows being the chain's per-host ring-full drops.
+
+    Without a policy the overflows are ignored. Under `policy`, every
+    chain runs through `run_elastic_window` from its start state (one
+    snapshot a chain), and a `CapacityError` it raises carries
+    `chain_span` = (r0, r1). `on_chain(r1, state, extras)` runs after
+    every committed chain; a (state, extras) pair it returns replaces
+    the carried one. Returns the final (state, extras)."""
+    for r0, r1 in chain_spans(n_rounds, chain_len, start_round=start_round,
+                              boundaries=boundaries):
+        if policy is None:
+            state, extras, _eg, _in = chain_fn(state, extras, r0, r1)
+        else:
+            def attempt(st, _ex=extras, _r0=r0, _r1=r1):
+                st2, ex2, eg, inn = chain_fn(st, _ex, _r0, _r1)
+                return (st2, ex2), eg, inn
+
+            try:
+                (state, extras), _used = run_elastic_window(
+                    state, attempt, policy, time_ns=r0 * int(window_ns),
+                    host_names=host_names)
+            except CapacityError as e:
+                # the overflow is seen per chain, so the span is the
+                # blame unit
+                e.chain_span = (r0, r1)
+                raise
+        if on_chain is not None:
+            replaced = on_chain(r1, state, extras)
+            if replaced is not None:
+                state, extras = replaced
     return state, extras

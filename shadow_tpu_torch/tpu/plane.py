@@ -4,11 +4,13 @@ The port of `shadow_tpu/tpu/plane.py` along the PHOLD main path: the
 params/state SoA, the flat and row-shaped egress appends, and the FIFO
 direct-delivery `window_step` (`rr_enabled=False`, `router_aqm=False`,
 packed sort keys, no presence planes), whose egress stage and routing
-placement run through the CUDA kernels of `tpu/pipeline.py`.
+placement run through the CUDA kernels of `tpu/pipeline.py`: the fused
+pair A and B (`kernel="pallas_fused"`) or the split pair C and D
+(`kernel="pallas"`).
 
-Every result is bitwise the JAX plane's `window_step(kernel=
-"pallas_fused")`: int32 state, int32 arithmetic that wraps where the
-JAX plane's does, and the float32 loss draw computed from the same
+Every result is bitwise the JAX plane's `window_step` with the same
+kernel: int32 state, int32 arithmetic that wraps where the JAX plane's
+does, and the float32 loss draw computed from the same
 threefry bits. Sorts that the JAX plane runs outside its Pallas kernels
 stay `torch.sort` (stable) on composite int64 keys that give the same
 permutation. Nothing in `window_step` reads a tensor back to the host.
@@ -326,14 +328,28 @@ def _compact_ingress(state: NetPlaneState, in_deliver):
             in_valid_c.sum(dim=1, dtype=torch.int32))
 
 
-def _routing_order(sent, eg_dst, deliver_rel, row_perm):
-    """Bucketed routing, phase A, with the row-local seq order `row_perm`
-    from kernel A: one flat stable sort on (bucket << 32 | sign-biased
-    deliver) over the seq-permuted slots. (dst, deliver, slot) is a total
-    order, so this is the JAX plane's permutation. Unsent slots go to
-    bucket N, which is never placed. Returns (o_pos [B] int64, offsets,
-    counts [N] int32)."""
+def _seq_row_order(eg_seq):
+    """Each row's stable (seq, column) order, as int32 column indices:
+    one stable row sort of the sign-biased seq. The JAX plane builds it
+    from an [N, CE, CE] pairwise (seq, column) rank and a scatter that
+    inverts it; (seq, column) pairs are distinct, so the two give the
+    same permutation."""
+    return torch.sort(u32(eg_seq) ^ _SIGN32, dim=1,
+                      stable=True).indices.to(torch.int32)
+
+
+def _routing_order(sent, eg_dst, eg_seq, deliver_rel, row_perm=None):
+    """Bucketed routing, phase A: `row_perm` (each row's seq order;
+    kernel A's output, or `_seq_row_order` when None) permutes the
+    source rows so the flat slot index encodes the (src, seq)
+    tiebreak; one flat stable sort on (bucket << 32 | sign-biased
+    deliver) over the permuted slots follows. (dst, deliver, slot) is a
+    total order, so this is the JAX plane's permutation. Unsent slots go
+    to bucket N, which is never placed. Returns (row_perm [N, CE] int32,
+    o_pos [B] int64, offsets, counts [N] int32)."""
     N, CE = eg_dst.shape
+    if row_perm is None:
+        row_perm = _seq_row_order(eg_seq)
     perm = row_perm.to(torch.int64)
     sent_p, dst_p = take(sent, perm), take(eg_dst, perm)
     flat_dst = torch.where(sent_p & (dst_p >= 0) & (dst_p < N), dst_p,
@@ -344,18 +360,19 @@ def _routing_order(sent, eg_dst, deliver_rel, row_perm):
                                 _arange(N + 1, o_key, torch.int64))
     offsets = bounds[:-1].to(torch.int32)
     counts = (bounds[1:] - bounds[:-1]).to(torch.int32)
-    return o_pos, offsets, counts
+    return row_perm, o_pos, offsets, counts
 
 
-def _routing_rank(sent, eg_dst, deliver_rel, n_valid_in, ingress_cap: int,
-                  row_perm):
+def _routing_rank(sent, eg_dst, eg_seq, deliver_rel, n_valid_in,
+                  ingress_cap: int, row_perm=None):
     """Section 5a: each destination row takes the first `take` items of
-    its bucket. Returns (o_pos, offsets, take [N], overflow [N])."""
-    o_pos, offsets, counts = _routing_order(sent, eg_dst, deliver_rel,
-                                            row_perm)
+    its bucket. Returns (row_perm, o_pos, offsets, take [N],
+    overflow [N])."""
+    row_perm, o_pos, offsets, counts = _routing_order(
+        sent, eg_dst, eg_seq, deliver_rel, row_perm)
     take_n = torch.minimum(counts, ingress_cap - n_valid_in)
     overflow = torch.clamp(counts + n_valid_in - ingress_cap, min=0)
-    return o_pos, offsets, take_n, overflow
+    return row_perm, o_pos, offsets, take_n, overflow
 
 
 def _release_due(in_deliver_m, in_src_m, in_seq_m, in_sock_m, in_bytes_m,
@@ -400,50 +417,82 @@ def _compact_egress(eg_prio, eg_dst, eg_bytes, eg_seq, eg_ctrl, eg_tsend,
 
 _PRESENCE_PLANES = ("faults", "metrics", "guards", "hist", "flightrec",
                     "flows", "compute")
+# presence planes the JAX plane's Pallas kernels refuse (`plane.py`
+# window_step's trace-time checks); the metrics plane rides both
+_UNFUSED_PLANES = ("faults", "guards", "hist", "flightrec", "flows",
+                   "compute")
+KERNELS = ("pallas_fused", "pallas")
+
+
+def _check_step_options(kernel: str, rr_enabled: bool, router_aqm: bool,
+                        packed_sort: bool, planes: dict):
+    """The JAX step's refusals for the Pallas kernels (ValueError, as
+    there), then what the port does not have yet (NotImplementedError,
+    naming ROADMAP.md's queue)."""
+    if kernel == "xla":
+        raise NotImplementedError(
+            "window_step: kernel='xla' (the XLA sort path and its RR qdisc) "
+            "is not ported yet (ROADMAP.md, queue A); use 'pallas_fused' or "
+            "'pallas'")
+    if kernel not in KERNELS:
+        raise ValueError(f"unknown plane kernel {kernel!r}: expected one of "
+                         f"{KERNELS} (or 'xla', not ported yet)")
+    unknown = sorted(set(planes) - set(_PRESENCE_PLANES))
+    if unknown:
+        raise TypeError(f"window_step: unexpected arguments {unknown}")
+    if rr_enabled:
+        raise ValueError(
+            f"plane_kernel={kernel!r} fuses the FIFO qdisc only; pass "
+            "rr_enabled=False (all-FIFO configs); the RR qdisc runs on the "
+            "XLA path, not ported yet (ROADMAP.md, queue A)")
+    if not packed_sort:
+        raise ValueError(
+            f"plane_kernel={kernel!r} implements the packed/bucketed "
+            "ordering only; packed_sort=False is a JAX-side parity "
+            "reference (ROADMAP.md)")
+    threaded = [k for k in _PRESENCE_PLANES if planes.get(k) is not None]
+    refused = [k for k in threaded if k in _UNFUSED_PLANES]
+    if refused:
+        raise ValueError(
+            f"plane_kernel={kernel!r} does not fuse the presence planes "
+            f"{refused}; the JAX plane runs them on kernel='xla' only")
+    if threaded:
+        raise NotImplementedError(
+            f"window_step: presence planes {threaded} are not ported yet "
+            "(ROADMAP.md, queue A)")
+    if router_aqm:
+        raise NotImplementedError(
+            "window_step: the router AQM path (router_aqm=True) is not "
+            "ported yet (ROADMAP.md, queue A)")
 
 
 def window_step(state: NetPlaneState, params: NetPlaneParams, rng_seed: int,
                 shift_ns: int, window_ns: int, *, rr_enabled: bool = True,
                 router_aqm: bool = False, no_loss: bool = False,
-                packed_sort: bool = True, plain_kernels: bool = False,
-                **planes):
+                packed_sort: bool = True, kernel: str = "pallas_fused",
+                plain_kernels: bool = False, **planes):
     """Advance one scheduling round [t, t + window_ns): the FIFO
-    direct-delivery path of the JAX `window_step(kernel="pallas_fused")`.
+    direct-delivery path of the JAX `window_step` with a Pallas kernel
+    pair, bitwise.
 
-    `rng_seed` is the int seed of the JAX run's `jax.random.key(seed)`;
-    `shift_ns` is this window's start minus the previous one's.
-    `plain_kernels=True` runs the plain PyTorch versions of kernels A
-    and B even on CUDA tensors (the reference a card run is held
-    against); otherwise CUDA tensors go through the CUDA kernels.
+    `kernel="pallas_fused"` runs kernels A and B (`pipeline.
+    egress_rank_stage`, `route_place`); `kernel="pallas"` the split pair,
+    kernels C and D (`egress_order_gate`, `route_scatter`), with the
+    other egress columns gathered through C's permutation and the routing
+    row order computed in PyTorch. The JAX package makes the two (and its
+    "xla" path) bitwise identical. `rng_seed` is the int seed of the JAX
+    run's `jax.random.key(seed)`; `shift_ns` is this window's start minus
+    the previous one's. `plain_kernels=True` runs the plain PyTorch
+    versions of the kernels even on CUDA tensors (the reference a card
+    run is held against); otherwise CUDA tensors go through the CUDA
+    kernels.
 
     Returns (state', delivered, next_event_rel): `delivered` is a dict of
     [N, CI] tensors masked by delivered["mask"], and next_event_rel a 0-d
     int32 tensor (I32_MAX when idle). No tensor is read back to the host.
     """
-    if rr_enabled:
-        raise NotImplementedError(
-            "window_step: the round-robin qdisc (rr_enabled=True) is not "
-            "ported yet (ROADMAP.md, queue A); pass rr_enabled=False")
-    if router_aqm:
-        raise NotImplementedError(
-            "window_step: the router AQM path (router_aqm=True) is not "
-            "ported yet (ROADMAP.md, queue A)")
-    if not packed_sort:
-        raise NotImplementedError(
-            "window_step: only the packed sort path is ported; "
-            "packed_sort=False is a JAX-side parity reference (ROADMAP.md)")
-    threaded = [k for k in _PRESENCE_PLANES if planes.get(k) is not None]
-    unknown = sorted(set(planes) - set(_PRESENCE_PLANES))
-    if unknown:
-        raise TypeError(f"window_step: unexpected arguments {unknown}")
-    if threaded:
-        raise NotImplementedError(
-            f"window_step: presence planes {threaded} are not ported yet "
-            "(ROADMAP.md, queue A)")
+    _check_step_options(kernel, rr_enabled, router_aqm, packed_sort, planes)
     from . import pipeline
-
-    egress_rank = (pipeline.egress_rank_plain if plain_kernels
-                   else pipeline.egress_rank_stage)
 
     # --- 1. rebase clocks + refill token buckets ------------------------
     in_deliver = torch.where(state.in_valid,
@@ -452,12 +501,27 @@ def window_step(state: NetPlaneState, params: NetPlaneParams, rng_seed: int,
     rt = codel.rebase_router_state(state.router, shift_ns, params.dn_rate,
                                    params.dn_cap)
 
-    # --- 2. egress: FIFO order, token gate, routing row order (kernel A) -
-    (eg_prio, eg_sock, eg_dst, eg_bytes, eg_seq, eg_ctrl, eg_tsend,
-     eg_clamp, eg_valid, sendable, spent, row_perm) = egress_rank(
-        state.eg_valid, state.eg_prio, state.eg_bytes, state.eg_tsend,
-        state.eg_clamp, state.eg_dst, state.eg_seq, state.eg_sock,
-        state.eg_ctrl, balance, shift_ns)
+    # --- 2. egress: FIFO order and token gate (kernel A or C) -------------
+    if kernel == "pallas_fused":
+        egress_rank = (pipeline.egress_rank_plain if plain_kernels
+                       else pipeline.egress_rank_stage)
+        (eg_prio, eg_sock, eg_dst, eg_bytes, eg_seq, eg_ctrl, eg_tsend,
+         eg_clamp, eg_valid, sendable, spent, row_perm) = egress_rank(
+            state.eg_valid, state.eg_prio, state.eg_bytes, state.eg_tsend,
+            state.eg_clamp, state.eg_dst, state.eg_seq, state.eg_sock,
+            state.eg_ctrl, balance, shift_ns)
+    else:
+        egress_gate = (pipeline.egress_gate_plain if plain_kernels
+                       else pipeline.egress_order_gate)
+        (perm, eg_bytes, eg_tsend, eg_clamp, eg_valid, sendable,
+         spent) = egress_gate(
+            state.eg_valid, state.eg_prio, state.eg_bytes, state.eg_tsend,
+            state.eg_clamp, balance, shift_ns)
+        perm = perm.to(torch.int64)
+        eg_prio, eg_sock, eg_dst, eg_seq, eg_ctrl = (
+            take(a, perm) for a in (state.eg_prio, state.eg_sock,
+                                    state.eg_dst, state.eg_seq,
+                                    state.eg_ctrl))
     balance = balance - spent
 
     # --- 3. loss sampling + latency lookup -------------------------------
@@ -466,14 +530,18 @@ def window_step(state: NetPlaneState, params: NetPlaneParams, rng_seed: int,
         sendable, window_ns, no_loss=no_loss)
     eg_valid_left = eg_valid & ~sendable
 
-    # --- 4 + 5. compact surviving ingress, route (kernel B) --------------
+    # --- 4 + 5. compact surviving ingress, route (kernel B or D) --------
     (in_deliver_c, in_src_c, in_seq_c, in_sock_c, in_bytes_c, in_valid_c,
      n_valid_in) = _compact_ingress(state, in_deliver)
+    routed = (sent, eg_dst, eg_seq, eg_bytes, eg_sock, deliver_rel,
+              in_deliver_c, in_src_c, in_seq_c, in_sock_c, in_bytes_c,
+              in_valid_c, n_valid_in)
+    if kernel == "pallas_fused":
+        merged = pipeline.route_place(*routed, row_perm, plain=plain_kernels)
+    else:
+        merged = pipeline.route_scatter(*routed, plain=plain_kernels)
     (in_src_m, in_seq_m, in_sock_m, in_bytes_m, in_deliver_m, in_valid_m,
-     overflowed) = pipeline.route_place(
-        sent, eg_dst, eg_seq, eg_bytes, eg_sock, deliver_rel, in_deliver_c,
-        in_src_c, in_seq_c, in_sock_c, in_bytes_c, in_valid_c, n_valid_in,
-        row_perm, plain=plain_kernels)
+     overflowed) = merged
 
     # --- 5b. release what this window hands the hosts --------------------
     (delivered, due, in_deliver_new, in_src_new, in_seq_new, in_sock_new,

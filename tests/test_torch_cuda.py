@@ -50,8 +50,55 @@ def test_egress_rank_kernel_matches_plain(cuda, ce):
         assert g.dtype == r.dtype and torch.equal(g, r)
 
 
-def test_phold_golden_digest_on_the_card(cuda):
+@pytest.mark.parametrize("ce", [2, 4, 8, 16, 32, 64, 128, 1024])
+def test_egress_gate_kernel_matches_plain(cuda, ce):
+    valid, prio, nbytes, tsend, clamp, _d, _s, _k, _c, balance, shift = \
+        egress_args(300, ce, cuda, seed=ce)
+    args = (valid, prio, nbytes, tsend, clamp, balance, shift)
+    before = pipeline.LAUNCHES["egress_gate"]
+    got = pipeline.egress_order_gate(*args)
+    ref = pipeline.egress_gate_plain(*args)
+    torch.cuda.synchronize()
+    assert pipeline.LAUNCHES["egress_gate"] == before + 1
+    for g, r in zip(got, ref):
+        assert g.dtype == r.dtype and torch.equal(g, r)
+
+
+def placement_args(n, ce, ci, device, seed=0):
+    """Kernel B's and D's inputs as the routing stage makes them: bucket
+    segments that tile the N*CE arrival slots, rows whose arrivals
+    overflow the ring, random streams and bases."""
+    rng = np.random.default_rng(seed)
+    nv = rng.integers(0, ci + 1, n)
+    counts = rng.poisson(ce * 0.8, n)
+    hot = rng.random(n) < 1 / 8
+    counts[hot] += rng.integers(ci, 2 * ci, hot.sum())
+    counts = np.minimum(counts, np.maximum(
+        0, n * ce - (np.cumsum(counts) - counts)))
+    offsets = np.cumsum(counts) - counts
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
+    b2 = n * ce + 2 * ci
+    return (t(nv), t(offsets - nv), t(np.minimum(counts, ci - nv)),
+            *(t(rng.integers(-2**31, 2**31 - 1, b2)) for _ in range(5)),
+            *(t(rng.integers(-2**31, 2**31 - 1, (n, ci))) for _ in range(5)),
+            torch.from_numpy(rng.random((n, ci)) < 0.5).to(device))
+
+
+@pytest.mark.parametrize("ce,ci", [(8, 4), (16, 32), (64, 64)])
+def test_route_scatter_kernel_matches_plain(cuda, ce, ci):
+    args = placement_args(300, ce, ci, cuda, seed=ce + ci)
+    before = pipeline.LAUNCHES["route_scatter"]
+    got = pipeline.scatter(*args)
+    ref = pipeline.scatter_plain(*args)
+    torch.cuda.synchronize()
+    assert pipeline.LAUNCHES["route_scatter"] == before + 1
+    for g, r in zip(got, ref):
+        assert g.dtype == r.dtype and torch.equal(g, r)
+
+
+@pytest.mark.parametrize("kernel", ["pallas_fused", "pallas"])
+def test_phold_golden_digest_on_the_card(cuda, kernel):
     g = dict(bench.GOLDEN_PHOLD)
     res = bench.run_phold(g.pop("n_hosts"), rounds=g.pop("rounds"),
-                          warmup=False, device=cuda, **g)
+                          warmup=False, device=cuda, kernel=kernel, **g)
     assert convert.state_digest(res["state"]) == bench.GOLDEN_PHOLD_DIGEST

@@ -149,17 +149,28 @@ def test_window_steps_with_ingress_overflow():
 
 
 def test_window_step_refuses_what_is_not_ported():
+    """What the JAX plane refuses for its Pallas kernels raises
+    ValueError, as there; what the port lacks raises
+    NotImplementedError naming ROADMAP.md."""
     (_p, _j), (tparams, tst) = both_worlds()
     step = lambda **kw: tplane.window_step(tst, tparams, 0, 0, MS, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        step()  # rr_enabled defaults to True, as in the JAX plane
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        step(rr_enabled=False, router_aqm=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        step(rr_enabled=False, packed_sort=False)
-    for plane_name in ("faults", "metrics", "guards", "hist", "flightrec",
-                       "flows", "compute"):
-        with pytest.raises(NotImplementedError, match=plane_name):
-            step(rr_enabled=False, **{plane_name: object()})
-    with pytest.raises(TypeError, match="unexpected"):
+    for kernel in ("pallas_fused", "pallas"):
+        with pytest.raises(ValueError, match="FIFO"):
+            step(kernel=kernel)  # rr_enabled defaults to True, as in JAX
+        with pytest.raises(ValueError, match="packed"):
+            step(rr_enabled=False, packed_sort=False, kernel=kernel)
+        for plane_name in ("faults", "guards", "hist", "flightrec", "flows",
+                           "compute"):
+            with pytest.raises(ValueError, match=plane_name):
+                step(rr_enabled=False, kernel=kernel,
+                     **{plane_name: object()})
+        with pytest.raises(NotImplementedError, match="metrics"):
+            step(rr_enabled=False, kernel=kernel, metrics=object())
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            step(rr_enabled=False, router_aqm=True, kernel=kernel)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue A"):
         step(rr_enabled=False, kernel="xla")
+    with pytest.raises(ValueError, match="unknown plane kernel"):
+        step(rr_enabled=False, kernel="mosaic")
+    with pytest.raises(TypeError, match="unexpected"):
+        step(rr_enabled=False, tracer=object())
