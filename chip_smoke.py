@@ -10,13 +10,16 @@ the result lines are printed:
    in parallel) and print the build seconds and ptxas' resource report;
 3. kernel A (egress_rank) against its plain PyTorch version on the card,
    bitwise, at N=32768 and CE in {8, 16, 32, 64}, and timed with its
-   inputs in HBM (L2 flushed before each launch: `ms`) and in L2
-   (back-to-back launches: `warm_ms`);
+   inputs in HBM (L2 flushed before each launch by a write: `ms`; by a
+   write and a read, so no dirty lines are left: `cold_clean_ms`) and
+   in L2 (back-to-back launches: `warm_ms`);
 4. kernel C (egress_gate) likewise at N=32768 and CE in {4, 8, 16, 32,
    64};
 5. kernels B (route_place) and D (route_scatter) likewise on one input
    set at N=32768, CE=16, CI=32, with rows whose arrivals overflow the
-   ring; D and B agree, and both are timed on it;
+   ring and rows that read outside the arrivals, each kernel and plain
+   version on its own clone (they update the ingress in place); D and B
+   agree, and both are timed on it;
 6. the golden digest: `run_phold` at N=1024, R=16 through each kernel
    pair must end in the state the JAX package's run ends in (pinned by
    the CPU tests);
@@ -81,21 +84,26 @@ def gpu_identity() -> str:
     return out.splitlines()[0]
 
 
-def time_device(torch, fn, reps: int = 50) -> tuple[float, float]:
-    """Milliseconds of device time per call of `fn`: (warm, cold). Warm
-    is CUDA events around `reps` back-to-back calls on the same inputs,
-    which then sit in L2. Cold puts events around each call, after a
-    write of L2_FLUSH_BYTES that evicts them, so its bytes come from
-    HBM. A spin kernel queued first keeps the card busy while the host
-    enqueues, so host overhead does not show as idle."""
+def time_device(torch, fn, reps: int = 50) -> tuple[float, float, float]:
+    """Milliseconds of device time per call of `fn`: (warm, cold,
+    cold_clean). Warm is CUDA events around `reps` back-to-back calls on
+    the same inputs, which then sit in L2. Cold puts events around each
+    call, after a write of L2_FLUSH_BYTES that evicts them, so its bytes
+    come from HBM; that write leaves L2 full of dirty lines, which the
+    timed call may have to write back. Cold_clean follows the write with a
+    read of the same buffer, so L2 holds clean lines when the call
+    starts. A spin kernel queued first keeps the card busy while the
+    host enqueues, so host overhead does not show as idle."""
     flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32,
                         device="cuda")
+    dirty = lambda: flush.fill_(0)
+    clean = lambda: (flush.fill_(0), flush.sum())
     fn()
-    flush.fill_(0)
+    clean()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(reps):
-        flush.fill_(0)
+        clean()
         fn()
     host_s = time.perf_counter() - t0
     torch.cuda.synchronize()
@@ -109,17 +117,19 @@ def time_device(torch, fn, reps: int = 50) -> tuple[float, float]:
     end.record()
     torch.cuda.synchronize()
     warm = start.elapsed_time(end) / reps
-    pairs = [(torch.cuda.Event(enable_timing=True),
-              torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
-    spin()
-    for s, e in pairs:
-        flush.fill_(0)
-        s.record()
-        fn()
-        e.record()
-    torch.cuda.synchronize()
-    cold = sum(s.elapsed_time(e) for s, e in pairs) / reps
-    return warm, cold
+    colds = []
+    for evict in (dirty, clean):
+        pairs = [(torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+        spin()
+        for s, e in pairs:
+            evict()
+            s.record()
+            fn()
+            e.record()
+        torch.cuda.synchronize()
+        colds.append(sum(s.elapsed_time(e) for s, e in pairs) / reps)
+    return warm, colds[0], colds[1]
 
 
 def max_abs_err(torch, got, ref) -> int:
@@ -184,9 +194,9 @@ def check_kernel_a(torch, pipeline, record):
         if err != 0:
             fail(f"egress_rank_kernel CE={ce} disagrees with its plain "
                  f"version (max abs err {err})")
-        warm_ms, ms = time_device(
+        warm_ms, ms, clean_ms = time_device(
             torch, lambda: pipeline.egress_rank_stage(*args))
-        _, plain_ms = time_device(
+        _, plain_ms, _ = time_device(
             torch, lambda: pipeline.egress_rank_plain(*args), reps=10)
         moved = nbytes(args[:10]) + nbytes(got)
         lg = int(math.log2(ce))
@@ -201,12 +211,13 @@ def check_kernel_a(torch, pipeline, record):
             if ce <= 32 else 0
         bound_ms, bound_by = bound(moved, ops, shuffles)
         row = dict(ce=ce, n=N_HOSTS, max_abs_err=err, ms=ms, warm_ms=warm_ms,
-                   plain_ms=plain_ms, bytes=moved, ops=ops, shuffles=shuffles,
-                   bound_ms=bound_ms, bound_by=bound_by,
-                   share_of_bound=bound_ms / ms)
+                   cold_clean_ms=clean_ms, plain_ms=plain_ms, bytes=moved,
+                   ops=ops, shuffles=shuffles, bound_ms=bound_ms,
+                   bound_by=bound_by, share_of_bound=bound_ms / ms)
         rows.append(row)
         print(f"kernel A egress_rank CE={ce}: bitwise ok, kernel_ms={ms:.5f}"
-              f" (cold L2; warm {warm_ms:.5f}) plain_ms={plain_ms:.5f} "
+              f" (cold L2; clean {clean_ms:.5f}; warm {warm_ms:.5f}) "
+              f"plain_ms={plain_ms:.5f} "
               f"bound_ms={bound_ms:.5f} ({bound_by}, {moved} B, {ops} int "
               f"ops, {shuffles} shuffles) share={bound_ms / ms:.3f} "
               f"library_ms=null")
@@ -226,9 +237,9 @@ def check_kernel_c(torch, pipeline, record):
         if err != 0:
             fail(f"egress_gate_kernel CE={ce} disagrees with its plain "
                  f"version (max abs err {err})")
-        warm_ms, ms = time_device(
+        warm_ms, ms, clean_ms = time_device(
             torch, lambda: pipeline.egress_order_gate(*args))
-        _, plain_ms = time_device(
+        _, plain_ms, _ = time_device(
             torch, lambda: pipeline.egress_gate_plain(*args), reps=10)
         moved = nbytes(args[:6]) + nbytes(got)
         lg = int(math.log2(ce))
@@ -242,12 +253,13 @@ def check_kernel_c(torch, pipeline, record):
             if ce <= 32 else 0
         bound_ms, bound_by = bound(moved, ops, shuffles)
         row = dict(ce=ce, n=N_HOSTS, max_abs_err=err, ms=ms, warm_ms=warm_ms,
-                   plain_ms=plain_ms, bytes=moved, ops=ops, shuffles=shuffles,
-                   bound_ms=bound_ms, bound_by=bound_by,
-                   share_of_bound=bound_ms / ms)
+                   cold_clean_ms=clean_ms, plain_ms=plain_ms, bytes=moved,
+                   ops=ops, shuffles=shuffles, bound_ms=bound_ms,
+                   bound_by=bound_by, share_of_bound=bound_ms / ms)
         rows.append(row)
         print(f"kernel C egress_gate CE={ce}: bitwise ok, kernel_ms={ms:.5f}"
-              f" (cold L2; warm {warm_ms:.5f}) plain_ms={plain_ms:.5f} "
+              f" (cold L2; clean {clean_ms:.5f}; warm {warm_ms:.5f}) "
+              f"plain_ms={plain_ms:.5f} "
               f"bound_ms={bound_ms:.5f} ({bound_by}, {moved} B, {ops} int "
               f"ops, {shuffles} shuffles) share={bound_ms / ms:.3f} "
               f"library_ms=null")
@@ -258,7 +270,11 @@ def check_kernel_c(torch, pipeline, record):
 def placement_inputs(torch):
     """Kernel B's and D's inputs at the main path's shape: bucket
     segments that tile the N*CE arrival slots, 1 in 16 destination rows
-    hot enough to overflow the ring. Returns (args, counts, nv, take)."""
+    hot enough to overflow the ring, a random arrival order `o_pos` (a
+    permutation of N*CE), random row orders `row_perm` and payload and
+    ingress columns; row 0's segment starts before the first arrival and
+    row N-1's runs past the last (their slots outside read 0). Returns
+    (args, counts, placed and placed-reading-an-arrival [N, CI] bool)."""
     n, ce, ci = N_HOSTS, EGRESS_CAP, INGRESS_CAP
     rng = np.random.default_rng(5)
     nv = rng.integers(0, ci + 1, n)
@@ -272,46 +288,91 @@ def placement_inputs(torch):
     take = np.minimum(counts, ci - nv)
     if not (counts > ci - nv).any():
         fail("the placement check built no overflowing row")
-    b2 = n * ce + 2 * ci
+    nv[0], take[0], offsets[0] = 0, ci, -(ci // 2)
+    nv[-1], take[-1], offsets[-1] = 1, ci - 1, n * ce - ci // 2
     dev = torch.device("cuda")
-    i32 = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
-    streams = [i32(rng.integers(-2**31, 2**31 - 1, b2)) for _ in range(5)]
-    bases = [i32(rng.integers(-2**31, 2**31 - 1, (n, ci))) for _ in range(5)]
-    b_valid = torch.from_numpy(rng.random((n, ci)) < 0.5).to(dev)
-    args = (i32(nv), i32(offsets - nv), i32(take), *streams, *bases, b_valid)
-    return args, counts, nv, take
+    t = lambda a, dt=np.int32: torch.from_numpy(
+        np.ascontiguousarray(a, dt)).to(dev)
+    words = lambda *shape: t(rng.integers(-2**31, 2**31, shape))
+    deliver = rng.integers(-2**31, 2**31, (n, ci))
+    deliver[rng.random((n, ci)) < 0.25] = 2**31 - 1
+    args = (t(nv), t(offsets), t(take),
+            t(rng.permutation(n * ce), np.int64),
+            t(np.argsort(rng.random((n, ce)), axis=1)),
+            *(words(n, ce) for _ in range(4)),
+            *(words(n, ci) for _ in range(4)), t(deliver),
+            t(rng.random((n, ci)) < 0.5, bool))
+    ccol = np.arange(ci)[None, :]
+    placed = (ccol >= nv[:, None]) & (ccol < (nv + take)[:, None])
+    j = (offsets - nv)[:, None] + ccol
+    inside = placed & (j >= 0) & (j < n * ce)
+    return args, counts, placed, inside
+
+
+def placement_bytes(deliver, valid, placed, inside) -> tuple[int, int]:
+    """What kernels B and D must move when called on the ingress
+    `deliver` and `valid` tensors as they stand: 12 B a row (nv, offsets,
+    take); valid + deliver (5 B) a slot for the select; five words and
+    the valid byte (21 B) written a placed slot, and for one that reads
+    an arrival, its o_pos (8 B), row_perm and four payload words (20 B);
+    4 B for each deliver of an unplaced invalid slot rewritten to
+    I32_MAX. Returns (bytes, rewrites)."""
+    n, ci = placed.shape
+    valid = valid.cpu().numpy()
+    deliver = deliver.cpu().numpy()
+    rewrites = int((~placed & ~valid & (deliver != 2**31 - 1)).sum())
+    return (12 * n + 5 * n * ci + 21 * int(placed.sum())
+            + 28 * int(inside.sum()) + 4 * rewrites), rewrites
 
 
 def check_placement(torch, pipeline, record, tag, name, kernel, plain):
     """One placement kernel (B or D) on `placement_inputs`: bitwise
-    against its plain version, timed cold and warm, with its bound."""
+    against its plain version, each on its own clone of the inputs (both
+    update the ingress tensors in place), timed cold and warm (on one
+    input set: a second call rewrites the same values), with its bound.
+    The bound counts the bytes of the timed calls: the first, untimed
+    call has rewritten every invalid deliver, so they rewrite none.
+    Returns (row, the kernel's outputs)."""
     n, ci = N_HOSTS, INGRESS_CAP
-    args, counts, nv, take = placement_inputs(torch)
-    got = kernel(*args)
-    ref = plain(*args)
+    args, counts, placed, inside = placement_inputs(torch)
+    clone = lambda: [a.clone() for a in args]
+    mine = clone()
+    got = kernel(*mine)
+    ref = plain(*clone())
     torch.cuda.synchronize()
+    if [g.data_ptr() for g in got] != [a.data_ptr() for a in mine[9:]]:
+        fail(f"{name} did not return the ingress tensors it was given")
     err = max_abs_err(torch, got, ref)
     if err != 0:
         fail(f"{name} disagrees with its plain version (max abs err {err})")
-    warm_ms, ms = time_device(torch, lambda: kernel(*args))
-    _, plain_ms = time_device(torch, lambda: plain(*args), reps=20)
-    placed = int(take.sum())
-    # each slot reads its 5 words from the stream (placed) or from its
-    # bases plus the base valid byte, and writes 5 words + a valid byte
-    moved = 3 * n * 4 + placed * 20 + (n * ci - placed) * 21 + n * ci * 21
-    ops = n * ci * 8
+    work = clone()
+    warm_ms, ms, clean_ms = time_device(torch, lambda: kernel(*work))
+    _, plain_ms, _ = time_device(torch, lambda: plain(*work), reps=20)
+    _, rewrites = placement_bytes(args[13], args[14], placed, inside)
+    moved, timed_rewrites = placement_bytes(work[13], work[14], placed,
+                                            inside)
+    if timed_rewrites != 0:
+        fail(f"{name} left {timed_rewrites} invalid delivers unrewritten")
+    # per slot ~6 int ops (bounds, compare, select); per placed slot ~30
+    # more (the 64-bit index chain)
+    ops = n * ci * 6 + int(placed.sum()) * 30
     bound_ms, bound_by = bound(moved, ops)
-    row = dict(n=n, ci=ci, placed=placed,
-               overflow_rows=int((counts > ci - nv).sum()), max_abs_err=err,
-               ms=ms, warm_ms=warm_ms, plain_ms=plain_ms, bytes=moved,
+    nv = args[0].cpu().numpy()
+    row = dict(n=n, ci=ci, placed=int(placed.sum()), rewrites=rewrites,
+               overflow_rows=int((counts > ci - nv).sum()),
+               max_abs_err=err, ms=ms, warm_ms=warm_ms,
+               cold_clean_ms=clean_ms, plain_ms=plain_ms, bytes=moved,
                ops=ops, bound_ms=bound_ms, bound_by=bound_by,
                share_of_bound=bound_ms / ms)
     record[tag] = row
     print(f"{name} N={n} CI={ci}: bitwise ok "
-          f"({row['overflow_rows']} overflowing rows), kernel_ms={ms:.5f} "
-          f"(cold L2; warm {warm_ms:.5f}) plain_ms={plain_ms:.5f} "
-          f"bound_ms={bound_ms:.5f} ({bound_by}, {moved} B, {ops} int ops) "
-          f"share={bound_ms / ms:.3f} library_ms=null")
+          f"({row['overflow_rows']} overflowing rows, {row['placed']} slots "
+          f"placed, {rewrites} delivers rewritten by the first call, none "
+          f"by the timed ones), kernel_ms={ms:.5f} "
+          f"(cold L2; clean {clean_ms:.5f}; warm {warm_ms:.5f}) "
+          f"plain_ms={plain_ms:.5f} bound_ms={bound_ms:.5f} ({bound_by}, "
+          f"{moved} B, {ops} int ops) share={bound_ms / ms:.3f} "
+          f"library_ms=null")
     return row, got
 
 
@@ -429,7 +490,8 @@ def kernel_entry(name, source, replaces, launches, row):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
-            "warm_ms": row["warm_ms"], "plain_ms": row["plain_ms"],
+            "warm_ms": row["warm_ms"], "cold_clean_ms": row["cold_clean_ms"],
+            "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": None}
 
@@ -465,7 +527,8 @@ def main():
     if max_abs_err(torch, d_out, b_out) != 0:
         fail("kernels D and B disagree on the same inputs")
     print(f"kernels D and B on the same inputs: equal; D {d['ms']:.5f} ms "
-          f"vs B {b['ms']:.5f} ms cold, {d['warm_ms']:.5f} vs "
+          f"vs B {b['ms']:.5f} ms cold, {d['cold_clean_ms']:.5f} vs "
+          f"{b['cold_clean_ms']:.5f} cold clean, {d['warm_ms']:.5f} vs "
           f"{b['warm_ms']:.5f} warm")
 
     for kernel in ("pallas_fused", "pallas"):

@@ -32,13 +32,13 @@ SIGNATURES = {
     "egress_rank": ("egress_rank_launch",
                     [_I, _I, _I] + [_P] * 10 + [_P] * 12 + [_P]),
     "route_place": ("route_place_launch",
-                    [_I, _I, ctypes.c_longlong] + [_P] * 3 + [_P] * 5
-                    + [_P] * 6 + [_P] * 6 + [_P]),
+                    [_I, _I, _I] + [_P] * 3 + [_P] * 2 + [_P] * 4
+                    + [_P] * 6 + [_P]),
     "egress_gate": ("egress_gate_launch",
                     [_I, _I, _I] + [_P] * 6 + [_P] * 7 + [_P]),
     "route_scatter": ("route_scatter_launch",
-                      [_I, _I, ctypes.c_longlong] + [_P] * 3 + [_P] * 5
-                      + [_P] * 6 + [_P] * 6 + [_P]),
+                      [_I, _I, _I] + [_P] * 3 + [_P] * 2 + [_P] * 4
+                      + [_P] * 6 + [_P]),
 }
 _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 

@@ -16,6 +16,7 @@ run that builds the kernels and warms the card up.
 
 from __future__ import annotations
 
+import contextlib
 import time
 
 import torch
@@ -37,6 +38,8 @@ GOLDEN_PHOLD = dict(n_hosts=1024, n_nodes=64, egress_cap=16, ingress_cap=32,
 GOLDEN_PHOLD_DIGEST = (
     "3997ae828b6430c7919a8a864ba9c9c978dcfaa218c7d2f9145cbcf8fdbfed60")
 SPAWN_SEQ0 = 10_000
+# torch.profiler range over each window's routing stage (profile_windows)
+ROUTING_STAGE = "routing_stage"
 
 
 def phold_chain_fn(world: dict, *, kernel: str = "pallas_fused",
@@ -156,6 +159,48 @@ def run_phold(n_hosts: int = 32768, n_nodes: int = 64, egress_cap: int = 16,
     }
 
 
+@contextlib.contextmanager
+def _routing_stage_ranges(takes: list):
+    """While it is open, each window's routing stage runs in a
+    `record_function` range: from the return of the pipeline module's
+    `_routing_rank` (the flat sort and bucket bounds) to the return of
+    its placement wrapper (`place` or `scatter`), so the range holds what
+    the stage builds for the placement kernel and the kernel. Each
+    wrapper call's take [N] is kept in `takes`, unread. It wraps the
+    module's functions and touches nothing else, so it measures any tree
+    of this package alike."""
+    rank = pipeline._routing_rank
+    wrappers = {name: getattr(pipeline, name)
+                for name in ("place", "scatter")}
+    open_ranges = []
+
+    def ranked(*args, **kw):
+        out = rank(*args, **kw)
+        rf = torch.profiler.record_function(ROUTING_STAGE)
+        rf.__enter__()
+        open_ranges.append(rf)
+        return out
+
+    def placing(fn):
+        def run(*args):
+            takes.append(args[2])
+            try:
+                return fn(*args)
+            finally:
+                open_ranges.pop().__exit__(None, None, None)
+        return run
+
+    pipeline._routing_rank = ranked
+    for name, fn in wrappers.items():
+        setattr(pipeline, name, placing(fn))
+    try:
+        yield
+    finally:
+        pipeline._routing_rank = rank
+        for name, fn in wrappers.items():
+            setattr(pipeline, name, fn)
+
+
 def profile_windows(n_hosts: int = 32768, windows: int = 16, *,
                     n_nodes: int = 64, egress_cap: int = 16,
                     ingress_cap: int = 32, kernel: str = "pallas_fused",
@@ -163,7 +208,9 @@ def profile_windows(n_hosts: int = 32768, windows: int = 16, *,
     """Where a PHOLD window's time goes on the card: `windows` windows
     after as many warm-up windows, timed bare (wall per window), then
     again under torch.profiler (device kernels by name, kernel launches
-    per window, and the device's busy share of the bare wall)."""
+    per window, the device's busy share of the bare wall, and the routing
+    stage's device time and launches a window, with the slots it placed,
+    counted after the profiled windows)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -184,15 +231,36 @@ def profile_windows(n_hosts: int = 32768, windows: int = 16, *,
     state, extras, _eg, _in = chain(state, extras, windows, 2 * windows)
     _sync(device)
     wall_ms = (time.perf_counter() - t0) * 1e3 / windows
+    takes = []
     with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+                             ProfilerActivity.CUDA]) as prof, \
+            _routing_stage_ranges(takes):
         state, extras, _eg, _in = chain(state, extras, 2 * windows,
                                         3 * windows)
         _sync(device)
+    events = prof.events()
+    # device work: kernels and copies; the ranges' device-side spans are
+    # not work
+    on_card = [ev for ev in events if ev.device_type == DeviceType.CUDA
+               and ev.name != ROUTING_STAGE and not ev.is_user_annotation]
     kernels: dict[str, list[float]] = {}
-    for ev in prof.events():
-        if ev.device_type == DeviceType.CUDA:
-            kernels.setdefault(ev.name, []).append(ev.time_range.elapsed_us())
+    for ev in on_card:
+        kernels.setdefault(ev.name, []).append(ev.time_range.elapsed_us())
+    # the stage's device work: what the runtime calls made inside a range
+    # launched (a call and its kernel share a correlation id), so kernels
+    # launched from ctypes count as PyTorch's do
+    stage = [(ev.time_range.start, ev.time_range.end) for ev in events
+             if ev.name == ROUTING_STAGE and ev.device_type == DeviceType.CPU]
+    launched = {ev.id for ev in events
+                if ev.device_type == DeviceType.CPU
+                and ev.name.startswith("cu")
+                and any(s <= ev.time_range.start and ev.time_range.end <= e
+                        for s, e in stage)}
+    stage_kernels: dict[str, list[float]] = {}
+    for ev in on_card:
+        if ev.id in launched:
+            stage_kernels.setdefault(ev.name, []).append(
+                ev.time_range.elapsed_us())
     busy_ms = sum(sum(v) for v in kernels.values()) / 1e3 / windows
     by_time = sorted(kernels.items(), key=lambda kv: -sum(kv[1]))
     return {
@@ -213,6 +281,19 @@ def profile_windows(n_hosts: int = 32768, windows: int = 16, *,
              "us_per_launch": sum(v) / len(v)}
             for name, v in kernels.items()
             if any(k in name for k in pipeline.LAUNCHES)],
+        "routing_stage": {
+            "ranges": len(stage),
+            "host_ms_per_window": sum(e - s for s, e in stage) / 1e3
+            / windows,
+            "device_ms_per_window": sum(map(sum, stage_kernels.values()))
+            / 1e3 / windows,
+            "launches_per_window": sum(map(len, stage_kernels.values()))
+            / windows,
+            "kernels": {name: len(v) / windows
+                        for name, v in stage_kernels.items()},
+            "placed_slots_per_window": sum(
+                int(t.sum(dtype=torch.int64)) for t in takes) / windows,
+        },
     }
 
 

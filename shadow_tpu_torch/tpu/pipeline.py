@@ -13,7 +13,9 @@ The fused pair (`window_step(kernel="pallas_fused")`), counterpart of
   `csrc/route_place.cu`, replacing `_place_kernel`): the cross-host
   exchange (`plane._routing_rank`, one flat sort plus bucket bounds)
   stays PyTorch; the kernel lands each destination row's bucket segment
-  of the arrival-sorted stream in its free slots.
+  of the arrival order in its free slots, reading each arrival through
+  the routing permutation, and updates the window's compacted ingress
+  rings in place.
 
 The split pair (`window_step(kernel="pallas")`), counterpart of
 `shadow_tpu/tpu/pallas_egress.py` and `pallas_route.py`:
@@ -24,8 +26,8 @@ The split pair (`window_step(kernel="pallas")`), counterpart of
   that order; the caller gathers the other columns.
 - `route_scatter` runs the same routing stage around kernel D
   (`scatter`, `csrc/route_scatter.cu`, replacing `_route_kernel`), with
-  the row order computed in PyTorch (no kernel A): kernel B's function,
-  one warp a destination row.
+  the row order computed in PyTorch (no kernel A): kernel B's function
+  and device code (`csrc/ring_place.cuh`), in place as well.
 
 Each kernel has its plain PyTorch version here, computing the same
 function. A wrapper given CPU tensors calls the plain version; given
@@ -202,90 +204,109 @@ def egress_rank_stage(valid, prio, nbytes, tsend, clamp, dst, seq, sock,
 
 
 # ---------------------------------------------------------------------------
-# kernel B: bucketed placement
+# kernels B and D: placement of the routed arrivals, in place
 # ---------------------------------------------------------------------------
 
 
-def place_plain(nv, lo, take_n, s_src, s_seq, s_sock, s_bytes, s_del,
-                b_src, b_seq, b_sock, b_bytes, b_del, b_valid):
-    """Kernel B's function in plain PyTorch: slots [nv, nv + take) of
-    each destination row read the CI-left-padded stream at
-    clip(lo + c + CI, 0, B2 - 1); every other slot keeps its base.
-    Returns (src, seq, sock, bytes, deliver, valid) [N, CI]."""
-    N, CI = b_src.shape
-    B2 = s_src.shape[0]
-    ccol = torch.arange(CI, dtype=torch.int32, device=b_src.device)
-    nv_, lo_, tk_ = nv[:, None], lo[:, None], take_n[:, None]
-    mask = (ccol >= nv_) & (ccol < nv_ + tk_)
-    idx = torch.clamp(lo_ + ccol + CI, 0, B2 - 1).to(torch.int64)
-    sel = lambda s, base: torch.where(mask, s[idx], base)
-    return (sel(s_src, b_src), sel(s_seq, b_seq), sel(s_sock, b_sock),
-            sel(s_bytes, b_bytes), sel(s_del, b_del), mask | b_valid)
+def place_plain(nv, offsets, take_n, o_pos, row_perm, eg_seq, eg_sock,
+                eg_bytes, deliver_rel, in_src, in_seq, in_sock, in_bytes,
+                in_deliver, in_valid):
+    """Kernel B's function in plain PyTorch, in place. Slot c of
+    destination row r is placed when nv <= c < nv + take; it takes
+    arrival j = offsets - nv + c of the arrival-sorted order, read
+    through the routing permutation: p = o_pos[j], its source row
+    src = p // CE and egress slot g = src * CE + row_perm.flat[p], so the
+    item (src, then eg_seq, eg_sock, eg_bytes and deliver_rel at g), all
+    five 0 for j outside [0, N*CE); the slot becomes valid. Every other
+    slot keeps its values, except that an invalid one gets deliver =
+    I32_MAX.
+
+    The six ingress tensors (src, seq, sock, bytes, deliver [N, CI]
+    int32, valid [N, CI] bool) are updated in place and returned in that
+    order: the caller hands over tensors that nothing reads afterwards."""
+    CI, CE = in_src.shape[1], row_perm.shape[1]
+    ccol = torch.arange(CI, dtype=torch.int64, device=in_src.device)
+    nv_ = nv.to(torch.int64)[:, None]
+    placed = (ccol >= nv_) & (ccol < nv_ + take_n[:, None])
+    j = offsets.to(torch.int64)[:, None] - nv_ + ccol
+    inside = placed & (j >= 0) & (j < o_pos.shape[0])
+    p = o_pos[torch.where(inside, j, 0)]
+    src = torch.div(p, CE, rounding_mode="floor")
+    g = src * CE + row_perm.reshape(-1)[p].to(torch.int64)
+    in_deliver.copy_(torch.where(in_valid, in_deliver, I32_MAX))
+    items = (src.to(torch.int32), *(c.reshape(-1)[g] for c in (
+        eg_seq, eg_sock, eg_bytes, deliver_rel)))
+    rings = (in_src, in_seq, in_sock, in_bytes, in_deliver)
+    for ring, item in zip(rings, items):
+        ring.copy_(torch.where(placed, torch.where(inside, item, 0), ring))
+    in_valid |= placed
+    return (*rings, in_valid)
 
 
-def _placement_checks(nv, lo, take_n, streams, bases, b_valid):
-    """The guards of kernels B and D. Returns (N, CI, B2, device)."""
-    N, CI = b_valid.shape
-    B2 = streams[0].shape[0]
-    dev = b_valid.device
-    for name, t in (("nv", nv), ("lo", lo), ("take", take_n)):
+def _placement_checks(nv, offsets, take_n, o_pos, row_perm, eg_seq, eg_sock,
+                      eg_bytes, deliver_rel, in_src, in_seq, in_sock,
+                      in_bytes, in_deliver, in_valid):
+    """The guards of kernels B and D: every argument of the dtype, shape,
+    device and layout the kernel reads, and six distinct ingress tensors
+    (they are written in place). Returns (N, CI, CE, device)."""
+    N, CI = in_valid.shape
+    CE = row_perm.shape[-1]
+    dev = in_valid.device
+    for name, t in (("nv", nv), ("offsets", offsets), ("take", take_n)):
         _check(name, t, torch.int32, (N,), dev)
-    for i, t in enumerate(streams):
-        _check(f"stream{i}", t, torch.int32, (B2,), dev)
-    for i, t in enumerate(bases):
-        _check(f"base{i}", t, torch.int32, (N, CI), dev)
-    _check("b_valid", b_valid, torch.bool, (N, CI), dev)
+    _check("o_pos", o_pos, torch.int64, (N * CE,), dev)
+    for name, t in (("row_perm", row_perm), ("eg_seq", eg_seq),
+                    ("eg_sock", eg_sock), ("eg_bytes", eg_bytes),
+                    ("deliver_rel", deliver_rel)):
+        _check(name, t, torch.int32, (N, CE), dev)
+    rings = dict(in_src=in_src, in_seq=in_seq, in_sock=in_sock,
+                 in_bytes=in_bytes, in_deliver=in_deliver)
+    for name, t in rings.items():
+        _check(name, t, torch.int32, (N, CI), dev)
+    _check("in_valid", in_valid, torch.bool, (N, CI), dev)
+    ptrs = {t.data_ptr() for t in (*rings.values(), in_valid)}
+    if len(ptrs) < 6 and in_valid.numel():
+        raise ValueError("placement: the six ingress tensors are updated in "
+                         "place and must be distinct")
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"placement: unsupported device {dev}")
-    return N, CI, B2, dev
+    return N, CI, CE, dev
 
 
-def _placement_outputs(N, CI, dev):
-    return tuple(torch.empty((N, CI), dtype=torch.int32, device=dev)
-                 for _ in range(5)) + (
-        torch.empty((N, CI), dtype=torch.bool, device=dev),)
-
-
-def place(nv, lo, take_n, s_src, s_seq, s_sock, s_bytes, s_del,
-          b_src, b_seq, b_sock, b_bytes, b_del, b_valid):
-    """Kernel B (see `place_plain`)."""
-    _require_pow2(b_valid.shape[1], "ingress capacity")
-    streams = (s_src, s_seq, s_sock, s_bytes, s_del)
-    bases = (b_src, b_seq, b_sock, b_bytes, b_del)
-    N, CI, B2, dev = _placement_checks(nv, lo, take_n, streams, bases,
-                                       b_valid)
+def _place_with(name: str, args):
+    N, CI, CE, dev = _placement_checks(*args)
     if dev.type == "cpu":
-        return place_plain(nv, lo, take_n, *streams, *bases, b_valid)
-    outs = _placement_outputs(N, CI, dev)
-    _launch("route_place", N, CI, B2, nv, lo, take_n, *streams, *bases,
-            b_valid, *outs)
-    return outs
+        return place_plain(*args)
+    _launch(name, N, CI, CE, *args)
+    return args[9:]
 
 
-# ---------------------------------------------------------------------------
-# kernel D: per-destination-row append
-# ---------------------------------------------------------------------------
+def place(nv, offsets, take_n, o_pos, row_perm, eg_seq, eg_sock, eg_bytes,
+          deliver_rel, in_src, in_seq, in_sock, in_bytes, in_deliver,
+          in_valid):
+    """Kernel B (see `place_plain`): updates the six ingress tensors in
+    place, writing only the slots that change, and returns them."""
+    return _place_with("route_place", (
+        nv, offsets, take_n, o_pos, row_perm, eg_seq, eg_sock, eg_bytes,
+        deliver_rel, in_src, in_seq, in_sock, in_bytes, in_deliver,
+        in_valid))
 
 
-# Kernel D computes kernel B's function, taken a row at a time (one warp
-# a destination row, only placed lanes reading the stream), so its plain
-# version is B's.
+# Kernel D computes kernel B's function, taken a row at a time, and runs
+# kernel B's device code (csrc/ring_place.cuh), so its plain version is
+# B's.
 scatter_plain = place_plain
 
 
-def scatter(nv, lo, take_n, s_src, s_seq, s_sock, s_bytes, s_del,
-            b_src, b_seq, b_sock, b_bytes, b_del, b_valid):
-    """Kernel D (see `scatter_plain`)."""
-    streams = (s_src, s_seq, s_sock, s_bytes, s_del)
-    bases = (b_src, b_seq, b_sock, b_bytes, b_del)
-    N, CI, B2, dev = _placement_checks(nv, lo, take_n, streams, bases,
-                                       b_valid)
-    if dev.type == "cpu":
-        return scatter_plain(nv, lo, take_n, *streams, *bases, b_valid)
-    outs = _placement_outputs(N, CI, dev)
-    _launch("route_scatter", N, CI, B2, nv, lo, take_n, *streams, *bases,
-            b_valid, *outs)
-    return outs
+def scatter(nv, offsets, take_n, o_pos, row_perm, eg_seq, eg_sock, eg_bytes,
+            deliver_rel, in_src, in_seq, in_sock, in_bytes, in_deliver,
+            in_valid):
+    """Kernel D (see `scatter_plain`): updates the six ingress tensors in
+    place, writing only the slots that change, and returns them."""
+    return _place_with("route_scatter", (
+        nv, offsets, take_n, o_pos, row_perm, eg_seq, eg_sock, eg_bytes,
+        deliver_rel, in_src, in_seq, in_sock, in_bytes, in_deliver,
+        in_valid))
 
 
 # ---------------------------------------------------------------------------
@@ -296,25 +317,16 @@ def scatter(nv, lo, take_n, s_src, s_seq, s_sock, s_bytes, s_del,
 def _placement_args(sent, eg_dst, eg_seq, eg_bytes, eg_sock, deliver_rel,
                     in_deliver_c, in_src_c, in_seq_c, in_sock_c, in_bytes_c,
                     in_valid_c, n_valid_in, row_perm):
-    """The exchange of the routing stage in PyTorch: `plane._routing_rank`
-    (the flat arrival sort and bucket bounds) and the arrival-sorted
-    payload streams, addressed through the composed permutation (sorted
-    position -> original slot) and padded by CI on both sides (padding is
-    never selected). Returns (the placement kernel's arguments,
-    overflow [N])."""
-    N, CE = eg_dst.shape
-    CI = in_src_c.shape[1]
+    """The exchange of the routing stage in PyTorch, `plane._routing_rank`
+    (the flat arrival sort and bucket bounds), and the placement kernel's
+    arguments: the routing tensors themselves, which the kernel reads
+    through the permutation. Returns (arguments, overflow [N])."""
     row_perm, o_pos, offsets, take_n, overflow = _routing_rank(
-        sent, eg_dst, eg_seq, deliver_rel, n_valid_in, CI, row_perm)
-    src_row = torch.div(o_pos, CE, rounding_mode="floor")
-    g = src_row * CE + row_perm.reshape(-1).to(torch.int64)[o_pos]
-    pad = lambda a: torch.nn.functional.pad(a, (CI, CI))
-    stream = lambda a: pad(a.reshape(-1)[g])
-    args = (n_valid_in, offsets - n_valid_in, take_n,
-            pad(src_row.to(torch.int32)), stream(eg_seq), stream(eg_sock),
-            stream(eg_bytes), stream(deliver_rel), in_src_c, in_seq_c,
-            in_sock_c, in_bytes_c,
-            torch.where(in_valid_c, in_deliver_c, I32_MAX), in_valid_c)
+        sent, eg_dst, eg_seq, deliver_rel, n_valid_in, in_src_c.shape[1],
+        row_perm)
+    args = (n_valid_in, offsets, take_n, o_pos, row_perm, eg_seq, eg_sock,
+            eg_bytes, deliver_rel, in_src_c, in_seq_c, in_sock_c, in_bytes_c,
+            in_deliver_c, in_valid_c)
     return args, overflow
 
 
@@ -326,7 +338,9 @@ def route_place(sent, eg_dst, eg_seq, eg_bytes, eg_sock, deliver_rel,
     compacted ingress. `row_perm` is kernel A's seq order. `plain=True`
     runs kernel B's plain version whatever the device. Returns the merged
     ingress columns (src, seq, sock, bytes, deliver, valid) + overflow
-    [N]."""
+    [N]. The merged columns are the compacted ingress tensors given,
+    updated in place (the JAX function returns new arrays): pass tensors
+    that nothing reads afterwards, as `window_step`'s own are."""
     _require_pow2(in_src_c.shape[1], "ingress capacity")
     args, overflow = _placement_args(
         sent, eg_dst, eg_seq, eg_bytes, eg_sock, deliver_rel, in_deliver_c,
@@ -342,7 +356,9 @@ def route_scatter(sent, eg_dst, eg_seq, eg_bytes, eg_sock, deliver_rel,
     """The split path's routing stage through kernel D: bitwise the JAX
     plane's `_route_scatter` (packed sort), with the seq row order
     computed here. `plain=True` runs kernel D's plain version whatever
-    the device. Returns the merged ingress columns + overflow [N]."""
+    the device. Returns the merged ingress columns + overflow [N]; like
+    `route_place`, it updates the compacted ingress tensors in place and
+    returns them."""
     args, overflow = _placement_args(
         sent, eg_dst, eg_seq, eg_bytes, eg_sock, deliver_rel, in_deliver_c,
         in_src_c, in_seq_c, in_sock_c, in_bytes_c, in_valid_c, n_valid_in,

@@ -11,6 +11,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_parity import placement_inputs  # noqa: E402
+
 from shadow_tpu_torch import bench, convert  # noqa: E402
 from shadow_tpu_torch.tpu import pipeline  # noqa: E402
 
@@ -64,34 +66,24 @@ def test_egress_gate_kernel_matches_plain(cuda, ce):
         assert g.dtype == r.dtype and torch.equal(g, r)
 
 
-def placement_args(n, ce, ci, device, seed=0):
-    """Kernel B's and D's inputs as the routing stage makes them: bucket
-    segments that tile the N*CE arrival slots, rows whose arrivals
-    overflow the ring, random streams and bases."""
-    rng = np.random.default_rng(seed)
-    nv = rng.integers(0, ci + 1, n)
-    counts = rng.poisson(ce * 0.8, n)
-    hot = rng.random(n) < 1 / 8
-    counts[hot] += rng.integers(ci, 2 * ci, hot.sum())
-    counts = np.minimum(counts, np.maximum(
-        0, n * ce - (np.cumsum(counts) - counts)))
-    offsets = np.cumsum(counts) - counts
-    t = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
-    b2 = n * ce + 2 * ci
-    return (t(nv), t(offsets - nv), t(np.minimum(counts, ci - nv)),
-            *(t(rng.integers(-2**31, 2**31 - 1, b2)) for _ in range(5)),
-            *(t(rng.integers(-2**31, 2**31 - 1, (n, ci))) for _ in range(5)),
-            torch.from_numpy(rng.random((n, ci)) < 0.5).to(device))
-
-
 @pytest.mark.parametrize("ce,ci", [(8, 4), (16, 32), (64, 64)])
-def test_route_scatter_kernel_matches_plain(cuda, ce, ci):
-    args = placement_args(300, ce, ci, cuda, seed=ce + ci)
-    before = pipeline.LAUNCHES["route_scatter"]
-    got = pipeline.scatter(*args)
-    ref = pipeline.scatter_plain(*args)
+@pytest.mark.parametrize("name,kernel,plain", [
+    ("route_place", pipeline.place, pipeline.place_plain),
+    ("route_scatter", pipeline.scatter, pipeline.scatter_plain)],
+    ids=["B", "D"])
+def test_route_scatter_kernel_matches_plain(cuda, ce, ci, name, kernel,
+                                            plain):
+    """Kernels B and D against their plain version, each on its own clone
+    of the inputs (both update the ingress tensors in place)."""
+    args = [torch.from_numpy(a).to(cuda)
+            for a in placement_inputs(300, ce, ci, seed=ce + ci)]
+    mine = [a.clone() for a in args]
+    before = pipeline.LAUNCHES[name]
+    got = kernel(*mine)
+    ref = plain(*[a.clone() for a in args])
     torch.cuda.synchronize()
-    assert pipeline.LAUNCHES["route_scatter"] == before + 1
+    assert pipeline.LAUNCHES[name] == before + 1
+    assert [g.data_ptr() for g in got] == [a.data_ptr() for a in mine[9:]]
     for g, r in zip(got, ref):
         assert g.dtype == r.dtype and torch.equal(g, r)
 

@@ -95,3 +95,39 @@ def test_golden_phold_digest_matches_jax():
                           device="cpu", **size)
     assert convert.state_digest(res["state"]) == bench.GOLDEN_PHOLD_DIGEST
     assert res["events"] == res["delivered"] + res["sent"] > 0
+
+
+@pytest.mark.parametrize("kernel", ["pallas_fused", "pallas"])
+def test_routing_stage_range_spans_the_placement(kernel):
+    """`bench.profile_windows`' routing-stage range opens after the flat
+    routing sort and closes after the placement: one range a window,
+    holding the placement's ops but not the sort, with each window's take
+    kept for the placed-slot count; the pipeline's functions are put back
+    afterwards."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from shadow_tpu_torch.tpu import pipeline
+
+    world = tprofiling.build_world(32, n_nodes=8, egress_cap=8,
+                                   ingress_cap=8, warmup_windows=1,
+                                   device="cpu")
+    chain = bench.phold_chain_fn(world, kernel=kernel)
+    spawn = torch.full((32,), bench.SPAWN_SEQ0, dtype=torch.int32)
+    before = (pipeline._routing_rank, pipeline.place, pipeline.scatter)
+    takes = []
+    with profile(activities=[ProfilerActivity.CPU]) as prof, \
+            bench._routing_stage_ranges(takes):
+        chain(world["state"], (spawn, 0), 1, 4)
+    assert (pipeline._routing_rank, pipeline.place, pipeline.scatter) \
+        == before
+    stage = [ev for ev in prof.events() if ev.name == bench.ROUTING_STAGE]
+    assert len(stage) == len(takes) == 3
+    def subtree(ev):
+        yield ev
+        for child in ev.cpu_children:
+            yield from subtree(child)
+
+    ops = {op.name for ev in stage for op in subtree(ev)}
+    assert "aten::copy_" in ops and "aten::sort" not in ops, ops
+    assert all(t.shape == (32,) for t in takes)
+    assert sum(int(t.sum()) for t in takes) > 0

@@ -209,3 +209,13 @@ def test_library_path_hashes_included_headers(tmp_path, monkeypatch):
         assert after[name] != before[name], name
     for name in ("route_place", "route_scatter"):
         assert after[name] == before[name], name
+    # kernels B and D share csrc/ring_place.cuh
+    assert [p.name for p in _build._sources("route_scatter")] == [
+        "route_scatter.cu", "ring_place.cuh"]
+    header = tmp_path / "ring_place.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    again = {n: _build._library_path(n) for n in _build.SIGNATURES}
+    for name in ("route_place", "route_scatter"):
+        assert again[name] != after[name], name
+    for name in ("egress_rank", "egress_gate"):
+        assert again[name] == after[name], name
