@@ -33,7 +33,23 @@ the result lines are printed:
    elastic over R=192 in chains of 16 must grow a ring and end in the
    canonical state and delivered total of a fixed run pre-provisioned at
    its final caps; strict must raise CapacityError naming the chain;
-9. one JSON line describing every kernel, then the result line.
+9. the scenario corpus on the card: the six direct-transport entries of
+   `scenarios/` through the port's runner (`window_step(kernel="xla")`
+   with the metrics and histogram planes, `workload_step`), each record
+   carrying `scenarios/GOLDEN.json`'s three digests and equal to the same
+   run on the CPU, with no kernel launched; windows/s of each drive;
+10. the metrics plane on both kernel paths at the main path's width
+   (N=32768, CE=16, CI=32, R=16): the state equal to the metrics-off
+   run's, the metrics equal to those of the run through the plain
+   versions, each kernel of the pair launched R times;
+11. `kernel="xla"` at that width: the state of the fused path's run, no
+   kernel launched, and device kernels and busy ms a window of the XLA
+   and fused windows (`bench.profile_windows`);
+12. `onoff.yaml` widened to 16384 hosts (the N x N latency and loss
+   tables 1 GiB each on the card), 160 windows: two card runs with equal
+   records, every host done; the first 8 windows' record equal to the
+   CPU's; wall time and windows/s;
+13. one JSON line describing every kernel, then the result line.
 
 Usage: python3 chip_smoke.py   (from the repository root; one card).
 A fuller record of every measurement is printed on the `record:` line.
@@ -41,11 +57,13 @@ A fuller record of every measurement is printed on the `record:` line.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -68,6 +86,20 @@ PEAK_SHUFFLES_PER_S = 67e12 / 8
 L2_FLUSH_BYTES = 128 << 20  # over twice the H100's 50 MB L2
 NO_CLAMP = -(2**30)
 MS = 1_000_000
+CORPUS = Path(__file__).resolve().parent / "scenarios"
+# scenarios/onoff.yaml at a fleet size users run: the same pattern and
+# seed, 16384 hosts. onoff.yaml's 96 windows leave the hosts with the
+# longest bounded-Pareto OFF periods unfinished at this width (the last
+# finishes in window ~132), so the budget is 160 windows, again ~30
+# past the last completion as in onoff.yaml
+ONOFF_WIDE = {
+    "name": "onoff-16384", "family": "onoff", "seed": 23, "hosts": 16384,
+    "windows": 160,
+    "patterns": [{"kind": "onoff", "first": 0, "count": 16384,
+                  "bytes": 1400, "burst": 4, "rounds": 6, "gap_ns": 150000,
+                  "on_hold_ns": 2000000, "off_mean_ns": 20000000}],
+}
+ONOFF_CHECK_WINDOWS = 8
 
 
 def fail(msg: str):
@@ -486,6 +518,156 @@ def check_capacity(bench, convert, elastic, record):
           f"{strict['blamed_hosts']} hosts blamed)")
 
 
+def check_corpus(torch, pipeline, record, ident):
+    """Phase 9: the direct half of the scenario corpus on the card."""
+    from shadow_tpu_torch.workloads import runner, spec
+
+    golden = runner.load_golden(CORPUS / "GOLDEN.json")
+    rows = []
+    pipeline.reset_launches()
+    for path in sorted(CORPUS.glob("*.yaml")):
+        sp = spec.load_scenario_file(str(path))
+        if runner.runnable(sp) is not None:
+            continue
+        timings = {}
+        rec = runner.run_scenario(sp, timings=timings)
+        if any(pipeline.LAUNCHES.values()):
+            fail(f"the corpus run of {sp.name} launched kernels "
+                 f"{pipeline.LAUNCHES}; the XLA path launches none")
+        if runner.golden_entry(rec) != golden[sp.name]:
+            fail(f"{sp.name}: {runner.golden_entry(rec)} != golden "
+                 f"{golden[sp.name]}")
+        if rec != runner.run_scenario(sp, device="cpu"):
+            fail(f"{sp.name}: the card's record differs from the CPU's")
+        rate = sp.windows / timings["drive_s"]
+        rows.append(dict(name=sp.name, hosts=sp.n_hosts, windows=sp.windows,
+                         events=rec["events"], **timings,
+                         windows_per_s=rate))
+        print(f"corpus {sp.name}: golden ok, CPU record equal, 0 launches; "
+              f"{sp.windows} windows, drive {timings['drive_s']:.4f}s "
+              f"({rate:.1f} windows/s), setup {timings['setup_s']:.4f}s "
+              f"on {ident}")
+    if len(rows) != 6:
+        fail(f"ran {len(rows)} direct corpus entries, expected 6")
+    record["corpus"] = rows
+
+
+def check_metrics_paths(torch, bench, convert, pipeline, record):
+    """Phase 10: the metrics plane on both kernel paths at full width.
+    Returns the fused path's metrics-off digest."""
+    from shadow_tpu_torch.telemetry.metrics import PlaneMetrics
+
+    size = dict(n_nodes=N_NODES, egress_cap=EGRESS_CAP,
+                ingress_cap=INGRESS_CAP, warmup=False)
+    out = {}
+    for kernel, pair in (("pallas_fused", ("egress_rank", "route_place")),
+                         ("pallas", ("egress_gate", "route_scatter"))):
+        off = bench.run_phold(N_HOSTS, rounds=CHECK_ROUNDS, kernel=kernel,
+                              **size)
+        pipeline.reset_launches()
+        on = bench.run_phold(N_HOSTS, rounds=CHECK_ROUNDS, kernel=kernel,
+                             metrics=True, **size)
+        launches = dict(pipeline.LAUNCHES)
+        plain = bench.run_phold(N_HOSTS, rounds=CHECK_ROUNDS, kernel=kernel,
+                                metrics=True, plain_kernels=True, **size)
+        for name, count in launches.items():
+            want = CHECK_ROUNDS if name in pair else 0
+            if count != want:
+                fail(f"metrics run, kernel={kernel!r}: {name} launched "
+                     f"{count} times, expected {want}")
+        d_off = convert.state_digest(off["state"])
+        if convert.state_digest(on["state"]) != d_off:
+            fail(f"kernel={kernel!r}: the metrics changed the state")
+        for f in PlaneMetrics._fields:
+            if not torch.equal(getattr(on["metrics"], f),
+                               getattr(plain["metrics"], f)):
+                fail(f"kernel={kernel!r}: metrics.{f} differs from the "
+                     "plain versions' run")
+        m = on["metrics"]
+        out[kernel] = dict(digest=d_off, launches=launches,
+                           windows=int(m.windows), events=int(m.events),
+                           pkts_out=int(m.pkts_out.sum()),
+                           drop_loss=int(m.drop_loss.sum()))
+        print(f"metrics, kernel={kernel}: N={N_HOSTS} R={CHECK_ROUNDS}: state "
+              f"equal to the metrics-off run, metrics equal to the plain "
+              f"versions' ({out[kernel]['events']} events), launches "
+              f"{launches}")
+    record["metrics_paths"] = out
+    return out["pallas_fused"]["digest"]
+
+
+def check_xla_path(torch, bench, convert, pipeline, record, ident,
+                   fused_digest):
+    """Phase 11: the XLA step at full width, and its window profile beside
+    the fused one."""
+    pipeline.reset_launches()
+    res = bench.run_phold(N_HOSTS, rounds=CHECK_ROUNDS, kernel="xla",
+                          n_nodes=N_NODES, egress_cap=EGRESS_CAP,
+                          ingress_cap=INGRESS_CAP, warmup=False)
+    if any(pipeline.LAUNCHES.values()):
+        fail(f"kernel='xla' launched {pipeline.LAUNCHES}")
+    if convert.state_digest(res["state"]) != fused_digest:
+        fail("kernel='xla' at N=32768 ends in another state than the fused "
+             "path")
+    prof = {}
+    for kernel in ("xla", "pallas_fused"):
+        p = bench.profile_windows(N_HOSTS, CHECK_ROUNDS, n_nodes=N_NODES,
+                                  egress_cap=EGRESS_CAP,
+                                  ingress_cap=INGRESS_CAP, kernel=kernel)
+        prof[kernel] = {k: p[k] for k in (
+            "wall_ms_per_window", "device_busy_ms_per_window",
+            "device_busy_share", "kernel_launches_per_window",
+            "top_kernels")}
+        print(f"profile, kernel={kernel}: N={N_HOSTS} CE={EGRESS_CAP} "
+              f"CI={INGRESS_CAP}: {p['kernel_launches_per_window']:.1f} "
+              f"device kernels a window, device busy "
+              f"{p['device_busy_ms_per_window']:.5f} ms a window, wall "
+              f"{p['wall_ms_per_window']:.4f} ms a window on {ident}")
+    record["xla_path"] = dict(digest=fused_digest, wall_s=res["wall_s"],
+                              profile=prof)
+    print(f"kernel=xla, N={N_HOSTS} R={CHECK_ROUNDS}: the fused path's state, "
+          f"0 launches")
+
+
+def check_wide_scenario(torch, record, ident):
+    """Phase 12: onoff at 16384 hosts."""
+    from shadow_tpu_torch.workloads import runner, spec
+
+    sp = spec.parse_scenario(ONOFF_WIDE)
+    torch.cuda.reset_peak_memory_stats()
+    recs, runs = [], []
+    for _ in range(2):
+        timings = {}
+        recs.append(runner.run_scenario(sp, timings=timings))
+        runs.append(timings)
+    peak = torch.cuda.max_memory_allocated()
+    if recs[0] != recs[1]:
+        fail("two card runs of onoff-16384 gave different records")
+    if not recs[0]["all_done"]:
+        fail(f"onoff-16384: {recs[0]['completed_hosts']} of "
+             f"{recs[0]['participants']} hosts done")
+    short = dataclasses.replace(sp, windows=ONOFF_CHECK_WINDOWS)
+    card8 = runner.run_scenario(short)
+    cpu8 = runner.run_scenario(short, device="cpu")
+    if card8 != cpu8:
+        fail(f"onoff-16384 after {ONOFF_CHECK_WINDOWS} windows: the card's "
+             "record differs from the CPU's")
+    rates = [sp.windows / t["drive_s"] for t in runs]
+    record["onoff_wide"] = dict(
+        hosts=sp.n_hosts, windows=sp.windows, runs=runs,
+        windows_per_s=rates, events=recs[0]["events"],
+        table_bytes=2 * sp.n_hosts * sp.n_hosts * 4,
+        peak_device_bytes=peak, digest=recs[0]["canonical_digest"],
+        check_digest=card8["canonical_digest"])
+    print(f"onoff-16384: two card runs equal, all {recs[0]['participants']} "
+          f"hosts done, {recs[0]['events']} events; first "
+          f"{ONOFF_CHECK_WINDOWS} windows equal the CPU's; drive "
+          f"{runs[0]['drive_s']:.3f}s, {runs[1]['drive_s']:.3f}s "
+          f"({rates[0]:.2f}, {rates[1]:.2f} windows/s), setup "
+          f"{runs[0]['setup_s']:.3f}s; peak device memory {peak} B on "
+          f"{ident}")
+
+
 def kernel_entry(name, source, replaces, launches, row):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -538,6 +720,12 @@ def main():
     split = check_main_path(torch, bench, convert, pipeline, record, ident,
                             "pallas", ("egress_gate", "route_scatter"))
     check_capacity(bench, convert, elastic, record)
+    check_corpus(torch, pipeline, record, ident)
+    fused_digest = check_metrics_paths(torch, bench, convert, pipeline,
+                                       record)
+    check_xla_path(torch, bench, convert, pipeline, record, ident,
+                   fused_digest)
+    check_wide_scenario(torch, record, ident)
 
     kernels = [
         kernel_entry("egress_rank_kernel",

@@ -1,9 +1,10 @@
 """PyTorch/CUDA port of the shadow_tpu device network plane.
 
 The JAX package `shadow_tpu` stays the reference; this package computes
-the same plane bitwise with PyTorch tensors, and runs the two Pallas
-kernels of the PHOLD main path as hand-written CUDA kernels for Hopper
-(`csrc/`). It imports nothing of `shadow_tpu` and no JAX.
+the same plane bitwise with PyTorch tensors, runs the JAX package's four
+Pallas kernels as hand-written CUDA kernels for Hopper (`csrc/`), and
+runs the direct-transport half of the scenario corpus (`workloads/`).
+It imports nothing of `shadow_tpu` and no JAX.
 
 Every entry point takes `device=None`, which means the CUDA card. With
 no card the call raises unless the caller asks for the CPU explicitly

@@ -1,14 +1,15 @@
 """PHOLD device-plane throughput: the port's twin of `bench.py`'s solo run.
 
-Every round is `window_step` (FIFO, kernel pair "pallas_fused" or
-"pallas") + the PHOLD respawn + `ingest_rows`, driven in chains by
+Every round is `window_step` (FIFO, kernel "pallas_fused" or "pallas",
+a CUDA kernel pair, or "xla", the plain PyTorch step that is the JAX
+bench's default) + the PHOLD respawn + `ingest_rows`, driven in chains by
 `tpu/elastic.drive_chained_windows`, under the capacity policy "fixed",
 "strict" or "elastic" as `bench.py`'s BENCH_CAPACITY. The metric is
 `packet_events_per_sec`, counted as `bench.py` counts it: (delivered +
 sent packets) over the wall seconds of a timed run, after one untimed
 run that builds the kernels and warms the card up.
 
-    python -m shadow_tpu_torch.bench [--kernel pallas_fused|pallas]
+    python -m shadow_tpu_torch.bench [--kernel pallas_fused|pallas|xla]
         [--capacity fixed|strict|elastic] [--egress-cap CE]
         [--ingress-cap CI] [--max-doublings K] [--grow-every R]
         [--profile WINDOWS] [--out FILE]
@@ -25,7 +26,8 @@ from . import resolve_device
 from .core.capacity import CAPACITY_MODES
 from .tpu import pipeline
 from .tpu.elastic import RingPolicy, chain_spans, drive_chained_windows
-from .tpu.plane import KERNELS, ingest_rows, window_step
+from .telemetry.metrics import make_metrics
+from .tpu.plane import KERNELS, ingest_rows, unpack_planes, window_step
 from .tpu.profiling import build_world
 from .workloads.phold import respawn_batch
 
@@ -46,50 +48,62 @@ def phold_chain_fn(world: dict, *, kernel: str = "pallas_fused",
                    plain_kernels: bool = False):
     """The bench's chain body: windows r0..r1-1 of the PHOLD closed loop,
     with one host read (the chain's delivered count) at the end. extras
-    = (spawn_seq [N] int32, delivered total int). Returns the driver's
+    = (spawn_seq [N] int32, delivered total int[, metrics]): a
+    `PlaneMetrics` third element rides `window_step` and `ingest_rows`,
+    as the JAX bench's telemetry run threads it. Returns the driver's
     4-tuple; the overflows are each ring's drops over the chain, the
     egress ring's from the respawn append and the ingress ring's from
     the routing stage, as `bench.py`'s round body accumulates them."""
     params, seed, window = world["params"], world["rng_root"], world["window"]
 
     def chain_fn(state, extras, r0, r1):
-        spawn_seq, total = extras
+        spawn_seq, total, *planes = extras
+        metrics = planes[0] if planes else None
         N, CI = state.in_src.shape
         zeros = lambda dt: torch.zeros(N, dtype=dt, device=spawn_seq.device)
         n_delivered = zeros(torch.int64).sum()
         eg_acc, in_acc = zeros(torch.int32), zeros(torch.int32)
         for r in range(r0, r1):
             dropped = state.n_overflow_dropped
-            state, delivered, _next = window_step(
+            out = window_step(
                 state, params, seed, 0 if r == 0 else window, window,
-                rr_enabled=False, kernel=kernel, plain_kernels=plain_kernels)
+                rr_enabled=False, kernel=kernel, plain_kernels=plain_kernels,
+                metrics=metrics)
+            (state, delivered, _next), metrics, *_ = unpack_planes(
+                out, metrics=metrics)
             in_acc = in_acc + (state.n_overflow_dropped - dropped)
             dropped = state.n_overflow_dropped
             mask, dst, nbytes, seq, ctrl = respawn_batch(
                 delivered, spawn_seq, r, N, CI)
-            state = ingest_rows(state, dst, nbytes, seq, seq, ctrl, mask)
+            out = ingest_rows(state, dst, nbytes, seq, seq, ctrl, mask,
+                              metrics=metrics)
+            (state,), metrics, *_ = unpack_planes(out, metrics=metrics,
+                                                  n_lead=1)
             eg_acc = eg_acc + (state.n_overflow_dropped - dropped)
             spawn_seq = spawn_seq + mask.sum(dim=1, dtype=torch.int32)
             n_delivered = n_delivered + mask.sum()
-        return (state, (spawn_seq, total + int(n_delivered)), eg_acc,
-                in_acc)
+        extras = (spawn_seq, total + int(n_delivered),
+                  *((metrics,) if planes else ()))
+        return state, extras, eg_acc, in_acc
     return chain_fn
 
 
 def run_chain(world: dict, rounds: int, chain_len: int | None = None, *,
               kernel: str = "pallas_fused", plain_kernels: bool = False,
-              policy: RingPolicy | None = None):
+              policy: RingPolicy | None = None, metrics=None):
     """Drive `rounds` PHOLD windows on `world`, under `policy` when one
-    is given; returns (final state, delivered total)."""
+    is given, with `metrics` (a `PlaneMetrics`) threaded when given;
+    returns (final state, delivered total[, metrics'])."""
     state = world["state"]
     spawn_seq = torch.full((state.in_src.shape[0],), SPAWN_SEQ0,
                            dtype=torch.int32, device=state.in_src.device)
-    state, (_spawn, total) = drive_chained_windows(
-        state, (spawn_seq, 0),
+    planes = (metrics,) if metrics is not None else ()
+    state, (_spawn, total, *planes) = drive_chained_windows(
+        state, (spawn_seq, 0, *planes),
         phold_chain_fn(world, kernel=kernel, plain_kernels=plain_kernels),
         n_rounds=rounds, chain_len=chain_len or rounds, policy=policy,
         window_ns=world["window"])
-    return state, total
+    return (state, total, *planes)
 
 
 def _sync(device: torch.device):
@@ -102,15 +116,17 @@ def run_phold(n_hosts: int = 32768, n_nodes: int = 64, egress_cap: int = 16,
               chain_len: int | None = None, *, kernel: str = "pallas_fused",
               capacity: str = "fixed", max_doublings: int = 4,
               grow_every: int = 16, device=None, warmup: bool = True,
-              plain_kernels: bool = False) -> dict:
+              plain_kernels: bool = False, metrics: bool = False) -> dict:
     """The PHOLD closed loop at the bench's size, seed 0 as in `bench.py`.
     Under capacity "strict" or "elastic" the chains are `grow_every`
     windows long (the growth-decision unit) and a fresh `RingPolicy`
     starts from (egress_cap, ingress_cap) in each run. With `warmup`, one
-    untimed run builds and warms up before the timed one. Returns the
-    final state, the delivered and sent totals, the timed run's wall
-    seconds and packet_events_per_sec, and the kernel, capacity and
-    driver records of `bench.py`'s JSON."""
+    untimed run builds and warms up before the timed one. `metrics`
+    threads a `PlaneMetrics` through the timed run's windows and appends
+    (the tuple is `metrics` in the result). Returns the final state, the
+    delivered and sent totals, the timed run's wall seconds and
+    packet_events_per_sec, and the kernel, capacity and driver records of
+    `bench.py`'s JSON."""
     if kernel not in KERNELS:
         raise ValueError(f"kernel: expected one of {KERNELS}, got {kernel!r}")
     if capacity not in CAPACITY_MODES:
@@ -126,13 +142,14 @@ def run_phold(n_hosts: int = 32768, n_nodes: int = 64, egress_cap: int = 16,
         ingress_cap=ingress_cap, plane="bench"))
     run = lambda world, policy: run_chain(
         world, rounds, chain_len, kernel=kernel,
-        plain_kernels=plain_kernels, policy=policy)
+        plain_kernels=plain_kernels, policy=policy,
+        metrics=make_metrics(n_hosts, device=device) if metrics else None)
     if warmup:
         run(build_world(n_hosts, **size), make_policy())
     world, policy = build_world(n_hosts, **size), make_policy()
     _sync(device)
     t0 = time.perf_counter()
-    state, delivered = run(world, policy)
+    state, delivered, *planes = run(world, policy)
     _sync(device)
     wall = time.perf_counter() - t0
     sent = int(state.n_sent.sum())
@@ -145,7 +162,8 @@ def run_phold(n_hosts: int = 32768, n_nodes: int = 64, egress_cap: int = 16,
                                   "ingress_cap": policy.ingress_cap}
     n_chains = len(chain_spans(rounds, chain_len))
     return {
-        "state": state, "delivered": delivered, "sent": sent,
+        "state": state, "metrics": planes[0] if planes else None,
+        "delivered": delivered, "sent": sent,
         "events": delivered + sent, "wall_s": wall,
         "packet_events_per_sec": (delivered + sent) / wall,
         "n_hosts": n_hosts, "rounds": rounds, "chain_len": chain_len,
@@ -182,10 +200,10 @@ def _routing_stage_ranges(takes: list):
         return out
 
     def placing(fn):
-        def run(*args):
+        def run(*args, **kw):
             takes.append(args[2])
             try:
-                return fn(*args)
+                return fn(*args, **kw)
             finally:
                 open_ranges.pop().__exit__(None, None, None)
         return run
@@ -303,7 +321,8 @@ def main(argv=None):
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernel", choices=KERNELS, default="pallas_fused",
-                    help="the window step's kernel pair")
+                    help="the window step's kernel pair, or xla (no "
+                         "kernel)")
     ap.add_argument("--capacity", choices=CAPACITY_MODES, default="fixed",
                     help="the ring capacity policy")
     ap.add_argument("--egress-cap", type=int, default=16)
@@ -320,7 +339,7 @@ def main(argv=None):
                     kernel=args.kernel, capacity=args.capacity,
                     max_doublings=args.max_doublings,
                     grow_every=args.grow_every)
-    rec = {k: v for k, v in res.items() if k != "state"}
+    rec = {k: v for k, v in res.items() if k not in ("state", "metrics")}
     if torch.cuda.is_available():
         rec["gpu"] = torch.cuda.get_device_name(0)
     if args.profile:

@@ -3,8 +3,10 @@
 A state as numpy is a dict of arrays keyed by `NetPlaneState` field,
 with `router` a dict keyed by `RouterDownState` field: the JAX plane's
 NamedTuples converted leaf by leaf (`st._asdict()`), dtypes unchanged
-(bool stays bool, int32 int32, float32 float32). `state_digest` hashes
-that layout, so one digest names a state in either package.
+(bool stays bool, int32 int32, float32 float32). The flat planes
+(`PlaneMetrics`, `PlaneHistograms`, `WorkloadState`) go as dicts keyed
+by field. `state_digest` hashes that layout, so one digest names a state
+in either package; `digest_pytrees` is the scenario runner's digest.
 """
 
 from __future__ import annotations
@@ -44,21 +46,58 @@ def state_to_numpy(state: NetPlaneState) -> dict:
     return out
 
 
+def tuple_to_numpy(t) -> dict:
+    """A flat NamedTuple of tensors (`PlaneMetrics`, `PlaneHistograms`,
+    `WorkloadState`) as a numpy dict in field order."""
+    return {f: getattr(t, f).detach().cpu().numpy() for f in t._fields}
+
+
+def tuple_from_numpy(cls, d: dict, device):
+    """The inverse of `tuple_to_numpy` for the NamedTuple class `cls`;
+    `d` may be the JAX twin's `_asdict()`."""
+    return cls(**{f: _tensor(d[f], device) for f in cls._fields})
+
+
+def _leaves(tree, prefix=""):
+    """(name, numpy array) of every leaf, in the order `jax.tree.leaves`
+    gives the JAX twin: a NamedTuple's fields in order, a nested one
+    (the state's `router`) in its field's place. A state's numpy dict is
+    walked in `NetPlaneState` field order."""
+    if isinstance(tree, dict):
+        for f in NetPlaneState._fields:
+            if f == "router":
+                for g in RouterDownState._fields:
+                    yield f"router.{g}", np.asarray(tree["router"][g])
+            else:
+                yield f, np.asarray(tree[f])
+        return
+    for f in tree._fields:
+        v = getattr(tree, f)
+        if isinstance(v, tuple):
+            yield from _leaves(v, f"{prefix}{f}.")
+        else:
+            yield f"{prefix}{f}", v.detach().cpu().numpy()
+
+
 def state_digest(state) -> str:
     """sha256 over every state leaf in field order (name, dtype, shape,
     bytes); takes a `NetPlaneState` or its numpy dict."""
-    d = state_to_numpy(state) if isinstance(state, NetPlaneState) else state
     h = hashlib.sha256()
-
-    def leaf(name, a):
+    for name, a in _leaves(state):
         a = np.ascontiguousarray(a)
         h.update(f"{name}:{a.dtype.str}:{a.shape};".encode())
         h.update(a.tobytes())
+    return h.hexdigest()
 
-    for f in NetPlaneState._fields:
-        if f == "router":
-            for g in RouterDownState._fields:
-                leaf(f"router.{g}", d["router"][g])
-        else:
-            leaf(f, d[f])
+
+def digest_pytrees(*trees) -> str:
+    """sha256 over every leaf of the trees, in order: the numpy dtype
+    name, then the raw bytes. The bytes the JAX package's
+    `workloads.runner.digest_pytrees` hashes for the twin pytrees, so
+    the scenario corpus's canonical digests agree across packages."""
+    h = hashlib.sha256()
+    for tree in trees:
+        for _name, a in _leaves(tree):
+            h.update(str(a.dtype).encode())
+            h.update(np.ascontiguousarray(a).tobytes())
     return h.hexdigest()

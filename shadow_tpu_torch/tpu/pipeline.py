@@ -31,8 +31,15 @@ The split pair (`window_step(kernel="pallas")`), counterpart of
 
 Each kernel has its plain PyTorch version here, computing the same
 function. A wrapper given CPU tensors calls the plain version; given
-CUDA tensors it launches the kernel, or raises. `LAUNCHES` counts the
-kernel launches, and nothing else.
+CUDA tensors it launches the kernel, or raises, unless the caller asks
+for the plain version (`plain=True`, `window_step(plain_kernels=True)`).
+`LAUNCHES` counts the kernel launches, and nothing else.
+
+The split pair's plain versions are also the JAX XLA path's egress and
+routing stages: `egress_gate_plain` is `_egress_order` + `_token_gate`
+(with the round-robin tiebreak key), and `route_scatter(plain=True)` is
+`_route_scatter`, so `window_step(kernel="xla")` runs them and launches
+no kernel.
 """
 
 from __future__ import annotations
@@ -43,7 +50,8 @@ import torch
 
 from .._build import load_kernel
 from .plane import _routing_rank, _seq_row_order
-from .prims import _SIGN32, I32_MAX, NO_CLAMP, take, u32, wrap_i32
+from .prims import (_SIGN32, I32_MAX, NO_CLAMP, _row_perm_sort, take, u32,
+                    wrap_i32)
 
 # kernel launches since the last reset, by kernel name
 LAUNCHES = {"egress_rank": 0, "route_place": 0, "egress_gate": 0,
@@ -120,17 +128,24 @@ def _launch(name: str, *args):
 
 
 def egress_gate_plain(valid, prio, nbytes, tsend, clamp, balance,
-                      shift_ns: int):
-    """Kernel C's function in plain PyTorch. Returns (perm [N, CE] int32,
-    bytes_s, tsend_s, clamp_s int32, valid_s, sendable bool [N, CE],
-    spent [N] int32): the FIFO order by (validity | priority, column)
-    and the rebased carried columns in it, the token gate, and each
-    row's spent bytes."""
+                      shift_ns: int, *, tiebreak=None):
+    """Kernel C's function in plain PyTorch, and the JAX XLA path's
+    egress stage (`_egress_order` + `_token_gate`, packed keys). Returns
+    (perm [N, CE] int32, bytes_s, tsend_s, clamp_s int32, valid_s,
+    sendable bool [N, CE], spent [N] int32): the order by (validity |
+    priority[, tiebreak], column) and the rebased carried columns in it,
+    the token gate, and each row's spent bytes. `tiebreak` is the
+    round-robin qdisc's socket key (`plane._qdisc_keys`), None for FIFO,
+    which is all kernel C takes."""
     tsend_rb = torch.where(valid, tsend - shift_ns, 0)
     clamp_rb = torch.where(valid & (clamp != NO_CLAMP), clamp - shift_ns,
                            clamp)
     key = torch.where(valid, 0, _SIGN32) | u32(prio)
-    key_s, perm = torch.sort(key, dim=1, stable=True)
+    if tiebreak is None:
+        key_s, perm = torch.sort(key, dim=1, stable=True)
+    else:
+        perm = _row_perm_sort(key, tiebreak)
+        key_s = take(key, perm)
     # validity comes back from the key's top bit, as in the TPU kernel
     valid_s = (key_s & _SIGN32) == 0
     bytes_s = take(nbytes, perm)
@@ -273,9 +288,9 @@ def _placement_checks(nv, offsets, take_n, o_pos, row_perm, eg_seq, eg_sock,
     return N, CI, CE, dev
 
 
-def _place_with(name: str, args):
+def _place_with(name: str, args, plain: bool):
     N, CI, CE, dev = _placement_checks(*args)
-    if dev.type == "cpu":
+    if plain or dev.type == "cpu":
         return place_plain(*args)
     _launch(name, N, CI, CE, *args)
     return args[9:]
@@ -283,13 +298,14 @@ def _place_with(name: str, args):
 
 def place(nv, offsets, take_n, o_pos, row_perm, eg_seq, eg_sock, eg_bytes,
           deliver_rel, in_src, in_seq, in_sock, in_bytes, in_deliver,
-          in_valid):
+          in_valid, *, plain: bool = False):
     """Kernel B (see `place_plain`): updates the six ingress tensors in
-    place, writing only the slots that change, and returns them."""
+    place, writing only the slots that change, and returns them.
+    `plain=True` runs the plain version whatever the device."""
     return _place_with("route_place", (
         nv, offsets, take_n, o_pos, row_perm, eg_seq, eg_sock, eg_bytes,
         deliver_rel, in_src, in_seq, in_sock, in_bytes, in_deliver,
-        in_valid))
+        in_valid), plain)
 
 
 # Kernel D computes kernel B's function, taken a row at a time, and runs
@@ -300,13 +316,14 @@ scatter_plain = place_plain
 
 def scatter(nv, offsets, take_n, o_pos, row_perm, eg_seq, eg_sock, eg_bytes,
             deliver_rel, in_src, in_seq, in_sock, in_bytes, in_deliver,
-            in_valid):
+            in_valid, *, plain: bool = False):
     """Kernel D (see `scatter_plain`): updates the six ingress tensors in
-    place, writing only the slots that change, and returns them."""
+    place, writing only the slots that change, and returns them.
+    `plain=True` runs the plain version whatever the device."""
     return _place_with("route_scatter", (
         nv, offsets, take_n, o_pos, row_perm, eg_seq, eg_sock, eg_bytes,
         deliver_rel, in_src, in_seq, in_sock, in_bytes, in_deliver,
-        in_valid))
+        in_valid), plain)
 
 
 # ---------------------------------------------------------------------------
@@ -346,8 +363,7 @@ def route_place(sent, eg_dst, eg_seq, eg_bytes, eg_sock, deliver_rel,
         sent, eg_dst, eg_seq, eg_bytes, eg_sock, deliver_rel, in_deliver_c,
         in_src_c, in_seq_c, in_sock_c, in_bytes_c, in_valid_c, n_valid_in,
         row_perm)
-    merged = place_plain(*args) if plain else place(*args)
-    return (*merged, overflow)
+    return (*place(*args, plain=plain), overflow)
 
 
 def route_scatter(sent, eg_dst, eg_seq, eg_bytes, eg_sock, deliver_rel,
@@ -356,12 +372,12 @@ def route_scatter(sent, eg_dst, eg_seq, eg_bytes, eg_sock, deliver_rel,
     """The split path's routing stage through kernel D: bitwise the JAX
     plane's `_route_scatter` (packed sort), with the seq row order
     computed here. `plain=True` runs kernel D's plain version whatever
-    the device. Returns the merged ingress columns + overflow [N]; like
-    `route_place`, it updates the compacted ingress tensors in place and
-    returns them."""
+    the device; it is also the JAX XLA path's `_route_scatter` (packed
+    sort), which `window_step(kernel="xla")` runs that way. Returns the
+    merged ingress columns + overflow [N]; like `route_place`, it updates
+    the compacted ingress tensors in place and returns them."""
     args, overflow = _placement_args(
         sent, eg_dst, eg_seq, eg_bytes, eg_sock, deliver_rel, in_deliver_c,
         in_src_c, in_seq_c, in_sock_c, in_bytes_c, in_valid_c, n_valid_in,
         None)
-    merged = scatter_plain(*args) if plain else scatter(*args)
-    return (*merged, overflow)
+    return (*scatter(*args, plain=plain), overflow)

@@ -1,12 +1,15 @@
 """Batched network-plane state and the per-window step, in PyTorch.
 
-The port of `shadow_tpu/tpu/plane.py` along the PHOLD main path: the
-params/state SoA, the flat and row-shaped egress appends, and the FIFO
-direct-delivery `window_step` (`rr_enabled=False`, `router_aqm=False`,
-packed sort keys, no presence planes), whose egress stage and routing
-placement run through the CUDA kernels of `tpu/pipeline.py`: the fused
-pair A and B (`kernel="pallas_fused"`) or the split pair C and D
-(`kernel="pallas"`).
+The port of `shadow_tpu/tpu/plane.py`: the params/state SoA, the flat
+and row-shaped egress appends, and the direct-delivery `window_step`
+(`router_aqm=False`, packed sort keys) with three kernels. The fused
+pair A and B (`kernel="pallas_fused"`) and the split pair C and D
+(`kernel="pallas"`) run the CUDA kernels of `tpu/pipeline.py`, FIFO
+only; `kernel="xla"`, the JAX package's own default, runs every stage
+in PyTorch with no kernel of the port (the split pair's plain versions)
+and adds the round-robin qdisc (`rr_enabled=True`). The metrics plane
+rides all three kernels, the histogram plane the XLA path only, as in
+the JAX package; `unpack_planes` splits what they append.
 
 Every result is bitwise the JAX plane's `window_step` with the same
 kernel: int32 state, int32 arithmetic that wraps where the JAX plane's
@@ -24,10 +27,13 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..telemetry import histo
+from ..telemetry.histo import PlaneHistograms
+from ..telemetry.metrics import PlaneMetrics
 from . import codel
 from .prims import (_SIGN32, I32_MAX, NO_CLAMP, _pack_rank_key,
                     _pack_time_key, _pkt_uniform, _row_perm_sort, floordiv,
-                    floormod, take, u32)
+                    floormod, take, u32, wrap_i32)
 
 # per-host socket-slot space of the round-robin qdisc's counters
 RR_SOCK_SLOTS = 16
@@ -172,14 +178,16 @@ def _arange(n: int, like: torch.Tensor, dtype=torch.int32) -> torch.Tensor:
 
 
 def ingest(state: NetPlaneState, src, dst, nbytes, prio, seq, ctrl,
-           valid=None, send_rel=None, clamp_rel=None,
-           sock=None) -> NetPlaneState:
+           valid=None, send_rel=None, clamp_rel=None, sock=None, *,
+           metrics: PlaneMetrics | None = None):
     """Append a flat batch of packets ([B] tensors, src = emitting host)
     to the egress rings after each row's valid entries, in (src, seq,
     batch position) order; what overflows a row is counted and dropped.
     The JAX plane's packed bucketed append: one stable sort on the
     composite key (src << 32 | seq ^ SIGN), binary-searched row bounds,
-    and one stacked gather of the payload columns."""
+    and one stacked gather of the payload columns. With `metrics` the
+    overflow also lands in `drop_ring_full` and the return is (state',
+    metrics')."""
     N, CE = state.eg_dst.shape
     if valid is not None:
         src = torch.where(valid, src, N)
@@ -220,21 +228,32 @@ def ingest(state: NetPlaneState, src, dst, nbytes, prio, seq, ctrl,
     gidx = torch.where(append, N * CE + stream_idx, rows * CE + ce_col)
     (eg_dst, eg_bytes, eg_prio, eg_seq, eg_ctrl_i, eg_tsend, eg_clamp,
      eg_sock, eg_valid_i) = combined[:, gidx.to(torch.int64)]
-    return state._replace(
+    new_state = state._replace(
         eg_dst=eg_dst, eg_bytes=eg_bytes, eg_prio=eg_prio, eg_seq=eg_seq,
         eg_ctrl=eg_ctrl_i != 0, eg_tsend=eg_tsend, eg_clamp=eg_clamp,
         eg_sock=eg_sock, eg_valid=eg_valid_i != 0,
         n_overflow_dropped=state.n_overflow_dropped + overflow,
     )
+    if metrics is None:
+        return new_state
+    return new_state, metrics._replace(
+        drop_ring_full=metrics.drop_ring_full + overflow)
 
 
 def ingest_rows(state: NetPlaneState, dst, nbytes, prio, seq, ctrl, valid,
-                send_rel=None, clamp_rel=None, sock=None) -> NetPlaneState:
+                send_rel=None, clamp_rel=None, sock=None, *,
+                metrics: PlaneMetrics | None = None,
+                hist: PlaneHistograms | None = None):
     """Append per-host batches ([N, K] tensors, row = emitting host)
     after each row's existing entries, in column order: the packed
     single-key merge (validity | column rank). The JAX plane's idle gate
     is not taken; the merge of an entry-free batch is the identity
-    (SL505), and skipping the gate avoids a host read."""
+    (SL505), and skipping the gate avoids a host read.
+
+    `metrics` adds the overflow to `drop_ring_full`; `hist` samples the
+    post-append egress occupancy into `hist_qdepth`. Neither touches the
+    state. Returns the bare state without them, else (state'[,
+    metrics'][, hist']) in the JAX plane's order."""
     N, CE = state.eg_dst.shape
     if send_rel is None:
         send_rel = torch.zeros_like(seq)
@@ -251,7 +270,7 @@ def ingest_rows(state: NetPlaneState, dst, nbytes, prio, seq, ctrl, valid,
     tk = lambda a, b: take(cat(a, b), perm)
     overflow = torch.clamp(valid_all.sum(dim=1, dtype=torch.int32) - CE,
                            min=0)
-    return state._replace(
+    new_state = state._replace(
         eg_dst=tk(state.eg_dst, dst), eg_bytes=tk(state.eg_bytes, nbytes),
         eg_prio=tk(state.eg_prio, prio), eg_seq=tk(state.eg_seq, seq),
         eg_ctrl=tk(state.eg_ctrl, ctrl),
@@ -261,6 +280,62 @@ def ingest_rows(state: NetPlaneState, dst, nbytes, prio, seq, ctrl, valid,
         eg_valid=tk(state.eg_valid, valid),
         n_overflow_dropped=state.n_overflow_dropped + overflow,
     )
+    out = (new_state,)
+    if metrics is not None:
+        out += (metrics._replace(
+            drop_ring_full=metrics.drop_ring_full + overflow),)
+    if hist is not None:
+        out += (hist._replace(hist_qdepth=histo.accum_depth(
+            hist.hist_qdepth,
+            new_state.eg_valid.sum(dim=1, dtype=torch.int32))),)
+    return out if len(out) > 1 else new_state
+
+
+_UNSET = object()
+
+
+def unpack_planes(out, *, metrics=None, guards=None, hist=None,
+                  flightrec=None, flows=_UNSET, compute=_UNSET,
+                  n_lead=3):
+    """Split a `window_step` (n_lead=3) or `ingest_rows` (n_lead=1)
+    output into its lead values and the presence planes' outputs, in the
+    order both append them: metrics, guards, hist, flightrec[, flows][,
+    compute]. Pass the presence values the call received: each non-None
+    plane comes back as its output, each None stays None. Passing
+    `flows` or `compute` (even None) adds its slot to the return."""
+    if type(out) is not tuple:
+        # a bare state (ingest_rows with no planes) is itself a
+        # NamedTuple, so the test is on the exact type
+        out = (out,)
+    lead, rest = out[:n_lead], list(out[n_lead:])
+    want = [metrics, guards, hist, flightrec]
+    if flows is not _UNSET:
+        want.append(flows)
+    if compute is not _UNSET:
+        want.append(compute)
+    planes = tuple(rest.pop(0) if p is not None else None for p in want)
+    if rest:
+        raise TypeError(
+            f"unpack_planes: {len(rest)} unclaimed kernel output(s): the "
+            "presence arguments do not match the kernel call's")
+    return (lead, *planes)
+
+
+def compact_delivered(delivered: dict, cap: int):
+    """A [N, CI] delivered dict as fixed-[cap] columns (count, dst, src,
+    seq, sock, deliver_rel) for a cheap read to the host: a stable sort
+    on the inverted mask front-packs the due slots in row-major order,
+    dst recovered from the flat index (-1 on dead slots). A count above
+    `cap` means the tail was cut."""
+    mask = delivered["mask"]
+    N, CI = mask.shape
+    flat = mask.reshape(-1)
+    n = flat.sum(dtype=torch.int32)
+    idx = torch.sort((~flat).to(torch.uint8), stable=True).indices[:cap]
+    pick = lambda a: a.reshape(-1)[idx]
+    dst = torch.where(pick(mask), floordiv(idx, CI).to(torch.int32), -1)
+    return (n, dst, pick(delivered["src"]), pick(delivered["seq"]),
+            pick(delivered["sock"]), pick(delivered["deliver_rel"]))
 
 
 # ---------------------------------------------------------------------------
@@ -282,6 +357,48 @@ def _refill_tokens(state: NetPlaneState, params: NetPlaneParams, shift_ns):
     elapsed_eff = torch.minimum(elapsed_ms, need_ms)
     balance = cap - torch.clamp(headroom - rate * elapsed_eff, min=0)
     return balance, tb_rem_ns
+
+
+def _qdisc_keys(state: NetPlaneState, params: NetPlaneParams, *,
+                rr_enabled: bool):
+    """Section 2a: per-slot qdisc sort keys. FIFO = packet priority (no
+    tiebreak); round-robin hosts (`params.qdisc_rr`) key each slot by its
+    socket slot's virtual-finish counter plus its rank among the
+    socket's earlier-seq packets (the [N, CE, CE] pairwise compare),
+    with the socket id as the tiebreak. Returns (qkey1, qkey2 or None,
+    rr_aux = (rr_base, vtime) or None)."""
+    if not rr_enabled:
+        return state.eg_prio, None, None
+    S = RR_SOCK_SLOTS
+    valid = state.eg_valid
+    sock_slot = torch.where(valid, floormod(state.eg_sock, S), S - 1)
+    slots = _arange(S, sock_slot)
+    # active sockets re-join at the current virtual time; rows with
+    # nothing queued reset to 0
+    active = ((sock_slot[:, :, None] == slots) & valid[:, :, None]).any(dim=1)
+    vtime = torch.where(active, state.rr_sent, I32_MAX).amin(dim=1)
+    vtime = torch.where(active.any(dim=1), vtime, 0)
+    rr_base = torch.maximum(state.rr_sent, vtime[:, None])
+    same_sock = sock_slot[:, :, None] == sock_slot[:, None, :]
+    both_valid = valid[:, :, None] & valid[:, None, :]
+    earlier = state.eg_seq[:, None, :] < state.eg_seq[:, :, None]
+    rr_rank = (same_sock & both_valid & earlier).sum(dim=2, dtype=torch.int32)
+    rr_key = take(rr_base, sock_slot.to(torch.int64)) + rr_rank
+    rr_mode = params.qdisc_rr[:, None]
+    qkey1 = torch.where(rr_mode, rr_key, state.eg_prio)
+    qkey2 = torch.where(rr_mode, state.eg_sock, 0)
+    return qkey1, qkey2, (rr_base, vtime)
+
+
+def _rr_advance(eg_sock, eg_valid, sendable, rr_aux):
+    """Section 2d: advance the RR virtual-finish counters by the packets
+    the gate let through, rebased to the floor so they stay bounded."""
+    S = RR_SOCK_SLOTS
+    rr_base, vtime = rr_aux
+    sent_slot = torch.where(eg_valid, floormod(eg_sock, S), S - 1)
+    sent_per_sock = ((sent_slot[:, :, None] == _arange(S, sent_slot))
+                     & sendable[:, :, None]).sum(dim=1, dtype=torch.int32)
+    return rr_base - vtime[:, None] + sent_per_sock
 
 
 def _loss_latency(state: NetPlaneState, params: NetPlaneParams, seed: int,
@@ -415,50 +532,110 @@ def _compact_egress(eg_prio, eg_dst, eg_bytes, eg_seq, eg_ctrl, eg_tsend,
         eg_clamp, eg_sock, eg_valid_left))
 
 
+def _row_sum_i32(x: torch.Tensor) -> torch.Tensor:
+    """Row sums modulo 2**32, as the JAX plane's int32 reductions wrap
+    (accumulated in int64, wrapped once)."""
+    return wrap_i32(x.sum(dim=1, dtype=torch.int64))
+
+
+def _accumulate_metrics(metrics: PlaneMetrics, state: NetPlaneState,
+                        sent, lost, due, overflowed, delivered, in_valid_m,
+                        eg_bytes) -> PlaneMetrics:
+    """Section 8: the telemetry counters, over values the step already
+    computed; nothing feeds back into the state. The router-drop and
+    fault-drop deltas are zero on the direct path without faults."""
+    sent_n = sent.sum(dim=1, dtype=torch.int32)
+    due_n = due.sum(dim=1, dtype=torch.int32)
+    occupancy = lambda v: v.sum(dim=1, dtype=torch.int32)
+    return PlaneMetrics(
+        pkts_out=metrics.pkts_out + sent_n,
+        bytes_out=metrics.bytes_out
+        + _row_sum_i32(torch.where(sent, eg_bytes, 0)),
+        pkts_in=metrics.pkts_in + due_n,
+        bytes_in=metrics.bytes_in
+        + _row_sum_i32(torch.where(delivered["mask"], delivered["bytes"], 0)),
+        drop_ring_full=metrics.drop_ring_full + overflowed,
+        drop_qdisc=metrics.drop_qdisc,
+        drop_loss=metrics.drop_loss + lost.sum(dim=1, dtype=torch.int32),
+        drop_fault=metrics.drop_fault,
+        retransmits=metrics.retransmits,
+        # high-water marks at the peak points: egress entering the window,
+        # ingress after the arrivals merged and before the due release
+        max_eg_depth=torch.maximum(metrics.max_eg_depth,
+                                   occupancy(state.eg_valid)),
+        max_in_depth=torch.maximum(metrics.max_in_depth,
+                                   occupancy(in_valid_m)),
+        windows=metrics.windows + 1,
+        events=wrap_i32(metrics.events.to(torch.int64)
+                        + sent_n.sum(dtype=torch.int64)
+                        + due_n.sum(dtype=torch.int64)),
+        sort_slots=wrap_i32(metrics.sort_slots.to(torch.int64)
+                            + state.eg_valid.sum(dtype=torch.int64)
+                            + state.in_valid.sum(dtype=torch.int64)),
+    )
+
+
+def _accumulate_hist(hist: PlaneHistograms, state: NetPlaneState, sent,
+                     eg_dst, eg_tsend, deliver_rel,
+                     in_valid_m) -> PlaneHistograms:
+    """Section 10: the latency and depth histograms, over values the step
+    already computed: deliver - send per sent packet at its destination,
+    the egress sojourn (-tsend: a packet carried over k windows has a
+    negative rebased send time) at its source, and one depth sample a
+    host (egress entering the window + ingress after the merge)."""
+    return PlaneHistograms(
+        hist_delivery_ns=histo.accum_scatter(
+            hist.hist_delivery_ns, eg_dst,
+            histo.bucket_index(deliver_rel - eg_tsend), sent),
+        hist_sojourn_ns=histo.accum_rows(
+            hist.hist_sojourn_ns, histo.bucket_index(-eg_tsend), sent),
+        hist_qdepth=histo.accum_depth(
+            hist.hist_qdepth,
+            state.eg_valid.sum(dim=1, dtype=torch.int32)
+            + in_valid_m.sum(dim=1, dtype=torch.int32)),
+    )
+
+
 _PRESENCE_PLANES = ("faults", "metrics", "guards", "hist", "flightrec",
                     "flows", "compute")
-# presence planes the JAX plane's Pallas kernels refuse (`plane.py`
-# window_step's trace-time checks); the metrics plane rides both
-_UNFUSED_PLANES = ("faults", "guards", "hist", "flightrec", "flows",
-                   "compute")
-KERNELS = ("pallas_fused", "pallas")
+# presence planes the port runs: metrics on every kernel, hist on "xla"
+_PORTED_PLANES = ("metrics", "hist")
+KERNELS = ("pallas_fused", "pallas", "xla")
 
 
 def _check_step_options(kernel: str, rr_enabled: bool, router_aqm: bool,
                         packed_sort: bool, planes: dict):
-    """The JAX step's refusals for the Pallas kernels (ValueError, as
-    there), then what the port does not have yet (NotImplementedError,
-    naming ROADMAP.md's queue)."""
-    if kernel == "xla":
-        raise NotImplementedError(
-            "window_step: kernel='xla' (the XLA sort path and its RR qdisc) "
-            "is not ported yet (ROADMAP.md, queue A); use 'pallas_fused' or "
-            "'pallas'")
+    """The JAX step's refusals (ValueError, as there: the Pallas kernels
+    are FIFO-only, packed-sort-only and fuse no presence plane but
+    metrics), the port's own (`packed_sort=False` on any kernel), then
+    what the port does not have yet (NotImplementedError, naming
+    ROADMAP.md's queue)."""
     if kernel not in KERNELS:
         raise ValueError(f"unknown plane kernel {kernel!r}: expected one of "
-                         f"{KERNELS} (or 'xla', not ported yet)")
+                         f"{KERNELS}")
     unknown = sorted(set(planes) - set(_PRESENCE_PLANES))
     if unknown:
         raise TypeError(f"window_step: unexpected arguments {unknown}")
-    if rr_enabled:
+    fused = kernel != "xla"
+    if fused and rr_enabled:
         raise ValueError(
             f"plane_kernel={kernel!r} fuses the FIFO qdisc only; pass "
-            "rr_enabled=False (all-FIFO configs); the RR qdisc runs on the "
-            "XLA path, not ported yet (ROADMAP.md, queue A)")
+            "rr_enabled=False (all-FIFO configs) or use kernel='xla'")
     if not packed_sort:
         raise ValueError(
-            f"plane_kernel={kernel!r} implements the packed/bucketed "
-            "ordering only; packed_sort=False is a JAX-side parity "
-            "reference (ROADMAP.md)")
+            f"plane_kernel={kernel!r}: the port implements the packed/"
+            "bucketed ordering only; packed_sort=False is a JAX-side "
+            "parity reference (ROADMAP.md)")
     threaded = [k for k in _PRESENCE_PLANES if planes.get(k) is not None]
-    refused = [k for k in threaded if k in _UNFUSED_PLANES]
-    if refused:
+    refused = [k for k in threaded if k != "metrics"]
+    if fused and refused:
         raise ValueError(
             f"plane_kernel={kernel!r} does not fuse the presence planes "
             f"{refused}; the JAX plane runs them on kernel='xla' only")
-    if threaded:
+    unported = [k for k in threaded if k not in _PORTED_PLANES]
+    if unported:
         raise NotImplementedError(
-            f"window_step: presence planes {threaded} are not ported yet "
+            f"window_step: presence planes {unported} are not ported yet "
             "(ROADMAP.md, queue A)")
     if router_aqm:
         raise NotImplementedError(
@@ -470,28 +647,40 @@ def window_step(state: NetPlaneState, params: NetPlaneParams, rng_seed: int,
                 shift_ns: int, window_ns: int, *, rr_enabled: bool = True,
                 router_aqm: bool = False, no_loss: bool = False,
                 packed_sort: bool = True, kernel: str = "pallas_fused",
-                plain_kernels: bool = False, **planes):
-    """Advance one scheduling round [t, t + window_ns): the FIFO
-    direct-delivery path of the JAX `window_step` with a Pallas kernel
-    pair, bitwise.
+                plain_kernels: bool = False,
+                metrics: PlaneMetrics | None = None,
+                hist: PlaneHistograms | None = None, **planes):
+    """Advance one scheduling round [t, t + window_ns): the
+    direct-delivery path of the JAX `window_step` with the same kernel,
+    bitwise.
 
     `kernel="pallas_fused"` runs kernels A and B (`pipeline.
     egress_rank_stage`, `route_place`); `kernel="pallas"` the split pair,
     kernels C and D (`egress_order_gate`, `route_scatter`), with the
     other egress columns gathered through C's permutation and the routing
-    row order computed in PyTorch. The JAX package makes the two (and its
-    "xla" path) bitwise identical. `rng_seed` is the int seed of the JAX
-    run's `jax.random.key(seed)`; `shift_ns` is this window's start minus
-    the previous one's. `plain_kernels=True` runs the plain PyTorch
-    versions of the kernels even on CUDA tensors (the reference a card
-    run is held against); otherwise CUDA tensors go through the CUDA
+    row order computed in PyTorch. `kernel="xla"` runs the split path's
+    stages through the plain versions of C and D, which compute the JAX
+    XLA path's egress sort and gate and its routing placement, launching
+    no kernel; it alone takes the round-robin qdisc (`rr_enabled=True`,
+    per host by `params.qdisc_rr`) and the histogram plane. The JAX
+    package makes the three bitwise identical. `rng_seed` is the int seed
+    of the JAX run's `jax.random.key(seed)`; `shift_ns` is this window's
+    start minus the previous one's. `plain_kernels=True` runs the plain
+    PyTorch versions of the kernels even on CUDA tensors (the reference a
+    card run is held against); otherwise CUDA tensors go through the CUDA
     kernels.
 
-    Returns (state', delivered, next_event_rel): `delivered` is a dict of
-    [N, CI] tensors masked by delivered["mask"], and next_event_rel a 0-d
-    int32 tensor (I32_MAX when idle). No tensor is read back to the host.
+    `metrics` (`telemetry.metrics.PlaneMetrics`) and `hist`
+    (`telemetry.histo.PlaneHistograms`) accumulate over values the step
+    computes anyway and leave the state bitwise unchanged.
+
+    Returns (state', delivered, next_event_rel[, metrics'][, hist']):
+    `delivered` is a dict of [N, CI] tensors masked by
+    delivered["mask"], and next_event_rel a 0-d int32 tensor (I32_MAX
+    when idle). No tensor is read back to the host.
     """
-    _check_step_options(kernel, rr_enabled, router_aqm, packed_sort, planes)
+    _check_step_options(kernel, rr_enabled, router_aqm, packed_sort,
+                        dict(planes, metrics=metrics, hist=hist))
     from . import pipeline
 
     # --- 1. rebase clocks + refill token buckets ------------------------
@@ -501,7 +690,8 @@ def window_step(state: NetPlaneState, params: NetPlaneParams, rng_seed: int,
     rt = codel.rebase_router_state(state.router, shift_ns, params.dn_rate,
                                    params.dn_cap)
 
-    # --- 2. egress: FIFO order and token gate (kernel A or C) -------------
+    # --- 2. egress: qdisc order and token gate (kernel A or C) ----------
+    rr_sent = state.rr_sent
     if kernel == "pallas_fused":
         egress_rank = (pipeline.egress_rank_plain if plain_kernels
                        else pipeline.egress_rank_stage)
@@ -511,17 +701,25 @@ def window_step(state: NetPlaneState, params: NetPlaneParams, rng_seed: int,
             state.eg_clamp, state.eg_dst, state.eg_seq, state.eg_sock,
             state.eg_ctrl, balance, shift_ns)
     else:
-        egress_gate = (pipeline.egress_gate_plain if plain_kernels
-                       else pipeline.egress_order_gate)
-        (perm, eg_bytes, eg_tsend, eg_clamp, eg_valid, sendable,
-         spent) = egress_gate(
-            state.eg_valid, state.eg_prio, state.eg_bytes, state.eg_tsend,
-            state.eg_clamp, balance, shift_ns)
+        qkey1, qkey2, rr_aux = _qdisc_keys(state, params,
+                                           rr_enabled=rr_enabled)
+        if kernel == "xla" or plain_kernels:
+            (perm, eg_bytes, eg_tsend, eg_clamp, eg_valid, sendable,
+             spent) = pipeline.egress_gate_plain(
+                state.eg_valid, qkey1, state.eg_bytes, state.eg_tsend,
+                state.eg_clamp, balance, shift_ns, tiebreak=qkey2)
+        else:
+            (perm, eg_bytes, eg_tsend, eg_clamp, eg_valid, sendable,
+             spent) = pipeline.egress_order_gate(
+                state.eg_valid, qkey1, state.eg_bytes, state.eg_tsend,
+                state.eg_clamp, balance, shift_ns)
         perm = perm.to(torch.int64)
         eg_prio, eg_sock, eg_dst, eg_seq, eg_ctrl = (
             take(a, perm) for a in (state.eg_prio, state.eg_sock,
                                     state.eg_dst, state.eg_seq,
                                     state.eg_ctrl))
+        if rr_enabled:
+            rr_sent = _rr_advance(eg_sock, eg_valid, sendable, rr_aux)
     balance = balance - spent
 
     # --- 3. loss sampling + latency lookup -------------------------------
@@ -539,7 +737,8 @@ def window_step(state: NetPlaneState, params: NetPlaneParams, rng_seed: int,
     if kernel == "pallas_fused":
         merged = pipeline.route_place(*routed, row_perm, plain=plain_kernels)
     else:
-        merged = pipeline.route_scatter(*routed, plain=plain_kernels)
+        merged = pipeline.route_scatter(
+            *routed, plain=plain_kernels or kernel == "xla")
     (in_src_m, in_seq_m, in_sock_m, in_bytes_m, in_deliver_m, in_valid_m,
      overflowed) = merged
 
@@ -572,11 +771,21 @@ def window_step(state: NetPlaneState, params: NetPlaneParams, rng_seed: int,
         in_sock=in_sock_new, in_deliver_rel=in_deliver_new,
         in_valid=in_valid_new,
         tb_balance=balance, tb_rem_ns=tb_rem_ns, rng_counter=rng_counter,
-        router=rt,
+        rr_sent=rr_sent, router=rt,
         n_sent=state.n_sent + sent.sum(dim=1, dtype=torch.int32),
         n_loss_dropped=state.n_loss_dropped
         + lost.sum(dim=1, dtype=torch.int32),
         n_overflow_dropped=state.n_overflow_dropped + overflowed,
         n_delivered=state.n_delivered + due.sum(dim=1, dtype=torch.int32),
     )
-    return new_state, delivered, next_event
+    out = (new_state, delivered, next_event)
+    if metrics is not None:
+        # --- 8. telemetry counters ---------------------------------------
+        out += (_accumulate_metrics(metrics, state, sent, lost, due,
+                                    overflowed, delivered, in_valid_m,
+                                    eg_bytes),)
+    if hist is not None:
+        # --- 10. latency/depth histograms ("xla" only) -------------------
+        out += (_accumulate_hist(hist, state, sent, eg_dst, eg_tsend,
+                                 deliver_rel, in_valid_m),)
+    return out

@@ -1,0 +1,83 @@
+"""Run the scenario corpus through the port and check it against the
+golden digests: the corpus mode of `tools/run_scenarios.py`, for the
+direct-transport entries.
+
+    python -m shadow_tpu_torch.workloads.run_scenarios [paths ...]
+        [--check] [-o out.json] [--device cuda|cpu]
+
+With no paths it runs every `scenarios/*.yaml` of the checkout that the
+port can run, and names the others on stderr. `--check` compares each
+record's fingerprint, program digest and canonical digest with
+`scenarios/GOLDEN.json`, for the scenarios that ran, and exits 1 on a
+mismatch. The device defaults to the CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+from pathlib import Path
+
+CORPUS_DIR = Path(__file__).resolve().parents[2] / "scenarios"
+GOLDEN = CORPUS_DIR / "GOLDEN.json"
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("scenarios", nargs="*",
+                    help="scenario YAMLs (default: scenarios/*.yaml)")
+    ap.add_argument("--check", action="store_true",
+                    help="compare with the golden digests (exit 1 on a "
+                         "mismatch)")
+    ap.add_argument("-o", "--out", default=None,
+                    help="write the records here as JSON")
+    ap.add_argument("--golden", default=str(GOLDEN))
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    args = ap.parse_args(argv)
+
+    from . import runner
+    from .spec import load_scenario_file
+
+    paths = args.scenarios or sorted(str(p) for p in CORPUS_DIR.glob("*.yaml"))
+    records = []
+    for path in paths:
+        spec = load_scenario_file(path)
+        why = runner.runnable(spec)
+        if why is not None:
+            print(f"run_scenarios: skipped {spec.name!r} ({path}): {why}",
+                  file=sys.stderr)
+            continue
+        timings = {}
+        rec = runner.run_scenario(spec, device=args.device, timings=timings)
+        records.append(rec)
+        status = ("done" if rec["all_done"]
+                  else f"{rec['completed_hosts']}/{rec['participants']}")
+        print(f"{spec.name:<24} [{rec['family']}] {status:>8}  "
+              f"events={rec['events']:<8} "
+              f"digest={rec['canonical_digest'][:12]}  "
+              f"{spec.windows / timings['drive_s']:.1f} windows/s on "
+              f"{args.device}", file=sys.stderr)
+    if not records:
+        print("run_scenarios: no scenario ran", file=sys.stderr)
+        return 2
+    if args.out:
+        with open(args.out, "w") as fh:
+            json.dump({"records": records}, fh, sort_keys=True, indent=1)
+            fh.write("\n")
+    if args.check:
+        golden = runner.load_golden(args.golden)
+        ran = {rec["name"] for rec in records}
+        problems = runner.check_against_golden(
+            records, {k: v for k, v in golden.items() if k in ran})
+        for line in problems:
+            print(f"run_scenarios: {line}", file=sys.stderr)
+        if problems:
+            return 1
+        print(f"run_scenarios: {len(records)} scenario(s) match the golden "
+              "digests", file=sys.stderr)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

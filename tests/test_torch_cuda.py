@@ -6,6 +6,9 @@ shapes."""
 
 from __future__ import annotations
 
+import json
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -15,6 +18,7 @@ from torch_parity import placement_inputs  # noqa: E402
 
 from shadow_tpu_torch import bench, convert  # noqa: E402
 from shadow_tpu_torch.tpu import pipeline  # noqa: E402
+from shadow_tpu_torch.workloads import runner, spec  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 MS = 1_000_000
@@ -94,3 +98,17 @@ def test_phold_golden_digest_on_the_card(cuda, kernel):
     res = bench.run_phold(g.pop("n_hosts"), rounds=g.pop("rounds"),
                           warmup=False, device=cuda, kernel=kernel, **g)
     assert convert.state_digest(res["state"]) == bench.GOLDEN_PHOLD_DIGEST
+
+
+def test_corpus_entry_on_the_card_matches_golden(cuda):
+    """One direct-transport corpus entry through the port's runner on the
+    card: the golden digests, the record of the CPU run, and no kernel
+    launch (the XLA path runs none)."""
+    corpus = Path(__file__).resolve().parent.parent / "scenarios"
+    golden = json.loads((corpus / "GOLDEN.json").read_text())
+    sp = spec.load_scenario_file(str(corpus / "incast.yaml"))
+    before = dict(pipeline.LAUNCHES)
+    rec = runner.run_scenario(sp, device=cuda)
+    assert pipeline.LAUNCHES == before
+    assert runner.golden_entry(rec) == golden[sp.name]
+    assert rec == runner.run_scenario(sp, device="cpu")

@@ -17,7 +17,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from shadow_tpu_torch import bench, convert, resolve_device  # noqa: E402
+from shadow_tpu_torch.telemetry import histo, metrics  # noqa: E402
 from shadow_tpu_torch.tpu import plane, profiling  # noqa: E402
+from shadow_tpu_torch.workloads import runner, spec  # noqa: E402
 
 REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "shadow_tpu_torch").rglob("*.py")) + [
@@ -43,23 +45,66 @@ def test_port_imports_no_jax_and_nothing_of_shadow_tpu():
             assert top not in ("jax", "jaxlib", "shadow_tpu"), (path, mod)
 
 
+# functions of the scanned files that run on the host after a run, by
+# design (reports and percentiles read the final tensors)
+HOST_SIDE = {"completion_windows", "percentile", "percentiles",
+             "fleet_percentiles", "bucket_edges"}
+
+
+def _window_code(path: Path):
+    """The parts of a module that a window runs: the whole module but its
+    host-side report functions; of the scenario runner, only the chain
+    body (`chain_fn`), since the runner reads the device once, after the
+    drive, as the JAX runner does."""
+    tree = ast.parse(path.read_text(encoding="utf-8"), str(path))
+    if path.name == "runner.py":
+        chains = [n for n in ast.walk(tree) if isinstance(n, ast.FunctionDef)
+                  and n.name == "chain_fn"]
+        assert len(chains) == 1, "the runner's chain body moved"
+        return chains
+    return [n for n in tree.body if not (isinstance(n, ast.FunctionDef)
+                                         and n.name in HOST_SIDE)]
+
+
 def test_device_path_reads_nothing_back_to_the_host():
     """The host-sync fence (docs/performance.md, SL603) for the step and
-    everything it calls: no tensor is read back inside a window."""
+    everything it calls, the presence planes and the workload generator
+    included, and the scenario runner's window loop: no tensor is read
+    back inside a window."""
     banned = {"item", "cpu", "tolist", "numpy", "nonzero", "synchronize"}
-    step_files = [REPO / "shadow_tpu_torch" / "tpu" / f for f in (
+    port = REPO / "shadow_tpu_torch"
+    step_files = [port / "tpu" / f for f in (
         "plane.py", "pipeline.py", "prims.py", "codel.py")]
-    step_files.append(REPO / "shadow_tpu_torch" / "workloads" / "phold.py")
+    step_files += [port / "telemetry" / f for f in ("metrics.py", "histo.py")]
+    step_files += [port / "workloads" / f for f in (
+        "phold.py", "device.py", "runner.py")]
     for path in step_files:
-        tree = ast.parse(path.read_text(encoding="utf-8"), str(path))
-        for node in ast.walk(tree):
-            if not isinstance(node, ast.Call):
-                continue
-            f = node.func
-            name = (f.attr if isinstance(f, ast.Attribute)
-                    else f.id if isinstance(f, ast.Name) else "")
-            assert name not in banned and name != "bool", (
-                path.name, node.lineno, name)
+        for part in _window_code(path):
+            for node in ast.walk(part):
+                if not isinstance(node, ast.Call):
+                    continue
+                f = node.func
+                name = (f.attr if isinstance(f, ast.Attribute)
+                        else f.id if isinstance(f, ast.Name) else "")
+                assert name not in banned and name != "bool", (
+                    path.name, node.lineno, name)
+
+
+def test_copied_workload_modules_stand_alone():
+    """The port's copies of the JAX package's JAX-free workload modules
+    (spec, compile, serve) import nothing of it, and the op-timing table
+    they read is the port's own file, byte-equal to the JAX package's."""
+    wl = REPO / "shadow_tpu_torch" / "workloads"
+    for name in ("spec.py", "compile.py", "serve.py"):
+        for mod in imported_modules(wl / name):
+            assert mod.split(".")[0] not in ("jax", "shadow_tpu"), (name, mod)
+        text = (wl / name).read_text(encoding="utf-8")
+        assert "from shadow_tpu." not in text and "import shadow_tpu" \
+            not in text.replace("import shadow_tpu_torch", ""), name
+    from shadow_tpu_torch.workloads import serve
+    assert Path(serve.OP_TIMINGS_PATH).resolve().parent == wl
+    assert (wl / "op_timings.json").read_bytes() == (
+        REPO / "shadow_tpu" / "workloads" / "op_timings.json").read_bytes()
 
 
 def test_package_imports_without_nvcc_or_triton():
@@ -97,6 +142,10 @@ def test_entry_points_default_to_cuda_and_refuse_without_a_card():
                                       ingress_cap=4),
         lambda: bench.run_phold(4, n_nodes=2, egress_cap=4, ingress_cap=4,
                                 rounds=1),
+        lambda: metrics.make_metrics(4),
+        lambda: histo.make_histograms(4),
+        lambda: runner.run_scenario(spec.load_scenario_file(
+            str(REPO / "scenarios" / "incast.yaml"))),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -150,8 +150,9 @@ def test_window_steps_with_ingress_overflow():
 
 def test_window_step_refuses_what_is_not_ported():
     """What the JAX plane refuses for its Pallas kernels raises
-    ValueError, as there; what the port lacks raises
-    NotImplementedError naming ROADMAP.md."""
+    ValueError, as there, and so does packed_sort=False on any kernel;
+    what the port lacks raises NotImplementedError naming ROADMAP.md.
+    The metrics plane rides every kernel, the histogram plane "xla"."""
     (_p, _j), (tparams, tst) = both_worlds()
     step = lambda **kw: tplane.window_step(tst, tparams, 0, 0, MS, **kw)
     for kernel in ("pallas_fused", "pallas"):
@@ -164,12 +165,15 @@ def test_window_step_refuses_what_is_not_ported():
             with pytest.raises(ValueError, match=plane_name):
                 step(rr_enabled=False, kernel=kernel,
                      **{plane_name: object()})
-        with pytest.raises(NotImplementedError, match="metrics"):
-            step(rr_enabled=False, kernel=kernel, metrics=object())
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             step(rr_enabled=False, router_aqm=True, kernel=kernel)
+    with pytest.raises(ValueError, match="packed"):
+        step(packed_sort=False, kernel="xla")
+    for plane_name in ("faults", "guards", "flightrec", "flows", "compute"):
+        with pytest.raises(NotImplementedError, match=plane_name):
+            step(kernel="xla", **{plane_name: object()})
     with pytest.raises(NotImplementedError, match="ROADMAP.md, queue A"):
-        step(rr_enabled=False, kernel="xla")
+        step(kernel="xla", router_aqm=True)
     with pytest.raises(ValueError, match="unknown plane kernel"):
         step(rr_enabled=False, kernel="mosaic")
     with pytest.raises(TypeError, match="unexpected"):

@@ -164,7 +164,7 @@ def test_split_path_refusals():
     (_p, _j), (tparams, tst) = both_worlds()
     step = lambda st, **kw: tplane.window_step(st, tparams, 0, 0, MS, **kw)
     with pytest.raises(NotImplementedError, match="queue A"):
-        step(tst, rr_enabled=False, kernel="xla")
+        step(tst, rr_enabled=False, kernel="xla", router_aqm=True)
     with pytest.raises(ValueError, match="unknown plane kernel"):
         step(tst, rr_enabled=False, kernel="mosaic")
     with pytest.raises(ValueError, match="FIFO"):
@@ -174,7 +174,7 @@ def test_split_path_refusals():
     with pytest.raises(ValueError, match="power-of-two"):
         step(narrow, rr_enabled=False, kernel="pallas")
     with pytest.raises(ValueError, match="kernel"):
-        bench.run_phold(8, rounds=1, device="cpu", kernel="xla")
+        bench.run_phold(8, rounds=1, device="cpu", kernel="mosaic")
     with pytest.raises(ValueError, match="capacity"):
         bench.run_phold(8, rounds=1, device="cpu", capacity="loose")
 

@@ -1,0 +1,181 @@
+"""The port's workload stack against the JAX package's, bitwise: the
+scenario spec and compiler (fingerprints and program digests of the
+whole corpus), `workload_step`, and the scenario runner's records for
+the direct-transport half of the corpus, which must also carry the
+golden digests of `scenarios/GOLDEN.json`. Also what the port refuses
+yet, and the corpus command's `--check`."""
+
+from __future__ import annotations
+
+import json
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+torch = pytest.importorskip("torch")
+import jax.numpy as jnp  # noqa: E402
+from torch_parity import assert_tuples_equal, jax_state_to_numpy  # noqa: E402
+
+from shadow_tpu.telemetry import make_metrics  # noqa: E402
+from shadow_tpu.tpu.plane import unpack_planes, window_step  # noqa: E402
+from shadow_tpu.workloads import compile as jcompile  # noqa: E402
+from shadow_tpu.workloads import device as jdevice  # noqa: E402
+from shadow_tpu.workloads import runner as jrunner  # noqa: E402
+from shadow_tpu.workloads import spec as jspec  # noqa: E402
+from shadow_tpu_torch import convert  # noqa: E402
+from shadow_tpu_torch.telemetry import metrics as tmetrics  # noqa: E402
+from shadow_tpu_torch.tpu import pipeline  # noqa: E402
+from shadow_tpu_torch.tpu import plane as tplane  # noqa: E402
+from shadow_tpu_torch.workloads import compile as tcompile  # noqa: E402
+from shadow_tpu_torch.workloads import device as tdevice  # noqa: E402
+from shadow_tpu_torch.workloads import run_scenarios  # noqa: E402
+from shadow_tpu_torch.workloads import runner as trunner  # noqa: E402
+from shadow_tpu_torch.workloads import spec as tspec  # noqa: E402
+
+CORPUS = Path(__file__).resolve().parent.parent / "scenarios"
+GOLDEN = json.loads((CORPUS / "GOLDEN.json").read_text())
+DIRECT = ["all_to_all", "incast", "mixed", "onoff", "ring_allreduce",
+          "rpc_fanout"]
+NOT_YET = ["incast_lossy", "rpc_fanout_lossy", "serve_burst_lossy",
+           "serve_diurnal"]
+
+
+@pytest.mark.parametrize("entry", sorted(DIRECT + NOT_YET))
+def test_spec_and_program_match_jax(entry):
+    path = str(CORPUS / f"{entry}.yaml")
+    jsp, tsp = jspec.load_scenario_file(path), tspec.load_scenario_file(path)
+    assert tsp.as_dict() == jsp.as_dict()
+    assert tspec.scenario_fingerprint(tsp) == jspec.scenario_fingerprint(jsp)
+    jprog, tprog = jcompile.compile_program(jsp), tcompile.compile_program(tsp)
+    assert tcompile.program_digest(tprog) == jcompile.program_digest(jprog)
+    assert tcompile.program_digest(tprog) == \
+        GOLDEN[tsp.name]["program_digest"]
+
+
+@pytest.mark.parametrize("raw", [
+    {"name": "lossy", "hosts": 4, "loss_p": 0.1,
+     "patterns": [{"kind": "onoff"}]},
+    {"name": "overlap", "hosts": 4,
+     "patterns": [{"kind": "incast", "count": 3},
+                  {"kind": "onoff", "first": 2}]},
+    {"name": "wide", "hosts": 4, "egress_cap": 2,
+     "patterns": [{"kind": "onoff", "burst": 8}]},
+], ids=["loss-needs-flows", "overlapping-hosts", "burst-past-egress"])
+def test_spec_refusals_match_jax(raw):
+    """The copied validation raises where the JAX package's does, with
+    the same message, at parse or at compile time."""
+    def refusal(spec_mod, compile_mod):
+        with pytest.raises(spec_mod.ScenarioError) as e:
+            compile_mod.compile_program(spec_mod.parse_scenario(raw))
+        return str(e.value)
+    assert refusal(tspec, tcompile) == refusal(jspec, jcompile)
+
+
+def test_workload_step_matches_jax():
+    """12 windows of the mixed entry (incast, on/off and rpc hosts) step
+    by step: window_step("xla") with metrics, then workload_step, with
+    the state, the workload state and the metrics compared after each;
+    then one step with an explicit credit vector."""
+    spec = jspec.load_scenario_file(str(CORPUS / "mixed.yaml"))
+    prog = jcompile.compile_program(spec)
+    jst, params = jrunner.build_scenario_world(spec)
+    wl, ws = jdevice.to_device(prog), jdevice.make_workload_state(prog)
+    jst, ws, jm = jdevice.prime(wl, ws, jst, metrics=make_metrics(32))
+    tsp = tspec.load_scenario_file(str(CORPUS / "mixed.yaml"))
+    tprog = tcompile.compile_program(tsp)
+    tst, tparams = trunner.build_scenario_world(tsp, device="cpu")
+    twl = tdevice.to_device(tprog, "cpu")
+    tws = tdevice.make_workload_state(tprog, "cpu")
+    tst, tws, tm = tdevice.prime(twl, tws, tst,
+                                 metrics=tmetrics.make_metrics(32,
+                                                               device="cpu"))
+    key, win = jax.random.key(spec.seed), spec.window_ns
+
+    @jax.jit
+    def jround(st, ws, m, r, credits):
+        out = window_step(st, params, key, jnp.where(r == 0, 0, win),
+                          jnp.int32(win), rr_enabled=False, metrics=m)
+        (st, d, _n), m, *_ = unpack_planes(out, metrics=m)
+        return jdevice.workload_step(wl, ws, st, d, r, jnp.int32(win),
+                                     metrics=m, credits=credits)
+
+    for r in range(13):
+        credits = np.full(32, 2, np.int32) if r == 12 else None
+        jst, ws, jm = jround(jst, ws, jm, jnp.int32(r),
+                             None if credits is None else jnp.asarray(credits))
+        out = tplane.window_step(tst, tparams, spec.seed, 0 if r == 0 else win,
+                                 win, rr_enabled=False, kernel="xla",
+                                 metrics=tm)
+        (tst, td, _n), tm, *_ = tplane.unpack_planes(out, metrics=tm)
+        tst, tws, tm = tdevice.workload_step(
+            twl, tws, tst, td, r, win, metrics=tm,
+            credits=None if credits is None else torch.from_numpy(credits))
+        assert convert.state_digest(tst) == \
+            convert.state_digest(jax_state_to_numpy(jst)), r
+        assert_tuples_equal(ws, tws, r)
+        assert_tuples_equal(jm, tm, r)
+    assert int(tws.phase.sum()) > 0 and int(tm.events) > 0
+    assert np.array_equal(tdevice.completion_windows(tws),
+                          jdevice.completion_windows(ws))
+    assert bool(tdevice.all_done(twl, tws)) == bool(jdevice.all_done(wl, ws))
+    back = convert.tuple_from_numpy(tdevice.WorkloadState,
+                                    convert.tuple_to_numpy(tws), "cpu")
+    assert_tuples_equal(ws, back)
+
+
+@pytest.mark.parametrize("entry", DIRECT)
+def test_run_scenario_matches_jax_and_golden(entry):
+    path = str(CORPUS / f"{entry}.yaml")
+    before = dict(pipeline.LAUNCHES)
+    got = trunner.run_scenario(tspec.load_scenario_file(path), device="cpu")
+    assert pipeline.LAUNCHES == before
+    ref = jrunner.run_scenario(jspec.load_scenario_file(path))
+    assert got == ref
+    assert trunner.golden_entry(got) == GOLDEN[got["name"]]
+    assert got["all_done"] and got["events"] > 0
+
+
+@pytest.mark.parametrize("entry", NOT_YET)
+def test_flow_and_compute_entries_are_refused(entry):
+    spec = tspec.load_scenario_file(str(CORPUS / f"{entry}.yaml"))
+    assert trunner.runnable(spec) is not None
+    with pytest.raises(NotImplementedError, match="flow and compute"):
+        trunner.run_scenario(spec, device="cpu")
+
+
+def test_unported_runner_options_are_refused():
+    spec = tspec.load_scenario_file(str(CORPUS / "incast.yaml"))
+    for kw, item in (("guards", "faults, guards"), ("memo", "run infra"),
+                     ("mesh_devices", "multi-GPU"),
+                     ("sample_every", "flight recorder")):
+        with pytest.raises(NotImplementedError, match=item):
+            trunner.run_scenario(spec, device="cpu", **{kw: 4})
+    with pytest.raises(TypeError, match="unexpected"):
+        trunner.run_scenario(spec, device="cpu", colour="blue")
+    wl = tdevice.to_device(tcompile.compile_program(spec), "cpu")
+    ws = tdevice.make_workload_state(tcompile.compile_program(spec), "cpu")
+    st = tplane.make_state(spec.n_hosts, device="cpu")
+    with pytest.raises(NotImplementedError, match="flow transport"):
+        tdevice.prime(wl, ws, st, flows=object())
+
+
+def test_run_scenarios_check(tmp_path, capsys):
+    incast = str(CORPUS / "incast.yaml")
+    out = tmp_path / "out.json"
+    assert run_scenarios.main([incast, "--check", "--device", "cpu",
+                               "-o", str(out)]) == 0
+    assert json.loads(out.read_text())["records"][0]["name"] == \
+        "incast-16to1"
+    tampered = dict(GOLDEN)
+    tampered["incast-16to1"] = dict(GOLDEN["incast-16to1"],
+                                    canonical_digest="0" * 64)
+    bad = tmp_path / "golden.json"
+    bad.write_text(json.dumps(tampered))
+    assert run_scenarios.main([incast, "--check", "--device", "cpu",
+                               "--golden", str(bad)]) == 1
+    assert "canonical_digest mismatch" in capsys.readouterr().err
+    lossy = str(CORPUS / "incast_lossy.yaml")
+    assert run_scenarios.main([lossy, "--device", "cpu"]) == 2
+    assert "skipped 'incast-lossy-16to1'" in capsys.readouterr().err

@@ -59,3 +59,128 @@ def assert_states_equal(a: dict, b: dict, ctx=None):
             continue
         assert a[k].dtype == b[k].dtype, (ctx, k, a[k].dtype, b[k].dtype)
         assert np.array_equal(a[k], b[k]), (ctx, k)
+
+
+MS = 1_000_000
+
+
+def rr_world(n, ce, ci, *, rr_mix=True, loss=0.3, seed=7):
+    """The sort-diet test's busy world at any size: starved token buckets
+    (leftover egress every window), real loss, a round-robin/FIFO qdisc
+    mix, duplicate priorities and socket ids past the RR slot space.
+    Returns ((jax params, jax state), (port params, port state)) after
+    the same flat ingest on both sides."""
+    import jax.numpy as jnp
+    import torch
+
+    from shadow_tpu.tpu import ingest, make_params, make_state
+    from shadow_tpu_torch import convert
+    from shadow_tpu_torch.tpu import plane as tplane
+
+    rng = np.random.default_rng(seed)
+    lat = rng.integers(1 * MS, 20 * MS, size=(n, n)).astype(np.int32)
+    qrr = (np.arange(n) % 2 == 0) if rr_mix else np.zeros(n, bool)
+    params = make_params(lat, np.full((n, n), loss, np.float32),
+                         np.full((n,), 2_400_000, np.int64),
+                         qdisc_rr=qrr, down_bw_bps=np.full((n,), 400_000))
+    state = make_state(n, egress_cap=ce, ingress_cap=ci, params=params,
+                       initial_tokens=np.asarray(params.tb_cap))
+    b = 6 * n
+    batch = dict(
+        src=rng.integers(0, n, b).astype(np.int32),
+        dst=rng.integers(0, n, b).astype(np.int32),
+        nbytes=rng.integers(100, 1500, b).astype(np.int32),
+        prio=rng.integers(0, 6, b).astype(np.int32),
+        seq=np.arange(b, dtype=np.int32),
+        ctrl=rng.integers(0, 3, b) == 0,
+        sock=rng.integers(0, 40, b).astype(np.int32),
+    )
+    tst = convert.state_from_numpy(jax_state_to_numpy(state), "cpu")
+    jst = ingest(state, **{k: jnp.asarray(v) for k, v in batch.items()})
+    tst = tplane.ingest(tst, **{k: torch.from_numpy(v)
+                                for k, v in batch.items()})
+    tparams = convert.params_from_numpy(jax_params_to_numpy(params), "cpu")
+    return (params, jst), (tparams, tst)
+
+
+def assert_tuples_equal(ref, got, ctx=None):
+    """A JAX NamedTuple of arrays against the port's of tensors: same
+    fields, every leaf's dtype, shape and values."""
+    assert ref._fields == got._fields, ctx
+    for f in ref._fields:
+        r, g = np.asarray(getattr(ref, f)), getattr(got, f).numpy()
+        assert r.dtype == g.dtype and r.shape == g.shape, (ctx, f)
+        assert np.array_equal(r, g), (ctx, f)
+
+
+def phold_both(world, windows, *, kernel="xla", jax_kernel="xla",
+               rr_enabled=False, no_loss=False, metrics=False, hist=False,
+               seed=3):
+    """`windows` PHOLD windows (window_step + respawn + ingest_rows) of
+    the JAX plane and the port on one world, with the metrics and
+    histogram planes threaded through both calls when asked (as the JAX
+    bench threads them), compared leaf by leaf after every window: the
+    state, every delivered column, the next-event scalar and each plane.
+    Returns the final (port state, metrics, hist)."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    from shadow_tpu.telemetry import make_histograms, make_metrics
+    from shadow_tpu.tpu.plane import ingest_rows, unpack_planes, window_step
+    from shadow_tpu.workloads.phold import respawn_batch
+    from shadow_tpu_torch import convert
+    from shadow_tpu_torch.telemetry import histo as thisto
+    from shadow_tpu_torch.telemetry import metrics as tmetrics
+    from shadow_tpu_torch.tpu import plane as tplane
+    from shadow_tpu_torch.workloads.phold import respawn_batch as trespawn
+
+    (params, jst), (tparams, tst) = world
+    n, ci = jst.in_src.shape
+    key = jax.random.key(seed)
+    jm = make_metrics(n) if metrics else None
+    jh = make_histograms(n) if hist else None
+    tm = tmetrics.make_metrics(n, device="cpu") if metrics else None
+    th = thisto.make_histograms(n, device="cpu") if hist else None
+
+    @jax.jit
+    def jround(st, sh, spawn, r, m, h):
+        out = window_step(st, params, key, sh, jnp.int32(10 * MS),
+                          rr_enabled=rr_enabled, no_loss=no_loss,
+                          kernel=jax_kernel, metrics=m, hist=h)
+        (st, d, nx), m, _g, h, _f = unpack_planes(out, metrics=m, hist=h)
+        mask, dst, nb, seq, ctrl = respawn_batch(d, spawn, r, n, ci)
+        out = ingest_rows(st, dst, nb, seq, seq, ctrl, valid=mask,
+                          metrics=m, hist=h)
+        (st,), m, _g, h, _f = unpack_planes(out, metrics=m, hist=h,
+                                            n_lead=1)
+        return st, d, nx, spawn + mask.sum(axis=1, dtype=jnp.int32), m, h
+
+    spawn = jnp.full((n,), 10_000, jnp.int32)
+    tspawn = torch.full((n,), 10_000, dtype=torch.int32)
+    for r in range(windows):
+        shift = 0 if r == 0 else 10 * MS
+        jst, jd, jn, spawn, jm, jh = jround(jst, jnp.int32(shift), spawn,
+                                            jnp.int32(r), jm, jh)
+        out = tplane.window_step(tst, tparams, seed, shift, 10 * MS,
+                                 rr_enabled=rr_enabled, no_loss=no_loss,
+                                 kernel=kernel, metrics=tm, hist=th)
+        (tst, td, tn), tm, _g, th, _f = tplane.unpack_planes(
+            out, metrics=tm, hist=th)
+        mask, dst, nb, seq, ctrl = trespawn(td, tspawn, r, n, ci)
+        out = tplane.ingest_rows(tst, dst, nb, seq, seq, ctrl, mask,
+                                 metrics=tm, hist=th)
+        (tst,), tm, _g, th, _f = tplane.unpack_planes(
+            out, metrics=tm, hist=th, n_lead=1)
+        tspawn = tspawn + mask.sum(dim=1, dtype=torch.int32)
+        assert_states_equal(jax_state_to_numpy(jst),
+                            convert.state_to_numpy(tst), r)
+        assert jd.keys() == td.keys()
+        for k in jd:
+            assert np.array_equal(np.asarray(jd[k]), td[k].numpy()), (r, k)
+        assert int(jn) == int(tn), r
+        if metrics:
+            assert_tuples_equal(jm, tm, r)
+        if hist:
+            assert_tuples_equal(jh, th, r)
+    return tst, tm, th
