@@ -33,11 +33,13 @@ the result lines are printed:
    elastic over R=192 in chains of 16 must grow a ring and end in the
    canonical state and delivered total of a fixed run pre-provisioned at
    its final caps; strict must raise CapacityError naming the chain;
-9. the scenario corpus on the card: the six direct-transport entries of
-   `scenarios/` through the port's runner (`window_step(kernel="xla")`
-   with the metrics and histogram planes, `workload_step`), each record
-   carrying `scenarios/GOLDEN.json`'s three digests and equal to the same
-   run on the CPU, with no kernel launched; windows/s of each drive;
+9. the scenario corpus on the card: all ten entries of `scenarios/`
+   through the port's runner (`window_step(kernel="xla")` with the
+   metrics and histogram planes, `workload_step`, and for the lossy and
+   serving entries the flow and compute planes), each record carrying
+   `scenarios/GOLDEN.json`'s three digests and equal to the same run on
+   the CPU, with no kernel launched; windows/s of each drive, and device
+   kernels and busy ms a window of serve_burst_lossy (torch.profiler);
 10. the metrics plane on both kernel paths at the main path's width
    (N=32768, CE=16, CI=32, R=16): the state equal to the metrics-off
    run's, the metrics equal to those of the run through the plain
@@ -49,7 +51,15 @@ the result lines are printed:
    tables 1 GiB each on the card), 160 windows: two card runs with equal
    records, every host done; the first 8 windows' record equal to the
    CPU's; wall time and windows/s;
-13. one JSON line describing every kernel, then the result line.
+13. a lossy serving fleet: serve_burst_lossy.yaml's shape over 16380
+   hosts (1638 single-server groups of 10, 14742 flows; the N x N tables
+   1.07 GB each on the card): one run of its whole window budget, every
+   host done, no compute overflow, its SLO block; two card runs of the
+   first 64 windows with equal records; the first 8 windows' record
+   equal to the CPU's; no kernel launched; set-up and drive seconds,
+   windows/s, retransmits and RTOs fired, peak device memory, and device
+   kernels and busy ms a window over 16 windows (torch.profiler);
+14. one JSON line describing every kernel, then the result line.
 
 Usage: python3 chip_smoke.py   (from the repository root; one card).
 A fuller record of every measurement is printed on the `record:` line.
@@ -100,6 +110,30 @@ ONOFF_WIDE = {
                   "on_hold_ns": 2000000, "off_mean_ns": 20000000}],
 }
 ONOFF_CHECK_WINDOWS = 8
+# scenarios/serve_burst_lossy.yaml at a fleet size users run: its one
+# pattern, unchanged, repeated over 1638 groups of 10 hosts (one server,
+# nine clients each), with its seed, window, caps, 2% loss, compute and
+# SLO blocks. Window budget: the first card run (2048 windows, an NVIDIA
+# H100 80GB HBM3 at 700 W) finished its last host in window 663, the tail
+# of doubled RTOs; plus about 30, rounded up to a multiple of 64
+FLEET_GROUPS = 1638
+FLEET_WINDOWS = 704
+SERVE_FLEET = {
+    "name": "serve-fleet-16380", "family": "serve", "seed": 11,
+    "hosts": 10 * FLEET_GROUPS, "windows": FLEET_WINDOWS,
+    "window_ns": 5000000, "egress_cap": 16, "ingress_cap": 64,
+    "transport": "flows", "loss_p": 0.02,
+    "compute": {"op": "attn_decode", "queue_cap": 128},
+    "serve": {"p99_ns": 120000000, "p999_ns": 400000000},
+    "patterns": [{"kind": "serve", "first": 10 * i, "count": 10,
+                  "servers": 1, "rounds": 8, "bytes": 1024,
+                  "mean_gap_ns": 2000000, "burst_cap": 16,
+                  "burst_alpha": 1.2} for i in range(FLEET_GROUPS)],
+}
+FLEET_REPEAT_WINDOWS = 64
+FLEET_CHECK_WINDOWS = 8
+# torch.profiler over PROFILE_WINDOWS scenario windows after as many
+PROFILE_WINDOWS = 16
 
 
 def fail(msg: str):
@@ -518,8 +552,39 @@ def check_capacity(bench, convert, elastic, record):
           f"{strict['blamed_hosts']} hosts blamed)")
 
 
+def profile_scenario(torch, runner, sp, windows: int = PROFILE_WINDOWS):
+    """Device kernels and busy ms a window of a scenario's windows
+    [windows, 2 * windows), under torch.profiler (the run is cut to 2 *
+    windows and driven in chains of `windows`; the profiler starts and
+    stops at chain ends, after a synchronise). The profiled windows' wall
+    time is not reported: the profiler's own start-up and recording are
+    in it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                   acc_events=True)
+
+    def on_chain(r1):
+        torch.cuda.synchronize()
+        if r1 == windows:
+            prof.start()
+        elif r1 == 2 * windows:
+            prof.stop()
+
+    runner.run_scenario(dataclasses.replace(sp, windows=2 * windows),
+                        chain_len=windows, on_chain=on_chain)
+    on_card = [ev for ev in prof.events()
+               if ev.device_type == DeviceType.CUDA
+               and not ev.is_user_annotation]
+    busy_ms = sum(ev.time_range.elapsed_us() for ev in on_card) / 1e3
+    return {"windows": windows,
+            "kernel_launches_per_window": len(on_card) / windows,
+            "device_busy_ms_per_window": busy_ms / windows}
+
+
 def check_corpus(torch, pipeline, record, ident):
-    """Phase 9: the direct half of the scenario corpus on the card."""
+    """Phase 9: the whole scenario corpus on the card."""
     from shadow_tpu_torch.workloads import runner, spec
 
     golden = runner.load_golden(CORPUS / "GOLDEN.json")
@@ -527,8 +592,6 @@ def check_corpus(torch, pipeline, record, ident):
     pipeline.reset_launches()
     for path in sorted(CORPUS.glob("*.yaml")):
         sp = spec.load_scenario_file(str(path))
-        if runner.runnable(sp) is not None:
-            continue
         timings = {}
         rec = runner.run_scenario(sp, timings=timings)
         if any(pipeline.LAUNCHES.values()):
@@ -540,16 +603,34 @@ def check_corpus(torch, pipeline, record, ident):
         if rec != runner.run_scenario(sp, device="cpu"):
             fail(f"{sp.name}: the card's record differs from the CPU's")
         rate = sp.windows / timings["drive_s"]
+        extra = {k: rec[k] for k in ("flows", "compute") if k in rec}
         rows.append(dict(name=sp.name, hosts=sp.n_hosts, windows=sp.windows,
-                         events=rec["events"], **timings,
-                         windows_per_s=rate))
+                         transport=sp.transport, events=rec["events"],
+                         **timings, windows_per_s=rate, **extra))
         print(f"corpus {sp.name}: golden ok, CPU record equal, 0 launches; "
               f"{sp.windows} windows, drive {timings['drive_s']:.4f}s "
-              f"({rate:.1f} windows/s), setup {timings['setup_s']:.4f}s "
-              f"on {ident}")
-    if len(rows) != 6:
-        fail(f"ran {len(rows)} direct corpus entries, expected 6")
+              f"({rate:.1f} windows/s), setup {timings['setup_s']:.4f}s"
+              + (f", {rec['flows']['retransmits']} retransmits, "
+                 f"{rec['flows']['rto_fired']} RTOs fired"
+                 if "flows" in rec else "")
+              + f" on {ident}")
+    if len(rows) != 10:
+        fail(f"ran {len(rows)} corpus entries, expected 10")
+    sp = spec.load_scenario_file(str(CORPUS / "serve_burst_lossy.yaml"))
+    prof = profile_scenario(torch, runner, sp)
+    if any(pipeline.LAUNCHES.values()):
+        fail(f"the profiled corpus run launched kernels {pipeline.LAUNCHES}")
+    drive_ms = next(1e3 / r["windows_per_s"] for r in rows
+                    if r["name"] == sp.name)
+    prof["busy_share_of_drive"] = prof["device_busy_ms_per_window"] / drive_ms
+    print(f"profile, {sp.name}: {prof['kernel_launches_per_window']:.1f} "
+          f"device kernels a window, device busy "
+          f"{prof['device_busy_ms_per_window']:.5f} ms a window over windows "
+          f"{PROFILE_WINDOWS}-{2 * PROFILE_WINDOWS - 1}, "
+          f"{prof['busy_share_of_drive']:.3f} of the drive's "
+          f"{drive_ms:.4f} ms a window on {ident}")
     record["corpus"] = rows
+    record["corpus_profile"] = prof
 
 
 def check_metrics_paths(torch, bench, convert, pipeline, record):
@@ -668,6 +749,71 @@ def check_wide_scenario(torch, record, ident):
           f"{ident}")
 
 
+def check_fleet(torch, pipeline, record, ident):
+    """Phase 13: the lossy serving fleet at 16380 hosts."""
+    from shadow_tpu_torch.workloads import runner, spec
+
+    sp = spec.parse_scenario(SERVE_FLEET)
+    torch.cuda.reset_peak_memory_stats()
+    pipeline.reset_launches()
+    timings = {}
+    rec = runner.run_scenario(sp, timings=timings)
+    peak = torch.cuda.max_memory_allocated()
+    hc = rec["host_completion"]
+    last = hc["max_ns"] // sp.window_ns - 1 if hc else None
+    print(f"{sp.name}: {rec['completed_hosts']} of {rec['participants']} "
+          f"hosts done in {sp.windows} windows (the last in window {last}); "
+          f"flows {rec['flows']}; compute {rec['compute']}; slo "
+          f"{json.dumps(rec['slo'])}")
+    if not rec["all_done"]:
+        fail(f"{sp.name}: {rec['participants'] - rec['completed_hosts']} "
+             f"hosts unfinished after {sp.windows} windows")
+    if rec["compute"]["overflow"] != 0:
+        fail(f"{sp.name}: {rec['compute']['overflow']} requests refused by "
+             "full service queues")
+    if "targets" not in rec["slo"]:
+        fail(f"{sp.name}: the record has no SLO targets")
+    runs = []
+    for _ in range(2):
+        t = {}
+        runs.append((runner.run_scenario(dataclasses.replace(
+            sp, windows=FLEET_REPEAT_WINDOWS), timings=t), t))
+    if runs[0][0] != runs[1][0]:
+        fail(f"two card runs of {sp.name}'s first {FLEET_REPEAT_WINDOWS} "
+             "windows gave different records")
+    short = dataclasses.replace(sp, windows=FLEET_CHECK_WINDOWS)
+    if runner.run_scenario(short) != runner.run_scenario(short,
+                                                         device="cpu"):
+        fail(f"{sp.name} after {FLEET_CHECK_WINDOWS} windows: the card's "
+             "record differs from the CPU's")
+    prof = profile_scenario(torch, runner, sp)
+    if any(pipeline.LAUNCHES.values()):
+        fail(f"the fleet runs launched kernels {pipeline.LAUNCHES}")
+    rate = sp.windows / timings["drive_s"]
+    prof["busy_share_of_drive"] = prof["device_busy_ms_per_window"] * rate / 1e3
+    record["serve_fleet"] = dict(
+        hosts=sp.n_hosts, windows=sp.windows, last_done_window=last,
+        **timings, windows_per_s=rate, events=rec["events"],
+        flows=rec["flows"], compute=rec["compute"], slo=rec["slo"],
+        peak_device_bytes=peak, digest=rec["canonical_digest"],
+        repeat=[dict(t, digest=r["canonical_digest"]) for r, t in runs],
+        profile=prof)
+    print(f"{sp.name}: all {rec['participants']} hosts done by window "
+          f"{last} of {sp.windows}, no compute overflow, "
+          f"{rec['flows']['retransmits']} retransmits, "
+          f"{rec['flows']['rto_fired']} RTOs fired; two runs of "
+          f"{FLEET_REPEAT_WINDOWS} windows equal, the first "
+          f"{FLEET_CHECK_WINDOWS} windows equal the CPU's; setup "
+          f"{timings['setup_s']:.3f}s, drive {timings['drive_s']:.3f}s "
+          f"({rate:.2f} windows/s); {FLEET_REPEAT_WINDOWS}-window drives "
+          f"{runs[0][1]['drive_s']:.3f}s, {runs[1][1]['drive_s']:.3f}s; "
+          f"peak device memory {peak} B; "
+          f"{prof['kernel_launches_per_window']:.1f} device kernels and "
+          f"{prof['device_busy_ms_per_window']:.5f} ms busy a window "
+          f"({prof['busy_share_of_drive']:.3f} of the drive's "
+          f"{1e3 / rate:.4f} ms a window) on {ident}")
+
+
 def kernel_entry(name, source, replaces, launches, row):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -726,6 +872,7 @@ def main():
     check_xla_path(torch, bench, convert, pipeline, record, ident,
                    fused_digest)
     check_wide_scenario(torch, record, ident)
+    check_fleet(torch, pipeline, record, ident)
 
     kernels = [
         kernel_entry("egress_rank_kernel",

@@ -3,7 +3,9 @@
 The JAX package `shadow_tpu` stays the reference; this package computes
 the same plane bitwise with PyTorch tensors, runs the JAX package's four
 Pallas kernels as hand-written CUDA kernels for Hopper (`csrc/`), and
-runs the direct-transport half of the scenario corpus (`workloads/`).
+runs the whole scenario corpus (`workloads/`), its lossy and serving
+entries through the flow and compute planes (`tpu/flows.py`,
+`tpu/compute.py`).
 It imports nothing of `shadow_tpu` and no JAX.
 
 Every entry point takes `device=None`, which means the CUDA card. With

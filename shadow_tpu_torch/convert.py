@@ -3,10 +3,14 @@
 A state as numpy is a dict of arrays keyed by `NetPlaneState` field,
 with `router` a dict keyed by `RouterDownState` field: the JAX plane's
 NamedTuples converted leaf by leaf (`st._asdict()`), dtypes unchanged
-(bool stays bool, int32 int32, float32 float32). The flat planes
-(`PlaneMetrics`, `PlaneHistograms`, `WorkloadState`) go as dicts keyed
-by field. `state_digest` hashes that layout, so one digest names a state
-in either package; `digest_pytrees` is the scenario runner's digest.
+(bool stays bool, int32 int32, float32 float32). The flat tuples
+(`PlaneMetrics`, `PlaneHistograms`, `WorkloadState`, the flow plane's
+`FlowTables` and `FlowState`, the compute plane's `ComputeTables` and
+`ComputeState`) go as dicts keyed by field; a field that is not an
+array (`FlowTables.lane_flow` None, `ComputeTables.queue_cap` an int)
+is carried as it is. `state_digest` hashes that layout, so one digest
+names a state in either package; `digest_pytrees` is the scenario
+runner's digest.
 """
 
 from __future__ import annotations
@@ -46,22 +50,29 @@ def state_to_numpy(state: NetPlaneState) -> dict:
     return out
 
 
+def _is_array(v) -> bool:
+    return v is not None and not isinstance(v, (int, float, bool))
+
+
 def tuple_to_numpy(t) -> dict:
-    """A flat NamedTuple of tensors (`PlaneMetrics`, `PlaneHistograms`,
-    `WorkloadState`) as a numpy dict in field order."""
-    return {f: getattr(t, f).detach().cpu().numpy() for f in t._fields}
+    """A flat NamedTuple of tensors as a numpy dict in field order."""
+    return {f: (getattr(t, f).detach().cpu().numpy()
+                if _is_array(getattr(t, f)) else getattr(t, f))
+            for f in t._fields}
 
 
 def tuple_from_numpy(cls, d: dict, device):
     """The inverse of `tuple_to_numpy` for the NamedTuple class `cls`;
     `d` may be the JAX twin's `_asdict()`."""
-    return cls(**{f: _tensor(d[f], device) for f in cls._fields})
+    return cls(**{f: _tensor(d[f], device) if _is_array(d[f]) else d[f]
+                  for f in cls._fields})
 
 
 def _leaves(tree, prefix=""):
     """(name, numpy array) of every leaf, in the order `jax.tree.leaves`
     gives the JAX twin: a NamedTuple's fields in order, a nested one
-    (the state's `router`) in its field's place. A state's numpy dict is
+    (the state's `router`) in its field's place, None skipped and a
+    Python scalar as `np.asarray` makes it. A state's numpy dict is
     walked in `NetPlaneState` field order."""
     if isinstance(tree, dict):
         for f in NetPlaneState._fields:
@@ -73,10 +84,14 @@ def _leaves(tree, prefix=""):
         return
     for f in tree._fields:
         v = getattr(tree, f)
+        if v is None:  # an empty subtree, no leaf
+            continue
         if isinstance(v, tuple):
             yield from _leaves(v, f"{prefix}{f}.")
-        else:
+        elif isinstance(v, torch.Tensor):
             yield f"{prefix}{f}", v.detach().cpu().numpy()
+        else:  # a Python scalar leaf, as numpy reads it
+            yield f"{prefix}{f}", np.asarray(v)
 
 
 def state_digest(state) -> str:

@@ -9,7 +9,8 @@ only; `kernel="xla"`, the JAX package's own default, runs every stage
 in PyTorch with no kernel of the port (the split pair's plain versions)
 and adds the round-robin qdisc (`rr_enabled=True`). The metrics plane
 rides all three kernels, the histogram plane the XLA path only, as in
-the JAX package; `unpack_planes` splits what they append.
+the JAX package, and so do the flow and compute planes on the XLA path;
+`unpack_planes` splits what they append.
 
 Every result is bitwise the JAX plane's `window_step` with the same
 kernel: int32 state, int32 arithmetic that wraps where the JAX plane's
@@ -31,6 +32,7 @@ from ..telemetry import histo
 from ..telemetry.histo import PlaneHistograms
 from ..telemetry.metrics import PlaneMetrics
 from . import codel
+from . import compute as compute_mod
 from .prims import (_SIGN32, I32_MAX, NO_CLAMP, _pack_rank_key,
                     _pack_time_key, _pkt_uniform, _row_perm_sort, floordiv,
                     floormod, take, u32, wrap_i32)
@@ -598,8 +600,9 @@ def _accumulate_hist(hist: PlaneHistograms, state: NetPlaneState, sent,
 
 _PRESENCE_PLANES = ("faults", "metrics", "guards", "hist", "flightrec",
                     "flows", "compute")
-# presence planes the port runs: metrics on every kernel, hist on "xla"
-_PORTED_PLANES = ("metrics", "hist")
+# presence planes the port runs: metrics on every kernel, the others on
+# "xla"
+_PORTED_PLANES = ("metrics", "hist", "flows", "compute")
 KERNELS = ("pallas_fused", "pallas", "xla")
 
 
@@ -672,9 +675,15 @@ def window_step(state: NetPlaneState, params: NetPlaneParams, rng_seed: int,
 
     `metrics` (`telemetry.metrics.PlaneMetrics`) and `hist`
     (`telemetry.histo.PlaneHistograms`) accumulate over values the step
-    computes anyway and leave the state bitwise unchanged.
+    computes anyway and leave the state bitwise unchanged. On "xla",
+    `flows=(FlowTables, FlowState)` runs the flow plane's `flow_step`
+    after them (its retransmits and acks append to the egress rings) and
+    `compute=(ComputeTables, ComputeState)` the compute plane's
+    `compute_step` on the same delivered dict (`tpu/flows.py`,
+    `tpu/compute.py`).
 
-    Returns (state', delivered, next_event_rel[, metrics'][, hist']):
+    Returns (state', delivered, next_event_rel[, metrics'][, hist'][,
+    flow_state'][, compute_state']):
     `delivered` is a dict of [N, CI] tensors masked by
     delivered["mask"], and next_event_rel a 0-d int32 tensor (I32_MAX
     when idle). No tensor is read back to the host.
@@ -778,14 +787,36 @@ def window_step(state: NetPlaneState, params: NetPlaneParams, rng_seed: int,
         n_overflow_dropped=state.n_overflow_dropped + overflowed,
         n_delivered=state.n_delivered + due.sum(dim=1, dtype=torch.int32),
     )
-    out = (new_state, delivered, next_event)
     if metrics is not None:
         # --- 8. telemetry counters ---------------------------------------
-        out += (_accumulate_metrics(metrics, state, sent, lost, due,
-                                    overflowed, delivered, in_valid_m,
-                                    eg_bytes),)
+        metrics = _accumulate_metrics(metrics, state, sent, lost, due,
+                                      overflowed, delivered, in_valid_m,
+                                      eg_bytes)
     if hist is not None:
         # --- 10. latency/depth histograms ("xla" only) -------------------
-        out += (_accumulate_hist(hist, state, sent, eg_dst, eg_tsend,
-                                 deliver_rel, in_valid_m),)
+        hist = _accumulate_hist(hist, state, sent, eg_dst, eg_tsend,
+                                deliver_rel, in_valid_m)
+    flows, compute = planes.get("flows"), planes.get("compute")
+    if flows is not None:
+        # --- 12. the flow plane ("xla" only): acks and credits read the
+        # released dict, then retransmits and delayed acks append through
+        # `ingest` after every observability section; next_event was
+        # reduced before the append, as in the JAX step
+        from . import flows as flows_mod  # flows imports this module
+
+        new_state, fs_out, _credits, *m = flows_mod.flow_step(
+            *flows, new_state, delivered, window_ns, metrics=metrics)
+        if metrics is not None:
+            metrics = m[0]
+    if compute is not None:
+        # --- 13. the compute plane ("xla" only): reads the released
+        # dict, writes only its own state
+        cs_out = compute_mod.compute_step(*compute, delivered, shift_ns,
+                                          window_ns)
+    out = (new_state, delivered, next_event)
+    out += tuple(p for p in (metrics, hist) if p is not None)
+    if flows is not None:
+        out += (fs_out,)
+    if compute is not None:
+        out += (cs_out,)
     return out

@@ -16,8 +16,11 @@ host. Phase semantics are the JAX package's:
 - the window in which a host leaves each phase lands in `done_win`
   (I32_MAX = not yet).
 
-The flow transport (`flows=`) and the runtime guards (`guards=`) are not
-ported yet and raise `NotImplementedError` (ROADMAP.md queue A).
+Under the flow transport (`flows=`) the emissions are enqueued onto
+their flows (`tpu/flows.enqueue`) instead of appended as packets, and a
+phase is credited with acked in-order segments. The runtime guards
+(`guards=`) are not ported yet and raise `NotImplementedError` (ROADMAP.md
+queue A).
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..tpu import flows as flows_mod
 from ..tpu.plane import ingest_rows
 from ..tpu.prims import I32_MAX
 from .compile import TrafficProgram
@@ -115,20 +119,37 @@ def _emit(state, ws: WorkloadState, valid, peer, nbytes, delay, *,
     return state, metrics, ws
 
 
-def _with_metrics(state, ws, metrics):
-    return (state, ws) if metrics is None else (state, ws, metrics)
+def _with_metrics(state, ws, metrics, *fs):
+    return (state, ws, *fs) if metrics is None else (state, ws, *fs,
+                                                     metrics)
+
+
+def _lane_flows(ft, phase, entered):
+    """[N, K] flow ids of each host's `phase` send lanes (-1 where the
+    host did not enter it), gathered as `_phase_sends` gathers the send
+    tables."""
+    idx = torch.clamp(phase, 0, ft.lane_flow.shape[1] - 1).to(torch.int64)
+    rows = torch.arange(idx.shape[0], device=idx.device)
+    return torch.where(entered[:, None], ft.lane_flow[rows, idx], -1)
 
 
 def prime(wl: WorkloadArrays, ws: WorkloadState, state, *, metrics=None,
           guards=None, flows=None):
     """Emit every participant's phase-0 sends (once, before the first
-    window). Returns (state', ws'[, metrics'])."""
+    window). Returns (state', ws'[, metrics']). With `flows=(ft, fs)`
+    the sends are enqueued onto their flows instead, for the caller's
+    following `flow_emit`; the return is then (state, ws, fs'[,
+    metrics]) with the state and metrics untouched."""
     if guards is not None:
         _not_ported("the guard plane (guards=)")
-    if flows is not None:
-        _not_ported("the flow transport (flows=)")
+    entered = wl.n_phases > 0
     phase0 = torch.zeros_like(ws.phase)
-    valid, peer, nbytes, delay = _phase_sends(wl, phase0, wl.n_phases > 0)
+    valid, peer, nbytes, delay = _phase_sends(wl, phase0, entered)
+    if flows is not None:
+        ft, fs = flows
+        fs = flows_mod.enqueue(ft, fs, _lane_flows(ft, phase0, entered),
+                               valid)
+        return _with_metrics(state, ws, metrics, fs)
     state, metrics, ws = _emit(state, ws, valid, peer, nbytes, delay,
                                metrics=metrics)
     return _with_metrics(state, ws, metrics)
@@ -144,11 +165,17 @@ def workload_step(wl: WorkloadArrays, ws: WorkloadState, state, delivered,
     credits the receiving host's current phase, unless `credits` ([N]
     int32) gives the per-host credits instead. `round_idx` is the
     driver's window counter (stamps `done_win`); `window_ns` counts the
-    holds down. Returns (state', ws'[, metrics'])."""
+    holds down. Returns (state', ws'[, metrics']).
+
+    `flows=(ft, fs, credits)` runs the generator on the flow transport:
+    the phases are credited with `credits` (`flows.flow_recv`'s acked
+    in-order segments) and the sends are enqueued onto their flows for
+    the caller's following `flow_emit`; the return is then (state, ws',
+    fs'[, metrics]) with the state and metrics untouched."""
     if guards is not None:
         _not_ported("the guard plane (guards=)")
     if flows is not None:
-        _not_ported("the flow transport (flows=)")
+        ft, fs, credits = flows
     N, P = wl.dep.shape
     got = (delivered["mask"].sum(dim=1, dtype=torch.int32)
            if credits is None else credits)
@@ -172,10 +199,15 @@ def workload_step(wl: WorkloadArrays, ws: WorkloadState, state, delivered,
         new = torch.clamp(phase, 0, P - 1).to(torch.int64)
         hold_left = torch.where(entered, wl.hold_ns[rows, new], hold_left)
         lanes.append(_phase_sends(wl, phase, entered))
-    valid, peer, nbytes, delay = (torch.cat(cols, dim=1)
-                                  for cols in zip(*lanes))
+        if flows is not None:
+            lanes[-1] += (_lane_flows(ft, phase, entered),)
+    valid, peer, nbytes, delay, *lf = (torch.cat(cols, dim=1)
+                                       for cols in zip(*lanes))
     ws = ws._replace(phase=phase, recv_acc=recv_acc, hold_left=hold_left,
                      done_win=done_win)
+    if flows is not None:
+        fs = flows_mod.enqueue(ft, fs, lf[0], valid)
+        return _with_metrics(state, ws, metrics, fs)
     state, metrics, ws = _emit(state, ws, valid, peer, nbytes, delay,
                                metrics=metrics)
     return _with_metrics(state, ws, metrics)

@@ -1,15 +1,17 @@
 """Run the scenario corpus through the port and check it against the
-golden digests: the corpus mode of `tools/run_scenarios.py`, for the
-direct-transport entries.
+golden digests: the corpus mode of `tools/run_scenarios.py`.
 
     python -m shadow_tpu_torch.workloads.run_scenarios [paths ...]
-        [--check] [-o out.json] [--device cuda|cpu]
+        [--check] [-o out.json] [--slo-report slo.json]
+        [--device cuda|cpu]
 
-With no paths it runs every `scenarios/*.yaml` of the checkout that the
-port can run, and names the others on stderr. `--check` compares each
-record's fingerprint, program digest and canonical digest with
-`scenarios/GOLDEN.json`, for the scenarios that ran, and exits 1 on a
-mismatch. The device defaults to the CUDA card.
+With no paths it runs every `scenarios/*.yaml` of the checkout. `--check`
+compares each record's fingerprint, program digest and canonical digest
+with `scenarios/GOLDEN.json` and exits 1 on a mismatch; with no paths a
+golden entry that did not run is a mismatch too. `--slo-report` writes
+the compute and SLO sections of the scenarios that have a `compute:`
+block, stamped with the device the run used. The device defaults to the
+CUDA card.
 """
 
 from __future__ import annotations
@@ -19,8 +21,21 @@ import json
 import sys
 from pathlib import Path
 
+import torch
+
 CORPUS_DIR = Path(__file__).resolve().parents[2] / "scenarios"
 GOLDEN = CORPUS_DIR / "GOLDEN.json"
+
+
+def device_fingerprint(device: str) -> dict:
+    """The identity a run's numbers are comparable within: the device's
+    platform and kind, and the PyTorch and CUDA versions."""
+    dev = torch.device(device)
+    gpu = dev.type == "cuda"
+    return {"platform": "gpu" if gpu else dev.type,
+            "device_kind": (torch.cuda.get_device_name(dev) if gpu
+                            else dev.type),
+            "torch": torch.__version__, "cuda": torch.version.cuda}
 
 
 def main(argv=None) -> int:
@@ -32,6 +47,10 @@ def main(argv=None) -> int:
                          "mismatch)")
     ap.add_argument("-o", "--out", default=None,
                     help="write the records here as JSON")
+    ap.add_argument("--slo-report", default=None, metavar="PATH",
+                    help="write the compute and SLO sections of the "
+                         "scenarios with a compute: block, with the "
+                         "device fingerprint, as JSON")
     ap.add_argument("--golden", default=str(GOLDEN))
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     args = ap.parse_args(argv)
@@ -43,11 +62,6 @@ def main(argv=None) -> int:
     records = []
     for path in paths:
         spec = load_scenario_file(path)
-        why = runner.runnable(spec)
-        if why is not None:
-            print(f"run_scenarios: skipped {spec.name!r} ({path}): {why}",
-                  file=sys.stderr)
-            continue
         timings = {}
         rec = runner.run_scenario(spec, device=args.device, timings=timings)
         records.append(rec)
@@ -58,18 +72,26 @@ def main(argv=None) -> int:
               f"digest={rec['canonical_digest'][:12]}  "
               f"{spec.windows / timings['drive_s']:.1f} windows/s on "
               f"{args.device}", file=sys.stderr)
-    if not records:
-        print("run_scenarios: no scenario ran", file=sys.stderr)
-        return 2
     if args.out:
         with open(args.out, "w") as fh:
             json.dump({"records": records}, fh, sort_keys=True, indent=1)
             fh.write("\n")
+    if args.slo_report:
+        slo = {rec["name"]: {"compute": rec["compute"], "slo": rec["slo"]}
+               for rec in records if "slo" in rec}
+        with open(args.slo_report, "w") as fh:
+            json.dump({"backend": device_fingerprint(args.device),
+                       "scenarios": slo}, fh, sort_keys=True, indent=1)
+            fh.write("\n")
+        print(f"run_scenarios: slo report -> {args.slo_report} "
+              f"({len(slo)} scenario(s) with a compute plane)",
+              file=sys.stderr)
     if args.check:
         golden = runner.load_golden(args.golden)
-        ran = {rec["name"] for rec in records}
-        problems = runner.check_against_golden(
-            records, {k: v for k, v in golden.items() if k in ran})
+        if args.scenarios:
+            ran = {rec["name"] for rec in records}
+            golden = {k: v for k, v in golden.items() if k in ran}
+        problems = runner.check_against_golden(records, golden)
         for line in problems:
             print(f"run_scenarios: {line}", file=sys.stderr)
         if problems:

@@ -18,7 +18,7 @@ torch = pytest.importorskip("torch")
 
 from shadow_tpu_torch import bench, convert, resolve_device  # noqa: E402
 from shadow_tpu_torch.telemetry import histo, metrics  # noqa: E402
-from shadow_tpu_torch.tpu import plane, profiling  # noqa: E402
+from shadow_tpu_torch.tpu import compute, flows, plane, profiling  # noqa: E402
 from shadow_tpu_torch.workloads import runner, spec  # noqa: E402
 
 REPO = Path(__file__).resolve().parent.parent
@@ -48,7 +48,7 @@ def test_port_imports_no_jax_and_nothing_of_shadow_tpu():
 # functions of the scanned files that run on the host after a run, by
 # design (reports and percentiles read the final tensors)
 HOST_SIDE = {"completion_windows", "percentile", "percentiles",
-             "fleet_percentiles", "bucket_edges"}
+             "fleet_percentiles", "bucket_edges", "flow_totals"}
 
 
 def _window_code(path: Path):
@@ -74,7 +74,8 @@ def test_device_path_reads_nothing_back_to_the_host():
     banned = {"item", "cpu", "tolist", "numpy", "nonzero", "synchronize"}
     port = REPO / "shadow_tpu_torch"
     step_files = [port / "tpu" / f for f in (
-        "plane.py", "pipeline.py", "prims.py", "codel.py")]
+        "plane.py", "pipeline.py", "prims.py", "codel.py", "tcp.py",
+        "flows.py", "compute.py")]
     step_files += [port / "telemetry" / f for f in ("metrics.py", "histo.py")]
     step_files += [port / "workloads" / f for f in (
         "phold.py", "device.py", "runner.py")]
@@ -144,6 +145,9 @@ def test_entry_points_default_to_cuda_and_refuse_without_a_card():
                                 rounds=1),
         lambda: metrics.make_metrics(4),
         lambda: histo.make_histograms(4),
+        lambda: flows.make_flow_tables([0], [1], [64]),
+        lambda: flows.make_flow_state(4),
+        lambda: compute.make_compute_tables(np.zeros((4, 2)), 8),
         lambda: runner.run_scenario(spec.load_scenario_file(
             str(REPO / "scenarios" / "incast.yaml"))),
     ]

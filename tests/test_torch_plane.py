@@ -152,7 +152,8 @@ def test_window_step_refuses_what_is_not_ported():
     """What the JAX plane refuses for its Pallas kernels raises
     ValueError, as there, and so does packed_sort=False on any kernel;
     what the port lacks raises NotImplementedError naming ROADMAP.md.
-    The metrics plane rides every kernel, the histogram plane "xla"."""
+    The metrics plane rides every kernel; the histogram, flow and compute
+    planes ride "xla"."""
     (_p, _j), (tparams, tst) = both_worlds()
     step = lambda **kw: tplane.window_step(tst, tparams, 0, 0, MS, **kw)
     for kernel in ("pallas_fused", "pallas"):
@@ -169,7 +170,7 @@ def test_window_step_refuses_what_is_not_ported():
             step(rr_enabled=False, router_aqm=True, kernel=kernel)
     with pytest.raises(ValueError, match="packed"):
         step(packed_sort=False, kernel="xla")
-    for plane_name in ("faults", "guards", "flightrec", "flows", "compute"):
+    for plane_name in ("faults", "guards", "flightrec"):
         with pytest.raises(NotImplementedError, match=plane_name):
             step(kernel="xla", **{plane_name: object()})
     with pytest.raises(NotImplementedError, match="ROADMAP.md, queue A"):

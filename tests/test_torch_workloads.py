@@ -1,9 +1,10 @@
 """The port's workload stack against the JAX package's, bitwise: the
 scenario spec and compiler (fingerprints and program digests of the
 whole corpus), `workload_step`, and the scenario runner's records for
-the direct-transport half of the corpus, which must also carry the
-golden digests of `scenarios/GOLDEN.json`. Also what the port refuses
-yet, and the corpus command's `--check`."""
+every corpus entry, the flow-transport and serving entries' `flows`,
+`compute` and `slo` sections included, which must also carry the golden
+digests of `scenarios/GOLDEN.json`. Also what the port refuses yet, and
+the corpus command's `--check` and `--slo-report`."""
 
 from __future__ import annotations
 
@@ -36,13 +37,16 @@ from shadow_tpu_torch.workloads import spec as tspec  # noqa: E402
 
 CORPUS = Path(__file__).resolve().parent.parent / "scenarios"
 GOLDEN = json.loads((CORPUS / "GOLDEN.json").read_text())
-DIRECT = ["all_to_all", "incast", "mixed", "onoff", "ring_allreduce",
-          "rpc_fanout"]
-NOT_YET = ["incast_lossy", "rpc_fanout_lossy", "serve_burst_lossy",
-           "serve_diurnal"]
+ENTRIES = sorted(p.stem for p in CORPUS.glob("*.yaml"))
 
 
-@pytest.mark.parametrize("entry", sorted(DIRECT + NOT_YET))
+def test_corpus_has_ten_entries():
+    assert len(ENTRIES) == 10 and set(GOLDEN) == {
+        tspec.load_scenario_file(str(CORPUS / f"{e}.yaml")).name
+        for e in ENTRIES}
+
+
+@pytest.mark.parametrize("entry", ENTRIES)
 def test_spec_and_program_match_jax(entry):
     path = str(CORPUS / f"{entry}.yaml")
     jsp, tsp = jspec.load_scenario_file(path), tspec.load_scenario_file(path)
@@ -125,7 +129,7 @@ def test_workload_step_matches_jax():
     assert_tuples_equal(ws, back)
 
 
-@pytest.mark.parametrize("entry", DIRECT)
+@pytest.mark.parametrize("entry", ENTRIES)
 def test_run_scenario_matches_jax_and_golden(entry):
     path = str(CORPUS / f"{entry}.yaml")
     before = dict(pipeline.LAUNCHES)
@@ -137,12 +141,35 @@ def test_run_scenario_matches_jax_and_golden(entry):
     assert got["all_done"] and got["events"] > 0
 
 
-@pytest.mark.parametrize("entry", NOT_YET)
-def test_flow_and_compute_entries_are_refused(entry):
-    spec = tspec.load_scenario_file(str(CORPUS / f"{entry}.yaml"))
-    assert trunner.runnable(spec) is not None
-    with pytest.raises(NotImplementedError, match="flow and compute"):
-        trunner.run_scenario(spec, device="cpu")
+def test_direct_transport_compute_matches_jax():
+    """The compute plane on the direct transport (no corpus entry has
+    it): raw delivery counts metered through service completion."""
+    raw = {"name": "incast-served", "hosts": 12, "windows": 40,
+           "compute": {"op": "attn_decode", "queue_cap": 2},
+           "patterns": [{"kind": "incast", "count": 12, "rounds": 3}]}
+    got = trunner.run_scenario(tspec.parse_scenario(raw), device="cpu")
+    assert got == jrunner.run_scenario(jspec.parse_scenario(raw))
+    assert got["transport"] == "direct" and got["compute"]["served"] > 0
+
+
+def test_flow_knobs_match_jax():
+    """`flow_emit_cap` and `flow_recv_wnd` change the run as in JAX, and
+    out-of-range values are refused as there."""
+    path = str(CORPUS / "serve_diurnal.yaml")
+    tsp, jsp = tspec.load_scenario_file(path), jspec.load_scenario_file(path)
+    got = trunner.run_scenario(tsp, device="cpu", flow_emit_cap=2,
+                               flow_recv_wnd=4)
+    assert got == jrunner.run_scenario(jsp, flow_emit_cap=2,
+                                       flow_recv_wnd=4)
+    assert got["flows"]["emit_cap"] == 2 and got["flows"]["recv_wnd"] == 4
+    assert got["canonical_digest"] != GOLDEN[got["name"]]["canonical_digest"]
+    for cap, wnd in ((0, 4), (5, 4), (1, 0)):
+        with pytest.raises(ValueError, match="flow knobs") as e:
+            trunner.run_scenario(tsp, device="cpu", flow_emit_cap=cap,
+                                 flow_recv_wnd=wnd)
+        with pytest.raises(ValueError, match="flow knobs") as je:
+            jrunner.run_scenario(jsp, flow_emit_cap=cap, flow_recv_wnd=wnd)
+        assert str(e.value) in str(je.value)
 
 
 def test_unported_runner_options_are_refused():
@@ -157,8 +184,8 @@ def test_unported_runner_options_are_refused():
     wl = tdevice.to_device(tcompile.compile_program(spec), "cpu")
     ws = tdevice.make_workload_state(tcompile.compile_program(spec), "cpu")
     st = tplane.make_state(spec.n_hosts, device="cpu")
-    with pytest.raises(NotImplementedError, match="flow transport"):
-        tdevice.prime(wl, ws, st, flows=object())
+    with pytest.raises(NotImplementedError, match="guard plane"):
+        tdevice.prime(wl, ws, st, guards=object())
 
 
 def test_run_scenarios_check(tmp_path, capsys):
@@ -176,6 +203,22 @@ def test_run_scenarios_check(tmp_path, capsys):
     assert run_scenarios.main([incast, "--check", "--device", "cpu",
                                "--golden", str(bad)]) == 1
     assert "canonical_digest mismatch" in capsys.readouterr().err
-    lossy = str(CORPUS / "incast_lossy.yaml")
-    assert run_scenarios.main([lossy, "--device", "cpu"]) == 2
-    assert "skipped 'incast-lossy-16to1'" in capsys.readouterr().err
+
+
+def test_run_scenarios_check_whole_corpus(tmp_path, capsys):
+    """The corpus command with no paths runs all ten entries, matches
+    every golden digest, and writes the SLO report of the two serving
+    entries, stamped with the port's device, not a JAX backend."""
+    slo = tmp_path / "slo.json"
+    assert run_scenarios.main(["--check", "--device", "cpu",
+                               "--slo-report", str(slo)]) == 0
+    assert "10 scenario(s) match the golden digests" in \
+        capsys.readouterr().err
+    report = json.loads(slo.read_text())
+    assert report["backend"]["platform"] == "cpu"
+    assert report["backend"]["torch"] == torch.__version__
+    assert sorted(report["scenarios"]) == ["serve-burst-lossy-10",
+                                           "serve-diurnal-12"]
+    for entry in report["scenarios"].values():
+        assert entry["compute"]["overflow"] == 0
+        assert all(t["met"] for t in entry["slo"]["targets"].values())
