@@ -59,7 +59,22 @@ the result lines are printed:
    equal to the CPU's; no kernel launched; set-up and drive seconds,
    windows/s, retransmits and RTOs fired, peak device memory, and device
    kernels and busy ms a window over 16 windows (torch.profiler);
-14. one JSON line describing every kernel, then the result line.
+14. faults, guards and the flight recorder on the card (no kernel
+   launched): (a) all ten corpus entries under the runner's default
+   fault schedule with the guard plane and the flight recorder
+   (sample_every=64), each record equal to the CPU's field for field,
+   guards-clean, fault drops where the CPU run has them, windows/s beside
+   phase 9's; (b) the serving fleet of phase 13 under its default fault
+   schedule (a link degraded x4, the last host crashed and rebooted, the
+   next host's egress 30 % corrupted) with guards and the recorder: one
+   run of the whole window budget, guards-clean, the hosts done and the
+   last one's window printed, no ring overwrite; two runs of the first 64
+   windows with equal records; the first 8 windows (all four events
+   inside) equal to the CPU's, with fault drops; set-up and drive
+   seconds, windows/s, peak device memory, hops recorded, and device
+   kernels and busy ms a window over 16 windows; (c) both Pallas
+   kernel paths refuse each of the three planes on CUDA tensors;
+15. one JSON line describing every kernel, then the result line.
 
 Usage: python3 chip_smoke.py   (from the repository root; one card).
 A fuller record of every measurement is printed on the `record:` line.
@@ -134,6 +149,18 @@ FLEET_REPEAT_WINDOWS = 64
 FLEET_CHECK_WINDOWS = 8
 # torch.profiler over PROFILE_WINDOWS scenario windows after as many
 PROFILE_WINDOWS = 16
+# phase 14: the robustness planes as `run_scenarios --faults --guards
+# --sample-every K` threads them. The fleet samples fewer packets, so
+# that the 4096-slot ring holds a 16-window drain interval's hops
+# (a CPU rehearsal at 640 hosts and sample_every=1 counted 32190 events
+# in the busiest interval; times 25.6 for the fleet, over 4096)
+ROBUST = dict(use_default_faults=True, guards=True, sample_every=64)
+FLEET_SAMPLE_EVERY = 512
+# the corpus entries whose faulted run drops packets to faults in the JAX
+# package's CPU run (`tools/run_scenarios.py --faults --guards`); the
+# others finish, or stop sending, before a fault touches them
+FAULT_DROP_ENTRIES = {"all-to-all-16", "onoff-32", "ring-allreduce-32",
+                      "serve-burst-lossy-10"}
 
 
 def fail(msg: str):
@@ -552,13 +579,14 @@ def check_capacity(bench, convert, elastic, record):
           f"{strict['blamed_hosts']} hosts blamed)")
 
 
-def profile_scenario(torch, runner, sp, windows: int = PROFILE_WINDOWS):
+def profile_scenario(torch, runner, sp, windows: int = PROFILE_WINDOWS,
+                     **run_kw):
     """Device kernels and busy ms a window of a scenario's windows
     [windows, 2 * windows), under torch.profiler (the run is cut to 2 *
     windows and driven in chains of `windows`; the profiler starts and
-    stops at chain ends, after a synchronise). The profiled windows' wall
-    time is not reported: the profiler's own start-up and recording are
-    in it."""
+    stops at chain ends, after a synchronise). `run_kw` goes to
+    `run_scenario`. The profiled windows' wall time is not reported: the
+    profiler's own start-up and recording are in it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -573,7 +601,7 @@ def profile_scenario(torch, runner, sp, windows: int = PROFILE_WINDOWS):
             prof.stop()
 
     runner.run_scenario(dataclasses.replace(sp, windows=2 * windows),
-                        chain_len=windows, on_chain=on_chain)
+                        chain_len=windows, on_chain=on_chain, **run_kw)
     on_card = [ev for ev in prof.events()
                if ev.device_type == DeviceType.CUDA
                and not ev.is_user_annotation]
@@ -814,6 +842,154 @@ def check_fleet(torch, pipeline, record, ident):
           f"{1e3 / rate:.4f} ms a window) on {ident}")
 
 
+def check_robustness(torch, pipeline, record, ident):
+    """Phase 14: faults, guards and the flight recorder on the card."""
+    from shadow_tpu_torch.workloads import runner, spec
+
+    rows = []
+    corpus_rates = {r["name"]: r["windows_per_s"] for r in record["corpus"]}
+    pipeline.reset_launches()
+    for path in sorted(CORPUS.glob("*.yaml")):
+        sp = spec.load_scenario_file(str(path))
+        timings = {}
+        rec = runner.run_scenario(sp, timings=timings, **ROBUST)
+        cpu = runner.run_scenario(sp, device="cpu", **ROBUST)
+        if rec != cpu:
+            fail(f"{sp.name} with faults, guards and the recorder: the "
+                 "card's record differs from the CPU's")
+        if not rec["guards"]["clean"]:
+            fail(f"{sp.name}: guard violations {rec['guards']}")
+        if not rec["faults_active"] or "flight_recorder" not in rec:
+            fail(f"{sp.name}: the fault plane or the recorder did not run")
+        if sp.name in FAULT_DROP_ENTRIES and rec["drops"]["fault"] <= 0:
+            fail(f"{sp.name}: no packet dropped to a fault, where the JAX "
+                 "run drops some")
+        rate = sp.windows / timings["drive_s"]
+        rows.append(dict(name=sp.name, windows=sp.windows, **timings,
+                         windows_per_s=rate,
+                         unfaulted_windows_per_s=corpus_rates[sp.name],
+                         fault_drops=rec["drops"]["fault"],
+                         checks=rec["guards"]["checks_evaluated"],
+                         hops=rec["flight_recorder"]["recorded_hops"]))
+        print(f"robust {sp.name}: CPU record equal, guards clean "
+              f"({rec['guards']['checks_evaluated']} checks), "
+              f"{rec['drops']['fault']} fault drops, "
+              f"{rec['flight_recorder']['recorded_hops']} hops; drive "
+              f"{timings['drive_s']:.4f}s ({rate:.1f} windows/s; phase 9 "
+              f"{corpus_rates[sp.name]:.1f}) on {ident}")
+    if len(rows) != 10:
+        fail(f"ran {len(rows)} corpus entries, expected 10")
+
+    sp = spec.parse_scenario(SERVE_FLEET)
+    fleet_kw = dict(ROBUST, sample_every=FLEET_SAMPLE_EVERY)
+    torch.cuda.reset_peak_memory_stats()
+    timings = {}
+    rec = runner.run_scenario(sp, timings=timings, **fleet_kw)
+    peak = torch.cuda.max_memory_allocated()
+    hc = rec["host_completion"]
+    last = hc["max_ns"] // sp.window_ns - 1 if hc else None
+    fr = rec["flight_recorder"]
+    print(f"{sp.name} faulted: {rec['completed_hosts']} of "
+          f"{rec['participants']} hosts done in {sp.windows} windows (the "
+          f"last in window {last}); drops {rec['drops']}; guards "
+          f"{json.dumps(rec['guards'])}; recorder {fr}; flows "
+          f"{rec['flows']}; compute {rec['compute']}")
+    if not rec["guards"]["clean"]:
+        fail(f"{sp.name}: guard violations under faults")
+    # all_done is not required: a crashed client may still be in RTO
+    # backoff when the budget ends
+    if not rec["faults_active"]:
+        fail(f"{sp.name}: the fault plane did not run")
+    # the default schedule's crash and corruption start at window 176,
+    # after the two hosts they target have finished (the first card run:
+    # 0 fault drops, retransmits and RTOs as phase 13's); the 8-window
+    # check below, whose schedule lands in the opening burst, is where
+    # the plane must drop packets
+    unfaulted_equal = rec["canonical_digest"] == \
+        record["serve_fleet"]["digest"]
+    if fr["overwritten"] != 0 or fr["recorded_hops"] <= 0:
+        fail(f"{sp.name}: the recorder overwrote {fr['overwritten']} and "
+             f"kept {fr['recorded_hops']} hops at sample_every="
+             f"{FLEET_SAMPLE_EVERY}")
+    runs = []
+    for _ in range(2):
+        t = {}
+        runs.append((runner.run_scenario(dataclasses.replace(
+            sp, windows=FLEET_REPEAT_WINDOWS), timings=t, **fleet_kw), t))
+    if runs[0][0] != runs[1][0]:
+        fail(f"two faulted card runs of {sp.name}'s first "
+             f"{FLEET_REPEAT_WINDOWS} windows gave different records")
+    short = dataclasses.replace(sp, windows=FLEET_CHECK_WINDOWS)
+    card8 = runner.run_scenario(short, **fleet_kw)
+    if card8 != runner.run_scenario(short, device="cpu", **fleet_kw):
+        fail(f"{sp.name} faulted, first {FLEET_CHECK_WINDOWS} windows: the "
+             "card's record differs from the CPU's")
+    if card8["drops"]["fault"] <= 0:
+        fail(f"{sp.name}: no fault drop in the {FLEET_CHECK_WINDOWS}-window "
+             "check")
+    prof = profile_scenario(torch, runner, sp, **fleet_kw)
+    if any(pipeline.LAUNCHES.values()):
+        fail(f"the phase 14 runs launched kernels {pipeline.LAUNCHES}")
+    rate = sp.windows / timings["drive_s"]
+    prof["busy_share_of_drive"] = prof["device_busy_ms_per_window"] * rate / 1e3
+
+    from shadow_tpu_torch.faults.plane import neutral_faults
+    from shadow_tpu_torch.guards.plane import make_guards
+    from shadow_tpu_torch.telemetry.flightrec import make_flightrec
+    from shadow_tpu_torch.tpu import plane
+
+    n = 64
+    params = plane.make_params(np.full((n, n), MS, np.int32),
+                               np.zeros((n, n), np.float32),
+                               np.full(n, 10**9), device="cuda")
+    st = plane.make_state(n, 16, 32, params=params, device="cuda")
+    refused = []
+    for kernel in ("pallas_fused", "pallas"):
+        for name, value in (("faults", neutral_faults(n)),
+                            ("guards", make_guards(n)),
+                            ("flightrec", make_flightrec(0))):
+            try:
+                plane.window_step(st, params, 0, 0, MS, rr_enabled=False,
+                                  kernel=kernel, **{name: value})
+            except ValueError:
+                refused.append(f"{kernel}:{name}")
+            else:
+                fail(f"window_step(kernel={kernel!r}) took {name}= on CUDA "
+                     "tensors")
+    record["robust"] = dict(
+        corpus=rows,
+        fleet=dict(hosts=sp.n_hosts, windows=sp.windows,
+                   last_done_window=last, unfaulted_equal=unfaulted_equal,
+                   completed_hosts=rec["completed_hosts"], **timings,
+                   windows_per_s=rate, drops=rec["drops"],
+                   guards=rec["guards"], flight_recorder=fr,
+                   flows=rec["flows"], compute=rec["compute"],
+                   peak_device_bytes=peak, digest=rec["canonical_digest"],
+                   repeat=[dict(t, digest=r["canonical_digest"])
+                           for r, t in runs],
+                   check_digest=card8["canonical_digest"],
+                   check_fault_drops=card8["drops"]["fault"], profile=prof),
+        refused=refused)
+    print(f"{sp.name} faulted: guards clean ({rec['guards']['checks_evaluated']}"
+          f" checks), {rec['drops']['fault']} fault drops (canonical digest "
+          f"{'equal to' if unfaulted_equal else 'not'} phase 13's), "
+          f"{rec['completed_hosts']} of {rec['participants']} hosts done, "
+          f"the last in window {last}; "
+          f"two runs of {FLEET_REPEAT_WINDOWS} windows equal, the first "
+          f"{FLEET_CHECK_WINDOWS} windows equal the CPU's with "
+          f"{card8['drops']['fault']} fault drops; setup "
+          f"{timings['setup_s']:.3f}s, drive {timings['drive_s']:.3f}s "
+          f"({rate:.2f} windows/s); {FLEET_REPEAT_WINDOWS}-window drives "
+          f"{runs[0][1]['drive_s']:.3f}s, {runs[1][1]['drive_s']:.3f}s; "
+          f"peak device memory {peak} B; {fr['recorded_hops']} hops "
+          f"recorded, {fr['overwritten']} overwritten at sample_every="
+          f"{FLEET_SAMPLE_EVERY}; {prof['kernel_launches_per_window']:.1f} "
+          f"device kernels and {prof['device_busy_ms_per_window']:.5f} ms "
+          f"busy a window ({prof['busy_share_of_drive']:.3f} of the drive's "
+          f"{1e3 / rate:.4f} ms a window) on {ident}")
+    print(f"refusals on CUDA tensors: {', '.join(refused)} raise ValueError")
+
+
 def kernel_entry(name, source, replaces, launches, row):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -844,14 +1020,22 @@ def main():
     record["build_s"] = build_s
     print(f"build: {json.dumps(build_s)} wall {time.perf_counter() - t0:.2f}s")
 
-    a = check_kernel_a(torch, pipeline, record)
-    c = check_kernel_c(torch, pipeline, record)
-    b, b_out = check_placement(torch, pipeline, record, "kernel_b",
-                               "kernel B route_place", pipeline.place,
-                               pipeline.place_plain)
-    d, d_out = check_placement(torch, pipeline, record, "kernel_d",
-                               "kernel D route_scatter", pipeline.scatter,
-                               pipeline.scatter_plain)
+    phase_s = {}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        phase_s[name] = time.perf_counter() - t
+        return out
+
+    a = timed("3 kernel A", check_kernel_a, torch, pipeline, record)
+    c = timed("4 kernel C", check_kernel_c, torch, pipeline, record)
+    b, b_out = timed("5 kernel B", check_placement, torch, pipeline, record,
+                     "kernel_b", "kernel B route_place", pipeline.place,
+                     pipeline.place_plain)
+    d, d_out = timed("5 kernel D", check_placement, torch, pipeline, record,
+                     "kernel_d", "kernel D route_scatter", pipeline.scatter,
+                     pipeline.scatter_plain)
     if max_abs_err(torch, d_out, b_out) != 0:
         fail("kernels D and B disagree on the same inputs")
     print(f"kernels D and B on the same inputs: equal; D {d['ms']:.5f} ms "
@@ -860,19 +1044,24 @@ def main():
           f"{b['warm_ms']:.5f} warm")
 
     for kernel in ("pallas_fused", "pallas"):
-        check_golden(bench, convert, kernel)
-    fused = check_main_path(torch, bench, convert, pipeline, record, ident,
-                            "pallas_fused", ("egress_rank", "route_place"))
-    split = check_main_path(torch, bench, convert, pipeline, record, ident,
-                            "pallas", ("egress_gate", "route_scatter"))
-    check_capacity(bench, convert, elastic, record)
-    check_corpus(torch, pipeline, record, ident)
-    fused_digest = check_metrics_paths(torch, bench, convert, pipeline,
-                                       record)
-    check_xla_path(torch, bench, convert, pipeline, record, ident,
-                   fused_digest)
-    check_wide_scenario(torch, record, ident)
-    check_fleet(torch, pipeline, record, ident)
+        timed(f"6 golden {kernel}", check_golden, bench, convert, kernel)
+    fused = timed("7 main path fused", check_main_path, torch, bench, convert,
+                  pipeline, record, ident, "pallas_fused",
+                  ("egress_rank", "route_place"))
+    split = timed("7 main path split", check_main_path, torch, bench, convert,
+                  pipeline, record, ident, "pallas",
+                  ("egress_gate", "route_scatter"))
+    timed("8 capacity", check_capacity, bench, convert, elastic, record)
+    timed("9 corpus", check_corpus, torch, pipeline, record, ident)
+    fused_digest = timed("10 metrics", check_metrics_paths, torch, bench,
+                         convert, pipeline, record)
+    timed("11 xla", check_xla_path, torch, bench, convert, pipeline, record,
+          ident, fused_digest)
+    timed("12 onoff-16384", check_wide_scenario, torch, record, ident)
+    timed("13 serving fleet", check_fleet, torch, pipeline, record, ident)
+    timed("14 robustness", check_robustness, torch, pipeline, record, ident)
+    record["phase_s"] = phase_s
+    print(f"phase seconds: {json.dumps(phase_s)}")
 
     kernels = [
         kernel_entry("egress_rank_kernel",

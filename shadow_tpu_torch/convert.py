@@ -6,11 +6,14 @@ NamedTuples converted leaf by leaf (`st._asdict()`), dtypes unchanged
 (bool stays bool, int32 int32, float32 float32). The flat tuples
 (`PlaneMetrics`, `PlaneHistograms`, `WorkloadState`, the flow plane's
 `FlowTables` and `FlowState`, the compute plane's `ComputeTables` and
-`ComputeState`) go as dicts keyed by field; a field that is not an
-array (`FlowTables.lane_flow` None, `ComputeTables.queue_cap` an int)
-is carried as it is. `state_digest` hashes that layout, so one digest
-names a state in either package; `digest_pytrees` is the scenario
-runner's digest.
+`ComputeState`, the fault plane's `FaultArrays`, the guard plane's
+`GuardState`) go as dicts keyed by field; a field that is not an array
+(`FlowTables.lane_flow` None, `ComputeTables.queue_cap` an int) is
+carried as it is. The flight recorder's `FlightRecArrays` has two
+uint32 leaves, which the port holds as int64 tensors:
+`flightrec_from_numpy` and `flightrec_to_numpy` convert them.
+`state_digest` hashes that layout, so one digest names a state in
+either package; `digest_pytrees` is the scenario runner's digest.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import hashlib
 import numpy as np
 import torch
 
+from .telemetry.flightrec import FlightRecArrays
 from .tpu.codel import RouterDownState
 from .tpu.plane import NetPlaneParams, NetPlaneState
 
@@ -66,6 +70,25 @@ def tuple_from_numpy(cls, d: dict, device):
     `d` may be the JAX twin's `_asdict()`."""
     return cls(**{f: _tensor(d[f], device) if _is_array(d[f]) else d[f]
                   for f in cls._fields})
+
+
+_FLIGHTREC_U32 = ("key", "sample_every")
+
+
+def flightrec_from_numpy(d: dict, device) -> FlightRecArrays:
+    """A `FlightRecArrays` from the JAX twin's `_asdict()` (uint32 key
+    and sample_every become int64 tensors of the same values)."""
+    return FlightRecArrays(**{
+        f: _tensor(np.asarray(d[f]).astype(np.int64) if f in _FLIGHTREC_U32
+                   else d[f], device) for f in FlightRecArrays._fields})
+
+
+def flightrec_to_numpy(fr: FlightRecArrays) -> dict:
+    """The inverse of `flightrec_from_numpy`, with the JAX dtypes."""
+    d = tuple_to_numpy(fr)
+    for f in _FLIGHTREC_U32:
+        d[f] = d[f].astype(np.uint32)
+    return d
 
 
 def _leaves(tree, prefix=""):

@@ -1,0 +1,3 @@
+"""The fault plane (counterpart of `shadow_tpu/faults`): the compiled
+`faults:` schedule (`schedule`) and the device masks it uploads
+(`plane`)."""

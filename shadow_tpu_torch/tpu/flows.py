@@ -21,8 +21,8 @@ by the window each `flow_recv`, with the sub-ms remainder carried.
 The JAX package gates both halves on an idle test (`lax.cond`) whose
 branches it proves bitwise equal; the port always takes the active
 branch, which avoids reading the test back to the host every window.
-The JAX `flow_emit`'s guard and flight-recorder hooks are not ported
-(ROADMAP.md queue A, "faults, guards and the flight recorder").
+`flow_emit` takes the guard plane (append conservation) and the flight
+recorder (RTO-fired and retransmit hops) as the JAX one does.
 """
 
 from __future__ import annotations
@@ -33,10 +33,12 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..guards import plane as guards_plane
+from ..telemetry import flightrec as flightrec_mod
 from ..telemetry.metrics import add_retransmits
 from . import tcp as tcp_mod
 from .plane import ingest as plane_ingest
-from .prims import I32_MAX, floordiv, floormod, take
+from .prims import I32_MAX, floordiv, floormod, scatter_add_i32, take
 
 #: wire size of an ack segment
 ACK_BYTES = 64
@@ -148,15 +150,6 @@ def ack_tag(flow_idx):
     return (flow_idx + 1) * 2 + 1
 
 
-def _scatter_add(n: int, idx, values) -> torch.Tensor:
-    """[n] int32 sums of `values` at `idx`, index n dropped (the JAX
-    `.at[].add(mode="drop")` with the drop slot at n)."""
-    out = torch.zeros(n + 1, dtype=torch.int32, device=idx.device)
-    out.index_add_(0, idx.reshape(-1).to(torch.int64),
-                   values.reshape(-1).to(torch.int32))
-    return out[:n]
-
-
 def _scatter_max(n: int, fill: int, idx, values) -> torch.Tensor:
     """[n] int32 maxima of `values` at `idx` over a `fill` start, index
     n dropped (the JAX `.at[].max(mode="drop")`)."""
@@ -172,7 +165,7 @@ def enqueue(ft: FlowTables, fs: FlowState, flow_ids, valid) -> FlowState:
     flow id is >= 0 (any shape)."""
     F = ft.src.shape[0]
     ids = torch.where(valid & (flow_ids >= 0), flow_ids, F)
-    return fs._replace(stream_len=fs.stream_len + _scatter_add(
+    return fs._replace(stream_len=fs.stream_len + scatter_add_i32(
         F, ids, torch.ones_like(ids)))
 
 
@@ -259,11 +252,11 @@ def flow_recv(ft: FlowTables, fs: FlowState, delivered, window_ns):
         torch.int64)) & (shift_idx < W)
     # any data arrival (in order, duplicate or past the window) re-arms
     # the delayed ack
-    any_data = _scatter_add(F, torch.where(is_data, f_safe, F),
+    any_data = scatter_add_i32(F, torch.where(is_data, f_safe, F),
                             torch.ones_like(f_safe)) > 0
     fs = fs._replace(rcv_nxt=fs.rcv_nxt + adv, rcv_bits=bits_shifted,
                      ack_pending=fs.ack_pending | any_data)
-    credits = _scatter_add(N, torch.where(ft.src >= 0, ft.dst, N), adv)
+    credits = scatter_add_i32(N, torch.where(ft.src >= 0, ft.dst, N), adv)
 
     # sender: the cumulative ack is the largest delivered ack value
     ack_val = _scatter_max(F, -1, torch.where(is_ackp, f_safe, F),
@@ -279,12 +272,11 @@ def flow_emit(ft: FlowTables, fs: FlowState, state, *,
     one delayed cumulative ack a flow, through one `plane.ingest` (data
     lanes flow-major, then the acks; `seq` is both seq and priority).
     `metrics` takes the append's ring-full drops and the sending hosts'
-    retransmitted segments. Returns (state', fs'[, metrics'])."""
-    if guards is not None or flightrec is not None:
-        raise NotImplementedError(
-            "flow_emit: the guard and flight-recorder hooks are not ported "
-            "yet (ROADMAP.md queue A: faults, guards and the flight "
-            "recorder)")
+    retransmitted segments; `guards` checks the append's conservation;
+    `flightrec` records an `rto_fired` hop (seq = the snd_una the timer
+    guarded) and a `retransmit` hop a sampled segment, with the packet's
+    own (src, seq) identity. Returns (state', fs'[, metrics'][,
+    guards'][, flightrec'])."""
     F = ft.src.shape[0]
     W = fs.rcv_bits.shape[1]
     N = state.eg_dst.shape[0]
@@ -292,6 +284,7 @@ def flow_emit(ft: FlowTables, fs: FlowState, state, *,
     active = ft.src >= 0
     now_ms = fs.clock_ms
 
+    una_before = fs.snd_una
     fired = (fs.rto_armed & active & (fs.snd_nxt > fs.snd_una)
              & (now_ms >= fs.rto_deadline_ms))
     fs = tcp_mod.sel_batched(fired, _rto_one(fs), fs)
@@ -334,6 +327,8 @@ def flow_emit(ft: FlowTables, fs: FlowState, state, *,
     src_b = cat(rep(ft.src), ft.dst)
     valid_b = cat(data_valid.reshape(-1), ack_valid)
     seq_b = cat(emit_seq.reshape(-1), fs.rcv_nxt)
+    if guards is not None:
+        pre_occ = state.eg_valid.sum(dim=1, dtype=torch.int32)
     pre_ovf = state.n_overflow_dropped
     # an append with no valid lane is the identity, so the JAX idle gate
     # is not taken
@@ -342,20 +337,43 @@ def flow_emit(ft: FlowTables, fs: FlowState, state, *,
         cat(rep(ft.pkt_bytes), torch.full_like(ft.src, ACK_BYTES)),
         seq_b, seq_b, torch.zeros_like(valid_b), valid=valid_b,
         sock=cat(rep(data_tag(flow_idx)), ack_tag(flow_idx)))
-    if metrics is None:
-        return state, fs
-    per_host = _scatter_add(N, torch.where(active, ft.src, N), retx_n)
-    metrics = add_retransmits(metrics._replace(
-        drop_ring_full=metrics.drop_ring_full
-        + (state.n_overflow_dropped - pre_ovf)), per_host)
-    return state, fs, metrics
+    ovf_delta = state.n_overflow_dropped - pre_ovf
+    out = (state, fs)
+    if metrics is not None:
+        per_host = scatter_add_i32(N, torch.where(active, ft.src, N), retx_n)
+        out += (add_retransmits(metrics._replace(
+            drop_ring_full=metrics.drop_ring_full + ovf_delta), per_host),)
+    if guards is not None:
+        incoming = scatter_add_i32(
+            N, torch.where(valid_b, torch.clamp(src_b, 0, N - 1), N),
+            torch.ones_like(src_b))
+        out += (guards_plane.check_ingest(
+            guards, occ_before=pre_occ,
+            occ_after=state.eg_valid.sum(dim=1, dtype=torch.int32),
+            incoming=incoming, overflow=ovf_delta),)
+    if flightrec is not None:
+        src_d = rep(ft.src)
+        samp = flightrec_mod.sample_mask(
+            flightrec, cat(ft.src, src_d), cat(una_before,
+                                               emit_seq.reshape(-1)))
+        n_all = F + F * emit_cap
+        kind = torch.full((n_all,), flightrec_mod.HOP_RETRANSMIT,
+                          dtype=torch.int32, device=dev)
+        kind[:F] = flightrec_mod.HOP_RTO_FIRED
+        out += (flightrec_mod.record_events(
+            flightrec, kind, cat(ft.src, src_d),
+            cat(una_before, emit_seq.reshape(-1)), cat(ft.dst, rep(ft.dst)),
+            torch.zeros(n_all, dtype=torch.int32, device=dev),
+            cat(fired, retx_lane.reshape(-1)) & samp),)
+    return out
 
 
 def flow_step(ft: FlowTables, fs: FlowState, state, delivered, window_ns,
               *, emit_cap: int = EMIT_CAP, metrics=None, guards=None,
               flightrec=None):
     """`flow_recv` then `flow_emit`, the form `window_step(flows=)`
-    runs. Returns (state', fs', credits[, metrics'])."""
+    runs. Returns (state', fs', credits[, metrics'][, guards'][,
+    flightrec'])."""
     fs, credits = flow_recv(ft, fs, delivered, window_ns)
     out = flow_emit(ft, fs, state, emit_cap=emit_cap, metrics=metrics,
                     guards=guards, flightrec=flightrec)
@@ -381,7 +399,7 @@ def next_deadline_rel_ns(ft: FlowTables, fs: FlowState) -> torch.Tensor:
 def retransmits_by_host(ft: FlowTables, fs: FlowState,
                         n_hosts: int) -> torch.Tensor:
     """[N] cumulative retransmitted segments by sending host."""
-    return _scatter_add(n_hosts, torch.where(ft.src >= 0, ft.src, n_hosts),
+    return scatter_add_i32(n_hosts, torch.where(ft.src >= 0, ft.src, n_hosts),
                         fs.retransmit_count)
 
 

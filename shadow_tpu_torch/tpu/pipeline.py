@@ -127,16 +127,12 @@ def _launch(name: str, *args):
 # ---------------------------------------------------------------------------
 
 
-def egress_gate_plain(valid, prio, nbytes, tsend, clamp, balance,
-                      shift_ns: int, *, tiebreak=None):
-    """Kernel C's function in plain PyTorch, and the JAX XLA path's
-    egress stage (`_egress_order` + `_token_gate`, packed keys). Returns
-    (perm [N, CE] int32, bytes_s, tsend_s, clamp_s int32, valid_s,
-    sendable bool [N, CE], spent [N] int32): the order by (validity |
-    priority[, tiebreak], column) and the rebased carried columns in it,
-    the token gate, and each row's spent bytes. `tiebreak` is the
-    round-robin qdisc's socket key (`plane._qdisc_keys`), None for FIFO,
-    which is all kernel C takes."""
+def egress_order_plain(valid, prio, nbytes, tsend, clamp, shift_ns: int, *,
+                       tiebreak=None):
+    """The ordering half of `egress_gate_plain` (the JAX XLA path's
+    `_egress_order`, packed keys): (perm [N, CE] int32, bytes_s, tsend_s,
+    clamp_s int32, valid_s bool), the order by (validity | priority[,
+    tiebreak], column) and the rebased carried columns in it."""
     tsend_rb = torch.where(valid, tsend - shift_ns, 0)
     clamp_rb = torch.where(valid & (clamp != NO_CLAMP), clamp - shift_ns,
                            clamp)
@@ -148,14 +144,34 @@ def egress_gate_plain(valid, prio, nbytes, tsend, clamp, balance,
         key_s = take(key, perm)
     # validity comes back from the key's top bit, as in the TPU kernel
     valid_s = (key_s & _SIGN32) == 0
-    bytes_s = take(nbytes, perm)
+    return (perm.to(torch.int32), take(nbytes, perm), take(tsend_rb, perm),
+            take(clamp_rb, perm), valid_s)
+
+
+def token_gate(valid_s, bytes_s, balance):
+    """The gating half of `egress_gate_plain` (the JAX `_token_gate`):
+    the prefix-sum token gate over the ordered rows. Returns (sendable
+    bool [N, CE], spent [N] int32)."""
     cum = wrap_i32(torch.cumsum(torch.where(valid_s, bytes_s, 0), dim=1,
                                 dtype=torch.int64))
     sendable = valid_s & (cum <= balance[:, None])
     spent = wrap_i32(torch.where(sendable, bytes_s, 0).sum(
         dim=1, dtype=torch.int64))
-    return (perm.to(torch.int32), bytes_s, take(tsend_rb, perm),
-            take(clamp_rb, perm), valid_s, sendable, spent)
+    return sendable, spent
+
+
+def egress_gate_plain(valid, prio, nbytes, tsend, clamp, balance,
+                      shift_ns: int, *, tiebreak=None):
+    """Kernel C's function in plain PyTorch, and the JAX XLA path's
+    egress stage: `egress_order_plain` then `token_gate`. Returns (perm
+    [N, CE] int32, bytes_s, tsend_s, clamp_s int32, valid_s, sendable
+    bool [N, CE], spent [N] int32). `tiebreak` is the round-robin
+    qdisc's socket key (`plane._qdisc_keys`), None for FIFO, which is
+    all kernel C takes."""
+    perm, bytes_s, tsend_s, clamp_s, valid_s = egress_order_plain(
+        valid, prio, nbytes, tsend, clamp, shift_ns, tiebreak=tiebreak)
+    sendable, spent = token_gate(valid_s, bytes_s, balance)
+    return perm, bytes_s, tsend_s, clamp_s, valid_s, sendable, spent
 
 
 def egress_order_gate(valid, prio, nbytes, tsend, clamp, balance,

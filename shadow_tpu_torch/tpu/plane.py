@@ -5,16 +5,17 @@ and row-shaped egress appends, and the direct-delivery `window_step`
 (`router_aqm=False`, packed sort keys) with three kernels. The fused
 pair A and B (`kernel="pallas_fused"`) and the split pair C and D
 (`kernel="pallas"`) run the CUDA kernels of `tpu/pipeline.py`, FIFO
-only; `kernel="xla"`, the JAX package's own default, runs every stage
-in PyTorch with no kernel of the port (the split pair's plain versions)
-and adds the round-robin qdisc (`rr_enabled=True`). The metrics plane
-rides all three kernels, the histogram plane the XLA path only, as in
-the JAX package, and so do the flow and compute planes on the XLA path;
-`unpack_planes` splits what they append.
+only; `kernel="xla"`, the default as in the JAX package, runs every
+stage in PyTorch with no kernel of the port (the split pair's plain
+versions) and adds the round-robin qdisc (`rr_enabled=True`). The
+metrics plane rides all three kernels; the fault, guard, histogram and
+flight-recorder planes and the flow and compute planes ride the XLA
+path only, as in the JAX package. `unpack_planes` splits what they
+append.
 
 Every result is bitwise the JAX plane's `window_step` with the same
 kernel: int32 state, int32 arithmetic that wraps where the JAX plane's
-does, and the float32 loss draw computed from the same
+does, and the float32 loss and corruption draws computed from the same
 threefry bits. Sorts that the JAX plane runs outside its Pallas kernels
 stay `torch.sort` (stable) on composite int64 keys that give the same
 permutation. Nothing in `window_step` reads a tensor back to the host.
@@ -28,14 +29,19 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..faults.plane import FaultArrays
+from ..guards import plane as guards_plane
+from ..guards.plane import GuardState
+from ..telemetry import flightrec as flightrec_mod
 from ..telemetry import histo
+from ..telemetry.flightrec import FlightRecArrays
 from ..telemetry.histo import PlaneHistograms
 from ..telemetry.metrics import PlaneMetrics
 from . import codel
 from . import compute as compute_mod
 from .prims import (_SIGN32, I32_MAX, NO_CLAMP, _pack_rank_key,
                     _pack_time_key, _pkt_uniform, _row_perm_sort, floordiv,
-                    floormod, take, u32, wrap_i32)
+                    floormod, scatter_add_i32, take, u32, wrap_i32)
 
 # per-host socket-slot space of the round-robin qdisc's counters
 RR_SOCK_SLOTS = 16
@@ -181,15 +187,17 @@ def _arange(n: int, like: torch.Tensor, dtype=torch.int32) -> torch.Tensor:
 
 def ingest(state: NetPlaneState, src, dst, nbytes, prio, seq, ctrl,
            valid=None, send_rel=None, clamp_rel=None, sock=None, *,
-           metrics: PlaneMetrics | None = None):
+           metrics: PlaneMetrics | None = None,
+           guards: GuardState | None = None):
     """Append a flat batch of packets ([B] tensors, src = emitting host)
     to the egress rings after each row's valid entries, in (src, seq,
     batch position) order; what overflows a row is counted and dropped.
     The JAX plane's packed bucketed append: one stable sort on the
     composite key (src << 32 | seq ^ SIGN), binary-searched row bounds,
     and one stacked gather of the payload columns. With `metrics` the
-    overflow also lands in `drop_ring_full` and the return is (state',
-    metrics')."""
+    overflow also lands in `drop_ring_full`; `guards` checks that each
+    row gained its incoming packets less the overflow. Returns the bare
+    state without them, else (state'[, metrics'][, guards'])."""
     N, CE = state.eg_dst.shape
     if valid is not None:
         src = torch.where(valid, src, N)
@@ -236,26 +244,38 @@ def ingest(state: NetPlaneState, src, dst, nbytes, prio, seq, ctrl,
         eg_sock=eg_sock, eg_valid=eg_valid_i != 0,
         n_overflow_dropped=state.n_overflow_dropped + overflow,
     )
-    if metrics is None:
-        return new_state
-    return new_state, metrics._replace(
-        drop_ring_full=metrics.drop_ring_full + overflow)
+    out = (new_state,)
+    if metrics is not None:
+        out += (metrics._replace(
+            drop_ring_full=metrics.drop_ring_full + overflow),)
+    if guards is not None:
+        out += (guards_plane.check_ingest(
+            guards, occ_before=n_valid,
+            occ_after=new_state.eg_valid.sum(dim=1, dtype=torch.int32),
+            incoming=counts, overflow=overflow),)
+    return out if len(out) > 1 else new_state
 
 
 def ingest_rows(state: NetPlaneState, dst, nbytes, prio, seq, ctrl, valid,
                 send_rel=None, clamp_rel=None, sock=None, *,
                 metrics: PlaneMetrics | None = None,
-                hist: PlaneHistograms | None = None):
+                guards: GuardState | None = None,
+                hist: PlaneHistograms | None = None,
+                flightrec: FlightRecArrays | None = None):
     """Append per-host batches ([N, K] tensors, row = emitting host)
     after each row's existing entries, in column order: the packed
     single-key merge (validity | column rank). The JAX plane's idle gate
     is not taken; the merge of an entry-free batch is the identity
     (SL505), and skipping the gate avoids a host read.
 
-    `metrics` adds the overflow to `drop_ring_full`; `hist` samples the
-    post-append egress occupancy into `hist_qdepth`. Neither touches the
+    `metrics` adds the overflow to `drop_ring_full`; `guards` checks
+    append conservation; `hist` samples the post-append egress occupancy
+    into `hist_qdepth`; `flightrec` records an `ingest` hop for each
+    sampled packet the rings accepted (the first free-slots valid
+    entries of a row), stamped with the coming window. None touches the
     state. Returns the bare state without them, else (state'[,
-    metrics'][, hist']) in the JAX plane's order."""
+    metrics'][, guards'][, hist'][, flightrec']) in the JAX plane's
+    order."""
     N, CE = state.eg_dst.shape
     if send_rel is None:
         send_rel = torch.zeros_like(seq)
@@ -282,14 +302,34 @@ def ingest_rows(state: NetPlaneState, dst, nbytes, prio, seq, ctrl, valid,
         eg_valid=tk(state.eg_valid, valid),
         n_overflow_dropped=state.n_overflow_dropped + overflow,
     )
+    if guards is not None or flightrec is not None:
+        occ_before = state.eg_valid.sum(dim=1, dtype=torch.int32)
     out = (new_state,)
     if metrics is not None:
         out += (metrics._replace(
             drop_ring_full=metrics.drop_ring_full + overflow),)
+    if guards is not None:
+        out += (guards_plane.check_ingest(
+            guards, occ_before=occ_before,
+            occ_after=new_state.eg_valid.sum(dim=1, dtype=torch.int32),
+            incoming=valid.sum(dim=1, dtype=torch.int32),
+            overflow=overflow),)
     if hist is not None:
         out += (hist._replace(hist_qdepth=histo.accum_depth(
             hist.hist_qdepth,
             new_state.eg_valid.sum(dim=1, dtype=torch.int32))),)
+    if flightrec is not None:
+        rows = _arange(N, valid)[:, None].expand(valid.shape)
+        valid_i = valid.to(torch.int32)
+        new_rank = torch.cumsum(valid_i, dim=1, dtype=torch.int32) - valid_i
+        accepted = valid & (new_rank < (CE - occ_before)[:, None])
+        samp = flightrec_mod.sample_mask(flightrec, rows, seq)
+        out += (flightrec_mod.record_events(
+            flightrec,
+            torch.full((valid.numel(),), flightrec_mod.HOP_INGEST,
+                       dtype=torch.int32, device=valid.device),
+            rows.reshape(-1), seq.reshape(-1), dst.reshape(-1),
+            send_rel.reshape(-1), (accepted & samp).reshape(-1)),)
     return out if len(out) > 1 else new_state
 
 
@@ -345,11 +385,17 @@ def compact_delivered(delivered: dict, cap: int):
 # ---------------------------------------------------------------------------
 
 
-def _refill_tokens(state: NetPlaneState, params: NetPlaneParams, shift_ns):
+def _refill_tokens(state: NetPlaneState, params: NetPlaneParams, shift_ns,
+                   *, faults: FaultArrays | None = None):
     """Section 1b: lazy 1 ms token refill with the sub-ms remainder
     carried; elapsed is clamped to the headroom before multiplying.
-    Returns (balance, tb_rem_ns)."""
+    `faults` divides each host's rate by `bw_div` (the MTU burst part of
+    the capacity stays). Returns (balance, tb_rem_ns)."""
     rate, cap = params.tb_rate, params.tb_cap
+    if faults is not None:
+        rate = torch.clamp(floordiv(rate, torch.clamp(faults.bw_div, min=1)),
+                           min=1)
+        cap = rate + (params.tb_cap - params.tb_rate)
     rem_total = state.tb_rem_ns + floormod(shift_ns, 1_000_000)
     elapsed_ms = floordiv(shift_ns, 1_000_000) + floordiv(rem_total,
                                                           1_000_000)
@@ -405,31 +451,52 @@ def _rr_advance(eg_sock, eg_valid, sendable, rr_aux):
 
 def _loss_latency(state: NetPlaneState, params: NetPlaneParams, seed: int,
                   eg_dst, eg_ctrl, eg_tsend, eg_clamp, sendable, window_ns,
-                  *, no_loss: bool):
+                  *, no_loss: bool, faults: FaultArrays | None = None):
     """Section 3: the counter-based Bernoulli loss draw and the
-    node-table latency lookup. Returns (sent, lost, rng_counter',
-    deliver_rel)."""
+    node-table latency lookup. Returns (sent, lost, corrupt or None,
+    rng_counter', deliver_rel).
+
+    With `faults`: the corruption draw, the same counter stream at host
+    index host + N (drawn under `no_loss` too, and in one threefry call
+    with the loss draw otherwise), drops data packets that were not
+    lost with the host's `corrupt_p`; and `lat_mult` > 1 multiplies the
+    latency, clamped first so the product stays in the int32 budget."""
     N, CE = eg_dst.shape
     col = _arange(CE, eg_dst)
     node_src = params.host_node.to(torch.int64)[:, None].expand(N, CE)
     node_dst = params.host_node[
         torch.clamp(eg_dst, 0, N - 1).to(torch.int64)].to(torch.int64)
+    host = _arange(N, eg_dst, torch.int64)[:, None].expand(N, CE)
+    # the JAX counter is int32 and wraps; the draw reads its bits
+    counter = state.rng_counter.to(torch.int64)[:, None] + col
+    draws = (([] if no_loss else [host])
+             + ([host + N] if faults is not None else []))
+    if len(draws) == 1:
+        u = [_pkt_uniform(seed, draws[0], counter)]
+    elif draws:  # the loss and corruption draws in one call
+        u = list(_pkt_uniform(seed, torch.stack(draws), counter))
     if no_loss:
         lost = torch.zeros_like(sendable)
         sent = sendable
     else:
-        host = _arange(N, eg_dst, torch.int64)[:, None].expand(N, CE)
-        # the JAX counter is int32 and wraps; the draw reads its bits
-        counter = state.rng_counter.to(torch.int64)[:, None] + col
-        u = _pkt_uniform(seed, host, counter)
         p_loss = params.loss[node_src, node_dst]
-        lost = sendable & (u < p_loss) & ~eg_ctrl
+        lost = sendable & (u[0] < p_loss) & ~eg_ctrl
         sent = sendable & ~lost
+    corrupt = None
+    if faults is not None:
+        corrupt = (sendable & ~lost & ~eg_ctrl
+                   & (u[-1] < faults.corrupt_p[:, None]))
+        sent = sent & ~corrupt
     rng_counter = state.rng_counter + sendable.sum(dim=1, dtype=torch.int32)
     latency = params.latency_ns[node_src, node_dst]
+    if faults is not None:
+        mult = torch.clamp(faults.lat_mult[node_src, node_dst], min=1)
+        cap = floordiv(torch.full_like(mult, I32_MAX // 2), mult)
+        latency = torch.where(mult > 1, torch.minimum(latency, cap) * mult,
+                              latency)
     clamp_eff = torch.where(eg_clamp == NO_CLAMP, window_ns, eg_clamp)
     deliver_rel = torch.maximum(eg_tsend + latency, clamp_eff)
-    return sent, lost, rng_counter, deliver_rel
+    return sent, lost, corrupt, rng_counter, deliver_rel
 
 
 def _compact_ingress(state: NetPlaneState, in_deliver):
@@ -542,10 +609,11 @@ def _row_sum_i32(x: torch.Tensor) -> torch.Tensor:
 
 def _accumulate_metrics(metrics: PlaneMetrics, state: NetPlaneState,
                         sent, lost, due, overflowed, delivered, in_valid_m,
-                        eg_bytes) -> PlaneMetrics:
+                        eg_bytes, fault_drops=None) -> PlaneMetrics:
     """Section 8: the telemetry counters, over values the step already
-    computed; nothing feeds back into the state. The router-drop and
-    fault-drop deltas are zero on the direct path without faults."""
+    computed; nothing feeds back into the state. The router-drop delta
+    is zero on the direct path; `fault_drops` ([N], None without
+    faults) is the fault plane's per-host drops."""
     sent_n = sent.sum(dim=1, dtype=torch.int32)
     due_n = due.sum(dim=1, dtype=torch.int32)
     occupancy = lambda v: v.sum(dim=1, dtype=torch.int32)
@@ -559,7 +627,8 @@ def _accumulate_metrics(metrics: PlaneMetrics, state: NetPlaneState,
         drop_ring_full=metrics.drop_ring_full + overflowed,
         drop_qdisc=metrics.drop_qdisc,
         drop_loss=metrics.drop_loss + lost.sum(dim=1, dtype=torch.int32),
-        drop_fault=metrics.drop_fault,
+        drop_fault=(metrics.drop_fault if fault_drops is None
+                    else metrics.drop_fault + fault_drops),
         retransmits=metrics.retransmits,
         # high-water marks at the peak points: egress entering the window,
         # ingress after the arrivals merged and before the due release
@@ -600,9 +669,6 @@ def _accumulate_hist(hist: PlaneHistograms, state: NetPlaneState, sent,
 
 _PRESENCE_PLANES = ("faults", "metrics", "guards", "hist", "flightrec",
                     "flows", "compute")
-# presence planes the port runs: metrics on every kernel, the others on
-# "xla"
-_PORTED_PLANES = ("metrics", "hist", "flows", "compute")
 KERNELS = ("pallas_fused", "pallas", "xla")
 
 
@@ -629,17 +695,12 @@ def _check_step_options(kernel: str, rr_enabled: bool, router_aqm: bool,
             f"plane_kernel={kernel!r}: the port implements the packed/"
             "bucketed ordering only; packed_sort=False is a JAX-side "
             "parity reference (ROADMAP.md)")
-    threaded = [k for k in _PRESENCE_PLANES if planes.get(k) is not None]
-    refused = [k for k in threaded if k != "metrics"]
+    refused = [k for k in _PRESENCE_PLANES
+               if k != "metrics" and planes.get(k) is not None]
     if fused and refused:
         raise ValueError(
             f"plane_kernel={kernel!r} does not fuse the presence planes "
             f"{refused}; the JAX plane runs them on kernel='xla' only")
-    unported = [k for k in threaded if k not in _PORTED_PLANES]
-    if unported:
-        raise NotImplementedError(
-            f"window_step: presence planes {unported} are not ported yet "
-            "(ROADMAP.md, queue A)")
     if router_aqm:
         raise NotImplementedError(
             "window_step: the router AQM path (router_aqm=True) is not "
@@ -649,10 +710,13 @@ def _check_step_options(kernel: str, rr_enabled: bool, router_aqm: bool,
 def window_step(state: NetPlaneState, params: NetPlaneParams, rng_seed: int,
                 shift_ns: int, window_ns: int, *, rr_enabled: bool = True,
                 router_aqm: bool = False, no_loss: bool = False,
-                packed_sort: bool = True, kernel: str = "pallas_fused",
+                packed_sort: bool = True, kernel: str = "xla",
                 plain_kernels: bool = False,
+                faults: FaultArrays | None = None,
                 metrics: PlaneMetrics | None = None,
-                hist: PlaneHistograms | None = None, **planes):
+                guards: GuardState | None = None,
+                hist: PlaneHistograms | None = None,
+                flightrec: FlightRecArrays | None = None, **planes):
     """Advance one scheduling round [t, t + window_ns): the
     direct-delivery path of the JAX `window_step` with the same kernel,
     bitwise.
@@ -661,41 +725,52 @@ def window_step(state: NetPlaneState, params: NetPlaneParams, rng_seed: int,
     egress_rank_stage`, `route_place`); `kernel="pallas"` the split pair,
     kernels C and D (`egress_order_gate`, `route_scatter`), with the
     other egress columns gathered through C's permutation and the routing
-    row order computed in PyTorch. `kernel="xla"` runs the split path's
-    stages through the plain versions of C and D, which compute the JAX
-    XLA path's egress sort and gate and its routing placement, launching
-    no kernel; it alone takes the round-robin qdisc (`rr_enabled=True`,
-    per host by `params.qdisc_rr`) and the histogram plane. The JAX
-    package makes the three bitwise identical. `rng_seed` is the int seed
-    of the JAX run's `jax.random.key(seed)`; `shift_ns` is this window's
-    start minus the previous one's. `plain_kernels=True` runs the plain
-    PyTorch versions of the kernels even on CUDA tensors (the reference a
-    card run is held against); otherwise CUDA tensors go through the CUDA
-    kernels.
+    row order computed in PyTorch. `kernel="xla"` (the default, as in the
+    JAX package) runs the split path's stages through the plain versions
+    of C and D, which compute the JAX XLA path's egress sort and gate and
+    its routing placement, launching no kernel; it alone takes the
+    round-robin qdisc (`rr_enabled=True`, per host by `params.qdisc_rr`)
+    and every presence plane but metrics. The JAX package makes the three
+    bitwise identical. `rng_seed` is the int seed of the JAX run's
+    `jax.random.key(seed)`; `shift_ns` is this window's start minus the
+    previous one's. `plain_kernels=True` runs the plain PyTorch versions
+    of the kernels even on CUDA tensors (the reference a card run is
+    held against); otherwise CUDA tensors go through the CUDA kernels.
 
-    `metrics` (`telemetry.metrics.PlaneMetrics`) and `hist`
-    (`telemetry.histo.PlaneHistograms`) accumulate over values the step
-    computes anyway and leave the state bitwise unchanged. On "xla",
+    The presence planes (each None by default, leaving the step as it
+    is): `faults` (`faults.plane.FaultArrays`) purges a down host's
+    egress before the token gate, divides its refill rate, corrupts its
+    data packets and multiplies path latency, and drops what is routed
+    toward a down host; its drops count in `n_fault_dropped` and
+    `metrics.drop_fault`. `metrics` (`telemetry.metrics.PlaneMetrics`),
+    `guards` (`guards.plane.GuardState`), `hist`
+    (`telemetry.histo.PlaneHistograms`) and `flightrec`
+    (`telemetry.flightrec.FlightRecArrays`) read values the step computes
+    anyway and leave the state bitwise unchanged.
     `flows=(FlowTables, FlowState)` runs the flow plane's `flow_step`
     after them (its retransmits and acks append to the egress rings) and
     `compute=(ComputeTables, ComputeState)` the compute plane's
     `compute_step` on the same delivered dict (`tpu/flows.py`,
     `tpu/compute.py`).
 
-    Returns (state', delivered, next_event_rel[, metrics'][, hist'][,
-    flow_state'][, compute_state']):
+    Returns (state', delivered, next_event_rel[, metrics'][, guards'][,
+    hist'][, flightrec'][, flow_state'][, compute_state']):
     `delivered` is a dict of [N, CI] tensors masked by
     delivered["mask"], and next_event_rel a 0-d int32 tensor (I32_MAX
     when idle). No tensor is read back to the host.
     """
     _check_step_options(kernel, rr_enabled, router_aqm, packed_sort,
-                        dict(planes, metrics=metrics, hist=hist))
+                        dict(planes, faults=faults, metrics=metrics,
+                             guards=guards, hist=hist, flightrec=flightrec))
     from . import pipeline
+
+    N, CE = state.eg_dst.shape
 
     # --- 1. rebase clocks + refill token buckets ------------------------
     in_deliver = torch.where(state.in_valid,
                              state.in_deliver_rel - shift_ns, I32_MAX)
-    balance, tb_rem_ns = _refill_tokens(state, params, shift_ns)
+    balance, tb_rem_ns = _refill_tokens(state, params, shift_ns,
+                                        faults=faults)
     rt = codel.rebase_router_state(state.router, shift_ns, params.dn_rate,
                                    params.dn_cap)
 
@@ -713,10 +788,18 @@ def window_step(state: NetPlaneState, params: NetPlaneParams, rng_seed: int,
         qkey1, qkey2, rr_aux = _qdisc_keys(state, params,
                                            rr_enabled=rr_enabled)
         if kernel == "xla" or plain_kernels:
-            (perm, eg_bytes, eg_tsend, eg_clamp, eg_valid, sendable,
-             spent) = pipeline.egress_gate_plain(
+            (perm, eg_bytes, eg_tsend, eg_clamp,
+             eg_valid) = pipeline.egress_order_plain(
                 state.eg_valid, qkey1, state.eg_bytes, state.eg_tsend,
-                state.eg_clamp, balance, shift_ns, tiebreak=qkey2)
+                state.eg_clamp, shift_ns, tiebreak=qkey2)
+            if faults is not None:
+                # 2f. a down host transmits nothing: its queued egress
+                # drops here, before the gate, once a slot
+                up_src = (faults.host_alive & faults.link_up)[:, None]
+                fault_purged = eg_valid & ~up_src
+                eg_valid = eg_valid & up_src
+            sendable, spent = pipeline.token_gate(eg_valid, eg_bytes,
+                                                  balance)
         else:
             (perm, eg_bytes, eg_tsend, eg_clamp, eg_valid, sendable,
              spent) = pipeline.egress_order_gate(
@@ -732,9 +815,21 @@ def window_step(state: NetPlaneState, params: NetPlaneParams, rng_seed: int,
     balance = balance - spent
 
     # --- 3. loss sampling + latency lookup -------------------------------
-    sent, lost, rng_counter, deliver_rel = _loss_latency(
+    sent, lost, corrupt, rng_counter, deliver_rel = _loss_latency(
         state, params, rng_seed, eg_dst, eg_ctrl, eg_tsend, eg_clamp,
-        sendable, window_ns, no_loss=no_loss)
+        sendable, window_ns, no_loss=no_loss, faults=faults)
+    if faults is not None:
+        # 3f. routing toward a down destination drops (what is already in
+        # its ingress ring stays); purge and corruption count at the
+        # source, a blocked route at the destination
+        in_range = (eg_dst >= 0) & (eg_dst < N)
+        dst_c = torch.clamp(eg_dst, 0, N - 1).to(torch.int64)
+        dst_ok = (faults.host_alive & faults.link_up)[dst_c] & in_range
+        blocked_dst = sent & ~dst_ok & in_range
+        sent = sent & dst_ok
+        fault_drops = (fault_purged.sum(dim=1, dtype=torch.int32)
+                       + corrupt.sum(dim=1, dtype=torch.int32)
+                       + scatter_add_i32(N, dst_c, blocked_dst))
     eg_valid_left = eg_valid & ~sendable
 
     # --- 4 + 5. compact surviving ingress, route (kernel B or D) --------
@@ -786,16 +881,42 @@ def window_step(state: NetPlaneState, params: NetPlaneParams, rng_seed: int,
         + lost.sum(dim=1, dtype=torch.int32),
         n_overflow_dropped=state.n_overflow_dropped + overflowed,
         n_delivered=state.n_delivered + due.sum(dim=1, dtype=torch.int32),
+        n_fault_dropped=(state.n_fault_dropped if faults is None
+                         else state.n_fault_dropped + fault_drops),
     )
     if metrics is not None:
         # --- 8. telemetry counters ---------------------------------------
-        metrics = _accumulate_metrics(metrics, state, sent, lost, due,
-                                      overflowed, delivered, in_valid_m,
-                                      eg_bytes)
+        metrics = _accumulate_metrics(
+            metrics, state, sent, lost, due, overflowed, delivered,
+            in_valid_m, eg_bytes, fault_drops if faults is not None else None)
+    if guards is not None:
+        # --- 9. guard plane ("xla" only): reads, never writes the state
+        eg_left = sendable.sum(dim=1, dtype=torch.int32)
+        if faults is not None:
+            eg_left = eg_left + fault_purged.sum(dim=1, dtype=torch.int32)
+        no_cache = torch.zeros(N, dtype=torch.int32, device=eg_dst.device)
+        guards = guards_plane.check_window(
+            guards, state=state,
+            eg_occ_in=state.eg_valid.sum(dim=1, dtype=torch.int32),
+            eg_left_this_window=eg_left,
+            in_occ_in=state.in_valid.sum(dim=1, dtype=torch.int32),
+            arrivals=scatter_add_i32(N, torch.clamp(eg_dst, 0, N - 1),
+                                      sent),
+            overflowed=overflowed,
+            delivered=due.sum(dim=1, dtype=torch.int32),
+            qdisc_delta=no_cache, cached_in=no_cache, cached_out=no_cache,
+            new_state=new_state, rng_delta=rng_counter - state.rng_counter,
+            egress_cap=CE, shift_ns=shift_ns, window_ns=window_ns)
     if hist is not None:
         # --- 10. latency/depth histograms ("xla" only) -------------------
         hist = _accumulate_hist(hist, state, sent, eg_dst, eg_tsend,
                                 deliver_rel, in_valid_m)
+    if flightrec is not None:
+        # --- 11. flight recorder ("xla" only)
+        flightrec = _record_hops(flightrec, eg_dst, eg_seq, eg_tsend, sent,
+                                 lost, delivered,
+                                 None if faults is None
+                                 else fault_purged | corrupt | blocked_dst)
     flows, compute = planes.get("flows"), planes.get("compute")
     if flows is not None:
         # --- 12. the flow plane ("xla" only): acks and credits read the
@@ -804,19 +925,60 @@ def window_step(state: NetPlaneState, params: NetPlaneParams, rng_seed: int,
         # reduced before the append, as in the JAX step
         from . import flows as flows_mod  # flows imports this module
 
-        new_state, fs_out, _credits, *m = flows_mod.flow_step(
-            *flows, new_state, delivered, window_ns, metrics=metrics)
+        new_state, fs_out, _credits, *rest = flows_mod.flow_step(
+            *flows, new_state, delivered, window_ns, metrics=metrics,
+            guards=guards, flightrec=flightrec)
         if metrics is not None:
-            metrics = m[0]
+            metrics = rest.pop(0)
+        if guards is not None:
+            guards = rest.pop(0)
+        if flightrec is not None:
+            flightrec = rest.pop(0)
     if compute is not None:
         # --- 13. the compute plane ("xla" only): reads the released
         # dict, writes only its own state
         cs_out = compute_mod.compute_step(*compute, delivered, shift_ns,
                                           window_ns)
     out = (new_state, delivered, next_event)
-    out += tuple(p for p in (metrics, hist) if p is not None)
+    out += tuple(p for p in (metrics, guards, hist, flightrec)
+                 if p is not None)
     if flows is not None:
         out += (fs_out,)
     if compute is not None:
         out += (cs_out,)
     return out
+
+
+def _record_hops(fr: FlightRecArrays, eg_dst, eg_seq, eg_tsend, sent, lost,
+                 delivered, fault_dropped=None) -> FlightRecArrays:
+    """Section 11: the sampled packets' hops of this window, candidates
+    in the JAX layout order (routed, loss drops, fault drops when the
+    fault plane runs, delivered), then the window counter. One sampling
+    call covers the egress and the delivered slots."""
+    N, CE = eg_dst.shape
+    dev = eg_dst.device
+    flat = lambda a: a.reshape(-1)
+    rows = lambda shape: flat(_arange(N, eg_dst)[:, None].expand(shape))
+    d_src, d_seq = flat(delivered["src"]), flat(delivered["seq"])
+    samp = flightrec_mod.sample_mask(fr, torch.cat([rows((N, CE)), d_src]),
+                                     torch.cat([flat(eg_seq), d_seq]))
+    samp_eg, samp_d = samp[:N * CE], samp[N * CE:]
+    eg_hops = [(flightrec_mod.HOP_ROUTED, sent),
+               (flightrec_mod.HOP_DROP_LOSS, lost)]
+    if fault_dropped is not None:
+        eg_hops.append((flightrec_mod.HOP_DROP_FAULT, fault_dropped))
+    k = len(eg_hops)
+    kind = torch.cat(
+        [torch.full((N * CE,), h, dtype=torch.int32, device=dev)
+         for h, _m in eg_hops]
+        + [torch.full((d_src.shape[0],), flightrec_mod.HOP_DELIVERED,
+                      dtype=torch.int32, device=dev)])
+    fr = flightrec_mod.record_events(
+        fr, kind,
+        torch.cat([rows((N, CE))] * k + [d_src]),
+        torch.cat([flat(eg_seq)] * k + [d_seq]),
+        torch.cat([flat(eg_dst)] * k + [rows(delivered["mask"].shape)]),
+        torch.cat([flat(eg_tsend)] * k + [flat(delivered["deliver_rel"])]),
+        torch.cat([flat(m) & samp_eg for _h, m in eg_hops]
+                  + [flat(delivered["mask"]) & samp_d]))
+    return flightrec_mod.advance_window(fr)

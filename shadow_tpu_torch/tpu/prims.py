@@ -53,6 +53,16 @@ def take(a: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
     return torch.gather(a, 1, perm)
 
 
+def scatter_add_i32(n: int, idx, values) -> torch.Tensor:
+    """[n] int32 sums of `values` at `idx`, index n dropped (the JAX
+    `.at[].add(mode="drop")` with the drop slot at n). Integer adds, so
+    the order of the atomics does not matter."""
+    out = torch.zeros(n + 1, dtype=torch.int32, device=idx.device)
+    out.index_add_(0, idx.reshape(-1).to(torch.int64),
+                   values.reshape(-1).to(torch.int32))
+    return out[:n]
+
+
 def _assert_bit_budget(*fields):
     """The named (bits, what) fields must fit one 32-bit packed key."""
     total = sum(bits for bits, _ in fields)

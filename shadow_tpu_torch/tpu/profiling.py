@@ -48,7 +48,8 @@ def build_world(n_hosts: int, *, n_nodes: int = 64, egress_cap: int = 16,
     delivered = None
     for _ in range(warmup_windows):
         state, delivered, _next = window_step(
-            state, params, RNG_SEED, shift, window, rr_enabled=False)
+            state, params, RNG_SEED, shift, window, rr_enabled=False,
+            kernel="pallas_fused")
         shift = window
     return {
         "state": state, "params": params, "rng_root": RNG_SEED,

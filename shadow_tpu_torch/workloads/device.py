@@ -18,9 +18,8 @@ host. Phase semantics are the JAX package's:
 
 Under the flow transport (`flows=`) the emissions are enqueued onto
 their flows (`tpu/flows.enqueue`) instead of appended as packets, and a
-phase is credited with acked in-order segments. The runtime guards
-(`guards=`) are not ported yet and raise `NotImplementedError` (ROADMAP.md
-queue A).
+phase is credited with acked in-order segments. `metrics=` and
+`guards=` ride the emission's `ingest_rows` as in the JAX package.
 """
 
 from __future__ import annotations
@@ -62,11 +61,6 @@ class WorkloadState(NamedTuple):
     done_win: torch.Tensor  # [N, P] int32 window the phase was left
 
 
-def _not_ported(what: str):
-    raise NotImplementedError(
-        f"workload_step: {what} is not ported yet (ROADMAP.md, queue A)")
-
-
 def to_device(prog: TrafficProgram, device=None) -> WorkloadArrays:
     """Upload the program tables (copies, so a later edit of the numpy
     program never reaches the device state)."""
@@ -104,24 +98,24 @@ def _phase_sends(wl: WorkloadArrays, phase, entered):
 
 
 def _emit(state, ws: WorkloadState, valid, peer, nbytes, delay, *,
-          metrics=None):
+          metrics=None, guards=None):
     """Append the emission batch to the egress rings, seqs assigned in
     lane order (the rank among the row's valid lanes); the seq is the
-    priority too. Returns (state', metrics' or None, ws')."""
+    priority too. Returns (state', (metrics', guards' as threaded),
+    ws')."""
     rank = torch.where(
         valid, torch.cumsum(valid, dim=1, dtype=torch.int32) - 1, 0)
     seq_vals = ws.seq[:, None] + rank
     out = ingest_rows(state, peer, nbytes, seq_vals, seq_vals,
                       torch.zeros_like(valid), valid, send_rel=delay,
-                      metrics=metrics)
-    state, metrics = out if metrics is not None else (out, None)
+                      metrics=metrics, guards=guards)
+    state, extras = (out[0], out[1:]) if type(out) is tuple else (out, ())
     ws = ws._replace(seq=ws.seq + valid.sum(dim=1, dtype=torch.int32))
-    return state, metrics, ws
+    return state, extras, ws
 
 
-def _with_metrics(state, ws, metrics, *fs):
-    return (state, ws, *fs) if metrics is None else (state, ws, *fs,
-                                                     metrics)
+def _planes(metrics, guards) -> tuple:
+    return tuple(p for p in (metrics, guards) if p is not None)
 
 
 def _lane_flows(ft, phase, entered):
@@ -136,12 +130,10 @@ def _lane_flows(ft, phase, entered):
 def prime(wl: WorkloadArrays, ws: WorkloadState, state, *, metrics=None,
           guards=None, flows=None):
     """Emit every participant's phase-0 sends (once, before the first
-    window). Returns (state', ws'[, metrics']). With `flows=(ft, fs)`
-    the sends are enqueued onto their flows instead, for the caller's
-    following `flow_emit`; the return is then (state, ws, fs'[,
-    metrics]) with the state and metrics untouched."""
-    if guards is not None:
-        _not_ported("the guard plane (guards=)")
+    window). Returns (state', ws'[, metrics'][, guards']). With
+    `flows=(ft, fs)` the sends are enqueued onto their flows instead, for
+    the caller's following `flow_emit`; the return is then (state, ws,
+    fs'[, metrics][, guards]) with the state and the planes untouched."""
     entered = wl.n_phases > 0
     phase0 = torch.zeros_like(ws.phase)
     valid, peer, nbytes, delay = _phase_sends(wl, phase0, entered)
@@ -149,10 +141,10 @@ def prime(wl: WorkloadArrays, ws: WorkloadState, state, *, metrics=None,
         ft, fs = flows
         fs = flows_mod.enqueue(ft, fs, _lane_flows(ft, phase0, entered),
                                valid)
-        return _with_metrics(state, ws, metrics, fs)
-    state, metrics, ws = _emit(state, ws, valid, peer, nbytes, delay,
-                               metrics=metrics)
-    return _with_metrics(state, ws, metrics)
+        return (state, ws, fs, *_planes(metrics, guards))
+    state, extras, ws = _emit(state, ws, valid, peer, nbytes, delay,
+                              metrics=metrics, guards=guards)
+    return (state, ws, *extras)
 
 
 def workload_step(wl: WorkloadArrays, ws: WorkloadState, state, delivered,
@@ -165,15 +157,13 @@ def workload_step(wl: WorkloadArrays, ws: WorkloadState, state, delivered,
     credits the receiving host's current phase, unless `credits` ([N]
     int32) gives the per-host credits instead. `round_idx` is the
     driver's window counter (stamps `done_win`); `window_ns` counts the
-    holds down. Returns (state', ws'[, metrics']).
+    holds down. Returns (state', ws'[, metrics'][, guards']).
 
     `flows=(ft, fs, credits)` runs the generator on the flow transport:
     the phases are credited with `credits` (`flows.flow_recv`'s acked
     in-order segments) and the sends are enqueued onto their flows for
     the caller's following `flow_emit`; the return is then (state, ws',
-    fs'[, metrics]) with the state and metrics untouched."""
-    if guards is not None:
-        _not_ported("the guard plane (guards=)")
+    fs'[, metrics][, guards]) with the state and the planes untouched."""
     if flows is not None:
         ft, fs, credits = flows
     N, P = wl.dep.shape
@@ -207,10 +197,10 @@ def workload_step(wl: WorkloadArrays, ws: WorkloadState, state, delivered,
                      done_win=done_win)
     if flows is not None:
         fs = flows_mod.enqueue(ft, fs, lf[0], valid)
-        return _with_metrics(state, ws, metrics, fs)
-    state, metrics, ws = _emit(state, ws, valid, peer, nbytes, delay,
-                               metrics=metrics)
-    return _with_metrics(state, ws, metrics)
+        return (state, ws, fs, *_planes(metrics, guards))
+    state, extras, ws = _emit(state, ws, valid, peer, nbytes, delay,
+                              metrics=metrics, guards=guards)
+    return (state, ws, *extras)
 
 
 def all_done(wl: WorkloadArrays, ws: WorkloadState) -> torch.Tensor:

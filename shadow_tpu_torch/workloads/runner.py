@@ -3,23 +3,30 @@
 Counterpart of `shadow_tpu/workloads/runner.py`: the deterministic
 scenario world, the window loop of `window_step(kernel="xla")` with the
 metrics and histogram planes threaded, `unpack_planes` and
-`workload_step`, driven as one chain of `spec.windows` windows by
-`tpu/elastic.drive_chained_windows`, and the JSON record of the JAX
-runner, field for field. A scenario with `transport: flows` runs the
-flow plane (`tpu/flows.py`) in split form around the generator each
-window: `flow_recv` credits acked in-order segments, `workload_step`
-enqueues the next sends onto their flows, `flow_emit` puts the
-cwnd-gated window, retransmits and delayed acks on the wire. A
-`compute:` block threads the compute plane (`tpu/compute.py`) through
-the step, meters the phase credits through service completion
-(`gate_credits`) and re-arms each host's service cost from its phase
-(`phase_service`). The record's `canonical_digest` hashes the bytes the
-JAX runner's `digest_pytrees` hashes, flow and compute state included,
-so it is the golden corpus's comparison key here too
-(`scenarios/GOLDEN.json`).
+`workload_step`, driven in chains by `tpu/elastic.drive_chained_windows`,
+and the JAX runner's JSON record, field for field. A scenario with
+`transport: flows` runs the flow plane (`tpu/flows.py`) in split form
+around the generator each window: `flow_recv` credits acked in-order
+segments, `workload_step` enqueues the next sends onto their flows,
+`flow_emit` puts the cwnd-gated window, retransmits and delayed acks on
+the wire. A `compute:` block threads the compute plane
+(`tpu/compute.py`) through the step, meters the phase credits through
+service completion (`gate_credits`) and re-arms each host's service cost
+from its phase (`phase_service`). The record's `canonical_digest`
+hashes the bytes the JAX runner's `digest_pytrees` hashes, flow and
+compute state included, so it is the golden corpus's comparison key
+here too (`scenarios/GOLDEN.json`).
 
-The device is read back once, after the drive. The record carries no
-wall-clock time.
+The robustness planes compose as in the JAX runner: a fault schedule
+(`fault_events`, or `default_fault_schedule` with
+`use_default_faults=True`) advances on the host before each window and
+keeps one `FaultArrays` on the device, refreshed only in a window where
+an event fired; `guards=True` threads the guard plane and adds its
+`summarize` to the record; `sample_every=K` threads the flight recorder,
+drained every `telemetry_every` windows as the JAX runner drains it.
+
+The device is read back after the drive, and by the flight recorder's
+drains between chains. The record carries no wall-clock time.
 """
 
 from __future__ import annotations
@@ -33,6 +40,10 @@ import torch
 
 from .. import resolve_device
 from ..convert import digest_pytrees
+from ..core.config import FaultsOptions
+from ..faults.schedule import compile_schedule
+from ..guards.plane import make_guards, summarize
+from ..telemetry import flightrec as frmod
 from ..telemetry import histo
 from ..telemetry.metrics import make_metrics
 from ..tpu import compute as computemod
@@ -45,28 +56,21 @@ from .spec import ScenarioSpec, scenario_fingerprint
 
 MS = 1_000_000
 
-# keywords of the JAX runner that the port does not run yet, with the
-# ROADMAP.md queue A item that brings each (max_advance stays at its
-# default, the only value the JAX runner's callers pass)
+# keywords of the JAX runner that the port does not run yet, each with
+# the JAX default it still accepts and the ROADMAP.md queue A item that
+# brings it (None and False are accepted for all of them)
 _NOT_PORTED = {
-    "max_advance": "run infrastructure",
-    "guards": "faults, guards and the flight recorder",
-    "fault_events": "faults, guards and the flight recorder",
-    "use_default_faults": "faults, guards and the flight recorder",
-    "sample_every": "faults, guards and the flight recorder",
-    "trace_ring": "faults, guards and the flight recorder",
-    "hops_sink": "faults, guards and the flight recorder",
-    "mesh_devices": "multi-GPU",
-    "telemetry": "run infrastructure",
-    "telemetry_every": "run infrastructure",
-    "memo": "run infrastructure",
-    "memo_cache": "run infrastructure",
-    "tracer": "run infrastructure",
-    "checkpoint_dir": "run infrastructure",
-    "checkpoint_every": "run infrastructure",
-    "resume": "run infrastructure",
-    "kill_at": "run infrastructure",
-    "provenance": "run infrastructure",
+    "max_advance": (None, "run infrastructure"),
+    "mesh_devices": (None, "multi-GPU"),
+    "telemetry": (None, "run infrastructure"),
+    "memo": (None, "run infrastructure"),
+    "memo_cache": (None, "run infrastructure"),
+    "tracer": (None, "run infrastructure"),
+    "checkpoint_dir": (None, "run infrastructure"),
+    "checkpoint_every": (16, "run infrastructure"),
+    "resume": (False, "run infrastructure"),
+    "kill_at": (None, "run infrastructure"),
+    "provenance": (None, "run infrastructure"),
 }
 
 
@@ -90,7 +94,35 @@ def build_scenario_world(spec: ScenarioSpec, *, device=None):
     return state, params
 
 
-def run_scenario(spec: ScenarioSpec, *, histograms: bool = True,
+def default_fault_schedule(spec: ScenarioSpec):
+    """The JAX runner's small chaos schedule scaled to the scenario: the
+    last host crashed for the middle quarter, a link between nodes 0 and
+    1 degraded x4, the next-to-last host's egress corrupted at 30 %,
+    compiled through the real `faults:` path."""
+    w = lambda k: f"{max(1, k) * spec.window_ns}ns"
+    q = max(2, spec.windows // 4)
+    last = spec.n_hosts - 1
+    events = [
+        {"at": w(q), "kind": "host_crash", "host": f"h{last}"},
+        {"at": w(2 * q), "kind": "host_reboot", "host": f"h{last}"},
+        {"at": w(q // 2), "kind": "link_degrade", "src_node": 0,
+         "dst_node": min(1, spec.n_hosts - 1), "latency_mult": 4,
+         "duration": w(2 * q)},
+        {"at": w(q), "kind": "corrupt_burst",
+         "host": f"h{max(0, last - 1)}", "p": 0.3, "duration": w(q)},
+    ]
+    return compile_schedule(
+        FaultsOptions(events=events),
+        host_names=[f"h{i}" for i in range(spec.n_hosts)],
+        n_nodes=spec.n_hosts, seed=spec.seed,
+        stop_time_ns=(spec.windows + 1) * spec.window_ns)
+
+
+def run_scenario(spec: ScenarioSpec, *, guards: bool = False,
+                 fault_events=None, use_default_faults: bool = False,
+                 histograms: bool = True,
+                 sample_every: Optional[int] = None, trace_ring: int = 4096,
+                 hops_sink=None, telemetry_every: int = 16,
                  flow_emit_cap: Optional[int] = None,
                  flow_recv_wnd: Optional[int] = None,
                  chain_len: Optional[int] = None, on_chain=None,
@@ -99,26 +131,43 @@ def run_scenario(spec: ScenarioSpec, *, histograms: bool = True,
     """Execute one scenario for its full window budget and return the
     JAX runner's record (no wall-clock in it).
 
+    `guards` threads the guard plane and records its summary as
+    `guards`. `fault_events` (a `faults.schedule.FaultSchedule`) or
+    `use_default_faults` (`default_fault_schedule`) threads the fault
+    plane: window r runs under the masks the schedule holds after
+    `advance((r + 1) * window_ns)`, as the JAX runner's per-round stack.
     `histograms` (default on) threads the log2 latency and depth
     histograms and records their fleet percentiles as `latency`.
-    `flow_emit_cap` and `flow_recv_wnd` set the flow plane's per-window
-    emission cap and receive window (None: `flows.EMIT_CAP`,
-    `flows.RECV_WND`; read only under `transport: flows`). The drive
-    runs `chain_len` windows a chain (None: all of them in one), and
-    calls `on_chain(r1)` on the host after the chain that ends before
-    window r1 (a profiler starts and stops there). A dict
-    passed as `timings` receives the host seconds of the set-up
-    (`setup_s`: world, program, upload, prime) and of the drive
-    (`drive_s`, ended by a device synchronise), outside the record.
-    The JAX runner's other keywords raise NotImplementedError naming the
-    ROADMAP.md item that brings them."""
+    `sample_every=K` threads the flight recorder (keyed by the scenario
+    seed, a ring of `trace_ring` slots), drained every `telemetry_every`
+    windows and at the end into `hops_sink` (a path or a file object);
+    its summary is the record's `flight_recorder`. `flow_emit_cap` and
+    `flow_recv_wnd` set the flow plane's per-window emission cap and
+    receive window (None: `flows.EMIT_CAP`, `flows.RECV_WND`; read only
+    under `transport: flows`).
+
+    The drive runs `chain_len` windows a chain (None: `telemetry_every`
+    under the recorder, else all of them in one; the recorder's drains
+    cut the chains too) and calls `on_chain(r1)` on the host after the
+    chain that ends before window r1 (a profiler starts and stops
+    there). A dict passed as `timings` receives the host seconds of the
+    set-up (`setup_s`: world, program, upload, prime) and of the drive
+    (`drive_s`, ended by a device synchronise), outside the record. The
+    JAX runner's other keywords are accepted at their JAX defaults and
+    otherwise raise NotImplementedError naming the ROADMAP.md item that
+    brings them."""
     for key, value in unported.items():
         if key not in _NOT_PORTED:
             raise TypeError(f"run_scenario: unexpected argument {key!r}")
-        if value is not None and value is not False:
+        default, item = _NOT_PORTED[key]
+        if value is not None and value is not False and value != default:
             raise NotImplementedError(
-                f"run_scenario: {key}= is not ported yet (ROADMAP.md "
-                f"queue A: {_NOT_PORTED[key]})")
+                f"run_scenario: {key}={value!r} is not ported yet "
+                f"(ROADMAP.md queue A: {item}; only the JAX default "
+                f"{default!r} is accepted)")
+    if telemetry_every < 1:
+        raise ValueError(
+            f"telemetry_every must be >= 1, got {telemetry_every}")
     device = resolve_device(device)
     t0 = time.perf_counter()
     prog = compile_program(spec)
@@ -150,10 +199,21 @@ def run_scenario(spec: ScenarioSpec, *, histograms: bool = True,
             prog.compute_service_ns, spec.compute.queue_cap, device=device)
         cstate = computemod.make_compute_state(ctab)
     metrics = make_metrics(N, device=device)
+    gstate = make_guards(N, device=device) if guards else None
     hstate = histo.make_histograms(N, device=device) if histograms else None
+    fstate = recorder = None
+    if sample_every is not None:
+        fstate = frmod.make_flightrec(spec.seed, sample_every=sample_every,
+                                      ring=trace_ring, device=device)
+        recorder = frmod.FlightRecorder(window_ns=spec.window_ns,
+                                        sink=hops_sink)
+    schedule = fault_events
+    if schedule is None and use_default_faults:
+        schedule = default_fault_schedule(spec)
     if use_flows:
         # prime enqueues the phase-0 sends; one flow_emit puts the first
-        # cwnd-gated window on the wire before window 0
+        # cwnd-gated window on the wire before window 0 (the guard plane
+        # starts with window 0, as in the JAX runner)
         state, ws, flowst, metrics = wdevice.prime(
             wl, ws, state, metrics=metrics, flows=(ftab, flowst))
         state, flowst, metrics = flowsmod.flow_emit(
@@ -161,19 +221,31 @@ def run_scenario(spec: ScenarioSpec, *, histograms: bool = True,
     else:
         state, ws, metrics = wdevice.prime(wl, ws, state, metrics=metrics)
     window = spec.window_ns
+    faults = None
 
     def chain_fn(state, extras, r0, r1):
-        ws, metrics, hstate, flowst, cstate = extras
+        nonlocal faults
+        ws, metrics, gstate, hstate, fstate, flowst, cstate = extras
         for r in range(r0, r1):
+            if schedule is not None:
+                # window r runs under the masks after (r + 1) * window;
+                # the device copy is refreshed only when events fired
+                fired = schedule.advance((r + 1) * window)
+                if faults is None:
+                    faults = schedule.device_arrays(device)
+                elif fired:
+                    faults = schedule.refresh_device_arrays(faults, fired)
             shift = 0 if r == 0 else window
             out = window_step(state, params, spec.seed, shift, window,
-                              rr_enabled=False, kernel="xla",
-                              metrics=metrics, hist=hstate,
+                              rr_enabled=False, kernel="xla", faults=faults,
+                              metrics=metrics, guards=gstate, hist=hstate,
+                              flightrec=fstate,
                               compute=(ctab, cstate) if use_compute
                               else None)
-            (state, delivered, _next), metrics, _g, hstate, _fr, cstate = \
-                unpack_planes(out, metrics=metrics, hist=hstate,
-                              compute=cstate)
+            ((state, delivered, _next), metrics, gstate, hstate, fstate,
+             cstate) = unpack_planes(out, metrics=metrics, guards=gstate,
+                                     hist=hstate, flightrec=fstate,
+                                     compute=cstate)
             if use_flows:
                 # credit acked in-order arrivals, advance the phases,
                 # enqueue their sends, then emit the window's segments
@@ -182,51 +254,77 @@ def run_scenario(spec: ScenarioSpec, *, histograms: bool = True,
                 if use_compute:
                     cstate, credits = computemod.gate_credits(cstate,
                                                               credits)
-                state, ws, flowst, metrics = wdevice.workload_step(
+                state, ws, flowst, metrics, *g = wdevice.workload_step(
                     wl, ws, state, delivered, r, window, metrics=metrics,
-                    flows=(ftab, flowst, credits))
-                state, flowst, metrics = flowsmod.flow_emit(
+                    guards=gstate, flows=(ftab, flowst, credits))
+                state, flowst, metrics, *rest = flowsmod.flow_emit(
                     ftab, flowst, state, emit_cap=emit_cap,
-                    metrics=metrics)
+                    metrics=metrics, guards=gstate, flightrec=fstate)
+                if gstate is not None:
+                    gstate = rest.pop(0)
+                if fstate is not None:
+                    fstate = rest.pop(0)
             else:
                 credits = None
                 if use_compute:
                     cstate, credits = computemod.gate_credits(
                         cstate, delivered["mask"].sum(dim=1,
                                                       dtype=torch.int32))
-                state, ws, metrics = wdevice.workload_step(
+                state, ws, metrics, *g = wdevice.workload_step(
                     wl, ws, state, delivered, r, window, metrics=metrics,
-                    credits=credits)
+                    guards=gstate, credits=credits)
+                if gstate is not None:
+                    gstate = g[0]
             if use_compute:
                 cstate = computemod.phase_service(ctab, cstate, ws.phase)
-        return state, (ws, metrics, hstate, flowst, cstate), 0, 0
+        return state, (ws, metrics, gstate, hstate, fstate, flowst,
+                       cstate), 0, 0
+
+    def after_chain(r1, state, extras):
+        if recorder is not None and r1 % telemetry_every == 0:
+            recorder.tick(extras[4])
+        if on_chain is not None:
+            on_chain(r1)
 
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     t1 = time.perf_counter()
     state, extras = elastic.drive_chained_windows(
-        state, (ws, metrics, hstate, flowst, cstate), chain_fn,
-        n_rounds=spec.windows, chain_len=chain_len or spec.windows,
-        window_ns=window,
-        on_chain=None if on_chain is None else lambda r1, *_: on_chain(r1))
+        state, (ws, metrics, gstate, hstate, fstate, flowst, cstate),
+        chain_fn, n_rounds=spec.windows,
+        chain_len=chain_len or (telemetry_every if recorder is not None
+                                else spec.windows),
+        boundaries=(range(telemetry_every, spec.windows, telemetry_every)
+                    if recorder is not None else ()),
+        window_ns=window, on_chain=after_chain)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     if timings is not None:
         timings.update(setup_s=t1 - t0, drive_s=time.perf_counter() - t1)
-    ws, metrics, hstate, flowst, cstate = extras
-    record = _record(spec, prog, state, ws, metrics, hstate, flowst, cstate)
+    ws, metrics, gstate, hstate, fstate, flowst, cstate = extras
+    record = _record(spec, prog, state, ws, metrics, hstate, flowst, cstate,
+                     faults_active=schedule is not None)
     if use_flows:
         record["flows"] = {**flowsmod.flow_totals(ftab, flowst),
                            "emit_cap": emit_cap, "recv_wnd": recv_wnd}
     if use_compute:
         record.update(_serving_record(spec, cstate))
+    if gstate is not None:
+        record["guards"] = summarize(gstate)
+    if recorder is not None:
+        # the last snapshot: one tick queues it, finalize decodes it
+        recorder.tick(fstate)
+        recorder.finalize()
+        record["flight_recorder"] = {**recorder.summary(),
+                                     **frmod.flightrec_meta(fstate)}
     return record
 
 
 def _record(spec: ScenarioSpec, prog: TrafficProgram, state, ws, metrics,
-            hstate, flowst=None, cstate=None) -> dict:
-    """The JAX runner's record for a world without faults, but its
-    `flows`, `compute` and `slo` sections: the one read of the device,
+            hstate, flowst=None, cstate=None, *,
+            faults_active: bool = False) -> dict:
+    """The JAX runner's record but its `flows`, `compute`, `slo`,
+    `guards` and `flight_recorder` sections: the read of the device
     after the drive. Flow and compute state fold into the canonical
     digest, so a retransmit schedule that diverges fails the golden gate
     even when the net-plane state converges."""
@@ -243,7 +341,7 @@ def _record(spec: ScenarioSpec, prog: TrafficProgram, state, ws, metrics,
         "windows": spec.windows,
         "window_ns": spec.window_ns,
         "phases": prog.max_phases,
-        "faults_active": False,
+        "faults_active": faults_active,
         "transport": spec.transport,
         "canonical_digest": digest_pytrees(
             elastic.canonical_state(state), ws,

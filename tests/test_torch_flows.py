@@ -381,13 +381,41 @@ def test_flow_emit_idle_and_inactive_match_jax():
 
 
 def test_flow_emit_refuses_guards_and_flightrec():
-    rng = np.random.default_rng(0)
-    _jft, tft = both_tables(*flow_world(rng))
-    _js, ts = both_states(random_flow_state(rng, 12))
-    _jst, tst = mini_world()
-    for kw in ("guards", "flightrec"):
-        with pytest.raises(NotImplementedError, match="flight recorder"):
-            tflows.flow_emit(tft, ts, tst, **{kw: object()})
+    """The guard and flight-recorder hooks, once refused, now run as
+    JAX's: append conservation under ring overflow, and the RTO-fired
+    and retransmit hops (every segment sampled, a ring of 48 slots
+    overwritten), with the metrics, over three emissions."""
+    from shadow_tpu.guards import plane as jgplane
+    from shadow_tpu.telemetry import flightrec as jfr
+    from shadow_tpu_torch.guards import plane as tgplane
+
+    rng = np.random.default_rng(7)
+    src, dst, nbytes = flow_world(rng, inactive=1)
+    jft, tft = both_tables(src, dst, nbytes)
+    js, ts = both_states(random_flow_state(rng, 12, rto_due=True))
+    jst, tst = mini_world(ce=4)
+    jm, tm = make_metrics(8), tmetrics.make_metrics(8, device="cpu")
+    jg, tg = jgplane.make_guards(8), tgplane.make_guards(8, device="cpu")
+    jf = jfr.make_flightrec(3, sample_every=1, ring=48)
+    tf = convert.flightrec_from_numpy(
+        {k: np.asarray(v) for k, v in jf._asdict().items()}, "cpu")
+    for r in range(3):
+        jst, js, jm, jg, jf = jflows.flow_emit(
+            jft, js, jst, emit_cap=4, metrics=jm, guards=jg, flightrec=jf)
+        tst, ts, tm, tg, tf = tflows.flow_emit(
+            tft, ts, tst, emit_cap=4, metrics=tm, guards=tg, flightrec=tf)
+        assert_states_equal(jax_state_to_numpy(jst),
+                            convert.state_to_numpy(tst), r)
+        for ref, got in ((js, ts), (jm, tm), (jg, tg)):
+            assert_tuples_equal(ref, got, r)
+        tfd = convert.flightrec_to_numpy(tf)
+        for k, v in jf._asdict().items():
+            assert tfd[k].dtype == np.asarray(v).dtype, (r, k)
+            assert np.array_equal(tfd[k], np.asarray(v)), (r, k)
+    assert int(tst.n_overflow_dropped.sum()) > 0
+    assert int(tf.cursor) > 48 and int(tg.checks) == 3
+    kinds = set(tf.ev_kind.tolist())
+    assert {6, 7} <= kinds  # rto_fired and retransmit hops
 
 
 @pytest.mark.parametrize("seed", range(3))

@@ -17,7 +17,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from shadow_tpu_torch import bench, convert, resolve_device  # noqa: E402
-from shadow_tpu_torch.telemetry import histo, metrics  # noqa: E402
+from shadow_tpu_torch.faults import plane as fplane  # noqa: E402
+from shadow_tpu_torch.guards import plane as gplane  # noqa: E402
+from shadow_tpu_torch.telemetry import flightrec, histo, metrics  # noqa: E402
 from shadow_tpu_torch.tpu import compute, flows, plane, profiling  # noqa: E402
 from shadow_tpu_torch.workloads import runner, spec  # noqa: E402
 
@@ -39,16 +41,22 @@ def imported_modules(path: Path) -> set[str]:
 
 def test_port_imports_no_jax_and_nothing_of_shadow_tpu():
     assert len(PORT_FILES) > 10
+    scanned = {p.relative_to(REPO).as_posix() for p in PORT_FILES}
+    for sub in ("faults", "guards", "core"):
+        assert any(f.startswith(f"shadow_tpu_torch/{sub}/") for f in scanned)
     for path in PORT_FILES:
         for mod in imported_modules(path):
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "shadow_tpu"), (path, mod)
 
 
-# functions of the scanned files that run on the host after a run, by
-# design (reports and percentiles read the final tensors)
+# functions and classes of the scanned files that run on the host after
+# a run or between chains, by design (reports and percentiles read the
+# final tensors; the flight recorder's drain reads its snapshots)
 HOST_SIDE = {"completion_windows", "percentile", "percentiles",
-             "fleet_percentiles", "bucket_edges", "flow_totals"}
+             "fleet_percentiles", "bucket_edges", "flow_totals",
+             "summarize", "decode_bits", "flightrec_meta", "ring_capacity",
+             "read_hops", "hop_flows", "unwrap_u32", "FlightRecorder"}
 
 
 def _window_code(path: Path):
@@ -62,13 +70,15 @@ def _window_code(path: Path):
                   and n.name == "chain_fn"]
         assert len(chains) == 1, "the runner's chain body moved"
         return chains
-    return [n for n in tree.body if not (isinstance(n, ast.FunctionDef)
-                                         and n.name in HOST_SIDE)]
+    return [n for n in tree.body
+            if not (isinstance(n, (ast.FunctionDef, ast.ClassDef))
+                    and n.name in HOST_SIDE)]
 
 
 def test_device_path_reads_nothing_back_to_the_host():
     """The host-sync fence (docs/performance.md, SL603) for the step and
-    everything it calls, the presence planes and the workload generator
+    everything it calls, the presence planes (faults, guards and the
+    flight recorder's device half too) and the workload generator
     included, and the scenario runner's window loop: no tensor is read
     back inside a window."""
     banned = {"item", "cpu", "tolist", "numpy", "nonzero", "synchronize"}
@@ -76,7 +86,9 @@ def test_device_path_reads_nothing_back_to_the_host():
     step_files = [port / "tpu" / f for f in (
         "plane.py", "pipeline.py", "prims.py", "codel.py", "tcp.py",
         "flows.py", "compute.py")]
-    step_files += [port / "telemetry" / f for f in ("metrics.py", "histo.py")]
+    step_files += [port / "telemetry" / f for f in ("metrics.py", "histo.py",
+                                                    "flightrec.py")]
+    step_files += [port / "faults" / "plane.py", port / "guards" / "plane.py"]
     step_files += [port / "workloads" / f for f in (
         "phold.py", "device.py", "runner.py")]
     for path in step_files:
@@ -145,6 +157,11 @@ def test_entry_points_default_to_cuda_and_refuse_without_a_card():
                                 rounds=1),
         lambda: metrics.make_metrics(4),
         lambda: histo.make_histograms(4),
+        lambda: fplane.neutral_faults(4),
+        lambda: gplane.make_guards(4),
+        lambda: flightrec.make_flightrec(0),
+        lambda: runner.default_fault_schedule(spec.load_scenario_file(
+            str(REPO / "scenarios" / "incast.yaml"))).device_arrays(),
         lambda: flows.make_flow_tables([0], [1], [64]),
         lambda: flows.make_flow_state(4),
         lambda: compute.make_compute_tables(np.zeros((4, 2)), 8),

@@ -120,7 +120,8 @@ def run_both(windows, **kw):
     for w in range(windows):
         jst, jd, jn = step(jst, jnp.int32(shift))
         tst, td, tn = tplane.window_step(tst, tparams, RNG_SEED, shift,
-                                         10 * MS, rr_enabled=False, **kw)
+                                         10 * MS, rr_enabled=False,
+                                         kernel="pallas_fused", **kw)
         assert_states_equal(jax_state_to_numpy(jst),
                             convert.state_to_numpy(tst), w)
         assert jd.keys() == td.keys()
@@ -152,8 +153,8 @@ def test_window_step_refuses_what_is_not_ported():
     """What the JAX plane refuses for its Pallas kernels raises
     ValueError, as there, and so does packed_sort=False on any kernel;
     what the port lacks raises NotImplementedError naming ROADMAP.md.
-    The metrics plane rides every kernel; the histogram, flow and compute
-    planes ride "xla"."""
+    The metrics plane rides every kernel; the fault, guard, histogram,
+    flight-recorder, flow and compute planes ride "xla"."""
     (_p, _j), (tparams, tst) = both_worlds()
     step = lambda **kw: tplane.window_step(tst, tparams, 0, 0, MS, **kw)
     for kernel in ("pallas_fused", "pallas"):
@@ -170,9 +171,16 @@ def test_window_step_refuses_what_is_not_ported():
             step(rr_enabled=False, router_aqm=True, kernel=kernel)
     with pytest.raises(ValueError, match="packed"):
         step(packed_sort=False, kernel="xla")
-    for plane_name in ("faults", "guards", "flightrec"):
-        with pytest.raises(NotImplementedError, match=plane_name):
-            step(kernel="xla", **{plane_name: object()})
+    # the fault, guard and flight-recorder planes are ported: "xla"
+    # takes them (tests/test_torch_faults.py, _guards.py, _flightrec.py)
+    from shadow_tpu_torch.faults.plane import neutral_faults
+    from shadow_tpu_torch.guards.plane import make_guards
+    from shadow_tpu_torch.telemetry.flightrec import make_flightrec
+    n = tst.eg_dst.shape[0]
+    out = step(kernel="xla", faults=neutral_faults(n, device="cpu"),
+               guards=make_guards(n, device="cpu"),
+               flightrec=make_flightrec(0, device="cpu"))
+    assert len(out) == 5
     with pytest.raises(NotImplementedError, match="ROADMAP.md, queue A"):
         step(kernel="xla", router_aqm=True)
     with pytest.raises(ValueError, match="unknown plane kernel"):

@@ -3,11 +3,15 @@ scenario spec and compiler (fingerprints and program digests of the
 whole corpus), `workload_step`, and the scenario runner's records for
 every corpus entry, the flow-transport and serving entries' `flows`,
 `compute` and `slo` sections included, which must also carry the golden
-digests of `scenarios/GOLDEN.json`. Also what the port refuses yet, and
-the corpus command's `--check` and `--slo-report`."""
+digests of `scenarios/GOLDEN.json`; the fault, guard and flight-recorder
+runs of a direct, a flow and a serving entry, hops included. Also what
+the port refuses yet, and the corpus command's `--check`,
+`--slo-report`, `--faults`, `--guards` and `--sample-every`."""
 
 from __future__ import annotations
 
+import dataclasses
+import io
 import json
 from pathlib import Path
 
@@ -173,19 +177,71 @@ def test_flow_knobs_match_jax():
 
 
 def test_unported_runner_options_are_refused():
+    """Only a value other than the JAX runner's default is refused: the
+    defaults `tools/run_scenarios.py` always passes run, and so does any
+    `telemetry_every` >= 1 (the flight recorder's drain cadence)."""
     spec = tspec.load_scenario_file(str(CORPUS / "incast.yaml"))
-    for kw, item in (("guards", "faults, guards"), ("memo", "run infra"),
-                     ("mesh_devices", "multi-GPU"),
-                     ("sample_every", "flight recorder")):
+    short = dataclasses.replace(spec, windows=3)
+    base = trunner.run_scenario(short, device="cpu")
+    for kw in (dict(trace_ring=4096), dict(telemetry_every=16),
+               dict(checkpoint_every=16), dict(telemetry_every=1),
+               dict(memo=False, resume=False, memo_cache=None, tracer=None,
+                    checkpoint_dir=None, kill_at=None, provenance=None,
+                    telemetry=None, mesh_devices=None)):
+        assert trunner.run_scenario(short, device="cpu", **kw) == base, kw
+    for kw, value, item in (("memo", True, "run infra"),
+                            ("mesh_devices", 4, "multi-GPU"),
+                            ("checkpoint_every", 8, "run infra"),
+                            ("checkpoint_dir", "ckpt", "run infra"),
+                            ("resume", True, "run infra")):
         with pytest.raises(NotImplementedError, match=item):
-            trunner.run_scenario(spec, device="cpu", **{kw: 4})
+            trunner.run_scenario(spec, device="cpu", **{kw: value})
+    with pytest.raises(ValueError, match="telemetry_every"):
+        trunner.run_scenario(spec, device="cpu", telemetry_every=0)
     with pytest.raises(TypeError, match="unexpected"):
         trunner.run_scenario(spec, device="cpu", colour="blue")
-    wl = tdevice.to_device(tcompile.compile_program(spec), "cpu")
-    ws = tdevice.make_workload_state(tcompile.compile_program(spec), "cpu")
-    st = tplane.make_state(spec.n_hosts, device="cpu")
-    with pytest.raises(NotImplementedError, match="guard plane"):
-        tdevice.prime(wl, ws, st, guards=object())
+
+
+FAULTED = ["incast", "incast_lossy", "serve_burst_lossy"]
+
+
+@pytest.mark.parametrize("entry", FAULTED)
+def test_faulted_guarded_recorded_run_matches_jax(entry):
+    """`use_default_faults`, `guards` and `sample_every` on a direct, a
+    flow and a serving entry: the record equals the JAX runner's field
+    for field (`faults_active`, `drops.fault`, `guards`,
+    `flight_recorder` included) and the sampled hops are the same
+    JSONL."""
+    path = str(CORPUS / f"{entry}.yaml")
+    kw = dict(use_default_faults=True, guards=True, sample_every=16)
+    jsink, tsink = io.StringIO(), io.StringIO()
+    got = trunner.run_scenario(tspec.load_scenario_file(path), device="cpu",
+                               hops_sink=tsink, **kw)
+    ref = jrunner.run_scenario(jspec.load_scenario_file(path),
+                               hops_sink=jsink, **kw)
+    assert got == ref
+    assert tsink.getvalue() == jsink.getvalue()
+    assert got["faults_active"] and got["guards"]["clean"]
+    assert got["flight_recorder"]["recorded_hops"] == len(
+        tsink.getvalue().splitlines()) > 0
+    if entry == "serve_burst_lossy":
+        assert got["drops"]["fault"] > 0
+        assert got["canonical_digest"] != \
+            GOLDEN[got["name"]]["canonical_digest"]
+
+
+def test_run_scenarios_faults_guards_and_check(capsys):
+    incast = str(CORPUS / "incast.yaml")
+    assert run_scenarios.main([incast, "--faults", "--guards",
+                               "--sample-every", "16", "--device",
+                               "cpu"]) == 0
+    err = capsys.readouterr().err
+    assert "guards=clean" in err and "hops=" in err
+    assert run_scenarios.main([incast, "--check", "--faults", "--device",
+                               "cpu"]) == 2
+    assert run_scenarios.main([incast, "--check", "--guards", "--device",
+                               "cpu"]) == 2
+    assert "cannot be checked" in capsys.readouterr().err
 
 
 def test_run_scenarios_check(tmp_path, capsys):
