@@ -13,8 +13,12 @@ the result lines are printed:
    inputs in HBM (L2 flushed before each launch by a write: `ms`; by a
    write and a read, so no dirty lines are left: `cold_clean_ms`) and
    in L2 (back-to-back launches: `warm_ms`);
-4. kernel C (egress_gate) likewise at N=32768 and CE in {4, 8, 16, 32,
-   64};
+4. kernel C (egress_gate): ptxas' registers, shared memory and spills
+   of its kernels (a spill fails); bitwise against its plain version at
+   CE in {2, 4, 8, 16, 32, 64, 128, 1024} on random inputs at N=32768
+   and on the CPU tests' int32 edge inputs at a ragged N=32763; timed as
+   kernel A at CE in {4, 8, 16, 32, 64}, beside a device copy of as many
+   bytes timed alike (the floor of the timing at that size);
 5. kernels B (route_place) and D (route_scatter) likewise on one input
    set at N=32768, CE=16, CI=32, with rows whose arrivals overflow the
    ring and rows that read outside the arrivals, each kernel and plain
@@ -85,6 +89,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -108,6 +113,9 @@ SMALL_CAPS = dict(egress_cap=4, ingress_cap=8)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_INT32_OPS_PER_S = 67e12 / 4
 PEAK_SHUFFLES_PER_S = 67e12 / 8
+# kernel C is held bitwise at every CE of C_SWEEP and timed at C_TIMED
+C_SWEEP = (2, 4, 8, 16, 32, 64, 128, 1024)
+C_TIMED = (4, 8, 16, 32, 64)
 L2_FLUSH_BYTES = 128 << 20  # over twice the H100's 50 MB L2
 NO_CLAMP = -(2**30)
 MS = 1_000_000
@@ -318,23 +326,92 @@ def check_kernel_a(torch, pipeline, record):
     return next(r for r in rows if r["ce"] == EGRESS_CAP)
 
 
+def ptxas_report(log: str) -> dict[str, dict]:
+    """Registers, shared memory, stack and spill bytes of each entry
+    function in an `nvcc -Xptxas -v` log, by function name."""
+    out, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            fn = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and fn:
+            out.setdefault(fn, {}).update(
+                stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                spill_loads=int(m.group(3)))
+            continue
+        m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
+        if m and fn:
+            out.setdefault(fn, {}).update(registers=int(m.group(1)),
+                                          smem=int(m.group(2)))
+    return out
+
+
+def check_kernel_c_build(record):
+    """ptxas' report of kernel C's kernels, one line a CE; fails on a
+    spill."""
+    from shadow_tpu_torch import _build
+
+    if "egress_gate" not in _build.LOGS:
+        _build.build(["egress_gate"], verbose_ptxas=True)
+    report = ptxas_report(_build.LOGS["egress_gate"])
+    rows = {}
+    for fn, r in report.items():
+        m = re.search(r"ILi(\d+)E", fn)
+        if not m:
+            continue
+        rows[int(m.group(1))] = r
+    if not rows:
+        fail("no ptxas report of kernel C's kernels")
+    for ce, r in sorted(rows.items()):
+        print(f"kernel C egress_gate ptxas CE={ce}: {r['registers']} "
+              f"registers, {r['smem']} B smem, {r['stack']} B stack, "
+              f"spill stores {r['spill_stores']} B, loads "
+              f"{r['spill_loads']} B")
+        if r["spill_stores"] or r["spill_loads"]:
+            fail(f"kernel C spills at CE={ce}")
+    record["kernel_c_ptxas"] = rows
+
+
 def check_kernel_c(torch, pipeline, record):
+    """Kernel C bitwise against its plain version at every CE of
+    C_SWEEP, on random inputs at N_HOSTS and on the CPU tests' edge
+    inputs (`tests/torch_parity.gate_edge_columns`, both shifts) at a
+    ragged N_HOSTS - 5; timed at C_TIMED."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    from torch_parity import EDGE_SHIFTS, gate_edge_columns
+
+    check_kernel_c_build(record)
     rows = []
-    for ce in (4, 8, 16, 32, 64):
+    for ce in C_SWEEP:
         full = egress_inputs(torch, N_HOSTS, ce, seed=100 + ce)
         args = (*full[:5], full[9], full[10])  # valid..clamp, balance, shift
-        got = pipeline.egress_order_gate(*args)
-        ref = pipeline.egress_gate_plain(*args)
-        torch.cuda.synchronize()
-        err = max_abs_err(torch, got, ref)
-        if err != 0:
-            fail(f"egress_gate_kernel CE={ce} disagrees with its plain "
-                 f"version (max abs err {err})")
+        cases = [("random", args)]
+        edge = gate_edge_columns(N_HOSTS - 5, ce, seed=ce)
+        for shift in EDGE_SHIFTS:
+            cases.append((f"edge shift={shift}", (*(
+                torch.from_numpy(v).cuda() for v in edge.values()), shift)))
+        outs = []
+        for what, case in cases:
+            outs.append(pipeline.egress_order_gate(*case))
+            ref = pipeline.egress_gate_plain(*case)
+            torch.cuda.synchronize()
+            err = max_abs_err(torch, outs[-1], ref)
+            if err != 0:
+                fail(f"egress_gate_kernel CE={ce} ({what} inputs) disagrees "
+                     f"with its plain version (max abs err {err})")
+        print(f"kernel C egress_gate CE={ce}: bitwise ok on random inputs "
+              f"(N={N_HOSTS}) and edge inputs (N={N_HOSTS - 5}, shifts "
+              f"{EDGE_SHIFTS})")
+        if ce not in C_TIMED:
+            continue
         warm_ms, ms, clean_ms = time_device(
             torch, lambda: pipeline.egress_order_gate(*args))
         _, plain_ms, _ = time_device(
             torch, lambda: pipeline.egress_gate_plain(*args), reps=10)
-        moved = nbytes(args[:6]) + nbytes(got)
+        moved = nbytes(args[:6]) + nbytes(outs[0])
         lg = int(math.log2(ce))
         stages = lg * (lg + 1) // 2
         # kernel A's count for one network: ~6 int ops a slot and stage,
@@ -345,17 +422,26 @@ def check_kernel_c(torch, pipeline, record):
         shuffles = N_HOSTS * ce * (2 * stages + 3 + 2 * lg) \
             if ce <= 32 else 0
         bound_ms, bound_by = bound(moved, ops, shuffles)
+        # a yardstick of the timing, not of the function: a device copy
+        # that reads and writes as many bytes as the kernel moves
+        src = torch.empty(moved // 8, dtype=torch.int32, device="cuda")
+        dst = torch.empty_like(src)
+        copy_warm, copy_ms, copy_clean = time_device(
+            torch, lambda: dst.copy_(src))
         row = dict(ce=ce, n=N_HOSTS, max_abs_err=err, ms=ms, warm_ms=warm_ms,
                    cold_clean_ms=clean_ms, plain_ms=plain_ms, bytes=moved,
                    ops=ops, shuffles=shuffles, bound_ms=bound_ms,
-                   bound_by=bound_by, share_of_bound=bound_ms / ms)
+                   bound_by=bound_by, share_of_bound=bound_ms / ms,
+                   copy_ms=copy_ms, copy_clean_ms=copy_clean,
+                   copy_warm_ms=copy_warm)
         rows.append(row)
         print(f"kernel C egress_gate CE={ce}: bitwise ok, kernel_ms={ms:.5f}"
               f" (cold L2; clean {clean_ms:.5f}; warm {warm_ms:.5f}) "
               f"plain_ms={plain_ms:.5f} "
               f"bound_ms={bound_ms:.5f} ({bound_by}, {moved} B, {ops} int "
               f"ops, {shuffles} shuffles) share={bound_ms / ms:.3f} "
-              f"library_ms=null")
+              f"library_ms=null; a copy of {moved} B: {copy_ms:.5f} cold, "
+              f"{copy_clean:.5f} clean, {copy_warm:.5f} warm")
     record["kernel_c"] = rows
     return next(r for r in rows if r["ce"] == EGRESS_CAP)
 

@@ -43,6 +43,9 @@ SIGNATURES = {
 _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 _loaded: dict[str, ctypes.CDLL] = {}
+# the compiler's output of each kernel built in this process (ptxas'
+# resource report when built with verbose_ptxas)
+LOGS: dict[str, str] = {}
 
 
 def _nvcc() -> str:
@@ -110,6 +113,7 @@ def build(names=None, *, verbose_ptxas: bool = False) -> dict[str, float]:
     for name, (proc, tmp, lib) in procs.items():
         log, _ = proc.communicate()
         seconds[name] = time.monotonic() - t0
+        LOGS[name] = log
         if proc.returncode != 0:
             failed.append(f"--- nvcc {name} (exit {proc.returncode})\n{log}")
             continue

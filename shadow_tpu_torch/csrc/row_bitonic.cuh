@@ -1,7 +1,7 @@
-// Device code shared by the egress-stage kernels (kernel A,
-// egress_rank.cu, and kernel C, egress_gate.cu): the per-row ascending
-// bitonic sort of (key, column) pairs in its two forms, the clock rebase
-// and the token gate's prefix sum.
+// Device code of the egress-stage kernels: kernel A's (egress_rank.cu)
+// per-row ascending bitonic sort of (key, column) pairs in its two forms
+// and the token gate's prefix sum, and the clock rebase and FIFO key that
+// kernel C (egress_gate.cu) shares with it.
 //
 // The (key, column) pairs of a row are distinct, so each network's output
 // is the stable sort by key, which is what the TPU kernels' whole-tile

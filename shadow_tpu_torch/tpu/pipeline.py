@@ -56,7 +56,7 @@ from .prims import (_SIGN32, I32_MAX, NO_CLAMP, _row_perm_sort, take, u32,
 # kernel launches since the last reset, by kernel name
 LAUNCHES = {"egress_rank": 0, "route_place": 0, "egress_gate": 0,
             "route_scatter": 0}
-# widest egress row kernels A and C take (one thread block per row)
+# widest egress row kernels A and C take (one thread block holds a row)
 MAX_EGRESS_CAP = 1024
 
 
@@ -185,6 +185,12 @@ def egress_order_gate(valid, prio, nbytes, tsend, clamp, balance,
     if dev.type == "cpu":
         return egress_gate_plain(valid, prio, nbytes, tsend, clamp, balance,
                                  shift_ns)
+    for name, t in (("valid", valid), ("prio", prio), ("nbytes", nbytes),
+                    ("tsend", tsend), ("clamp", clamp)):
+        # the kernel moves each thread's 4 slots as one vector
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: kernel C reads 16-byte vectors, and "
+                             f"this tensor does not start on 16 bytes")
     i32 = lambda: torch.empty((N, CE), dtype=torch.int32, device=dev)
     b8 = lambda: torch.empty((N, CE), dtype=torch.bool, device=dev)
     outs = (i32(), i32(), i32(), i32(), b8(), b8(),

@@ -14,7 +14,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from torch_parity import placement_inputs  # noqa: E402
+from torch_parity import (EDGE_SHIFTS, gate_edge_columns,  # noqa: E402
+                          placement_inputs)
 
 from shadow_tpu_torch import bench, convert  # noqa: E402
 from shadow_tpu_torch.tpu import pipeline  # noqa: E402
@@ -68,6 +69,38 @@ def test_egress_gate_kernel_matches_plain(cuda, ce):
     assert pipeline.LAUNCHES["egress_gate"] == before + 1
     for g, r in zip(got, ref):
         assert g.dtype == r.dtype and torch.equal(g, r)
+
+
+@pytest.mark.parametrize("ce", [2, 4, 8, 16, 32, 64, 128, 256, 512, 1024])
+@pytest.mark.parametrize("n", [1, 37, 300, 4099])
+def test_egress_gate_kernel_matches_plain_on_edge_values(cuda, n, ce):
+    """Kernel C at the edges of int32 (`gate_edge_columns`: wrapping
+    rebase and prefix sum, NO_CLAMP, negative priorities, all-valid,
+    all-invalid and all-tied rows, negative balances), with both shifts,
+    at row counts that leave a block tile ragged."""
+    cols = gate_edge_columns(n, ce, seed=n + ce)
+    for shift in EDGE_SHIFTS:
+        args = (*(torch.from_numpy(v).to(cuda) for v in cols.values()),
+                shift)
+        got = pipeline.egress_order_gate(*args)
+        ref = pipeline.egress_gate_plain(*args)
+        torch.cuda.synchronize()
+        for g, r in zip(got, ref):
+            assert g.dtype == r.dtype and torch.equal(g, r), (shift, n, ce)
+
+
+def test_egress_gate_kernel_refuses_misaligned_columns(cuda):
+    """Kernel C moves 16-byte vectors: a column that does not start on 16
+    bytes is refused, not read."""
+    valid, prio, nbytes, tsend, clamp, _d, _s, _k, _c, balance, shift = \
+        egress_args(8, 16, cuda)
+    shifted = torch.empty(8 * 16 + 1, dtype=torch.int32, device=cuda)
+    shifted[1:] = prio.reshape(-1)
+    before = pipeline.LAUNCHES["egress_gate"]
+    with pytest.raises(ValueError, match="16 bytes"):
+        pipeline.egress_order_gate(valid, shifted[1:].view(8, 16), nbytes,
+                                   tsend, clamp, balance, shift)
+    assert pipeline.LAUNCHES["egress_gate"] == before
 
 
 @pytest.mark.parametrize("ce,ci", [(8, 4), (16, 32), (64, 64)])

@@ -23,7 +23,9 @@ jax = pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 from test_torch_plane import RNG_SEED, both_worlds  # noqa: E402
-from torch_parity import assert_states_equal, jax_state_to_numpy  # noqa: E402
+from torch_parity import (EDGE_SHIFTS, NO_CLAMP,  # noqa: E402
+                          assert_states_equal, gate_edge_columns,
+                          jax_state_to_numpy)
 
 from shadow_tpu.tpu import pallas_egress  # noqa: E402
 from shadow_tpu.tpu import plane as jplane  # noqa: E402
@@ -73,6 +75,34 @@ def test_egress_order_gate_matches_pallas(ce, shift):
         "the token gate neither sent nor held anything: dead case"
     # the CPU path runs the plain version: no kernel launch is counted
     assert pipeline.LAUNCHES == before
+
+
+@pytest.mark.parametrize("ce", [2, 4, 8, 16, 32])
+@pytest.mark.parametrize("n", [24, 37])
+@pytest.mark.parametrize("shift", EDGE_SHIFTS)
+def test_egress_gate_plain_matches_pallas_on_edge_values(n, ce, shift):
+    """Kernel C's plain version against the Pallas kernel at the edges of
+    int32 (`torch_parity.gate_edge_columns`): the wrapping rebase and
+    prefix sum, NO_CLAMP, negative priorities on the validity bit, all-
+    valid, all-invalid and all-tied rows, negative balances."""
+    cols = gate_edge_columns(n, ce, seed=1000 * n + ce)
+    ref = pallas_egress.egress_order_gate(
+        *(jnp.asarray(v) for v in cols.values()), jnp.int32(shift))
+    got = pipeline.egress_gate_plain(
+        *(torch.from_numpy(v) for v in cols.values()), shift)
+    assert_outputs_equal(ref, got)
+    valid, prio = cols["valid"], cols["prio"]
+    # the cases the generator aims at are there
+    assert (valid & (prio < 0)).any(), "no valid slot with a negative prio"
+    ts, cl = cols["tsend"].astype(np.int64), cols["clamp"].astype(np.int64)
+    wraps = lambda x: ((x - shift < -2**31) | (x - shift >= 2**31))
+    assert (valid & wraps(ts)).any() and \
+        (valid & (cl != NO_CLAMP) & wraps(cl)).any(), "no rebase wraps"
+    cum = np.cumsum(np.where(np.asarray(ref[4]), np.asarray(ref[1]), 0),
+                    axis=1, dtype=np.int64)
+    assert (cum >= 2**31).any(), "no prefix sum passes 2^31"
+    sendable = np.asarray(ref[5])
+    assert sendable.any() and not sendable.all(), "dead token gate"
 
 
 def routing_inputs(n, ce, ci, seed):

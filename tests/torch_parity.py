@@ -50,6 +50,57 @@ def placement_inputs(n, ce, ci, seed, *, hot=1 / 8):
             rng.random((n, ci)) < 0.5)
 
 
+I32_MIN, I32_MAX = -(2**31), 2**31 - 1
+NO_CLAMP = -(2**30)
+EDGE_SHIFTS = (10_000_000, -10_000_000)
+
+
+def gate_edge_columns(n, ce, seed):
+    """Kernel C's arguments (valid, prio, nbytes, tsend, clamp, balance)
+    as numpy arrays, at the edges of int32. Rows cycle through six kinds:
+    mixed, all invalid, all valid, all-equal priority (a pure column
+    tiebreak), all valid with non-negative priorities and bytes in
+    [2^30, 2^31) (the prefix sum passes 2^31 and wraps), and arbitrary
+    int32 bytes. Priorities are mostly extremes
+    (INT32_MIN, -1, INT32_MAX and their neighbours: a negative one sets
+    the key's validity bit); tsend and clamp sit near -2^31 and 2^31 - 1,
+    so either sign of `EDGE_SHIFTS` wraps some of them, with NO_CLAMP
+    and clamps that land on NO_CLAMP after the shift; balances include
+    negative ones and both extremes."""
+    rng = np.random.default_rng(seed)
+    i32 = lambda a: np.asarray(a, np.int32)
+    kind = np.arange(n) % 6
+    valid = rng.random((n, ce)) < 0.6
+    valid[kind == 1] = False
+    valid[(kind == 2) | (kind == 4)] = True
+    extremes = np.array([I32_MIN, I32_MIN + 1, -2, -1, 0, 1, 2, 7,
+                         I32_MAX - 1, I32_MAX])
+    prio = rng.choice(extremes, (n, ce))
+    prio[kind == 3] = rng.choice(extremes, (int((kind == 3).sum()), 1))
+    prio[kind == 4] = np.abs(prio[kind == 4] + 1) % 2**31
+    nbytes = rng.integers(0, 1500, (n, ce))
+    nbytes[kind == 4] = rng.integers(2**30, 2**31, (int((kind == 4).sum()),
+                                                    ce))
+    nbytes[kind == 5] = rng.integers(I32_MIN, 2**31,
+                                     (int((kind == 5).sum()), ce))
+    near = lambda: np.where(rng.random((n, ce)) < 0.5,
+                            rng.integers(I32_MIN, I32_MIN + 3 * 10**7, (n, ce)),
+                            rng.integers(I32_MAX - 3 * 10**7, 2**31, (n, ce)))
+    tsend = near()
+    pick = rng.random((n, ce))
+    clamp = np.where(pick < 0.3, NO_CLAMP, near())
+    for k, s in enumerate(EDGE_SHIFTS):
+        clamp[(pick >= 0.3 + 0.05 * k) & (pick < 0.35 + 0.05 * k)] = \
+            NO_CLAMP + s
+    balance = rng.integers(I32_MIN, 2**31, n)
+    balance[::4] = rng.integers(-3000, 0, len(balance[::4]))
+    balance[1::4] = rng.integers(0, ce * 1500, len(balance[1::4]))
+    balance[2::8] = I32_MAX
+    balance[3::8] = I32_MIN
+    return dict(valid=valid, prio=i32(prio), nbytes=i32(nbytes),
+                tsend=i32(tsend), clamp=i32(clamp), balance=i32(balance))
+
+
 def assert_states_equal(a: dict, b: dict, ctx=None):
     """Every leaf bitwise equal, dtype and shape included."""
     assert a.keys() == b.keys(), ctx
