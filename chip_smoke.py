@@ -2,8 +2,9 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
 Runs the port's main path, the PHOLD device-plane loop, through its
-hand-written CUDA kernels, in phases; any failure exits non-zero before
-the result lines are printed:
+hand-written CUDA kernels, and the router AQM's windows through kernel
+E, in phases; any failure exits non-zero before the result lines are
+printed:
 
 1. require a CUDA card; print its name and power limit (nvidia-smi);
 2. build the kernels from `shadow_tpu_torch/csrc` (one nvcc per source,
@@ -78,7 +79,31 @@ the result lines are printed:
    seconds, windows/s, peak device memory, hops recorded, and device
    kernels and busy ms a window over 16 windows; (c) both Pallas
    kernel paths refuse each of the three planes on CUDA tensors;
-15. one JSON line describing every kernel, then the result line.
+15. the router AQM (CoDel and the down-bandwidth relay) at the bench's
+   width: the bench world (N=32768, M=64, CE=16, CI=32, 10 ms windows,
+   loss 0.01, seed 0) with 1 Mbit/s downlinks, each relay bucket full,
+   every egress ring filled with 16 packets of 1400 B to hashed
+   destinations, R=64 windows: (a) kernel E (router_drain) bitwise
+   against its plain version on the router's rows of window
+   `AQM_SNAPSHOT`, where CoDel drops and the relay caches, and on random
+   rows at K=32 and K=64, timed cold (dirty and clean) and warm beside
+   its bound, the plain version's time and a device copy of as many
+   bytes timed alike; (b) `window_step(router_aqm=
+   True)` on "pallas_fused" (A, B, E), "pallas" (C, D, E) and "xla" (E):
+   one end state and per-window delivered counts for all three, each
+   equal to its `plain_kernels=True` run over the 18 windows that carry
+   traffic (none delivers after them), the first 8 windows equal to the
+   CPU's, R launches of E and of the pair's kernels and none of the
+   other pair's; router drops, cached packets, overflow, windows/s, and
+   device kernels and busy ms a window (torch.profiler, 16 windows);
+   (c) "xla" with metrics, guards and the flight recorder: guards-clean,
+   `drop_qdisc` summing to the router's drops, (b)'s state, AQM-drop
+   hops recorded; (d) `chain_windows` on each kernel, in 1 ms windows
+   from the world's start to the end of the traffic, equal to the same
+   windows run one at a time with the same boundaries, its reads of
+   tensors back to the host counted (one a chained window), and one idle
+   window from (b)'s drained end;
+16. one JSON line describing every kernel, then the result line.
 
 Usage: python3 chip_smoke.py   (from the repository root; one card).
 A fuller record of every measurement is printed on the `record:` line.
@@ -169,6 +194,30 @@ FLEET_SAMPLE_EVERY = 512
 # others finish, or stop sending, before a fault touches them
 FAULT_DROP_ENTRIES = {"all-to-all-16", "onoff-32", "ring-allreduce-32",
                       "serve-burst-lossy-10"}
+# phase 15: the bench world with a 1 Mbit/s downlink (125 B/ms, so a
+# 1400 B packet needs 11.2 ms of tokens, more than a window) and 16
+# packets a host: ~180 ms of queue at each router, past CoDel's 10 ms
+# target for longer than its 100 ms interval
+AQM_DOWN_BPS = 1_000_000
+AQM_SEED_PACKETS = 16
+AQM_ROUNDS = 64
+AQM_CHECK_WINDOWS = 8
+# the plain versions' runs cover the windows that carry traffic (the first
+# card run's last delivery came in window 17); past them the run checks
+# that nothing is delivered. A plain window costs 0.36-0.74 s of host
+# time on the card (kernel E's plain version: ~19 000 launches)
+AQM_PLAIN_WINDOWS = 18
+# kernel E's inputs: the router rows of this window (1-based: the window
+# after 12), where CPU rehearsals at 1024 and 4096 hosts drop and cache
+# (in window 12 they do neither)
+AQM_SNAPSHOT = 13
+AQM_CHAIN_NS = 1_000_000  # run-ahead of the chains (JAX's test's too)
+AQM_RING = 1 << 16  # holds every sampled hop of the run
+# kernel E's int32 operations a micro-step (a pop: the queue pointer, the
+# standing-delay test, the state machine's branch, the bucket refill with
+# its division by the rate; a resume or a chain start does fewer): an
+# estimate from the source, for the operations bound
+E_OPS_PER_STEP = 80
 
 
 def fail(msg: str):
@@ -1076,6 +1125,420 @@ def check_robustness(torch, pipeline, record, ident):
     print(f"refusals on CUDA tensors: {', '.join(refused)} raise ValueError")
 
 
+def aqm_world(device):
+    from shadow_tpu_torch.tpu import profiling
+
+    return profiling.build_world(
+        N_HOSTS, n_nodes=N_NODES, egress_cap=EGRESS_CAP,
+        ingress_cap=INGRESS_CAP, warmup_windows=0, down_bw_bps=AQM_DOWN_BPS,
+        seed_packets=AQM_SEED_PACKETS, device=device)
+
+
+def aqm_windows(torch, world, kernel, rounds, *, state=None, first_shift=0,
+                plain=False, planes=None, keep=()):
+    """`rounds` windows of `window_step(router_aqm=True)`. Returns (end
+    state, per-window delivered counts, per-window cached packets at the
+    window's end, planes', {window: state after it} for `keep`), read
+    from the card once, after the last window."""
+    from shadow_tpu_torch.tpu import plane
+
+    st = world["state"] if state is None else state
+    planes = dict(planes or {})  # in window_step's output order
+    counts, cached, kept = [], [], {}
+    for r in range(rounds):
+        out = plane.window_step(
+            st, world["params"], world["rng_root"],
+            first_shift if r == 0 else world["window"], world["window"],
+            rr_enabled=False, router_aqm=True, kernel=kernel,
+            plain_kernels=plain, **planes)
+        st, d = out[0], out[1]
+        planes = dict(zip(planes, out[3:]))
+        counts.append(d["mask"].sum(dtype=torch.int32))
+        cached.append(st.router.has_cached.sum(dtype=torch.int32))
+        if r + 1 in keep:
+            kept[r + 1] = st
+    return (st, torch.stack(counts).tolist(), torch.stack(cached).tolist(),
+            planes, kept)
+
+
+def drain_bytes(args, outs) -> int:
+    """What kernel E must move: its inputs (the rows, the rates and caps,
+    the control-law table, the 13 state fields it reads) read once and
+    its outputs written once."""
+    arrival, size, _w, rate, cap, st = args
+    from shadow_tpu_torch.tpu import codel
+
+    fields = [getattr(st, f) for f in codel.DRAIN_FIELDS]
+    out_fields = [getattr(outs[0], f) for f in codel.DRAIN_FIELDS]
+    return nbytes([arrival, size, rate, cap, codel.CTRL_TABLE, *fields,
+                   *out_fields, *outs[1:]])
+
+
+def check_kernel_e(torch, codel, snapshot_args, record):
+    """Phase 15 (a): kernel E against its plain version on the world's
+    router rows and on random rows at K=32 and K=64; timed on the
+    world's rows."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    from torch_parity import drain_inputs
+
+    from shadow_tpu_torch import convert
+
+    cases = [(f"world window {AQM_SNAPSHOT}", snapshot_args)]
+    for k in (32, 64):
+        arrival, size, rate, cap, state = drain_inputs(N_HOSTS, k,
+                                                       seed=200 + k)
+        t = lambda a: torch.from_numpy(a).cuda()
+        cases.append((f"random K={k}", (t(arrival), t(size), 10 * MS,
+                                        t(rate), t(cap),
+                                        convert.router_from_numpy(
+                                            state, "cuda"))))
+    flat = lambda out: [*(getattr(out[0], f)
+                          for f in codel.RouterDownState._fields), *out[1:]]
+    errs, steps = {}, None
+    for what, args in cases:
+        got = codel.router_drain(*args)
+        # the plain version (`router_drain_plain` is its first six
+        # outputs), with the micro-steps each host ran
+        ref = codel._router_drain_loop(*args)
+        torch.cuda.synchronize()
+        if steps is None:  # the world's rows
+            steps = ref[6]
+        err = max_abs_err(torch, flat(got), flat(ref[:6]))
+        if err != 0:
+            fail(f"router_drain_kernel ({what}) disagrees with its plain "
+                 f"version (max abs err {err})")
+        errs[what] = err
+    args = snapshot_args
+    got = codel.router_drain(*args)
+    status = got[1]
+    drops = int((status == codel.STATUS_DROPPED).sum())
+    taken = int((got[5] >= 0).sum())
+    if drops <= 0 or taken <= 0:
+        fail(f"kernel E's world rows (window {AQM_SNAPSHOT}) hold {drops} "
+             f"CoDel drops and {taken} relay caches; both must occur")
+    warm_ms, ms, clean_ms = time_device(torch, lambda: codel.router_drain(
+        *args))
+    _, plain_ms, _ = time_device(
+        torch, lambda: codel.router_drain_plain(*args), reps=1)
+    moved = drain_bytes(args, got)
+    total_steps = int(steps.sum(dtype=torch.int64))
+    ops = total_steps * E_OPS_PER_STEP
+    bound_ms, bound_by = bound(moved, ops)
+    # the timing's floor at this size, as for kernel C: a device copy
+    # that reads and writes as many bytes
+    src = torch.empty(moved // 8, dtype=torch.int32, device="cuda")
+    dst = torch.empty_like(src)
+    copy_warm, copy_ms, copy_clean = time_device(torch,
+                                                 lambda: dst.copy_(src))
+    n, k = args[0].shape
+    row = dict(n=n, k=k, cases=list(errs), max_abs_err=max(errs.values()),
+               ms=ms, warm_ms=warm_ms, cold_clean_ms=clean_ms,
+               plain_ms=plain_ms, bytes=moved, ops=ops,
+               micro_steps=total_steps, max_steps=int(steps.max()),
+               trip_count=4 * k + 16, drops=drops, caches=taken,
+               bound_ms=bound_ms, bound_by=bound_by,
+               share_of_bound=bound_ms / ms, copy_ms=copy_ms,
+               copy_clean_ms=copy_clean, copy_warm_ms=copy_warm)
+    record["kernel_e"] = row
+    print(f"kernel E router_drain N={n} K={k}: bitwise ok on {list(errs)} "
+          f"(the world rows: {drops} CoDel drops, {taken} relay caches), "
+          f"kernel_ms={ms:.5f} (cold L2; clean {clean_ms:.5f}; warm "
+          f"{warm_ms:.5f}) plain_ms={plain_ms:.5f} bound_ms={bound_ms:.5f} "
+          f"({bound_by}, {moved} B, {ops} int ops from {total_steps} "
+          f"micro-steps at ~{E_OPS_PER_STEP}) share={bound_ms / ms:.3f}; "
+          f"the longest thread runs {row['max_steps']} of "
+          f"{row['trip_count']} micro-steps; library_ms=null; a copy of "
+          f"{moved} B: {copy_ms:.5f} cold, {copy_clean:.5f} clean, "
+          f"{copy_warm:.5f} warm")
+    return row
+
+
+AQM_PATHS = (("pallas_fused", ("egress_rank", "route_place")),
+             ("pallas", ("egress_gate", "route_scatter")),
+             ("xla", ()))
+
+
+def profile_aqm(torch, world, kernel, windows=PROFILE_WINDOWS):
+    """Device kernels and busy ms a window over the first `windows` AQM
+    windows (the traffic's busiest), under torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        aqm_windows(torch, world, kernel, windows)
+        torch.cuda.synchronize()
+    on_card = [ev for ev in prof.events()
+               if ev.device_type == DeviceType.CUDA
+               and not ev.is_user_annotation]
+    busy_ms = sum(ev.time_range.elapsed_us() for ev in on_card) / 1e3
+    e_us = [ev.time_range.elapsed_us() for ev in on_card
+            if "router_drain" in ev.name]
+    return {"windows": windows,
+            "kernel_launches_per_window": len(on_card) / windows,
+            "device_busy_ms_per_window": busy_ms / windows,
+            "router_drain_us_per_launch": (sum(e_us) / len(e_us)
+                                           if e_us else None)}
+
+
+# the tensor methods that read a tensor back to the host
+HOST_READ_METHODS = ("tolist", "item", "cpu", "numpy", "__bool__", "__int__",
+                     "__float__", "__index__")
+
+
+def count_host_reads(torch, fn, *args, **kw):
+    """Call `fn`, counting the calls it makes of HOST_READ_METHODS on
+    tensors. Returns (its result, the count)."""
+    count = [0]
+    own = {m: m in vars(torch.Tensor) for m in HOST_READ_METHODS}
+    real = {m: getattr(torch.Tensor, m) for m in HOST_READ_METHODS}
+
+    def counted(method):
+        def read(self, *a, **k):
+            count[0] += 1
+            return method(self, *a, **k)
+        return read
+
+    for m, method in real.items():
+        setattr(torch.Tensor, m, counted(method))
+    try:
+        out = fn(*args, **kw)
+    finally:
+        for m, method in real.items():
+            if own[m]:
+                setattr(torch.Tensor, m, method)
+            else:
+                delattr(torch.Tensor, m)
+    return out, count[0]
+
+
+def drive_chains(torch, world, state, kernel, *, chained: bool,
+                 first_shift: int = 0):
+    """From `state`, windows to the end of the traffic with the chain's
+    boundaries and AQM_CHAIN_NS windows: through `chain_windows`
+    (`chained`), or one `window_step` at a time with the chain's rule
+    applied on the host. Returns (end state, [(windows, off, next,
+    delivered) a chain], the host reads counted inside `chain_windows`)."""
+    from shadow_tpu_torch.tpu import plane
+
+    win = AQM_CHAIN_NS
+    horizon = (2**31 - 1) // 2
+    kw = dict(rr_enabled=False, router_aqm=True, kernel=kernel)
+    st, shift, chains, reads = state, first_shift, [], 0
+    while True:
+        if chained:
+            (st, d, off, nxt, n), r = count_host_reads(
+                torch, plane.chain_windows, st, world["params"],
+                world["rng_root"], shift, win, win, horizon, horizon, **kw)
+            reads += r
+            off, nxt, n = int(off), int(nxt), int(n)
+        else:
+            st, d, nxt = plane.window_step(st, world["params"],
+                                           world["rng_root"], shift, win,
+                                           **kw)
+            off, n = 0, 1
+            while n < 64:
+                if bool(d["mask"].any()) or int(nxt) >= horizon - off:
+                    break
+                off += int(nxt)
+                st, d, nxt = plane.window_step(
+                    st, world["params"], world["rng_root"], int(nxt),
+                    min(win, horizon - off), **kw)
+                n += 1
+            nxt = int(nxt)
+        chains.append((n, off, nxt, int(d["mask"].sum())))
+        if nxt >= horizon or len(chains) > 1000:
+            return st, chains, reads
+        shift = nxt
+
+
+def check_router_aqm(torch, pipeline, record, ident):
+    """Phase 15: the router AQM at the bench's width."""
+    from shadow_tpu_torch import convert
+    from shadow_tpu_torch.guards.plane import make_guards, summarize
+    from shadow_tpu_torch.telemetry import flightrec
+    from shadow_tpu_torch.telemetry.metrics import make_metrics
+    from shadow_tpu_torch.tpu import codel, plane
+
+    t0 = time.perf_counter()
+    world = aqm_world("cuda")
+    # (a) kernel E on the router's rows of window AQM_SNAPSHOT, caught on
+    # their way into the drain
+    st, *_ = aqm_windows(torch, world, "xla", AQM_SNAPSHOT - 1)
+    caught = []
+    real_drain = codel.router_drain
+
+    def spy(*args, **kw):
+        caught.append(args)
+        return real_drain(*args, **kw)
+
+    codel.router_drain = spy
+    try:
+        aqm_windows(torch, world, "xla", 1, state=st,
+                    first_shift=world["window"])
+    finally:
+        codel.router_drain = real_drain
+    e_row = check_kernel_e(torch, codel, caught[0], record)
+    t_a = time.perf_counter() - t0
+
+    # (b) the three kernel paths
+    paths = {}
+    for kernel, pair in AQM_PATHS:
+        torch.cuda.synchronize()
+        pipeline.reset_launches()
+        t = time.perf_counter()
+        st, counts, cached, _p, kept = aqm_windows(
+            torch, world, kernel, AQM_ROUNDS,
+            keep=(AQM_CHECK_WINDOWS, AQM_PLAIN_WINDOWS))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = dict(pipeline.LAUNCHES)
+        for name, count in launches.items():
+            want = AQM_ROUNDS if name in pair + ("router_drain",) else 0
+            if count != want:
+                fail(f"AQM run, kernel={kernel!r}: {name} launched {count} "
+                     f"times, expected {want}")
+        plain_st, plain_counts, *_ = aqm_windows(torch, world, kernel,
+                                                 AQM_PLAIN_WINDOWS, plain=True)
+        if convert.state_digest(plain_st) != convert.state_digest(
+                kept[AQM_PLAIN_WINDOWS]) or \
+                plain_counts != counts[:AQM_PLAIN_WINDOWS]:
+            fail(f"AQM run, kernel={kernel!r}: the kernels' run differs from "
+                 "the plain versions' run")
+        if any(counts[AQM_PLAIN_WINDOWS:]):
+            fail(f"AQM run, kernel={kernel!r}: deliveries after window "
+                 f"{AQM_PLAIN_WINDOWS}, which the plain run does not cover")
+        digest = convert.state_digest(st)
+        paths[kernel] = dict(
+            digest=digest, counts=counts, cached=cached, launches=launches,
+            wall_s=wall, windows_per_s=AQM_ROUNDS / wall,
+            check_digest=convert.state_digest(kept[AQM_CHECK_WINDOWS]),
+            end=st,
+            drops=int(st.router.dropped.sum(dtype=torch.int64)),
+            overflow=int(st.n_overflow_dropped.sum(dtype=torch.int64)),
+            delivered=int(st.n_delivered.sum(dtype=torch.int64)),
+            profile=profile_aqm(torch, world, kernel))
+    ref = paths["pallas_fused"]
+    for kernel, p in paths.items():
+        if p["digest"] != ref["digest"] or p["counts"] != ref["counts"]:
+            fail(f"AQM run: kernel={kernel!r} ends in another state or "
+                 "delivers other counts than kernel='pallas_fused'")
+    t = time.perf_counter()
+    cpu_world = aqm_world("cpu")
+    cpu_st, *_ = aqm_windows(torch, cpu_world, "xla", AQM_CHECK_WINDOWS)
+    cpu_s = time.perf_counter() - t
+    if convert.state_digest(cpu_st) != ref["check_digest"]:
+        fail(f"AQM run: the first {AQM_CHECK_WINDOWS} windows on the card "
+             "differ from the CPU's")
+    if ref["drops"] <= 0 or max(ref["cached"]) <= 0:
+        fail(f"AQM run: {ref['drops']} CoDel drops and at most "
+             f"{max(ref['cached'])} cached packets at a window end; both "
+             "must occur")
+    for kernel, p in paths.items():
+        prof = p["profile"]
+        print(f"AQM, kernel={kernel}: N={N_HOSTS} R={AQM_ROUNDS}: the state "
+              f"and delivered counts of every path and of the plain "
+              f"versions' run; launches {p['launches']}; {p['drops']} router "
+              f"drops, {sum(p['cached'])} packets cached at window ends (at "
+              f"most {max(p['cached'])} at one), {p['overflow']} overflowed, "
+              f"{p['delivered']} delivered; {p['windows_per_s']:.2f} "
+              f"windows/s; {prof['kernel_launches_per_window']:.1f} device "
+              f"kernels and {prof['device_busy_ms_per_window']:.5f} ms busy a "
+              f"window over the first {prof['windows']} (kernel E "
+              f"{prof['router_drain_us_per_launch']} us a launch) on {ident}")
+    print(f"AQM: the first {AQM_CHECK_WINDOWS} windows equal the CPU's "
+          f"({cpu_s:.1f}s on the CPU)")
+    t_b = time.perf_counter() - t0 - t_a
+
+    # (c) the observability planes on "xla"
+    planes = dict(metrics=make_metrics(N_HOSTS, device="cuda"),
+                  guards=make_guards(N_HOSTS, device="cuda"),
+                  flightrec=flightrec.make_flightrec(
+                      0, sample_every=64, ring=AQM_RING, device="cuda"))
+    st, counts, _c, planes, _k = aqm_windows(torch, world, "xla", AQM_ROUNDS,
+                                             planes=planes)
+    guards = summarize(planes["guards"])
+    qdisc = int(planes["metrics"].drop_qdisc.sum(dtype=torch.int64))
+    fr = planes["flightrec"]
+    hops = int(fr.cursor)
+    aqm_hops = int((fr.ev_kind[:min(hops, AQM_RING)]
+                    == flightrec.HOP_DROP_AQM).sum())
+    if not guards["clean"]:
+        fail(f"AQM run with guards: violations {guards}")
+    if qdisc != ref["drops"]:
+        fail(f"AQM run: metrics.drop_qdisc sums to {qdisc}, the router "
+             f"dropped {ref['drops']}")
+    if convert.state_digest(st) != ref["digest"] or counts != ref["counts"]:
+        fail("AQM run: metrics, guards and the recorder changed the state")
+    if hops > AQM_RING or aqm_hops <= 0:
+        fail(f"AQM run: {hops} hops for a ring of {AQM_RING}, {aqm_hops} "
+             "AQM drops among them")
+    print(f"AQM, kernel=xla with metrics, guards and the recorder: guards "
+          f"clean ({guards['checks_evaluated']} checks), drop_qdisc {qdisc} "
+          f"= the router's drops, the state of (b), {hops} hops recorded, "
+          f"{aqm_hops} of them drop_aqm")
+    t_c = time.perf_counter() - t0 - t_a - t_b
+
+    # (d) chain_windows against the single-window loop: after the traffic
+    # has drained a chain is one window with nothing to do, so the chains
+    # run from the world's start to the end of the traffic, in 1 ms
+    # windows (the first chain, whose first window nothing reaches, and
+    # some later ones advance more than one window); then one chain from
+    # (b)'s drained end state
+    chains = {}
+    for kernel, _pair in AQM_PATHS:
+        st_c, got, reads = drive_chains(torch, world, world["state"],
+                                        kernel, chained=True)
+        st_w, want, _ = drive_chains(torch, world, world["state"], kernel,
+                                     chained=False)
+        if got != want or convert.state_digest(st_c) != \
+                convert.state_digest(st_w):
+            fail(f"chain_windows, kernel={kernel!r}: differs from the "
+                 "single-window loop with the same boundaries")
+        _st, tail, _ = drive_chains(torch, world, paths[kernel]["end"],
+                                    kernel, chained=True,
+                                    first_shift=world["window"])
+        if [c[:3] for c in tail] != [(1, 0, 2**31 - 1)]:
+            fail(f"chain_windows, kernel={kernel!r}, after the traffic: "
+                 f"{tail}, not one idle window")
+        lengths = [c[0] for c in got]
+        # one host read a chained window, but for a chain cut at 64
+        expected = sum(n if n < 64 else n - 1 for n in lengths)
+        if reads != expected:
+            fail(f"chain_windows, kernel={kernel!r}: {reads} host reads "
+                 f"counted over {sum(lengths)} windows in {len(got)} chains, "
+                 f"expected {expected} (one a chained window)")
+        chains[kernel] = dict(chains=len(got), windows=sum(lengths),
+                              max_windows_per_chain=max(lengths),
+                              multi_window_chains=sum(n > 1 for n in lengths),
+                              host_reads=reads, digest=convert.state_digest(
+                                  st_c))
+        print(f"chain_windows, kernel={kernel}: {len(got)} chains of "
+              f"{AQM_CHAIN_NS} ns windows to the end of the traffic, "
+              f"{sum(lengths)} windows (max {max(lengths)} a chain, "
+              f"{chains[kernel]['multi_window_chains']} chains of more than "
+              f"one), {reads} host reads counted (one a chained window); "
+              f"equal to the single-window loop; "
+              f"from the drained state one idle window")
+    if max(c["max_windows_per_chain"] for c in chains.values()) < 2:
+        fail("chain_windows: no chain advanced more than one window")
+    if len({c["digest"] for c in chains.values()}) != 1:
+        fail("chain_windows: the three kernels end in different states")
+    t_d = time.perf_counter() - t0 - t_a - t_b - t_c
+    record["router_aqm"] = dict(
+        paths={k: {f: v for f, v in p.items() if f != "end"}
+               for k, p in paths.items()},
+        cpu_check_s=cpu_s,
+        planes=dict(guards_clean=guards["clean"],
+                    checks=guards["checks_evaluated"], drop_qdisc=qdisc,
+                    hops=hops, aqm_hops=aqm_hops),
+        chains=chains, seconds=dict(a=t_a, b=t_b, c=t_c, d=t_d))
+    print(f"AQM phase seconds: (a) {t_a:.1f}, (b) {t_b:.1f}, (c) {t_c:.1f}, "
+          f"(d) {t_d:.1f}")
+    return e_row, paths["pallas_fused"]["launches"]["router_drain"]
+
+
 def kernel_entry(name, source, replaces, launches, row):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -1146,6 +1609,8 @@ def main():
     timed("12 onoff-16384", check_wide_scenario, torch, record, ident)
     timed("13 serving fleet", check_fleet, torch, pipeline, record, ident)
     timed("14 robustness", check_robustness, torch, pipeline, record, ident)
+    e, e_launches = timed("15 router AQM", check_router_aqm, torch, pipeline,
+                          record, ident)
     record["phase_s"] = phase_s
     print(f"phase seconds: {json.dumps(phase_s)}")
 
@@ -1166,6 +1631,10 @@ def main():
                      "shadow_tpu_torch/csrc/route_scatter.cu",
                      "shadow_tpu/tpu/pallas_route.py:48",
                      split["route_scatter"], d),
+        kernel_entry("router_drain_kernel",
+                     "shadow_tpu_torch/csrc/router_drain.cu",
+                     "shadow_tpu/tpu/codel.py:578 (router_drain, "
+                     "lax.fori_loop)", e_launches, e),
     ]
     print(f"record: {json.dumps(record, default=str)}")
     print(json.dumps({"kernels": kernels}))

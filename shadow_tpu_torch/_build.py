@@ -39,6 +39,9 @@ SIGNATURES = {
     "route_scatter": ("route_scatter_launch",
                       [_I, _I, _I] + [_P] * 3 + [_P] * 2 + [_P] * 4
                       + [_P] * 6 + [_P]),
+    "router_drain": ("router_drain_launch",
+                     [_I, _I, _I] + [_P] * 5 + [_P] * 13 + [_P] * 13
+                     + [_P] * 5 + [_P]),
 }
 _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 

@@ -1,7 +1,8 @@
 """Carry plane params and state between numpy and the port's tensors.
 
 A state as numpy is a dict of arrays keyed by `NetPlaneState` field,
-with `router` a dict keyed by `RouterDownState` field: the JAX plane's
+with `router` a dict keyed by `RouterDownState` field (the router's and
+the CoDel trace replay's `CodelState` also convert alone): the JAX plane's
 NamedTuples converted leaf by leaf (`st._asdict()`), dtypes unchanged
 (bool stays bool, int32 int32, float32 float32). The flat tuples
 (`PlaneMetrics`, `PlaneHistograms`, `WorkloadState`, the flow plane's
@@ -24,7 +25,7 @@ import numpy as np
 import torch
 
 from .telemetry.flightrec import FlightRecArrays
-from .tpu.codel import RouterDownState
+from .tpu.codel import CodelState, RouterDownState
 from .tpu.plane import NetPlaneParams, NetPlaneState
 
 
@@ -40,9 +41,8 @@ def params_from_numpy(d: dict, device) -> NetPlaneParams:
 def state_from_numpy(d: dict, device) -> NetPlaneState:
     fields = {f: _tensor(d[f], device) for f in NetPlaneState._fields
               if f != "router"}
-    router = RouterDownState(**{f: _tensor(d["router"][f], device)
-                                for f in RouterDownState._fields})
-    return NetPlaneState(router=router, **fields)
+    return NetPlaneState(router=router_from_numpy(d["router"], device),
+                         **fields)
 
 
 def state_to_numpy(state: NetPlaneState) -> dict:
@@ -52,6 +52,18 @@ def state_to_numpy(state: NetPlaneState) -> dict:
     out["router"] = {f: np_of(getattr(state.router, f))
                      for f in RouterDownState._fields}
     return out
+
+
+def router_from_numpy(d: dict, device) -> RouterDownState:
+    """A `RouterDownState` from the JAX twin's `_asdict()`."""
+    return RouterDownState(**{f: _tensor(d[f], device)
+                              for f in RouterDownState._fields})
+
+
+def codel_from_numpy(d: dict, device) -> CodelState:
+    """The trace replay's `CodelState` from the JAX twin's `_asdict()`."""
+    return CodelState(**{f: _tensor(d[f], device)
+                         for f in CodelState._fields})
 
 
 def _is_array(v) -> bool:

@@ -36,7 +36,7 @@ HOP_ROUTED = 1  # cleared the egress gate and entered the wire
 HOP_DELIVERED = 2  # released to the destination host
 HOP_DROP_LOSS = 3  # Bernoulli path-loss sample
 HOP_DROP_FAULT = 4  # injected fault (purge, corruption, blocked route)
-HOP_DROP_AQM = 5  # router CoDel verdict (the router AQM is not ported)
+HOP_DROP_AQM = 5  # router CoDel verdict at the destination
 HOP_RTO_FIRED = 6  # flow-plane RTO expiry (seq = the guarded snd_una)
 HOP_RETRANSMIT = 7  # flow-plane re-emission of an already-sent seq
 

@@ -33,7 +33,9 @@ Each kernel has its plain PyTorch version here, computing the same
 function. A wrapper given CPU tensors calls the plain version; given
 CUDA tensors it launches the kernel, or raises, unless the caller asks
 for the plain version (`plain=True`, `window_step(plain_kernels=True)`).
-`LAUNCHES` counts the kernel launches, and nothing else.
+`LAUNCHES` counts the kernel launches, and nothing else; kernel E, the
+router AQM's drain (`codel.router_drain`), launches through `_launch`
+and counts here too.
 
 The split pair's plain versions are also the JAX XLA path's egress and
 routing stages: `egress_gate_plain` is `_egress_order` + `_token_gate`
@@ -55,7 +57,7 @@ from .prims import (_SIGN32, I32_MAX, NO_CLAMP, _row_perm_sort, take, u32,
 
 # kernel launches since the last reset, by kernel name
 LAUNCHES = {"egress_rank": 0, "route_place": 0, "egress_gate": 0,
-            "route_scatter": 0}
+            "route_scatter": 0, "router_drain": 0}
 # widest egress row kernels A and C take (one thread block holds a row)
 MAX_EGRESS_CAP = 1024
 

@@ -1,14 +1,18 @@
-"""Batched network-plane state and the per-window step, in PyTorch.
+"""Batched network-plane state, the per-window step and the window
+chain, in PyTorch.
 
 The port of `shadow_tpu/tpu/plane.py`: the params/state SoA, the flat
-and row-shaped egress appends, and the direct-delivery `window_step`
-(`router_aqm=False`, packed sort keys) with three kernels. The fused
-pair A and B (`kernel="pallas_fused"`) and the split pair C and D
-(`kernel="pallas"`) run the CUDA kernels of `tpu/pipeline.py`, FIFO
-only; `kernel="xla"`, the default as in the JAX package, runs every
-stage in PyTorch with no kernel of the port (the split pair's plain
-versions) and adds the round-robin qdisc (`rr_enabled=True`). The
-metrics plane rides all three kernels; the fault, guard, histogram and
+and row-shaped egress appends, `window_step` (packed sort keys) with
+three kernels, and `chain_windows`. The fused pair A and B
+(`kernel="pallas_fused"`) and the split pair C and D (`kernel="pallas"`)
+run the CUDA kernels of `tpu/pipeline.py`, FIFO only; `kernel="xla"`,
+the default as in the JAX package, runs every stage in PyTorch with no
+kernel of the port (the split pair's plain versions) and adds the
+round-robin qdisc (`rr_enabled=True`). The router AQM
+(`router_aqm=True`: CoDel and the down-bandwidth relay on the
+destination side) follows the routing stage of all three kernels and
+runs kernel E (`codel.router_drain`) on CUDA tensors. The metrics plane
+rides all three kernels; the fault, guard, histogram and
 flight-recorder planes and the flow and compute planes ride the XLA
 path only, as in the JAX package. `unpack_planes` splits what they
 append.
@@ -18,7 +22,8 @@ kernel: int32 state, int32 arithmetic that wraps where the JAX plane's
 does, and the float32 loss and corruption draws computed from the same
 threefry bits. Sorts that the JAX plane runs outside its Pallas kernels
 stay `torch.sort` (stable) on composite int64 keys that give the same
-permutation. Nothing in `window_step` reads a tensor back to the host.
+permutation. Nothing in `window_step` reads a tensor back to the host;
+`chain_windows` reads one small tensor a chained window.
 """
 
 from __future__ import annotations
@@ -591,6 +596,78 @@ def _release_due(in_deliver_m, in_src_m, in_seq_m, in_sock_m, in_bytes_m,
             in_valid_new)
 
 
+def _key_valid_time(valid, t):
+    """(invalid, int32 time) as one int64 sort key: exact for every time,
+    I32_MAX included (the JAX AQM sorts carry the two as separate keys)."""
+    return ((~valid).to(torch.int64) << 32) | (u32(t) ^ _SIGN32)
+
+
+def _key_src_seq(src, seq):
+    """(src, seq), both signed int32, as one order-exact int64 key."""
+    return (src.to(torch.int64) << 32) | (u32(seq) ^ _SIGN32)
+
+
+def _router_release(in_deliver_m, in_src_m, in_seq_m, in_sock_m, in_bytes_m,
+                    in_valid_m, window_ns, params: NetPlaneParams,
+                    rt: codel.RouterDownState, *, plain: bool):
+    """Section 5b under the router AQM: the inbound pipeline (router
+    CoDel, down-bandwidth relay, delivery) in place of the due release.
+    Stored times are arrivals at the destination router. The rows go to
+    the router in (arrival, src, seq) order (the JAX four-key stable row
+    sort, as two stable passes: by (src, seq), then by (invalid,
+    arrival)); `codel.router_drain` (kernel E on CUDA tensors unless
+    `plain`) drains them; a row entry left cached moves its identity into
+    the router scalars. The delivered dict is [N, CI + 1]: the forwarded
+    rows plus the previous window's cached packet in the extra column,
+    in (deliver, src, seq) order; the untouched FIFO suffix is
+    front-packed. Returns (delivered, due, deliver', src', seq', sock',
+    bytes', valid', router state', (src_s, seq_s, arr_s, aqm_dropped))
+    with the last the flight recorder's AQM-drop candidates."""
+    CI = in_src_m.shape[1]
+    arr_key = torch.where(in_valid_m, in_deliver_m, I32_MAX)
+    perm = _row_perm_sort(_key_valid_time(in_valid_m, arr_key),
+                          _key_src_seq(in_src_m, in_seq_m))
+    arr_s, src_s, seq_s, sock_s, bytes_s, valid_s = (take(a, perm) for a in (
+        arr_key, in_src_m, in_seq_m, in_sock_m, in_bytes_m, in_valid_m))
+    rt2, rstatus, r_dt, co_mask, co_t, c_idx = codel.router_drain(
+        arr_s, bytes_s, window_ns, params.dn_rate, params.dn_cap, rt,
+        plain=plain)
+    # a row entry cached at window end leaves the queue: its identity
+    # moves into the router scalars until the relay resumes
+    new_cached = c_idx >= 0
+    ci = torch.clamp(c_idx, 0, CI - 1).to(torch.int64)[:, None]
+    cached = lambda a, old: torch.where(new_cached, take(a, ci)[:, 0], old)
+    rt2 = rt2._replace(cached_src=cached(src_s, rt.cached_src),
+                       cached_seq=cached(seq_s, rt.cached_seq),
+                       cached_sock=cached(sock_s, rt.cached_sock))
+    # delivered: forwarded row entries + (maybe) the prior window's
+    # relay-cached packet, in (deliver, src, seq) order
+    fwd_rows = rstatus == codel.STATUS_DELIVERED
+    col = lambda a, b: torch.cat([a, b[:, None]], dim=1)
+    d_mask0 = col(fwd_rows, co_mask)
+    d_src0, d_seq0 = col(src_s, rt.cached_src), col(seq_s, rt.cached_seq)
+    d_t0 = col(torch.where(fwd_rows, r_dt, I32_MAX),
+               torch.where(co_mask, co_t, I32_MAX))
+    dperm = _row_perm_sort(_key_valid_time(d_mask0, d_t0),
+                           _key_src_seq(d_src0, d_seq0))
+    d_due = take(d_mask0, dperm)
+    delivered = {
+        "mask": d_due, "src": take(d_src0, dperm),
+        "seq": take(d_seq0, dperm),
+        "sock": take(col(sock_s, rt.cached_sock), dperm),
+        "bytes": take(col(bytes_s, rt.cached_bytes), dperm),
+        "deliver_rel": take(d_t0, dperm),
+    }
+    # the surviving queue: the untouched FIFO suffix, re-front-packed
+    keep = valid_s & (rstatus == codel.STATUS_QUEUED)
+    kperm = _row_perm_sort(_pack_time_key(keep, arr_s))
+    aqm_dropped = valid_s & (rstatus == codel.STATUS_DROPPED)
+    return (delivered, d_due, take(torch.where(keep, arr_s, I32_MAX), kperm),
+            take(src_s, kperm), take(seq_s, kperm), take(sock_s, kperm),
+            take(bytes_s, kperm), take(keep, kperm), rt2,
+            (src_s, seq_s, arr_s, aqm_dropped))
+
+
 def _compact_egress(eg_prio, eg_dst, eg_bytes, eg_seq, eg_ctrl, eg_tsend,
                     eg_clamp, eg_sock, eg_valid_left):
     """Section 6: leftover egress front-packed by (validity, priority)."""
@@ -609,11 +686,13 @@ def _row_sum_i32(x: torch.Tensor) -> torch.Tensor:
 
 def _accumulate_metrics(metrics: PlaneMetrics, state: NetPlaneState,
                         sent, lost, due, overflowed, delivered, in_valid_m,
-                        eg_bytes, fault_drops=None) -> PlaneMetrics:
+                        eg_bytes, fault_drops=None,
+                        router_drops=None) -> PlaneMetrics:
     """Section 8: the telemetry counters, over values the step already
-    computed; nothing feeds back into the state. The router-drop delta
-    is zero on the direct path; `fault_drops` ([N], None without
-    faults) is the fault plane's per-host drops."""
+    computed; nothing feeds back into the state. `fault_drops` ([N],
+    None without faults) is the fault plane's per-host drops and
+    `router_drops` ([N], None without the router AQM, where the JAX
+    step adds a zero delta) the router's CoDel drops."""
     sent_n = sent.sum(dim=1, dtype=torch.int32)
     due_n = due.sum(dim=1, dtype=torch.int32)
     occupancy = lambda v: v.sum(dim=1, dtype=torch.int32)
@@ -625,7 +704,8 @@ def _accumulate_metrics(metrics: PlaneMetrics, state: NetPlaneState,
         bytes_in=metrics.bytes_in
         + _row_sum_i32(torch.where(delivered["mask"], delivered["bytes"], 0)),
         drop_ring_full=metrics.drop_ring_full + overflowed,
-        drop_qdisc=metrics.drop_qdisc,
+        drop_qdisc=(metrics.drop_qdisc if router_drops is None
+                    else metrics.drop_qdisc + router_drops),
         drop_loss=metrics.drop_loss + lost.sum(dim=1, dtype=torch.int32),
         drop_fault=(metrics.drop_fault if fault_drops is None
                     else metrics.drop_fault + fault_drops),
@@ -672,13 +752,12 @@ _PRESENCE_PLANES = ("faults", "metrics", "guards", "hist", "flightrec",
 KERNELS = ("pallas_fused", "pallas", "xla")
 
 
-def _check_step_options(kernel: str, rr_enabled: bool, router_aqm: bool,
-                        packed_sort: bool, planes: dict):
+def _check_step_options(kernel: str, rr_enabled: bool, packed_sort: bool,
+                        planes: dict):
     """The JAX step's refusals (ValueError, as there: the Pallas kernels
     are FIFO-only, packed-sort-only and fuse no presence plane but
-    metrics), the port's own (`packed_sort=False` on any kernel), then
-    what the port does not have yet (NotImplementedError, naming
-    ROADMAP.md's queue)."""
+    metrics) and the port's own (`packed_sort=False` on any kernel). The
+    router AQM runs on every kernel, as in the JAX step."""
     if kernel not in KERNELS:
         raise ValueError(f"unknown plane kernel {kernel!r}: expected one of "
                          f"{KERNELS}")
@@ -701,10 +780,6 @@ def _check_step_options(kernel: str, rr_enabled: bool, router_aqm: bool,
         raise ValueError(
             f"plane_kernel={kernel!r} does not fuse the presence planes "
             f"{refused}; the JAX plane runs them on kernel='xla' only")
-    if router_aqm:
-        raise NotImplementedError(
-            "window_step: the router AQM path (router_aqm=True) is not "
-            "ported yet (ROADMAP.md, queue A)")
 
 
 def window_step(state: NetPlaneState, params: NetPlaneParams, rng_seed: int,
@@ -717,9 +792,8 @@ def window_step(state: NetPlaneState, params: NetPlaneParams, rng_seed: int,
                 guards: GuardState | None = None,
                 hist: PlaneHistograms | None = None,
                 flightrec: FlightRecArrays | None = None, **planes):
-    """Advance one scheduling round [t, t + window_ns): the
-    direct-delivery path of the JAX `window_step` with the same kernel,
-    bitwise.
+    """Advance one scheduling round [t, t + window_ns): the JAX
+    `window_step` with the same kernel, bitwise.
 
     `kernel="pallas_fused"` runs kernels A and B (`pipeline.
     egress_rank_stage`, `route_place`); `kernel="pallas"` the split pair,
@@ -736,6 +810,13 @@ def window_step(state: NetPlaneState, params: NetPlaneParams, rng_seed: int,
     previous one's. `plain_kernels=True` runs the plain PyTorch versions
     of the kernels even on CUDA tensors (the reference a card run is
     held against); otherwise CUDA tensors go through the CUDA kernels.
+
+    `router_aqm=True` (every kernel) switches the destination side from
+    the due release to the inbound pipeline (`host.rs:810-865`): a
+    stored time is then the packet's arrival at the destination router,
+    the router's CoDel may drop it (`state.router.dropped`), and the
+    down-bandwidth relay delivers it when its tokens allow
+    (`_router_release`; the drain is kernel E on CUDA tensors).
 
     The presence planes (each None by default, leaving the step as it
     is): `faults` (`faults.plane.FaultArrays`) purges a down host's
@@ -755,11 +836,12 @@ def window_step(state: NetPlaneState, params: NetPlaneParams, rng_seed: int,
 
     Returns (state', delivered, next_event_rel[, metrics'][, guards'][,
     hist'][, flightrec'][, flow_state'][, compute_state']):
-    `delivered` is a dict of [N, CI] tensors masked by
-    delivered["mask"], and next_event_rel a 0-d int32 tensor (I32_MAX
-    when idle). No tensor is read back to the host.
+    `delivered` is a dict of [N, CI] tensors ([N, CI + 1] under the
+    router AQM) masked by delivered["mask"], and next_event_rel a 0-d
+    int32 tensor (I32_MAX when idle). No tensor is read back to the
+    host.
     """
-    _check_step_options(kernel, rr_enabled, router_aqm, packed_sort,
+    _check_step_options(kernel, rr_enabled, packed_sort,
                         dict(planes, faults=faults, metrics=metrics,
                              guards=guards, hist=hist, flightrec=flightrec))
     from . import pipeline
@@ -847,10 +929,18 @@ def window_step(state: NetPlaneState, params: NetPlaneParams, rng_seed: int,
      overflowed) = merged
 
     # --- 5b. release what this window hands the hosts --------------------
-    (delivered, due, in_deliver_new, in_src_new, in_seq_new, in_sock_new,
-     in_bytes_new, in_valid_new) = _release_due(
-        in_deliver_m, in_src_m, in_seq_m, in_sock_m, in_bytes_m,
-        in_valid_m, window_ns)
+    if router_aqm:
+        (delivered, due, in_deliver_new, in_src_new, in_seq_new,
+         in_sock_new, in_bytes_new, in_valid_new, rt_out,
+         aqm_hops) = _router_release(
+            in_deliver_m, in_src_m, in_seq_m, in_sock_m, in_bytes_m,
+            in_valid_m, window_ns, params, rt, plain=plain_kernels)
+    else:
+        (delivered, due, in_deliver_new, in_src_new, in_seq_new,
+         in_sock_new, in_bytes_new, in_valid_new) = _release_due(
+            in_deliver_m, in_src_m, in_seq_m, in_sock_m, in_bytes_m,
+            in_valid_m, window_ns)
+        rt_out, aqm_hops = rt, None
 
     # --- 6. compact leftover egress --------------------------------------
     (eg_prio_c, eg_dst_c, eg_bytes_c, eg_seq_c, eg_ctrl_c, eg_tsend_c,
@@ -861,6 +951,10 @@ def window_step(state: NetPlaneState, params: NetPlaneParams, rng_seed: int,
     # --- 7. stats + next-event reduction ---------------------------------
     per_host_in_next = torch.where(in_valid_new, in_deliver_new,
                                    I32_MAX).amin(dim=1)
+    if router_aqm:
+        # a relay-cached packet blocks its whole row until the resume fires
+        per_host_in_next = torch.where(rt_out.has_cached, rt_out.resume,
+                                       per_host_in_next)
     idle = torch.full((), I32_MAX, dtype=torch.int32,
                       device=eg_valid_c.device)
     next_event = torch.minimum(
@@ -875,7 +969,7 @@ def window_step(state: NetPlaneState, params: NetPlaneParams, rng_seed: int,
         in_sock=in_sock_new, in_deliver_rel=in_deliver_new,
         in_valid=in_valid_new,
         tb_balance=balance, tb_rem_ns=tb_rem_ns, rng_counter=rng_counter,
-        rr_sent=rr_sent, router=rt,
+        rr_sent=rr_sent, router=rt_out,
         n_sent=state.n_sent + sent.sum(dim=1, dtype=torch.int32),
         n_loss_dropped=state.n_loss_dropped
         + lost.sum(dim=1, dtype=torch.int32),
@@ -884,17 +978,26 @@ def window_step(state: NetPlaneState, params: NetPlaneParams, rng_seed: int,
         n_fault_dropped=(state.n_fault_dropped if faults is None
                          else state.n_fault_dropped + fault_drops),
     )
+    router_drops = (rt_out.dropped - state.router.dropped if router_aqm
+                    else None)
     if metrics is not None:
         # --- 8. telemetry counters ---------------------------------------
         metrics = _accumulate_metrics(
             metrics, state, sent, lost, due, overflowed, delivered,
-            in_valid_m, eg_bytes, fault_drops if faults is not None else None)
+            in_valid_m, eg_bytes, fault_drops if faults is not None else None,
+            router_drops)
     if guards is not None:
         # --- 9. guard plane ("xla" only): reads, never writes the state
         eg_left = sendable.sum(dim=1, dtype=torch.int32)
         if faults is not None:
             eg_left = eg_left + fault_purged.sum(dim=1, dtype=torch.int32)
-        no_cache = torch.zeros(N, dtype=torch.int32, device=eg_dst.device)
+        if router_aqm:
+            qdisc_delta = router_drops
+            cached_in = state.router.has_cached.to(torch.int32)
+            cached_out = rt_out.has_cached.to(torch.int32)
+        else:
+            qdisc_delta = cached_in = cached_out = torch.zeros(
+                N, dtype=torch.int32, device=eg_dst.device)
         guards = guards_plane.check_window(
             guards, state=state,
             eg_occ_in=state.eg_valid.sum(dim=1, dtype=torch.int32),
@@ -904,7 +1007,8 @@ def window_step(state: NetPlaneState, params: NetPlaneParams, rng_seed: int,
                                       sent),
             overflowed=overflowed,
             delivered=due.sum(dim=1, dtype=torch.int32),
-            qdisc_delta=no_cache, cached_in=no_cache, cached_out=no_cache,
+            qdisc_delta=qdisc_delta, cached_in=cached_in,
+            cached_out=cached_out,
             new_state=new_state, rng_delta=rng_counter - state.rng_counter,
             egress_cap=CE, shift_ns=shift_ns, window_ns=window_ns)
     if hist is not None:
@@ -916,7 +1020,8 @@ def window_step(state: NetPlaneState, params: NetPlaneParams, rng_seed: int,
         flightrec = _record_hops(flightrec, eg_dst, eg_seq, eg_tsend, sent,
                                  lost, delivered,
                                  None if faults is None
-                                 else fault_purged | corrupt | blocked_dst)
+                                 else fault_purged | corrupt | blocked_dst,
+                                 aqm_hops)
     flows, compute = planes.get("flows"), planes.get("compute")
     if flows is not None:
         # --- 12. the flow plane ("xla" only): acks and credits read the
@@ -949,36 +1054,175 @@ def window_step(state: NetPlaneState, params: NetPlaneParams, rng_seed: int,
     return out
 
 
+def chain_windows(state: NetPlaneState, params: NetPlaneParams,
+                  rng_seed: int, shift0: int, window0_ns: int,
+                  runahead_ns: int, horizon_rel: int, stop_rel: int,
+                  max_windows: int = 64, *, rr_enabled: bool = True,
+                  router_aqm: bool = False, no_loss: bool = False,
+                  kernel: str = "xla",
+                  faults: FaultArrays | None = None,
+                  metrics: PlaneMetrics | None = None,
+                  guards: GuardState | None = None,
+                  hist: PlaneHistograms | None = None,
+                  flightrec: FlightRecArrays | None = None,
+                  workload=None, flows=None, compute=None, round0: int = 0):
+    """Advance consecutive windows until one delivers: the JAX
+    `chain_windows`, bitwise, with the same boundaries.
+
+    The first window ([shift0-rebased start, +window0_ns)) runs
+    unconditionally. Afterwards, while a window delivered nothing and
+    its next event stays below both `horizon_rel` (the earliest
+    host-side event) and `stop_rel` (the simulation's end), the next
+    window opens at that event with length min(runahead_ns, stop_rel -
+    start), at most `max_windows` windows in all. `horizon_rel` and
+    `stop_rel` are relative to the first window's start and at most
+    I32_MAX // 2, as in JAX. The shifts, lengths, bounds and `round0` are
+    Python ints, as `window_step` takes them.
+
+    The JAX chain is one `lax.while_loop` on the device. A PyTorch loop
+    cannot branch on the device, and the port's `window_step` takes its
+    shift and length as Python ints, so this reads the host once per
+    chained window, and only then: after a window that could be
+    followed, one small tensor holding the continue flag and the next
+    event, read with a single `.tolist()`. A fixed trip count of masked
+    windows would cost `max_windows` full steps a chain instead.
+
+    Every presence plane threads through the windows as in
+    `window_step` (same arguments, `kernel` included). `workload=(wl,
+    ws)` runs the traffic generator's `workload_step` after each window
+    (its emission re-arms the next event); `flows=(ft, fs)` threads the flow plane, whose emission and
+    pending RTO deadline re-arm it too; the two exclude each other, as
+    in JAX. `compute=(ct, cs)` threads the compute plane (it emits
+    nothing). `round0` is the caller's window counter for the
+    generator's `done_win` stamps.
+
+    Returns (state, delivered, off, next_rel, n_windows[, metrics'][,
+    guards'][, hist'][, flightrec'][, ws'][, fs'][, cs']), `off`,
+    `next_rel` and `n_windows` 0-d int32 tensors: `off` is the last
+    window's start relative to the first's, and `delivered` and
+    `next_rel` are relative to the last window's start."""
+    if workload is not None and flows is not None:
+        raise ValueError(
+            "chain_windows composes workload= or flows=, not both: a "
+            "workload riding a flow transport must interleave the phase "
+            "credits between flow_recv and flow_emit, which is the "
+            "scenario runner's split-form loop (workloads/runner.py)")
+    wl, ws = workload if workload is not None else (None, None)
+    ft, fs = flows if flows is not None else (None, None)
+    ctab, cs = compute if compute is not None else (None, None)
+
+    def step(st, planes, shift, window_ns, ridx):
+        m, g, h, fr, ws, fs, cs = planes
+        out = window_step(
+            st, params, rng_seed, shift, window_ns, rr_enabled=rr_enabled,
+            router_aqm=router_aqm, no_loss=no_loss, kernel=kernel,
+            faults=faults, metrics=m, guards=g,
+            hist=h, flightrec=fr,
+            flows=(ft, fs) if fs is not None else None,
+            compute=(ctab, cs) if cs is not None else None)
+        (st, delivered, next_ev), m, g, h, fr, fs, cs = unpack_planes(
+            out, metrics=m, guards=g, hist=h, flightrec=fr, flows=fs,
+            compute=cs)
+        idle = torch.full((), I32_MAX, dtype=torch.int32,
+                          device=next_ev.device)
+        if fs is not None:
+            from . import flows as flows_mod  # flows imports this module
+
+            # the flow emission may have re-armed an empty egress ring,
+            # and a pending RTO deadline (relative to this window's end)
+            # wakes the chain even with nothing in flight
+            next_ev = torch.minimum(next_ev, torch.where(
+                st.eg_valid.any(), idle.new_full((), window_ns), idle))
+            rto_rel = flows_mod.next_deadline_rel_ns(ft, fs)
+            wake = torch.where(
+                rto_rel > I32_MAX // 2, idle,
+                window_ns + torch.clamp(rto_rel, max=I32_MAX // 2))
+            next_ev = torch.minimum(next_ev, wake)
+        if ws is not None:
+            from ..workloads import device as wdevice
+
+            st, ws, *rest = wdevice.workload_step(
+                wl, ws, st, delivered, ridx, window_ns, metrics=m, guards=g)
+            if m is not None:
+                m = rest.pop(0)
+            if g is not None:
+                g = rest.pop(0)
+            # the emission may have re-armed an empty egress ring
+            next_ev = torch.minimum(next_ev, torch.where(
+                st.eg_valid.any(), idle.new_full((), window_ns), idle))
+        return st, delivered, next_ev, (m, g, h, fr, ws, fs, cs)
+
+    hs = min(horizon_rel, stop_rel)
+    planes = (metrics, guards, hist, flightrec, ws, fs, cs)
+    state, delivered, next_ev, planes = step(state, planes, shift0,
+                                             window0_ns, round0)
+    off, n = 0, 1
+    while n < max_windows:
+        # the one host read of a chained window: continue?, next event
+        go, nxt = torch.stack([
+            (~delivered["mask"].any() & (next_ev < hs - off)).to(
+                torch.int32), next_ev]).tolist()
+        if not go:
+            break
+        off += nxt
+        window = min(runahead_ns, stop_rel - off)
+        state, delivered, next_ev, planes = step(state, planes, nxt, window,
+                                                 round0 + n)
+        n += 1
+    m, g, h, fr, ws, fs, cs = planes
+    i32 = lambda v: torch.tensor(v, dtype=torch.int32,
+                                 device=next_ev.device)
+    out = (state, delivered, i32(off), next_ev, i32(n))
+    out += tuple(p for p in (m, g, h, fr) if p is not None)
+    if workload is not None:
+        out += (ws,)
+    if flows is not None:
+        out += (fs,)
+    if compute is not None:
+        out += (cs,)
+    return out
+
+
 def _record_hops(fr: FlightRecArrays, eg_dst, eg_seq, eg_tsend, sent, lost,
-                 delivered, fault_dropped=None) -> FlightRecArrays:
+                 delivered, fault_dropped=None, aqm=None) -> FlightRecArrays:
     """Section 11: the sampled packets' hops of this window, candidates
     in the JAX layout order (routed, loss drops, fault drops when the
-    fault plane runs, delivered), then the window counter. One sampling
-    call covers the egress and the delivered slots."""
+    fault plane runs, delivered, AQM drops under the router AQM), then
+    the window counter. One sampling call covers every candidate slot.
+    `aqm` is (src, seq, arrival, dropped) of the router's sorted rows:
+    an AQM drop is stamped with its destination row and arrival."""
     N, CE = eg_dst.shape
     dev = eg_dst.device
     flat = lambda a: a.reshape(-1)
     rows = lambda shape: flat(_arange(N, eg_dst)[:, None].expand(shape))
-    d_src, d_seq = flat(delivered["src"]), flat(delivered["seq"])
-    samp = flightrec_mod.sample_mask(fr, torch.cat([rows((N, CE)), d_src]),
-                                     torch.cat([flat(eg_seq), d_seq]))
-    samp_eg, samp_d = samp[:N * CE], samp[N * CE:]
+    full = lambda n, h: torch.full((n,), h, dtype=torch.int32, device=dev)
     eg_hops = [(flightrec_mod.HOP_ROUTED, sent),
                (flightrec_mod.HOP_DROP_LOSS, lost)]
     if fault_dropped is not None:
         eg_hops.append((flightrec_mod.HOP_DROP_FAULT, fault_dropped))
     k = len(eg_hops)
-    kind = torch.cat(
-        [torch.full((N * CE,), h, dtype=torch.int32, device=dev)
-         for h, _m in eg_hops]
-        + [torch.full((d_src.shape[0],), flightrec_mod.HOP_DELIVERED,
-                      dtype=torch.int32, device=dev)])
+    # (kind, src, seq, dst, t, mask, sampled by (src, seq)) per class
+    d_src, d_seq = flat(delivered["src"]), flat(delivered["seq"])
+    classes = [(flightrec_mod.HOP_DELIVERED, d_src, d_seq,
+                rows(delivered["mask"].shape),
+                flat(delivered["deliver_rel"]), flat(delivered["mask"]))]
+    if aqm is not None:
+        a_src, a_seq, a_t, a_mask = aqm
+        classes.append((flightrec_mod.HOP_DROP_AQM, flat(a_src), flat(a_seq),
+                        rows(a_src.shape), flat(a_t), flat(a_mask)))
+    samp = flightrec_mod.sample_mask(
+        fr, torch.cat([rows((N, CE))] + [c[1] for c in classes]),
+        torch.cat([flat(eg_seq)] + [c[2] for c in classes]))
+    samp_eg, samp = samp[:N * CE], samp[N * CE:]
+    samp_c = torch.split(samp, [c[1].shape[0] for c in classes])
     fr = flightrec_mod.record_events(
-        fr, kind,
-        torch.cat([rows((N, CE))] * k + [d_src]),
-        torch.cat([flat(eg_seq)] * k + [d_seq]),
-        torch.cat([flat(eg_dst)] * k + [rows(delivered["mask"].shape)]),
-        torch.cat([flat(eg_tsend)] * k + [flat(delivered["deliver_rel"])]),
+        fr,
+        torch.cat([full(N * CE, h) for h, _m in eg_hops]
+                  + [full(c[1].shape[0], c[0]) for c in classes]),
+        torch.cat([rows((N, CE))] * k + [c[1] for c in classes]),
+        torch.cat([flat(eg_seq)] * k + [c[2] for c in classes]),
+        torch.cat([flat(eg_dst)] * k + [c[3] for c in classes]),
+        torch.cat([flat(eg_tsend)] * k + [c[4] for c in classes]),
         torch.cat([flat(m) & samp_eg for _h, m in eg_hops]
-                  + [flat(delivered["mask"]) & samp_d]))
+                  + [c[5] & sc for c, sc in zip(classes, samp_c)]))
     return flightrec_mod.advance_window(fr)

@@ -17,10 +17,15 @@ RNG_SEED = 1
 
 def build_world(n_hosts: int, *, n_nodes: int = 64, egress_cap: int = 16,
                 ingress_cap: int = 32, seed: int = 0,
-                warmup_windows: int = 3, device=None) -> dict:
-    """The bench.py PHOLD world: node-level path tables from `seed`, 4
-    seed packets per host appended by the flat `ingest`, then
-    `warmup_windows` full windows."""
+                warmup_windows: int = 3, down_bw_bps: int | None = None,
+                seed_packets: int = 4, device=None) -> dict:
+    """The bench.py PHOLD world: node-level path tables from `seed`,
+    `seed_packets` packets of 1400 B per host to hashed destinations
+    appended by the flat `ingest`, then `warmup_windows` full windows.
+
+    `down_bw_bps` (bits/s, None: unlimited, as in the JAX bench) gives
+    every host that downlink and starts its relay bucket full: the
+    world of the router AQM (`window_step(router_aqm=True)`)."""
     device = resolve_device(device)
     N, M = n_hosts, n_nodes
     rng = np.random.default_rng(seed)
@@ -29,10 +34,14 @@ def build_world(n_hosts: int, *, n_nodes: int = 64, egress_cap: int = 16,
     loss = np.full((M, M), 0.01, np.float32)
     host_node = (np.arange(N) % M).astype(np.int32)
     bw = np.full((N,), 10_000_000_000, np.int64)
-    params = make_params(lat, loss, bw, host_node=host_node, device=device)
+    params = make_params(
+        lat, loss, bw, host_node=host_node, device=device,
+        down_bw_bps=None if down_bw_bps is None else np.full(N, down_bw_bps))
     state = make_state(N, egress_cap=egress_cap, ingress_cap=ingress_cap,
-                       initial_tokens=params.tb_cap, device=device)
-    k = 4
+                       initial_tokens=params.tb_cap,
+                       initial_dn_tokens=(None if down_bw_bps is None
+                                          else params.dn_cap), device=device)
+    k = seed_packets
     i64 = dict(dtype=torch.int64, device=device)
     src0 = torch.arange(N, **i64).repeat_interleave(k)
     dst0 = floormod(wrap_i32(src0 * 1566083941

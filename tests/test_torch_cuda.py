@@ -14,8 +14,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from torch_parity import (EDGE_SHIFTS, gate_edge_columns,  # noqa: E402
-                          placement_inputs)
+from torch_parity import (EDGE_SHIFTS, drain_inputs,  # noqa: E402
+                          gate_edge_columns, placement_inputs)
 
 from shadow_tpu_torch import bench, convert  # noqa: E402
 from shadow_tpu_torch.tpu import pipeline  # noqa: E402
@@ -145,3 +145,83 @@ def test_corpus_entry_on_the_card_matches_golden(cuda):
     assert pipeline.LAUNCHES == before
     assert runner.golden_entry(rec) == golden[sp.name]
     assert rec == runner.run_scenario(sp, device="cpu")
+
+
+@pytest.mark.parametrize("n,k", [(n, k) for k in (8, 32, 64)
+                                 for n in (1, 37, 4099)]
+                         + [(37, 300), (4099, 300), (37, 1024)])
+def test_router_drain_kernel_matches_plain(cuda, n, k):
+    """Kernel E against `router_drain_plain` on the card, on random rows
+    and mid-run router states (`drain_inputs`), at a block-aligned and
+    ragged host counts, rows that fill 32, 16 and 4 hosts' shared memory
+    a block, in a short window and one so long that resumes wrap int32;
+    every output a fresh tensor."""
+    from shadow_tpu_torch.tpu import codel
+
+    for window_ns in (10 * MS, 2**30):
+        arrival, size, rate, cap, state = drain_inputs(
+            n, k, seed=n + k, window_ns=window_ns)
+        t = lambda a: torch.from_numpy(a).to(cuda)
+        st = convert.router_from_numpy(state, cuda)
+        args = (t(arrival), t(size), window_ns, t(rate), t(cap), st)
+        before = pipeline.LAUNCHES["router_drain"]
+        got = codel.router_drain(*args)
+        ref = codel.router_drain_plain(*args)
+        torch.cuda.synchronize()
+        assert pipeline.LAUNCHES["router_drain"] == before + 1
+        for f in codel.RouterDownState._fields:
+            g, r = getattr(got[0], f), getattr(ref[0], f)
+            assert g.dtype == r.dtype and torch.equal(g, r), (window_ns, f)
+            if f in codel.DRAIN_FIELDS:
+                assert g.data_ptr() != getattr(st, f).data_ptr()
+        for g, r in zip(got[1:], ref[1:]):
+            assert g.dtype == r.dtype and torch.equal(g, r), window_ns
+
+
+def test_router_drain_kernel_refuses_rows_it_cannot_stage(cuda):
+    from shadow_tpu_torch.tpu import codel
+
+    _a, _s, rate, cap, state = drain_inputs(4, 8, seed=0)
+    # a block stages four rows of K + 1 words a host in its 227 KB of
+    # shared memory: K = 14527 at most, and the launcher refuses wider
+    wide = np.full((4, 14528), 2**31 - 1, np.int32)
+    t = lambda a: torch.from_numpy(a).to(cuda)
+    with pytest.raises(RuntimeError, match="router_drain_kernel: CUDA error"):
+        codel.router_drain(t(wide), t(wide), 10 * MS, t(rate), t(cap),
+                           convert.router_from_numpy(state, cuda))
+
+
+@pytest.mark.parametrize("kernel", ["pallas_fused", "pallas", "xla"])
+def test_aqm_window_step_on_the_card(cuda, kernel):
+    """`window_step(router_aqm=True)` through each kernel on the card
+    equals the plain versions' run on the card and the CPU run, window by
+    window, and launches kernel E once a window."""
+    from shadow_tpu_torch.tpu import profiling
+
+    runs = {}
+    for name, device, plain in (("card", cuda, False),
+                                ("plain", cuda, True), ("cpu", "cpu", False)):
+        w = profiling.build_world(300, n_nodes=16, egress_cap=16,
+                                  ingress_cap=32, warmup_windows=0,
+                                  down_bw_bps=1_000_000, seed_packets=16,
+                                  device=device)
+        st, shift, digests = w["state"], 0, []
+        before = dict(pipeline.LAUNCHES)
+        for _ in range(12):
+            st, d, nxt = aqm_step(st, w, shift, kernel, plain)
+            shift = w["window"]
+            digests.append((convert.state_digest(st),
+                            int(d["mask"].sum()), int(nxt)))
+        runs[name] = digests
+        launched = pipeline.LAUNCHES["router_drain"] - before["router_drain"]
+        assert launched == (12 if name == "card" else 0), name
+    assert runs["card"] == runs["plain"] == runs["cpu"]
+    assert sum(n for _d, n, _x in runs["card"]) > 0
+
+
+def aqm_step(st, w, shift, kernel, plain):
+    from shadow_tpu_torch.tpu import plane
+
+    return plane.window_step(st, w["params"], w["rng_root"], shift,
+                             w["window"], rr_enabled=False, router_aqm=True,
+                             kernel=kernel, plain_kernels=plain)

@@ -59,6 +59,24 @@ HOST_SIDE = {"completion_windows", "percentile", "percentiles",
              "read_hops", "hop_flows", "unwrap_u32", "FlightRecorder"}
 
 
+# loops that read the host between windows by design, their window
+# body and the reads each makes outside it: `plane.chain_windows` reads
+# one small tensor with one `.tolist()` after each chained window (the
+# JAX chain's while_loop condition), and nothing else; its arguments are
+# Python ints, so its outer body calls no int() or float() either
+BETWEEN_WINDOWS = {"chain_windows": ("step", {"tolist": 1})}
+HOST_READS = {"item", "cpu", "tolist", "numpy", "nonzero", "synchronize",
+              "bool"}
+LOOP_READS = HOST_READS | {"int", "float"}
+
+
+def _nested(tree, name: str):
+    found = [n for n in ast.walk(tree) if isinstance(n, ast.FunctionDef)
+             and n.name == name]
+    assert len(found) == 1, f"the window body {name} moved"
+    return found
+
+
 def _window_code(path: Path):
     """The parts of a module that a window runs: the whole module but its
     host-side report functions; of the scenario runner, only the chain
@@ -66,13 +84,22 @@ def _window_code(path: Path):
     drive, as the JAX runner does."""
     tree = ast.parse(path.read_text(encoding="utf-8"), str(path))
     if path.name == "runner.py":
-        chains = [n for n in ast.walk(tree) if isinstance(n, ast.FunctionDef)
-                  and n.name == "chain_fn"]
-        assert len(chains) == 1, "the runner's chain body moved"
-        return chains
+        return _nested(tree, "chain_fn")
     return [n for n in tree.body
             if not (isinstance(n, (ast.FunctionDef, ast.ClassDef))
                     and n.name in HOST_SIDE)]
+
+
+def _host_reads(node, names=HOST_READS) -> list[tuple[int, str]]:
+    reads = []
+    for n in ast.walk(node):
+        if isinstance(n, ast.Call):
+            f = n.func
+            name = (f.attr if isinstance(f, ast.Attribute)
+                    else f.id if isinstance(f, ast.Name) else "")
+            if name in names:
+                reads.append((n.lineno, name))
+    return reads
 
 
 def test_device_path_reads_nothing_back_to_the_host():
@@ -80,8 +107,8 @@ def test_device_path_reads_nothing_back_to_the_host():
     everything it calls, the presence planes (faults, guards and the
     flight recorder's device half too) and the workload generator
     included, and the scenario runner's window loop: no tensor is read
-    back inside a window."""
-    banned = {"item", "cpu", "tolist", "numpy", "nonzero", "synchronize"}
+    back inside a window. A loop in BETWEEN_WINDOWS makes exactly its
+    listed reads, all outside its window body."""
     port = REPO / "shadow_tpu_torch"
     step_files = [port / "tpu" / f for f in (
         "plane.py", "pipeline.py", "prims.py", "codel.py", "tcp.py",
@@ -91,16 +118,24 @@ def test_device_path_reads_nothing_back_to_the_host():
     step_files += [port / "faults" / "plane.py", port / "guards" / "plane.py"]
     step_files += [port / "workloads" / f for f in (
         "phold.py", "device.py", "runner.py")]
+    loops = 0
     for path in step_files:
         for part in _window_code(path):
-            for node in ast.walk(part):
-                if not isinstance(node, ast.Call):
-                    continue
-                f = node.func
-                name = (f.attr if isinstance(f, ast.Attribute)
-                        else f.id if isinstance(f, ast.Name) else "")
-                assert name not in banned and name != "bool", (
-                    path.name, node.lineno, name)
+            reads = _host_reads(part)
+            name = getattr(part, "name", None)
+            if not isinstance(part, ast.FunctionDef) or \
+                    name not in BETWEEN_WINDOWS:
+                assert not reads, (path.name, reads)
+                continue
+            loops += 1
+            reads = _host_reads(part, LOOP_READS)
+            body, allowed = BETWEEN_WINDOWS[name]
+            assert not _host_reads(_nested(part, body)[0]), (path.name, name)
+            got = {}
+            for _line, read in reads:
+                got[read] = got.get(read, 0) + 1
+            assert got == allowed, (path.name, name, reads)
+    assert loops == len(BETWEEN_WINDOWS)
 
 
 def test_copied_workload_modules_stand_alone():

@@ -151,10 +151,10 @@ def test_window_steps_with_ingress_overflow():
 
 def test_window_step_refuses_what_is_not_ported():
     """What the JAX plane refuses for its Pallas kernels raises
-    ValueError, as there, and so does packed_sort=False on any kernel;
-    what the port lacks raises NotImplementedError naming ROADMAP.md.
-    The metrics plane rides every kernel; the fault, guard, histogram,
-    flight-recorder, flow and compute planes ride "xla"."""
+    ValueError, as there, and so does packed_sort=False on any kernel.
+    The metrics plane and the router AQM ride every kernel; the fault,
+    guard, histogram, flight-recorder, flow and compute planes ride
+    "xla"."""
     (_p, _j), (tparams, tst) = both_worlds()
     step = lambda **kw: tplane.window_step(tst, tparams, 0, 0, MS, **kw)
     for kernel in ("pallas_fused", "pallas"):
@@ -167,8 +167,10 @@ def test_window_step_refuses_what_is_not_ported():
             with pytest.raises(ValueError, match=plane_name):
                 step(rr_enabled=False, kernel=kernel,
                      **{plane_name: object()})
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            step(rr_enabled=False, router_aqm=True, kernel=kernel)
+        # the router AQM runs on every kernel, as in the JAX step; its
+        # delivered dict has the relay's carried-over column
+        out = step(rr_enabled=False, router_aqm=True, kernel=kernel)
+        assert out[1]["mask"].shape == (N, tst.in_src.shape[1] + 1)
     with pytest.raises(ValueError, match="packed"):
         step(packed_sort=False, kernel="xla")
     # the fault, guard and flight-recorder planes are ported: "xla"
@@ -181,8 +183,8 @@ def test_window_step_refuses_what_is_not_ported():
                guards=make_guards(n, device="cpu"),
                flightrec=make_flightrec(0, device="cpu"))
     assert len(out) == 5
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue A"):
-        step(kernel="xla", router_aqm=True)
+    out = step(kernel="xla", router_aqm=True)
+    assert out[1]["mask"].shape == (N, tst.in_src.shape[1] + 1)
     with pytest.raises(ValueError, match="unknown plane kernel"):
         step(rr_enabled=False, kernel="mosaic")
     with pytest.raises(TypeError, match="unexpected"):

@@ -193,8 +193,9 @@ def test_split_golden_phold_digest():
 def test_split_path_refusals():
     (_p, _j), (tparams, tst) = both_worlds()
     step = lambda st, **kw: tplane.window_step(st, tparams, 0, 0, MS, **kw)
-    with pytest.raises(NotImplementedError, match="queue A"):
-        step(tst, rr_enabled=False, kernel="xla", router_aqm=True)
+    # the router AQM is no refusal: it runs after the split pair too
+    out = step(tst, rr_enabled=False, kernel="pallas", router_aqm=True)
+    assert out[1]["mask"].shape[1] == tst.in_src.shape[1] + 1
     with pytest.raises(ValueError, match="unknown plane kernel"):
         step(tst, rr_enabled=False, kernel="mosaic")
     with pytest.raises(ValueError, match="FIFO"):

@@ -62,8 +62,9 @@ def test_three_kernels_agree():
 def test_xla_step_refusals():
     (_p, _j), (tparams, tst) = rr_world(8, 8, 8)
     step = lambda **kw: tplane.window_step(tst, tparams, 0, 0, MS, **kw)
-    with pytest.raises(NotImplementedError, match="router AQM"):
-        step(kernel="xla", router_aqm=True)
+    # the router AQM is ported: "xla" runs it (tests/test_torch_router_aqm.py)
+    out = step(kernel="xla", router_aqm=True)
+    assert out[1]["mask"].shape == (8, tst.in_src.shape[1] + 1)
     with pytest.raises(ValueError, match="packed"):
         step(kernel="xla", packed_sort=False)
     hist = histo.make_histograms(8, device="cpu")

@@ -51,6 +51,7 @@ def placement_inputs(n, ce, ci, seed, *, hot=1 / 8):
 
 
 I32_MIN, I32_MAX = -(2**31), 2**31 - 1
+MS = 1_000_000
 NO_CLAMP = -(2**30)
 EDGE_SHIFTS = (10_000_000, -10_000_000)
 
@@ -101,6 +102,45 @@ def gate_edge_columns(n, ce, seed):
                 tsend=i32(tsend), clamp=i32(clamp), balance=i32(balance))
 
 
+def drain_inputs(n, k, seed, *, window_ns=10 * MS):
+    """Kernel E's arguments as numpy (arrival, size, dn_rate, dn_cap, the
+    router state as a dict): ascending arrivals (some before the window
+    start, some after its end, I32_MAX padding), 1-1500 B sizes, rates
+    from 1 B/ms to 2^20, a mid-run state with caches whose resumes fall
+    inside and beyond the window, both CoDel modes."""
+    rng = np.random.default_rng(seed)
+    i32 = lambda a: np.asarray(a, np.int32)
+    n_real = rng.integers(0, k + 1, n)
+    arrival = np.sort(rng.integers(-3 * MS, window_ns + 3 * MS, (n, k)),
+                      axis=1)
+    arrival[np.arange(k)[None, :] >= n_real[:, None]] = I32_MAX
+    size = rng.integers(1, 1501, (n, k))
+    size[arrival == I32_MAX] = rng.integers(0, 1501, int(
+        (arrival == I32_MAX).sum()))
+    rate = np.where(rng.random(n) < 0.2, rng.integers(1, 8, n),
+                    rng.integers(100, 1 << 20, n))
+    cap = rate + 1500
+    has_c = rng.random(n) < 0.4
+    state = dict(
+        mode=i32(rng.integers(0, 2, n)),
+        has_interval_end=rng.random(n) < 0.5,
+        interval_end=i32(rng.integers(-150 * MS, 150 * MS, n)),
+        has_drop_next=rng.random(n) < 0.5,
+        drop_next=i32(rng.integers(-150 * MS, 150 * MS, n)),
+        cur_count=i32(rng.integers(0, 8, n)),
+        prev_count=i32(rng.integers(0, 8, n)),
+        dn_balance=i32(rng.integers(-2000, cap + 1)),
+        dn_last_refill=i32(rng.integers(-MS + 1, 1, n)),
+        has_cached=has_c,
+        cached_src=i32(rng.integers(0, n, n)),
+        cached_seq=i32(rng.integers(0, 1000, n)),
+        cached_sock=i32(rng.integers(0, 40, n)),
+        cached_bytes=i32(np.where(has_c, rng.integers(1, 1501, n), 0)),
+        resume=i32(rng.integers(-MS, window_ns + 5 * MS, n)),
+        dropped=i32(rng.integers(0, 50, n)))
+    return i32(arrival), i32(size), i32(rate), i32(cap), state
+
+
 def assert_states_equal(a: dict, b: dict, ctx=None):
     """Every leaf bitwise equal, dtype and shape included."""
     assert a.keys() == b.keys(), ctx
@@ -111,8 +151,6 @@ def assert_states_equal(a: dict, b: dict, ctx=None):
         assert a[k].dtype == b[k].dtype, (ctx, k, a[k].dtype, b[k].dtype)
         assert np.array_equal(a[k], b[k]), (ctx, k)
 
-
-MS = 1_000_000
 
 
 def rr_world(n, ce, ci, *, rr_mix=True, loss=0.3, seed=7):
@@ -166,13 +204,14 @@ def assert_tuples_equal(ref, got, ctx=None):
 
 def phold_both(world, windows, *, kernel="xla", jax_kernel="xla",
                rr_enabled=False, no_loss=False, metrics=False, hist=False,
-               seed=3):
+               router_aqm=False, seed=3):
     """`windows` PHOLD windows (window_step + respawn + ingest_rows) of
     the JAX plane and the port on one world, with the metrics and
     histogram planes threaded through both calls when asked (as the JAX
     bench threads them), compared leaf by leaf after every window: the
     state, every delivered column, the next-event scalar and each plane.
-    Returns the final (port state, metrics, hist)."""
+    The respawn batch is as wide as the delivered dict (CI + 1 columns
+    under `router_aqm`). Returns the final (port state, metrics, hist)."""
     import jax
     import jax.numpy as jnp
     import torch
@@ -187,7 +226,7 @@ def phold_both(world, windows, *, kernel="xla", jax_kernel="xla",
     from shadow_tpu_torch.workloads.phold import respawn_batch as trespawn
 
     (params, jst), (tparams, tst) = world
-    n, ci = jst.in_src.shape
+    n = jst.in_src.shape[0]
     key = jax.random.key(seed)
     jm = make_metrics(n) if metrics else None
     jh = make_histograms(n) if hist else None
@@ -198,9 +237,11 @@ def phold_both(world, windows, *, kernel="xla", jax_kernel="xla",
     def jround(st, sh, spawn, r, m, h):
         out = window_step(st, params, key, sh, jnp.int32(10 * MS),
                           rr_enabled=rr_enabled, no_loss=no_loss,
-                          kernel=jax_kernel, metrics=m, hist=h)
+                          router_aqm=router_aqm, kernel=jax_kernel,
+                          metrics=m, hist=h)
         (st, d, nx), m, _g, h, _f = unpack_planes(out, metrics=m, hist=h)
-        mask, dst, nb, seq, ctrl = respawn_batch(d, spawn, r, n, ci)
+        mask, dst, nb, seq, ctrl = respawn_batch(d, spawn, r, n,
+                                                 d["mask"].shape[1])
         out = ingest_rows(st, dst, nb, seq, seq, ctrl, valid=mask,
                           metrics=m, hist=h)
         (st,), m, _g, h, _f = unpack_planes(out, metrics=m, hist=h,
@@ -215,10 +256,12 @@ def phold_both(world, windows, *, kernel="xla", jax_kernel="xla",
                                             jnp.int32(r), jm, jh)
         out = tplane.window_step(tst, tparams, seed, shift, 10 * MS,
                                  rr_enabled=rr_enabled, no_loss=no_loss,
-                                 kernel=kernel, metrics=tm, hist=th)
+                                 router_aqm=router_aqm, kernel=kernel,
+                                 metrics=tm, hist=th)
         (tst, td, tn), tm, _g, th, _f = tplane.unpack_planes(
             out, metrics=tm, hist=th)
-        mask, dst, nb, seq, ctrl = trespawn(td, tspawn, r, n, ci)
+        mask, dst, nb, seq, ctrl = trespawn(td, tspawn, r, n,
+                                            td["mask"].shape[1])
         out = tplane.ingest_rows(tst, dst, nb, seq, seq, ctrl, mask,
                                  metrics=tm, hist=th)
         (tst,), tm, _g, th, _f = tplane.unpack_planes(
