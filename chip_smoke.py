@@ -103,7 +103,30 @@ printed:
    windows run one at a time with the same boundaries, its reads of
    tensors back to the host counted (one a chained window), and one idle
    window from (b)'s drained end;
-16. one JSON line describing every kernel, then the result line.
+16. the run infrastructure (no kernel of its own): (a) the PHOLD main
+   path at N=32768, R=192 through each kernel pair with the telemetry
+   harvester every 32 windows and the run ledger (and "xla" with the
+   histograms too), each state equal to the bare run's, 192 launches of
+   each kernel of the pair, the harvests and heartbeat lines counted,
+   device kernels and busy ms a window with and without
+   (torch.profiler, windows 32-63 of a 64-window run, the set-up and
+   the first chain before it); (d) the memo rep (`bench.run_memo`: a
+   16-host ring allreduce over 4096 windows in chains of 64, cold and
+   memoized), hits and digest parity; then in child processes, the
+   killed runs at once and the resumed runs at once: (b) the fused
+   PHOLD main path checkpointed every 32 windows, killed at round 96
+   (exit 137) and resumed from its newest checkpoint, ending as the
+   uninterrupted run, with the checkpoint's bytes and the save and
+   resume milliseconds; (c) `run_scenarios --checkpoint-dir --kill-at
+   16` then `--resume`, with `--telemetry` and `--trace`, on a direct
+   entry under `--check` and a serving entry under `--faults --guards`
+   (the output file byte-identical to the uninterrupted run's, the
+   heartbeats after the kill and the phase annotations equal), and on
+   phase 13's fleet killed at 256 of its 704 windows (its record equal
+   to phase 13's); (d) the corpus under `--memo --check`; (e) the chaos
+   smoke at its defaults, uninterrupted, killed at 24 and resumed,
+   with and without `--memo` (equal digests);
+17. one JSON line describing every kernel, then the result line.
 
 Usage: python3 chip_smoke.py   (from the repository root; one card).
 A fuller record of every measurement is printed on the `record:` line.
@@ -114,9 +137,11 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -714,36 +739,57 @@ def check_capacity(bench, convert, elastic, record):
           f"{strict['blamed_hosts']} hosts blamed)")
 
 
-def profile_scenario(torch, runner, sp, windows: int = PROFILE_WINDOWS,
-                     **run_kw):
-    """Device kernels and busy ms a window of a scenario's windows
-    [windows, 2 * windows), under torch.profiler (the run is cut to 2 *
-    windows and driven in chains of `windows`; the profiler starts and
-    stops at chain ends, after a synchronise). `run_kw` goes to
-    `run_scenario`. The profiled windows' wall time is not reported: the
-    profiler's own start-up and recording are in it."""
+def card_work(prof, windows: int):
+    """The card's kernels and copies in a finished torch.profiler run
+    (its user annotations left out), and their count and busy ms a window
+    over `windows` windows."""
     from torch.autograd import DeviceType
+
+    on_card = [ev for ev in prof.events()
+               if ev.device_type == DeviceType.CUDA
+               and not ev.is_user_annotation]
+    busy_ms = sum(ev.time_range.elapsed_us() for ev in on_card) / 1e3
+    return on_card, {"windows": windows,
+                     "kernel_launches_per_window": len(on_card) / windows,
+                     "device_busy_ms_per_window": busy_ms / windows}
+
+
+def profile_chains(torch, drive, start: int, stop: int) -> dict:
+    """Device kernels and busy ms a window of windows [start, stop) of a
+    chained run under torch.profiler: `drive(on_chain)` runs it and calls
+    `on_chain(r1, ...)` after each chain; the profiler starts and stops
+    at the chain ends `start` and `stop`, after a synchronise, so the
+    set-up, the chains before and what follows the run stay out of it.
+    The profiled windows' wall time is not reported: the profiler's own
+    start-up and recording are in it."""
     from torch.profiler import ProfilerActivity, profile
 
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                    acc_events=True)
 
-    def on_chain(r1):
-        torch.cuda.synchronize()
-        if r1 == windows:
-            prof.start()
-        elif r1 == 2 * windows:
-            prof.stop()
+    def on_chain(r1, *_):
+        if r1 in (start, stop):
+            torch.cuda.synchronize()
+            prof.start() if r1 == start else prof.stop()
 
-    runner.run_scenario(dataclasses.replace(sp, windows=2 * windows),
-                        chain_len=windows, on_chain=on_chain, **run_kw)
-    on_card = [ev for ev in prof.events()
-               if ev.device_type == DeviceType.CUDA
-               and not ev.is_user_annotation]
-    busy_ms = sum(ev.time_range.elapsed_us() for ev in on_card) / 1e3
-    return {"windows": windows,
-            "kernel_launches_per_window": len(on_card) / windows,
-            "device_busy_ms_per_window": busy_ms / windows}
+    drive(on_chain)
+    on_card, out = card_work(prof, stop - start)
+    if not on_card:
+        fail(f"the profiler recorded no device work in windows "
+             f"[{start}, {stop})")
+    return out
+
+
+def profile_scenario(torch, runner, sp, windows: int = PROFILE_WINDOWS,
+                     **run_kw):
+    """Device kernels and busy ms a window of a scenario's windows
+    [windows, 2 * windows) (the run is cut to 2 * windows and driven in
+    chains of `windows`). `run_kw` goes to `run_scenario`."""
+    return profile_chains(
+        torch, lambda on_chain: runner.run_scenario(
+            dataclasses.replace(sp, windows=2 * windows), chain_len=windows,
+            on_chain=on_chain, **run_kw),
+        windows, 2 * windows)
 
 
 def check_corpus(torch, pipeline, record, ident):
@@ -975,6 +1021,7 @@ def check_fleet(torch, pipeline, record, ident):
           f"{prof['device_busy_ms_per_window']:.5f} ms busy a window "
           f"({prof['busy_share_of_drive']:.3f} of the drive's "
           f"{1e3 / rate:.4f} ms a window) on {ident}")
+    return rec
 
 
 def check_robustness(torch, pipeline, record, ident):
@@ -1261,7 +1308,6 @@ AQM_PATHS = (("pallas_fused", ("egress_rank", "route_place")),
 def profile_aqm(torch, world, kernel, windows=PROFILE_WINDOWS):
     """Device kernels and busy ms a window over the first `windows` AQM
     windows (the traffic's busiest), under torch.profiler."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1269,17 +1315,12 @@ def profile_aqm(torch, world, kernel, windows=PROFILE_WINDOWS):
                              ProfilerActivity.CUDA]) as prof:
         aqm_windows(torch, world, kernel, windows)
         torch.cuda.synchronize()
-    on_card = [ev for ev in prof.events()
-               if ev.device_type == DeviceType.CUDA
-               and not ev.is_user_annotation]
-    busy_ms = sum(ev.time_range.elapsed_us() for ev in on_card) / 1e3
+    on_card, out = card_work(prof, windows)
     e_us = [ev.time_range.elapsed_us() for ev in on_card
             if "router_drain" in ev.name]
-    return {"windows": windows,
-            "kernel_launches_per_window": len(on_card) / windows,
-            "device_busy_ms_per_window": busy_ms / windows,
-            "router_drain_us_per_launch": (sum(e_us) / len(e_us)
-                                           if e_us else None)}
+    out["router_drain_us_per_launch"] = sum(e_us) / len(e_us) if e_us \
+        else None
+    return out
 
 
 # the tensor methods that read a tensor back to the host
@@ -1539,6 +1580,393 @@ def check_router_aqm(torch, pipeline, record, ident):
     return e_row, paths["pallas_fused"]["launches"]["router_drain"]
 
 
+# phase 16: the run infrastructure
+P16_HARVEST = 32  # windows between harvests (the chain length)
+P16_CKPT_EVERY = 32
+P16_KILL = 96
+P16_ENTRIES = (("ring_allreduce.yaml", ("--check",)),
+               ("serve_burst_lossy.yaml", ("--faults", "--guards")))
+P16_KILL_ENTRY = 16
+FLEET_CKPT_EVERY = 128
+FLEET_KILL = 256
+CHAOS_KILL = 24
+CHILD_TIMEOUT_S = 600
+# the children's device ("cpu" in a CPU rehearsal of the phase)
+CHILD_DEVICE = "cuda"
+
+
+def profile_phold(torch, bench, kernel, **kw):
+    """Device kernels and busy ms a window of PHOLD windows [P16_HARVEST,
+    2 * P16_HARVEST) at the main path's width, in chains of P16_HARVEST
+    (`kw` goes to `run_phold`: telemetry, hist, trace). The world's
+    build, its upload and the first chain come before the profiler
+    starts, and the harvester's final drain and trace write after it
+    stops; with the harvester on, the profiled windows hold one
+    harvest."""
+    return profile_chains(
+        torch, lambda on_chain: bench.run_phold(
+            N_HOSTS, rounds=2 * P16_HARVEST, chain_len=P16_HARVEST,
+            warmup=False, kernel=kernel, n_nodes=N_NODES,
+            egress_cap=EGRESS_CAP, ingress_cap=INGRESS_CAP,
+            on_chain=on_chain, **kw),
+        P16_HARVEST, 2 * P16_HARVEST)
+
+
+def check_phold_telemetry(torch, bench, convert, pipeline, tmp, ident):
+    """16 (a): PHOLD at full width through each kernel pair with the
+    harvester every P16_HARVEST windows and the run ledger, and through
+    "xla" with the histograms too, each against the same run without
+    them."""
+    size = dict(n_nodes=N_NODES, egress_cap=EGRESS_CAP,
+                ingress_cap=INGRESS_CAP, warmup=False)
+    out = {}
+    for kernel, pair, hist in (
+            ("pallas_fused", ("egress_rank", "route_place"), False),
+            ("pallas", ("egress_gate", "route_scatter"), False),
+            ("xla", (), True)):
+        tdir = str(Path(tmp) / f"tel-{kernel}")
+        tel = dict(telemetry=tdir, hist=hist, harvest_every=P16_HARVEST,
+                   trace=str(Path(tmp) / f"{kernel}.ledger.jsonl"))
+        off = bench.run_phold(N_HOSTS, rounds=ROUNDS, kernel=kernel,
+                              chain_len=P16_HARVEST, **size)
+        pipeline.reset_launches()
+        on = bench.run_phold(N_HOSTS, rounds=ROUNDS, kernel=kernel, **tel,
+                             **size)
+        launches = dict(pipeline.LAUNCHES)
+        for name, count in launches.items():
+            want = ROUNDS if name in pair else 0
+            if count != want:
+                fail(f"telemetry run, kernel={kernel!r}: {name} launched "
+                     f"{count} times, expected {want}")
+        d_off = convert.state_digest(off["state"])
+        if convert.state_digest(on["state"]) != d_off or \
+                on["delivered"] != off["delivered"]:
+            fail(f"kernel={kernel!r}: the harvester, histograms or tracer "
+                 "changed the run")
+        t = on["telemetry"]
+        want_harvests = ROUNDS // P16_HARVEST
+        if t["harvests"] != want_harvests or \
+                t["heartbeats"] != want_harvests * (N_HOSTS + 1):
+            fail(f"kernel={kernel!r}: {t['harvests']} harvests and "
+                 f"{t['heartbeats']} heartbeat lines, expected "
+                 f"{want_harvests} and {want_harvests * (N_HOSTS + 1)}")
+        ledger = [json.loads(line) for line in open(tel["trace"])]
+        spans = [r for r in ledger if r["kind"] == "span"]
+        if len(spans) != want_harvests or ledger[-1]["kind"] != "end":
+            fail(f"kernel={kernel!r}: the ledger holds {len(spans)} spans")
+        prof_off = profile_phold(torch, bench, kernel)
+        prof_on = profile_phold(torch, bench, kernel, **tel)
+        out[kernel] = dict(
+            digest=d_off, launches=launches, harvests=t["harvests"],
+            heartbeats=t["heartbeats"], ledger_records=len(ledger),
+            wall_s_off=off["wall_s"], wall_s_on=on["wall_s"],
+            events_per_s_off=off["packet_events_per_sec"],
+            events_per_s_on=on["packet_events_per_sec"],
+            profile_off=prof_off, profile_on=prof_on,
+            latency=t.get("latency"))
+        print(f"16 (a) kernel={kernel}: N={N_HOSTS} R={ROUNDS}, harvest "
+              f"every {P16_HARVEST}{' + histograms' if hist else ''} + "
+              f"ledger: state equal to the bare run's, launches "
+              f"{launches}, {t['harvests']} harvests, {t['heartbeats']} "
+              f"heartbeat lines, {len(ledger)} ledger records; "
+              f"events/s {off['packet_events_per_sec']:.1f} bare vs "
+              f"{on['packet_events_per_sec']:.1f}; a window "
+              f"{prof_off['kernel_launches_per_window']:.1f} vs "
+              f"{prof_on['kernel_launches_per_window']:.1f} device kernels, "
+              f"{prof_off['device_busy_ms_per_window']:.5f} vs "
+              f"{prof_on['device_busy_ms_per_window']:.5f} ms busy "
+              f"(profile of windows {P16_HARVEST}-{2 * P16_HARVEST - 1}) on "
+              f"{ident}")
+    return out
+
+
+def phold_checkpoint_child(directory: str, kill_at: int, resume: bool,
+                           n_hosts: int = N_HOSTS, rounds: int = ROUNDS,
+                           every: int = P16_CKPT_EVERY,
+                           device: str = "cuda"):
+    """16 (b), run in a child process: the fused PHOLD main path with a
+    checkpoint every `every` windows, killed (exit 137) after the
+    round-`kill_at` checkpoint (0: never), or resumed from the newest
+    one. Prints one JSON line."""
+    import torch
+
+    from shadow_tpu_torch import bench, convert
+    from shadow_tpu_torch.faults import runstate
+    from shadow_tpu_torch.tpu import pipeline
+    from shadow_tpu_torch.tpu.profiling import build_world
+
+    world = build_world(n_hosts, n_nodes=N_NODES, egress_cap=EGRESS_CAP,
+                        ingress_cap=INGRESS_CAP, seed=0, warmup_windows=0,
+                        device=device)
+    ck = runstate.RunCheckpointer(directory, every=every, label="phold",
+                                  kill_after=kill_at or None)
+    latest = runstate.latest_checkpoint(directory, "phold") if resume \
+        else None
+    resumed_bytes = os.path.getsize(latest) if latest is not None else None
+    t0 = time.perf_counter()
+    if latest is not None:  # the resume's own cost: load, verify, upload
+        runstate.resume_carry(latest, (world["state"], (
+            torch.zeros(n_hosts, dtype=torch.int32, device=device), 0)))
+        if device == "cuda":
+            torch.cuda.synchronize()
+    resume_ms = (time.perf_counter() - t0) * 1e3
+    pipeline.reset_launches()
+    state, total = bench.run_chain(world, rounds, every,
+                                   kernel="pallas_fused", checkpointer=ck,
+                                   resume_from=latest)
+    print(json.dumps({"digest": convert.state_digest(state),
+                      "delivered": total, "launches": dict(pipeline.LAUNCHES),
+                      "resumed_from": latest, "resumed_bytes": resumed_bytes,
+                      "resume_ms": resume_ms,
+                      "save_ms": ck.save_ms, "saved": ck.saved}))
+
+
+def start_child(code_or_args, cwd: Path, log: Path):
+    """A child process of this interpreter (`python -c CODE` or `python
+    ARGS...`) from the repository root, its output to `log`."""
+    args = ([sys.executable, "-c", code_or_args]
+            if isinstance(code_or_args, str)
+            else [sys.executable, *code_or_args])
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent))
+    fh = open(log, "w")
+    return subprocess.Popen(args, cwd=cwd, env=env, stdout=fh,
+                            stderr=subprocess.STDOUT, text=True), fh
+
+
+def wait_children(children: dict) -> dict:
+    """Wait for every child; {name: (exit code, output)}; kills what
+    outlives CHILD_TIMEOUT_S."""
+    out = {}
+    for name, (proc, fh, log) in children.items():
+        try:
+            rc = proc.wait(timeout=CHILD_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            rc = proc.wait()
+        fh.close()
+        out[name] = (rc, Path(log).read_text())
+    return out
+
+
+def last_json(text: str) -> dict:
+    return json.loads([ln for ln in text.splitlines()
+                       if ln.startswith("{")][-1])
+
+
+def heartbeats_after(path: Path, after_ns: int):
+    """A heartbeat file's lines after `after_ns`, their sim lines without
+    the annotations, and the file's whole set of annotations. A resumed
+    harvester's lines equal the uninterrupted run's after the kill; the
+    annotations the killed run's undrained snapshot would have carried
+    ride its first line instead, so they are compared as a set."""
+    recs = [json.loads(ln) for ln in path.read_text().splitlines()]
+    notes = sorted(json.dumps(a, sort_keys=True) for r in recs
+                   for a in r.get("annotations", ()))
+    lines = [{k: v for k, v in r.items() if k != "annotations"}
+             for r in recs if r["time_ns"] > after_ns]
+    return lines, notes
+
+
+def check_run_infra(torch, bench, convert, pipeline, record, ident,
+                    fleet_record):
+    """Phase 16: the run infrastructure on the card."""
+    from shadow_tpu_torch.workloads import run_scenarios, spec
+
+    root = Path(__file__).resolve().parent
+    rec = {}
+    with tempfile.TemporaryDirectory() as tmp_name:
+        tmp = Path(tmp_name)
+        t = time.perf_counter()
+        rec["phold_telemetry"] = check_phold_telemetry(
+            torch, bench, convert, pipeline, tmp, ident)
+        rec["seconds_a"] = time.perf_counter() - t
+
+        # (d) the memo rep, alone in this process
+        t = time.perf_counter()
+        memo = bench.run_memo()
+        if not memo["digest_parity"] or memo["memo"]["hits"] == 0:
+            fail(f"memo rep: parity {memo['digest_parity']}, hits "
+                 f"{memo['memo']['hits']}")
+        rec["memo_rep"] = memo
+        rec["seconds_d_rep"] = time.perf_counter() - t
+        print(f"16 (d) memo rep: ring allreduce, {memo['hosts']} hosts, "
+              f"{memo['windows']} windows in chains of {memo['chain_len']}: "
+              f"{memo['memo']['hits']} hits, {memo['memo']['misses']} "
+              f"misses, {memo['memo']['fast_forwarded_windows']} windows "
+              f"fast-forwarded, parity true; cold "
+              f"{memo['windows_per_s_cold']:.1f} windows/s "
+              f"({memo['cold_s']:.3f}s), memoized "
+              f"{memo['windows_per_s_memo']:.1f} ({memo['memo_s']:.3f}s), "
+              f"x{memo['speedup']:.2f} on {ident}")
+
+        # (b), (c), (e) and the corpus under --memo in child processes:
+        # the killed runs (and the chaos smoke's uninterrupted ones) at
+        # once, then the resumed runs at once
+        t = time.perf_counter()
+        fleet_yaml = tmp / "serve_fleet.yaml"
+        fleet_yaml.write_text(json.dumps(SERVE_FLEET))
+        dev = ["--device", CHILD_DEVICE]
+        rs = ["-m", "shadow_tpu_torch.workloads.run_scenarios", *dev]
+        cs = ["-m", "shadow_tpu_torch.tools.chaos_smoke", *dev]
+        entries = {f"c-{Path(p).stem}": ([str(CORPUS / p), *flags],
+                                         P16_KILL_ENTRY, 16)
+                   for p, flags in P16_ENTRIES}
+        entries["c-fleet"] = ([str(fleet_yaml)], FLEET_KILL,
+                              FLEET_CKPT_EVERY)
+        child_b = (f"import chip_smoke; chip_smoke.phold_checkpoint_child("
+                   f"{str(tmp / 'b')!r}, {{}}, {{}}, {N_HOSTS}, {ROUNDS}, "
+                   f"{P16_CKPT_EVERY}, {CHILD_DEVICE!r})")
+        wave1 = {"b": child_b.format(P16_KILL, False)}
+
+        def c_args(name, tail):
+            args, _kill, every = entries[name]
+            out = rs + args + ["-o", str(tmp / f"{name}.kr.json"),
+                               "--checkpoint-dir", str(tmp / f"{name}.ck"),
+                               "--checkpoint-every", str(every)]
+            if name != "c-fleet":  # 16381 heartbeat lines a harvest there
+                out += ["--telemetry", str(tmp / f"{name}.tk"),
+                        "--trace", str(tmp / f"{name}.trk")]
+            return out + tail
+
+        for name, (_args, kill, _every) in entries.items():
+            wave1[name] = c_args(name, ["--kill-at", str(kill)])
+        for memo_flag in ((), ("--memo",)):
+            tag = "e-memo" if memo_flag else "e"
+            wave1[f"{tag}-full"] = cs + list(memo_flag)
+            wave1[f"{tag}-killed"] = cs + list(memo_flag) + [
+                "--checkpoint-dir", str(tmp / f"{tag}.ck"), "--kill-at",
+                str(CHAOS_KILL)]
+        wave1["d-corpus"] = rs + ["--memo", "--check"]
+        children = {n: (*start_child(a, root, tmp / f"{n}.log"),
+                        tmp / f"{n}.log") for n, a in wave1.items()}
+        # meanwhile, here: the uninterrupted runs of (c)'s two entries
+        for name, (args, _kill, _every) in entries.items():
+            if name == "c-fleet":
+                continue
+            if run_scenarios.main(args + dev + [
+                    "-o", str(tmp / f"{name}.full.json"), "--telemetry",
+                    str(tmp / f"{name}.tf")]) != 0:
+                fail(f"16 (c) {name}: the uninterrupted run failed")
+        done1 = wait_children(children)
+        rec["seconds_wave1"] = time.perf_counter() - t
+        for name, (rc, text) in done1.items():
+            want = 0 if name.endswith("-full") or name == "d-corpus" else 137
+            if rc != want:
+                fail(f"16 child {name}: exit {rc}, expected {want}:\n"
+                     f"{text[-3000:]}")
+        wave2 = {"b": child_b.format(0, True)}
+        for name in entries:
+            wave2[name] = c_args(name, ["--resume"])
+        for tag in ("e", "e-memo"):
+            wave2[f"{tag}-resumed"] = wave1[f"{tag}-killed"][:-2] + [
+                "--resume", str(tmp / f"{tag}.ck" / f"ckpt-{CHAOS_KILL:012d}")]
+        children = {n: (*start_child(a, root, tmp / f"{n}.2.log"),
+                        tmp / f"{n}.2.log") for n, a in wave2.items()}
+        done2 = wait_children(children)
+        for name, (rc, text) in done2.items():
+            if rc != 0:
+                fail(f"16 child {name} (resumed): exit {rc}:\n"
+                     f"{text[-3000:]}")
+        rec["seconds_children"] = time.perf_counter() - t
+        print(f"16 seconds: (a) {rec['seconds_a']:.1f}, (d) memo rep "
+              f"{rec['seconds_d_rep']:.1f}, children "
+              f"{rec['seconds_children']:.1f} (the killed wave "
+              f"{rec['seconds_wave1']:.1f})")
+
+        # (b) the PHOLD checkpoint
+        from shadow_tpu_torch.tpu.profiling import build_world
+        world = build_world(N_HOSTS, n_nodes=N_NODES, egress_cap=EGRESS_CAP,
+                            ingress_cap=INGRESS_CAP, seed=0, warmup_windows=0)
+        ref_state, ref_total = bench.run_chain(world, ROUNDS, P16_CKPT_EVERY,
+                                               kernel="pallas_fused")
+        res = last_json(done2["b"][1])
+        ckpt = Path(res["resumed_from"] or "")
+        if res["digest"] != convert.state_digest(ref_state) or \
+                res["delivered"] != ref_total or not ckpt.name.endswith(
+                    f"r{P16_KILL:08d}.runstate.npz"):
+            fail(f"16 (b): the resumed PHOLD run ({res}) differs from the "
+                 "uninterrupted run")
+        want_l = ROUNDS - P16_KILL
+        if CHILD_DEVICE == "cuda" and (
+                res["launches"]["egress_rank"] != want_l
+                or res["launches"]["route_place"] != want_l):
+            fail(f"16 (b): the resumed run launched {res['launches']}")
+        ckpt_bytes = res["resumed_bytes"]
+        rec["phold_checkpoint"] = dict(
+            bytes=ckpt_bytes, resume_ms=res["resume_ms"],
+            save_ms_resumed_run=res["save_ms"], digest=res["digest"])
+        print(f"16 (b) PHOLD fused, checkpoint every {P16_CKPT_EVERY}, "
+              f"killed at {P16_KILL} (exit 137), resumed from "
+              f"{ckpt.name}: digest and delivered total equal the "
+              f"uninterrupted run's, {want_l} launches of A and B after "
+              f"the resume; a checkpoint {ckpt_bytes} B, saves "
+              f"{[round(x, 3) for x in res['save_ms']]} ms, resume "
+              f"{res['resume_ms']:.3f} ms on {ident}")
+
+        # (c) run_scenarios killed and resumed
+        for name, (args, kill, every) in entries.items():
+            got = (tmp / f"{name}.kr.json").read_bytes()
+            if name == "c-fleet":
+                want_rec = json.loads(json.dumps(fleet_record))
+                if json.loads(got)["records"] != [want_rec]:
+                    fail("16 (c): the resumed fleet's record differs from "
+                         "phase 13's")
+            else:
+                if got != (tmp / f"{name}.full.json").read_bytes():
+                    fail(f"16 (c) {name}: the resumed output file differs "
+                         "from the uninterrupted run's")
+                stem = spec.load_scenario_file(args[0]).name
+                after = kill * spec.load_scenario_file(args[0]).window_ns
+                hb_full = heartbeats_after(
+                    tmp / f"{name}.tf" / f"{stem}.jsonl", after)
+                hb_res = heartbeats_after(
+                    tmp / f"{name}.tk" / f"{stem}.jsonl", after)
+                if not hb_full[0] or hb_full != hb_res:
+                    fail(f"16 (c) {name}: the resumed heartbeats after "
+                         f"window {kill} differ from the uninterrupted "
+                         "run's")
+            ck = sorted((tmp / f"{name}.ck").glob("*.runstate.npz"))
+            rec[f"run_scenarios_{name}"] = dict(
+                kill_at=kill, checkpoint_every=every,
+                checkpoint_bytes=ck[-1].stat().st_size,
+                resumed_log=done2[name][1].strip().splitlines()[-3:])
+            what = ("the record equal to phase 13's" if name == "c-fleet"
+                    else "the output file byte-identical, the heartbeats "
+                    "after the kill and the phase annotations equal")
+            print(f"16 (c) run_scenarios {Path(args[0]).name} "
+                  f"{' '.join(args[1:])}: killed at {kill} (exit 137), "
+                  f"resumed: {what}; a checkpoint "
+                  f"{ck[-1].stat().st_size} B")
+
+        # (d) the corpus under --memo --check
+        corpus_log = done1["d-corpus"][1]
+        if "match the golden digests" not in corpus_log:
+            fail(f"16 (d): the memoized corpus did not match:\n{corpus_log}")
+        rec["memo_corpus"] = [ln for ln in corpus_log.splitlines()
+                              if "memo=" in ln]
+        print("16 (d) corpus --memo --check: all ten entries match the "
+              "golden digests (run beside the other children, so its "
+              "windows/s are not a measurement):\n  " + "\n  ".join(
+                  rec["memo_corpus"]))
+
+        # (e) the chaos smoke
+        for tag in ("e", "e-memo"):
+            full = last_json(done1[f"{tag}-full"][1])
+            res = last_json(done2[f"{tag}-resumed"][1])
+            if res["state_digest"] != full["state_digest"] or \
+                    res.get("memo") != full.get("memo"):
+                fail(f"16 (e) {tag}: the resumed chaos smoke differs from "
+                     "the uninterrupted one")
+            rec[f"chaos_{tag}"] = dict(digest=full["state_digest"],
+                                       drops=full["drops"],
+                                       memo=full.get("memo"))
+            print(f"16 (e) chaos smoke{' --memo' if tag == 'e-memo' else ''}"
+                  f" (256 hosts, 48 windows): killed at {CHAOS_KILL}, "
+                  f"resumed: digest {full['state_digest'][:16]}... equal; "
+                  f"drops {full['drops']}")
+    record["run_infra"] = rec
+
+
 def kernel_entry(name, source, replaces, launches, row):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -1607,10 +2035,13 @@ def main():
     timed("11 xla", check_xla_path, torch, bench, convert, pipeline, record,
           ident, fused_digest)
     timed("12 onoff-16384", check_wide_scenario, torch, record, ident)
-    timed("13 serving fleet", check_fleet, torch, pipeline, record, ident)
+    fleet_rec = timed("13 serving fleet", check_fleet, torch, pipeline,
+                      record, ident)
     timed("14 robustness", check_robustness, torch, pipeline, record, ident)
     e, e_launches = timed("15 router AQM", check_router_aqm, torch, pipeline,
                           record, ident)
+    timed("16 run infrastructure", check_run_infra, torch, bench, convert,
+          pipeline, record, ident, fleet_rec)
     record["phase_s"] = phase_s
     print(f"phase seconds: {json.dumps(phase_s)}")
 

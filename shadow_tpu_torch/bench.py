@@ -12,21 +12,31 @@ run that builds the kernels and warms the card up.
     python -m shadow_tpu_torch.bench [--kernel pallas_fused|pallas|xla]
         [--capacity fixed|strict|elastic] [--egress-cap CE]
         [--ingress-cap CI] [--max-doublings K] [--grow-every R]
-        [--profile WINDOWS] [--out FILE]
+        [--profile WINDOWS] [--telemetry DIR [--hist]
+        [--harvest-every K]] [--trace PATH] [--memo] [--out FILE]
+
+`--telemetry DIR`, `--hist`, `--harvest-every K` and `--trace PATH` are
+the JAX bench's BENCH_TELEMETRY, BENCH_HIST, BENCH_HARVEST_EVERY and
+BENCH_TRACE modes; `--memo` its BENCH_MEMO rep (`run_memo`).
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 
 import torch
 
 from . import resolve_device
 from .core.capacity import CAPACITY_MODES
+from .faults import runstate
+from .telemetry import export, histo
+from .telemetry.harvest import TelemetryHarvester
+from .telemetry.metrics import make_metrics
+from .telemetry.tracer import RunTracer, backend_fingerprint
 from .tpu import pipeline
 from .tpu.elastic import RingPolicy, chain_spans, drive_chained_windows
-from .telemetry.metrics import make_metrics
 from .tpu.plane import KERNELS, ingest_rows, unpack_planes, window_step
 from .tpu.profiling import build_world
 from .workloads.phold import respawn_batch
@@ -48,17 +58,19 @@ def phold_chain_fn(world: dict, *, kernel: str = "pallas_fused",
                    plain_kernels: bool = False):
     """The bench's chain body: windows r0..r1-1 of the PHOLD closed loop,
     with one host read (the chain's delivered count) at the end. extras
-    = (spawn_seq [N] int32, delivered total int[, metrics]): a
-    `PlaneMetrics` third element rides `window_step` and `ingest_rows`,
-    as the JAX bench's telemetry run threads it. Returns the driver's
-    4-tuple; the overflows are each ring's drops over the chain, the
-    egress ring's from the respawn append and the ingress ring's from
-    the routing stage, as `bench.py`'s round body accumulates them."""
+    = (spawn_seq [N] int32, delivered total int[, metrics[, hist]]): a
+    `PlaneMetrics` third element and a `PlaneHistograms` fourth ride
+    `window_step` and `ingest_rows`, as the JAX bench's telemetry run
+    threads them. Returns the driver's 4-tuple; the overflows are each
+    ring's drops over the chain, the egress ring's from the respawn
+    append and the ingress ring's from the routing stage, as
+    `bench.py`'s round body accumulates them."""
     params, seed, window = world["params"], world["rng_root"], world["window"]
 
     def chain_fn(state, extras, r0, r1):
         spawn_seq, total, *planes = extras
         metrics = planes[0] if planes else None
+        hist = planes[1] if len(planes) > 1 else None
         N, CI = state.in_src.shape
         zeros = lambda dt: torch.zeros(N, dtype=dt, device=spawn_seq.device)
         n_delivered = zeros(torch.int64).sum()
@@ -68,41 +80,57 @@ def phold_chain_fn(world: dict, *, kernel: str = "pallas_fused",
             out = window_step(
                 state, params, seed, 0 if r == 0 else window, window,
                 rr_enabled=False, kernel=kernel, plain_kernels=plain_kernels,
-                metrics=metrics)
-            (state, delivered, _next), metrics, *_ = unpack_planes(
-                out, metrics=metrics)
+                metrics=metrics, hist=hist)
+            (state, delivered, _next), metrics, _g, hist, _f = unpack_planes(
+                out, metrics=metrics, hist=hist)
             in_acc = in_acc + (state.n_overflow_dropped - dropped)
             dropped = state.n_overflow_dropped
             mask, dst, nbytes, seq, ctrl = respawn_batch(
                 delivered, spawn_seq, r, N, CI)
             out = ingest_rows(state, dst, nbytes, seq, seq, ctrl, mask,
-                              metrics=metrics)
-            (state,), metrics, *_ = unpack_planes(out, metrics=metrics,
-                                                  n_lead=1)
+                              metrics=metrics, hist=hist)
+            (state,), metrics, _g, hist, _f = unpack_planes(
+                out, metrics=metrics, hist=hist, n_lead=1)
             eg_acc = eg_acc + (state.n_overflow_dropped - dropped)
             spawn_seq = spawn_seq + mask.sum(dim=1, dtype=torch.int32)
             n_delivered = n_delivered + mask.sum()
         extras = (spawn_seq, total + int(n_delivered),
-                  *((metrics,) if planes else ()))
+                  *(metrics, hist)[:len(planes)])
         return state, extras, eg_acc, in_acc
     return chain_fn
 
 
 def run_chain(world: dict, rounds: int, chain_len: int | None = None, *,
               kernel: str = "pallas_fused", plain_kernels: bool = False,
-              policy: RingPolicy | None = None, metrics=None):
+              policy: RingPolicy | None = None, metrics=None, hist=None,
+              on_chain=None, tracer=None, checkpointer=None,
+              resume_from: str | None = None):
     """Drive `rounds` PHOLD windows on `world`, under `policy` when one
-    is given, with `metrics` (a `PlaneMetrics`) threaded when given;
-    returns (final state, delivered total[, metrics'])."""
+    is given, with `metrics` (a `PlaneMetrics`) and `hist` (a
+    `PlaneHistograms`, with metrics) threaded when given; returns (final
+    state, delivered total[, metrics'[, hist']]). `on_chain`, `tracer` and
+    `checkpointer` go to the driver; `resume_from` (a
+    runstate checkpoint of this run) starts at its round, from its
+    carry."""
+    if hist is not None and metrics is None:
+        raise ValueError("hist rides the bench chain with metrics only")
     state = world["state"]
     spawn_seq = torch.full((state.in_src.shape[0],), SPAWN_SEQ0,
                            dtype=torch.int32, device=state.in_src.device)
-    planes = (metrics,) if metrics is not None else ()
+    planes = ((metrics,) if metrics is not None else ()) + (
+        (hist,) if hist is not None else ())
+    extras = (spawn_seq, 0, *planes)
+    start = 0
+    if resume_from is not None:
+        res = runstate.resume_carry(resume_from, (state, extras))
+        state, extras = res["carry"]
+        start = res["round"]
     state, (_spawn, total, *planes) = drive_chained_windows(
-        state, (spawn_seq, 0, *planes),
+        state, extras,
         phold_chain_fn(world, kernel=kernel, plain_kernels=plain_kernels),
         n_rounds=rounds, chain_len=chain_len or rounds, policy=policy,
-        window_ns=world["window"])
+        window_ns=world["window"], start_round=start, on_chain=on_chain,
+        tracer=tracer, checkpointer=checkpointer)
     return (state, total, *planes)
 
 
@@ -116,42 +144,116 @@ def run_phold(n_hosts: int = 32768, n_nodes: int = 64, egress_cap: int = 16,
               chain_len: int | None = None, *, kernel: str = "pallas_fused",
               capacity: str = "fixed", max_doublings: int = 4,
               grow_every: int = 16, device=None, warmup: bool = True,
-              plain_kernels: bool = False, metrics: bool = False) -> dict:
+              plain_kernels: bool = False, metrics: bool = False,
+              telemetry: str | None = None, hist: bool = False,
+              harvest_every: int = 32, trace: str | None = None,
+              on_chain=None) -> dict:
     """The PHOLD closed loop at the bench's size, seed 0 as in `bench.py`.
     Under capacity "strict" or "elastic" the chains are `grow_every`
     windows long (the growth-decision unit) and a fresh `RingPolicy`
     starts from (egress_cap, ingress_cap) in each run. With `warmup`, one
     untimed run builds and warms up before the timed one. `metrics`
     threads a `PlaneMetrics` through the timed run's windows and appends
-    (the tuple is `metrics` in the result). Returns the final state, the
-    delivered and sent totals, the timed run's wall seconds and
-    packet_events_per_sec, and the kernel, capacity and driver records of
-    `bench.py`'s JSON."""
+    (the tuple is `metrics` in the result).
+
+    `telemetry=DIR` (the JAX bench's BENCH_TELEMETRY) threads the metrics
+    and harvests them every `harvest_every` windows (the chain length)
+    into `DIR/heartbeats.jsonl`, with a Perfetto trace `DIR/trace.json`
+    after the run; `hist` adds the log2 histograms (on "xla" only: the
+    JAX step refuses them on its Pallas kernels, and the port runs no
+    other kernel than the one asked for). `trace=PATH` writes the timed
+    run's ledger (`telemetry/tracer.RunTracer`). Both ride the timed run
+    only, inside its wall time. `on_chain(r1, state, extras)` is called
+    on the host after each chain of the timed run, after its harvest, as
+    `drive_chained_windows` calls it.
+
+    Returns the final state, the delivered and sent totals, the timed
+    run's wall seconds and packet_events_per_sec, and the kernel,
+    capacity, driver and telemetry records of `bench.py`'s JSON."""
     if kernel not in KERNELS:
         raise ValueError(f"kernel: expected one of {KERNELS}, got {kernel!r}")
     if capacity not in CAPACITY_MODES:
         raise ValueError(f"capacity: expected one of {CAPACITY_MODES}, "
                          f"got {capacity!r}")
+    if hist and not telemetry:
+        raise ValueError("hist threads the histograms of a telemetry run: "
+                         "pass telemetry=DIR too")
+    if hist and kernel != "xla":
+        raise ValueError(
+            f"hist: kernel={kernel!r} does not fuse the histogram plane "
+            "(nor does the JAX step's); use kernel='xla'")
+    if telemetry and capacity != "fixed":
+        raise ValueError("telemetry and capacity strict/elastic each own "
+                         "the chain cadence; run them separately")
     device = resolve_device(device)
     size = dict(n_nodes=n_nodes, egress_cap=egress_cap,
                 ingress_cap=ingress_cap, seed=0, warmup_windows=0,
                 device=device)
-    chain_len = chain_len or (grow_every if capacity != "fixed" else rounds)
+    chain_len = chain_len or (harvest_every if telemetry else grow_every
+                              if capacity != "fixed" else rounds)
     make_policy = lambda: (None if capacity == "fixed" else RingPolicy(
         mode=capacity, max_doublings=max_doublings, egress_cap=egress_cap,
         ingress_cap=ingress_cap, plane="bench"))
-    run = lambda world, policy: run_chain(
+    with_metrics = metrics or bool(telemetry)
+    run = lambda world, policy, **kw: run_chain(
         world, rounds, chain_len, kernel=kernel,
         plain_kernels=plain_kernels, policy=policy,
-        metrics=make_metrics(n_hosts, device=device) if metrics else None)
+        metrics=make_metrics(n_hosts, device=device) if with_metrics
+        else None,
+        hist=histo.make_histograms(n_hosts, device=device) if hist
+        else None, **kw)
     if warmup:
         run(build_world(n_hosts, **size), make_policy())
     world, policy = build_world(n_hosts, **size), make_policy()
+    harvester = tracer = None
+    if telemetry:
+        os.makedirs(telemetry, exist_ok=True)
+        harvester = TelemetryHarvester(
+            interval_ns=harvest_every * world["window"],
+            sink=os.path.join(telemetry, "heartbeats.jsonl"),
+            slot_capacity=n_hosts * (egress_cap + ingress_cap))
+    if trace:
+        tracer = RunTracer(
+            "bench", backend=backend_fingerprint(device),
+            meta={"hosts": n_hosts, "rounds": rounds,
+                  "chain_len": chain_len, "kernel": kernel,
+                  "capacity": capacity, "telemetry": bool(telemetry)})
+
+    def after_chain(r1, state, extras):
+        if harvester is not None:
+            if tracer is not None:
+                tracer.annotate("harvest", r=int(r1),
+                                time_ns=int(r1) * world["window"])
+            _spawn, _total, m, *h = extras
+            harvester.tick(r1 * world["window"],
+                           device=dict(m._asdict(), **h[0]._asdict()) if h
+                           else m)
+        return None if on_chain is None else on_chain(r1, state, extras)
+
     _sync(device)
     t0 = time.perf_counter()
-    state, delivered, *planes = run(world, policy)
+    state, delivered, *planes = run(
+        world, policy, tracer=tracer,
+        on_chain=(after_chain if harvester is not None
+                  or on_chain is not None else None))
     _sync(device)
     wall = time.perf_counter() - t0
+    telemetry_info = None
+    if harvester is not None:
+        harvester.finalize()
+        tr = export.write_perfetto_trace(
+            harvester.heartbeats, os.path.join(telemetry, "trace.json"))
+        telemetry_info = {"heartbeats": harvester.emitted,
+                          "harvests": harvester.harvests,
+                          "sink": harvester.sink_path, "trace": tr["path"],
+                          "trace_events": tr["events"]}
+        if hist:
+            telemetry_info["latency"] = {
+                name[len(histo.HIST_PREFIX):]: histo.fleet_percentiles(t)
+                for name, t in planes[1]._asdict().items()}
+    if tracer is not None:
+        tracer.close(wall_s=round(wall, 6))
+        tracer.write(trace)
     sent = int(state.n_sent.sum())
     capacity_info = None
     if policy is not None:
@@ -163,6 +265,7 @@ def run_phold(n_hosts: int = 32768, n_nodes: int = 64, egress_cap: int = 16,
     n_chains = len(chain_spans(rounds, chain_len))
     return {
         "state": state, "metrics": planes[0] if planes else None,
+        "hist": planes[1] if len(planes) > 1 else None,
         "delivered": delivered, "sent": sent,
         "events": delivered + sent, "wall_s": wall,
         "packet_events_per_sec": (delivered + sent) / wall,
@@ -174,6 +277,93 @@ def run_phold(n_hosts: int = 32768, n_nodes: int = 64, egress_cap: int = 16,
         "driver": {"loop": "drive_chained_windows", "chain_len": chain_len,
                    "chains": n_chains,
                    "windows_per_sync": rounds / max(n_chains, 1)},
+        "telemetry": telemetry_info,
+        "trace": trace,
+    }
+
+
+def run_memo(hosts: int = 16, windows: int = 4096, chain_len: int = 64, *,
+             device=None) -> dict:
+    """The JAX bench's BENCH_MEMO rep: a `hosts`-host ring allreduce
+    driven for `windows` windows (the collective ends early and the
+    drained tail dominates), cold and then memoized, through one chain
+    body at the same span length, after a warm-up pass of one chain. The
+    memo table is built inside the timed memoized run, so its keys and
+    records are in its time. Returns both wall times, the windows/s and
+    effective events/s of each (same event total), the memo stats and
+    the canonical-digest parity bit."""
+    from .tpu.elastic import canonical_state
+    from .convert import digest_pytrees
+    from .workloads import device as wdevice
+    from .workloads import runner as wrunner
+    from .workloads.compile import compile_program
+    from .workloads.spec import parse_scenario
+
+    device = resolve_device(device)
+    spec = parse_scenario({
+        "name": f"memo-bench-ring-{hosts}", "family": "ring_allreduce",
+        "seed": 7, "hosts": hosts, "windows": windows,
+        "patterns": [{"kind": "ring_allreduce", "first": 0,
+                      "count": hosts, "bytes": 4096, "rounds": 1}],
+    })
+    prog = compile_program(spec)
+    state0, params = wrunner.build_scenario_world(spec, device=device)
+    wl = wdevice.to_device(prog, device)
+    ws0 = wdevice.make_workload_state(prog, device)
+    metrics0 = make_metrics(spec.n_hosts, device=device)
+    state0, ws0, metrics0 = wdevice.prime(wl, ws0, state0, metrics=metrics0)
+    window = spec.window_ns
+
+    def chain_fn(state, extras, r0, r1):
+        ws, metrics = extras[0], extras[1]
+        for r in range(r0, r1):
+            out = window_step(state, params, spec.seed, 0 if r == 0
+                              else window, window, rr_enabled=False,
+                              kernel="xla", metrics=metrics)
+            (state, delivered, _nx), metrics, *_ = unpack_planes(
+                out, metrics=metrics)
+            state, ws, metrics = wdevice.workload_step(
+                wl, ws, state, delivered, r, window, metrics=metrics)
+        # the runner's extras layout, so its memo key_extra reads the
+        # workload and flow planes where it looks for them
+        return state, (ws, metrics, None, None, None, None, None), 0, 0
+
+    def drive(memo_obj, rounds=spec.windows):
+        out = drive_chained_windows(
+            state0, (ws0, metrics0, None, None, None, None, None), chain_fn,
+            n_rounds=rounds, chain_len=chain_len, window_ns=window,
+            memo=memo_obj)
+        _sync(device)
+        return out
+
+    def fresh_memo():
+        return wrunner._build_memo(
+            {"chain_len": chain_len}, spec=spec, prog=prog, schedule=None,
+            adv=wdevice.MAX_ADVANCE, emit_cap=0, recv_wnd=0, guards=False,
+            histograms=False, sample_every=None, trace_ring=0)[0]
+
+    drive(None, chain_len)  # warm-up: one chain
+    t0 = time.perf_counter()
+    state_c, extras_c = drive(None)
+    cold_s = time.perf_counter() - t0
+    memo_obj = fresh_memo()
+    t0 = time.perf_counter()
+    state_m, extras_m = drive(memo_obj)
+    memo_s = time.perf_counter() - t0
+    events = int(extras_c[1].events)
+    parity = (digest_pytrees(canonical_state(state_c), extras_c[0])
+              == digest_pytrees(canonical_state(state_m), extras_m[0]))
+    return {
+        "scenario": spec.name, "hosts": hosts, "windows": windows,
+        "chain_len": chain_len, "events": events, "device": str(device),
+        "cold_s": cold_s, "memo_s": memo_s,
+        "windows_per_s_cold": windows / cold_s,
+        "windows_per_s_memo": windows / memo_s,
+        "effective_evps_cold": events / cold_s,
+        "effective_evps_memo": events / memo_s,
+        "speedup": cold_s / memo_s,
+        "digest_parity": parity,
+        "memo": memo_obj.stats(),
     }
 
 
@@ -333,13 +523,36 @@ def main(argv=None):
                     help="windows a chain under strict/elastic")
     ap.add_argument("--profile", type=int, default=0, metavar="WINDOWS",
                     help="also profile this many windows on the card")
+    ap.add_argument("--telemetry", default=None, metavar="DIR",
+                    help="thread the metrics and harvest heartbeats into "
+                         "DIR/heartbeats.jsonl (+ DIR/trace.json)")
+    ap.add_argument("--hist", action="store_true",
+                    help="with --telemetry: thread the log2 histograms "
+                         "too (kernel xla only)")
+    ap.add_argument("--harvest-every", type=int, default=32, metavar="K",
+                    help="windows between harvests (the chain length "
+                         "under --telemetry; default 32)")
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="write the timed run's run ledger (JSONL) here")
+    ap.add_argument("--memo", action="store_true",
+                    help="also run the memo rep: a 16-host ring allreduce "
+                         "over 4096 windows in chains of 64, cold and "
+                         "memoized, with the digest parity bit")
     ap.add_argument("--out", default=None, help="write the JSON here too")
     args = ap.parse_args(argv)
-    res = run_phold(egress_cap=args.egress_cap, ingress_cap=args.ingress_cap,
-                    kernel=args.kernel, capacity=args.capacity,
-                    max_doublings=args.max_doublings,
-                    grow_every=args.grow_every)
-    rec = {k: v for k, v in res.items() if k not in ("state", "metrics")}
+    try:
+        res = run_phold(
+            egress_cap=args.egress_cap, ingress_cap=args.ingress_cap,
+            kernel=args.kernel, capacity=args.capacity,
+            max_doublings=args.max_doublings, grow_every=args.grow_every,
+            telemetry=args.telemetry, hist=args.hist,
+            harvest_every=args.harvest_every, trace=args.trace)
+    except ValueError as e:
+        ap.error(str(e))
+    rec = {k: v for k, v in res.items()
+           if k not in ("state", "metrics", "hist")}
+    if args.memo:
+        rec["memo"] = run_memo()
     if torch.cuda.is_available():
         rec["gpu"] = torch.cuda.get_device_name(0)
     if args.profile:

@@ -15,6 +15,12 @@ uint32 leaves, which the port holds as int64 tensors:
 `flightrec_from_numpy` and `flightrec_to_numpy` convert them.
 `state_digest` hashes that layout, so one digest names a state in
 either package; `digest_pytrees` is the scenario runner's digest.
+
+A driver carry (nested tuples, NamedTuples and dicts of tensors, None
+for a plane that is off) goes to the host with `carry_to_host`: the same
+structure of numpy arrays, in the JAX package's dtypes (`HOST_DTYPES`),
+so a memo key, a checkpoint or a digest of it is the JAX carry's.
+`carry_to_device` and `leaf_to_device` bring it back.
 """
 
 from __future__ import annotations
@@ -86,6 +92,75 @@ def tuple_from_numpy(cls, d: dict, device):
 
 _FLIGHTREC_U32 = ("key", "sample_every")
 
+#: (NamedTuple class name, field) -> the JAX package's dtype of a leaf
+#: the port holds in a wider tensor dtype
+HOST_DTYPES = {("FlightRecArrays", f): np.uint32 for f in _FLIGHTREC_U32}
+
+
+def map_carry(fn, carry, owner: str = "", name: str = ""):
+    """`carry` with every leaf replaced by `fn(owner, field, leaf)`:
+    `owner` is the class name of the NamedTuple holding the leaf ("" for
+    an anonymous tuple position) and `field` its field name (a tuple
+    position adds "[i]", a dict key ".k"). None subtrees stay None."""
+    if carry is None:
+        return None
+    if isinstance(carry, tuple) and hasattr(carry, "_fields"):
+        cls = type(carry).__name__
+        return type(carry)(*(map_carry(fn, v, cls, f)
+                             for f, v in zip(carry._fields, carry)))
+    if isinstance(carry, (tuple, list)):
+        return type(carry)(map_carry(fn, v, owner, f"{name}[{i}]")
+                           for i, v in enumerate(carry))
+    if isinstance(carry, dict):
+        return {k: map_carry(fn, carry[k], owner, f"{name}.{k}")
+                for k in sorted(carry)}
+    return fn(owner, name, carry)
+
+
+def carry_to_host(carry):
+    """The carry as numpy, in the JAX package's dtypes, with one
+    synchronise for the lot: every card tensor's copy is queued first
+    (`non_blocking`), then the stream is waited on once. CPU tensors are
+    copied, so a later in-place write cannot reach the host carry. A
+    Python number leaf becomes a 0-d array."""
+    cuda = []
+
+    def stage(_o, _f, leaf):
+        if isinstance(leaf, torch.Tensor) and leaf.device.type == "cuda":
+            cuda.append(leaf.device)
+            return leaf.detach().to("cpu", non_blocking=True)
+        return leaf
+
+    staged = map_carry(stage, carry)
+    if cuda:
+        torch.cuda.synchronize(cuda[0])
+
+    def host(owner, field, leaf):
+        if isinstance(leaf, torch.Tensor):
+            a = leaf.detach().cpu().numpy()
+            a = a.copy() if leaf.device.type == "cpu" else a
+        else:
+            a = np.asarray(leaf)
+        dt = HOST_DTYPES.get((owner, field))
+        return a.astype(dt) if dt is not None else a
+
+    return map_carry(host, staged)
+
+
+def leaf_to_device(owner: str, field: str, a, device) -> torch.Tensor:
+    """One host leaf as a tensor on `device`, in the port's dtype (a
+    `HOST_DTYPES` leaf goes back to int64)."""
+    a = np.asarray(a)
+    if (owner, field) in HOST_DTYPES:
+        a = a.astype(np.int64)
+    return _tensor(a, device)
+
+
+def carry_to_device(carry, device):
+    """The inverse of `carry_to_host`: every numpy leaf a tensor on
+    `device`."""
+    return map_carry(lambda o, f, a: leaf_to_device(o, f, a, device), carry)
+
 
 def flightrec_from_numpy(d: dict, device) -> FlightRecArrays:
     """A `FlightRecArrays` from the JAX twin's `_asdict()` (uint32 key
@@ -108,7 +183,10 @@ def _leaves(tree, prefix=""):
     gives the JAX twin: a NamedTuple's fields in order, a nested one
     (the state's `router`) in its field's place, None skipped and a
     Python scalar as `np.asarray` makes it. A state's numpy dict is
-    walked in `NetPlaneState` field order."""
+    walked in `NetPlaneState` field order; a bare tensor is one leaf."""
+    if isinstance(tree, torch.Tensor):
+        yield prefix.rstrip("."), tree.detach().cpu().numpy()
+        return
     if isinstance(tree, dict):
         for f in NetPlaneState._fields:
             if f == "router":

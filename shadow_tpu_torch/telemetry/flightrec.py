@@ -27,6 +27,7 @@ import torch
 
 from .. import resolve_device
 from ..tpu.prims import floormod, key_data, threefry_2x32, u32, wrap_i32
+from .harvest import unwrap_u32
 
 log = logging.getLogger("shadow_tpu_torch.telemetry")
 
@@ -173,14 +174,6 @@ def grow_ring(fr: FlightRecArrays, new_ring: int) -> FlightRecArrays:
 _COLS = ("ev_kind", "ev_src", "ev_seq", "ev_dst", "ev_t", "ev_win")
 
 
-def unwrap_u32(prev_raw, cur_raw):
-    """Delta of a modular 2**32 counter between two raw snapshots (exact
-    while the true delta is below 2**32)."""
-    p = np.asarray(prev_raw).astype(np.int64) & 0xFFFFFFFF
-    c = np.asarray(cur_raw).astype(np.int64) & 0xFFFFFFFF
-    return (c - p) % np.int64(_U32)
-
-
 class FlightRecorder:
     """The host drain of the trace ring. `tick(fr)` decodes the previous
     snapshot, then starts copying the current ring and cursor to the
@@ -199,6 +192,7 @@ class FlightRecorder:
         self._pinned: dict[str, torch.Tensor] = {}
         self._prev_cursor_raw = 0
         self._cursor_total = 0
+        self._grown_at = 0  # `overwritten` at the last `grow_ring`
         self._own_sink = isinstance(sink, str)
         self.sink_path = sink if self._own_sink else None
         self._sink = open(sink, "w") if self._own_sink else sink
@@ -266,6 +260,14 @@ class FlightRecorder:
                 "win": win,
                 "t_ns": win * self.window_ns + int(cols["ev_t"][j]),
             })
+
+    def want_growth(self) -> bool:
+        """True when a drain counted overwritten events since the last
+        growth: an elastic driver's cue to `grow_ring`."""
+        return self.overwritten > self._grown_at
+
+    def note_grown(self) -> None:
+        self._grown_at = self.overwritten
 
     def finalize(self) -> None:
         """Drain the pending snapshot and flush (and close, when it opened

@@ -3,8 +3,9 @@
 Counterpart of `shadow_tpu/tpu/elastic.py`: `ring_dims`, `grow_state`,
 `canonical_state`, `chain_spans`, `run_elastic_window` and
 `drive_chained_windows` under the capacity policy of
-`core/capacity.py` (without the memo, run tracer, checkpointer or
-per-round inputs, ROADMAP.md queue A).
+`core/capacity.py`, with the memo (`tpu/memo.py`), the run tracer
+(`telemetry/tracer.py`), the full-run checkpointer
+(`faults/runstate.py`) and per-round inputs.
 
 Growth is invisible to the window step: live lanes are front-packed, so
 they keep their columns when a ring widens; every sort in `window_step`
@@ -180,28 +181,118 @@ def run_elastic_window(state, attempt_fn, policy: RingPolicy, *,
 
 def drive_chained_windows(state, extras, chain_fn, *, n_rounds: int,
                           chain_len: int, start_round: int = 0,
-                          boundaries=(), policy: RingPolicy | None = None,
+                          boundaries=(), per_round=None,
+                          policy: RingPolicy | None = None,
                           window_ns: int = 0, host_names=None,
-                          on_chain=None):
+                          on_chain=None, memo=None, memo_span_salt=None,
+                          tracer=None, checkpointer=None):
     """The driver loop: run `chain_fn(state, extras, r0, r1) -> (state',
     extras', eg_overflow, in_overflow)` over the `chain_spans`, the
-    overflows being the chain's per-host ring-full drops.
+    overflows being the chain's per-host ring-full drops. With
+    `per_round`, `chain_fn` takes a fifth argument, `per_round(r0, r1)`:
+    the span's per-window inputs, built on the host before it runs.
 
     Without a policy the overflows are ignored. Under `policy`, every
     chain runs through `run_elastic_window` from its start state (one
     snapshot a chain), and a `CapacityError` it raises carries
     `chain_span` = (r0, r1). `on_chain(r1, state, extras)` runs after
     every committed chain; a (state, extras) pair it returns replaces
-    the carried one. Returns the final (state, extras)."""
+    the carried one. Returns the final (state, extras).
+
+    `memo` (a `tpu/memo.ChainMemo`) makes the span the memo unit: at
+    each boundary the carry's host copy is keyed; a hit replays the
+    recorded post-span carry instead of running it, and hits in a row
+    with no `on_chain` stay on the host (mode "ffwd"; with a hook the
+    carry is uploaded for it, mode "replay"). A miss runs (under
+    `policy` too) and records. `memo_span_salt(r0, r1) -> bytes` folds
+    the span's outside inputs into the key (the fault schedule's span
+    fingerprint) and is required with `per_round`.
+
+    `tracer` (a `telemetry/tracer.RunTracer`) gets one span record a
+    chain, from host clocks read where the loop already is on the host:
+    the wall split (dispatch, memo bookkeeping, hook), the mode, the
+    span's capacity events and the span salt's hex. It adds no device
+    synchronise.
+
+    `checkpointer` (a `faults/runstate.RunCheckpointer`) adds its
+    instants to the boundaries and saves the whole carry at each one
+    after `on_chain`, so the carry saved is the one the next span starts
+    from; on the memo's host path it saves the host mirror as it is. A
+    run killed at a boundary and resumed from its checkpoint ends as the
+    uninterrupted run."""
+    if memo is not None and per_round is not None and memo_span_salt is None:
+        raise ValueError(
+            "drive_chained_windows: memo with per_round inputs needs a "
+            "memo_span_salt folding them into the key (e.g. the fault "
+            "schedule's span_fingerprint) — refusing to memoize spans "
+            "whose external inputs the key cannot see")
+    if checkpointer is not None:
+        boundaries = tuple(boundaries) + checkpointer.cut_rounds(n_rounds)
+
+    host_carry = None  # the memo's host mirror of (state, extras)
+    stale = False  # the tensors are behind host_carry (hits pending)
+
+    def _upload():
+        nonlocal state, extras, stale
+        state, extras = memo.to_device(host_carry)
+        stale = False
+
+    def _maybe_checkpoint(r1):
+        # after on_chain: the carry saved is the one the next span starts
+        # from; an authoritative host mirror is saved with no device read
+        if checkpointer is None or not checkpointer.due(r1, n_rounds):
+            return
+        carry = host_carry if host_carry is not None else (state, extras)
+        checkpointer.save(r1, carry, host=host_carry is not None,
+                          tracer=tracer)
+
+    clock = tracer.clock if tracer is not None else (lambda: 0.0)
     for r0, r1 in chain_spans(n_rounds, chain_len, start_round=start_round,
                               boundaries=boundaries):
+        t0 = clock()
+        salt_hex = None
+        salt = b""
+        if memo_span_salt is not None and (memo is not None
+                                           or tracer is not None):
+            salt = memo_span_salt(r0, r1)
+            if tracer is not None:
+                salt_hex = salt.hex()
+        if memo is not None:
+            if host_carry is None:
+                host_carry = memo.snapshot(state, extras)
+            key, pre_walk = memo.key(host_carry, r0, r1, span_salt=salt)
+            entry = memo.lookup(key)
+            if entry is not None:
+                host_carry = memo.replay(entry, host_carry)
+                stale = True
+                mode, hook_ms = "ffwd", 0.0
+                if on_chain is not None:
+                    mode = "replay"
+                    _upload()
+                    th = clock()
+                    replaced = on_chain(r1, state, extras)
+                    hook_ms = (clock() - th) * 1e3
+                    if replaced is not None:
+                        state, extras = replaced
+                        host_carry = None  # the tensors are authoritative
+                if tracer is not None:
+                    tracer.span(r0, r1, mode=mode, t0=t0, hook_ms=hook_ms,
+                                span_salt=salt_hex)
+                _maybe_checkpoint(r1)
+                continue
+            if stale:
+                _upload()
+        args = (r0, r1) if per_round is None else (r0, r1,
+                                                   per_round(r0, r1))
+        growth = None
         if policy is None:
-            state, extras, _eg, _in = chain_fn(state, extras, r0, r1)
+            state, extras, _eg, _in = chain_fn(state, extras, *args)
         else:
-            def attempt(st, _ex=extras, _r0=r0, _r1=r1):
-                st2, ex2, eg, inn = chain_fn(st, _ex, _r0, _r1)
+            def attempt(st, _ex=extras, _args=args):
+                st2, ex2, eg, inn = chain_fn(st, _ex, *_args)
                 return (st2, ex2), eg, inn
 
+            n_events = len(policy.trajectory.events)
             try:
                 (state, extras), _used = run_elastic_window(
                     state, attempt, policy, time_ns=r0 * int(window_ns),
@@ -211,8 +302,27 @@ def drive_chained_windows(state, extras, chain_fn, *, n_rounds: int,
                 # blame unit
                 e.chain_span = (r0, r1)
                 raise
+            growth = policy.trajectory.events[n_events:]
+        dispatch_ms = (clock() - t0) * 1e3
+        memo_ms = 0.0
+        if memo is not None:
+            tm = clock()
+            host_carry = memo.snapshot(state, extras)
+            memo.record(key, pre_walk, host_carry, span_len=r1 - r0)
+            memo_ms = (clock() - tm) * 1e3
+        hook_ms = 0.0
         if on_chain is not None:
+            th = clock()
             replaced = on_chain(r1, state, extras)
+            hook_ms = (clock() - th) * 1e3
             if replaced is not None:
                 state, extras = replaced
+                host_carry = None
+        if tracer is not None:
+            tracer.span(r0, r1, mode="execute", t0=t0,
+                        dispatch_ms=dispatch_ms, memo_ms=memo_ms,
+                        hook_ms=hook_ms, growth=growth, span_salt=salt_hex)
+        _maybe_checkpoint(r1)
+    if stale:
+        _upload()
     return state, extras

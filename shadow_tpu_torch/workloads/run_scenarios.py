@@ -4,7 +4,10 @@ golden digests: the corpus mode of `tools/run_scenarios.py`.
     python -m shadow_tpu_torch.workloads.run_scenarios [paths ...]
         [--check] [-o out.json] [--slo-report slo.json]
         [--faults] [--guards] [--sample-every K] [--trace-ring R]
-        [--device cuda|cpu]
+        [--telemetry DIR] [--memo] [--memo-report PATH]
+        [--memo-cache DIR] [--trace DIR] [--trace-report PATH]
+        [--checkpoint-dir DIR] [--checkpoint-every K] [--resume]
+        [--kill-at R] [--device cuda|cpu]
 
 With no paths it runs every `scenarios/*.yaml` of the checkout. `--check`
 compares each record's fingerprint, program digest and canonical digest
@@ -16,32 +19,73 @@ runner's default fault schedule, `--guards` the guard plane (each line
 then says guards=clean or guards=DIRTY, and a dirty run exits 1), and
 `--sample-every K` the flight recorder with a ring of `--trace-ring`
 slots. A fault or guard run is another world than the golden corpus's,
-so `--check` refuses them (exit 2). The device defaults to the CUDA
-card.
+so `--check` refuses them (exit 2).
+
+The run infrastructure, with the JAX tool's meanings and file names:
+
+- `--telemetry DIR`: heartbeat JSONL per scenario in `DIR/<name>.jsonl`
+  (and the recorder's hops in `DIR/<name>.hops.jsonl`);
+- `--memo`: memoized chain spans; the digests do not move, so `--check`
+  still passes; `--memo-report PATH` writes each scenario's memo report
+  with the device fingerprint; `--memo-cache DIR` loads
+  `DIR/<name>.memo.npz` before a scenario and saves it after;
+- `--trace DIR`: the run ledger `DIR/<name>.ledger.jsonl` and the
+  two-clock Chrome trace `DIR/<name>.trace.json`; `--trace-report PATH`
+  writes each scenario's wall-time phase totals with the fingerprint;
+- `--checkpoint-dir DIR` (every `--checkpoint-every` windows, default
+  16): full-run checkpoints; `--kill-at R` exits 137 once the round-R
+  checkpoint is on disk (R a multiple of the cadence); `--resume`
+  continues each scenario from its newest checkpoint. The output file of
+  a killed and resumed run is byte-identical to the uninterrupted run's;
+  where it restarted is written to the `<out>.provenance.json` sidecar
+  (with `-o`) and the ledger.
+
+The device defaults to the CUDA card.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 from pathlib import Path
-
-import torch
 
 CORPUS_DIR = Path(__file__).resolve().parents[2] / "scenarios"
 GOLDEN = CORPUS_DIR / "GOLDEN.json"
 
 
-def device_fingerprint(device: str) -> dict:
-    """The identity a run's numbers are comparable within: the device's
-    platform and kind, and the PyTorch and CUDA versions."""
-    dev = torch.device(device)
-    gpu = dev.type == "cuda"
-    return {"platform": "gpu" if gpu else dev.type,
-            "device_kind": (torch.cuda.get_device_name(dev) if gpu
-                            else dev.type),
-            "torch": torch.__version__, "cuda": torch.version.cuda}
+def _refusal(args) -> str | None:
+    """The flag combinations the JAX tool refuses (exit 2), as a line."""
+    if (args.faults or args.guards) and args.check:
+        return ("--faults/--guards runs cannot be checked against the "
+                "golden corpus")
+    if args.memo_report and not args.memo:
+        return "--memo-report needs --memo"
+    if args.memo_cache and not args.memo:
+        return "--memo-cache needs --memo"
+    if args.trace_report and not args.trace:
+        return "--trace-report needs --trace"
+    if args.resume and not args.checkpoint_dir:
+        return "--resume needs --checkpoint-dir"
+    if args.checkpoint_every < 1:
+        return "--checkpoint-every must be >= 1"
+    if args.kill_at is not None:
+        if not args.checkpoint_dir:
+            return ("--kill-at needs --checkpoint-dir (the kill fires "
+                    "after a durable checkpoint)")
+        if args.kill_at % args.checkpoint_every != 0 \
+                or args.kill_at < args.checkpoint_every:
+            return (f"--kill-at {args.kill_at} is not a checkpoint "
+                    f"instant (must be a positive multiple of "
+                    f"--checkpoint-every {args.checkpoint_every})")
+    return None
+
+
+def _write_json(path: str, obj: dict) -> None:
+    with open(path, "w") as fh:
+        json.dump(obj, fh, sort_keys=True, indent=1)
+        fh.write("\n")
 
 
 def main(argv=None) -> int:
@@ -69,27 +113,119 @@ def main(argv=None) -> int:
     ap.add_argument("--trace-ring", type=int, default=4096,
                     help="flight-recorder ring capacity (default 4096; "
                          "overwritten events are counted)")
+    ap.add_argument("--telemetry", default=None, metavar="DIR",
+                    help="write heartbeat JSONL per scenario into DIR "
+                         "(<name>.jsonl, and <name>.hops.jsonl with "
+                         "--sample-every)")
+    ap.add_argument("--memo", action="store_true",
+                    help="memoize steady-state chain spans; the digests "
+                         "do not move, so --check still passes")
+    ap.add_argument("--memo-report", default=None, metavar="PATH",
+                    help="write each scenario's memo report with the "
+                         "device fingerprint as JSON")
+    ap.add_argument("--memo-cache", default=None, metavar="DIR",
+                    help="load DIR/<name>.memo.npz before each scenario "
+                         "and save it after (needs --memo)")
+    ap.add_argument("--trace", default=None, metavar="DIR",
+                    help="write the run ledger DIR/<name>.ledger.jsonl "
+                         "and the Chrome trace DIR/<name>.trace.json")
+    ap.add_argument("--trace-report", default=None, metavar="PATH",
+                    help="write each scenario's wall-time phase totals "
+                         "with the device fingerprint (needs --trace)")
+    ap.add_argument("--checkpoint-dir", default=None, metavar="DIR",
+                    help="write full-run checkpoints into DIR")
+    ap.add_argument("--checkpoint-every", type=int, default=16,
+                    metavar="K",
+                    help="checkpoint cadence in windows (default 16); the "
+                         "killed run and its --resume must agree")
+    ap.add_argument("--resume", action="store_true",
+                    help="resume each scenario from its newest checkpoint "
+                         "in --checkpoint-dir (a cold start when none)")
+    ap.add_argument("--kill-at", type=int, default=None, metavar="R",
+                    help="exit 137 once the round-R checkpoint is on disk "
+                         "(R a multiple of --checkpoint-every)")
     ap.add_argument("--golden", default=str(GOLDEN))
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     args = ap.parse_args(argv)
-    if (args.faults or args.guards) and args.check:
-        print("run_scenarios: --faults/--guards runs cannot be checked "
-              "against the golden corpus", file=sys.stderr)
+    refused = _refusal(args)
+    if refused:
+        print(f"run_scenarios: {refused}", file=sys.stderr)
         return 2
 
+    from ..telemetry import export
+    from ..telemetry import tracer as tracermod
+    from ..telemetry.harvest import TelemetryHarvester
     from . import runner
     from .spec import load_scenario_file
 
     paths = args.scenarios or sorted(str(p) for p in CORPUS_DIR.glob("*.yaml"))
+    backend = tracermod.backend_fingerprint(args.device)
+    for d in (args.telemetry, args.trace, args.memo_cache):
+        if d:
+            os.makedirs(d, exist_ok=True)
     records = []
+    memo_reports = {}
+    trace_summaries = {}
+    provenance_all = {}
     guards_dirty = False
     for path in paths:
         spec = load_scenario_file(path)
+        harvester = hops_sink = None
+        if args.telemetry:
+            harvester = TelemetryHarvester(
+                interval_ns=spec.window_ns,
+                sink=os.path.join(args.telemetry, f"{spec.name}.jsonl"))
+            if args.sample_every:
+                hops_sink = os.path.join(args.telemetry,
+                                         f"{spec.name}.hops.jsonl")
+        tracer = ledger_path = None
+        if args.trace:
+            ledger_path = os.path.join(args.trace,
+                                       f"{spec.name}.ledger.jsonl")
+            # under checkpointing the ledger streams (each record flushed
+            # and fsynced), so a kill keeps it; a resume appends to it
+            tracer = tracermod.RunTracer(
+                spec.name, backend=backend,
+                meta={"family": spec.family, "hosts": spec.n_hosts,
+                      "windows": spec.windows, "memo": args.memo,
+                      "faults": bool(args.faults)},
+                sink=ledger_path if args.checkpoint_dir else None,
+                resume=bool(args.resume and args.checkpoint_dir
+                            and os.path.isfile(ledger_path)))
         timings = {}
+        prov = {}
         rec = runner.run_scenario(
             spec, device=args.device, timings=timings,
             use_default_faults=args.faults, guards=args.guards,
-            sample_every=args.sample_every, trace_ring=args.trace_ring)
+            telemetry=harvester, sample_every=args.sample_every,
+            trace_ring=args.trace_ring, hops_sink=hops_sink,
+            memo=True if args.memo else None, tracer=tracer,
+            checkpoint_dir=args.checkpoint_dir,
+            checkpoint_every=args.checkpoint_every, resume=args.resume,
+            kill_at=args.kill_at,
+            memo_cache=(os.path.join(args.memo_cache,
+                                     f"{spec.name}.memo.npz")
+                        if args.memo_cache else None),
+            provenance=prov)
+        if args.checkpoint_dir:
+            provenance_all[spec.name] = prov
+        if harvester is not None:
+            harvester.finalize()
+        if tracer is not None:
+            tracer.close()
+            tracer.write(ledger_path)
+            heartbeats = None
+            if args.telemetry:
+                with open(harvester.sink_path) as fh:
+                    heartbeats = export.read_heartbeats(fh)
+            # a resumed tracer holds only its own segment; the streamed
+            # file holds the whole ledger
+            ledger = (tracermod.load_ledger(ledger_path)
+                      if tracer.sink_path is not None else tracer.records)
+            tracermod.write_chrome_trace(
+                ledger, os.path.join(args.trace, f"{spec.name}.trace.json"),
+                heartbeats=heartbeats)
+            trace_summaries[spec.name] = tracermod.phase_totals(ledger)
         records.append(rec)
         status = ("done" if rec["all_done"]
                   else f"{rec['completed_hosts']}/{rec['participants']}")
@@ -102,25 +238,43 @@ def main(argv=None) -> int:
                 if rec["faults_active"] else "")
         htxt = (f" hops={rec['flight_recorder']['recorded_hops']}"
                 if "flight_recorder" in rec else "")
+        mtxt = ""
+        if "memo" in rec:
+            memo_reports[spec.name] = rec["memo"]
+            mtxt = (f" memo={rec['memo']['hits']}h/"
+                    f"{rec['memo']['misses']}m/"
+                    f"{rec['memo']['fast_forwarded_windows']}ffwd")
+        ran = spec.windows - prov.get("start_round", 0)
         print(f"{spec.name:<24} [{rec['family']}] {status:>8}  "
               f"events={rec['events']:<8} "
-              f"digest={rec['canonical_digest'][:12]}{gtxt}{ftxt}{htxt}  "
-              f"{spec.windows / timings['drive_s']:.1f} windows/s on "
+              f"digest={rec['canonical_digest'][:12]}{gtxt}{ftxt}{htxt}"
+              f"{mtxt}  {ran / timings['drive_s']:.1f} windows/s on "
               f"{args.device}", file=sys.stderr)
     if args.out:
-        with open(args.out, "w") as fh:
-            json.dump({"records": records}, fh, sort_keys=True, indent=1)
-            fh.write("\n")
+        _write_json(args.out, {"records": records})
+        if provenance_all:
+            # where a run restarted rides a sidecar, never the record
+            # file, which equals the uninterrupted run's byte for byte
+            _write_json(args.out + ".provenance.json", {
+                "schema": "runprov-v1",
+                "checkpoint_dir": args.checkpoint_dir,
+                "checkpoint_every": args.checkpoint_every,
+                "scenarios": provenance_all})
     if args.slo_report:
         slo = {rec["name"]: {"compute": rec["compute"], "slo": rec["slo"]}
                for rec in records if "slo" in rec}
-        with open(args.slo_report, "w") as fh:
-            json.dump({"backend": device_fingerprint(args.device),
-                       "scenarios": slo}, fh, sort_keys=True, indent=1)
-            fh.write("\n")
+        _write_json(args.slo_report, {
+            "backend": backend, "scenarios": slo})
         print(f"run_scenarios: slo report -> {args.slo_report} "
               f"({len(slo)} scenario(s) with a compute plane)",
               file=sys.stderr)
+    if args.memo_report:
+        _write_json(args.memo_report, {"backend": backend,
+                                       "scenarios": memo_reports})
+    if args.trace_report:
+        _write_json(args.trace_report, {
+            "backend": backend, "schema": tracermod.RUNLEDGER_SCHEMA,
+            "scenarios": trace_summaries})
     if args.check:
         golden = runner.load_golden(args.golden)
         if args.scenarios:

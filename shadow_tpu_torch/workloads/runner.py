@@ -25,13 +25,23 @@ an event fired; `guards=True` threads the guard plane and adds its
 `summarize` to the record; `sample_every=K` threads the flight recorder,
 drained every `telemetry_every` windows as the JAX runner drains it.
 
-The device is read back after the drive, and by the flight recorder's
-drains between chains. The record carries no wall-clock time.
+The run infrastructure rides the driver as in the JAX runner: the
+telemetry harvester (`telemetry=`, heartbeats with `workload_phase`
+annotations), the chain memo (`memo=`, `memo_cache=`, with the JAX
+runner's salt and key policy), the run ledger (`tracer=`) and full-run
+checkpoints (`checkpoint_dir=`, `checkpoint_every=`, `resume=`,
+`kill_at=`, `provenance=`); a checkpoint either runner writes, the other
+resumes.
+
+The device is read back after the drive, and between chains by the
+flight recorder's drains, the harvests, the memo's snapshots and the
+checkpoints. The record carries no wall-clock time.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import time
 from typing import Optional
 
@@ -41,6 +51,8 @@ import torch
 from .. import resolve_device
 from ..convert import digest_pytrees
 from ..core.config import FaultsOptions
+from ..faults import runstate
+from ..faults.checkpoint import CheckpointError
 from ..faults.schedule import compile_schedule
 from ..guards.plane import make_guards, summarize
 from ..telemetry import flightrec as frmod
@@ -49,6 +61,7 @@ from ..telemetry.metrics import make_metrics
 from ..tpu import compute as computemod
 from ..tpu import elastic
 from ..tpu import flows as flowsmod
+from ..tpu import memo as memomod
 from ..tpu.plane import make_params, make_state, unpack_planes, window_step
 from . import device as wdevice
 from .compile import TrafficProgram, compile_program, program_digest
@@ -60,17 +73,7 @@ MS = 1_000_000
 # the JAX default it still accepts and the ROADMAP.md queue A item that
 # brings it (None and False are accepted for all of them)
 _NOT_PORTED = {
-    "max_advance": (None, "run infrastructure"),
     "mesh_devices": (None, "multi-GPU"),
-    "telemetry": (None, "run infrastructure"),
-    "memo": (None, "run infrastructure"),
-    "memo_cache": (None, "run infrastructure"),
-    "tracer": (None, "run infrastructure"),
-    "checkpoint_dir": (None, "run infrastructure"),
-    "checkpoint_every": (16, "run infrastructure"),
-    "resume": (False, "run infrastructure"),
-    "kill_at": (None, "run infrastructure"),
-    "provenance": (None, "run infrastructure"),
 }
 
 
@@ -120,11 +123,18 @@ def default_fault_schedule(spec: ScenarioSpec):
 
 def run_scenario(spec: ScenarioSpec, *, guards: bool = False,
                  fault_events=None, use_default_faults: bool = False,
+                 telemetry=None, telemetry_every: int = 16,
                  histograms: bool = True,
                  sample_every: Optional[int] = None, trace_ring: int = 4096,
-                 hops_sink=None, telemetry_every: int = 16,
+                 hops_sink=None, max_advance: Optional[int] = None,
                  flow_emit_cap: Optional[int] = None,
                  flow_recv_wnd: Optional[int] = None,
+                 memo=None, tracer=None,
+                 checkpoint_dir: Optional[str] = None,
+                 checkpoint_every: int = 16, resume: bool = False,
+                 kill_at: Optional[int] = None,
+                 memo_cache: Optional[str] = None,
+                 provenance: Optional[dict] = None,
                  chain_len: Optional[int] = None, on_chain=None,
                  device=None, timings: Optional[dict] = None,
                  **unported) -> dict:
@@ -144,18 +154,45 @@ def run_scenario(spec: ScenarioSpec, *, guards: bool = False,
     its summary is the record's `flight_recorder`. `flow_emit_cap` and
     `flow_recv_wnd` set the flow plane's per-window emission cap and
     receive window (None: `flows.EMIT_CAP`, `flows.RECV_WND`; read only
-    under `transport: flows`).
+    under `transport: flows`); `max_advance` the phases a host may leave
+    a window (None: `device.MAX_ADVANCE`).
+
+    `telemetry` (a `telemetry/harvest.TelemetryHarvester`) is ticked
+    every `telemetry_every` windows with the metrics and histogram
+    tensors, its heartbeats annotated with the phases completed since
+    the last tick (`workload_phase`). `memo` (True, or a dict or object
+    with `max_bytes`, `min_repeat`, `chain_len`) memoizes chain spans
+    (`tpu/memo.py`) under the JAX runner's salt and key policy; the
+    record gains the memo report as `memo`, and its digests do not move.
+    `memo_cache` (a path) loads the memo's entries before the run when
+    the file exists and saves them after. `tracer` (a
+    `telemetry/tracer.RunTracer`) records the run ledger: a span a
+    chain, `harvest` annotations, the memo report.
+
+    `checkpoint_dir` and `checkpoint_every` write the whole carry, the
+    fault schedule's position and the memo every K windows
+    (`faults/runstate.py`); `kill_at=R` exits with code 137 once the
+    round-R checkpoint is on disk; `resume=True` starts from the newest
+    checkpoint of this scenario (a cold start when there is none). The
+    record of a resumed run is byte-identical to the uninterrupted
+    run's; `provenance` (a dict) receives `resumed_from`, `start_round`
+    and `checkpoints_written`, and the tracer a `resume` annotation. A
+    resumed harvester starts afresh, as in JAX: its file holds the
+    heartbeats after the checkpoint, and announces every phase once
+    (the killed run's last snapshot, which would have carried some,
+    was never drained).
 
     The drive runs `chain_len` windows a chain (None: `telemetry_every`
-    under the recorder, else all of them in one; the recorder's drains
-    cut the chains too) and calls `on_chain(r1)` on the host after the
-    chain that ends before window r1 (a profiler starts and stops
-    there). A dict passed as `timings` receives the host seconds of the
-    set-up (`setup_s`: world, program, upload, prime) and of the drive
+    under the harvester or the recorder, the memo's chain length under
+    the memo, else all of them in one; the harvest cadence cuts the
+    chains too) and calls `on_chain(r1)` on the host after the chain
+    that ends before window r1 (a profiler starts and stops there). A
+    dict passed as `timings` receives the host seconds of the set-up
+    (`setup_s`: world, program, upload, prime, resume) and of the drive
     (`drive_s`, ended by a device synchronise), outside the record. The
-    JAX runner's other keywords are accepted at their JAX defaults and
-    otherwise raise NotImplementedError naming the ROADMAP.md item that
-    brings them."""
+    JAX runner's `mesh_devices` is accepted at its default only and
+    otherwise raises NotImplementedError naming the ROADMAP.md item that
+    brings it."""
     for key, value in unported.items():
         if key not in _NOT_PORTED:
             raise TypeError(f"run_scenario: unexpected argument {key!r}")
@@ -175,6 +212,7 @@ def run_scenario(spec: ScenarioSpec, *, guards: bool = False,
     wl = wdevice.to_device(prog, device)
     ws = wdevice.make_workload_state(prog, device)
     N = spec.n_hosts
+    adv = max_advance if max_advance is not None else wdevice.MAX_ADVANCE
     use_flows = spec.transport == "flows"
     ftab = flowst = None
     emit_cap = recv_wnd = 0
@@ -222,19 +260,25 @@ def run_scenario(spec: ScenarioSpec, *, guards: bool = False,
         state, ws, metrics = wdevice.prime(wl, ws, state, metrics=metrics)
     window = spec.window_ns
     faults = None
+    synced = 0  # schedule events the device masks `faults` hold
 
     def chain_fn(state, extras, r0, r1):
-        nonlocal faults
+        nonlocal faults, synced
         ws, metrics, gstate, hstate, fstate, flowst, cstate = extras
         for r in range(r0, r1):
             if schedule is not None:
-                # window r runs under the masks after (r + 1) * window;
-                # the device copy is refreshed only when events fired
+                # window r runs under the masks after (r + 1) * window.
+                # The device copy is refreshed where events fire, and
+                # rebuilt when the schedule moved outside this loop (a
+                # memo replay's span salt, a resume) since it was last
+                # synced
                 fired = schedule.advance((r + 1) * window)
-                if faults is None:
+                if faults is None or \
+                        len(schedule.fired) - len(fired) != synced:
                     faults = schedule.device_arrays(device)
                 elif fired:
                     faults = schedule.refresh_device_arrays(faults, fired)
+                synced = len(schedule.fired)
             shift = 0 if r == 0 else window
             out = window_step(state, params, spec.seed, shift, window,
                               rr_enabled=False, kernel="xla", faults=faults,
@@ -255,8 +299,9 @@ def run_scenario(spec: ScenarioSpec, *, guards: bool = False,
                     cstate, credits = computemod.gate_credits(cstate,
                                                               credits)
                 state, ws, flowst, metrics, *g = wdevice.workload_step(
-                    wl, ws, state, delivered, r, window, metrics=metrics,
-                    guards=gstate, flows=(ftab, flowst, credits))
+                    wl, ws, state, delivered, r, window, max_advance=adv,
+                    metrics=metrics, guards=gstate,
+                    flows=(ftab, flowst, credits))
                 state, flowst, metrics, *rest = flowsmod.flow_emit(
                     ftab, flowst, state, emit_cap=emit_cap,
                     metrics=metrics, guards=gstate, flightrec=fstate)
@@ -271,8 +316,8 @@ def run_scenario(spec: ScenarioSpec, *, guards: bool = False,
                         cstate, delivered["mask"].sum(dim=1,
                                                       dtype=torch.int32))
                 state, ws, metrics, *g = wdevice.workload_step(
-                    wl, ws, state, delivered, r, window, metrics=metrics,
-                    guards=gstate, credits=credits)
+                    wl, ws, state, delivered, r, window, max_advance=adv,
+                    metrics=metrics, guards=gstate, credits=credits)
                 if gstate is not None:
                     gstate = g[0]
             if use_compute:
@@ -280,28 +325,112 @@ def run_scenario(spec: ScenarioSpec, *, guards: bool = False,
         return state, (ws, metrics, gstate, hstate, fstate, flowst,
                        cstate), 0, 0
 
+    annotated = 0  # phases the harvester has announced
+
     def after_chain(r1, state, extras):
-        if recorder is not None and r1 % telemetry_every == 0:
-            recorder.tick(extras[4])
+        nonlocal annotated
+        ws, metrics, _g, hstate, fstate, _fl, _c = extras
+        if r1 % telemetry_every == 0:
+            if telemetry is not None:
+                annotated = _annotate_phases(telemetry, spec, prog, ws,
+                                             annotated)
+                telemetry.tick(r1 * window,
+                               device=_device_counters(metrics, hstate))
+            if recorder is not None:
+                recorder.tick(fstate)
+            if tracer is not None:
+                tracer.annotate("harvest", r=int(r1),
+                                time_ns=int(r1) * window)
         if on_chain is not None:
             on_chain(r1)
 
+    memo_obj, memo_salt_fn, memo_chain = _build_memo(
+        memo, spec=spec, prog=prog, schedule=schedule, adv=adv,
+        emit_cap=emit_cap, recv_wnd=recv_wnd, guards=guards,
+        histograms=histograms, sample_every=sample_every,
+        trace_ring=trace_ring)
+    if tracer is not None and memo_salt_fn is None and schedule is not None:
+        # no memo, but the ledger still takes each span's fault
+        # fingerprint (advancing to r0 is a no-op mid-run)
+        def memo_salt_fn(r0, r1):
+            schedule.advance(r0 * window)
+            return schedule.span_fingerprint(r0 * window,
+                                             r1 * window).encode()
+    if memo_cache is not None:
+        if memo_obj is None:
+            raise ValueError("memo_cache requires memo: there is no "
+                             "cache to persist on a non-memoized run")
+        if os.path.isfile(memo_cache):
+            memo_obj.load(memo_cache)
+
+    checkpointer = None
+    start_round = 0
+    resumed_from = None
+    if checkpoint_dir is not None:
+        checkpointer = runstate.RunCheckpointer(
+            checkpoint_dir, every=checkpoint_every, label=spec.name,
+            window_ns=window, schedule=schedule, memo=memo_obj,
+            kill_after=kill_at,
+            extra_meta={"fingerprint": scenario_fingerprint(spec),
+                        "program_digest": program_digest(prog)})
+        ckpt_path = (runstate.latest_checkpoint(checkpoint_dir,
+                                                label=spec.name)
+                     if resume else None)
+        if ckpt_path is not None:
+            # refuse world drift before touching the carry
+            want_fp = runstate.load_runstate(ckpt_path)[0].get(
+                "fingerprint")
+            if want_fp != scenario_fingerprint(spec):
+                raise CheckpointError(
+                    f"{ckpt_path}: scenario fingerprint mismatch "
+                    f"(checkpoint {str(want_fp)[:12]}..., this run "
+                    f"{scenario_fingerprint(spec)[:12]}...) — the "
+                    f"checkpoint belongs to a different world")
+            template = (state, (ws, metrics, gstate, hstate, fstate,
+                                flowst, cstate))
+            res = runstate.resume_carry(ckpt_path, template,
+                                        schedule=schedule, memo=memo_obj)
+            state, (ws, metrics, gstate, hstate, fstate, flowst,
+                    cstate) = res["carry"]
+            start_round = res["round"]
+            resumed_from = os.path.basename(ckpt_path).removesuffix(
+                ".runstate.npz")
+            if tracer is not None:
+                tracer.annotate("resume", checkpoint=resumed_from,
+                                r=start_round)
+
+    need_cadence = telemetry is not None or recorder is not None
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     t1 = time.perf_counter()
     state, extras = elastic.drive_chained_windows(
         state, (ws, metrics, gstate, hstate, fstate, flowst, cstate),
         chain_fn, n_rounds=spec.windows,
-        chain_len=chain_len or (telemetry_every if recorder is not None
+        chain_len=chain_len or (telemetry_every if need_cadence
+                                else memo_chain if memo_obj is not None
                                 else spec.windows),
+        start_round=start_round,
         boundaries=(range(telemetry_every, spec.windows, telemetry_every)
-                    if recorder is not None else ()),
-        window_ns=window, on_chain=after_chain)
+                    if need_cadence else ()),
+        window_ns=window,
+        on_chain=(after_chain if need_cadence or on_chain is not None
+                  else None),
+        memo=memo_obj, memo_span_salt=memo_salt_fn, tracer=tracer,
+        checkpointer=checkpointer)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     if timings is not None:
         timings.update(setup_s=t1 - t0, drive_s=time.perf_counter() - t1)
     ws, metrics, gstate, hstate, fstate, flowst, cstate = extras
+    if memo_cache is not None:
+        memo_obj.save(memo_cache)
+    if provenance is not None:
+        provenance.update({
+            "resumed_from": resumed_from,
+            "start_round": int(start_round),
+            "checkpoints_written": (checkpointer.saved
+                                    if checkpointer is not None else 0),
+        })
     record = _record(spec, prog, state, ws, metrics, hstate, flowst, cstate,
                      faults_active=schedule is not None)
     if use_flows:
@@ -309,6 +438,10 @@ def run_scenario(spec: ScenarioSpec, *, guards: bool = False,
                            "emit_cap": emit_cap, "recv_wnd": recv_wnd}
     if use_compute:
         record.update(_serving_record(spec, cstate))
+    if memo_obj is not None:
+        record["memo"] = memo_obj.report()
+        if tracer is not None:
+            tracer.memo_close(memo_obj)
     if gstate is not None:
         record["guards"] = summarize(gstate)
     if recorder is not None:
@@ -317,7 +450,115 @@ def run_scenario(spec: ScenarioSpec, *, guards: bool = False,
         recorder.finalize()
         record["flight_recorder"] = {**recorder.summary(),
                                      **frmod.flightrec_meta(fstate)}
+    if telemetry is not None:
+        # trailing annotations ride the pending snapshot; tick again only
+        # when the cadence did not harvest this very instant
+        _annotate_phases(telemetry, spec, prog, ws, annotated)
+        if spec.windows % telemetry_every != 0:
+            telemetry.tick(spec.windows * window,
+                           device=_device_counters(metrics, hstate))
     return record
+
+
+def _build_memo(memo, *, spec, prog, schedule, adv, emit_cap, recv_wnd,
+                guards, histograms, sample_every, trace_ring):
+    """The `memo` argument (None, a bool, or a dict or object of
+    `enabled`, `max_bytes`, `min_repeat`, `chain_len`) as the driver's
+    (ChainMemo, span_salt_fn, chain_len), with the JAX runner's salt and
+    key policy, so the keys are its keys.
+
+    The static salt folds what the chain closes over and the carry does
+    not show: the scenario fingerprint, the program digest and every
+    dynamics knob. `key_extra` folds the absolute start round while any
+    workload host is live (`done_win` stamps absolute rounds), and the
+    flow plane's raw virtual clock while anything could read it (a timer
+    armed, an RTT probe out, unacked bytes, a pending ack, receiver
+    bitmap content, or any packet still in a ring). Under faults the
+    span salt is the schedule's span fingerprint."""
+    if memo is None or memo is False:
+        return None, None, None
+    knob = (memo.get if isinstance(memo, dict)
+            else lambda k, d: getattr(memo, k, d))
+    if memo is not True and not knob("enabled", True):
+        return None, None, None
+    salt = "|".join([
+        "memo-v1", scenario_fingerprint(spec), program_digest(prog),
+        f"adv={adv}", f"emit={emit_cap}", f"wnd={recv_wnd}",
+        f"guards={int(guards)}", f"hist={int(histograms)}",
+        f"se={sample_every}", f"ring={trace_ring}",
+    ]).encode()
+    n_phases_host = np.asarray(prog.n_phases)
+
+    def key_extra(carry, r0):
+        mstate, mextras = carry
+        mws, mflow = mextras[0], mextras[5]
+        parts = []
+        if bool((np.asarray(mws.phase) < n_phases_host).any()):
+            parts.append(b"r0:%d" % r0)
+        if mflow is not None:
+            live = bool(
+                np.asarray(mflow.rto_armed).any()
+                or (np.asarray(mflow.rtt_seq) >= 0).any()
+                or (np.asarray(mflow.snd_una)
+                    != np.asarray(mflow.stream_len)).any()
+                or np.asarray(mflow.ack_pending).any()
+                or np.asarray(mflow.rcv_bits).any()
+                or np.asarray(mstate.eg_valid).any()
+                or np.asarray(mstate.in_valid).any())
+            parts.append(b"clk:" + (
+                np.ascontiguousarray(mflow.clock_ms).tobytes()
+                if live else b"idle"))
+        return b"|".join(parts)
+
+    memo_obj = memomod.ChainMemo(
+        max_bytes=int(knob("max_bytes", 64 << 20)),
+        min_repeat=int(knob("min_repeat", 1)),
+        salt=salt, key_extra=key_extra)
+    salt_fn = None
+    if schedule is not None:
+        def salt_fn(r0, r1):
+            # keep the schedule's position current across hits (a hit
+            # skips chain_fn, which advances it); a no-op after a miss
+            schedule.advance(r0 * spec.window_ns)
+            return schedule.span_fingerprint(
+                r0 * spec.window_ns, r1 * spec.window_ns).encode()
+    # 4-window spans by default, as in JAX: the drained tail of every
+    # corpus entry then yields equal-length recurring spans
+    return memo_obj, salt_fn, int(knob("chain_len", 4))
+
+
+def _device_counters(metrics, hstate):
+    """The harvester's device dict: the metrics and histogram tensors."""
+    if hstate is None:
+        return metrics
+    return {**metrics._asdict(), **hstate._asdict()}
+
+
+def _annotate_phases(harvester, spec: ScenarioSpec, prog: TrafficProgram,
+                     ws, already: int) -> int:
+    """Queue a heartbeat annotation for each phase completed fleet-wide
+    since the last harvest (one read of `done_win` a harvest): phases
+    complete in order for each host, so the completed prefix grows and
+    `already` counts its announced part. Returns the new count."""
+    done_win = ws.done_win.detach().cpu().numpy().astype(np.int64)
+    never = 2**31 - 1
+    count = already
+    for p in range(already, prog.max_phases):
+        members = prog.n_phases > p
+        if not members.any():
+            break
+        wins = done_win[members, p]
+        if (wins >= never).any():
+            break
+        harvester.note_event({
+            "kind": "workload_phase",
+            "scenario": spec.name,
+            "family": spec.family,
+            "phase": p,
+            "time_ns": int((wins.max() + 1) * spec.window_ns),
+        })
+        count = p + 1
+    return count
 
 
 def _record(spec: ScenarioSpec, prog: TrafficProgram, state, ws, metrics,

@@ -225,3 +225,49 @@ def aqm_step(st, w, shift, kernel, plain):
     return plane.window_step(st, w["params"], w["rng_root"], shift,
                              w["window"], rr_enabled=False, router_aqm=True,
                              kernel=kernel, plain_kernels=plain)
+
+
+@pytest.mark.parametrize("kernel,pair,hist", [
+    ("pallas_fused", ("egress_rank", "route_place"), False),
+    ("pallas", ("egress_gate", "route_scatter"), False),
+    ("xla", (), True)])
+def test_phold_telemetry_and_ledger_on_the_card(cuda, tmp_path, kernel,
+                                                pair, hist):
+    """`chip_smoke.py` phase 16 (a) at 4096 hosts: the harvester every 8
+    windows (and the histograms on "xla") with the run ledger leave the
+    state of the bare run, and every window launches the pair."""
+    size = dict(n_nodes=64, egress_cap=16, ingress_cap=32, rounds=32,
+                warmup=False, kernel=kernel)
+    off = bench.run_phold(4096, chain_len=8, **size)
+    pipeline.reset_launches()
+    on = bench.run_phold(4096, telemetry=str(tmp_path), hist=hist,
+                         harvest_every=8, trace=str(tmp_path / "l.jsonl"),
+                         **size)
+    assert convert.state_digest(on["state"]) == \
+        convert.state_digest(off["state"])
+    assert all(n == (32 if k in pair else 0)
+               for k, n in pipeline.LAUNCHES.items())
+    assert on["telemetry"]["harvests"] == 4
+    assert on["telemetry"]["heartbeats"] == 4 * 4097
+    ledger = [json.loads(x) for x in open(tmp_path / "l.jsonl")]
+    assert sum(r["kind"] == "span" for r in ledger) == 4
+
+
+def test_phold_checkpoint_resume_on_the_card(cuda, tmp_path):
+    """Phase 16 (b) at 4096 hosts, in one process: the fused run
+    checkpointed every 8 windows, resumed from its round-16 checkpoint,
+    ends as the uninterrupted run."""
+    from shadow_tpu_torch.faults import runstate
+    from shadow_tpu_torch.tpu.profiling import build_world
+
+    world = lambda: build_world(4096, seed=0, warmup_windows=0)
+    ck = runstate.RunCheckpointer(str(tmp_path), every=8, label="phold",
+                                  keep=4)
+    state, total = bench.run_chain(world(), 32, 8, checkpointer=ck)
+    assert ck.saved == 3
+    path = str(tmp_path / "phold-r00000016.runstate.npz")
+    pipeline.reset_launches()
+    again, total2 = bench.run_chain(world(), 32, 8, resume_from=path)
+    assert convert.state_digest(again) == convert.state_digest(state)
+    assert total2 == total
+    assert pipeline.LAUNCHES["egress_rank"] == 16

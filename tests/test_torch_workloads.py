@@ -176,10 +176,11 @@ def test_flow_knobs_match_jax():
         assert str(e.value) in str(je.value)
 
 
-def test_unported_runner_options_are_refused():
-    """Only a value other than the JAX runner's default is refused: the
-    defaults `tools/run_scenarios.py` always passes run, and so does any
-    `telemetry_every` >= 1 (the flight recorder's drain cadence)."""
+def test_unported_runner_options_are_refused(tmp_path):
+    """Only `mesh_devices` (multi-GPU) is refused, and only at a value
+    other than the JAX runner's default; the run-infrastructure keywords
+    run, their records equal the plain run's (the memo's adds its
+    report), and so does any `telemetry_every` >= 1."""
     spec = tspec.load_scenario_file(str(CORPUS / "incast.yaml"))
     short = dataclasses.replace(spec, windows=3)
     base = trunner.run_scenario(short, device="cpu")
@@ -189,13 +190,16 @@ def test_unported_runner_options_are_refused():
                     checkpoint_dir=None, kill_at=None, provenance=None,
                     telemetry=None, mesh_devices=None)):
         assert trunner.run_scenario(short, device="cpu", **kw) == base, kw
-    for kw, value, item in (("memo", True, "run infra"),
-                            ("mesh_devices", 4, "multi-GPU"),
-                            ("checkpoint_every", 8, "run infra"),
-                            ("checkpoint_dir", "ckpt", "run infra"),
-                            ("resume", True, "run infra")):
-        with pytest.raises(NotImplementedError, match=item):
-            trunner.run_scenario(spec, device="cpu", **{kw: value})
+    for kw in (dict(memo=True), dict(checkpoint_every=8),
+               dict(checkpoint_dir=str(tmp_path / "ckpt")),
+               dict(checkpoint_dir=str(tmp_path / "ckpt"), resume=True),
+               dict(resume=True)):
+        rec = trunner.run_scenario(short, device="cpu", **kw)
+        assert ("memo" in rec) == ("memo" in kw), kw
+        rec.pop("memo", None)
+        assert rec == base, kw
+    with pytest.raises(NotImplementedError, match="multi-GPU"):
+        trunner.run_scenario(spec, device="cpu", mesh_devices=4)
     with pytest.raises(ValueError, match="telemetry_every"):
         trunner.run_scenario(spec, device="cpu", telemetry_every=0)
     with pytest.raises(TypeError, match="unexpected"):
