@@ -126,7 +126,22 @@ printed:
    to phase 13's); (d) the corpus under `--memo --check`; (e) the chaos
    smoke at its defaults, uninterrupted, killed at 24 and resumed,
    with and without `--memo` (equal digests);
-17. one JSON line describing every kernel, then the result line.
+17. ensembles (`elastic.drive_ensemble`: `torch.func.vmap` of the chain,
+   each kernel's vmap rule launching it once for all worlds) of 8 bench
+   worlds (N=32768, M=64, CE=16, CI=32) under distinct world keys, their
+   states distinct after the first window: `bench --worlds 8`'s path
+   ("xla", R=192) and, on each kernel pair, R=192 with each kernel
+   launched R times (not 8 R), each timed between two solo runs of its
+   kernel (the `worlds` record's amortization against their mean); on
+   each, each world equal to its solo `drive_chained_windows` run
+   after 32 windows; device kernels, busy ms and each batched launch's
+   us a window (windows 16-31) beside the solo run's, peak device
+   memory; the router AQM world's first 18 windows on each kernel, E
+   and the pair launched once a window, each world equal to its solo
+   run; (b) each of A-E under vmap over 8 distinct worlds at N=32768
+   (one launch of 8 N rows) bitwise its plain version vmapped over the
+   same worlds, timed cold and warm beside its bound;
+18. one JSON line describing every kernel, then the result line.
 
 Usage: python3 chip_smoke.py   (from the repository root; one card).
 A fuller record of every measurement is printed on the `record:` line.
@@ -243,6 +258,17 @@ AQM_RING = 1 << 16  # holds every sampled hop of the run
 # its division by the rate; a resume or a chain start does fewer): an
 # estimate from the source, for the operations bound
 E_OPS_PER_STEP = 80
+# the launch counters' names, each kernel's `<name>_kernel` on the card
+PORT_KERNELS = ("egress_rank", "route_place", "egress_gate", "route_scatter",
+                "router_drain")
+# phase 17: ensembles of ENS_WORLDS bench worlds (drive_ensemble)
+ENS_WORLDS = 8
+ENS_SOLO_WINDOWS = 32  # (a): each world against its solo run over these
+ENS_CHAIN = 16  # the profile: windows 16-31 of a 32-window run
+ENS_PAIRS = (("pallas_fused", ("egress_rank", "route_place")),
+             ("pallas", ("egress_gate", "route_scatter")))
+# phase 17's device ("cpu" in a CPU rehearsal of the phase)
+ENS_DEVICE = "cuda"
 
 
 def fail(msg: str):
@@ -777,6 +803,16 @@ def profile_chains(torch, drive, start: int, stop: int) -> dict:
     if not on_card:
         fail(f"the profiler recorded no device work in windows "
              f"[{start}, {stop})")
+    # the port's own kernels among them (each kernel's symbol holds its
+    # source file's name): launches a window, us a launch
+    port = {}
+    for name in PORT_KERNELS:
+        us = [ev.time_range.elapsed_us() for ev in on_card
+              if name in ev.name]
+        if us:
+            port[name] = {"launches_per_window": len(us) / (stop - start),
+                          "us_per_launch": sum(us) / len(us)}
+    out["port_kernels"] = port
     return out
 
 
@@ -1967,9 +2003,339 @@ def check_run_infra(torch, bench, convert, pipeline, record, ident,
     record["run_infra"] = rec
 
 
-def kernel_entry(name, source, replaces, launches, row):
+def ens_digests(convert, elastic, states, n_worlds):
+    return [convert.state_digest(elastic.world_slice(states, w))
+            for w in range(n_worlds)]
+
+
+def solo_digests(torch, bench, convert, elastic, chain, world, keys,
+                 rounds):
+    """Each world's solo run: `drive_chained_windows` of `chain` from the
+    world's state under its key, `rounds` windows in one chain."""
+    out = []
+    for w in range(keys.shape[0]):
+        extras = (keys[w], torch.full((N_HOSTS,), bench.SPAWN_SEQ0,
+                                      dtype=torch.int32, device=ENS_DEVICE),
+                  torch.zeros((), dtype=torch.int32, device=ENS_DEVICE))
+        st, _ex = elastic.drive_chained_windows(
+            world["state"], extras, chain, n_rounds=rounds,
+            chain_len=rounds)
+        out.append(convert.state_digest(st))
+    return out
+
+
+def profile_ensemble(torch, bench, kernel):
+    """Device kernels, busy ms and each port kernel's launches and us a
+    window over windows ENS_CHAIN to 2 * ENS_CHAIN - 1 of an ensemble run
+    and of a solo run (`profile_chains`)."""
+    kw = dict(rounds=2 * ENS_CHAIN, chain_len=ENS_CHAIN, kernel=kernel,
+              warmup=False, n_nodes=N_NODES, egress_cap=EGRESS_CAP,
+              ingress_cap=INGRESS_CAP)
+    ens = profile_chains(torch, lambda on_chain: bench.run_worlds(
+        ENS_WORLDS, N_HOSTS, on_chain=on_chain, **kw), ENS_CHAIN,
+        2 * ENS_CHAIN)
+    solo = profile_chains(torch, lambda on_chain: bench.run_phold(
+        N_HOSTS, on_chain=on_chain, **kw), ENS_CHAIN, 2 * ENS_CHAIN)
+    return ens, solo
+
+
+def print_profiles(what, ens, solo, wall_ms, ident):
+    busy = ens["device_busy_ms_per_window"]
+    print(f"17 {what}: an ensemble window "
+          f"{ens['kernel_launches_per_window']:.1f} device kernels, "
+          f"{busy:.5f} ms busy (busy share {busy / wall_ms:.3f} of its "
+          f"{wall_ms:.4f} ms wall), a solo window "
+          f"{solo['kernel_launches_per_window']:.1f}, "
+          f"{solo['device_busy_ms_per_window']:.5f} ms; the port's kernels "
+          f"in the ensemble window {json.dumps(ens['port_kernels'])}, in "
+          f"the solo window {json.dumps(solo['port_kernels'])} on {ident}")
+
+
+def ensemble_in_turns(torch, bench, pipeline, kernel, **kw):
+    """The counted, timed ensemble run (`run_worlds` over ENS_WORLDS
+    worlds, R=ROUNDS; `kw` its other keywords) between two solo runs of
+    the same kernel (`run_phold`; the caller has warmed both up), so the
+    host's
+    drift within the call weighs on both alike. Returns the ensemble's
+    record without its carry, with `amortization_vs_solo` against the
+    two solo runs' mean events/s, both solo rates, the ensemble's
+    launch counts and its peak device memory."""
+    size = dict(n_nodes=N_NODES, egress_cap=EGRESS_CAP,
+                ingress_cap=INGRESS_CAP)
+    solo = lambda: bench.run_phold(N_HOSTS, rounds=ROUNDS, kernel=kernel,
+                                   warmup=False,
+                                   **size)["packet_events_per_sec"]
+    before = solo()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pipeline.reset_launches()
+    rec = bench.run_worlds(ENS_WORLDS, N_HOSTS, rounds=ROUNDS, kernel=kernel,
+                           **size, **kw)
+    launches = dict(pipeline.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    after = solo()
+    out = {k: v for k, v in rec.items() if k not in ("states", "extras")}
+    out.update(amortization_vs_solo=rec["events_per_sec_sum"]
+               / ((before + after) / 2),
+               solo_events_per_sec=[before, after], launches=launches,
+               peak_bytes=peak,
+               wall_ms_per_window=rec["wall_s"] * 1e3 / ROUNDS)
+    return out
+
+
+def check_ensemble_phold(torch, bench, convert, elastic, pipeline, kernel,
+                         pair, ident):
+    """17, PHOLD on one kernel (pair: the kernels its path launches): (a)
+    each world equal to its solo run after ENS_SOLO_WINDOWS windows (an
+    untimed run, which also warms the path up); (c) the counted, timed
+    run between two solo runs; a profile of windows ENS_CHAIN to
+    2 * ENS_CHAIN - 1 of the ensemble beside the solo run's."""
+    size = dict(n_nodes=N_NODES, egress_cap=EGRESS_CAP,
+                ingress_cap=INGRESS_CAP)
+    from shadow_tpu_torch.tpu.profiling import build_world
+
+    first = bench.run_worlds(ENS_WORLDS, N_HOSTS, rounds=ENS_SOLO_WINDOWS,
+                             kernel=kernel, warmup=False, **size)
+    ens = ens_digests(convert, elastic, first.pop("states"), ENS_WORLDS)
+    del first
+    world = build_world(N_HOSTS, seed=0, warmup_windows=0, device=ENS_DEVICE,
+                        **size)
+    keys = elastic.world_keys(world["rng_root"], range(ENS_WORLDS),
+                              device=ENS_DEVICE)
+    chain = bench.phold_keyed_chain_fn(world, kernel=kernel)
+    solo = solo_digests(torch, bench, convert, elastic, chain, world, keys,
+                        ENS_SOLO_WINDOWS)
+    if solo != ens:
+        bad = [w for w in range(ENS_WORLDS) if solo[w] != ens[w]]
+        fail(f"ensemble, kernel={kernel!r}: worlds {bad} differ from their "
+             f"solo runs after {ENS_SOLO_WINDOWS} windows")
+    if len(set(solo)) != ENS_WORLDS:
+        fail(f"ensemble, kernel={kernel!r}: the worlds are not distinct")
+    out = ensemble_in_turns(torch, bench, pipeline, kernel, warmup=False)
+    launches = out["launches"]
+    for name, count in launches.items():
+        want = ROUNDS if name in pair else 0
+        if count != want:
+            fail(f"ensemble of {ENS_WORLDS}, kernel={kernel!r}: {name} "
+                 f"launched {count} times, expected {want} (one a window "
+                 f"for all worlds)")
+    ens_prof, solo_prof = profile_ensemble(torch, bench, kernel)
+    out.update(solo_digests_equal=ENS_SOLO_WINDOWS, profile=ens_prof,
+               solo_profile=solo_prof)
+    print(f"17 ensemble kernel={kernel}: {ENS_WORLDS} worlds x N={N_HOSTS} "
+          f"R={ROUNDS}: each world equal to its solo run over "
+          f"{ENS_SOLO_WINDOWS} windows; launches {launches} (one a window "
+          f"for all worlds); worlds record "
+          f"{json.dumps({k: out[k] for k in WORLDS_KEYS})} (solo runs "
+          f"before and after: {out['solo_events_per_sec']} events/s); wall "
+          f"{out['wall_ms_per_window']:.4f} ms a window; peak "
+          f"{out['peak_bytes']} B on {ident}")
+    print_profiles(f"kernel={kernel}", ens_prof, solo_prof,
+                   out["wall_ms_per_window"], ident)
+    return out
+
+
+# the keys of the JAX bench's `worlds` record
+WORLDS_KEYS = ("n_worlds", "driver", "chain_len", "events",
+               "min_world_events", "events_per_sec_sum",
+               "amortization_vs_solo")
+
+
+def aqm_ensemble_chain(torch, world, kernel):
+    """The AQM world's windows under a key riding the carry (no respawn,
+    as phase 15's `aqm_windows`): extras = (key, delivered total)."""
+    from shadow_tpu_torch.tpu import plane
+
+    def chain_fn(state, extras, r0, r1):
+        key, total = extras
+        for r in range(r0, r1):
+            state, d, _nx = plane.window_step(
+                state, world["params"], key, 0 if r == 0 else world["window"],
+                world["window"], rr_enabled=False, router_aqm=True,
+                kernel=kernel)
+            total = total + d["mask"].sum(dtype=torch.int32)
+        zeros = torch.zeros(state.in_src.shape[0], dtype=torch.int32,
+                            device=total.device)
+        return state, (key, total), zeros, zeros
+    return chain_fn
+
+
+def check_ensemble_aqm(torch, convert, elastic, pipeline, kernel, pair):
+    """17, the router AQM world's first AQM_PLAIN_WINDOWS windows as an
+    ensemble on one kernel: launches of the pair and of kernel E once a
+    window, each world equal to its solo run."""
+    world = aqm_world(ENS_DEVICE)
+    keys = elastic.world_keys(world["rng_root"], range(ENS_WORLDS),
+                              device=ENS_DEVICE)
+    chain = aqm_ensemble_chain(torch, world, kernel)
+    zero = torch.zeros((), dtype=torch.int32, device=ENS_DEVICE)
+    pipeline.reset_launches()
+    t = time.perf_counter()
+    states, extras = elastic.drive_ensemble(
+        elastic.stack_worlds(world["state"], ENS_WORLDS),
+        (keys, zero.repeat(ENS_WORLDS)), chain, n_rounds=AQM_PLAIN_WINDOWS,
+        chain_len=AQM_PLAIN_WINDOWS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = dict(pipeline.LAUNCHES)
+    for name, count in launches.items():
+        want = AQM_PLAIN_WINDOWS if name in pair + ("router_drain",) else 0
+        if count != want:
+            fail(f"AQM ensemble, kernel={kernel!r}: {name} launched {count} "
+                 f"times, expected {want}")
+    mine = ens_digests(convert, elastic, states, ENS_WORLDS)
+    extras_total = extras[1].tolist()
+    for w in range(ENS_WORLDS):
+        st, _ex = elastic.drive_chained_windows(
+            world["state"], (keys[w], zero), chain,
+            n_rounds=AQM_PLAIN_WINDOWS, chain_len=AQM_PLAIN_WINDOWS)
+        if convert.state_digest(st) != mine[w]:
+            fail(f"AQM ensemble, kernel={kernel!r}: world {w} differs from "
+                 "its solo run")
+    drops = states.router.dropped.sum(dim=1).tolist()
+    if min(drops) <= 0:
+        fail(f"AQM ensemble, kernel={kernel!r}: a world without CoDel drops "
+             f"({drops})")
+    del states, extras
+    start = AQM_PLAIN_WINDOWS // 3
+    prof = profile_chains(torch, lambda on_chain: elastic.drive_ensemble(
+        elastic.stack_worlds(world["state"], ENS_WORLDS),
+        (keys, zero.repeat(ENS_WORLDS)), chain, n_rounds=AQM_PLAIN_WINDOWS,
+        chain_len=start, on_chain=on_chain), start, AQM_PLAIN_WINDOWS)
+    return dict(launches=launches, wall_s=wall, drops=drops,
+                delivered=extras_total, profile=prof)
+
+
+def batched_bound(torch, name, args, outs, work) -> tuple[float, str, int]:
+    """The bound of one batched launch of kernel `name` over the W * N
+    rows, counted as phases 3-5 and 15 count a solo launch's: A and C
+    their inputs read and outputs written once, with their networks' int
+    operations and shuffles; B and D `placement_bytes` of the calls timed
+    on `work` (after the first call's rewrites) with their int
+    operations; E its inputs and outputs once (`drain_bytes`). Returns
+    (ms, what bounds it, bytes)."""
+    if name in ("route_place", "route_scatter"):
+        nv, offsets, take = (a.reshape(-1, 1).cpu().numpy()
+                             for a in args[:3])
+        rows, ci = work[9].shape[0] * work[9].shape[1], work[9].shape[2]
+        ce = args[4].shape[-1]
+        ccol = np.arange(ci)[None, :]
+        placed = (ccol >= nv) & (ccol < nv + take)
+        j = offsets - nv + ccol
+        inside = placed & (j >= 0) & (j < N_HOSTS * ce)
+        moved, _ = placement_bytes(work[13].reshape(rows, ci),
+                                   work[14].reshape(rows, ci), placed, inside)
+        return (*bound(moved, rows * ci * 6 + int(placed.sum()) * 30),
+                moved)
+    if name == "router_drain":
+        arrival, size, rate, cap, state = args
+        moved = drain_bytes((arrival, size, None, rate, cap, state), outs)
+        return (*bound(moved, 0), moved)
+    n_in = 10 if name == "egress_rank" else 6
+    moved = nbytes(args[:n_in]) + nbytes(outs)
+    rows, ce = args[0].shape[0] * args[0].shape[1], args[0].shape[2]
+    lg = int(math.log2(ce))
+    stages = lg * (lg + 1) // 2
+    nets = 2 if name == "egress_rank" else 1
+    ops = rows * ce * (nets * 6 * stages + 3 * lg + 16)
+    shuffles = rows * ce * (nets * 2 * stages + (8 if nets == 2 else 3)
+                            + 2 * lg) if ce <= 32 else 0
+    return (*bound(moved, ops, shuffles), moved)
+
+
+def check_batched_launches(torch, pipeline):
+    """17 (b): each kernel under vmap over ENS_WORLDS distinct worlds at
+    the bench's width (one launch for W * N rows) against its plain
+    version vmapped over the same worlds, bitwise; each batched launch
+    timed cold and warm as phases 3-5 time the solo ones."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    from torch_parity import BATCHED_KERNELS, batched_kernel_case, \
+        flat_outputs
+
+    rows = {}
+    for name in BATCHED_KERNELS:
+        wrapper, plain, args, in_dims, mutated = batched_kernel_case(
+            name, N_HOSTS, range(300, 300 + ENS_WORLDS), ENS_DEVICE,
+            ce=EGRESS_CAP, ci=INGRESS_CAP, k=INGRESS_CAP)
+        clone = lambda: tuple(a.clone() if i in mutated else a
+                              for i, a in enumerate(args))
+        kern = torch.func.vmap(wrapper, in_dims=in_dims)
+        before = pipeline.LAUNCHES[name]
+        got = flat_outputs(kern(*clone()))
+        ref = flat_outputs(torch.func.vmap(plain, in_dims=in_dims)(*clone()))
+        torch.cuda.synchronize()
+        if pipeline.LAUNCHES[name] != before + 1:
+            fail(f"batched {name}: {pipeline.LAUNCHES[name] - before} "
+                 "launches for one vmapped call")
+        err = max_abs_err(torch, got, ref)
+        if err != 0:
+            fail(f"batched {name} over {ENS_WORLDS} worlds disagrees with "
+                 f"its vmapped plain version (max abs err {err})")
+        work = clone()
+        warm_ms, ms, clean_ms = time_device(torch, lambda: kern(*work),
+                                            reps=10)
+        bound_ms, bound_by, moved = batched_bound(
+            torch, name, args, kern(*clone()), work)
+        rows[name] = dict(worlds=ENS_WORLDS, rows=ENS_WORLDS * N_HOSTS,
+                          max_abs_err=err, ms=ms, cold_clean_ms=clean_ms,
+                          warm_ms=warm_ms, bytes=moved, bound_ms=bound_ms,
+                          bound_by=bound_by, share_of_bound=bound_ms / ms)
+    times = {k: [v["ms"], v["cold_clean_ms"], v["warm_ms"], v["bound_ms"],
+                 v["bound_by"], v["share_of_bound"]]
+             for k, v in rows.items()}
+    print(f"17 (b) batched launches over {ENS_WORLDS} worlds x N={N_HOSTS}: "
+          f"each bitwise its vmapped plain version, one launch a call; ms "
+          f"cold/clean/warm, bound ms, by, cold share {json.dumps(times)}")
+    return rows
+
+
+def check_ensembles(torch, bench, convert, pipeline, record, ident):
+    """Phase 17: ensembles of ENS_WORLDS bench worlds on the card."""
+    from shadow_tpu_torch.tpu import elastic
+
+    rec = {}
+    t0 = time.perf_counter()
+    # the worlds differ after their first window
+    one = bench.run_worlds(ENS_WORLDS, N_HOSTS, rounds=1, warmup=False,
+                           kernel="pallas_fused", n_nodes=N_NODES,
+                           egress_cap=EGRESS_CAP, ingress_cap=INGRESS_CAP)
+    first = ens_digests(convert, elastic, one["states"], ENS_WORLDS)
+    if len(set(first)) != ENS_WORLDS:
+        fail("the worlds' states are not distinct after their first window")
+    del one
+    # "xla" is `bench --worlds 8`'s path
+    for kernel, pair in (("xla", ()),) + ENS_PAIRS:
+        rec[kernel] = check_ensemble_phold(torch, bench, convert, elastic,
+                                           pipeline, kernel, pair, ident)
+    rec["seconds_phold"] = time.perf_counter() - t0
+    t = time.perf_counter()
+    rec["aqm"] = {}
+    for kernel, pair in AQM_PATHS:
+        rec["aqm"][kernel] = check_ensemble_aqm(torch, convert, elastic,
+                                                pipeline, kernel, pair)
+    rec["seconds_aqm"] = time.perf_counter() - t
+    print(f"17 AQM ensemble: {ENS_WORLDS} worlds x N={N_HOSTS}, the first "
+          f"{AQM_PLAIN_WINDOWS} windows on each kernel, each world equal to "
+          f"its solo run, one launch of each kernel a window (profile: "
+          f"windows {AQM_PLAIN_WINDOWS // 3}-{AQM_PLAIN_WINDOWS - 1}): "
+          f"{json.dumps(rec['aqm'])} on {ident}")
+    t = time.perf_counter()
+    rec["batched"] = check_batched_launches(torch, pipeline)
+    rec["seconds_b"] = time.perf_counter() - t
+    record["ensembles"] = rec
+    launches = {name: 0 for name in PORT_KERNELS}
+    for kernel, _pair in ENS_PAIRS:
+        for name, count in rec[kernel]["launches"].items():
+            launches[name] += count
+    launches["router_drain"] = sum(r["launches"]["router_drain"]
+                                   for r in rec["aqm"].values())
+    return launches
+
+
+def kernel_entry(name, source, replaces, launches, row, ens_launches):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
+            "ensemble_launches": ens_launches,
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "warm_ms": row["warm_ms"], "cold_clean_ms": row["cold_clean_ms"],
             "plain_ms": row["plain_ms"],
@@ -2042,6 +2408,8 @@ def main():
                           record, ident)
     timed("16 run infrastructure", check_run_infra, torch, bench, convert,
           pipeline, record, ident, fleet_rec)
+    ens = timed("17 ensembles", check_ensembles, torch, bench, convert,
+                pipeline, record, ident)
     record["phase_s"] = phase_s
     print(f"phase seconds: {json.dumps(phase_s)}")
 
@@ -2049,23 +2417,23 @@ def main():
         kernel_entry("egress_rank_kernel",
                      "shadow_tpu_torch/csrc/egress_rank.cu",
                      "shadow_tpu/tpu/pallas_pipeline.py:77",
-                     fused["egress_rank"], a),
+                     fused["egress_rank"], a, ens["egress_rank"]),
         kernel_entry("route_place_kernel",
                      "shadow_tpu_torch/csrc/route_place.cu",
                      "shadow_tpu/tpu/pallas_pipeline.py:188",
-                     fused["route_place"], b),
+                     fused["route_place"], b, ens["route_place"]),
         kernel_entry("egress_gate_kernel",
                      "shadow_tpu_torch/csrc/egress_gate.cu",
                      "shadow_tpu/tpu/pallas_egress.py:91",
-                     split["egress_gate"], c),
+                     split["egress_gate"], c, ens["egress_gate"]),
         kernel_entry("route_scatter_kernel",
                      "shadow_tpu_torch/csrc/route_scatter.cu",
                      "shadow_tpu/tpu/pallas_route.py:48",
-                     split["route_scatter"], d),
+                     split["route_scatter"], d, ens["route_scatter"]),
         kernel_entry("router_drain_kernel",
                      "shadow_tpu_torch/csrc/router_drain.cu",
                      "shadow_tpu/tpu/codel.py:578 (router_drain, "
-                     "lax.fori_loop)", e_launches, e),
+                     "lax.fori_loop)", e_launches, e, ens["router_drain"]),
     ]
     print(f"record: {json.dumps(record, default=str)}")
     print(json.dumps({"kernels": kernels}))

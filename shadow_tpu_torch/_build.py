@@ -32,12 +32,12 @@ SIGNATURES = {
     "egress_rank": ("egress_rank_launch",
                     [_I, _I, _I] + [_P] * 10 + [_P] * 12 + [_P]),
     "route_place": ("route_place_launch",
-                    [_I, _I, _I] + [_P] * 3 + [_P] * 2 + [_P] * 4
+                    [_I, _I, _I, _I] + [_P] * 3 + [_P] * 2 + [_P] * 4
                     + [_P] * 6 + [_P]),
     "egress_gate": ("egress_gate_launch",
                     [_I, _I, _I] + [_P] * 6 + [_P] * 7 + [_P]),
     "route_scatter": ("route_scatter_launch",
-                      [_I, _I, _I] + [_P] * 3 + [_P] * 2 + [_P] * 4
+                      [_I, _I, _I, _I] + [_P] * 3 + [_P] * 2 + [_P] * 4
                       + [_P] * 6 + [_P]),
     "router_drain": ("router_drain_launch",
                      [_I, _I, _I] + [_P] * 5 + [_P] * 13 + [_P] * 13

@@ -13,11 +13,15 @@ run that builds the kernels and warms the card up.
         [--capacity fixed|strict|elastic] [--egress-cap CE]
         [--ingress-cap CI] [--max-doublings K] [--grow-every R]
         [--profile WINDOWS] [--telemetry DIR [--hist]
-        [--harvest-every K]] [--trace PATH] [--memo] [--out FILE]
+        [--harvest-every K]] [--trace PATH] [--memo] [--worlds W]
+        [--out FILE]
 
 `--telemetry DIR`, `--hist`, `--harvest-every K` and `--trace PATH` are
 the JAX bench's BENCH_TELEMETRY, BENCH_HIST, BENCH_HARVEST_EVERY and
-BENCH_TRACE modes; `--memo` its BENCH_MEMO rep (`run_memo`).
+BENCH_TRACE modes; `--memo` its BENCH_MEMO rep (`run_memo`), `--worlds
+W` its BENCH_WORLDS rep (`run_worlds`: W worlds of the bench world
+through `elastic.drive_ensemble`, kernel "xla"; with `--trace PATH` its
+ledger goes to `PATH.worlds.jsonl`).
 """
 
 from __future__ import annotations
@@ -36,7 +40,8 @@ from .telemetry.harvest import TelemetryHarvester
 from .telemetry.metrics import make_metrics
 from .telemetry.tracer import RunTracer, backend_fingerprint
 from .tpu import pipeline
-from .tpu.elastic import RingPolicy, chain_spans, drive_chained_windows
+from .tpu.elastic import (RingPolicy, chain_spans, drive_chained_windows,
+                          drive_ensemble, stack_worlds, world_keys)
 from .tpu.plane import KERNELS, ingest_rows, unpack_planes, window_step
 from .tpu.profiling import build_world
 from .workloads.phold import respawn_batch
@@ -52,6 +57,34 @@ GOLDEN_PHOLD_DIGEST = (
 SPAWN_SEQ0 = 10_000
 # torch.profiler range over each window's routing stage (profile_windows)
 ROUTING_STAGE = "routing_stage"
+
+
+def _phold_round(state, params, seed, r: int, window: int, spawn_seq, *,
+                 kernel: str, plain_kernels: bool, metrics=None, hist=None):
+    """Window r of the PHOLD closed loop: `window_step` under `seed` (an
+    int seed or a key tensor), the respawn of what it delivered, and its
+    append. Returns (state', spawn_seq', the respawn mask [N, CI], the
+    ingress ring's drops [N] in the routing stage, the egress ring's in
+    the append, metrics', hist')."""
+    N, CI = state.in_src.shape
+    dropped = state.n_overflow_dropped
+    out = window_step(
+        state, params, seed, 0 if r == 0 else window, window,
+        rr_enabled=False, kernel=kernel, plain_kernels=plain_kernels,
+        metrics=metrics, hist=hist)
+    (state, delivered, _next), metrics, _g, hist, _f = unpack_planes(
+        out, metrics=metrics, hist=hist)
+    in_drops = state.n_overflow_dropped - dropped
+    dropped = state.n_overflow_dropped
+    mask, dst, nbytes, seq, ctrl = respawn_batch(delivered, spawn_seq, r, N,
+                                                 CI)
+    out = ingest_rows(state, dst, nbytes, seq, seq, ctrl, mask,
+                      metrics=metrics, hist=hist)
+    (state,), metrics, _g, hist, _f = unpack_planes(
+        out, metrics=metrics, hist=hist, n_lead=1)
+    eg_drops = state.n_overflow_dropped - dropped
+    spawn_seq = spawn_seq + mask.sum(dim=1, dtype=torch.int32)
+    return state, spawn_seq, mask, in_drops, eg_drops, metrics, hist
 
 
 def phold_chain_fn(world: dict, *, kernel: str = "pallas_fused",
@@ -71,32 +104,45 @@ def phold_chain_fn(world: dict, *, kernel: str = "pallas_fused",
         spawn_seq, total, *planes = extras
         metrics = planes[0] if planes else None
         hist = planes[1] if len(planes) > 1 else None
-        N, CI = state.in_src.shape
+        N = state.in_src.shape[0]
         zeros = lambda dt: torch.zeros(N, dtype=dt, device=spawn_seq.device)
         n_delivered = zeros(torch.int64).sum()
         eg_acc, in_acc = zeros(torch.int32), zeros(torch.int32)
         for r in range(r0, r1):
-            dropped = state.n_overflow_dropped
-            out = window_step(
-                state, params, seed, 0 if r == 0 else window, window,
-                rr_enabled=False, kernel=kernel, plain_kernels=plain_kernels,
-                metrics=metrics, hist=hist)
-            (state, delivered, _next), metrics, _g, hist, _f = unpack_planes(
-                out, metrics=metrics, hist=hist)
-            in_acc = in_acc + (state.n_overflow_dropped - dropped)
-            dropped = state.n_overflow_dropped
-            mask, dst, nbytes, seq, ctrl = respawn_batch(
-                delivered, spawn_seq, r, N, CI)
-            out = ingest_rows(state, dst, nbytes, seq, seq, ctrl, mask,
-                              metrics=metrics, hist=hist)
-            (state,), metrics, _g, hist, _f = unpack_planes(
-                out, metrics=metrics, hist=hist, n_lead=1)
-            eg_acc = eg_acc + (state.n_overflow_dropped - dropped)
-            spawn_seq = spawn_seq + mask.sum(dim=1, dtype=torch.int32)
+            (state, spawn_seq, mask, in_drops, eg_drops, metrics,
+             hist) = _phold_round(state, params, seed, r, window, spawn_seq,
+                                  kernel=kernel, plain_kernels=plain_kernels,
+                                  metrics=metrics, hist=hist)
+            in_acc = in_acc + in_drops
+            eg_acc = eg_acc + eg_drops
             n_delivered = n_delivered + mask.sum()
         extras = (spawn_seq, total + int(n_delivered),
                   *(metrics, hist)[:len(planes)])
         return state, extras, eg_acc, in_acc
+    return chain_fn
+
+
+def phold_keyed_chain_fn(world: dict, *, kernel: str = "xla"):
+    """The PHOLD chain with its key in the carry, the JAX bench's worlds
+    chain: extras = (key [2] int64, spawn_seq [N] int32, delivered total
+    0-d int32), every window drawn under that key, and nothing read back
+    to the host, so `elastic.drive_ensemble` vmaps it over worlds (each
+    with its `world_keys` key) as `drive_chained_windows` drives it solo.
+    Returns the driver's 4-tuple, the overflows as `phold_chain_fn`'s."""
+    params, window = world["params"], world["window"]
+
+    def chain_fn(state, extras, r0, r1):
+        key, spawn_seq, total = extras
+        eg_acc = torch.zeros_like(spawn_seq)
+        in_acc = torch.zeros_like(spawn_seq)
+        for r in range(r0, r1):
+            state, spawn_seq, mask, in_drops, eg_drops, _m, _h = \
+                _phold_round(state, params, key, r, window, spawn_seq,
+                             kernel=kernel, plain_kernels=False)
+            in_acc = in_acc + in_drops
+            eg_acc = eg_acc + eg_drops
+            total = total + mask.sum(dtype=torch.int32)
+        return state, (key, spawn_seq, total), eg_acc, in_acc
     return chain_fn
 
 
@@ -279,6 +325,85 @@ def run_phold(n_hosts: int = 32768, n_nodes: int = 64, egress_cap: int = 16,
                    "windows_per_sync": rounds / max(n_chains, 1)},
         "telemetry": telemetry_info,
         "trace": trace,
+    }
+
+
+def run_worlds(n_worlds: int, n_hosts: int = 32768, n_nodes: int = 64,
+               egress_cap: int = 16, ingress_cap: int = 32,
+               rounds: int = 192, chain_len: int | None = None, *,
+               kernel: str = "xla", solo_rate: float | None = None,
+               device=None,
+               warmup: bool = True, trace: str | None = None,
+               on_chain=None) -> dict:
+    """The JAX bench's BENCH_WORLDS rep: the keyed PHOLD chain
+    (`phold_keyed_chain_fn`) over `n_worlds` worlds through
+    `elastic.drive_ensemble`, each world the bench world (seed 0) under
+    its `world_keys` key (worlds 0..W-1 of the world's root key), one
+    host read a chain for the whole ensemble, fixed capacity, in chains
+    of `chain_len` (all `rounds` by default). With `warmup`, one untimed
+    run first, then the timed run on a fresh world. `trace=PATH` writes
+    the timed run's ledger (one `ensemble` span a chain) to
+    `PATH.worlds.jsonl`; `on_chain` goes to the driver.
+
+    Returns JAX's `worlds` record (n_worlds, driver, chain_len, events,
+    min_world_events, events_per_sec_sum: the ensemble's delivered +
+    sent packets over the timed wall seconds, and amortization_vs_solo:
+    that over `solo_rate`, the events/s of one solo run, None without
+    it), with the kernel, the wall seconds, each world's events and
+    the device beside it; "states" and "extras" hold the batched end
+    carry."""
+    if kernel not in KERNELS:
+        raise ValueError(f"kernel: expected one of {KERNELS}, got {kernel!r}")
+    if n_worlds < 1:
+        raise ValueError(f"n_worlds must be >= 1, got {n_worlds}")
+    device = resolve_device(device)
+    chain_len = chain_len or rounds
+    size = dict(n_nodes=n_nodes, egress_cap=egress_cap,
+                ingress_cap=ingress_cap, seed=0, warmup_windows=0,
+                device=device)
+    chain = phold_keyed_chain_fn(build_world(n_hosts, **size),
+                                 kernel=kernel)
+
+    def run(world, tracer=None, hook=None):
+        keys = world_keys(world["rng_root"], range(n_worlds), device=device)
+        extras = (keys, torch.full((n_worlds, n_hosts), SPAWN_SEQ0,
+                                   dtype=torch.int32, device=device),
+                  torch.zeros(n_worlds, dtype=torch.int32, device=device))
+        return drive_ensemble(stack_worlds(world["state"], n_worlds), extras,
+                              chain, n_rounds=rounds, chain_len=chain_len,
+                              tracer=tracer, on_chain=hook)
+
+    if warmup:
+        run(build_world(n_hosts, **size))
+    world = build_world(n_hosts, **size)
+    tracer = None
+    if trace:
+        tracer = RunTracer(
+            "bench-worlds", backend=backend_fingerprint(device),
+            meta={"worlds": n_worlds, "hosts": n_hosts, "rounds": rounds,
+                  "chain_len": chain_len, "kernel": kernel})
+    _sync(device)
+    t0 = time.perf_counter()
+    states, extras = run(world, tracer, on_chain)
+    per_world = (extras[2].to(torch.int64)
+                 + states.n_sent.sum(dim=1, dtype=torch.int64)).tolist()
+    wall = time.perf_counter() - t0
+    if tracer is not None:
+        tracer.close(wall_s=round(wall, 6))
+        tracer.write(trace + ".worlds.jsonl")
+    events = sum(per_world)
+    rate = events / wall
+    return {
+        "n_worlds": n_worlds, "driver": "drive_ensemble",
+        "chain_len": chain_len, "events": events,
+        "min_world_events": min(per_world),
+        "events_per_sec_sum": rate,
+        # the ensemble's summed rate over one solo run's: above 1, the
+        # world axis buys throughput that W solo runs in turn would not
+        "amortization_vs_solo": (rate / solo_rate if solo_rate else None),
+        "kernel": kernel, "wall_s": wall, "world_events": per_world,
+        "rounds": rounds, "n_hosts": n_hosts, "device": str(device),
+        "states": states, "extras": extras,
     }
 
 
@@ -538,6 +663,12 @@ def main(argv=None):
                     help="also run the memo rep: a 16-host ring allreduce "
                          "over 4096 windows in chains of 64, cold and "
                          "memoized, with the digest parity bit")
+    ap.add_argument("--worlds", type=int, default=0, metavar="W",
+                    help="also run the ensemble rep: the keyed PHOLD chain "
+                         "over W worlds through drive_ensemble, kernel xla "
+                         "(the JSON's `worlds` record; its "
+                         "amortization_vs_solo is against the solo run of "
+                         "--kernel)")
     ap.add_argument("--out", default=None, help="write the JSON here too")
     args = ap.parse_args(argv)
     try:
@@ -551,6 +682,14 @@ def main(argv=None):
         ap.error(str(e))
     rec = {k: v for k, v in res.items()
            if k not in ("state", "metrics", "hist")}
+    if args.worlds:
+        worlds = run_worlds(args.worlds, egress_cap=args.egress_cap,
+                            ingress_cap=args.ingress_cap,
+                            solo_rate=res["packet_events_per_sec"],
+                            trace=args.trace)
+        rec["worlds"] = {k: v for k, v in worlds.items()
+                         if k not in ("states", "extras")}
+        rec["worlds"]["solo_kernel"] = args.kernel
     if args.memo:
         rec["memo"] = run_memo()
     if torch.cuda.is_available():

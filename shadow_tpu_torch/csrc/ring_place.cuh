@@ -19,6 +19,15 @@
 // select before the TPU kernel). The rings are updated in place: a slot
 // that changes is the only one written.
 //
+// An ensemble of W worlds is one launch over W * N rows: the rows are the
+// worlds' rows one world after another, `world_rows` (N) a world, and
+// o_pos, row_perm, src and the arrival index j are each world's own (as in
+// a solo launch), so a row reads only its world's arrivals: with base =
+// (row / world_rows) * world_rows * CE, the first flat egress slot of the
+// row's world, p = o_pos[base + j], g = base + src * CE + row_perm[base +
+// p], and j is inside when 0 <= j < world_rows * CE. A solo launch has
+// world_rows = n_rows and base = 0.
+//
 // What bounds it on the card: not bytes. At the main path's shape (N=32768,
 // CE=16, CI=32) a window places ~49 k of the 1,048,576 slots; the kernel
 // reads 12 B a row, valid + deliver (5 B) a slot, and 8 + 4 + 16 B for a
@@ -54,11 +63,12 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr int kI32Max = 0x7fffffff;
 
 struct Args {
-  int n_rows;      // N: destination rows, and source rows
+  int n_rows;      // W * N: destination rows, and source rows
+  int world_rows;  // N: the rows of one world
   int ci;          // ingress ring width
   int ce;          // egress row width
   int seg;         // lanes a destination row: a power of two <= 32
-  int64_t n_items; // N * CE arrivals
+  int64_t n_items; // N * CE arrivals a world
   const int* nv;
   const int* offsets;
   const int* take;
@@ -104,6 +114,8 @@ __device__ __forceinline__ void place_rows(const Args& a) {
   off = __shfl_sync(kFull, off, 0, seg);
   t0 = __shfl_sync(kFull, t0, 0, seg);
   if (!live_row) return;
+  // the first flat egress slot of the row's world
+  const int64_t base = (row / a.world_rows) * a.world_rows * a.ce;
   const int64_t first = n0;
   const int64_t end = first + t0;
   const int64_t lo = static_cast<int64_t>(off) - n0;
@@ -126,12 +138,13 @@ __device__ __forceinline__ void place_rows(const Args& a) {
       inside[k] = placed[k] && j[k] >= 0 && j[k] < a.n_items;
     }
 #pragma unroll
-    for (int k = 0; k < kSlots; ++k) p[k] = inside[k] ? a.o_pos[j[k]] : 0;
+    for (int k = 0; k < kSlots; ++k)
+      p[k] = inside[k] ? a.o_pos[base + j[k]] : 0;
 #pragma unroll
     for (int k = 0; k < kSlots; ++k) {
       if (inside[k]) {
         const int64_t s = p[k] / a.ce;
-        g[k] = s * a.ce + a.row_perm[p[k]];
+        g[k] = base + s * a.ce + a.row_perm[base + p[k]];
         src[k] = static_cast<int>(s);
       } else {
         g[k] = 0;
@@ -162,8 +175,9 @@ __device__ __forceinline__ void place_rows(const Args& a) {
 }
 
 // Fill Args from the launchers' plain C arguments (see route_place.cu).
-inline Args make_args(int n_rows, int ci, int ce, const void* nv,
-                      const void* offsets, const void* take, const void* o_pos,
+inline Args make_args(int n_rows, int world_rows, int ci, int ce,
+                      const void* nv, const void* offsets, const void* take,
+                      const void* o_pos,
                       const void* row_perm, const void* eg_seq,
                       const void* eg_sock, const void* eg_bytes,
                       const void* deliver_rel, void* in_src, void* in_seq,
@@ -171,10 +185,11 @@ inline Args make_args(int n_rows, int ci, int ce, const void* nv,
                       void* in_valid) {
   Args a;
   a.n_rows = n_rows;
+  a.world_rows = world_rows;
   a.ci = ci;
   a.ce = ce;
   a.seg = segment_lanes(ci);
-  a.n_items = static_cast<int64_t>(n_rows) * ce;
+  a.n_items = static_cast<int64_t>(world_rows) * ce;
   a.nv = static_cast<const int*>(nv);
   a.offsets = static_cast<const int*>(offsets);
   a.take = static_cast<const int*>(take);

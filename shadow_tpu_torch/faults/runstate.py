@@ -15,7 +15,10 @@ per-array sha256, the schema stamp ``runstate-v1``):
   recorded as ``none_paths``, so a resume under other switches is
   refused by name;
 - the root key's words when the caller has one, the round and the
-  virtual clock;
+  virtual clock; a key riding the carry (an int64 [..., 2] key tensor,
+  `prims.key_tensor`, `elastic.world_keys`) is written at its path as
+  the uint32 key words, where JAX writes `jax.random.key_data` of its
+  typed key, when its path is among ``key_paths``;
 - the capacity policy's growth history (the grown shapes ride the
   arrays: `restore_carry` takes the structure from the template and the
   shapes from the file);
@@ -61,13 +64,25 @@ def _is_namedtuple(node) -> bool:
     return isinstance(node, tuple) and hasattr(node, "_fields")
 
 
-def flatten_carry(carry, prefix: str = "carry", *, host: bool = False):
+def _key_words(path: str, a: np.ndarray) -> np.ndarray:
+    """A key leaf's host array as JAX's key words: uint32 [..., 2]."""
+    if a.shape[-1:] != (2,) or a.dtype.kind not in "iu" or (
+            a.size and (a.min() < 0 or a.max() > 0xFFFFFFFF)):
+        raise ValueError(f"carry leaf {path!r} is not a key: "
+                         f"{a.dtype}{a.shape}")
+    return a.astype(np.uint32)
+
+
+def flatten_carry(carry, prefix: str = "carry", *, host: bool = False,
+                  key_paths=()):
     """Flatten a driver carry into path-named host arrays.
 
     `carry` holds tensors (copied to the host in the JAX dtypes with one
     synchronise), or with ``host=True`` is already `convert.carry_to_host`
-    output. Returns ``(arrays, none_paths)``: every leaf under its
-    structural path and the sorted paths of the ``None`` subtrees."""
+    output. The leaves at ``key_paths`` are key tensors, written as
+    uint32 key words (JAX's dtype for a spilled key). Returns
+    ``(arrays, none_paths)``: every leaf under its structural path and
+    the sorted paths of the ``None`` subtrees."""
     if not host:
         carry = carry_to_host(carry)
     arrays: dict[str, np.ndarray] = {}
@@ -92,6 +107,8 @@ def flatten_carry(carry, prefix: str = "carry", *, host: bool = False):
         arrays[path] = np.asarray(node)
 
     rec(carry, prefix)
+    for path in key_paths:
+        arrays[path] = _key_words(path, arrays[path])
     return arrays, sorted(nones)
 
 
@@ -102,7 +119,8 @@ _NP_OF = {torch.bool: np.dtype(bool), torch.int32: np.dtype(np.int32),
 
 
 def restore_carry(template, arrays, *, none_paths=(),
-                  prefix: str = "carry", source: str = "<checkpoint>"):
+                  prefix: str = "carry", source: str = "<checkpoint>",
+                  key_paths=()):
     """Inverse of `flatten_carry`: the template's structure with the
     checkpoint's leaves as tensors on each template leaf's device, in
     the port's dtypes (a Python number leaf comes back as a Python
@@ -114,7 +132,8 @@ def restore_carry(template, arrays, *, none_paths=(),
     (`CheckpointError`, naming the path): a leaf the template expects and
     the file lacks; a leaf whose dtype is not the template's; a plane
     this run has off that the checkpoint recorded; a plane this run has
-    on that the checkpoint recorded as ``None``."""
+    on that the checkpoint recorded as ``None``. A leaf at
+    ``key_paths`` is read as uint32 key words into an int64 key tensor."""
     none_set = set(none_paths)
 
     def rec(node, path: str, owner: str = "", field: str = ""):
@@ -152,11 +171,14 @@ def restore_carry(template, arrays, *, none_paths=(),
         arr = np.asarray(arrays[path])
         if not isinstance(node, torch.Tensor):
             return type(node)(arr.item())
-        want = HOST_DTYPES.get((owner, field), _NP_OF.get(node.dtype))
+        want = (np.uint32 if path in key_paths else
+                HOST_DTYPES.get((owner, field), _NP_OF.get(node.dtype)))
         if want is not None and arr.dtype != np.dtype(want):
             raise CheckpointError(
                 f"{source}: carry leaf {path!r} is {arr.dtype} in the "
                 f"checkpoint, {np.dtype(want)} in this run")
+        if path in key_paths:
+            return torch.from_numpy(arr.astype(np.int64)).to(node.device)
         return leaf_to_device(owner, field, arr, node.device)
 
     return rec(template, prefix)
@@ -166,7 +188,11 @@ class RunCheckpointer:
     """Periodic full-run checkpoints at chain boundaries.
 
     Construct one per run and hand it to
-    ``drive_chained_windows(checkpointer=)``. The driver merges `cut_rounds` into its
+    ``drive_chained_windows(checkpointer=)`` or
+    ``drive_ensemble(checkpointer=)`` (an ensemble's batched carry, [W,
+    ...] leaves, goes to one file). ``key_paths`` names the carry's key
+    leaves (e.g. ``"carry.1.0"``), written as JAX's uint32 key words.
+    The driver merges `cut_rounds` into its
     boundary set (so checkpoint instants are chain cuts even when
     ``every`` is not a multiple of ``chain_len`` — bitwise-invisible
     by the chain-length theorem) and calls `save` at every due
@@ -184,7 +210,7 @@ class RunCheckpointer:
                  window_ns: int = 0, rng_key_data=None,
                  schedule=None, policy=None, memo=None,
                  extra_meta: Optional[dict] = None,
-                 kill_after: Optional[int] = None):
+                 kill_after: Optional[int] = None, key_paths=()):
         if every < 1:
             raise ValueError(f"checkpoint every must be >= 1, got {every}")
         if keep < 1:
@@ -199,6 +225,7 @@ class RunCheckpointer:
         self.policy = policy
         self.memo = memo
         self.extra_meta = dict(extra_meta or {})
+        self.key_paths = tuple(key_paths)
         # CI/test crash point: die with SIGKILL's exit code the
         # instant the checkpoint for this round is durable — the
         # kill/resume parity gate's deterministic "preemption"
@@ -232,7 +259,8 @@ class RunCheckpointer:
         round trip). `save_ms` keeps the host milliseconds of each save,
         the file's fsync and rename included."""
         t0 = time.perf_counter()
-        arrays, none_paths = flatten_carry(carry, host=host)
+        arrays, none_paths = flatten_carry(carry, host=host,
+                                           key_paths=self.key_paths)
         meta: dict[str, Any] = {
             "kind": "runstate",
             "label": self.label,
@@ -323,7 +351,7 @@ def load_runstate(path: str) -> tuple[dict, dict[str, np.ndarray]]:
 
 
 def resume_carry(path: str, template_carry, *, schedule=None,
-                 policy=None, memo=None) -> dict:
+                 policy=None, memo=None, key_paths=()) -> dict:
     """One-call resume: load, verify, rebuild the carry, and restore
     the host-side companions.
 
@@ -338,7 +366,7 @@ def resume_carry(path: str, template_carry, *, schedule=None,
     meta, arrays = load_runstate(path)
     carry = restore_carry(template_carry, arrays,
                           none_paths=meta.get("none_paths", ()),
-                          source=path)
+                          source=path, key_paths=key_paths)
     out: dict[str, Any] = {
         "round": int(meta["round"]),
         "carry": carry,

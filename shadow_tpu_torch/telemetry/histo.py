@@ -138,3 +138,31 @@ def fleet_percentiles(hist_nb, qs=QUANTILES) -> dict:
     if isinstance(hist_nb, torch.Tensor):
         hist_nb = hist_nb.detach().cpu().numpy()
     return percentiles(np.asarray(hist_nb, np.int64).sum(axis=0), qs)
+
+
+def ensemble_percentiles(world_counts, qs=QUANTILES) -> dict:
+    """Percentiles across an ensemble of worlds: `world_counts` holds one
+    [B] bucket-count vector a world for the same histogram (arrays or
+    tensors; a [W, B] tensor is W of them). Each world's quantiles come
+    from `percentiles` alone, then each quantile's spread over the
+    worlds is reported as ``{"p99": {"min": ..., "median": ..., "max":
+    ..., "worlds": W}, ...}``. The median is `statistics.median` (the
+    mean of the middle two for an even W); a world with an empty
+    histogram counts, with percentiles 0; no worlds raises ValueError.
+    The JAX `ensemble_percentiles`."""
+    import statistics
+
+    if isinstance(world_counts, torch.Tensor):
+        world_counts = list(world_counts.detach().cpu().numpy())
+    if len(world_counts) == 0:
+        raise ValueError(
+            "ensemble_percentiles needs >= 1 world bucket vector")
+    per_world = [percentiles(c.detach().cpu().numpy()
+                             if isinstance(c, torch.Tensor) else c, qs)
+                 for c in world_counts]
+    out = {}
+    for key in per_world[0]:
+        vals = sorted(p[key] for p in per_world)
+        out[key] = {"min": vals[0], "median": statistics.median(vals),
+                    "max": vals[-1], "worlds": len(vals)}
+    return out

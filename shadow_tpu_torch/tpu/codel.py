@@ -30,6 +30,7 @@ from typing import NamedTuple
 
 import torch
 
+from .ops import row_op
 from .prims import I32_MAX, floordiv, floormod, wrap_i32
 
 MILLISECOND = 1_000_000
@@ -181,12 +182,14 @@ def _col(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.gather(a, 1, idx.long()[:, None])[:, 0]
 
 
-def _put(a: torch.Tensor, idx, cond, value):
-    """In place: a[row, idx[row]] = value where cond (the JAX `.at[e].set(
-    where(cond, value, a[e]))` on one column a row)."""
+def _put(a: torch.Tensor, idx, cond, value) -> torch.Tensor:
+    """`a` with a[row, idx[row]] = value where cond (the JAX `.at[e].set(
+    where(cond, value, a[e]))` on one column a row), as a new tensor: out
+    of place, so a drain under `torch.func.vmap` writes no tensor that
+    is shared by the worlds."""
     idx = idx.long()[:, None]
     old = torch.gather(a, 1, idx)[:, 0]
-    a.scatter_(1, idx, torch.where(cond, value, old)[:, None])
+    return a.scatter(1, idx, torch.where(cond, value, old)[:, None])
 
 
 def _pushed_bytes(arrival, size):
@@ -250,8 +253,9 @@ def codel_drain(arrival: torch.Tensor, size: torch.Tensor,
         n_phase = torch.where(pop_done, _PH_START, n_phase)
         consume = consume & active
         pop_done = pop_done & active
-        _put(status, e, consume, rec_status)
-        _put(deliver_t, e, consume & (rec_status == STATUS_DELIVERED), now)
+        status = _put(status, e, consume, rec_status)
+        deliver_t = _put(deliver_t, e,
+                         consume & (rec_status == STATUS_DELIVERED), now)
         sel = lambda new, old: torch.where(active, new, old)
         mode, has_ie, ie = sel(n_mode, mode), sel(n_has_ie, has_ie), \
             sel(n_ie, ie)
@@ -413,9 +417,9 @@ def _router_drain_loop(arrival, size, window_ns: int, dn_rate, dn_cap,
         lref = torch.where(resume_ok, r_lref, lref)
         row_cached = c_idx >= 0
         ci = torch.clamp(c_idx, 0, K - 1)
-        _put(status, ci, r_fwd & row_cached,
-             torch.full_like(ci, STATUS_DELIVERED))
-        _put(deliver_t, ci, r_fwd & row_cached, resume)
+        status = _put(status, ci, r_fwd & row_cached,
+                      torch.full_like(ci, STATUS_DELIVERED))
+        deliver_t = _put(deliver_t, ci, r_fwd & row_cached, resume)
         co_mask = co_mask | (r_fwd & ~row_cached)
         co_t = torch.where(r_fwd & ~row_cached, resume, co_t)
         has_c = has_c & ~r_fwd
@@ -461,8 +465,9 @@ def _router_drain_loop(arrival, size, window_ns: int, dn_rate, dn_cap,
         n_phase = torch.where(fwd, _PH_START, n_phase)
 
         gc = in_chain & consume
-        _put(status, e, gc, rec_status)
-        _put(deliver_t, e, gc & (rec_status == STATUS_DELIVERED), now)
+        status = _put(status, e, gc, rec_status)
+        deliver_t = _put(deliver_t, e, gc & (rec_status == STATUS_DELIVERED),
+                         now)
         sel = lambda new, old: torch.where(in_chain, new, old)
         mode, has_ie, ie = sel(n_mode, mode), sel(n_has_ie, has_ie), \
             sel(n_ie, ie)
@@ -498,34 +503,24 @@ def router_drain_plain(arrival: torch.Tensor, size: torch.Tensor,
                               state)[:6]
 
 
-def router_drain(arrival: torch.Tensor, size: torch.Tensor, window_ns: int,
-                 dn_rate: torch.Tensor, dn_cap: torch.Tensor,
-                 state: RouterDownState, *, plain: bool = False):
-    """Kernel E (`csrc/router_drain.cu`) on CUDA tensors, its plain
-    version (`router_drain_plain`, the same function) on CPU tensors or
-    with `plain=True`. Every output is a fresh tensor; the input state is
-    not written. A row too wide for the kernel to stage in shared memory
-    is refused by its launcher (RuntimeError)."""
-    dev = arrival.device
-    if plain or dev.type == "cpu":
-        return router_drain_plain(arrival, size, window_ns, dn_rate, dn_cap,
-                                  state)
+def _router_drain_impl(arrival, size, dn_rate, dn_cap, *args):
+    """The `router_drain` op: `router_drain_plain` on CPU tensors, kernel
+    E on CUDA tensors. The arguments after dn_cap are the state's
+    DRAIN_FIELDS, then window_ns; returns the drained fields in that
+    order, then status, deliver_t, co_mask, co_t and cached_idx."""
+    *fields, window_ns = args
+    if arrival.device.type == "cpu":
+        st = RouterDownState(**dict(zip(DRAIN_FIELDS, fields)),
+                             cached_src=None, cached_seq=None,
+                             cached_sock=None)
+        st_out, *rest = router_drain_plain(arrival, size, window_ns, dn_rate,
+                                           dn_cap, st)
+        return (*(getattr(st_out, f) for f in DRAIN_FIELDS), *rest)
     from . import pipeline
 
     N, K = arrival.shape
-    if not -2**31 <= int(window_ns) < 2**31:
-        raise ValueError(f"router_drain: window_ns {window_ns} is not int32")
-    pipeline._check("arrival", arrival, torch.int32, (N, K), dev)
-    pipeline._check("size", size, torch.int32, (N, K), dev)
-    for name, t in (("dn_rate", dn_rate), ("dn_cap", dn_cap)):
-        pipeline._check(name, t, torch.int32, (N,), dev)
-    ins = []
-    for f in DRAIN_FIELDS:
-        t = getattr(state, f)
-        dt = torch.bool if f.startswith("has_") else torch.int32
-        pipeline._check(f"state.{f}", t, dt, (N,), dev)
-        ins.append(t)
-    outs = [torch.empty_like(t) for t in ins]
+    dev = arrival.device
+    outs = [torch.empty_like(t) for t in fields]
     status = torch.empty((N, K), dtype=torch.int32, device=dev)
     deliver_t = torch.empty((N, K), dtype=torch.int32, device=dev)
     co_mask = torch.empty(N, dtype=torch.bool, device=dev)
@@ -533,8 +528,50 @@ def router_drain(arrival: torch.Tensor, size: torch.Tensor, window_ns: int,
     cached_idx = torch.empty(N, dtype=torch.int32, device=dev)
     if N:
         pipeline._launch("router_drain", N, K, int(window_ns), arrival,
-                         size, dn_rate, dn_cap, ctrl_table(dev), *ins,
+                         size, dn_rate, dn_cap, ctrl_table(dev), *fields,
                          *outs, status, deliver_t, co_mask, co_t,
                          cached_idx)
-    st_out = state._replace(**dict(zip(DRAIN_FIELDS, outs)))
-    return st_out, status, deliver_t, co_mask, co_t, cached_idx
+    return (*outs, status, deliver_t, co_mask, co_t, cached_idx)
+
+
+_router_drain_op = row_op(
+    "router_drain", _router_drain_impl,
+    "(Tensor arrival, Tensor size, Tensor dn_rate, Tensor dn_cap, "
+    + ", ".join(f"Tensor {f}" for f in DRAIN_FIELDS)
+    + ", int window_ns) -> ("
+    + ", ".join(["Tensor"] * (len(DRAIN_FIELDS) + 5)) + ")")
+
+
+def router_drain(arrival: torch.Tensor, size: torch.Tensor, window_ns: int,
+                 dn_rate: torch.Tensor, dn_cap: torch.Tensor,
+                 state: RouterDownState, *, plain: bool = False):
+    """Kernel E (`csrc/router_drain.cu`) on CUDA tensors, its plain
+    version (`router_drain_plain`, the same function) on CPU tensors or
+    with `plain=True`. Every output is a fresh tensor; the input state is
+    not written. A row too wide for the kernel to stage in shared memory
+    is refused by its launcher (RuntimeError). Both go through the op
+    `shadow_tpu_torch::router_drain` (unless `plain`), whose vmap rule
+    drains every world of an ensemble in one launch, one thread a host."""
+    if plain:
+        return router_drain_plain(arrival, size, window_ns, dn_rate, dn_cap,
+                                  state)
+    dev = arrival.device
+    if dev.type != "cpu":
+        from . import pipeline
+
+        N, K = arrival.shape
+        if not -2**31 <= int(window_ns) < 2**31:
+            raise ValueError(
+                f"router_drain: window_ns {window_ns} is not int32")
+        pipeline._check("arrival", arrival, torch.int32, (N, K), dev)
+        pipeline._check("size", size, torch.int32, (N, K), dev)
+        for name, t in (("dn_rate", dn_rate), ("dn_cap", dn_cap)):
+            pipeline._check(name, t, torch.int32, (N,), dev)
+        for f in DRAIN_FIELDS:
+            dt = torch.bool if f.startswith("has_") else torch.int32
+            pipeline._check(f"state.{f}", getattr(state, f), dt, (N,), dev)
+    out = _router_drain_op(arrival, size, dn_rate, dn_cap,
+                           *(getattr(state, f) for f in DRAIN_FIELDS),
+                           int(window_ns))
+    n = len(DRAIN_FIELDS)
+    return (state._replace(**dict(zip(DRAIN_FIELDS, out[:n]))), *out[n:])

@@ -5,7 +5,8 @@ Counterpart of `shadow_tpu/tpu/elastic.py`: `ring_dims`, `grow_state`,
 `drive_chained_windows` under the capacity policy of
 `core/capacity.py`, with the memo (`tpu/memo.py`), the run tracer
 (`telemetry/tracer.py`), the full-run checkpointer
-(`faults/runstate.py`) and per-round inputs.
+(`faults/runstate.py`) and per-round inputs; and the ensemble driver
+`drive_ensemble` with its per-world keys (`world_key`, `world_keys`).
 
 Growth is invisible to the window step: live lanes are front-packed, so
 they keep their columns when a ring widens; every sort in `window_step`
@@ -31,7 +32,8 @@ import torch
 
 from ..core.capacity import (CAPACITY_MODES, CapacityError,  # noqa: F401
                              CapacityTrajectory, RingPolicy, next_pow2)
-from .prims import I32_MAX, NO_CLAMP
+from .. import resolve_device
+from .prims import I32_MAX, NO_CLAMP, fold_in
 
 
 def ring_dims(state) -> tuple[int, int]:
@@ -326,3 +328,118 @@ def drive_chained_windows(state, extras, chain_fn, *, n_rounds: int,
     if stale:
         _upload()
     return state, extras
+
+
+def world_key(rng_root, seed):
+    """The per-world RNG key: `fold_in(rng_root, seed)`, bitwise
+    `jax.random.key_data(jax.random.fold_in(root, seed))`. `rng_root` is
+    an int seed (the root `jax.random.key(seed)`) or a key tensor; the
+    result is an int64 [2] key tensor that `window_step` takes as its
+    `rng_seed`. One threefry block under a fixed key is a bijection of
+    the seed, so distinct 32-bit seeds give distinct world keys."""
+    return fold_in(rng_root, seed)
+
+
+def world_keys(rng_root, seeds, device=None) -> torch.Tensor:
+    """The keys of worlds `seeds` (ints, an int array or tensor), [W, 2]:
+    the `world_key` of each, in one batched threefry call, on `device`
+    (the card by default, as every entry point; a key tensor root's own
+    device when it is one and `device` is None)."""
+    if isinstance(rng_root, torch.Tensor) and device is None:
+        dev = rng_root.device
+    else:
+        dev = resolve_device(device)
+        if isinstance(rng_root, torch.Tensor):
+            rng_root = rng_root.to(dev)
+    seeds = torch.as_tensor(seeds).to(device=dev, dtype=torch.int64)
+    return world_key(rng_root, seeds)
+
+
+def _map_leaves(fn, tree):
+    """`tree` (tuples, NamedTuples, lists, dicts) with `fn` applied to
+    every leaf: a tensor, or anything else (None for a plane that is
+    off, a Python number)."""
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_map_leaves(fn, v) for v in tree))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_map_leaves(fn, v) for v in tree)
+    if isinstance(tree, dict):
+        return {k: _map_leaves(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def stack_worlds(tree, n_worlds: int):
+    """`n_worlds` copies of a solo carry as one batched carry: every
+    tensor leaf repeated on a new leading world axis."""
+    return _map_leaves(lambda t: torch.stack([t] * n_worlds)
+                       if isinstance(t, torch.Tensor) else t, tree)
+
+
+def world_slice(tree, w: int):
+    """World `w` of a batched carry, as a solo carry (views)."""
+    return _map_leaves(lambda t: t[w] if isinstance(t, torch.Tensor) else t,
+                       tree)
+
+
+def drive_ensemble(states, extras, chain_fn, *, n_rounds: int,
+                   chain_len: int, start_round: int = 0, boundaries=(),
+                   per_round=None, per_round_axis=None, on_chain=None,
+                   tracer=None, checkpointer=None):
+    """W independent worlds run the same chained-window schedule as one
+    batched program: `torch.func.vmap` of the very `chain_fn` that
+    `drive_chained_windows` drives solo, over the leading world axis of
+    `states` and of every tensor of `extras`, the JAX driver's
+    `jax.vmap`. The round bounds (r0, r1) are shared, so every world
+    sees the same chain partition as its solo run (`chain_spans`);
+    per-world inputs (the `world_keys`, schedules, workload parameters)
+    ride `extras`, or `per_round(r0, r1)` (a fifth `chain_fn` argument)
+    batched on `per_round_axis` (None: shared).
+
+    Every hand-written kernel the chain reaches is a custom op whose
+    vmap rule launches it once for all W worlds (`tpu/ops.py`): a chain
+    of K windows launches each of its kernels K times, whatever W.
+
+    As in JAX: no capacity policy (ring growth is per world, and one
+    world's growth would reshape every world's rings), so ensembles run
+    at fixed capacity and the chain's overflow counts are dropped;
+    `on_chain(r1, states, extras)` once a chain, for the whole ensemble
+    (a (states, extras) pair it returns replaces the carry);
+    `tracer` gets one `mode="ensemble"` span a chain (dispatch and hook
+    milliseconds from host clocks, no synchronise); `checkpointer`'s
+    instants join the boundaries and it saves the batched carry, [W,
+    ...] leaves, in one file. Returns the final batched (states,
+    extras)."""
+    def vchain(states, extras, *args):
+        # every tensor of the carry is batched; a leaf that is not one
+        # (a plane that is off) is not
+        in_dims = (0, _map_leaves(
+            lambda t: 0 if isinstance(t, torch.Tensor) else None, extras),
+            None, None)
+        if per_round is not None:
+            in_dims += (per_round_axis,)
+        return torch.func.vmap(chain_fn, in_dims=in_dims)(
+            states, extras, *args)
+
+    if checkpointer is not None:
+        boundaries = tuple(boundaries) + checkpointer.cut_rounds(n_rounds)
+    clock = tracer.clock if tracer is not None else (lambda: 0.0)
+    for r0, r1 in chain_spans(n_rounds, chain_len, start_round=start_round,
+                              boundaries=boundaries):
+        t0 = clock()
+        args = (r0, r1) if per_round is None else (r0, r1,
+                                                   per_round(r0, r1))
+        states, extras, _eg, _in = vchain(states, extras, *args)
+        dispatch_ms = (clock() - t0) * 1e3
+        hook_ms = 0.0
+        if on_chain is not None:
+            th = clock()
+            replaced = on_chain(r1, states, extras)
+            hook_ms = (clock() - th) * 1e3
+            if replaced is not None:
+                states, extras = replaced
+        if tracer is not None:
+            tracer.span(r0, r1, mode="ensemble", t0=t0,
+                        dispatch_ms=dispatch_ms, hook_ms=hook_ms)
+        if checkpointer is not None and checkpointer.due(r1, n_rounds):
+            checkpointer.save(r1, (states, extras), tracer=tracer)
+    return states, extras

@@ -37,6 +37,18 @@ for the plain version (`plain=True`, `window_step(plain_kernels=True)`).
 router AQM's drain (`codel.router_drain`), launches through `_launch`
 and counts here too.
 
+Each kernel is a `torch.library.custom_op` (`shadow_tpu_torch::<name>`;
+kernel E's in `codel`) whose implementation runs the plain version on
+CPU tensors and launches the kernel on CUDA tensors, with a vmap rule
+(`register_vmap`): under `torch.func.vmap`, as `elastic.drive_ensemble`
+runs a chain, the rule folds the world axis into the host rows and
+calls the op once, so one launch (and one count) serves all W worlds
+(`ops.fold_worlds`). Kernels A, C and E work row by row and need nothing
+more; B and D take `world_rows`, the rows of one world, so a row reads
+only its own world's arrivals. The wrappers check dtypes, shapes and
+devices on the tensors they are given (under vmap, each world's); the
+ops check what needs the storage (distinct rings, kernel C's alignment).
+
 The split pair's plain versions are also the JAX XLA path's egress and
 routing stages: `egress_gate_plain` is `_egress_order` + `_token_gate`
 (with the round-robin tiebreak key), and `route_scatter(plain=True)` is
@@ -51,6 +63,7 @@ import ctypes
 import torch
 
 from .._build import load_kernel
+from .ops import custom_op, fold_worlds, row_op
 from .plane import _routing_rank, _seq_row_order
 from .prims import (_SIGN32, I32_MAX, NO_CLAMP, _row_perm_sort, take, u32,
                     wrap_i32)
@@ -176,17 +189,15 @@ def egress_gate_plain(valid, prio, nbytes, tsend, clamp, balance,
     return perm, bytes_s, tsend_s, clamp_s, valid_s, sendable, spent
 
 
-def egress_order_gate(valid, prio, nbytes, tsend, clamp, balance,
+def _egress_gate_impl(valid, prio, nbytes, tsend, clamp, balance,
                       shift_ns: int):
-    """Kernel C: the split path's egress order and token gate, bitwise
-    the TPU kernel's outputs after its wrapper (see `egress_gate_plain`
-    for the layout)."""
-    N, CE, dev = _egress_checks(valid, dict(
-        valid=valid, prio=prio, nbytes=nbytes, tsend=tsend, clamp=clamp),
-        balance)
-    if dev.type == "cpu":
+    """The `egress_gate` op: the plain version on CPU tensors, kernel C
+    on CUDA tensors (the checks of `egress_order_gate` done)."""
+    if valid.device.type == "cpu":
         return egress_gate_plain(valid, prio, nbytes, tsend, clamp, balance,
                                  shift_ns)
+    N, CE = valid.shape
+    dev = valid.device
     for name, t in (("valid", valid), ("prio", prio), ("nbytes", nbytes),
                     ("tsend", tsend), ("clamp", clamp)):
         # the kernel moves each thread's 4 slots as one vector
@@ -200,6 +211,23 @@ def egress_order_gate(valid, prio, nbytes, tsend, clamp, balance,
     _launch("egress_gate", N, CE, int(shift_ns), valid, prio, nbytes, tsend,
             clamp, balance, *outs)
     return outs
+
+
+_egress_gate_op = row_op(
+    "egress_gate", _egress_gate_impl,
+    "(Tensor valid, Tensor prio, Tensor nbytes, Tensor tsend, Tensor clamp, "
+    "Tensor balance, int shift_ns) -> (" + ", ".join(["Tensor"] * 7) + ")")
+
+
+def egress_order_gate(valid, prio, nbytes, tsend, clamp, balance,
+                      shift_ns: int):
+    """Kernel C: the split path's egress order and token gate, bitwise
+    the TPU kernel's outputs after its wrapper (see `egress_gate_plain`
+    for the layout)."""
+    _egress_checks(valid, dict(valid=valid, prio=prio, nbytes=nbytes,
+                               tsend=tsend, clamp=clamp), balance)
+    return _egress_gate_op(valid, prio, nbytes, tsend, clamp, balance,
+                           int(shift_ns))
 
 
 # ---------------------------------------------------------------------------
@@ -223,23 +251,41 @@ def egress_rank_plain(valid, prio, nbytes, tsend, clamp, dst, seq, sock,
             spent, _seq_row_order(seq_s))
 
 
+_EGRESS_RANK_INS = ("valid", "prio", "nbytes", "tsend", "clamp", "dst", "seq",
+                    "sock", "ctrl", "balance")
+
+
+def _egress_rank_impl(valid, prio, nbytes, tsend, clamp, dst, seq, sock,
+                      ctrl, balance, shift_ns: int):
+    """The `egress_rank` op: the plain version on CPU tensors, kernel A
+    on CUDA tensors (the checks of `egress_rank_stage` done)."""
+    ins = (valid, prio, nbytes, tsend, clamp, dst, seq, sock, ctrl, balance)
+    if valid.device.type == "cpu":
+        return egress_rank_plain(*ins, shift_ns)
+    N, CE = valid.shape
+    dev = valid.device
+    i32 = lambda: torch.empty((N, CE), dtype=torch.int32, device=dev)
+    b8 = lambda: torch.empty((N, CE), dtype=torch.bool, device=dev)
+    outs = (i32(), i32(), i32(), i32(), i32(), b8(), i32(), i32(), b8(),
+            b8(), torch.empty(N, dtype=torch.int32, device=dev), i32())
+    _launch("egress_rank", N, CE, int(shift_ns), *ins, *outs)
+    return outs
+
+
+_egress_rank_op = row_op(
+    "egress_rank", _egress_rank_impl,
+    "(" + ", ".join(f"Tensor {n}" for n in _EGRESS_RANK_INS)
+    + ", int shift_ns) -> (" + ", ".join(["Tensor"] * 12) + ")")
+
+
 def egress_rank_stage(valid, prio, nbytes, tsend, clamp, dst, seq, sock,
                       ctrl, balance, shift_ns: int):
     """Kernel A: the FIFO egress stage of one window, bitwise the TPU
     kernel's outputs (see `egress_rank_plain` for the layout)."""
     ins = dict(valid=valid, prio=prio, nbytes=nbytes, tsend=tsend,
                clamp=clamp, dst=dst, seq=seq, sock=sock, ctrl=ctrl)
-    N, CE, dev = _egress_checks(valid, ins, balance)
-    if dev.type == "cpu":
-        return egress_rank_plain(valid, prio, nbytes, tsend, clamp, dst,
-                                 seq, sock, ctrl, balance, shift_ns)
-    i32 = lambda: torch.empty((N, CE), dtype=torch.int32, device=dev)
-    b8 = lambda: torch.empty((N, CE), dtype=torch.bool, device=dev)
-    outs = (i32(), i32(), i32(), i32(), i32(), b8(), i32(), i32(), b8(),
-            b8(), torch.empty(N, dtype=torch.int32, device=dev), i32())
-    _launch("egress_rank", N, CE, int(shift_ns), *ins.values(), balance,
-            *outs)
-    return outs
+    _egress_checks(valid, ins, balance)
+    return _egress_rank_op(*ins.values(), balance, int(shift_ns))
 
 
 # ---------------------------------------------------------------------------
@@ -249,7 +295,7 @@ def egress_rank_stage(valid, prio, nbytes, tsend, clamp, dst, seq, sock,
 
 def place_plain(nv, offsets, take_n, o_pos, row_perm, eg_seq, eg_sock,
                 eg_bytes, deliver_rel, in_src, in_seq, in_sock, in_bytes,
-                in_deliver, in_valid):
+                in_deliver, in_valid, world_rows: int | None = None):
     """Kernel B's function in plain PyTorch, in place. Slot c of
     destination row r is placed when nv <= c < nv + take; it takes
     arrival j = offsets - nv + c of the arrival-sorted order, read
@@ -262,16 +308,32 @@ def place_plain(nv, offsets, take_n, o_pos, row_perm, eg_seq, eg_sock,
 
     The six ingress tensors (src, seq, sock, bytes, deliver [N, CI]
     int32, valid [N, CI] bool) are updated in place and returned in that
-    order: the caller hands over tensors that nothing reads afterwards."""
-    CI, CE = in_src.shape[1], row_perm.shape[1]
+    order: the caller hands over tensors that nothing reads afterwards.
+
+    `world_rows` (the kernels' ensemble launch, `ring_place.cuh`): the N
+    rows are N / world_rows worlds of world_rows rows each, one after
+    another, and o_pos, row_perm, j and src are each world's own; None
+    is one world of N rows."""
+    N, CI = in_src.shape
+    CE = row_perm.shape[1]
+    R = N if world_rows is None else world_rows
     ccol = torch.arange(CI, dtype=torch.int64, device=in_src.device)
     nv_ = nv.to(torch.int64)[:, None]
     placed = (ccol >= nv_) & (ccol < nv_ + take_n[:, None])
     j = offsets.to(torch.int64)[:, None] - nv_ + ccol
-    inside = placed & (j >= 0) & (j < o_pos.shape[0])
-    p = o_pos[torch.where(inside, j, 0)]
-    src = torch.div(p, CE, rounding_mode="floor")
-    g = src * CE + row_perm.reshape(-1)[p].to(torch.int64)
+    inside = placed & (j >= 0) & (j < R * CE)
+    j = torch.where(inside, j, 0)
+    if R != N:
+        # the first flat egress slot of each row's world
+        base = (torch.arange(N, dtype=torch.int64, device=in_src.device)
+                // R * (R * CE))[:, None]
+        p = o_pos[base + j]
+        src = torch.div(p, CE, rounding_mode="floor")
+        g = base + src * CE + row_perm.reshape(-1)[base + p].to(torch.int64)
+    else:
+        p = o_pos[j]
+        src = torch.div(p, CE, rounding_mode="floor")
+        g = src * CE + row_perm.reshape(-1)[p].to(torch.int64)
     in_deliver.copy_(torch.where(in_valid, in_deliver, I32_MAX))
     items = (src.to(torch.int32), *(c.reshape(-1)[g] for c in (
         eg_seq, eg_sock, eg_bytes, deliver_rel)))
@@ -282,12 +344,19 @@ def place_plain(nv, offsets, take_n, o_pos, row_perm, eg_seq, eg_sock,
     return (*rings, in_valid)
 
 
+_PLACE_INS = ("nv", "offsets", "take_n", "o_pos", "row_perm", "eg_seq",
+              "eg_sock", "eg_bytes", "deliver_rel")
+_RINGS = ("in_src", "in_seq", "in_sock", "in_bytes", "in_deliver",
+          "in_valid")
+
+
 def _placement_checks(nv, offsets, take_n, o_pos, row_perm, eg_seq, eg_sock,
                       eg_bytes, deliver_rel, in_src, in_seq, in_sock,
                       in_bytes, in_deliver, in_valid):
     """The guards of kernels B and D: every argument of the dtype, shape,
-    device and layout the kernel reads, and six distinct ingress tensors
-    (they are written in place). Returns (N, CI, CE, device)."""
+    device and layout the kernel reads. (That the six ingress tensors are
+    distinct, as they are written in place, the op checks on the storage.)
+    Returns (N, CI, CE, device)."""
     N, CI = in_valid.shape
     CE = row_perm.shape[-1]
     dev = in_valid.device
@@ -303,20 +372,52 @@ def _placement_checks(nv, offsets, take_n, o_pos, row_perm, eg_seq, eg_sock,
     for name, t in rings.items():
         _check(name, t, torch.int32, (N, CI), dev)
     _check("in_valid", in_valid, torch.bool, (N, CI), dev)
-    ptrs = {t.data_ptr() for t in (*rings.values(), in_valid)}
-    if len(ptrs) < 6 and in_valid.numel():
-        raise ValueError("placement: the six ingress tensors are updated in "
-                         "place and must be distinct")
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"placement: unsupported device {dev}")
     return N, CI, CE, dev
 
 
+def _place_op(name: str):
+    """The custom op of placement kernel `name` (B or D): the plain
+    version on CPU tensors, the kernel on CUDA tensors, the six ingress
+    tensors written in place; its vmap rule folds the worlds into the
+    rows and passes `world_rows` on, so one launch places every world."""
+
+    def impl(*args):
+        *tensors, world_rows = args
+        rings = tensors[9:]
+        if len({t.data_ptr() for t in rings}) < 6 and rings[-1].numel():
+            raise ValueError("placement: the six ingress tensors are updated "
+                             "in place and must be distinct")
+        if rings[-1].device.type == "cpu":
+            place_plain(*tensors, world_rows=world_rows)
+            return
+        N, CI = rings[-1].shape
+        _launch(name, N, world_rows, CI, tensors[4].shape[1], *tensors)
+
+    schema = ("(" + ", ".join(
+        [f"Tensor {n}" for n in _PLACE_INS]
+        + [f"Tensor({chr(97 + i)}!) {n}" for i, n in enumerate(_RINGS)])
+        + ", int world_rows) -> ()")
+    op = custom_op(name, impl, schema, mutates=_RINGS)
+
+    def batched(info, in_dims, *args):
+        op(*fold_worlds(info, in_dims, args, mutated=range(9, 15)))
+        return None, None
+
+    op.register_vmap(batched)
+    return op
+
+
+_PLACE_OPS = {name: _place_op(name) for name in ("route_place",
+                                                 "route_scatter")}
+
+
 def _place_with(name: str, args, plain: bool):
     N, CI, CE, dev = _placement_checks(*args)
-    if plain or dev.type == "cpu":
+    if plain:
         return place_plain(*args)
-    _launch(name, N, CI, CE, *args)
+    _PLACE_OPS[name](*args, N)
     return args[9:]
 
 

@@ -454,7 +454,7 @@ def _rr_advance(eg_sock, eg_valid, sendable, rr_aux):
     return rr_base - vtime[:, None] + sent_per_sock
 
 
-def _loss_latency(state: NetPlaneState, params: NetPlaneParams, seed: int,
+def _loss_latency(state: NetPlaneState, params: NetPlaneParams, seed,
                   eg_dst, eg_ctrl, eg_tsend, eg_clamp, sendable, window_ns,
                   *, no_loss: bool, faults: FaultArrays | None = None):
     """Section 3: the counter-based Bernoulli loss draw and the
@@ -782,7 +782,7 @@ def _check_step_options(kernel: str, rr_enabled: bool, packed_sort: bool,
             f"{refused}; the JAX plane runs them on kernel='xla' only")
 
 
-def window_step(state: NetPlaneState, params: NetPlaneParams, rng_seed: int,
+def window_step(state: NetPlaneState, params: NetPlaneParams, rng_seed,
                 shift_ns: int, window_ns: int, *, rr_enabled: bool = True,
                 router_aqm: bool = False, no_loss: bool = False,
                 packed_sort: bool = True, kernel: str = "xla",
@@ -806,7 +806,10 @@ def window_step(state: NetPlaneState, params: NetPlaneParams, rng_seed: int,
     round-robin qdisc (`rr_enabled=True`, per host by `params.qdisc_rr`)
     and every presence plane but metrics. The JAX package makes the three
     bitwise identical. `rng_seed` is the int seed of the JAX run's
-    `jax.random.key(seed)`; `shift_ns` is this window's start minus the
+    `jax.random.key(seed)`, or a key tensor (int64 [2], the words of
+    `jax.random.key_data`: `prims.key_tensor`, `elastic.world_key`),
+    read on the device so that a per-world key rides a batched carry;
+    `shift_ns` is this window's start minus the
     previous one's. `plain_kernels=True` runs the plain PyTorch versions
     of the kernels even on CUDA tensors (the reference a card run is
     held against); otherwise CUDA tensors go through the CUDA kernels.
@@ -1055,7 +1058,7 @@ def window_step(state: NetPlaneState, params: NetPlaneParams, rng_seed: int,
 
 
 def chain_windows(state: NetPlaneState, params: NetPlaneParams,
-                  rng_seed: int, shift0: int, window0_ns: int,
+                  rng_seed, shift0: int, window0_ns: int,
                   runahead_ns: int, horizon_rel: int, stop_rel: int,
                   max_windows: int = 64, *, rr_enabled: bool = True,
                   router_aqm: bool = False, no_loss: bool = False,

@@ -8,8 +8,14 @@ two's-complement wrap is explicit rather than left to a cast. Floor
 division and modulo follow Python/jnp (round toward minus infinity):
 `floordiv` and `floormod`, never `fmod`.
 
+A JAX key is carried either as the int seed of `jax.random.key(seed)`
+or as a key tensor, int64 [2] holding the two uint32 words of
+`jax.random.key_data` (`key_tensor`); `fold_in` derives one key from
+another as `jax.random.fold_in` does, and the threefry draws take
+either form, so a per-world key can ride a batched carry on the device.
+
 Counterparts: `shadow_tpu/tpu/plane.py:245-349` (`_pack_*_key`,
-`_row_perm_sort`, `_pkt_uniform`).
+`_row_perm_sort`, `_pkt_uniform`), `jax.random.fold_in`.
 """
 
 from __future__ import annotations
@@ -122,14 +128,37 @@ def key_data(seed: int) -> tuple[int, int]:
     return 0, seed & _U32_MAX
 
 
+def key_tensor(seed: int, device=None) -> torch.Tensor:
+    """The key of `jax.random.key(seed)` as a tensor: int64 [2] holding
+    its two uint32 words, `jax.random.key_data`'s layout. A window step
+    takes it where it takes the int seed, and draws the same bits."""
+    return torch.tensor(key_data(seed), dtype=torch.int64, device=device)
+
+
+def key_words(key):
+    """The two uint32 words of a key: a Python int seed (`key_data`) or a
+    key tensor whose last axis holds the words (under `torch.func.vmap`,
+    each world's [2]). Tensor words come back as int64 tensors of the
+    key's leading shape, so a batched key rides the step unread."""
+    if isinstance(key, torch.Tensor):
+        if key.shape[-1:] != (2,):
+            raise ValueError(f"a key tensor holds 2 words on its last axis, "
+                             f"got shape {tuple(key.shape)}")
+        words = key.to(torch.int64) & _U32_MAX
+        return words[..., 0], words[..., 1]
+    return key_data(key)
+
+
 def _rotl(v, r):
     return ((v << r) | (v >> (32 - r))) & _U32_MAX
 
 
-def threefry_2x32(key: tuple[int, int], x0: torch.Tensor,
+def threefry_2x32(key, x0: torch.Tensor,
                   x1: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Threefry-2x32 (20 rounds) of the word pairs (x0, x1), each an
-    int64 tensor of uint32 values; returns the two output words."""
+    int64 tensor of uint32 values; returns the two output words. `key` is
+    the pair of key words, Python ints or int64 tensors that broadcast
+    against the blocks (`key_words`)."""
     k0, k1 = key
     ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
     a = (x0 + ks[0]) & _U32_MAX
@@ -143,12 +172,33 @@ def threefry_2x32(key: tuple[int, int], x0: torch.Tensor,
     return a, b
 
 
-def _pkt_uniform(seed: int, host: torch.Tensor,
+def fold_in(key, data) -> torch.Tensor:
+    """`jax.random.key_data(jax.random.fold_in(key, data))`, bitwise: the
+    threefry-2x32 block (0, data) under `key` (an int seed or a key
+    tensor, see `key_words`), its two output words the new key. `data`
+    is an int or an int tensor of any shape, taken as its uint32 bits
+    (JAX's int32 arrays go so; JAX refuses a negative Python int, this
+    takes its int32 bits too). Returns int64 [..., 2]."""
+    if isinstance(data, torch.Tensor):
+        x1 = u32(data)
+        dev = data.device
+    else:
+        if not -(2**31) <= data < 2**32:
+            raise ValueError(f"fold_in data must fit 32 bits, got {data}")
+        dev = key.device if isinstance(key, torch.Tensor) else None
+        x1 = torch.tensor(data & _U32_MAX, dtype=torch.int64, device=dev)
+    k0, k1 = key_words(key)
+    a, b = threefry_2x32((k0, k1), torch.zeros_like(x1), x1)
+    return torch.stack([a, b], dim=-1)
+
+
+def _pkt_uniform(seed, host: torch.Tensor,
                  counter: torch.Tensor) -> torch.Tensor:
     """Counter-based uniform [0, 1) per (host, counter) slot, bitwise the
-    JAX plane's draw under `jax.random.key(seed)`: JAX hashes
+    JAX plane's draw under `jax.random.key(seed)`, or under the key
+    `seed` when it is a key tensor (`key_words`): JAX hashes
     concat(host, counter) by splitting the count array into halves, so
     slot i's block is (host[i], counter[i]) and its first output word is
     the slot's bits. 24 high bits -> float32."""
-    bits, _ = threefry_2x32(key_data(seed), u32(host), u32(counter))
+    bits, _ = threefry_2x32(key_words(seed), u32(host), u32(counter))
     return (bits >> 8).to(torch.float32) * (1.0 / (1 << 24))

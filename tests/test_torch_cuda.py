@@ -14,7 +14,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from torch_parity import (EDGE_SHIFTS, drain_inputs,  # noqa: E402
+from torch_parity import (BATCHED_KERNELS, EDGE_SHIFTS,  # noqa: E402
+                          batched_kernel_case, drain_inputs, flat_outputs,
                           gate_edge_columns, placement_inputs)
 
 from shadow_tpu_torch import bench, convert  # noqa: E402
@@ -271,3 +272,50 @@ def test_phold_checkpoint_resume_on_the_card(cuda, tmp_path):
     assert convert.state_digest(again) == convert.state_digest(state)
     assert total2 == total
     assert pipeline.LAUNCHES["egress_rank"] == 16
+
+
+@pytest.mark.parametrize("name", BATCHED_KERNELS)
+def test_batched_launch_matches_the_vmapped_plain_version(cuda, name):
+    """Each kernel under `torch.func.vmap` over 3 distinct worlds is one
+    launch (the worlds folded into its rows), equal to its plain version
+    vmapped over the same worlds, each on its own clone of the inputs."""
+    wrapper, plain, args, in_dims, mutated = batched_kernel_case(
+        name, 300, (1, 2, 3), cuda)
+    clone = lambda: tuple(a.clone() if i in mutated else a
+                          for i, a in enumerate(args))
+    before = pipeline.LAUNCHES[name]
+    got = flat_outputs(torch.func.vmap(wrapper, in_dims=in_dims)(*clone()))
+    ref = flat_outputs(torch.func.vmap(plain, in_dims=in_dims)(*clone()))
+    torch.cuda.synchronize()
+    assert pipeline.LAUNCHES[name] == before + 1
+    for g, r in zip(got, ref):
+        assert g.dtype == r.dtype and torch.equal(g, r)
+
+
+@pytest.mark.parametrize("kernel,pair", [
+    ("pallas_fused", ("egress_rank", "route_place")),
+    ("pallas", ("egress_gate", "route_scatter"))])
+def test_ensemble_launches_each_kernel_once_a_window(cuda, kernel, pair):
+    """`bench.run_worlds` with 3 worlds of 2048 hosts for 8 windows: 8
+    launches of each kernel of the pair, not 24, and each world's state
+    equal to its solo run under its world key."""
+    from shadow_tpu_torch.tpu import elastic
+    from shadow_tpu_torch.tpu.profiling import build_world
+
+    size = dict(n_nodes=16, egress_cap=16, ingress_cap=32)
+    pipeline.reset_launches()
+    rec = bench.run_worlds(3, 2048, rounds=8, chain_len=4, kernel=kernel,
+                           warmup=False, **size)
+    assert {k: pipeline.LAUNCHES[k] for k in pair} == dict.fromkeys(pair, 8)
+    world = build_world(2048, seed=0, warmup_windows=0, **size)
+    chain = bench.phold_keyed_chain_fn(world, kernel=kernel)
+    keys = elastic.world_keys(world["rng_root"], range(3))
+    for w in range(3):
+        solo, _ex = elastic.drive_chained_windows(
+            world["state"], (keys[w], torch.full((2048,), bench.SPAWN_SEQ0,
+                                                 dtype=torch.int32,
+                                                 device=cuda),
+                             torch.zeros((), dtype=torch.int32, device=cuda)),
+            chain, n_rounds=8, chain_len=4)
+        assert convert.state_digest(solo) == convert.state_digest(
+            elastic.world_slice(rec["states"], w)), w

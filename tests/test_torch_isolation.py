@@ -20,7 +20,8 @@ from shadow_tpu_torch import bench, convert, resolve_device  # noqa: E402
 from shadow_tpu_torch.faults import plane as fplane  # noqa: E402
 from shadow_tpu_torch.guards import plane as gplane  # noqa: E402
 from shadow_tpu_torch.telemetry import flightrec, histo, metrics  # noqa: E402
-from shadow_tpu_torch.tpu import compute, flows, plane, profiling  # noqa: E402
+from shadow_tpu_torch.tpu import (compute, elastic, flows, plane,  # noqa: E402
+                                  profiling)
 from shadow_tpu_torch.workloads import runner, spec  # noqa: E402
 
 REPO = Path(__file__).resolve().parent.parent
@@ -54,7 +55,8 @@ def test_port_imports_no_jax_and_nothing_of_shadow_tpu():
 # a run or between chains, by design (reports and percentiles read the
 # final tensors; the flight recorder's drain reads its snapshots)
 HOST_SIDE = {"completion_windows", "percentile", "percentiles",
-             "fleet_percentiles", "bucket_edges", "flow_totals",
+             "fleet_percentiles", "ensemble_percentiles", "bucket_edges",
+             "flow_totals",
              "summarize", "decode_bits", "flightrec_meta", "ring_capacity",
              "read_hops", "hop_flows", "unwrap_u32", "FlightRecorder"}
 
@@ -138,6 +140,27 @@ def test_device_path_reads_nothing_back_to_the_host():
     assert loops == len(BETWEEN_WINDOWS)
 
 
+# the ensemble's chain code, which `torch.func.vmap` runs for W worlds at
+# once: the driver's loop (`elastic.drive_ensemble`, one host sync a chain
+# is the caller's `on_chain`) and the bench's keyed PHOLD chain with its
+# round body; a batched tensor cannot be read back, and an int() there
+# would also read the host once a window
+ENSEMBLE_CHAIN_CODE = {"tpu/elastic.py": ("drive_ensemble",),
+                       "bench.py": ("phold_keyed_chain_fn", "_phold_round")}
+
+
+def test_ensemble_chain_reads_nothing_back_to_the_host():
+    port = REPO / "shadow_tpu_torch"
+    for rel, names in ENSEMBLE_CHAIN_CODE.items():
+        tree = ast.parse((port / rel).read_text(encoding="utf-8"), rel)
+        for name in names:
+            (fn,) = _nested(tree, name)
+            assert not _host_reads(fn, LOOP_READS), (rel, name)
+    # the fence sees what it is meant to catch
+    probe = ast.parse("def chain_fn(s):\n    return int(s.sum()) + s.item()")
+    assert [r for _l, r in _host_reads(probe, LOOP_READS)] == ["int", "item"]
+
+
 def test_copied_workload_modules_stand_alone():
     """The port's copies of the JAX package's JAX-free workload modules
     (spec, compile, serve) import nothing of it, and the op-timing table
@@ -190,6 +213,9 @@ def test_entry_points_default_to_cuda_and_refuse_without_a_card():
                                       ingress_cap=4),
         lambda: bench.run_phold(4, n_nodes=2, egress_cap=4, ingress_cap=4,
                                 rounds=1),
+        lambda: bench.run_worlds(2, 4, n_nodes=2, egress_cap=4,
+                                 ingress_cap=4, rounds=1),
+        lambda: elastic.world_keys(1, [0, 1]),
         lambda: metrics.make_metrics(4),
         lambda: histo.make_histograms(4),
         lambda: fplane.neutral_faults(4),

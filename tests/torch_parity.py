@@ -278,3 +278,78 @@ def phold_both(world, windows, *, kernel="xla", jax_kernel="xla",
         if hist:
             assert_tuples_equal(jh, th, r)
     return tst, tm, th
+
+
+def egress_inputs(n, ce, seed):
+    """Kernels A's and C's egress columns (valid, prio, nbytes, tsend,
+    clamp, dst, seq, sock, ctrl [n, ce]) and balance [n], as numpy:
+    duplicate priorities and seqs, NO_CLAMP and real clamps."""
+    rng = np.random.default_rng(seed)
+    i32 = lambda a: np.asarray(a, np.int32)
+    return (rng.random((n, ce)) < 0.7, i32(rng.integers(0, 4, (n, ce))),
+            i32(rng.integers(60, 1500, (n, ce))),
+            i32(rng.integers(-20 * MS, 10 * MS, (n, ce))),
+            i32(np.where(rng.random((n, ce)) < 0.5, NO_CLAMP,
+                         rng.integers(-5 * MS, 20 * MS, (n, ce)))),
+            i32(rng.integers(-1, n, (n, ce))),
+            i32(rng.integers(0, 4 * ce, (n, ce))),
+            i32(rng.integers(0, 64, (n, ce))),
+            rng.random((n, ce)) < 0.2,
+            i32(rng.integers(0, ce * 1500, n)))
+
+
+BATCHED_KERNELS = ("egress_rank", "egress_gate", "route_place",
+                   "route_scatter", "router_drain")
+
+
+def batched_kernel_case(name, n, seeds, device, *, ce=8, ci=16, k=16):
+    """Kernel `name` (one of BATCHED_KERNELS) over len(seeds) distinct
+    worlds, one seed a world: (wrapper, plain version, arguments with a
+    leading world axis, vmap in_dims, mutated argument indices). The
+    wrapper and the plain version take the same arguments, so
+    `torch.func.vmap` of each over the worlds compares the batched
+    launch (one op call, the worlds folded into rows) with the plain
+    version world by world. Placement arguments are written in place:
+    clone them for each call."""
+    import torch
+
+    from shadow_tpu_torch import convert
+    from shadow_tpu_torch.tpu import codel, pipeline
+
+    stack = lambda per_world: [torch.from_numpy(np.stack(a)).to(device)
+                               for a in zip(*per_world)]
+    shift = 10 * MS
+    if name in ("egress_rank", "egress_gate"):
+        worlds = [egress_inputs(n, ce, s) for s in seeds]
+        if name == "egress_gate":
+            worlds = [w[:5] + w[9:] for w in worlds]
+            fns = (pipeline.egress_order_gate, pipeline.egress_gate_plain)
+        else:
+            fns = (pipeline.egress_rank_stage, pipeline.egress_rank_plain)
+        args = (*stack(worlds), shift)
+        return (*fns, args, (0,) * (len(args) - 1) + (None,), ())
+    if name in ("route_place", "route_scatter"):
+        args = stack([placement_inputs(n, ce, ci, s) for s in seeds])
+        wrapper = pipeline.place if name == "route_place" else \
+            pipeline.scatter
+        return (wrapper, pipeline.place_plain, tuple(args),
+                (0,) * len(args), tuple(range(9, 15)))
+    if name != "router_drain":
+        raise ValueError(f"unknown kernel {name!r}")
+    worlds = [drain_inputs(n, k, s) for s in seeds]
+    arrival, size, rate, cap = stack([w[:4] for w in worlds])
+    states = [convert.router_from_numpy(w[4], device) for w in worlds]
+    state = codel.RouterDownState(*(torch.stack(f) for f in zip(*states)))
+    kernel = lambda a, s, r, c, st: codel.router_drain(a, s, shift, r, c, st)
+    plain = lambda a, s, r, c, st: codel.router_drain_plain(a, s, shift, r,
+                                                            c, st)
+    return (kernel, plain, (arrival, size, rate, cap, state), (0,) * 5, ())
+
+
+def flat_outputs(out):
+    """A kernel's outputs as a flat tuple of tensors (kernel E's router
+    state spread into its fields)."""
+    flat = []
+    for o in (out if isinstance(out, tuple) else (out,)):
+        flat.extend(o if isinstance(o, tuple) else (o,))
+    return tuple(flat)
