@@ -141,7 +141,24 @@ printed:
    run; (b) each of A-E under vmap over 8 distinct worlds at N=32768
    (one launch of 8 N rows) bitwise its plain version vmapped over the
    same worlds, timed cold and warm beside its bound;
-18. one JSON line describing every kernel, then the result line.
+18. the section profiler (`tpu/profiling.profile_sections`) at the
+   bench's width (N=32768, M=64, CE=16, CI=32), all 24 sections timed 20
+   times each (host wall ms around a synchronise, min and median) on
+   "xla", "pallas_fused" and "pallas", the launches of each section's
+   calls counted: A and B once a call of the step's sections (eight in
+   `window_chain8`) on "pallas_fused", C and D on "pallas", D once a
+   `routing_scatter` on "pallas", E once a `codel_drain` on every kernel,
+   none elsewhere; each section that launches a kernel bitwise the same
+   section through the plain versions on the card, on the profiled
+   world (its egress drained by its 3 warm-up windows) and on the world
+   before them (its seed packets routed); each window step's
+   device busy time beside it (`bench.profile_windows`); `bench --kernel
+   xla` and `--kernel xla --faults` in turns (through `bench.main`),
+   their final states equal and their records read by
+   `tools/compare_runs.py --bench`; `run_scenarios --config` on a
+   simulation config naming a corpus entry, with that entry's
+   `scenarios/GOLDEN.json` digests;
+19. one JSON line describing every kernel, then the result line.
 
 Usage: python3 chip_smoke.py   (from the repository root; one card).
 A fuller record of every measurement is printed on the `record:` line.
@@ -2332,10 +2349,255 @@ def check_ensembles(torch, bench, convert, pipeline, record, ident):
     return launches
 
 
-def kernel_entry(name, source, replaces, launches, row, ens_launches):
+# phase 18: the section profiler (tpu/profiling.profile_sections)
+PROF_REPS = 20
+PROF_KERNELS = (("xla", ()),
+                ("pallas_fused", ("egress_rank", "route_place")),
+                ("pallas", ("egress_gate", "route_scatter")))
+# the sections that run the step under the profiled kernel (the faults,
+# guards, trace, flows and compute sections pin "xla", as JAX's do)
+STEP_SECTIONS = {"fused_stage": 1, "window_step": 1, "window_chain8": 8,
+                 "window_step_telemetry": 1, "window_step_elastic": 1,
+                 "window_step_workload": 1}
+# the corpus entry the `run_scenarios --config` check names
+CONFIG_ENTRY = "incast.yaml"
+
+
+def section_launches(section: str, kernel: str, pair) -> dict:
+    """The port kernels one call of `section` launches on `kernel`: the
+    pair in the step's sections (eight windows in `window_chain8`), D
+    alone in `routing_scatter` on "pallas" (JAX's `_route_scatter` takes
+    its XLA path on "pallas_fused"), E in `codel_drain` on every kernel,
+    and nothing where JAX runs XLA code."""
+    if section == "codel_drain":
+        return {"router_drain": 1}
+    if section == "routing_scatter":
+        return {"route_scatter": 1} if kernel == "pallas" else {}
+    return {name: STEP_SECTIONS[section] for name in pair
+            if section in STEP_SECTIONS}
+
+
+def leaves(torch, tree) -> list:
+    if tree is None:
+        return []
+    if isinstance(tree, (tuple, list)):
+        return [x for t in tree for x in leaves(torch, t)]
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in leaves(torch, tree[k])]
+    return [tree]
+
+
+def launched(pipeline) -> dict:
+    return {k: v for k, v in pipeline.LAUNCHES.items() if v}
+
+
+def profile_one_kernel(torch, pipeline, profiling, kernel, pair):
+    """`profile_sections` at the bench shape on `kernel`, the launches of
+    each section's timed calls counted (its first, untimed call and the
+    reps) by wrapping `_time_call`, which it calls once a section in
+    order."""
+    counts = []
+    time_call = profiling._time_call
+
+    def counted(*args, **kw):
+        pipeline.reset_launches()
+        out = time_call(*args, **kw)
+        counts.append(launched(pipeline))
+        return out
+
+    profiling._time_call = counted
+    try:
+        rep = profiling.profile_sections(
+            N_HOSTS, reps=PROF_REPS, kernel=kernel, n_nodes=N_NODES,
+            egress_cap=EGRESS_CAP, ingress_cap=INGRESS_CAP)
+    finally:
+        profiling._time_call = time_call
+    if list(rep["sections"]) != list(profiling.DEFAULT_SECTIONS) \
+            or rep["backend"] != "gpu":
+        fail(f"profile_sections on {kernel}: record {list(rep)}")
+    total = {name: 0 for name in PORT_KERNELS}
+    for section, got in zip(profiling.DEFAULT_SECTIONS, counts):
+        want = {k: (PROF_REPS + 1) * n for k, n in section_launches(
+            section, kernel, pair).items()}
+        if got != want:
+            fail(f"profile_sections {section} on {kernel}: launched {got}, "
+                 f"expected {want} ({PROF_REPS} reps and one untimed call)")
+        for k, n in got.items():
+            total[k] += n
+    return rep, total
+
+
+def check_sections_bitwise(torch, pipeline, profiling, kernel, pair,
+                           warmup_windows):
+    """Each section that launches a kernel on `kernel`, once through the
+    kernels and once through the plain versions on the card, on fresh
+    clones of the same inputs: its launches counted, its outputs equal
+    leaf for leaf (dtype, shape and every bit). The world is the
+    profiler's after `warmup_windows` windows: after its 3 the egress
+    rings have drained, so 0 holds its seed packets, which the routing
+    sections place."""
+    wanted = tuple(s for s in profiling.DEFAULT_SECTIONS
+                   if section_launches(s, kernel, pair))
+    world = profiling.build_world(N_HOSTS, n_nodes=N_NODES,
+                                  egress_cap=EGRESS_CAP,
+                                  ingress_cap=INGRESS_CAP,
+                                  warmup_windows=warmup_windows)
+    calls = profiling.section_calls(world, kernel=kernel, wanted=wanted)
+    plain = profiling.section_calls(world, kernel=kernel, wanted=wanted,
+                                    plain=True)
+    for section in wanted:
+        fn, args = calls[section]
+        pipeline.reset_launches()
+        got = leaves(torch, fn(*profiling.fresh_args(section, args)))
+        torch.cuda.synchronize()
+        if launched(pipeline) != section_launches(section, kernel, pair):
+            fail(f"section {section} on {kernel} launched "
+                 f"{launched(pipeline)}")
+        pfn, pargs = plain[section]
+        pipeline.reset_launches()
+        ref = leaves(torch, pfn(*profiling.fresh_args(section, pargs)))
+        if launched(pipeline):
+            fail(f"plain section {section} launched {launched(pipeline)}")
+        if len(got) != len(ref) or not got:
+            fail(f"section {section} on {kernel}: {len(got)} outputs "
+                 f"against {len(ref)} plain")
+        for i, (a, b) in enumerate(zip(got, ref)):
+            if not isinstance(a, torch.Tensor):
+                same = a == b
+            else:
+                same = (a.dtype == b.dtype and a.shape == b.shape
+                        and torch.equal(a, b))
+            if not same:
+                fail(f"section {section} on {kernel}: output {i} differs "
+                     f"from the plain versions'")
+    return list(wanted)
+
+
+def check_bench_records(torch, bench, tmp: Path, ident):
+    """`bench --kernel xla` and `--kernel xla --faults` in turns, through
+    its `main`: the same final state, the section breakdown in both
+    records, and `tools/compare_runs.py --bench` reads the two."""
+    import contextlib
+    import io
+
+    recs = {}
+    for tag, argv in (("xla", []), ("faults", ["--faults"])):
+        path = tmp / f"bench-{tag}.json"
+        with contextlib.redirect_stdout(io.StringIO()):
+            bench.main(["--kernel", "xla", *argv, "--out", str(path)])
+        recs[tag] = json.loads(path.read_text())
+    plain, faulted = recs["xla"], recs["faults"]
+    if faulted["state_digest"] != plain["state_digest"]:
+        fail("bench --faults (neutral masks) ends in another state than "
+             "bench without them")
+    if not faulted["kernel"]["faults_threaded"] \
+            or plain["kernel"]["faults_threaded"]:
+        fail(f"bench kernel records {plain['kernel']}, {faulted['kernel']}")
+    for rec in recs.values():
+        if rec["metric"] != "packet_events_per_sec" or rec["value"] <= 0 \
+                or rec["backend"]["platform"] != "gpu" \
+                or rec["hosts"] != N_HOSTS or not rec["sections"]:
+            fail(f"bench record lacks JAX's keys: {sorted(rec)}")
+    cmp = subprocess.run(
+        [sys.executable, str(Path(__file__).resolve().parent / "tools"
+                             / "compare_runs.py"), "--bench",
+         str(tmp / "bench-xla.json"), str(tmp / "bench-faults.json")],
+        capture_output=True, text=True, timeout=120)
+    if cmp.returncode != 0 or "section" not in cmp.stdout:
+        fail(f"compare_runs.py --bench: rc {cmp.returncode}: "
+             f"{cmp.stdout[-500:]} {cmp.stderr[-500:]}")
+    print(f"18 bench --kernel xla vs --faults: events/s "
+          f"{plain['value']} vs {faulted['value']}, the same state "
+          f"({plain['state_digest'][:12]}); compare_runs.py --bench:\n"
+          f"{cmp.stdout.rstrip()}\n(on {ident})")
+    return {tag: {"value": r["value"], "sections": r["sections"],
+                  "state_digest": r["state_digest"]}
+            for tag, r in recs.items()}
+
+
+def check_config_run(tmp: Path):
+    """`run_scenarios --config` on a simulation config whose `workload:`
+    block names a corpus entry by a path relative to the config: the
+    record carries the entry's `scenarios/GOLDEN.json` digests."""
+    from shadow_tpu_torch.workloads import run_scenarios, runner
+
+    entry = CORPUS / CONFIG_ENTRY
+    cfg = tmp / "sim.yaml"
+    cfg.write_text(
+        "general: {stop_time: 1s}\n"
+        f"workload: {{scenario: {os.path.relpath(entry, tmp)}}}\n"
+        "hosts:\n  h0: {network_node_id: 0}\n")
+    out = tmp / "config-run.json"
+    if run_scenarios.main(["--config", str(cfg), "-o", str(out)]) != 0:
+        fail("run_scenarios --config failed")
+    (rec,) = json.loads(out.read_text())["records"]
+    golden = runner.load_golden(str(CORPUS / "GOLDEN.json"))
+    problems = runner.check_against_golden(
+        [rec], {rec["name"]: golden[rec["name"]]})
+    if problems:
+        fail(f"run_scenarios --config: {problems}")
+    print(f"18 run_scenarios --config naming {CONFIG_ENTRY}: "
+          f"{rec['name']} carries its golden digests "
+          f"({rec['canonical_digest'][:12]})")
+    return runner.golden_entry(rec)
+
+
+def check_section_profiler(torch, bench, pipeline, record, ident):
+    """Phase 18: the section profiler on every kernel, the bench record
+    with and without `--faults`, and `run_scenarios --config`."""
+    from shadow_tpu_torch.tpu import profiling
+
+    rec = {"kernels": {}}
+    launches = {name: 0 for name in PORT_KERNELS}
+    t0 = time.perf_counter()
+    for kernel, pair in PROF_KERNELS:
+        t = time.perf_counter()
+        rep, total = profile_one_kernel(torch, pipeline, profiling, kernel,
+                                        pair)
+        for k, n in total.items():
+            launches[k] += n
+        for warmup in (3, 0):
+            checked = check_sections_bitwise(torch, pipeline, profiling,
+                                             kernel, pair, warmup)
+        win = bench.profile_windows(N_HOSTS, PROFILE_WINDOWS,
+                                    n_nodes=N_NODES, egress_cap=EGRESS_CAP,
+                                    ingress_cap=INGRESS_CAP, kernel=kernel)
+        busy = {k: win[k] for k in (
+            "wall_ms_per_window", "device_busy_ms_per_window",
+            "device_busy_share", "kernel_launches_per_window")}
+        rec["kernels"][kernel] = {
+            "sections": rep["sections"], "launches": total,
+            "bitwise_sections": checked, "window_profile": busy,
+            "seconds": time.perf_counter() - t}
+        print(f"18 profile_sections kernel={kernel} N={N_HOSTS} "
+              f"CE={EGRESS_CAP} CI={INGRESS_CAP} reps={PROF_REPS} "
+              f"(host wall ms around a synchronise, min / median) on "
+              f"{ident}:")
+        for name, v in rep["sections"].items():
+            print(f"  {name:<22} {v['min_ms']:>10.4f} {v['median_ms']:>10.4f}")
+        print(f"  launches {total}; bitwise their plain versions: "
+              f"{checked}; window_step beside its device busy time "
+              f"(bench.profile_windows, {PROFILE_WINDOWS} windows): "
+              f"{busy['device_busy_ms_per_window']:.5f} ms busy, "
+              f"{busy['kernel_launches_per_window']:.1f} kernels, "
+              f"{busy['wall_ms_per_window']:.4f} ms wall a window")
+    rec["seconds_profile"] = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp_name:
+        tmp = Path(tmp_name)
+        t = time.perf_counter()
+        rec["bench"] = check_bench_records(torch, bench, tmp, ident)
+        rec["seconds_bench"] = time.perf_counter() - t
+        rec["config_run"] = check_config_run(tmp)
+    record["sections"] = rec
+    return launches
+
+
+def kernel_entry(name, source, replaces, launches, row, ens_launches,
+                 section_launches):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
             "ensemble_launches": ens_launches,
+            "section_launches": section_launches,
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "warm_ms": row["warm_ms"], "cold_clean_ms": row["cold_clean_ms"],
             "plain_ms": row["plain_ms"],
@@ -2410,6 +2672,8 @@ def main():
           pipeline, record, ident, fleet_rec)
     ens = timed("17 ensembles", check_ensembles, torch, bench, convert,
                 pipeline, record, ident)
+    sec = timed("18 section profiler", check_section_profiler, torch, bench,
+                pipeline, record, ident)
     record["phase_s"] = phase_s
     print(f"phase seconds: {json.dumps(phase_s)}")
 
@@ -2417,23 +2681,28 @@ def main():
         kernel_entry("egress_rank_kernel",
                      "shadow_tpu_torch/csrc/egress_rank.cu",
                      "shadow_tpu/tpu/pallas_pipeline.py:77",
-                     fused["egress_rank"], a, ens["egress_rank"]),
+                     fused["egress_rank"], a, ens["egress_rank"],
+                     sec["egress_rank"]),
         kernel_entry("route_place_kernel",
                      "shadow_tpu_torch/csrc/route_place.cu",
                      "shadow_tpu/tpu/pallas_pipeline.py:188",
-                     fused["route_place"], b, ens["route_place"]),
+                     fused["route_place"], b, ens["route_place"],
+                     sec["route_place"]),
         kernel_entry("egress_gate_kernel",
                      "shadow_tpu_torch/csrc/egress_gate.cu",
                      "shadow_tpu/tpu/pallas_egress.py:91",
-                     split["egress_gate"], c, ens["egress_gate"]),
+                     split["egress_gate"], c, ens["egress_gate"],
+                     sec["egress_gate"]),
         kernel_entry("route_scatter_kernel",
                      "shadow_tpu_torch/csrc/route_scatter.cu",
                      "shadow_tpu/tpu/pallas_route.py:48",
-                     split["route_scatter"], d, ens["route_scatter"]),
+                     split["route_scatter"], d, ens["route_scatter"],
+                     sec["route_scatter"]),
         kernel_entry("router_drain_kernel",
                      "shadow_tpu_torch/csrc/router_drain.cu",
                      "shadow_tpu/tpu/codel.py:578 (router_drain, "
-                     "lax.fori_loop)", e_launches, e, ens["router_drain"]),
+                     "lax.fori_loop)", e_launches, e, ens["router_drain"],
+                     sec["router_drain"]),
     ]
     print(f"record: {json.dumps(record, default=str)}")
     print(json.dumps({"kernels": kernels}))

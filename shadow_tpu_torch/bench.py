@@ -14,14 +14,34 @@ run that builds the kernels and warms the card up.
         [--ingress-cap CI] [--max-doublings K] [--grow-every R]
         [--profile WINDOWS] [--telemetry DIR [--hist]
         [--harvest-every K]] [--trace PATH] [--memo] [--worlds W]
-        [--out FILE]
+        [--faults] [--no-sections] [--out FILE]
 
 `--telemetry DIR`, `--hist`, `--harvest-every K` and `--trace PATH` are
 the JAX bench's BENCH_TELEMETRY, BENCH_HIST, BENCH_HARVEST_EVERY and
 BENCH_TRACE modes; `--memo` its BENCH_MEMO rep (`run_memo`), `--worlds
 W` its BENCH_WORLDS rep (`run_worlds`: W worlds of the bench world
 through `elastic.drive_ensemble`, kernel "xla"; with `--trace PATH` its
-ledger goes to `PATH.worlds.jsonl`).
+ledger goes to `PATH.worlds.jsonl`); `--faults` its BENCH_FAULTS mode
+(neutral `FaultArrays` through every window, kernel "xla" only: the
+Pallas kernels do not fuse the fault plane, and the port never falls
+back to another kernel). After the timed run one profiled rep of each of
+`profiling.BENCH_SECTIONS` (reps=1) is recorded as `sections` (section
+-> min ms, plus the driver's `windows_per_sync`) when the kernel is
+"xla", as the JAX bench records it; `--no-sections` is its
+BENCH_SECTIONS=0.
+
+The JSON line carries the JAX record's keys `metric`
+("packet_events_per_sec"), `value`, `unit`, `backend` (the device
+fingerprint, `telemetry/tracer.backend_fingerprint`), `hosts`, `kernel`
+(with `faults_threaded`), `driver`, `capacity`, `telemetry`, `worlds`,
+`memo` and `sections`, so `tools/compare_runs.py --bench` diffs two of
+them (and prints its mismatched-backend banner against a TPU record).
+It leaves out `vs_baseline`, `compiled_events_per_sec`, `vs_compiled`
+and `prior_round`: the first two need the CPU object plane and the C++
+microbench, which the port does not have (it is the device side only),
+and `prior_round` compares with the `BENCH_r*.json` records, which were
+measured on a TPU. Beside them it keeps its own keys (the events, the
+wall seconds, the device, `state_digest`).
 """
 
 from __future__ import annotations
@@ -35,11 +55,12 @@ import torch
 from . import resolve_device
 from .core.capacity import CAPACITY_MODES
 from .faults import runstate
+from .faults.plane import neutral_faults
 from .telemetry import export, histo
 from .telemetry.harvest import TelemetryHarvester
 from .telemetry.metrics import make_metrics
 from .telemetry.tracer import RunTracer, backend_fingerprint
-from .tpu import pipeline
+from .tpu import pipeline, profiling
 from .tpu.elastic import (RingPolicy, chain_spans, drive_chained_windows,
                           drive_ensemble, stack_worlds, world_keys)
 from .tpu.plane import KERNELS, ingest_rows, unpack_planes, window_step
@@ -60,10 +81,11 @@ ROUTING_STAGE = "routing_stage"
 
 
 def _phold_round(state, params, seed, r: int, window: int, spawn_seq, *,
-                 kernel: str, plain_kernels: bool, metrics=None, hist=None):
+                 kernel: str, plain_kernels: bool, metrics=None, hist=None,
+                 faults=None):
     """Window r of the PHOLD closed loop: `window_step` under `seed` (an
-    int seed or a key tensor), the respawn of what it delivered, and its
-    append. Returns (state', spawn_seq', the respawn mask [N, CI], the
+    int seed or a key tensor) with `faults` (`FaultArrays`, or None), the
+    respawn of what it delivered, and its append. Returns (state', spawn_seq', the respawn mask [N, CI], the
     ingress ring's drops [N] in the routing stage, the egress ring's in
     the append, metrics', hist')."""
     N, CI = state.in_src.shape
@@ -71,7 +93,7 @@ def _phold_round(state, params, seed, r: int, window: int, spawn_seq, *,
     out = window_step(
         state, params, seed, 0 if r == 0 else window, window,
         rr_enabled=False, kernel=kernel, plain_kernels=plain_kernels,
-        metrics=metrics, hist=hist)
+        faults=faults, metrics=metrics, hist=hist)
     (state, delivered, _next), metrics, _g, hist, _f = unpack_planes(
         out, metrics=metrics, hist=hist)
     in_drops = state.n_overflow_dropped - dropped
@@ -88,13 +110,14 @@ def _phold_round(state, params, seed, r: int, window: int, spawn_seq, *,
 
 
 def phold_chain_fn(world: dict, *, kernel: str = "pallas_fused",
-                   plain_kernels: bool = False):
+                   plain_kernels: bool = False, faults=None):
     """The bench's chain body: windows r0..r1-1 of the PHOLD closed loop,
     with one host read (the chain's delivered count) at the end. extras
     = (spawn_seq [N] int32, delivered total int[, metrics[, hist]]): a
     `PlaneMetrics` third element and a `PlaneHistograms` fourth ride
     `window_step` and `ingest_rows`, as the JAX bench's telemetry run
-    threads them. Returns the driver's 4-tuple; the overflows are each
+    threads them; `faults` (`FaultArrays`) rides every window. Returns
+    the driver's 4-tuple; the overflows are each
     ring's drops over the chain, the egress ring's from the respawn
     append and the ingress ring's from the routing stage, as
     `bench.py`'s round body accumulates them."""
@@ -112,7 +135,7 @@ def phold_chain_fn(world: dict, *, kernel: str = "pallas_fused",
             (state, spawn_seq, mask, in_drops, eg_drops, metrics,
              hist) = _phold_round(state, params, seed, r, window, spawn_seq,
                                   kernel=kernel, plain_kernels=plain_kernels,
-                                  metrics=metrics, hist=hist)
+                                  metrics=metrics, hist=hist, faults=faults)
             in_acc = in_acc + in_drops
             eg_acc = eg_acc + eg_drops
             n_delivered = n_delivered + mask.sum()
@@ -150,10 +173,11 @@ def run_chain(world: dict, rounds: int, chain_len: int | None = None, *,
               kernel: str = "pallas_fused", plain_kernels: bool = False,
               policy: RingPolicy | None = None, metrics=None, hist=None,
               on_chain=None, tracer=None, checkpointer=None,
-              resume_from: str | None = None):
+              resume_from: str | None = None, faults=None):
     """Drive `rounds` PHOLD windows on `world`, under `policy` when one
-    is given, with `metrics` (a `PlaneMetrics`) and `hist` (a
-    `PlaneHistograms`, with metrics) threaded when given; returns (final
+    is given, with `metrics` (a `PlaneMetrics`), `hist` (a
+    `PlaneHistograms`, with metrics) and `faults` (a `FaultArrays`)
+    threaded when given; returns (final
     state, delivered total[, metrics'[, hist']]). `on_chain`, `tracer` and
     `checkpointer` go to the driver; `resume_from` (a
     runstate checkpoint of this run) starts at its round, from its
@@ -173,7 +197,8 @@ def run_chain(world: dict, rounds: int, chain_len: int | None = None, *,
         start = res["round"]
     state, (_spawn, total, *planes) = drive_chained_windows(
         state, extras,
-        phold_chain_fn(world, kernel=kernel, plain_kernels=plain_kernels),
+        phold_chain_fn(world, kernel=kernel, plain_kernels=plain_kernels,
+                       faults=faults),
         n_rounds=rounds, chain_len=chain_len or rounds, policy=policy,
         window_ns=world["window"], start_round=start, on_chain=on_chain,
         tracer=tracer, checkpointer=checkpointer)
@@ -193,7 +218,7 @@ def run_phold(n_hosts: int = 32768, n_nodes: int = 64, egress_cap: int = 16,
               plain_kernels: bool = False, metrics: bool = False,
               telemetry: str | None = None, hist: bool = False,
               harvest_every: int = 32, trace: str | None = None,
-              on_chain=None) -> dict:
+              on_chain=None, faults: bool = False) -> dict:
     """The PHOLD closed loop at the bench's size, seed 0 as in `bench.py`.
     Under capacity "strict" or "elastic" the chains are `grow_every`
     windows long (the growth-decision unit) and a fresh `RingPolicy`
@@ -211,11 +236,15 @@ def run_phold(n_hosts: int = 32768, n_nodes: int = 64, egress_cap: int = 16,
     run's ledger (`telemetry/tracer.RunTracer`). Both ride the timed run
     only, inside its wall time. `on_chain(r1, state, extras)` is called
     on the host after each chain of the timed run, after its harvest, as
-    `drive_chained_windows` calls it.
+    `drive_chained_windows` calls it. `faults` (the JAX bench's
+    BENCH_FAULTS) threads neutral `FaultArrays` through every window of
+    both runs: the fault plane's cost when nothing fails, its state
+    unchanged ("xla" only; ValueError on the Pallas kernels, which the
+    JAX step refuses too and from which the port does not fall back).
 
     Returns the final state, the delivered and sent totals, the timed
-    run's wall seconds and packet_events_per_sec, and the kernel,
-    capacity, driver and telemetry records of `bench.py`'s JSON."""
+    run's wall seconds and packet_events_per_sec, the kernel, capacity,
+    driver and telemetry records of `bench.py`'s JSON, and `faults`."""
     if kernel not in KERNELS:
         raise ValueError(f"kernel: expected one of {KERNELS}, got {kernel!r}")
     if capacity not in CAPACITY_MODES:
@@ -228,6 +257,11 @@ def run_phold(n_hosts: int = 32768, n_nodes: int = 64, egress_cap: int = 16,
         raise ValueError(
             f"hist: kernel={kernel!r} does not fuse the histogram plane "
             "(nor does the JAX step's); use kernel='xla'")
+    if faults and kernel != "xla":
+        raise ValueError(
+            f"faults: kernel={kernel!r} does not fuse the fault plane (nor "
+            "does the JAX step's), and the port runs no other kernel than "
+            "the one asked for; use kernel='xla'")
     if telemetry and capacity != "fixed":
         raise ValueError("telemetry and capacity strict/elastic each own "
                          "the chain cadence; run them separately")
@@ -241,9 +275,11 @@ def run_phold(n_hosts: int = 32768, n_nodes: int = 64, egress_cap: int = 16,
         mode=capacity, max_doublings=max_doublings, egress_cap=egress_cap,
         ingress_cap=ingress_cap, plane="bench"))
     with_metrics = metrics or bool(telemetry)
+    fault_arrays = (neutral_faults(n_hosts, n_nodes, device=device)
+                    if faults else None)
     run = lambda world, policy, **kw: run_chain(
         world, rounds, chain_len, kernel=kernel,
-        plain_kernels=plain_kernels, policy=policy,
+        plain_kernels=plain_kernels, policy=policy, faults=fault_arrays,
         metrics=make_metrics(n_hosts, device=device) if with_metrics
         else None,
         hist=histo.make_histograms(n_hosts, device=device) if hist
@@ -319,6 +355,7 @@ def run_phold(n_hosts: int = 32768, n_nodes: int = 64, egress_cap: int = 16,
         "device": str(device),
         # no fallback: the kernel pair asked for is the one that ran
         "kernel": {"requested": kernel, "used": kernel},
+        "faults": faults,
         "capacity": capacity_info,
         "driver": {"loop": "drive_chained_windows", "chain_len": chain_len,
                    "chains": n_chains,
@@ -630,6 +667,45 @@ def profile_windows(n_hosts: int = 32768, windows: int = 16, *,
     }
 
 
+def bench_sections(kernel: str, n_hosts: int = 32768, n_nodes: int = 64,
+                   egress_cap: int = 16, ingress_cap: int = 32, *,
+                   device=None) -> dict:
+    """One profiled rep of each of `profiling.BENCH_SECTIONS` at the
+    bench shape (outside the timed run): section name -> min ms, as the
+    JAX bench's `bench_sections`."""
+    rep = profiling.profile_sections(
+        n_hosts, reps=1, rr_enabled=False, kernel=kernel, n_nodes=n_nodes,
+        egress_cap=egress_cap, ingress_cap=ingress_cap,
+        sections=profiling.BENCH_SECTIONS, device=device)
+    return {name: vals["min_ms"] for name, vals in rep["sections"].items()}
+
+
+def bench_record(res: dict, sections: dict | None = None) -> dict:
+    """The JSON record of a `run_phold` result: JAX's keys (`metric`,
+    `value`, `unit`, `backend`, `hosts`, `sections`, with the driver's
+    `windows_per_sync` beside the section times, as the JAX bench puts
+    it there) beside the port's own, the final state's digest among
+    them."""
+    from .convert import state_digest
+
+    if sections is not None:
+        sections = dict(sections,
+                        windows_per_sync=res["driver"]["windows_per_sync"])
+    kernel = dict(res["kernel"], fell_back=False,
+                  faults_threaded=res["faults"])
+    rec = {"metric": "packet_events_per_sec",
+           "value": round(res["packet_events_per_sec"], 1),
+           "unit": "events/s",
+           "backend": backend_fingerprint(res["device"]),
+           "hosts": res["n_hosts"], "sections": sections,
+           "worlds": None, "memo": None,
+           "state_digest": state_digest(res["state"])}
+    rec.update((k, v) for k, v in res.items()
+               if k not in ("state", "metrics", "hist", "faults"))
+    rec["kernel"] = kernel
+    return rec
+
+
 def main(argv=None):
     import argparse
     import json
@@ -669,6 +745,12 @@ def main(argv=None):
                          "(the JSON's `worlds` record; its "
                          "amortization_vs_solo is against the solo run of "
                          "--kernel)")
+    ap.add_argument("--faults", action="store_true",
+                    help="thread neutral fault masks through every window "
+                         "(kernel xla only)")
+    ap.add_argument("--no-sections", action="store_true",
+                    help="skip the per-section profile rep (the JAX "
+                         "bench's BENCH_SECTIONS=0)")
     ap.add_argument("--out", default=None, help="write the JSON here too")
     args = ap.parse_args(argv)
     try:
@@ -677,11 +759,18 @@ def main(argv=None):
             kernel=args.kernel, capacity=args.capacity,
             max_doublings=args.max_doublings, grow_every=args.grow_every,
             telemetry=args.telemetry, hist=args.hist,
-            harvest_every=args.harvest_every, trace=args.trace)
+            harvest_every=args.harvest_every, trace=args.trace,
+            faults=args.faults)
     except ValueError as e:
         ap.error(str(e))
-    rec = {k: v for k, v in res.items()
-           if k not in ("state", "metrics", "hist")}
+    # sections are recorded for the "xla" kernel only, as the JAX bench
+    # records them for its default kernel
+    sections = (bench_sections(
+        "xla", res["n_hosts"], egress_cap=args.egress_cap,
+        ingress_cap=args.ingress_cap, device=res["device"])
+        if not args.no_sections and res["kernel"]["used"] == "xla"
+        else None)
+    rec = bench_record(res, sections)
     if args.worlds:
         worlds = run_worlds(args.worlds, egress_cap=args.egress_cap,
                             ingress_cap=args.ingress_cap,

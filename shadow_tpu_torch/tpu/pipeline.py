@@ -50,10 +50,11 @@ devices on the tensors they are given (under vmap, each world's); the
 ops check what needs the storage (distinct rings, kernel C's alignment).
 
 The split pair's plain versions are also the JAX XLA path's egress and
-routing stages: `egress_gate_plain` is `_egress_order` + `_token_gate`
-(with the round-robin tiebreak key), and `route_scatter(plain=True)` is
-`_route_scatter`, so `window_step(kernel="xla")` runs them and launches
-no kernel.
+routing stages: `egress_gate_plain` is made of `plane._rebase_egress`,
+`_egress_sort` and `_gate_spent`, which `plane._egress_order` and
+`_token_gate` (the XLA step's, with the round-robin tiebreak key) share,
+and `route_scatter(plain=True)` is `_route_scatter`, so
+`window_step(kernel="xla")` runs them and launches no kernel.
 """
 
 from __future__ import annotations
@@ -64,9 +65,9 @@ import torch
 
 from .._build import load_kernel
 from .ops import custom_op, fold_worlds, row_op
-from .plane import _routing_rank, _seq_row_order
-from .prims import (_SIGN32, I32_MAX, NO_CLAMP, _row_perm_sort, take, u32,
-                    wrap_i32)
+from .plane import (_egress_sort, _gate_spent, _rebase_egress, _routing_rank,
+                    _seq_row_order)
+from .prims import I32_MAX, take
 
 # kernel launches since the last reset, by kernel name
 LAUNCHES = {"egress_rank": 0, "route_place": 0, "egress_gate": 0,
@@ -142,50 +143,17 @@ def _launch(name: str, *args):
 # ---------------------------------------------------------------------------
 
 
-def egress_order_plain(valid, prio, nbytes, tsend, clamp, shift_ns: int, *,
-                       tiebreak=None):
-    """The ordering half of `egress_gate_plain` (the JAX XLA path's
-    `_egress_order`, packed keys): (perm [N, CE] int32, bytes_s, tsend_s,
-    clamp_s int32, valid_s bool), the order by (validity | priority[,
-    tiebreak], column) and the rebased carried columns in it."""
-    tsend_rb = torch.where(valid, tsend - shift_ns, 0)
-    clamp_rb = torch.where(valid & (clamp != NO_CLAMP), clamp - shift_ns,
-                           clamp)
-    key = torch.where(valid, 0, _SIGN32) | u32(prio)
-    if tiebreak is None:
-        key_s, perm = torch.sort(key, dim=1, stable=True)
-    else:
-        perm = _row_perm_sort(key, tiebreak)
-        key_s = take(key, perm)
-    # validity comes back from the key's top bit, as in the TPU kernel
-    valid_s = (key_s & _SIGN32) == 0
-    return (perm.to(torch.int32), take(nbytes, perm), take(tsend_rb, perm),
-            take(clamp_rb, perm), valid_s)
-
-
-def token_gate(valid_s, bytes_s, balance):
-    """The gating half of `egress_gate_plain` (the JAX `_token_gate`):
-    the prefix-sum token gate over the ordered rows. Returns (sendable
-    bool [N, CE], spent [N] int32)."""
-    cum = wrap_i32(torch.cumsum(torch.where(valid_s, bytes_s, 0), dim=1,
-                                dtype=torch.int64))
-    sendable = valid_s & (cum <= balance[:, None])
-    spent = wrap_i32(torch.where(sendable, bytes_s, 0).sum(
-        dim=1, dtype=torch.int64))
-    return sendable, spent
-
-
 def egress_gate_plain(valid, prio, nbytes, tsend, clamp, balance,
-                      shift_ns: int, *, tiebreak=None):
-    """Kernel C's function in plain PyTorch, and the JAX XLA path's
-    egress stage: `egress_order_plain` then `token_gate`. Returns (perm
-    [N, CE] int32, bytes_s, tsend_s, clamp_s int32, valid_s, sendable
-    bool [N, CE], spent [N] int32). `tiebreak` is the round-robin
-    qdisc's socket key (`plane._qdisc_keys`), None for FIFO, which is
-    all kernel C takes."""
-    perm, bytes_s, tsend_s, clamp_s, valid_s = egress_order_plain(
-        valid, prio, nbytes, tsend, clamp, shift_ns, tiebreak=tiebreak)
-    sendable, spent = token_gate(valid_s, bytes_s, balance)
+                      shift_ns: int):
+    """Kernel C's function in plain PyTorch, and the JAX XLA path's FIFO
+    egress stage: the clock rebase (`plane._rebase_egress`), the sort by
+    (validity | priority, column) (`plane._egress_sort`) and the
+    prefix-sum token gate (`plane._gate_spent`, the JAX `_token_gate`).
+    Returns (perm [N, CE] int32, bytes_s, tsend_s, clamp_s int32,
+    valid_s, sendable bool [N, CE], spent [N] int32)."""
+    perm, bytes_s, tsend_s, clamp_s, valid_s = _egress_sort(
+        valid, prio, nbytes, *_rebase_egress(valid, tsend, clamp, shift_ns))
+    sendable, spent = _gate_spent(valid_s, bytes_s, balance)
     return perm, bytes_s, tsend_s, clamp_s, valid_s, sendable, spent
 
 

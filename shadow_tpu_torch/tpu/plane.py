@@ -412,6 +412,90 @@ def _refill_tokens(state: NetPlaneState, params: NetPlaneParams, shift_ns,
     return balance, tb_rem_ns
 
 
+def _rebase_refill(state: NetPlaneState, params: NetPlaneParams, shift_ns,
+                   *, faults: FaultArrays | None = None):
+    """Section 1: the queued ingress's deliver times rebased to this
+    window (I32_MAX on invalid lanes) and the token refill
+    (`_refill_tokens`). Returns (in_deliver, balance, tb_rem_ns)."""
+    in_deliver = torch.where(state.in_valid,
+                             state.in_deliver_rel - shift_ns, I32_MAX)
+    balance, tb_rem_ns = _refill_tokens(state, params, shift_ns,
+                                        faults=faults)
+    return in_deliver, balance, tb_rem_ns
+
+
+def _rebase_egress(valid, tsend, clamp, shift_ns):
+    """Section 1 for the egress rings: the send times and clamps of
+    queued packets rebased to this window (tsend 0 on invalid lanes, a
+    NO_CLAMP or invalid lane's clamp kept). Kernels A and C rebase
+    inside. Returns (tsend_rb, clamp_rb)."""
+    tsend_rb = torch.where(valid, tsend - shift_ns, 0)
+    clamp_rb = torch.where(valid & (clamp != NO_CLAMP), clamp - shift_ns,
+                           clamp)
+    return tsend_rb, clamp_rb
+
+
+def _egress_sort(valid, qkey1, nbytes, tsend_rb, clamp_rb, tiebreak=None):
+    """The qdisc sort over rebased columns: each row by (validity |
+    qkey1[, tiebreak], column), one packed key. Returns (perm [N, CE]
+    int32, bytes_s, tsend_s, clamp_s int32, valid_s bool), the carried
+    columns in that order."""
+    key = torch.where(valid, 0, _SIGN32) | u32(qkey1)
+    if tiebreak is None:
+        key_s, perm = torch.sort(key, dim=1, stable=True)
+    else:
+        perm = _row_perm_sort(key, tiebreak)
+        key_s = take(key, perm)
+    # validity comes back from the key's top bit, as in the TPU kernel
+    valid_s = (key_s & _SIGN32) == 0
+    return (perm.to(torch.int32), take(nbytes, perm), take(tsend_rb, perm),
+            take(clamp_rb, perm), valid_s)
+
+
+def _take_egress(state: NetPlaneState, perm):
+    """The egress columns an order leaves to its caller (prio, sock,
+    dst, seq, ctrl), gathered through `perm` [N, CE]."""
+    perm = perm.to(torch.int64)
+    return tuple(take(a, perm) for a in (state.eg_prio, state.eg_sock,
+                                         state.eg_dst, state.eg_seq,
+                                         state.eg_ctrl))
+
+
+def _egress_order(state: NetPlaneState, qkey1, qkey2, eg_tsend_rb,
+                  eg_clamp_rb):
+    """Section 2b: the XLA path's qdisc sort (kernel C's plain ordering,
+    the round-robin tiebreak `qkey2` included) and the gathers of the
+    other columns through its permutation. Returns the 9 sorted columns
+    (prio, sock, dst, bytes, seq, ctrl, tsend, clamp, valid), as the JAX
+    function. The JAX plane skips the sort of an already ordered FIFO
+    row; the stable sort of an ordered key is the identity (SL505), so
+    the port always sorts."""
+    perm, eg_bytes, eg_tsend, eg_clamp, eg_valid = _egress_sort(
+        state.eg_valid, qkey1, state.eg_bytes, eg_tsend_rb, eg_clamp_rb,
+        qkey2)
+    eg_prio, eg_sock, eg_dst, eg_seq, eg_ctrl = _take_egress(state, perm)
+    return (eg_prio, eg_sock, eg_dst, eg_bytes, eg_seq, eg_ctrl, eg_tsend,
+            eg_clamp, eg_valid)
+
+
+def _gate_spent(valid_s, bytes_s, balance):
+    """The prefix-sum token gate over ordered rows, kernel C's gating
+    half. Returns (sendable bool [N, CE], spent [N] int32)."""
+    cum = wrap_i32(torch.cumsum(torch.where(valid_s, bytes_s, 0), dim=1,
+                                dtype=torch.int64))
+    sendable = valid_s & (cum <= balance[:, None])
+    spent = wrap_i32(torch.where(sendable, bytes_s, 0).sum(
+        dim=1, dtype=torch.int64))
+    return sendable, spent
+
+
+def _token_gate(eg_valid, eg_bytes, balance):
+    """Section 2c: the prefix-sum token-bucket gate over the sorted
+    egress. Returns (sendable, balance_after), as the JAX function."""
+    sendable, spent = _gate_spent(eg_valid, eg_bytes, balance)
+    return sendable, balance - spent
+
+
 def _qdisc_keys(state: NetPlaneState, params: NetPlaneParams, *,
                 rr_enabled: bool):
     """Section 2a: per-slot qdisc sort keys. FIFO = packet priority (no
@@ -566,6 +650,42 @@ def _routing_rank(sent, eg_dst, eg_seq, deliver_rel, n_valid_in,
     return row_perm, o_pos, offsets, take_n, overflow
 
 
+def _routing_place(row_perm, o_pos, offsets, take_n, n_valid_in, eg_seq,
+                   eg_bytes, eg_sock, deliver_rel, in_deliver_c, in_src_c,
+                   in_seq_c, in_sock_c, in_bytes_c, in_valid_c):
+    """Section 5b: land each destination row's bucket segment of the
+    arrival order in its free slots, with the JAX function's arguments:
+    the XLA placement, which is kernel D's plain version
+    (`pipeline.scatter(plain=True)`, what `route_scatter(plain=True)`
+    runs after `_routing_rank`). Returns the merged (src, seq, sock,
+    bytes, deliver, valid); unlike the JAX function, these are the
+    compacted ingress tensors given, updated in place."""
+    from . import pipeline  # pipeline imports this module
+
+    return pipeline.scatter(
+        n_valid_in, offsets, take_n, o_pos, row_perm, eg_seq, eg_sock,
+        eg_bytes, deliver_rel, in_src_c, in_seq_c, in_sock_c, in_bytes_c,
+        in_deliver_c, in_valid_c, plain=True)
+
+
+def _route_scatter(sent, eg_dst, eg_seq, eg_bytes, eg_sock, deliver_rel,
+                   in_deliver_c, in_src_c, in_seq_c, in_sock_c, in_bytes_c,
+                   in_valid_c, n_valid_in, *, kernel: str = "xla",
+                   plain: bool = False):
+    """Section 5 off the fused pair: `_routing_rank` and the placement,
+    through kernel D on `kernel="pallas"` (CUDA tensors, unless
+    `plain`) and through its plain version, the JAX XLA path's
+    placement, on every other kernel, as the JAX function dispatches.
+    Returns the merged ingress columns + overflow [N], the compacted
+    ingress tensors updated in place (`pipeline.route_scatter`)."""
+    from . import pipeline  # pipeline imports this module
+
+    return pipeline.route_scatter(
+        sent, eg_dst, eg_seq, eg_bytes, eg_sock, deliver_rel, in_deliver_c,
+        in_src_c, in_seq_c, in_sock_c, in_bytes_c, in_valid_c, n_valid_in,
+        plain=plain or kernel != "pallas")
+
+
 def _release_due(in_deliver_m, in_src_m, in_seq_m, in_sock_m, in_bytes_m,
                  in_valid_m, window_ns):
     """Section 5b: split the merged ingress into this window's due
@@ -607,15 +727,28 @@ def _key_src_seq(src, seq):
     return (src.to(torch.int64) << 32) | (u32(seq) ^ _SIGN32)
 
 
+def _router_order(in_deliver_m, in_src_m, in_seq_m, in_sock_m, in_bytes_m,
+                  in_valid_m):
+    """The merged ingress rows in the order they reach the router:
+    (arrival, src, seq), invalid lanes last with arrival I32_MAX (the
+    JAX four-key stable row sort, as two stable passes: by (src, seq),
+    then by (invalid, arrival)). Returns (arr_s, src_s, seq_s, sock_s,
+    bytes_s, valid_s)."""
+    arr_key = torch.where(in_valid_m, in_deliver_m, I32_MAX)
+    perm = _row_perm_sort(_key_valid_time(in_valid_m, arr_key),
+                          _key_src_seq(in_src_m, in_seq_m))
+    return tuple(take(a, perm) for a in (arr_key, in_src_m, in_seq_m,
+                                         in_sock_m, in_bytes_m, in_valid_m))
+
+
 def _router_release(in_deliver_m, in_src_m, in_seq_m, in_sock_m, in_bytes_m,
                     in_valid_m, window_ns, params: NetPlaneParams,
                     rt: codel.RouterDownState, *, plain: bool):
     """Section 5b under the router AQM: the inbound pipeline (router
     CoDel, down-bandwidth relay, delivery) in place of the due release.
     Stored times are arrivals at the destination router. The rows go to
-    the router in (arrival, src, seq) order (the JAX four-key stable row
-    sort, as two stable passes: by (src, seq), then by (invalid,
-    arrival)); `codel.router_drain` (kernel E on CUDA tensors unless
+    the router in (arrival, src, seq) order (`_router_order`);
+    `codel.router_drain` (kernel E on CUDA tensors unless
     `plain`) drains them; a row entry left cached moves its identity into
     the router scalars. The delivered dict is [N, CI + 1]: the forwarded
     rows plus the previous window's cached packet in the extra column,
@@ -624,11 +757,8 @@ def _router_release(in_deliver_m, in_src_m, in_seq_m, in_sock_m, in_bytes_m,
     bytes', valid', router state', (src_s, seq_s, arr_s, aqm_dropped))
     with the last the flight recorder's AQM-drop candidates."""
     CI = in_src_m.shape[1]
-    arr_key = torch.where(in_valid_m, in_deliver_m, I32_MAX)
-    perm = _row_perm_sort(_key_valid_time(in_valid_m, arr_key),
-                          _key_src_seq(in_src_m, in_seq_m))
-    arr_s, src_s, seq_s, sock_s, bytes_s, valid_s = (take(a, perm) for a in (
-        arr_key, in_src_m, in_seq_m, in_sock_m, in_bytes_m, in_valid_m))
+    arr_s, src_s, seq_s, sock_s, bytes_s, valid_s = _router_order(
+        in_deliver_m, in_src_m, in_seq_m, in_sock_m, in_bytes_m, in_valid_m)
     rt2, rstatus, r_dt, co_mask, co_t, c_idx = codel.router_drain(
         arr_s, bytes_s, window_ns, params.dn_rate, params.dn_cap, rt,
         plain=plain)
@@ -852,10 +982,8 @@ def window_step(state: NetPlaneState, params: NetPlaneParams, rng_seed,
     N, CE = state.eg_dst.shape
 
     # --- 1. rebase clocks + refill token buckets ------------------------
-    in_deliver = torch.where(state.in_valid,
-                             state.in_deliver_rel - shift_ns, I32_MAX)
-    balance, tb_rem_ns = _refill_tokens(state, params, shift_ns,
-                                        faults=faults)
+    in_deliver, balance, tb_rem_ns = _rebase_refill(state, params, shift_ns,
+                                                    faults=faults)
     rt = codel.rebase_router_state(state.router, shift_ns, params.dn_rate,
                                    params.dn_cap)
 
@@ -869,35 +997,33 @@ def window_step(state: NetPlaneState, params: NetPlaneParams, rng_seed,
             state.eg_valid, state.eg_prio, state.eg_bytes, state.eg_tsend,
             state.eg_clamp, state.eg_dst, state.eg_seq, state.eg_sock,
             state.eg_ctrl, balance, shift_ns)
+        balance = balance - spent
     else:
         qkey1, qkey2, rr_aux = _qdisc_keys(state, params,
                                            rr_enabled=rr_enabled)
         if kernel == "xla" or plain_kernels:
-            (perm, eg_bytes, eg_tsend, eg_clamp,
-             eg_valid) = pipeline.egress_order_plain(
-                state.eg_valid, qkey1, state.eg_bytes, state.eg_tsend,
-                state.eg_clamp, shift_ns, tiebreak=qkey2)
+            eg_tsend_rb, eg_clamp_rb = _rebase_egress(
+                state.eg_valid, state.eg_tsend, state.eg_clamp, shift_ns)
+            (eg_prio, eg_sock, eg_dst, eg_bytes, eg_seq, eg_ctrl, eg_tsend,
+             eg_clamp, eg_valid) = _egress_order(state, qkey1, qkey2,
+                                                 eg_tsend_rb, eg_clamp_rb)
             if faults is not None:
                 # 2f. a down host transmits nothing: its queued egress
                 # drops here, before the gate, once a slot
                 up_src = (faults.host_alive & faults.link_up)[:, None]
                 fault_purged = eg_valid & ~up_src
                 eg_valid = eg_valid & up_src
-            sendable, spent = pipeline.token_gate(eg_valid, eg_bytes,
-                                                  balance)
+            sendable, balance = _token_gate(eg_valid, eg_bytes, balance)
         else:
             (perm, eg_bytes, eg_tsend, eg_clamp, eg_valid, sendable,
              spent) = pipeline.egress_order_gate(
                 state.eg_valid, qkey1, state.eg_bytes, state.eg_tsend,
                 state.eg_clamp, balance, shift_ns)
-        perm = perm.to(torch.int64)
-        eg_prio, eg_sock, eg_dst, eg_seq, eg_ctrl = (
-            take(a, perm) for a in (state.eg_prio, state.eg_sock,
-                                    state.eg_dst, state.eg_seq,
-                                    state.eg_ctrl))
+            eg_prio, eg_sock, eg_dst, eg_seq, eg_ctrl = _take_egress(state,
+                                                                     perm)
+            balance = balance - spent
         if rr_enabled:
             rr_sent = _rr_advance(eg_sock, eg_valid, sendable, rr_aux)
-    balance = balance - spent
 
     # --- 3. loss sampling + latency lookup -------------------------------
     sent, lost, corrupt, rng_counter, deliver_rel = _loss_latency(
@@ -926,8 +1052,7 @@ def window_step(state: NetPlaneState, params: NetPlaneParams, rng_seed,
     if kernel == "pallas_fused":
         merged = pipeline.route_place(*routed, row_perm, plain=plain_kernels)
     else:
-        merged = pipeline.route_scatter(
-            *routed, plain=plain_kernels or kernel == "xla")
+        merged = _route_scatter(*routed, kernel=kernel, plain=plain_kernels)
     (in_src_m, in_seq_m, in_sock_m, in_bytes_m, in_deliver_m, in_valid_m,
      overflowed) = merged
 

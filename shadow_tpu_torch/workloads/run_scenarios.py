@@ -2,7 +2,7 @@
 golden digests: the corpus mode of `tools/run_scenarios.py`.
 
     python -m shadow_tpu_torch.workloads.run_scenarios [paths ...]
-        [--check] [-o out.json] [--slo-report slo.json]
+        [--config SIM_YAML] [--check] [-o out.json] [--slo-report slo.json]
         [--faults] [--guards] [--sample-every K] [--trace-ring R]
         [--telemetry DIR] [--memo] [--memo-report PATH]
         [--memo-cache DIR] [--trace DIR] [--trace-report PATH]
@@ -12,7 +12,14 @@ golden digests: the corpus mode of `tools/run_scenarios.py`.
 With no paths it runs every `scenarios/*.yaml` of the checkout. `--check`
 compares each record's fingerprint, program digest and canonical digest
 with `scenarios/GOLDEN.json` and exits 1 on a mismatch; with no paths a
-golden entry that did not run is a mismatch too. `--slo-report` writes
+golden entry that did not run is a mismatch too. `--config SIM_YAML`
+runs the scenario a simulation config's `workload:` block names instead
+of paths (the path taken against the config's directory, `workload.seed`
+overriding the scenario's seed), with the config's `flows:` knobs
+(`emit_cap`, `recv_wnd`; `enabled` only warns when the scenario does not
+run the flow transport) and its `memo:` block; a config the JAX parser
+refuses (`core/config.ConfigError`, the same text), a block that names
+no scenario, and `--config` with paths exit 2. `--slo-report` writes
 the compute and SLO sections of the scenarios that have a `compute:`
 block, stamped with the device the run used. `--faults` threads the
 runner's default fault schedule, `--guards` the guard plane (each line
@@ -40,7 +47,9 @@ The run infrastructure, with the JAX tool's meanings and file names:
   where it restarted is written to the `<out>.provenance.json` sidecar
   (with `-o`) and the ledger.
 
-The device defaults to the CUDA card.
+The device defaults to the CUDA card. Not ported: `--update-golden`
+(it rewrites `scenarios/GOLDEN.json`, the reference's record) and
+`--shard` (a mesh of devices).
 """
 
 from __future__ import annotations
@@ -55,15 +64,17 @@ CORPUS_DIR = Path(__file__).resolve().parents[2] / "scenarios"
 GOLDEN = CORPUS_DIR / "GOLDEN.json"
 
 
-def _refusal(args) -> str | None:
-    """The flag combinations the JAX tool refuses (exit 2), as a line."""
+def _refusal(args, memo: bool) -> str | None:
+    """The flag combinations the JAX tool refuses (exit 2), as a line;
+    `memo` is whether the run memoizes (`--memo` or the config's
+    `memo.enabled`)."""
     if (args.faults or args.guards) and args.check:
         return ("--faults/--guards runs cannot be checked against the "
                 "golden corpus")
-    if args.memo_report and not args.memo:
-        return "--memo-report needs --memo"
-    if args.memo_cache and not args.memo:
-        return "--memo-cache needs --memo"
+    if args.memo_report and not memo:
+        return "--memo-report needs --memo (or a config with memo.enabled)"
+    if args.memo_cache and not memo:
+        return "--memo-cache needs --memo (or a config with memo.enabled)"
     if args.trace_report and not args.trace:
         return "--trace-report needs --trace"
     if args.resume and not args.checkpoint_dir:
@@ -82,6 +93,27 @@ def _refusal(args) -> str | None:
     return None
 
 
+def _from_config(path: str):
+    """The run a simulation config's blocks describe: (scenario path,
+    seed override, flow emit cap, receive window, flows enabled, the
+    `memo:` block), or the line to exit 2 with."""
+    from ..core.config import ConfigError, load_config_file
+
+    try:
+        cfg = load_config_file(path)
+    except ConfigError as e:
+        return f"{path}: {e}"
+    if cfg.workload.scenario in (None, "off"):
+        return (f"{path}: the `workload:` block names no scenario "
+                f"(workload.scenario is {cfg.workload.scenario!r})")
+    scenario = cfg.workload.scenario
+    if not os.path.isabs(scenario):
+        scenario = os.path.join(os.path.dirname(os.path.abspath(path)),
+                                scenario)
+    return (scenario, cfg.workload.seed, cfg.flows.emit_cap,
+            cfg.flows.recv_wnd, cfg.flows.enabled, cfg.memo)
+
+
 def _write_json(path: str, obj: dict) -> None:
     with open(path, "w") as fh:
         json.dump(obj, fh, sort_keys=True, indent=1)
@@ -92,6 +124,11 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("scenarios", nargs="*",
                     help="scenario YAMLs (default: scenarios/*.yaml)")
+    ap.add_argument("--config", default=None, metavar="SIM_YAML",
+                    help="run the scenario a simulation config's "
+                         "`workload:` block names (with its seed override, "
+                         "`flows:` knobs and `memo:` block) instead of "
+                         "listing scenario files")
     ap.add_argument("--check", action="store_true",
                     help="compare with the golden digests (exit 1 on a "
                          "mismatch)")
@@ -147,10 +184,34 @@ def main(argv=None) -> int:
     ap.add_argument("--golden", default=str(GOLDEN))
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     args = ap.parse_args(argv)
-    refused = _refusal(args)
+    seed_override = emit_cap = recv_wnd = memo_cfg = None
+    flows_enabled = False
+    if args.config is not None:
+        if args.scenarios:
+            ap.error("--config and positional scenarios are mutually "
+                     "exclusive")
+        run = _from_config(args.config)
+        if isinstance(run, str):
+            print(f"run_scenarios: {run}", file=sys.stderr)
+            return 2
+        (scenario, seed_override, emit_cap, recv_wnd, flows_enabled,
+         memo_cfg) = run
+    memo = args.memo or (memo_cfg is not None and memo_cfg.enabled)
+    refused = _refusal(args, memo)
     if refused:
         print(f"run_scenarios: {refused}", file=sys.stderr)
         return 2
+    memo_arg = None
+    if memo:
+        from ..core.config import MemoOptions
+
+        memo_arg = memo_cfg if memo_cfg is not None else MemoOptions(
+            enabled=True)
+        if not memo_arg.enabled:  # the --memo flag turns the block on
+            memo_arg = MemoOptions(enabled=True,
+                                   max_bytes=memo_arg.max_bytes,
+                                   min_repeat=memo_arg.min_repeat,
+                                   chain_len=memo_arg.chain_len)
 
     from ..telemetry import export
     from ..telemetry import tracer as tracermod
@@ -158,7 +219,8 @@ def main(argv=None) -> int:
     from . import runner
     from .spec import load_scenario_file
 
-    paths = args.scenarios or sorted(str(p) for p in CORPUS_DIR.glob("*.yaml"))
+    paths = ([scenario] if args.config is not None else args.scenarios
+             or sorted(str(p) for p in CORPUS_DIR.glob("*.yaml")))
     backend = tracermod.backend_fingerprint(args.device)
     for d in (args.telemetry, args.trace, args.memo_cache):
         if d:
@@ -169,7 +231,13 @@ def main(argv=None) -> int:
     provenance_all = {}
     guards_dirty = False
     for path in paths:
-        spec = load_scenario_file(path)
+        spec = load_scenario_file(path, seed=seed_override)
+        if flows_enabled and spec.transport != "flows":
+            print(f"run_scenarios: flows.enabled is set but scenario "
+                  f"{spec.name!r} declares transport: {spec.transport}; "
+                  f"the flow plane runs only for `transport: flows` "
+                  f"scenarios, so this run stays on the direct transport",
+                  file=sys.stderr)
         harvester = hops_sink = None
         if args.telemetry:
             harvester = TelemetryHarvester(
@@ -187,7 +255,7 @@ def main(argv=None) -> int:
             tracer = tracermod.RunTracer(
                 spec.name, backend=backend,
                 meta={"family": spec.family, "hosts": spec.n_hosts,
-                      "windows": spec.windows, "memo": args.memo,
+                      "windows": spec.windows, "memo": memo,
                       "faults": bool(args.faults)},
                 sink=ledger_path if args.checkpoint_dir else None,
                 resume=bool(args.resume and args.checkpoint_dir
@@ -199,7 +267,8 @@ def main(argv=None) -> int:
             use_default_faults=args.faults, guards=args.guards,
             telemetry=harvester, sample_every=args.sample_every,
             trace_ring=args.trace_ring, hops_sink=hops_sink,
-            memo=True if args.memo else None, tracer=tracer,
+            flow_emit_cap=emit_cap, flow_recv_wnd=recv_wnd,
+            memo=memo_arg, tracer=tracer,
             checkpoint_dir=args.checkpoint_dir,
             checkpoint_every=args.checkpoint_every, resume=args.resume,
             kill_at=args.kill_at,

@@ -22,6 +22,7 @@ from shadow_tpu_torch.guards import plane as gplane  # noqa: E402
 from shadow_tpu_torch.telemetry import flightrec, histo, metrics  # noqa: E402
 from shadow_tpu_torch.tpu import (compute, elastic, flows, plane,  # noqa: E402
                                   profiling)
+from shadow_tpu_torch.tools import profile_plane  # noqa: E402
 from shadow_tpu_torch.workloads import runner, spec  # noqa: E402
 
 REPO = Path(__file__).resolve().parent.parent
@@ -45,10 +46,13 @@ def test_port_imports_no_jax_and_nothing_of_shadow_tpu():
     scanned = {p.relative_to(REPO).as_posix() for p in PORT_FILES}
     for sub in ("faults", "guards", "core"):
         assert any(f.startswith(f"shadow_tpu_torch/{sub}/") for f in scanned)
+    # nor the repository's scripts under tools/ (the port has its twins)
+    scripts = {p.stem for p in (REPO / "tools").glob("*.py")} | {"tools"}
     for path in PORT_FILES:
         for mod in imported_modules(path):
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "shadow_tpu"), (path, mod)
+            assert top not in scripts, (path, mod)
 
 
 # functions and classes of the scanned files that run on the host after
@@ -228,6 +232,11 @@ def test_entry_points_default_to_cuda_and_refuse_without_a_card():
         lambda: compute.make_compute_tables(np.zeros((4, 2)), 8),
         lambda: runner.run_scenario(spec.load_scenario_file(
             str(REPO / "scenarios" / "incast.yaml"))),
+        lambda: profiling.profile_sections(4, reps=1, n_nodes=2,
+                                           egress_cap=4, ingress_cap=4),
+        lambda: profile_plane.main(["--hosts", "4", "--reps", "1",
+                                    "--nodes", "2", "--egress-cap", "4",
+                                    "--ingress-cap", "4"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
