@@ -158,7 +158,23 @@ printed:
    `tools/compare_runs.py --bench`; `run_scenarios --config` on a
    simulation config naming a corpus entry, with that entry's
    `scenarios/GOLDEN.json` digests;
-19. one JSON line describing every kernel, then the result line.
+19. the host-axis mesh (`tpu/mesh.py`) on the one card: (a) two ranks
+   over gloo (NCCL refuses two ranks on one card; every collective is
+   staged through host memory), rank 0 this process and rank 1 spawned,
+   both on the card: the golden world (N=1024, R=16) and the bench world
+   (N=32768, R=192) sharded through each kernel pair, the first equal to
+   `GOLDEN_PHOLD_DIGEST`, the second to the unsharded run of phase 7,
+   each rank launching its pair once a window and E never, the sharded
+   events/s beside the unsharded; in-window us a launch on rank 0 over 8
+   windows (torch.profiler); the multichip stress (65536 hosts, a
+   64-window `chain_windows` through A and B, every arrival across the
+   shard boundary, overflow drops) equal to its one-rank run; (b) one
+   rank over NCCL: the golden and bench worlds through A and B equal to
+   the unsharded runs; (c) A-D at a rank's shape (N_local = 16384; B and
+   D with n_src = 32768 source rows, bitwise against their plain
+   versions) timed cold and warm beside their bounds, the exchange's
+   bytes a window and each part's seconds;
+20. one JSON line describing every kernel, then the result line.
 
 Usage: python3 chip_smoke.py   (from the repository root; one card).
 A fuller record of every measurement is printed on the `record:` line.
@@ -563,15 +579,18 @@ def check_kernel_c(torch, pipeline, record):
     return next(r for r in rows if r["ce"] == EGRESS_CAP)
 
 
-def placement_inputs(torch):
+def placement_inputs(torch, n=N_HOSTS, n_src=None):
     """Kernel B's and D's inputs at the main path's shape: bucket
     segments that tile the N*CE arrival slots, 1 in 16 destination rows
     hot enough to overflow the ring, a random arrival order `o_pos` (a
     permutation of N*CE), random row orders `row_perm` and payload and
     ingress columns; row 0's segment starts before the first arrival and
     row N-1's runs past the last (their slots outside read 0). Returns
-    (args, counts, placed and placed-reading-an-arrival [N, CI] bool)."""
-    n, ce, ci = N_HOSTS, EGRESS_CAP, INGRESS_CAP
+    (args, counts, placed and placed-reading-an-arrival [N, CI] bool).
+    With `n_src` the source columns have n_src rows (a mesh rank's
+    launch after the routing exchange) and the arrivals n_src*CE slots."""
+    ce, ci = EGRESS_CAP, INGRESS_CAP
+    m = n if n_src is None else n_src
     rng = np.random.default_rng(5)
     nv = rng.integers(0, ci + 1, n)
     # arrivals per destination: mostly near the mean, 1 in 16 rows hot
@@ -579,13 +598,13 @@ def placement_inputs(torch):
     hot = rng.random(n) < 1 / 16
     counts[hot] += rng.integers(ci, 2 * ci, hot.sum())
     counts = np.minimum(counts, np.maximum(
-        0, n * ce - (np.cumsum(counts) - counts)))  # fit the N*CE slots
+        0, m * ce - (np.cumsum(counts) - counts)))  # fit the m*CE slots
     offsets = np.cumsum(counts) - counts
     take = np.minimum(counts, ci - nv)
     if not (counts > ci - nv).any():
         fail("the placement check built no overflowing row")
     nv[0], take[0], offsets[0] = 0, ci, -(ci // 2)
-    nv[-1], take[-1], offsets[-1] = 1, ci - 1, n * ce - ci // 2
+    nv[-1], take[-1], offsets[-1] = 1, ci - 1, m * ce - ci // 2
     dev = torch.device("cuda")
     t = lambda a, dt=np.int32: torch.from_numpy(
         np.ascontiguousarray(a, dt)).to(dev)
@@ -593,15 +612,15 @@ def placement_inputs(torch):
     deliver = rng.integers(-2**31, 2**31, (n, ci))
     deliver[rng.random((n, ci)) < 0.25] = 2**31 - 1
     args = (t(nv), t(offsets), t(take),
-            t(rng.permutation(n * ce), np.int64),
-            t(np.argsort(rng.random((n, ce)), axis=1)),
-            *(words(n, ce) for _ in range(4)),
+            t(rng.permutation(m * ce), np.int64),
+            t(np.argsort(rng.random((m, ce)), axis=1)),
+            *(words(m, ce) for _ in range(4)),
             *(words(n, ci) for _ in range(4)), t(deliver),
             t(rng.random((n, ci)) < 0.5, bool))
     ccol = np.arange(ci)[None, :]
     placed = (ccol >= nv[:, None]) & (ccol < (nv + take)[:, None])
     j = (offsets - nv)[:, None] + ccol
-    inside = placed & (j >= 0) & (j < n * ce)
+    inside = placed & (j >= 0) & (j < m * ce)
     return args, counts, placed, inside
 
 
@@ -717,6 +736,7 @@ def check_main_path(torch, bench, convert, pipeline, record, ident, kernel,
     rate = main_run["packet_events_per_sec"]
     rec = {k: v for k, v in main_run.items() if k != "state"}
     rec["launches"] = launches
+    rec["digest"] = convert.state_digest(main_run["state"])
     print(f"main path, kernel={kernel}: N={N_HOSTS} CE={EGRESS_CAP} "
           f"CI={INGRESS_CAP} M={N_NODES} R={ROUNDS}: "
           f"packet_events_per_sec={rate:.1f} (events {main_run['events']}, "
@@ -2592,12 +2612,353 @@ def check_section_profiler(torch, bench, pipeline, record, ident):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the host-axis mesh on the one card
+# ---------------------------------------------------------------------------
+
+MESH_RANKS = 2  # (a): ranks over gloo on the one card
+MESH_ROUNDS = ROUNDS  # the bench world's windows, sharded
+MESH_PROFILE_WINDOWS = 8  # device us a launch on rank 0 (torch.profiler)
+MESH_STRESS_HOSTS = 65_536
+MESH_STRESS_WINDOWS = 64
+MESH_PAIRS = ENS_PAIRS
+MESH_DEVICE = "cuda"  # (a)'s ranks' device (the CPU only to rehearse)
+
+
+def mesh_exchange_bytes(n_hosts: int, ce: int) -> int:
+    """What a rank receives from the routing exchange a window: the seven
+    [N, CE] int32 columns of every host (its own included)."""
+    return 7 * n_hosts * ce * 4
+
+
+def mesh_sync(torch, device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def mesh_profile(torch, bench, meshmod, kernel, mesh, n_hosts, windows):
+    """Device us a launch of each port kernel over `windows` sharded
+    bench windows after as many warm-up windows (torch.profiler on rank
+    0; every rank runs the windows, as the collectives need)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    world = bench.build_world(n_hosts, n_nodes=N_NODES,
+                              egress_cap=EGRESS_CAP, ingress_cap=INGRESS_CAP,
+                              warmup_windows=0, device=mesh.device)
+    world["state"], world["params"] = meshmod.shard_state(
+        world["state"], world["params"], mesh)
+    chain = bench.phold_chain_fn(world, kernel=kernel, mesh=mesh)
+    n_local = world["state"].in_src.shape[0]
+    extras = (torch.full((n_local,), bench.SPAWN_SEQ0, dtype=torch.int32,
+                         device=mesh.device), 0)
+    state, extras, _e, _i = chain(world["state"], extras, 0, windows)
+    mesh_sync(torch, mesh.device)
+    if mesh.rank != 0:
+        chain(state, extras, windows, 2 * windows)
+        mesh_sync(torch, mesh.device)
+        return {}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        chain(state, extras, windows, 2 * windows)
+        mesh_sync(torch, mesh.device)
+    us = {}
+    for name in PORT_KERNELS:
+        # the kernels themselves (named `<name>_kernel`), not the custom
+        # ops that launch them
+        evs = [ev for ev in prof.key_averages() if name in ev.key
+               and ev.count and ev.device_type == DeviceType.CUDA]
+        if evs:
+            n = sum(ev.count for ev in evs)
+            us[name] = {"us_per_launch": sum(ev.device_time_total
+                                             for ev in evs) / n,
+                        "launches": n}
+    return us
+
+
+def mesh_rank(mesh, n_hosts, rounds, stress_hosts, stress_windows,
+              profile_windows, device_type="cuda"):
+    """Phase 19 (a) on one rank of the gloo mesh: the golden world and
+    the bench world through each kernel pair, sharded, with each rank's
+    launches; a profile of the sharded windows; the multichip stress
+    against the one-rank run (rank 0). Rank 0 returns the results, the
+    per-rank launch counts gathered."""
+    import torch
+
+    from shadow_tpu_torch import bench, convert
+    from shadow_tpu_torch.tools import multichip
+    from shadow_tpu_torch.tpu import mesh as meshmod
+    from shadow_tpu_torch.tpu import pipeline
+
+    if mesh.device.type != device_type:
+        raise RuntimeError(f"phase 19: rank {mesh.rank} is on "
+                           f"{mesh.device}, not the GPU")
+    size = dict(n_nodes=N_NODES, egress_cap=EGRESS_CAP,
+                ingress_cap=INGRESS_CAP)
+
+    def counted(fn, *a, **kw):
+        pipeline.reset_launches()
+        out = fn(*a, **kw)
+        mesh_sync(torch, mesh.device)
+        mine = torch.tensor([pipeline.LAUNCHES[k] for k in PORT_KERNELS],
+                            dtype=torch.int64, device=mesh.device)
+        every = mesh.gather_leaf(mine[None]).tolist()
+        return out, [dict(zip(PORT_KERNELS, r)) for r in every]
+
+    out = {"ranks": mesh.size, "backend": mesh.backend,
+           "device": str(mesh.device), "staged": mesh.staged, "part_s": {}}
+    clock = [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        out["part_s"][name] = now - clock[0]
+        clock[0] = now
+
+    for kernel, pair in MESH_PAIRS:
+        g = dict(bench.GOLDEN_PHOLD)
+        golden = bench.run_phold(g.pop("n_hosts"), rounds=g.pop("rounds"),
+                                 warmup=False, kernel=kernel, mesh=mesh, **g)
+        golden_digest = convert.state_digest(
+            meshmod.gather_state(golden["state"], mesh))
+        lap(f"golden {kernel}")
+        run, launches = counted(bench.run_phold, n_hosts, rounds=rounds,
+                                warmup=False, kernel=kernel, mesh=mesh,
+                                **size)
+        digest = convert.state_digest(meshmod.gather_state(run["state"],
+                                                           mesh))
+        lap(f"bench world {kernel}")
+        prof = mesh_profile(torch, bench, meshmod, kernel, mesh, n_hosts,
+                            profile_windows)
+        lap(f"profile {kernel}")
+        out[kernel] = {
+            "golden_digest": golden_digest, "digest": digest,
+            "launches": launches, "wall_s": run["wall_s"],
+            "events": run["events"], "delivered": run["delivered"],
+            "packet_events_per_sec": run["packet_events_per_sec"],
+            "in_window": prof}
+    t0 = time.perf_counter()
+    stress, launches = counted(multichip.check_stress, mesh, stress_hosts,
+                               stress_windows, "pallas_fused")
+    for k in ("state", "delivered"):
+        stress.pop(k)
+    stress.update(launches=launches, wall_s=time.perf_counter() - t0)
+    out["stress"] = stress
+    lap("stress")
+    return out
+
+
+def nsrc_placement_row(torch, pipeline, name, kernel, plain, n, n_src):
+    """Kernel B or D at a mesh rank's shape (n ring rows, n_src gathered
+    source rows) against its plain version, timed cold and warm beside
+    its bound (`placement_bytes` at these inputs)."""
+    args, _counts, placed, inside = placement_inputs(torch, n=n,
+                                                     n_src=n_src)
+    clone = lambda: [a.clone() for a in args]
+    got = kernel(*clone())
+    ref = plain(*clone())
+    torch.cuda.synchronize()
+    err = max_abs_err(torch, got, ref)
+    if err != 0:
+        fail(f"{name} with n_src={n_src} != N={n} disagrees with its plain "
+             f"version (max abs err {err})")
+    work = clone()
+    kernel(*work)
+    warm_ms, ms, clean_ms = time_device(torch, lambda: kernel(*work))
+    _, plain_ms, _ = time_device(torch, lambda: plain(*work), reps=10)
+    moved, _ = placement_bytes(work[13], work[14], placed, inside)
+    ops = n * INGRESS_CAP * 6 + int(placed.sum()) * 30
+    bound_ms, bound_by = bound(moved, ops)
+    return dict(n=n, n_src=n_src, max_abs_err=err, ms=ms, warm_ms=warm_ms,
+                cold_clean_ms=clean_ms, plain_ms=plain_ms, bytes=moved,
+                bound_ms=bound_ms, bound_by=bound_by,
+                share_of_bound=bound_ms / ms)
+
+
+def egress_row(torch, pipeline, name, n):
+    """Kernel A or C at a mesh rank's n rows, timed cold and warm beside
+    its byte bound."""
+    args = egress_inputs(torch, n, EGRESS_CAP, seed=n)
+    if name == "egress_rank":
+        call = lambda: pipeline.egress_rank_stage(*args)
+        moved = nbytes(args[:10]) + nbytes(call())
+    else:
+        cargs = (*args[:5], args[9], args[10])
+        call = lambda: pipeline.egress_order_gate(*cargs)
+        moved = nbytes(cargs[:6]) + nbytes(call())
+    warm_ms, ms, clean_ms = time_device(torch, call)
+    bound_ms, bound_by = bound(moved, 0)
+    return dict(n=n, ms=ms, warm_ms=warm_ms, cold_clean_ms=clean_ms,
+                bytes=moved, bound_ms=bound_ms, bound_by=bound_by,
+                share_of_bound=bound_ms / ms)
+
+
+def check_mesh(torch, bench, convert, pipeline, record, ident):
+    """Phase 19: (a) two ranks on the one card over gloo (named: NCCL
+    refuses two ranks on one card; each collective goes through host
+    memory): the golden world and the bench world sharded through each
+    kernel pair, equal to `GOLDEN_PHOLD_DIGEST` and to the unsharded
+    bench-world runs, each rank launching its pair once a window and E
+    never, and the multichip stress equal to its one-rank run; (b) one
+    rank over NCCL: the bench world through the fused pair; (c) the
+    kernels at a rank's shape (N_local = N / 2, n_src = N) beside their
+    bounds, each part's seconds, the exchange's bytes and the sharded
+    events/s beside the unsharded run's. Returns {kernel: [launches of
+    each rank on the fused or split sharded path]}."""
+    from shadow_tpu_torch.tpu import mesh as meshmod
+
+    t_all = time.perf_counter()
+    size = dict(n_nodes=N_NODES, egress_cap=EGRESS_CAP,
+                ingress_cap=INGRESS_CAP)
+    unsharded = {}
+    for kernel, _pair in MESH_PAIRS:
+        main = record.get(f"main_path_{kernel}", {})
+        if "digest" in main:
+            unsharded[kernel] = (main["digest"],
+                                 main["packet_events_per_sec"])
+        else:  # phase 19 alone: a warmed-up run, as phase 7's
+            run = bench.run_phold(N_HOSTS, rounds=MESH_ROUNDS, kernel=kernel,
+                                  **size)
+            unsharded[kernel] = (convert.state_digest(run["state"]),
+                                 run["packet_events_per_sec"])
+    # (a) two ranks over gloo on the one card
+    t0 = time.perf_counter()
+    a = meshmod.run_ranks(mesh_rank, MESH_RANKS, N_HOSTS, MESH_ROUNDS,
+                          MESH_STRESS_HOSTS, MESH_STRESS_WINDOWS,
+                          MESH_PROFILE_WINDOWS, MESH_DEVICE, backend="gloo",
+                          device=MESH_DEVICE)
+    t_a = time.perf_counter() - t0
+    if not a["staged"]:
+        fail("phase 19 (a): the gloo ranks' collectives were not staged "
+             "through host memory")
+    launches = {}
+    for kernel, pair in MESH_PAIRS:
+        got = a[kernel]
+        if got["golden_digest"] != bench.GOLDEN_PHOLD_DIGEST:
+            fail(f"phase 19 (a): the golden world sharded over {MESH_RANKS} "
+                 f"ranks through kernel={kernel!r} ends in "
+                 f"{got['golden_digest']}, not GOLDEN_PHOLD_DIGEST")
+        if got["digest"] != unsharded[kernel][0]:
+            fail(f"phase 19 (a): the bench world sharded over {MESH_RANKS} "
+                 f"ranks through kernel={kernel!r} ({MESH_ROUNDS} windows) "
+                 "differs from the unsharded run")
+        for rank, counts in enumerate(got["launches"]):
+            for name, count in counts.items():
+                want = MESH_ROUNDS if name in pair else 0
+                if count != want:
+                    fail(f"phase 19 (a): rank {rank} launched {name} "
+                         f"{count} times on the sharded kernel={kernel!r} "
+                         f"path, expected {want}")
+        for name in pair:
+            launches[name] = [c[name] for c in got["launches"]]
+        print(f"19 (a) kernel={kernel}: N={N_HOSTS} over {MESH_RANKS} ranks "
+              f"(gloo on one card, each collective staged through host "
+              f"memory), R={MESH_ROUNDS}: digest == the unsharded run's, "
+              f"golden world == GOLDEN_PHOLD_DIGEST; launches per rank "
+              f"{got['launches']}; {got['packet_events_per_sec']:.1f} "
+              f"events/s sharded vs {unsharded[kernel][1]:.1f} unsharded "
+              f"(a record, not a claim: the host staging dominates); "
+              f"in-window us a launch on rank 0 {got['in_window']} on "
+              f"{ident}")
+    st = a["stress"]
+    if st["diff"] or st["overflow_drops"] <= 0 or \
+            st["chain"][2] != MESH_STRESS_WINDOWS:
+        fail(f"phase 19 (a): the multichip stress diverged or walked short: "
+             f"{st['diff'][:8]}, chain {st['chain']}, "
+             f"{st['overflow_drops']} overflow drops")
+    for rank, counts in enumerate(st["launches"]):
+        # rank 0 also ran the one-rank reference chain
+        want = MESH_STRESS_WINDOWS * (2 if rank == 0 else 1)
+        if counts["route_place"] != want or counts["egress_rank"] != want \
+                or counts["router_drain"] != 0:
+            fail(f"phase 19 (a): the stress's rank {rank} launches {counts}")
+    print(f"19 (a) stress: {st['hosts']} hosts x {st['ranks']} ranks, "
+          f"kernel={st['kernel']}, chain (off, next, n_windows) "
+          f"{st['chain']}, {st['overflow_drops']} overflow drops, bitwise "
+          f"== the one-rank run; chain wall one rank "
+          f"{st['one_rank_wall_s']:.3f}s vs sharded "
+          f"{st['sharded_wall_s']:.3f}s")
+    # (b) one rank over NCCL: the sharded code path with NCCL's
+    # collectives on CUDA tensors and the changed B
+    t0 = time.perf_counter()
+    mesh = meshmod.make_mesh(1, backend="nccl", device="cuda")
+    try:
+        pipeline.reset_launches()
+        g = dict(bench.GOLDEN_PHOLD)
+        golden = bench.run_phold(g.pop("n_hosts"), rounds=g.pop("rounds"),
+                                 warmup=False, kernel="pallas_fused",
+                                 mesh=mesh, **g)
+        golden_digest = convert.state_digest(meshmod.gather_state(
+            golden["state"], mesh))
+        run = bench.run_phold(N_HOSTS, rounds=MESH_ROUNDS, warmup=False,
+                              kernel="pallas_fused", mesh=mesh, **size)
+        digest = convert.state_digest(meshmod.gather_state(run["state"],
+                                                           mesh))
+        nccl_launches = dict(pipeline.LAUNCHES)
+    finally:
+        torch.distributed.destroy_process_group()
+    t_b = time.perf_counter() - t0
+    if golden_digest != bench.GOLDEN_PHOLD_DIGEST or \
+            digest != unsharded["pallas_fused"][0]:
+        fail("phase 19 (b): the one-rank NCCL mesh through the fused pair "
+             "differs from the unsharded run")
+    want = bench.GOLDEN_PHOLD["rounds"] + MESH_ROUNDS
+    if nccl_launches["route_place"] != want or \
+            nccl_launches["egress_rank"] != want:
+        fail(f"phase 19 (b): launches {nccl_launches}, expected {want} of "
+             "A and B")
+    print(f"19 (b) one rank over NCCL, kernel=pallas_fused: golden world == "
+          f"GOLDEN_PHOLD_DIGEST, N={N_HOSTS} R={MESH_ROUNDS} == the unsharded "
+          f"run; {run['packet_events_per_sec']:.1f} events/s vs "
+          f"{unsharded['pallas_fused'][1]:.1f} unsharded")
+    # (c) the kernels at a rank's shape
+    t0 = time.perf_counter()
+    n_local = N_HOSTS // MESH_RANKS
+    rows = {
+        "route_place": nsrc_placement_row(torch, pipeline, "route_place",
+                                          pipeline.place,
+                                          pipeline.place_plain, n_local,
+                                          N_HOSTS),
+        "route_scatter": nsrc_placement_row(torch, pipeline,
+                                            "route_scatter",
+                                            pipeline.scatter,
+                                            pipeline.scatter_plain, n_local,
+                                            N_HOSTS),
+        "egress_rank": egress_row(torch, pipeline, "egress_rank", n_local),
+        "egress_gate": egress_row(torch, pipeline, "egress_gate", n_local)}
+    t_c = time.perf_counter() - t0
+    for name, row in rows.items():
+        print(f"19 (c) {name} at N_local={n_local}"
+              + (f", n_src={row['n_src']}: bitwise ok" if "n_src" in row
+                 else "")
+              + f": kernel_ms={row['ms']:.5f} (cold; clean "
+              f"{row['cold_clean_ms']:.5f}; warm {row['warm_ms']:.5f}) "
+              f"bound_ms={row['bound_ms']:.5f} ({row['bound_by']}, "
+              f"{row['bytes']} B) share={row['share_of_bound']:.3f}"
+              + (f" plain_ms={row['plain_ms']:.5f}" if "plain_ms" in row
+                 else "") + f" on {ident}")
+    xbytes = mesh_exchange_bytes(N_HOSTS, EGRESS_CAP)
+    print(f"19 (c) the routing exchange: {xbytes} B gathered a window by "
+          f"each rank ({xbytes // MESH_RANKS} B its own), staged through "
+          f"host memory under gloo; part seconds (a) {t_a:.1f} (rank 0: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in a["part_s"].items())
+          + f") (b) {t_b:.1f} (c) {t_c:.1f}, phase "
+          f"{time.perf_counter() - t_all:.1f} on {ident}")
+    record["mesh"] = {"a": a, "b": {"digest": digest, "golden": golden_digest,
+                                    "launches": nccl_launches,
+                                    "packet_events_per_sec":
+                                        run["packet_events_per_sec"]},
+                      "c": rows, "exchange_bytes_per_window": xbytes,
+                      "part_s": {"a": t_a, "b": t_b, "c": t_c}}
+    return launches
+
+
 def kernel_entry(name, source, replaces, launches, row, ens_launches,
-                 section_launches):
+                 section_launches, mesh_launches=None):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
             "ensemble_launches": ens_launches,
             "section_launches": section_launches,
+            "mesh_launches_per_rank": mesh_launches or [0] * MESH_RANKS,
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "warm_ms": row["warm_ms"], "cold_clean_ms": row["cold_clean_ms"],
             "plain_ms": row["plain_ms"],
@@ -2674,6 +3035,8 @@ def main():
                 pipeline, record, ident)
     sec = timed("18 section profiler", check_section_profiler, torch, bench,
                 pipeline, record, ident)
+    mesh_l = timed("19 mesh", check_mesh, torch, bench, convert, pipeline,
+                   record, ident)
     record["phase_s"] = phase_s
     print(f"phase seconds: {json.dumps(phase_s)}")
 
@@ -2682,22 +3045,22 @@ def main():
                      "shadow_tpu_torch/csrc/egress_rank.cu",
                      "shadow_tpu/tpu/pallas_pipeline.py:77",
                      fused["egress_rank"], a, ens["egress_rank"],
-                     sec["egress_rank"]),
+                     sec["egress_rank"], mesh_l.get("egress_rank")),
         kernel_entry("route_place_kernel",
                      "shadow_tpu_torch/csrc/route_place.cu",
                      "shadow_tpu/tpu/pallas_pipeline.py:188",
                      fused["route_place"], b, ens["route_place"],
-                     sec["route_place"]),
+                     sec["route_place"], mesh_l.get("route_place")),
         kernel_entry("egress_gate_kernel",
                      "shadow_tpu_torch/csrc/egress_gate.cu",
                      "shadow_tpu/tpu/pallas_egress.py:91",
                      split["egress_gate"], c, ens["egress_gate"],
-                     sec["egress_gate"]),
+                     sec["egress_gate"], mesh_l.get("egress_gate")),
         kernel_entry("route_scatter_kernel",
                      "shadow_tpu_torch/csrc/route_scatter.cu",
                      "shadow_tpu/tpu/pallas_route.py:48",
                      split["route_scatter"], d, ens["route_scatter"],
-                     sec["route_scatter"]),
+                     sec["route_scatter"], mesh_l.get("route_scatter")),
         kernel_entry("router_drain_kernel",
                      "shadow_tpu_torch/csrc/router_drain.cu",
                      "shadow_tpu/tpu/codel.py:578 (router_drain, "

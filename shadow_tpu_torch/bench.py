@@ -63,6 +63,7 @@ from .telemetry.tracer import RunTracer, backend_fingerprint
 from .tpu import pipeline, profiling
 from .tpu.elastic import (RingPolicy, chain_spans, drive_chained_windows,
                           drive_ensemble, stack_worlds, world_keys)
+from .tpu.mesh import shard_state, shard_tree
 from .tpu.plane import KERNELS, ingest_rows, unpack_planes, window_step
 from .tpu.profiling import build_world
 from .workloads.phold import respawn_batch
@@ -82,26 +83,27 @@ ROUTING_STAGE = "routing_stage"
 
 def _phold_round(state, params, seed, r: int, window: int, spawn_seq, *,
                  kernel: str, plain_kernels: bool, metrics=None, hist=None,
-                 faults=None):
+                 faults=None, mesh=None):
     """Window r of the PHOLD closed loop: `window_step` under `seed` (an
     int seed or a key tensor) with `faults` (`FaultArrays`, or None), the
-    respawn of what it delivered, and its append. Returns (state', spawn_seq', the respawn mask [N, CI], the
-    ingress ring's drops [N] in the routing stage, the egress ring's in
-    the append, metrics', hist')."""
+    respawn of what it delivered, and its append; under a host-axis
+    `mesh` on the rank's rows. Returns (state', spawn_seq', the respawn
+    mask [N, CI], the ingress ring's drops [N] in the routing stage, the
+    egress ring's in the append, metrics', hist')."""
     N, CI = state.in_src.shape
     dropped = state.n_overflow_dropped
     out = window_step(
         state, params, seed, 0 if r == 0 else window, window,
         rr_enabled=False, kernel=kernel, plain_kernels=plain_kernels,
-        faults=faults, metrics=metrics, hist=hist)
+        faults=faults, metrics=metrics, hist=hist, mesh=mesh)
     (state, delivered, _next), metrics, _g, hist, _f = unpack_planes(
         out, metrics=metrics, hist=hist)
     in_drops = state.n_overflow_dropped - dropped
     dropped = state.n_overflow_dropped
-    mask, dst, nbytes, seq, ctrl = respawn_batch(delivered, spawn_seq, r, N,
-                                                 CI)
+    mask, dst, nbytes, seq, ctrl = respawn_batch(
+        delivered, spawn_seq, r, N if mesh is None else N * mesh.size, CI)
     out = ingest_rows(state, dst, nbytes, seq, seq, ctrl, mask,
-                      metrics=metrics, hist=hist)
+                      metrics=metrics, hist=hist, mesh=mesh)
     (state,), metrics, _g, hist, _f = unpack_planes(
         out, metrics=metrics, hist=hist, n_lead=1)
     eg_drops = state.n_overflow_dropped - dropped
@@ -110,7 +112,7 @@ def _phold_round(state, params, seed, r: int, window: int, spawn_seq, *,
 
 
 def phold_chain_fn(world: dict, *, kernel: str = "pallas_fused",
-                   plain_kernels: bool = False, faults=None):
+                   plain_kernels: bool = False, faults=None, mesh=None):
     """The bench's chain body: windows r0..r1-1 of the PHOLD closed loop,
     with one host read (the chain's delivered count) at the end. extras
     = (spawn_seq [N] int32, delivered total int[, metrics[, hist]]): a
@@ -120,7 +122,8 @@ def phold_chain_fn(world: dict, *, kernel: str = "pallas_fused",
     the driver's 4-tuple; the overflows are each
     ring's drops over the chain, the egress ring's from the respawn
     append and the ingress ring's from the routing stage, as
-    `bench.py`'s round body accumulates them."""
+    `bench.py`'s round body accumulates them. Under a host-axis `mesh`
+    the state is the rank's rows and the delivered total the fleet's."""
     params, seed, window = world["params"], world["rng_root"], world["window"]
 
     def chain_fn(state, extras, r0, r1):
@@ -135,10 +138,13 @@ def phold_chain_fn(world: dict, *, kernel: str = "pallas_fused",
             (state, spawn_seq, mask, in_drops, eg_drops, metrics,
              hist) = _phold_round(state, params, seed, r, window, spawn_seq,
                                   kernel=kernel, plain_kernels=plain_kernels,
-                                  metrics=metrics, hist=hist, faults=faults)
+                                  metrics=metrics, hist=hist, faults=faults,
+                                  mesh=mesh)
             in_acc = in_acc + in_drops
             eg_acc = eg_acc + eg_drops
             n_delivered = n_delivered + mask.sum()
+        if mesh is not None:
+            n_delivered = mesh.all_sum(n_delivered)
         extras = (spawn_seq, total + int(n_delivered),
                   *(metrics, hist)[:len(planes)])
         return state, extras, eg_acc, in_acc
@@ -173,7 +179,7 @@ def run_chain(world: dict, rounds: int, chain_len: int | None = None, *,
               kernel: str = "pallas_fused", plain_kernels: bool = False,
               policy: RingPolicy | None = None, metrics=None, hist=None,
               on_chain=None, tracer=None, checkpointer=None,
-              resume_from: str | None = None, faults=None):
+              resume_from: str | None = None, faults=None, mesh=None):
     """Drive `rounds` PHOLD windows on `world`, under `policy` when one
     is given, with `metrics` (a `PlaneMetrics`), `hist` (a
     `PlaneHistograms`, with metrics) and `faults` (a `FaultArrays`)
@@ -181,7 +187,8 @@ def run_chain(world: dict, rounds: int, chain_len: int | None = None, *,
     state, delivered total[, metrics'[, hist']]). `on_chain`, `tracer` and
     `checkpointer` go to the driver; `resume_from` (a
     runstate checkpoint of this run) starts at its round, from its
-    carry."""
+    carry. Under a host-axis `mesh` the world and the planes are the
+    rank's part (`tpu/mesh.shard_state`)."""
     if hist is not None and metrics is None:
         raise ValueError("hist rides the bench chain with metrics only")
     state = world["state"]
@@ -198,10 +205,10 @@ def run_chain(world: dict, rounds: int, chain_len: int | None = None, *,
     state, (_spawn, total, *planes) = drive_chained_windows(
         state, extras,
         phold_chain_fn(world, kernel=kernel, plain_kernels=plain_kernels,
-                       faults=faults),
+                       faults=faults, mesh=mesh),
         n_rounds=rounds, chain_len=chain_len or rounds, policy=policy,
         window_ns=world["window"], start_round=start, on_chain=on_chain,
-        tracer=tracer, checkpointer=checkpointer)
+        tracer=tracer, checkpointer=checkpointer, mesh=mesh)
     return (state, total, *planes)
 
 
@@ -218,7 +225,7 @@ def run_phold(n_hosts: int = 32768, n_nodes: int = 64, egress_cap: int = 16,
               plain_kernels: bool = False, metrics: bool = False,
               telemetry: str | None = None, hist: bool = False,
               harvest_every: int = 32, trace: str | None = None,
-              on_chain=None, faults: bool = False) -> dict:
+              on_chain=None, faults: bool = False, mesh=None) -> dict:
     """The PHOLD closed loop at the bench's size, seed 0 as in `bench.py`.
     Under capacity "strict" or "elastic" the chains are `grow_every`
     windows long (the growth-decision unit) and a fresh `RingPolicy`
@@ -241,6 +248,14 @@ def run_phold(n_hosts: int = 32768, n_nodes: int = 64, egress_cap: int = 16,
     both runs: the fault plane's cost when nothing fails, its state
     unchanged ("xla" only; ValueError on the Pallas kernels, which the
     JAX step refuses too and from which the port does not fall back).
+
+    `mesh` (a `tpu/mesh.Mesh`, one call on every rank) runs the world
+    sharded along the host axis: each rank builds the world, keeps its
+    rows (`shard_state`) and drives them with `window_step(mesh=)`, on
+    the mesh's device; the state returned is the rank's part
+    (`tpu/mesh.gather_state` gives the whole), the delivered and sent totals
+    the fleet's. The telemetry harvester and the run ledger are refused
+    under a mesh (their host reads would see one rank's rows).
 
     Returns the final state, the delivered and sent totals, the timed
     run's wall seconds and packet_events_per_sec, the kernel, capacity,
@@ -265,7 +280,10 @@ def run_phold(n_hosts: int = 32768, n_nodes: int = 64, egress_cap: int = 16,
     if telemetry and capacity != "fixed":
         raise ValueError("telemetry and capacity strict/elastic each own "
                          "the chain cadence; run them separately")
-    device = resolve_device(device)
+    if mesh is not None and (telemetry or trace):
+        raise ValueError("telemetry and trace do not run under a host-axis "
+                         "mesh: their host reads would see one rank's rows")
+    device = resolve_device(device) if mesh is None else mesh.device
     size = dict(n_nodes=n_nodes, egress_cap=egress_cap,
                 ingress_cap=ingress_cap, seed=0, warmup_windows=0,
                 device=device)
@@ -277,16 +295,26 @@ def run_phold(n_hosts: int = 32768, n_nodes: int = 64, egress_cap: int = 16,
     with_metrics = metrics or bool(telemetry)
     fault_arrays = (neutral_faults(n_hosts, n_nodes, device=device)
                     if faults else None)
+    shard = lambda tree: (tree if mesh is None or tree is None
+                          else shard_tree(tree, mesh, n_hosts))
     run = lambda world, policy, **kw: run_chain(
         world, rounds, chain_len, kernel=kernel,
         plain_kernels=plain_kernels, policy=policy, faults=fault_arrays,
-        metrics=make_metrics(n_hosts, device=device) if with_metrics
-        else None,
-        hist=histo.make_histograms(n_hosts, device=device) if hist
-        else None, **kw)
+        metrics=shard(make_metrics(n_hosts, device=device))
+        if with_metrics else None,
+        hist=shard(histo.make_histograms(n_hosts, device=device)) if hist
+        else None, mesh=mesh, **kw)
+
+    def make_world():
+        world = build_world(n_hosts, **size)
+        if mesh is not None:
+            world["state"], world["params"] = shard_state(
+                world["state"], world["params"], mesh)
+        return world
+
     if warmup:
-        run(build_world(n_hosts, **size), make_policy())
-    world, policy = build_world(n_hosts, **size), make_policy()
+        run(make_world(), make_policy())
+    world, policy = make_world(), make_policy()
     harvester = tracer = None
     if telemetry:
         os.makedirs(telemetry, exist_ok=True)
@@ -336,7 +364,8 @@ def run_phold(n_hosts: int = 32768, n_nodes: int = 64, egress_cap: int = 16,
     if tracer is not None:
         tracer.close(wall_s=round(wall, 6))
         tracer.write(trace)
-    sent = int(state.n_sent.sum())
+    sent = state.n_sent.sum(dtype=torch.int64)
+    sent = int(sent if mesh is None else mesh.all_sum(sent))
     capacity_info = None
     if policy is not None:
         capacity_info = policy.trajectory.as_dict()
@@ -362,6 +391,9 @@ def run_phold(n_hosts: int = 32768, n_nodes: int = 64, egress_cap: int = 16,
                    "windows_per_sync": rounds / max(n_chains, 1)},
         "telemetry": telemetry_info,
         "trace": trace,
+        "mesh": None if mesh is None else {
+            "ranks": mesh.size, "rank": mesh.rank, "backend": mesh.backend,
+            "hosts_local": mesh.host_range(n_hosts)[1]},
     }
 
 

@@ -32,6 +32,7 @@ import torch
 
 from .telemetry.flightrec import FlightRecArrays
 from .tpu.codel import CodelState, RouterDownState
+from .tpu.mesh import gather_state
 from .tpu.plane import NetPlaneParams, NetPlaneState
 
 
@@ -117,12 +118,16 @@ def map_carry(fn, carry, owner: str = "", name: str = ""):
     return fn(owner, name, carry)
 
 
-def carry_to_host(carry):
+def carry_to_host(carry, mesh=None):
     """The carry as numpy, in the JAX package's dtypes, with one
     synchronise for the lot: every card tensor's copy is queued first
     (`non_blocking`), then the stream is waited on once. CPU tensors are
     copied, so a later in-place write cannot reach the host carry. A
-    Python number leaf becomes a 0-d array."""
+    Python number leaf becomes a 0-d array. Under a host-axis `mesh`
+    (every rank calls it) the rank's carry is gathered first
+    (`tpu/mesh.gather_state`): the whole, unsharded carry."""
+    if mesh is not None:
+        carry = gather_state(carry, mesh)
     cuda = []
 
     def stage(_o, _f, leaf):

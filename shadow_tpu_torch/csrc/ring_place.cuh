@@ -19,13 +19,20 @@
 // select before the TPU kernel). The rings are updated in place: a slot
 // that changes is the only one written.
 //
+// The source rows (row_perm, the eg_* columns and the N*CE entries of
+// o_pos) are an axis of their own, `src_rows` a world: under a host-axis
+// mesh a rank places into its own N_local destination rows the arrivals of
+// all R*N_local source hosts, which the routing exchange gathered, and src
+// is then the global source host. Without a mesh src_rows = N.
+//
 // An ensemble of W worlds is one launch over W * N rows: the rows are the
 // worlds' rows one world after another, `world_rows` (N) a world, and
 // o_pos, row_perm, src and the arrival index j are each world's own (as in
 // a solo launch), so a row reads only its world's arrivals: with base =
-// (row / world_rows) * world_rows * CE, the first flat egress slot of the
+// (row / world_rows) * src_rows * CE, the first flat egress slot of the
 // row's world, p = o_pos[base + j], g = base + src * CE + row_perm[base +
-// p], and j is inside when 0 <= j < world_rows * CE. A solo launch has
+// p], and j is inside when 0 <= j < src_rows * CE. An ensemble has
+// src_rows = world_rows (no mesh under an ensemble); a solo launch has
 // world_rows = n_rows and base = 0.
 //
 // What bounds it on the card: not bytes. At the main path's shape (N=32768,
@@ -63,12 +70,13 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr int kI32Max = 0x7fffffff;
 
 struct Args {
-  int n_rows;      // W * N: destination rows, and source rows
-  int world_rows;  // N: the rows of one world
+  int n_rows;      // W * N: destination rows
+  int world_rows;  // N: the destination rows of one world
+  int src_rows;    // the source rows of one world (N without a mesh)
   int ci;          // ingress ring width
   int ce;          // egress row width
   int seg;         // lanes a destination row: a power of two <= 32
-  int64_t n_items; // N * CE arrivals a world
+  int64_t n_items; // src_rows * CE arrivals a world
   const int* nv;
   const int* offsets;
   const int* take;
@@ -115,7 +123,8 @@ __device__ __forceinline__ void place_rows(const Args& a) {
   t0 = __shfl_sync(kFull, t0, 0, seg);
   if (!live_row) return;
   // the first flat egress slot of the row's world
-  const int64_t base = (row / a.world_rows) * a.world_rows * a.ce;
+  const int64_t base =
+      (row / a.world_rows) * static_cast<int64_t>(a.src_rows) * a.ce;
   const int64_t first = n0;
   const int64_t end = first + t0;
   const int64_t lo = static_cast<int64_t>(off) - n0;
@@ -175,7 +184,8 @@ __device__ __forceinline__ void place_rows(const Args& a) {
 }
 
 // Fill Args from the launchers' plain C arguments (see route_place.cu).
-inline Args make_args(int n_rows, int world_rows, int ci, int ce,
+inline Args make_args(int n_rows, int world_rows, int src_rows, int ci,
+                      int ce,
                       const void* nv, const void* offsets, const void* take,
                       const void* o_pos,
                       const void* row_perm, const void* eg_seq,
@@ -186,10 +196,11 @@ inline Args make_args(int n_rows, int world_rows, int ci, int ce,
   Args a;
   a.n_rows = n_rows;
   a.world_rows = world_rows;
+  a.src_rows = src_rows;
   a.ci = ci;
   a.ce = ce;
   a.seg = segment_lanes(ci);
-  a.n_items = static_cast<int64_t>(world_rows) * ce;
+  a.n_items = static_cast<int64_t>(src_rows) * ce;
   a.nv = static_cast<const int*>(nv);
   a.offsets = static_cast<const int*>(offsets);
   a.take = static_cast<const int*>(take);

@@ -128,8 +128,17 @@ def _host(x) -> np.ndarray:
     return np.atleast_1d(np.asarray(x))
 
 
+def _global_overflow(mesh, x):
+    """An overflow count of a host-axis mesh rank as the fleet's: a
+    per-host tensor gathered in host order, a 0-d one summed over the
+    ranks (every rank then decides alike)."""
+    if mesh is None or not isinstance(x, torch.Tensor):
+        return x
+    return mesh.gather_leaf(x) if x.dim() else mesh.all_sum(x)
+
+
 def run_elastic_window(state, attempt_fn, policy: RingPolicy, *,
-                       time_ns: int, host_names=None):
+                       time_ns: int, host_names=None, mesh=None):
     """One chain of windows under the capacity policy.
 
     `attempt_fn(state)` runs the chain from `state` and returns (out,
@@ -144,10 +153,16 @@ def run_elastic_window(state, attempt_fn, policy: RingPolicy, *,
     re-run, bounded by the policy's `max_doublings` per dimension (once
     exhausted, the overflowing attempt is committed and its drops are
     real). Returns (out, state_used), the pre-chain state the committed
-    attempt ran from."""
+    attempt ran from.
+
+    Under a host-axis `mesh` the state is a rank's rows and the
+    overflows are gathered before the decision, so every rank grows,
+    commits or raises alike and the strict policy blames global
+    hosts."""
     while True:
         out, eg_ovf, in_ovf = attempt_fn(state)
-        eg_arr, in_arr = _host(eg_ovf), _host(in_ovf)
+        eg_arr = _host(_global_overflow(mesh, eg_ovf))
+        in_arr = _host(_global_overflow(mesh, in_ovf))
         eg_total, in_total = int(eg_arr.sum()), int(in_arr.sum())
         if eg_total == 0 and in_total == 0:
             return out, state
@@ -187,7 +202,7 @@ def drive_chained_windows(state, extras, chain_fn, *, n_rounds: int,
                           policy: RingPolicy | None = None,
                           window_ns: int = 0, host_names=None,
                           on_chain=None, memo=None, memo_span_salt=None,
-                          tracer=None, checkpointer=None):
+                          tracer=None, checkpointer=None, mesh=None):
     """The driver loop: run `chain_fn(state, extras, r0, r1) -> (state',
     extras', eg_overflow, in_overflow)` over the `chain_spans`, the
     overflows being the chain's per-host ring-full drops. With
@@ -221,7 +236,18 @@ def drive_chained_windows(state, extras, chain_fn, *, n_rounds: int,
     after `on_chain`, so the carry saved is the one the next span starts
     from; on the memo's host path it saves the host mirror as it is. A
     run killed at a boundary and resumed from its checkpoint ends as the
-    uninterrupted run."""
+    uninterrupted run.
+
+    `mesh` (a `tpu/mesh.Mesh`): `chain_fn` runs a host-axis mesh rank's
+    rows, and the policy's decisions read the fleet's overflows
+    (`run_elastic_window`). The memo and the checkpointer are refused
+    under a mesh (ValueError), as the JAX runner refuses them: their
+    host copy of the carry would hold one rank's rows."""
+    if mesh is not None and (memo is not None or checkpointer is not None):
+        raise ValueError(
+            "drive_chained_windows: the memo and the checkpointer do not "
+            "run under a host-axis mesh (their host copy of the carry "
+            "would hold one rank's rows)")
     if memo is not None and per_round is not None and memo_span_salt is None:
         raise ValueError(
             "drive_chained_windows: memo with per_round inputs needs a "
@@ -298,7 +324,7 @@ def drive_chained_windows(state, extras, chain_fn, *, n_rounds: int,
             try:
                 (state, extras), _used = run_elastic_window(
                     state, attempt, policy, time_ns=r0 * int(window_ns),
-                    host_names=host_names)
+                    host_names=host_names, mesh=mesh)
             except CapacityError as e:
                 # the overflow is seen per chain, so the span is the
                 # blame unit

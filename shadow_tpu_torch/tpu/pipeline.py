@@ -270,9 +270,15 @@ def place_plain(nv, offsets, take_n, o_pos, row_perm, eg_seq, eg_sock,
     through the routing permutation: p = o_pos[j], its source row
     src = p // CE and egress slot g = src * CE + row_perm.flat[p], so the
     item (src, then eg_seq, eg_sock, eg_bytes and deliver_rel at g), all
-    five 0 for j outside [0, N*CE); the slot becomes valid. Every other
-    slot keeps its values, except that an invalid one gets deliver =
-    I32_MAX.
+    five 0 for j outside [0, n_src*CE); the slot becomes valid. Every
+    other slot keeps its values, except that an invalid one gets
+    deliver = I32_MAX.
+
+    The source rows are an axis of their own: row_perm, the eg_* columns
+    and deliver_rel are [n_src, CE] and o_pos [n_src*CE], while the rings
+    are [N, CI]. Without a mesh n_src = N; a mesh rank places the
+    arrivals of all R*N_local gathered source hosts into its N_local
+    rows, and src is the global source host.
 
     The six ingress tensors (src, seq, sock, bytes, deliver [N, CI]
     int32, valid [N, CI] bool) are updated in place and returned in that
@@ -281,17 +287,22 @@ def place_plain(nv, offsets, take_n, o_pos, row_perm, eg_seq, eg_sock,
     `world_rows` (the kernels' ensemble launch, `ring_place.cuh`): the N
     rows are N / world_rows worlds of world_rows rows each, one after
     another, and o_pos, row_perm, j and src are each world's own; None
-    is one world of N rows."""
+    is one world of N rows. An ensemble has no mesh: `world_rows` with
+    n_src != N raises ValueError."""
     N, CI = in_src.shape
-    CE = row_perm.shape[1]
-    R = N if world_rows is None else world_rows
+    n_src, CE = row_perm.shape
+    if world_rows is not None and n_src != N:
+        raise ValueError(
+            f"placement: world_rows (an ensemble) with {n_src} source rows "
+            f"for {N} destination rows; an ensemble runs without a mesh")
+    R = n_src if world_rows is None else world_rows
     ccol = torch.arange(CI, dtype=torch.int64, device=in_src.device)
     nv_ = nv.to(torch.int64)[:, None]
     placed = (ccol >= nv_) & (ccol < nv_ + take_n[:, None])
     j = offsets.to(torch.int64)[:, None] - nv_ + ccol
     inside = placed & (j >= 0) & (j < R * CE)
     j = torch.where(inside, j, 0)
-    if R != N:
+    if world_rows is not None and R != N:
         # the first flat egress slot of each row's world
         base = (torch.arange(N, dtype=torch.int64, device=in_src.device)
                 // R * (R * CE))[:, None]
@@ -322,19 +333,20 @@ def _placement_checks(nv, offsets, take_n, o_pos, row_perm, eg_seq, eg_sock,
                       eg_bytes, deliver_rel, in_src, in_seq, in_sock,
                       in_bytes, in_deliver, in_valid):
     """The guards of kernels B and D: every argument of the dtype, shape,
-    device and layout the kernel reads. (That the six ingress tensors are
+    device and layout the kernel reads, the source columns on n_src rows
+    (row_perm's) and the rings on N. (That the six ingress tensors are
     distinct, as they are written in place, the op checks on the storage.)
-    Returns (N, CI, CE, device)."""
+    Returns (N, CI, CE, device, n_src)."""
     N, CI = in_valid.shape
-    CE = row_perm.shape[-1]
+    n_src, CE = row_perm.shape[-2:]
     dev = in_valid.device
     for name, t in (("nv", nv), ("offsets", offsets), ("take", take_n)):
         _check(name, t, torch.int32, (N,), dev)
-    _check("o_pos", o_pos, torch.int64, (N * CE,), dev)
+    _check("o_pos", o_pos, torch.int64, (n_src * CE,), dev)
     for name, t in (("row_perm", row_perm), ("eg_seq", eg_seq),
                     ("eg_sock", eg_sock), ("eg_bytes", eg_bytes),
                     ("deliver_rel", deliver_rel)):
-        _check(name, t, torch.int32, (N, CE), dev)
+        _check(name, t, torch.int32, (n_src, CE), dev)
     rings = dict(in_src=in_src, in_seq=in_seq, in_sock=in_sock,
                  in_bytes=in_bytes, in_deliver=in_deliver)
     for name, t in rings.items():
@@ -342,31 +354,39 @@ def _placement_checks(nv, offsets, take_n, o_pos, row_perm, eg_seq, eg_sock,
     _check("in_valid", in_valid, torch.bool, (N, CI), dev)
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"placement: unsupported device {dev}")
-    return N, CI, CE, dev
+    return N, CI, CE, dev, n_src
 
 
 def _place_op(name: str):
     """The custom op of placement kernel `name` (B or D): the plain
     version on CPU tensors, the kernel on CUDA tensors, the six ingress
     tensors written in place; its vmap rule folds the worlds into the
-    rows and passes `world_rows` on, so one launch places every world."""
+    rows and passes `world_rows` and `src_rows` (the source rows of a
+    world) on, so one launch places every world."""
 
     def impl(*args):
-        *tensors, world_rows = args
+        *tensors, world_rows, src_rows = args
         rings = tensors[9:]
         if len({t.data_ptr() for t in rings}) < 6 and rings[-1].numel():
             raise ValueError("placement: the six ingress tensors are updated "
                              "in place and must be distinct")
-        if rings[-1].device.type == "cpu":
-            place_plain(*tensors, world_rows=world_rows)
-            return
         N, CI = rings[-1].shape
-        _launch(name, N, world_rows, CI, tensors[4].shape[1], *tensors)
+        if world_rows != N and src_rows != world_rows:
+            raise ValueError(
+                f"placement: an ensemble launch (world_rows {world_rows} of "
+                f"{N} rows) with {src_rows} source rows a world; an ensemble "
+                "runs without a mesh")
+        if rings[-1].device.type == "cpu":
+            place_plain(*tensors,
+                        world_rows=None if world_rows == N else world_rows)
+            return
+        _launch(name, N, world_rows, src_rows, CI, tensors[4].shape[1],
+                *tensors)
 
     schema = ("(" + ", ".join(
         [f"Tensor {n}" for n in _PLACE_INS]
         + [f"Tensor({chr(97 + i)}!) {n}" for i, n in enumerate(_RINGS)])
-        + ", int world_rows) -> ()")
+        + ", int world_rows, int src_rows) -> ()")
     op = custom_op(name, impl, schema, mutates=_RINGS)
 
     def batched(info, in_dims, *args):
@@ -382,10 +402,10 @@ _PLACE_OPS = {name: _place_op(name) for name in ("route_place",
 
 
 def _place_with(name: str, args, plain: bool):
-    N, CI, CE, dev = _placement_checks(*args)
+    N, CI, CE, dev, n_src = _placement_checks(*args)
     if plain:
         return place_plain(*args)
-    _PLACE_OPS[name](*args, N)
+    _PLACE_OPS[name](*args, N, n_src)
     return args[9:]
 
 
@@ -426,23 +446,49 @@ def scatter(nv, offsets, take_n, o_pos, row_perm, eg_seq, eg_sock, eg_bytes,
 
 def _placement_args(sent, eg_dst, eg_seq, eg_bytes, eg_sock, deliver_rel,
                     in_deliver_c, in_src_c, in_seq_c, in_sock_c, in_bytes_c,
-                    in_valid_c, n_valid_in, row_perm):
+                    in_valid_c, n_valid_in, row_perm, mesh=None):
     """The exchange of the routing stage in PyTorch, `plane._routing_rank`
     (the flat arrival sort and bucket bounds), and the placement kernel's
     arguments: the routing tensors themselves, which the kernel reads
-    through the permutation. Returns (arguments, overflow [N])."""
+    through the permutation. Returns (arguments, overflow [N]).
+
+    Under a host-axis `mesh` (`tpu/mesh.Mesh`) the rank's egress columns
+    and row order are first gathered from every rank (`exchange`): the
+    arguments then hold the [R*N_local, CE] source columns of all hosts,
+    and the rank's own destination rows take their arrivals from them."""
+    row0 = 0
+    if mesh is not None:
+        (sent, eg_dst, eg_seq, eg_bytes, eg_sock, deliver_rel,
+         row_perm) = exchange(mesh, sent, eg_dst, eg_seq, eg_bytes, eg_sock,
+                              deliver_rel, row_perm)
+        row0 = mesh.row0(in_src_c.shape[0])
     row_perm, o_pos, offsets, take_n, overflow = _routing_rank(
         sent, eg_dst, eg_seq, deliver_rel, n_valid_in, in_src_c.shape[1],
-        row_perm)
+        row_perm, row0=row0)
     args = (n_valid_in, offsets, take_n, o_pos, row_perm, eg_seq, eg_sock,
             eg_bytes, deliver_rel, in_src_c, in_seq_c, in_sock_c, in_bytes_c,
             in_deliver_c, in_valid_c)
     return args, overflow
 
 
+def exchange(mesh, sent, eg_dst, eg_seq, eg_bytes, eg_sock, deliver_rel,
+             row_perm=None):
+    """The routing exchange of a host-axis mesh: every rank's [N_local,
+    CE] egress columns and row order (`plane._seq_row_order` of its own
+    rows when `row_perm` is None), gathered in rank order into the
+    [R*N_local, CE] layout of the unsharded run (ranks own contiguous
+    host ranges), in one collective. Returns (sent, eg_dst, eg_seq,
+    eg_bytes, eg_sock, deliver_rel, row_perm)."""
+    if row_perm is None:
+        row_perm = _seq_row_order(eg_seq)
+    return mesh.gather_rows((sent, eg_dst, eg_seq, eg_bytes, eg_sock,
+                             deliver_rel, row_perm))
+
+
 def route_place(sent, eg_dst, eg_seq, eg_bytes, eg_sock, deliver_rel,
                 in_deliver_c, in_src_c, in_seq_c, in_sock_c, in_bytes_c,
-                in_valid_c, n_valid_in, row_perm, *, plain: bool = False):
+                in_valid_c, n_valid_in, row_perm, *, plain: bool = False,
+                mesh=None):
     """Land the routed arrivals in the destination rings through kernel
     B: bitwise the JAX plane's `_routing_rank` + `_routing_place` over the
     compacted ingress. `row_perm` is kernel A's seq order. `plain=True`
@@ -450,27 +496,30 @@ def route_place(sent, eg_dst, eg_seq, eg_bytes, eg_sock, deliver_rel,
     ingress columns (src, seq, sock, bytes, deliver, valid) + overflow
     [N]. The merged columns are the compacted ingress tensors given,
     updated in place (the JAX function returns new arrays): pass tensors
-    that nothing reads afterwards, as `window_step`'s own are."""
+    that nothing reads afterwards, as `window_step`'s own are. Under a
+    host-axis `mesh` the columns are the rank's rows and the exchange
+    (`exchange`) comes first."""
     _require_pow2(in_src_c.shape[1], "ingress capacity")
     args, overflow = _placement_args(
         sent, eg_dst, eg_seq, eg_bytes, eg_sock, deliver_rel, in_deliver_c,
         in_src_c, in_seq_c, in_sock_c, in_bytes_c, in_valid_c, n_valid_in,
-        row_perm)
+        row_perm, mesh)
     return (*place(*args, plain=plain), overflow)
 
 
 def route_scatter(sent, eg_dst, eg_seq, eg_bytes, eg_sock, deliver_rel,
                   in_deliver_c, in_src_c, in_seq_c, in_sock_c, in_bytes_c,
-                  in_valid_c, n_valid_in, *, plain: bool = False):
+                  in_valid_c, n_valid_in, *, plain: bool = False, mesh=None):
     """The split path's routing stage through kernel D: bitwise the JAX
     plane's `_route_scatter` (packed sort), with the seq row order
     computed here. `plain=True` runs kernel D's plain version whatever
     the device; it is also the JAX XLA path's `_route_scatter` (packed
     sort), which `window_step(kernel="xla")` runs that way. Returns the
     merged ingress columns + overflow [N]; like `route_place`, it updates
-    the compacted ingress tensors in place and returns them."""
+    the compacted ingress tensors in place and returns them, and takes a
+    `mesh` as it does."""
     args, overflow = _placement_args(
         sent, eg_dst, eg_seq, eg_bytes, eg_sock, deliver_rel, in_deliver_c,
         in_src_c, in_seq_c, in_sock_c, in_bytes_c, in_valid_c, n_valid_in,
-        None)
+        None, mesh)
     return (*scatter(*args, plain=plain), overflow)

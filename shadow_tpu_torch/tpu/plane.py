@@ -190,10 +190,66 @@ def _arange(n: int, like: torch.Tensor, dtype=torch.int32) -> torch.Tensor:
     return torch.arange(n, dtype=dtype, device=like.device)
 
 
+# ---------------------------------------------------------------------------
+# the host-axis mesh: what spans hosts outside a rank's own rows
+# ---------------------------------------------------------------------------
+
+
+def _host_ids(n: int, like: torch.Tensor, mesh=None, dtype=torch.int32):
+    """The global host index of each of a rank's `n` rows (0..n-1
+    without a mesh)."""
+    row0 = 0 if mesh is None else mesh.row0(n)
+    return torch.arange(row0, row0 + n, dtype=dtype, device=like.device)
+
+
+def _dst_counts(mesh, n: int, dst, mask) -> torch.Tensor:
+    """[n] int32 counts of `mask` by destination host `dst` (clamped into
+    the host range by the caller) for this rank's rows: a scatter-add
+    over every host's slots, summed over the ranks under a mesh."""
+    if mesh is None:
+        return scatter_add_i32(n, dst, mask)
+    row0 = mesh.row0(n)
+    return mesh.all_sum(scatter_add_i32(n * mesh.size, dst, mask))[
+        row0:row0 + n]
+
+
+def _local_faults(faults: FaultArrays, mesh, n: int) -> FaultArrays:
+    """A rank's view of the fault masks, which every rank holds whole
+    (as the JAX runner passes them; routing reads any host's): the
+    per-host vectors cut to its rows, the node table as it is."""
+    if mesh is None or faults is None:
+        return faults
+    row0 = mesh.row0(n)
+    cut = lambda t: t[row0:row0 + n]
+    return faults._replace(host_alive=cut(faults.host_alive),
+                           link_up=cut(faults.link_up),
+                           bw_div=cut(faults.bw_div),
+                           corrupt_p=cut(faults.corrupt_p))
+
+
+def _gather_hops(mesh, classes):
+    """The flight recorder's candidates in the unsharded layout order:
+    `classes` is a list of (kind, src, seq, dst, t, mask) [L] columns,
+    each class over this rank's rows in host order. Without a mesh the
+    classes are concatenated; with one, each class is gathered from
+    every rank (one collective for all) and the classes follow each
+    other, as the single-device layout has them. Returns the six
+    columns."""
+    cols = [torch.cat(c) for c in zip(*classes)]
+    if mesh is None:
+        return cols
+    lens = [c[0].shape[0] for c in classes]
+    packed = torch.stack([c.to(torch.int32) for c in cols], dim=1)
+    full = mesh.gather_rows((packed,))[0].reshape(mesh.size, -1, 6)
+    parts = torch.split(full, lens, dim=1)
+    glob = torch.cat([p.reshape(-1, 6) for p in parts])
+    return [*(glob[:, k].contiguous() for k in range(5)), glob[:, 5] != 0]
+
+
 def ingest(state: NetPlaneState, src, dst, nbytes, prio, seq, ctrl,
            valid=None, send_rel=None, clamp_rel=None, sock=None, *,
            metrics: PlaneMetrics | None = None,
-           guards: GuardState | None = None):
+           guards: GuardState | None = None, mesh=None):
     """Append a flat batch of packets ([B] tensors, src = emitting host)
     to the egress rings after each row's valid entries, in (src, seq,
     batch position) order; what overflows a row is counted and dropped.
@@ -202,8 +258,14 @@ def ingest(state: NetPlaneState, src, dst, nbytes, prio, seq, ctrl,
     and one stacked gather of the payload columns. With `metrics` the
     overflow also lands in `drop_ring_full`; `guards` checks that each
     row gained its incoming packets less the overflow. Returns the bare
-    state without them, else (state'[, metrics'][, guards'])."""
+    state without them, else (state'[, metrics'][, guards']).
+
+    Under a host-axis `mesh` (`tpu/mesh.Mesh`) the state is the rank's
+    rows and the batch is the whole batch, the same on every rank: the
+    rank appends the packets whose src is one of its hosts, in the same
+    order, and leaves the others to their ranks."""
     N, CE = state.eg_dst.shape
+    src = src.to(torch.int64) - (0 if mesh is None else mesh.row0(N))
     if valid is not None:
         src = torch.where(valid, src, N)
     if send_rel is None:
@@ -215,7 +277,7 @@ def ingest(state: NetPlaneState, src, dst, nbytes, prio, seq, ctrl,
 
     n_valid = state.eg_valid.sum(dim=1, dtype=torch.int32)
     B = src.shape[0]
-    src_b = torch.where((src >= 0) & (src < N), src, N).to(torch.int64)
+    src_b = torch.where((src >= 0) & (src < N), src, N)
     o_key, o_pos = torch.sort((src_b << 32) | (u32(seq) ^ _SIGN32),
                               stable=True)
     bounds = torch.searchsorted(o_key >> 32, _arange(N + 1, src_b,
@@ -266,7 +328,7 @@ def ingest_rows(state: NetPlaneState, dst, nbytes, prio, seq, ctrl, valid,
                 metrics: PlaneMetrics | None = None,
                 guards: GuardState | None = None,
                 hist: PlaneHistograms | None = None,
-                flightrec: FlightRecArrays | None = None):
+                flightrec: FlightRecArrays | None = None, mesh=None):
     """Append per-host batches ([N, K] tensors, row = emitting host)
     after each row's existing entries, in column order: the packed
     single-key merge (validity | column rank). The JAX plane's idle gate
@@ -280,7 +342,9 @@ def ingest_rows(state: NetPlaneState, dst, nbytes, prio, seq, ctrl, valid,
     entries of a row), stamped with the coming window. None touches the
     state. Returns the bare state without them, else (state'[,
     metrics'][, guards'][, hist'][, flightrec']) in the JAX plane's
-    order."""
+    order. Under a host-axis `mesh` the rows are the rank's hosts; only
+    the recorder needs it (global host ids, and its ring, which every
+    rank holds whole, takes every rank's hops)."""
     N, CE = state.eg_dst.shape
     if send_rel is None:
         send_rel = torch.zeros_like(seq)
@@ -324,17 +388,16 @@ def ingest_rows(state: NetPlaneState, dst, nbytes, prio, seq, ctrl, valid,
             hist.hist_qdepth,
             new_state.eg_valid.sum(dim=1, dtype=torch.int32))),)
     if flightrec is not None:
-        rows = _arange(N, valid)[:, None].expand(valid.shape)
+        rows = _host_ids(N, valid, mesh)[:, None].expand(valid.shape)
         valid_i = valid.to(torch.int32)
         new_rank = torch.cumsum(valid_i, dim=1, dtype=torch.int32) - valid_i
         accepted = valid & (new_rank < (CE - occ_before)[:, None])
         samp = flightrec_mod.sample_mask(flightrec, rows, seq)
-        out += (flightrec_mod.record_events(
-            flightrec,
+        out += (flightrec_mod.record_events(flightrec, *_gather_hops(mesh, [(
             torch.full((valid.numel(),), flightrec_mod.HOP_INGEST,
                        dtype=torch.int32, device=valid.device),
             rows.reshape(-1), seq.reshape(-1), dst.reshape(-1),
-            send_rel.reshape(-1), (accepted & samp).reshape(-1)),)
+            send_rel.reshape(-1), (accepted & samp).reshape(-1))])),)
     return out if len(out) > 1 else new_state
 
 
@@ -540,7 +603,8 @@ def _rr_advance(eg_sock, eg_valid, sendable, rr_aux):
 
 def _loss_latency(state: NetPlaneState, params: NetPlaneParams, seed,
                   eg_dst, eg_ctrl, eg_tsend, eg_clamp, sendable, window_ns,
-                  *, no_loss: bool, faults: FaultArrays | None = None):
+                  *, no_loss: bool, faults: FaultArrays | None = None,
+                  mesh=None):
     """Section 3: the counter-based Bernoulli loss draw and the
     node-table latency lookup. Returns (sent, lost, corrupt or None,
     rng_counter', deliver_rel).
@@ -549,17 +613,27 @@ def _loss_latency(state: NetPlaneState, params: NetPlaneParams, seed,
     index host + N (drawn under `no_loss` too, and in one threefry call
     with the loss draw otherwise), drops data packets that were not
     lost with the host's `corrupt_p`; and `lat_mult` > 1 multiplies the
-    latency, clamped first so the product stays in the int32 budget."""
+    latency, clamped first so the product stays in the int32 budget.
+
+    Under a host-axis `mesh` the rows are the rank's hosts: their draws
+    use the global host index, the corruption stream the global N, and
+    `host_node` (replicated) is read at the global hosts; `faults` is
+    the rank's view (`_local_faults`)."""
     N, CE = eg_dst.shape
+    n_all = N if mesh is None else N * mesh.size
+    host = _host_ids(N, eg_dst, mesh, torch.int64)
     col = _arange(CE, eg_dst)
-    node_src = params.host_node.to(torch.int64)[:, None].expand(N, CE)
+    node_src = params.host_node.to(torch.int64)
+    if mesh is not None:
+        node_src = node_src[host]
+    node_src = node_src[:, None].expand(N, CE)
     node_dst = params.host_node[
-        torch.clamp(eg_dst, 0, N - 1).to(torch.int64)].to(torch.int64)
-    host = _arange(N, eg_dst, torch.int64)[:, None].expand(N, CE)
+        torch.clamp(eg_dst, 0, n_all - 1).to(torch.int64)].to(torch.int64)
+    host = host[:, None].expand(N, CE)
     # the JAX counter is int32 and wraps; the draw reads its bits
     counter = state.rng_counter.to(torch.int64)[:, None] + col
     draws = (([] if no_loss else [host])
-             + ([host + N] if faults is not None else []))
+             + ([host + n_all] if faults is not None else []))
     if len(draws) == 1:
         u = [_pkt_uniform(seed, draws[0], counter)]
     elif draws:  # the loss and corruption draws in one call
@@ -613,38 +687,48 @@ def _seq_row_order(eg_seq):
                       stable=True).indices.to(torch.int32)
 
 
-def _routing_order(sent, eg_dst, eg_seq, deliver_rel, row_perm=None):
+def _routing_order(sent, eg_dst, eg_seq, deliver_rel, row_perm=None, *,
+                   row0: int = 0, n_dst: int | None = None):
     """Bucketed routing, phase A: `row_perm` (each row's seq order;
     kernel A's output, or `_seq_row_order` when None) permutes the
     source rows so the flat slot index encodes the (src, seq)
     tiebreak; one flat stable sort on (bucket << 32 | sign-biased
     deliver) over the permuted slots follows. (dst, deliver, slot) is a
     total order, so this is the JAX plane's permutation. Unsent slots go
-    to bucket N, which is never placed. Returns (row_perm [N, CE] int32,
-    o_pos [B] int64, offsets, counts [N] int32)."""
+    to bucket n_dst, which is never placed. Returns (row_perm [N, CE]
+    int32, o_pos [B] int64, offsets, counts [n_dst] int32).
+
+    The destination rows are hosts [row0, row0 + n_dst) (all N source
+    rows when n_dst is None): a mesh rank routes the gathered slots of
+    every host into its own rows, bucket dst - row0, and a destination
+    outside them goes to the never-placed bucket, as an unsent slot."""
     N, CE = eg_dst.shape
+    n_dst = N if n_dst is None else n_dst
     if row_perm is None:
         row_perm = _seq_row_order(eg_seq)
     perm = row_perm.to(torch.int64)
-    sent_p, dst_p = take(sent, perm), take(eg_dst, perm)
-    flat_dst = torch.where(sent_p & (dst_p >= 0) & (dst_p < N), dst_p,
-                           N).reshape(-1).to(torch.int64)
+    sent_p = take(sent, perm)
+    dst_p = take(eg_dst, perm).to(torch.int64) - row0
+    flat_dst = torch.where(sent_p & (dst_p >= 0) & (dst_p < n_dst), dst_p,
+                           n_dst).reshape(-1)
     deliver_key = u32(take(deliver_rel, perm)).reshape(-1) ^ _SIGN32
     o_key, o_pos = torch.sort((flat_dst << 32) | deliver_key, stable=True)
     bounds = torch.searchsorted(o_key >> 32,
-                                _arange(N + 1, o_key, torch.int64))
+                                _arange(n_dst + 1, o_key, torch.int64))
     offsets = bounds[:-1].to(torch.int32)
     counts = (bounds[1:] - bounds[:-1]).to(torch.int32)
     return row_perm, o_pos, offsets, counts
 
 
 def _routing_rank(sent, eg_dst, eg_seq, deliver_rel, n_valid_in,
-                  ingress_cap: int, row_perm=None):
+                  ingress_cap: int, row_perm=None, *, row0: int = 0):
     """Section 5a: each destination row takes the first `take` items of
-    its bucket. Returns (row_perm, o_pos, offsets, take [N],
-    overflow [N])."""
+    its bucket. The destination rows are n_valid_in's, hosts [row0,
+    row0 + len(n_valid_in)) (`_routing_order`). Returns (row_perm,
+    o_pos, offsets, take [N], overflow [N])."""
     row_perm, o_pos, offsets, counts = _routing_order(
-        sent, eg_dst, eg_seq, deliver_rel, row_perm)
+        sent, eg_dst, eg_seq, deliver_rel, row_perm, row0=row0,
+        n_dst=n_valid_in.shape[0])
     take_n = torch.minimum(counts, ingress_cap - n_valid_in)
     overflow = torch.clamp(counts + n_valid_in - ingress_cap, min=0)
     return row_perm, o_pos, offsets, take_n, overflow
@@ -671,19 +755,20 @@ def _routing_place(row_perm, o_pos, offsets, take_n, n_valid_in, eg_seq,
 def _route_scatter(sent, eg_dst, eg_seq, eg_bytes, eg_sock, deliver_rel,
                    in_deliver_c, in_src_c, in_seq_c, in_sock_c, in_bytes_c,
                    in_valid_c, n_valid_in, *, kernel: str = "xla",
-                   plain: bool = False):
+                   plain: bool = False, mesh=None):
     """Section 5 off the fused pair: `_routing_rank` and the placement,
     through kernel D on `kernel="pallas"` (CUDA tensors, unless
     `plain`) and through its plain version, the JAX XLA path's
     placement, on every other kernel, as the JAX function dispatches.
     Returns the merged ingress columns + overflow [N], the compacted
-    ingress tensors updated in place (`pipeline.route_scatter`)."""
+    ingress tensors updated in place (`pipeline.route_scatter`; under a
+    host-axis `mesh` after the routing exchange)."""
     from . import pipeline  # pipeline imports this module
 
     return pipeline.route_scatter(
         sent, eg_dst, eg_seq, eg_bytes, eg_sock, deliver_rel, in_deliver_c,
         in_src_c, in_seq_c, in_sock_c, in_bytes_c, in_valid_c, n_valid_in,
-        plain=plain or kernel != "pallas")
+        plain=plain or kernel != "pallas", mesh=mesh)
 
 
 def _release_due(in_deliver_m, in_src_m, in_seq_m, in_sock_m, in_bytes_m,
@@ -817,14 +902,22 @@ def _row_sum_i32(x: torch.Tensor) -> torch.Tensor:
 def _accumulate_metrics(metrics: PlaneMetrics, state: NetPlaneState,
                         sent, lost, due, overflowed, delivered, in_valid_m,
                         eg_bytes, fault_drops=None,
-                        router_drops=None) -> PlaneMetrics:
+                        router_drops=None, mesh=None) -> PlaneMetrics:
     """Section 8: the telemetry counters, over values the step already
     computed; nothing feeds back into the state. `fault_drops` ([N],
     None without faults) is the fault plane's per-host drops and
     `router_drops` ([N], None without the router AQM, where the JAX
-    step adds a zero delta) the router's CoDel drops."""
+    step adds a zero delta) the router's CoDel drops. Under a host-axis
+    `mesh` the scalar leaves count every rank's hosts (one sum over the
+    ranks), as JAX's replicated scalars do."""
     sent_n = sent.sum(dim=1, dtype=torch.int32)
     due_n = due.sum(dim=1, dtype=torch.int32)
+    totals = torch.stack([sent_n.sum(dtype=torch.int64),
+                          due_n.sum(dtype=torch.int64),
+                          state.eg_valid.sum(dtype=torch.int64),
+                          state.in_valid.sum(dtype=torch.int64)])
+    if mesh is not None:
+        totals = mesh.all_sum(totals)
     occupancy = lambda v: v.sum(dim=1, dtype=torch.int32)
     return PlaneMetrics(
         pkts_out=metrics.pkts_out + sent_n,
@@ -847,27 +940,37 @@ def _accumulate_metrics(metrics: PlaneMetrics, state: NetPlaneState,
         max_in_depth=torch.maximum(metrics.max_in_depth,
                                    occupancy(in_valid_m)),
         windows=metrics.windows + 1,
-        events=wrap_i32(metrics.events.to(torch.int64)
-                        + sent_n.sum(dtype=torch.int64)
-                        + due_n.sum(dtype=torch.int64)),
-        sort_slots=wrap_i32(metrics.sort_slots.to(torch.int64)
-                            + state.eg_valid.sum(dtype=torch.int64)
-                            + state.in_valid.sum(dtype=torch.int64)),
+        events=wrap_i32(metrics.events.to(torch.int64) + totals[0]
+                        + totals[1]),
+        sort_slots=wrap_i32(metrics.sort_slots.to(torch.int64) + totals[2]
+                            + totals[3]),
     )
 
 
 def _accumulate_hist(hist: PlaneHistograms, state: NetPlaneState, sent,
-                     eg_dst, eg_tsend, deliver_rel,
-                     in_valid_m) -> PlaneHistograms:
+                     eg_dst, eg_tsend, deliver_rel, in_valid_m,
+                     mesh=None) -> PlaneHistograms:
     """Section 10: the latency and depth histograms, over values the step
     already computed: deliver - send per sent packet at its destination,
     the egress sojourn (-tsend: a packet carried over k windows has a
     negative rebased send time) at its source, and one depth sample a
-    host (egress entering the window + ingress after the merge)."""
+    host (egress entering the window + ingress after the merge). Under
+    a host-axis `mesh` a destination may be any rank's host: the
+    delivery counts are scattered over every host and summed over the
+    ranks."""
+    bucket = histo.bucket_index(deliver_rel - eg_tsend)
+    if mesh is None:
+        delivery = histo.accum_scatter(hist.hist_delivery_ns, eg_dst, bucket,
+                                       sent)
+    else:
+        n = hist.hist_delivery_ns.shape[0]
+        row0 = mesh.row0(n)
+        delta = mesh.all_sum(histo.accum_scatter(
+            hist.hist_delivery_ns.new_zeros(
+                (n * mesh.size, histo.HIST_BUCKETS)), eg_dst, bucket, sent))
+        delivery = hist.hist_delivery_ns + delta[row0:row0 + n]
     return PlaneHistograms(
-        hist_delivery_ns=histo.accum_scatter(
-            hist.hist_delivery_ns, eg_dst,
-            histo.bucket_index(deliver_rel - eg_tsend), sent),
+        hist_delivery_ns=delivery,
         hist_sojourn_ns=histo.accum_rows(
             hist.hist_sojourn_ns, histo.bucket_index(-eg_tsend), sent),
         hist_qdepth=histo.accum_depth(
@@ -912,6 +1015,20 @@ def _check_step_options(kernel: str, rr_enabled: bool, packed_sort: bool,
             f"{refused}; the JAX plane runs them on kernel='xla' only")
 
 
+def _check_mesh_options(router_aqm: bool, planes: dict):
+    """What the sharded step does not run (ValueError, naming the mesh):
+    the flow and compute planes, which the JAX runner refuses under a
+    mesh too, and the router AQM, which no JAX mesh path runs."""
+    refused = [k for k in ("flows", "compute") if planes.get(k) is not None]
+    if router_aqm:
+        refused.append("router_aqm")
+    if refused:
+        raise ValueError(
+            f"window_step: {refused} do not run under a host-axis mesh "
+            "(the JAX runner refuses flows and compute with mesh_devices, "
+            "and no JAX mesh path runs the router AQM)")
+
+
 def window_step(state: NetPlaneState, params: NetPlaneParams, rng_seed,
                 shift_ns: int, window_ns: int, *, rr_enabled: bool = True,
                 router_aqm: bool = False, no_loss: bool = False,
@@ -921,7 +1038,8 @@ def window_step(state: NetPlaneState, params: NetPlaneParams, rng_seed,
                 metrics: PlaneMetrics | None = None,
                 guards: GuardState | None = None,
                 hist: PlaneHistograms | None = None,
-                flightrec: FlightRecArrays | None = None, **planes):
+                flightrec: FlightRecArrays | None = None, mesh=None,
+                **planes):
     """Advance one scheduling round [t, t + window_ns): the JAX
     `window_step` with the same kernel, bitwise.
 
@@ -967,6 +1085,19 @@ def window_step(state: NetPlaneState, params: NetPlaneParams, rng_seed,
     `compute_step` on the same delivered dict (`tpu/flows.py`,
     `tpu/compute.py`).
 
+    `mesh` (a `tpu/mesh.Mesh`) runs the step on one rank of a host-axis
+    mesh, as the JAX step runs under `shard_state`: the state, the
+    per-host params and the presence planes are the rank's rows
+    (`tpu/mesh.shard_state`, `shard_tree`), the node tables, `host_node` and
+    `faults` whole, and the result is the rank's part of the unsharded
+    step's, bitwise. The routing exchange gathers every rank's egress
+    columns before kernel B or D (`pipeline.exchange`); the next event,
+    the metrics' scalars and the destination counts of the fault, guard
+    and histogram planes are reduced over the ranks; the recorder's
+    ring, whole on every rank, takes every rank's hops. The flow and
+    compute planes and the router AQM are refused under a mesh
+    (ValueError), as the JAX runner refuses the first two.
+
     Returns (state', delivered, next_event_rel[, metrics'][, guards'][,
     hist'][, flightrec'][, flow_state'][, compute_state']):
     `delivered` is a dict of [N, CI] tensors ([N, CI + 1] under the
@@ -977,9 +1108,13 @@ def window_step(state: NetPlaneState, params: NetPlaneParams, rng_seed,
     _check_step_options(kernel, rr_enabled, packed_sort,
                         dict(planes, faults=faults, metrics=metrics,
                              guards=guards, hist=hist, flightrec=flightrec))
+    if mesh is not None:
+        _check_mesh_options(router_aqm, planes)
     from . import pipeline
 
     N, CE = state.eg_dst.shape
+    n_all = N if mesh is None else N * mesh.size
+    faults_all, faults = faults, _local_faults(faults, mesh, N)
 
     # --- 1. rebase clocks + refill token buckets ------------------------
     in_deliver, balance, tb_rem_ns = _rebase_refill(state, params, shift_ns,
@@ -1028,19 +1163,20 @@ def window_step(state: NetPlaneState, params: NetPlaneParams, rng_seed,
     # --- 3. loss sampling + latency lookup -------------------------------
     sent, lost, corrupt, rng_counter, deliver_rel = _loss_latency(
         state, params, rng_seed, eg_dst, eg_ctrl, eg_tsend, eg_clamp,
-        sendable, window_ns, no_loss=no_loss, faults=faults)
+        sendable, window_ns, no_loss=no_loss, faults=faults, mesh=mesh)
     if faults is not None:
         # 3f. routing toward a down destination drops (what is already in
         # its ingress ring stays); purge and corruption count at the
         # source, a blocked route at the destination
-        in_range = (eg_dst >= 0) & (eg_dst < N)
-        dst_c = torch.clamp(eg_dst, 0, N - 1).to(torch.int64)
-        dst_ok = (faults.host_alive & faults.link_up)[dst_c] & in_range
+        in_range = (eg_dst >= 0) & (eg_dst < n_all)
+        dst_c = torch.clamp(eg_dst, 0, n_all - 1).to(torch.int64)
+        dst_ok = (faults_all.host_alive & faults_all.link_up)[dst_c] \
+            & in_range
         blocked_dst = sent & ~dst_ok & in_range
         sent = sent & dst_ok
         fault_drops = (fault_purged.sum(dim=1, dtype=torch.int32)
                        + corrupt.sum(dim=1, dtype=torch.int32)
-                       + scatter_add_i32(N, dst_c, blocked_dst))
+                       + _dst_counts(mesh, N, dst_c, blocked_dst))
     eg_valid_left = eg_valid & ~sendable
 
     # --- 4 + 5. compact surviving ingress, route (kernel B or D) --------
@@ -1050,9 +1186,11 @@ def window_step(state: NetPlaneState, params: NetPlaneParams, rng_seed,
               in_deliver_c, in_src_c, in_seq_c, in_sock_c, in_bytes_c,
               in_valid_c, n_valid_in)
     if kernel == "pallas_fused":
-        merged = pipeline.route_place(*routed, row_perm, plain=plain_kernels)
+        merged = pipeline.route_place(*routed, row_perm, plain=plain_kernels,
+                                      mesh=mesh)
     else:
-        merged = _route_scatter(*routed, kernel=kernel, plain=plain_kernels)
+        merged = _route_scatter(*routed, kernel=kernel, plain=plain_kernels,
+                                mesh=mesh)
     (in_src_m, in_seq_m, in_sock_m, in_bytes_m, in_deliver_m, in_valid_m,
      overflowed) = merged
 
@@ -1088,6 +1226,8 @@ def window_step(state: NetPlaneState, params: NetPlaneParams, rng_seed,
     next_event = torch.minimum(
         per_host_in_next.amin(),
         torch.where(eg_valid_c.any(), idle.new_full((), window_ns), idle))
+    if mesh is not None:
+        next_event = mesh.all_min(next_event)
 
     new_state = state._replace(
         eg_dst=eg_dst_c, eg_bytes=eg_bytes_c, eg_prio=eg_prio_c,
@@ -1113,7 +1253,7 @@ def window_step(state: NetPlaneState, params: NetPlaneParams, rng_seed,
         metrics = _accumulate_metrics(
             metrics, state, sent, lost, due, overflowed, delivered,
             in_valid_m, eg_bytes, fault_drops if faults is not None else None,
-            router_drops)
+            router_drops, mesh=mesh)
     if guards is not None:
         # --- 9. guard plane ("xla" only): reads, never writes the state
         eg_left = sendable.sum(dim=1, dtype=torch.int32)
@@ -1131,8 +1271,8 @@ def window_step(state: NetPlaneState, params: NetPlaneParams, rng_seed,
             eg_occ_in=state.eg_valid.sum(dim=1, dtype=torch.int32),
             eg_left_this_window=eg_left,
             in_occ_in=state.in_valid.sum(dim=1, dtype=torch.int32),
-            arrivals=scatter_add_i32(N, torch.clamp(eg_dst, 0, N - 1),
-                                      sent),
+            arrivals=_dst_counts(mesh, N, torch.clamp(eg_dst, 0, n_all - 1),
+                                 sent),
             overflowed=overflowed,
             delivered=due.sum(dim=1, dtype=torch.int32),
             qdisc_delta=qdisc_delta, cached_in=cached_in,
@@ -1142,14 +1282,14 @@ def window_step(state: NetPlaneState, params: NetPlaneParams, rng_seed,
     if hist is not None:
         # --- 10. latency/depth histograms ("xla" only) -------------------
         hist = _accumulate_hist(hist, state, sent, eg_dst, eg_tsend,
-                                deliver_rel, in_valid_m)
+                                deliver_rel, in_valid_m, mesh)
     if flightrec is not None:
         # --- 11. flight recorder ("xla" only)
         flightrec = _record_hops(flightrec, eg_dst, eg_seq, eg_tsend, sent,
                                  lost, delivered,
                                  None if faults is None
                                  else fault_purged | corrupt | blocked_dst,
-                                 aqm_hops)
+                                 aqm_hops, mesh)
     flows, compute = planes.get("flows"), planes.get("compute")
     if flows is not None:
         # --- 12. the flow plane ("xla" only): acks and credits read the
@@ -1193,7 +1333,8 @@ def chain_windows(state: NetPlaneState, params: NetPlaneParams,
                   guards: GuardState | None = None,
                   hist: PlaneHistograms | None = None,
                   flightrec: FlightRecArrays | None = None,
-                  workload=None, flows=None, compute=None, round0: int = 0):
+                  workload=None, flows=None, compute=None, round0: int = 0,
+                  mesh=None):
     """Advance consecutive windows until one delivers: the JAX
     `chain_windows`, bitwise, with the same boundaries.
 
@@ -1228,7 +1369,13 @@ def chain_windows(state: NetPlaneState, params: NetPlaneParams,
     guards'][, hist'][, flightrec'][, ws'][, fs'][, cs']), `off`,
     `next_rel` and `n_windows` 0-d int32 tensors: `off` is the last
     window's start relative to the first's, and `delivered` and
-    `next_rel` are relative to the last window's start."""
+    `next_rel` are relative to the last window's start.
+
+    Under a host-axis `mesh` every window is `window_step(mesh=)` and
+    the chain decides as one: after a window, one reduction over the
+    ranks gives the fleet's next event and whether any rank delivered,
+    before the one host read, so every rank takes the same branch and
+    the chain's (off, next, n_windows) are the unsharded run's."""
     if workload is not None and flows is not None:
         raise ValueError(
             "chain_windows composes workload= or flows=, not both: a "
@@ -1245,7 +1392,7 @@ def chain_windows(state: NetPlaneState, params: NetPlaneParams,
             st, params, rng_seed, shift, window_ns, rr_enabled=rr_enabled,
             router_aqm=router_aqm, no_loss=no_loss, kernel=kernel,
             faults=faults, metrics=m, guards=g,
-            hist=h, flightrec=fr,
+            hist=h, flightrec=fr, mesh=mesh,
             flows=(ft, fs) if fs is not None else None,
             compute=(ctab, cs) if cs is not None else None)
         (st, delivered, next_ev), m, g, h, fr, fs, cs = unpack_planes(
@@ -1278,24 +1425,29 @@ def chain_windows(state: NetPlaneState, params: NetPlaneParams,
             # the emission may have re-armed an empty egress ring
             next_ev = torch.minimum(next_ev, torch.where(
                 st.eg_valid.any(), idle.new_full((), window_ns), idle))
-        return st, delivered, next_ev, (m, g, h, fr, ws, fs, cs)
+        quiet = ~delivered["mask"].any()
+        if mesh is not None:
+            # the fleet's next event, and whether no rank delivered
+            quiet, next_ev = mesh.all_min(torch.stack(
+                [quiet.to(torch.int32), next_ev])).unbind()
+        return st, delivered, quiet, next_ev, (m, g, h, fr, ws, fs, cs)
 
     hs = min(horizon_rel, stop_rel)
     planes = (metrics, guards, hist, flightrec, ws, fs, cs)
-    state, delivered, next_ev, planes = step(state, planes, shift0,
-                                             window0_ns, round0)
+    state, delivered, quiet, next_ev, planes = step(state, planes, shift0,
+                                                    window0_ns, round0)
     off, n = 0, 1
     while n < max_windows:
         # the one host read of a chained window: continue?, next event
         go, nxt = torch.stack([
-            (~delivered["mask"].any() & (next_ev < hs - off)).to(
-                torch.int32), next_ev]).tolist()
+            (quiet.to(torch.bool) & (next_ev < hs - off)).to(torch.int32),
+            next_ev]).tolist()
         if not go:
             break
         off += nxt
         window = min(runahead_ns, stop_rel - off)
-        state, delivered, next_ev, planes = step(state, planes, nxt, window,
-                                                 round0 + n)
+        state, delivered, quiet, next_ev, planes = step(
+            state, planes, nxt, window, round0 + n)
         n += 1
     m, g, h, fr, ws, fs, cs = planes
     i32 = lambda v: torch.tensor(v, dtype=torch.int32,
@@ -1312,17 +1464,21 @@ def chain_windows(state: NetPlaneState, params: NetPlaneParams,
 
 
 def _record_hops(fr: FlightRecArrays, eg_dst, eg_seq, eg_tsend, sent, lost,
-                 delivered, fault_dropped=None, aqm=None) -> FlightRecArrays:
+                 delivered, fault_dropped=None, aqm=None,
+                 mesh=None) -> FlightRecArrays:
     """Section 11: the sampled packets' hops of this window, candidates
     in the JAX layout order (routed, loss drops, fault drops when the
     fault plane runs, delivered, AQM drops under the router AQM), then
     the window counter. One sampling call covers every candidate slot.
     `aqm` is (src, seq, arrival, dropped) of the router's sorted rows:
-    an AQM drop is stamped with its destination row and arrival."""
+    an AQM drop is stamped with its destination row and arrival. Under a
+    host-axis `mesh` each class is gathered from every rank in host
+    order (`_gather_hops`), so every rank's ring is the unsharded one."""
     N, CE = eg_dst.shape
     dev = eg_dst.device
     flat = lambda a: a.reshape(-1)
-    rows = lambda shape: flat(_arange(N, eg_dst)[:, None].expand(shape))
+    hosts = _host_ids(N, eg_dst, mesh)
+    rows = lambda shape: flat(hosts[:, None].expand(shape))
     full = lambda n, h: torch.full((n,), h, dtype=torch.int32, device=dev)
     eg_hops = [(flightrec_mod.HOP_ROUTED, sent),
                (flightrec_mod.HOP_DROP_LOSS, lost)]
@@ -1343,14 +1499,9 @@ def _record_hops(fr: FlightRecArrays, eg_dst, eg_seq, eg_tsend, sent, lost,
         torch.cat([flat(eg_seq)] + [c[2] for c in classes]))
     samp_eg, samp = samp[:N * CE], samp[N * CE:]
     samp_c = torch.split(samp, [c[1].shape[0] for c in classes])
-    fr = flightrec_mod.record_events(
-        fr,
-        torch.cat([full(N * CE, h) for h, _m in eg_hops]
-                  + [full(c[1].shape[0], c[0]) for c in classes]),
-        torch.cat([rows((N, CE))] * k + [c[1] for c in classes]),
-        torch.cat([flat(eg_seq)] * k + [c[2] for c in classes]),
-        torch.cat([flat(eg_dst)] * k + [c[3] for c in classes]),
-        torch.cat([flat(eg_tsend)] * k + [c[4] for c in classes]),
-        torch.cat([flat(m) & samp_eg for _h, m in eg_hops]
-                  + [c[5] & sc for c, sc in zip(classes, samp_c)]))
+    cands = [(full(N * CE, h), rows((N, CE)), flat(eg_seq), flat(eg_dst),
+              flat(eg_tsend), flat(m) & samp_eg) for h, m in eg_hops]
+    cands += [(full(c[1].shape[0], c[0]), *c[1:5], c[5] & sc)
+              for c, sc in zip(classes, samp_c)]
+    fr = flightrec_mod.record_events(fr, *_gather_hops(mesh, cands))
     return flightrec_mod.advance_window(fr)

@@ -15,8 +15,10 @@ def respawn_batch(delivered, spawn_seq, round_idx: int, n_hosts: int,
     among the row's due lanes, so the stream does not depend on the ring
     capacity. The int32 hash `src*40503 + seq*1566083941 + round*97`
     wraps like the JAX plane's (computed in int64, wrapped once) before
-    the floor modulo. Returns (valid_mask, dst, nbytes, seq, ctrl), all
-    [N, CI]."""
+    the floor modulo. `n_hosts` is the fleet's host count, the modulus;
+    the rows may be a host-axis mesh rank's (`delivered["src"]` then
+    holds global hosts). Returns (valid_mask, dst, nbytes, seq, ctrl),
+    all [rows, CI]."""
     mask = delivered["mask"]
     h = (delivered["src"].to(torch.int64) * 40503
          + delivered["seq"].to(torch.int64) * 1566083941 + round_idx * 97)
@@ -24,8 +26,9 @@ def respawn_batch(delivered, spawn_seq, round_idx: int, n_hosts: int,
     rank = torch.where(
         mask, torch.cumsum(mask, dim=1, dtype=torch.int32) - 1, 0)
     seq = spawn_seq[:, None] + rank
-    nbytes = torch.full((n_hosts, ingress_cap), 1400, dtype=torch.int32,
+    rows = mask.shape[0]
+    nbytes = torch.full((rows, ingress_cap), 1400, dtype=torch.int32,
                         device=mask.device)
-    ctrl = torch.zeros((n_hosts, ingress_cap), dtype=torch.bool,
+    ctrl = torch.zeros((rows, ingress_cap), dtype=torch.bool,
                        device=mask.device)
     return mask, dst, nbytes, seq, ctrl

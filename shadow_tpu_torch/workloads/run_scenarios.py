@@ -7,7 +7,8 @@ golden digests: the corpus mode of `tools/run_scenarios.py`.
         [--telemetry DIR] [--memo] [--memo-report PATH]
         [--memo-cache DIR] [--trace DIR] [--trace-report PATH]
         [--checkpoint-dir DIR] [--checkpoint-every K] [--resume]
-        [--kill-at R] [--device cuda|cpu]
+        [--kill-at R] [--shard N]
+        [--device cuda|cpu]
 
 With no paths it runs every `scenarios/*.yaml` of the checkout. `--check`
 compares each record's fingerprint, program digest and canonical digest
@@ -47,9 +48,16 @@ The run infrastructure, with the JAX tool's meanings and file names:
   where it restarted is written to the `<out>.provenance.json` sidecar
   (with `-o`) and the ledger.
 
+`--shard N` runs each scenario host-axis sharded over N ranks
+(`runner.run_scenario(mesh_devices=N)`, `tpu/mesh.py`; ranks 1..N-1
+spawned, rank 0 this process); the digests do not move, so `--check`
+passes as unsharded. The ranks talk over NCCL when each has a card of
+its own, and over gloo on the CPU or when several share one card. As in
+the JAX tool, `--shard` refuses flow and compute entries,
+`--memo` and `--checkpoint-dir` (the runner's ValueError, exit 2).
+
 The device defaults to the CUDA card. Not ported: `--update-golden`
-(it rewrites `scenarios/GOLDEN.json`, the reference's record) and
-`--shard` (a mesh of devices).
+(it rewrites `scenarios/GOLDEN.json`, the reference's record).
 """
 
 from __future__ import annotations
@@ -182,6 +190,8 @@ def main(argv=None) -> int:
                     help="exit 137 once the round-R checkpoint is on disk "
                          "(R a multiple of --checkpoint-every)")
     ap.add_argument("--golden", default=str(GOLDEN))
+    ap.add_argument("--shard", type=int, default=None, metavar="N",
+                    help="host-axis shard over N ranks (digest parity)")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     args = ap.parse_args(argv)
     seed_override = emit_cap = recv_wnd = memo_cfg = None
@@ -232,6 +242,13 @@ def main(argv=None) -> int:
     guards_dirty = False
     for path in paths:
         spec = load_scenario_file(path, seed=seed_override)
+        if args.shard is not None:
+            try:
+                runner.check_mesh_run(spec, args.shard, memo=memo_arg,
+                                      checkpoint_dir=args.checkpoint_dir)
+            except ValueError as e:  # the JAX runner's refusals
+                print(f"run_scenarios: {spec.name}: {e}", file=sys.stderr)
+                return 2
         if flows_enabled and spec.transport != "flows":
             print(f"run_scenarios: flows.enabled is set but scenario "
                   f"{spec.name!r} declares transport: {spec.transport}; "
@@ -275,7 +292,7 @@ def main(argv=None) -> int:
             memo_cache=(os.path.join(args.memo_cache,
                                      f"{spec.name}.memo.npz")
                         if args.memo_cache else None),
-            provenance=prov)
+            provenance=prov, mesh_devices=args.shard)
         if args.checkpoint_dir:
             provenance_all[spec.name] = prov
         if harvester is not None:
@@ -314,11 +331,12 @@ def main(argv=None) -> int:
                     f"{rec['memo']['misses']}m/"
                     f"{rec['memo']['fast_forwarded_windows']}ffwd")
         ran = spec.windows - prov.get("start_round", 0)
+        stxt = f" x {args.shard} ranks" if args.shard else ""
         print(f"{spec.name:<24} [{rec['family']}] {status:>8}  "
               f"events={rec['events']:<8} "
               f"digest={rec['canonical_digest'][:12]}{gtxt}{ftxt}{htxt}"
               f"{mtxt}  {ran / timings['drive_s']:.1f} windows/s on "
-              f"{args.device}", file=sys.stderr)
+              f"{args.device}{stxt}", file=sys.stderr)
     if args.out:
         _write_json(args.out, {"records": records})
         if provenance_all:

@@ -33,6 +33,15 @@ checkpoints (`checkpoint_dir=`, `checkpoint_every=`, `resume=`,
 `kill_at=`, `provenance=`); a checkpoint either runner writes, the other
 resumes.
 
+`mesh_devices=N` runs the scenario host-axis sharded over N ranks
+(`tpu/mesh.py`), as the JAX runner's `mesh_devices` does: inside a
+process group of N ranks (under `torchrun`) each rank runs its shard;
+otherwise the call spawns ranks 1..N-1 and is rank 0 itself. Every
+rank builds the world, keeps its hosts' rows and steps them with
+`window_step(mesh=)`; the record, from the gathered state, is the
+unsharded run's (its canonical digest does not move). Flows, compute,
+checkpoints and the memo are refused under a mesh, as in JAX.
+
 The device is read back after the drive, and between chains by the
 flight recorder's drains, the harvests, the memo's snapshots and the
 checkpoints. The record carries no wall-clock time.
@@ -62,19 +71,13 @@ from ..tpu import compute as computemod
 from ..tpu import elastic
 from ..tpu import flows as flowsmod
 from ..tpu import memo as memomod
+from ..tpu import mesh as meshmod
 from ..tpu.plane import make_params, make_state, unpack_planes, window_step
 from . import device as wdevice
 from .compile import TrafficProgram, compile_program, program_digest
 from .spec import ScenarioSpec, scenario_fingerprint
 
 MS = 1_000_000
-
-# keywords of the JAX runner that the port does not run yet, each with
-# the JAX default it still accepts and the ROADMAP.md queue A item that
-# brings it (None and False are accepted for all of them)
-_NOT_PORTED = {
-    "mesh_devices": (None, "multi-GPU"),
-}
 
 
 def build_scenario_world(spec: ScenarioSpec, *, device=None):
@@ -137,7 +140,7 @@ def run_scenario(spec: ScenarioSpec, *, guards: bool = False,
                  provenance: Optional[dict] = None,
                  chain_len: Optional[int] = None, on_chain=None,
                  device=None, timings: Optional[dict] = None,
-                 **unported) -> dict:
+                 mesh_devices: Optional[int] = None, mesh=None) -> dict:
     """Execute one scenario for its full window budget and return the
     JAX runner's record (no wall-clock in it).
 
@@ -189,23 +192,44 @@ def run_scenario(spec: ScenarioSpec, *, guards: bool = False,
     that ends before window r1 (a profiler starts and stops there). A
     dict passed as `timings` receives the host seconds of the set-up
     (`setup_s`: world, program, upload, prime, resume) and of the drive
-    (`drive_s`, ended by a device synchronise), outside the record. The
-    JAX runner's `mesh_devices` is accepted at its default only and
-    otherwise raises NotImplementedError naming the ROADMAP.md item that
-    brings it."""
-    for key, value in unported.items():
-        if key not in _NOT_PORTED:
-            raise TypeError(f"run_scenario: unexpected argument {key!r}")
-        default, item = _NOT_PORTED[key]
-        if value is not None and value is not False and value != default:
-            raise NotImplementedError(
-                f"run_scenario: {key}={value!r} is not ported yet "
-                f"(ROADMAP.md queue A: {item}; only the JAX default "
-                f"{default!r} is accepted)")
+    (`drive_s`, ended by a device synchronise), outside the record.
+
+    `mesh_devices=N` shards the run over N ranks (the module's
+    docstring; NCCL when each rank has a card of its own, gloo on the
+    CPU or with several ranks on one card). The harvester, the tracer,
+    the hops sink, `on_chain` and `timings` are rank 0's. `mesh` is the
+    rank's `tpu/mesh.Mesh` when the caller has made it."""
     if telemetry_every < 1:
         raise ValueError(
             f"telemetry_every must be >= 1, got {telemetry_every}")
-    device = resolve_device(device)
+    if mesh is not None and mesh_devices is None:
+        mesh_devices = mesh.size
+    if mesh_devices is not None:
+        check_mesh_run(spec, mesh_devices, memo=memo,
+                       checkpoint_dir=checkpoint_dir)
+        if mesh is None:
+            shared = dict(
+                guards=guards, fault_events=fault_events,
+                use_default_faults=use_default_faults,
+                telemetry=_RankHarvest() if telemetry is not None else None,
+                telemetry_every=telemetry_every, histograms=histograms,
+                sample_every=sample_every, trace_ring=trace_ring,
+                max_advance=max_advance, chain_len=chain_len,
+                device=device, mesh_devices=mesh_devices)
+            rank0 = dict(telemetry=telemetry, hops_sink=hops_sink,
+                         tracer=tracer, on_chain=on_chain, timings=timings)
+            if not meshmod.dist.is_initialized():
+                return meshmod.run_ranks(
+                    _scenario_rank, mesh_devices, spec, shared,
+                    device=device, local=rank0)
+            mesh = meshmod.make_mesh(mesh_devices, device=device)
+        if mesh.rank != 0:
+            # the harvests gather on every rank (a collective) and rank 0
+            # keeps them; the rest is rank 0's alone
+            if telemetry is not None:
+                telemetry = _RankHarvest()
+            hops_sink = tracer = on_chain = timings = None
+    device = resolve_device(device) if mesh is None else mesh.device
     t0 = time.perf_counter()
     prog = compile_program(spec)
     state, params = build_scenario_world(spec, device=device)
@@ -239,6 +263,13 @@ def run_scenario(spec: ScenarioSpec, *, guards: bool = False,
     metrics = make_metrics(N, device=device)
     gstate = make_guards(N, device=device) if guards else None
     hstate = histo.make_histograms(N, device=device) if histograms else None
+    if mesh is not None:
+        # every host-major leaf keeps the rank's rows, as the JAX runner's
+        # `_shard_host_axis`; the recorder's ring and the fault masks stay
+        # whole on every rank, as there
+        state, params = meshmod.shard_state(state, params, mesh)
+        wl, ws, metrics, gstate, hstate = meshmod.shard_tree(
+            (wl, ws, metrics, gstate, hstate), mesh, N)
     fstate = recorder = None
     if sample_every is not None:
         fstate = frmod.make_flightrec(spec.seed, sample_every=sample_every,
@@ -283,7 +314,7 @@ def run_scenario(spec: ScenarioSpec, *, guards: bool = False,
             out = window_step(state, params, spec.seed, shift, window,
                               rr_enabled=False, kernel="xla", faults=faults,
                               metrics=metrics, guards=gstate, hist=hstate,
-                              flightrec=fstate,
+                              flightrec=fstate, mesh=mesh,
                               compute=(ctab, cstate) if use_compute
                               else None)
             ((state, delivered, _next), metrics, gstate, hstate, fstate,
@@ -330,6 +361,11 @@ def run_scenario(spec: ScenarioSpec, *, guards: bool = False,
     def after_chain(r1, state, extras):
         nonlocal annotated
         ws, metrics, _g, hstate, fstate, _fl, _c = extras
+        if mesh is not None and telemetry is not None \
+                and r1 % telemetry_every == 0:
+            # a collective: every rank with a harvester (all, or none)
+            ws, metrics, hstate = meshmod.gather_state((ws, metrics, hstate),
+                                                       mesh)
         if r1 % telemetry_every == 0:
             if telemetry is not None:
                 annotated = _annotate_phases(telemetry, spec, prog, ws,
@@ -416,12 +452,15 @@ def run_scenario(spec: ScenarioSpec, *, guards: bool = False,
         on_chain=(after_chain if need_cadence or on_chain is not None
                   else None),
         memo=memo_obj, memo_span_salt=memo_salt_fn, tracer=tracer,
-        checkpointer=checkpointer)
+        checkpointer=checkpointer, mesh=mesh)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     if timings is not None:
         timings.update(setup_s=t1 - t0, drive_s=time.perf_counter() - t1)
     ws, metrics, gstate, hstate, fstate, flowst, cstate = extras
+    if mesh is not None:
+        state, ws, metrics, gstate, hstate = meshmod.gather_state(
+            (state, ws, metrics, gstate, hstate), mesh)
     if memo_cache is not None:
         memo_obj.save(memo_cache)
     if provenance is not None:
@@ -460,6 +499,65 @@ def run_scenario(spec: ScenarioSpec, *, guards: bool = False,
     return record
 
 
+def check_mesh_run(spec: ScenarioSpec, n_ranks: int, *, memo,
+                   checkpoint_dir) -> None:
+    """The JAX runner's refusals under `mesh_devices` (ValueError naming
+    the mesh), before any rank starts: the flow transport, the compute
+    plane, checkpoints and the memo; and a world that does not shard
+    evenly."""
+    if spec.transport == "flows":
+        raise ValueError(
+            "transport: flows does not run under a host-axis mesh "
+            "(mesh_devices): the flow axis is flow-major, not host-major, "
+            "and its credit scatter-adds need a cross-shard reduction")
+    if spec.compute is not None:
+        raise ValueError(
+            "the compute plane does not run under a host-axis mesh "
+            "(mesh_devices): its service tables are not host-sharded")
+    if checkpoint_dir is not None:
+        raise ValueError(
+            "checkpointing does not run under a host-axis mesh "
+            "(mesh_devices): the carry's host copy holds one rank's rows")
+    if _memo_knob(memo) is not None:
+        raise ValueError(
+            "memo does not run under a host-axis mesh (mesh_devices): its "
+            "host mirror of the carry would hold one rank's rows")
+    if n_ranks < 1 or spec.n_hosts % n_ranks:
+        raise ValueError(
+            f"mesh_devices={n_ranks}: {spec.n_hosts} hosts do not shard "
+            "evenly over the mesh")
+
+
+def _scenario_rank(mesh, spec: ScenarioSpec, shared: dict, **rank0):
+    """One rank of a spawned `run_scenario(mesh_devices=)`: rank 0 (the
+    caller's process) runs with the caller's harvester, tracer, hops
+    sink, hook and timings."""
+    return run_scenario(spec, mesh=mesh, **{**shared, **rank0})
+
+
+class _RankHarvest:
+    """A harvester for a mesh rank other than 0: it takes part in the
+    harvests' gathers, and rank 0's harvester keeps what they read."""
+
+    def tick(self, *_args, **_kw):
+        pass
+
+    def note_event(self, *_args, **_kw):
+        pass
+
+
+def _memo_knob(memo):
+    """The `memo` argument's knob reader (`knob(name, default)`), or None
+    when it turns the memo off (None, False, or `enabled` false)."""
+    if memo is None or memo is False:
+        return None
+    knob = (memo.get if isinstance(memo, dict)
+            else lambda k, d: getattr(memo, k, d))
+    if memo is not True and not knob("enabled", True):
+        return None
+    return knob
+
+
 def _build_memo(memo, *, spec, prog, schedule, adv, emit_cap, recv_wnd,
                 guards, histograms, sample_every, trace_ring):
     """The `memo` argument (None, a bool, or a dict or object of
@@ -475,11 +573,8 @@ def _build_memo(memo, *, spec, prog, schedule, adv, emit_cap, recv_wnd,
     armed, an RTT probe out, unacked bytes, a pending ack, receiver
     bitmap content, or any packet still in a ring). Under faults the
     span salt is the schedule's span fingerprint."""
-    if memo is None or memo is False:
-        return None, None, None
-    knob = (memo.get if isinstance(memo, dict)
-            else lambda k, d: getattr(memo, k, d))
-    if memo is not True and not knob("enabled", True):
+    knob = _memo_knob(memo)
+    if knob is None:
         return None, None, None
     salt = "|".join([
         "memo-v1", scenario_fingerprint(spec), program_digest(prog),

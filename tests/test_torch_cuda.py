@@ -126,6 +126,29 @@ def test_route_scatter_kernel_matches_plain(cuda, ce, ci, name, kernel,
         assert g.dtype == r.dtype and torch.equal(g, r)
 
 
+@pytest.mark.parametrize("n,n_src", [(300, 1200), (1024, 4096), (512, 128)])
+@pytest.mark.parametrize("name,kernel,plain", [
+    ("route_place", pipeline.place, pipeline.place_plain),
+    ("route_scatter", pipeline.scatter, pipeline.scatter_plain)],
+    ids=["B", "D"])
+def test_placement_kernel_with_a_source_axis_matches_plain(cuda, n, n_src,
+                                                           name, kernel,
+                                                           plain):
+    """Kernels B and D with n_src source rows and n ring rows (a mesh
+    rank's launch after the routing exchange) against their plain
+    version, bitwise, one launch each."""
+    args = [torch.from_numpy(a).to(cuda)
+            for a in placement_inputs(n, 16, 32, seed=n_src, n_src=n_src)]
+    mine = [a.clone() for a in args]
+    before = pipeline.LAUNCHES[name]
+    got = kernel(*mine)
+    ref = plain(*[a.clone() for a in args])
+    torch.cuda.synchronize()
+    assert pipeline.LAUNCHES[name] == before + 1
+    for g, r in zip(got, ref):
+        assert g.dtype == r.dtype and torch.equal(g, r)
+
+
 @pytest.mark.parametrize("kernel", ["pallas_fused", "pallas"])
 def test_phold_golden_digest_on_the_card(cuda, kernel):
     g = dict(bench.GOLDEN_PHOLD)

@@ -274,3 +274,53 @@ def test_convert_round_trip_is_identity():
     again = convert.params_from_numpy(pd, "cpu")
     for f in params._fields:
         assert torch.equal(getattr(again, f), getattr(params, f)), f
+
+
+def test_mesh_modules_import_no_jax_and_nothing_of_shadow_tpu():
+    """The mesh and its dry run stand alone too (they are in PORT_FILES;
+    named here so that a move cannot drop them from the scan)."""
+    for rel in ("tpu/mesh.py", "tools/multichip.py"):
+        path = REPO / "shadow_tpu_torch" / rel
+        assert path in PORT_FILES
+        for mod in imported_modules(path):
+            assert mod.split(".")[0] not in ("jax", "jaxlib", "shadow_tpu"), (
+                rel, mod)
+
+
+# the tensor methods that read a tensor back to the host
+HOST_READ_METHODS = ("tolist", "item", "cpu", "numpy", "__bool__", "__int__",
+                     "__float__", "__index__")
+
+
+def test_sharded_chain_reads_the_host_once_a_chained_window(monkeypatch):
+    """`chain_windows(mesh=)` on rank 0 of a 2-rank gloo mesh makes one
+    host read a chained window, its `.tolist()`, and no other (the
+    collectives that decide the chain are not host reads of its own):
+    the multichip stress at 256 hosts, 16 windows, all walked."""
+    from shadow_tpu_torch.tools import multichip
+    from shadow_tpu_torch.tpu import mesh
+
+    reads, active = {}, [False]
+    for name in HOST_READ_METHODS:
+        real = getattr(torch.Tensor, name)
+
+        def counted(self, *a, _real=real, _name=name, **k):
+            if active[0]:
+                reads[_name] = reads.get(_name, 0) + 1
+            return _real(self, *a, **k)
+
+        monkeypatch.setattr(torch.Tensor, name, counted)
+    chain = multichip.chain_windows
+
+    def counted_chain(*a, **k):
+        active[0] = True
+        try:
+            return chain(*a, **k)
+        finally:
+            active[0] = False
+
+    monkeypatch.setattr(multichip, "chain_windows", counted_chain)
+    got = mesh.run_ranks(multichip.check_stress, 2, 256, 16, "pallas_fused",
+                         False, device="cpu")
+    assert got["chain"][2] == 16
+    assert reads == {"tolist": 15}

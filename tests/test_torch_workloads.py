@@ -177,10 +177,12 @@ def test_flow_knobs_match_jax():
 
 
 def test_unported_runner_options_are_refused(tmp_path):
-    """Only `mesh_devices` (multi-GPU) is refused, and only at a value
-    other than the JAX runner's default; the run-infrastructure keywords
-    run, their records equal the plain run's (the memo's adds its
-    report), and so does any `telemetry_every` >= 1."""
+    """No keyword of the JAX runner is refused any more: `mesh_devices`
+    runs the record of the plain run sharded over 2 ranks; the
+    run-infrastructure keywords run, their records equal the plain
+    run's (the memo's adds its report), and so does any
+    `telemetry_every` >= 1. A zero cadence and a keyword the JAX runner
+    does not have raise."""
     spec = tspec.load_scenario_file(str(CORPUS / "incast.yaml"))
     short = dataclasses.replace(spec, windows=3)
     base = trunner.run_scenario(short, device="cpu")
@@ -198,8 +200,7 @@ def test_unported_runner_options_are_refused(tmp_path):
         assert ("memo" in rec) == ("memo" in kw), kw
         rec.pop("memo", None)
         assert rec == base, kw
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        trunner.run_scenario(spec, device="cpu", mesh_devices=4)
+    assert trunner.run_scenario(short, device="cpu", mesh_devices=2) == base
     with pytest.raises(ValueError, match="telemetry_every"):
         trunner.run_scenario(spec, device="cpu", telemetry_every=0)
     with pytest.raises(TypeError, match="unexpected"):
