@@ -174,7 +174,24 @@ printed:
    D with n_src = 32768 source rows, bitwise against their plain
    versions) timed cold and warm beside their bounds, the exchange's
    bytes a window and each part's seconds;
-20. one JSON line describing every kernel, then the result line.
+20. the device flow engine (`tpu/floweng.py`, kernel F): (a) F against
+   its plain version (`run_windows_plain`) on the card, bitwise on every
+   `FlowWorld` leaf and `steps_per_window`, over 60 windows of a 64-flow
+   world (asymmetric 2-40 ms latencies, both transfer directions, 2 %/1 %
+   loss, staggered starts, 16-slot rings), once with the default options
+   and once with one-MSS pulls under a step cap of 2 (ring-overflow drops
+   and saturated windows occur); F timed a chunk cold, clean and warm
+   beside the plain version; (b) `bench_flows`' default world at full
+   width (975 flows x 256 KiB, 20 ms windows, chunks of 25) through F by
+   `run_to_completion`: its `flow_results` digest equal to
+   `GOLDEN_FLOW_DIGEST`, F's launches equal to the chunks run, wall
+   seconds and segments a wall second, and F's device ms of every launch
+   of the run; (c) the rung-3 flow-engine deployment
+   (`workloads/rung3_floweng.yaml`) through `flowplan.run_config`, its
+   `stats_record` equal to the JAX Manager's committed record, then run
+   again with a checkpoint directory, stopped after its first bucket and
+   resumed, equal again;
+21. one JSON line describing every kernel, then the result line.
 
 Usage: python3 chip_smoke.py   (from the repository root; one card).
 A fuller record of every measurement is printed on the `record:` line.
@@ -2687,6 +2704,7 @@ def mesh_rank(mesh, n_hosts, rounds, stress_hosts, stress_windows,
 
     from shadow_tpu_torch import bench, convert
     from shadow_tpu_torch.tools import multichip
+    from shadow_tpu_torch.tpu import floweng
     from shadow_tpu_torch.tpu import mesh as meshmod
     from shadow_tpu_torch.tpu import pipeline
 
@@ -2698,12 +2716,15 @@ def mesh_rank(mesh, n_hosts, rounds, stress_hosts, stress_windows,
 
     def counted(fn, *a, **kw):
         pipeline.reset_launches()
+        floweng.reset_launches()
         out = fn(*a, **kw)
         mesh_sync(torch, mesh.device)
-        mine = torch.tensor([pipeline.LAUNCHES[k] for k in PORT_KERNELS],
+        mine = torch.tensor([pipeline.LAUNCHES[k] for k in PORT_KERNELS]
+                            + [floweng.LAUNCHES["flow_window"]],
                             dtype=torch.int64, device=mesh.device)
         every = mesh.gather_leaf(mine[None]).tolist()
-        return out, [dict(zip(PORT_KERNELS, r)) for r in every]
+        return out, [dict(zip(PORT_KERNELS + ("flow_window",), r))
+                     for r in every]
 
     out = {"ranks": mesh.size, "backend": mesh.backend,
            "device": str(mesh.device), "staged": mesh.staged, "part_s": {}}
@@ -2859,6 +2880,11 @@ def check_mesh(torch, bench, convert, pipeline, record, ident):
               f"(a record, not a claim: the host staging dominates); "
               f"in-window us a launch on rank 0 {got['in_window']} on "
               f"{ident}")
+    # E and F on neither sharded path (checked 0 above), per rank
+    for name in ("router_drain", "flow_window"):
+        launches[name] = [sum(a[k]["launches"][rank][name]
+                              for k, _pair in MESH_PAIRS)
+                          for rank in range(MESH_RANKS)]
     st = a["stress"]
     if st["diff"] or st["overflow_drops"] <= 0 or \
             st["chain"][2] != MESH_STRESS_WINDOWS:
@@ -2952,13 +2978,363 @@ def check_mesh(torch, bench, convert, pipeline, record, ident):
     return launches
 
 
+# phase 20: the device flow engine (tpu/floweng.py, kernel F)
+FLOW_A = dict(n_flows=64, n_windows=60, window_us=2000, queue_slots=16)
+# (a)'s two option sets: the defaults, and one-MSS pulls under a step cap
+# small enough to saturate windows (its bursts overflow the rings too)
+FLOW_A_RUNS = (("default", {}),
+               ("gso1-cap2", dict(gso_segs=1, max_events_per_window=2)))
+FLOW_CHUNK = 25  # bench_flows' chunk of windows
+FLOW_BENCH_REPS = 8  # (b): bench_flows' runs back to back for its rate
+FLOW_DEVICE = "cuda"  # phase 20's device ("cpu" in a CPU rehearsal)
+
+
+def flow_world_a(floweng, device):
+    """(a)'s world: odd flows fetch (their passive side writes)."""
+    rng = np.random.default_rng(5)
+    n = FLOW_A["n_flows"]
+    lat = rng.integers(2, 40, n) * 1000
+    lat_back = rng.integers(2, 40, n) * 1000
+    size = rng.integers(20, 200, n) * 1000
+    start = rng.integers(0, 30, n) * 1000
+    w = floweng.make_flow_world(
+        lat, size, start_us=start, queue_slots=FLOW_A["queue_slots"],
+        seed=3, loss=0.02, loss_back=0.01, latency_back_us=lat_back,
+        device=device)
+    total = w.total.clone()
+    total[2::4], total[3::4] = w.total[3::4], w.total[2::4]
+    return w._replace(total=total)
+
+
+def flow_leaves(convert, world) -> dict:
+    d = convert.flow_world_to_numpy(world)
+    out = {f"plane.{k}": v for k, v in d.pop("plane").items()}
+    out.update(d)
+    return out
+
+
+def flow_world_bytes(world) -> int:
+    return sum(t.numel() * t.element_size() for t in world.plane) + sum(
+        t.numel() * t.element_size() for t in world[1:])
+
+
+def flow_diff(convert, got, ref) -> tuple[int, list]:
+    """The largest absolute difference over every `FlowWorld` leaf, and
+    the leaves that differ in dtype or value."""
+    a, b = flow_leaves(convert, got), flow_leaves(convert, ref)
+    bad = [k for k in b if a[k].dtype != b[k].dtype
+           or not np.array_equal(a[k], b[k])]
+    err = max((int(np.abs(a[k].astype(np.int64)
+                          - b[k].astype(np.int64)).max())
+               for k in b if a[k].size and a[k].shape == b[k].shape),
+              default=0)
+    return err, bad
+
+
+def f_against_plain(torch, convert, floweng, world, n_chunks, n_win, win,
+                    label, **opts):
+    """Kernel F (`run_windows`) and `run_windows_plain` from `world`,
+    `n_chunks` chunks of `n_win` windows each, every `FlowWorld` leaf
+    and `steps_per_window` held bitwise after each chunk. Returns the
+    plain version's world and a row: the largest absolute difference,
+    F's and the plain version's wall seconds, each chunk's steps."""
+    got = ref = world
+    row = dict(max_abs_err=0, f_wall_s=[], plain_s=[], steps=[])
+    for k in range(n_chunks):
+        t0 = time.perf_counter()
+        got, steps = floweng.run_windows(got, n_win, win, **opts)
+        torch.cuda.synchronize()
+        row["f_wall_s"].append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        ref, ref_steps = floweng.run_windows_plain(ref, n_win, win, **opts)
+        torch.cuda.synchronize()
+        row["plain_s"].append(time.perf_counter() - t0)
+        err, bad = flow_diff(convert, got, ref)
+        err = max(err, int((steps.long() - ref_steps.long()).abs().max()))
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        if bad or not torch.equal(steps, ref_steps):
+            fail(f"phase 20 (a) {label}, chunk {k}: kernel F differs from "
+                 f"its plain version in {bad or 'steps_per_window'} (max "
+                 f"abs err {err})")
+        row["steps"].append(ref_steps.tolist())
+    return ref, row
+
+
+def time_flow_chunk(torch, floweng, world, n_win, win):
+    """F's device ms a chunk of `n_win` windows from `world` (warm,
+    cold, cold clean), the world restored before each launch and the
+    restore's own time taken off; and the restore's cold ms."""
+    work = floweng.clone_world(world)
+    src = list(world.plane) + list(world[1:])
+    dst = list(work.plane) + list(work[1:])
+
+    def restore():
+        for d, s_ in zip(dst, src):
+            d.copy_(s_)
+
+    def one_chunk():
+        restore()
+        floweng.flow_window_(work, n_win, win)
+
+    warm, cold, clean = time_device(torch, one_chunk, reps=20)
+    r_warm, r_cold, r_clean = time_device(torch, restore, reps=20)
+    return warm - r_warm, cold - r_cold, clean - r_clean, r_cold
+
+
+def check_flow_engine(torch, record, ident):
+    """Phase 20: kernel F against its plain version (on (a)'s world and
+    at the main paths' shapes), bench_flows at full width and the rung-3
+    deployment with a kill and resume. Returns (F's kernel row, its
+    launches in (b), its launches in (c))."""
+    from shadow_tpu_torch import convert
+    from shadow_tpu_torch.core import flowplan
+    from shadow_tpu_torch.core.config import load_config_str
+    from shadow_tpu_torch.tools import bench_flows
+    from shadow_tpu_torch.tpu import floweng
+
+    t_all = time.perf_counter()
+    # (a) bitwise against the plain version on the card
+    n_win, win = FLOW_A["n_windows"], FLOW_A["window_us"]
+    w0 = flow_world_a(floweng, FLOW_DEVICE)
+    a_rows = {}
+    for name, opts in FLOW_A_RUNS:
+        ref, row = f_against_plain(torch, convert, floweng, w0, 1, n_win,
+                                   win, name, **opts)
+        res = floweng.flow_results(ref)
+        a_rows[name] = dict(
+            row, segments=res["segments"], wire_drops=res["wire_drops"],
+            queue_drops=res["queue_drops"],
+            saturated_windows=res["saturated_windows"])
+    heavy = a_rows["gso1-cap2"]
+    if heavy["queue_drops"] <= 0 or heavy["saturated_windows"] <= 0 \
+            or a_rows["default"]["wire_drops"] <= 0:
+        fail(f"phase 20 (a): the worlds must show wire drops, ring drops "
+             f"and saturated windows: {a_rows}")
+    a_warm, a_ms, a_clean, a_restore = time_flow_chunk(torch, floweng, w0,
+                                                       n_win, win)
+    for name, row in a_rows.items():
+        print(f"20 (a) kernel F vs run_windows_plain, {FLOW_A['n_flows']} "
+              f"flows x {n_win} windows, {name}: bitwise on every leaf and "
+              f"steps_per_window (max {max(row['steps'][0])} steps a "
+              f"window, {row['segments']} segments, {row['wire_drops']} "
+              f"wire drops, {row['queue_drops']} ring drops, "
+              f"{row['saturated_windows']} saturated windows); F first "
+              f"call {row['f_wall_s'][0]:.4f} s wall, plain "
+              f"{row['plain_s'][0]:.3f} s wall")
+    print(f"20 (a) kernel F a {n_win}-window chunk: {a_ms:.5f} ms cold "
+          f"(clean {a_clean:.5f}; warm {a_warm:.5f}; each less the world's "
+          f"restore, {a_restore:.5f} cold) vs the plain version "
+          f"{a_rows['default']['plain_s'][0] * 1e3:.1f} ms wall on {ident}")
+    # (a) at the main paths' shapes: bench_flows' first chunk, and the
+    # rung-3 run's largest bucket (its first attempt's rings) through
+    # its first chunk with work
+    lats, sizes, qs, wus = bench_flows.default_world_args()
+    bench_w0 = floweng.make_flow_world(lats, sizes, queue_slots=qs,
+                                       device=FLOW_DEVICE)
+    _ref, bench_row = f_against_plain(torch, convert, floweng, bench_w0, 1,
+                                      FLOW_CHUNK, wus, "bench_flows")
+    cfg = load_config_str(flowplan.RUNG3_YAML.read_text())
+    plan = flowplan.compile_flow_plan(cfg, flowplan.routing_from_config(cfg))
+    r_wus, r_idx = max(flowplan.flow_buckets(plan).items(),
+                       key=lambda kv: len(kv[1]))
+    r_chunk = flowplan.bucket_chunk(r_wus)
+    r_w0 = flowplan.bucket_world(plan, r_wus, r_idx, flowplan.QUEUE_SLOTS0,
+                                 FLOW_DEVICE)
+    r_busy = int(plan.start_us[r_idx].min()) // (r_chunk * r_wus)
+    _ref, rung3_row = f_against_plain(torch, convert, floweng, r_w0,
+                                      r_busy + 1, r_chunk, r_wus,
+                                      "rung-3 bucket")
+    if not any(rung3_row["steps"][-1]) or not any(bench_row["steps"][0]):
+        fail("phase 20 (a): a main-path chunk held against the plain "
+             "version ran no step")
+    r_lanes, r_q = r_w0.q_time.shape
+    for label, row, shape in (
+            ("bench_flows' first chunk", bench_row,
+             f"{2 * len(lats)} lanes, Q={qs}, {FLOW_CHUNK} windows of "
+             f"{wus} us"),
+            (f"rung 3's {r_wus} us bucket, chunks 0-{r_busy}", rung3_row,
+             f"{len(r_idx)} flows padded to {r_lanes} lanes, Q={r_q}, "
+             f"{r_chunk} windows of {r_wus} us a chunk")):
+        print(f"20 (a) kernel F vs run_windows_plain at {label} ({shape}): "
+              f"bitwise on every leaf and steps_per_window after each "
+              f"chunk ({sum(map(sum, row['steps']))} steps); F "
+              f"{sum(row['f_wall_s']):.4f} s wall, plain "
+              f"{sum(row['plain_s']):.3f} s wall")
+    f_warm, f_ms, f_clean, f_restore = time_flow_chunk(
+        torch, floweng, bench_w0, FLOW_CHUNK, wus)
+    print(f"20 (a) kernel F bench_flows' first {FLOW_CHUNK}-window chunk: "
+          f"{f_ms:.5f} ms cold (clean {f_clean:.5f}; warm {f_warm:.5f}; "
+          f"each less the world's restore, {f_restore:.5f} cold) vs the "
+          f"plain version {bench_row['plain_s'][0] * 1e3:.1f} ms wall on "
+          f"{ident}")
+
+    # (b) bench_flows' default world at full width
+    floweng.reset_launches()
+    out = bench_flows.run(device=FLOW_DEVICE)
+    b_launches = out["launches"]
+    chunks = round(out["sim_seconds"] * 1e6 / wus / FLOW_CHUNK)
+    if out["digest"] != bench_flows.GOLDEN_FLOW_DIGEST:
+        fail(f"phase 20 (b): flow_results digest {out['digest']} != "
+             f"GOLDEN_FLOW_DIGEST ({out})")
+    if b_launches != chunks * (out["saturation_retries"] + 1):
+        fail(f"phase 20 (b): {b_launches} launches of F for {chunks} "
+             f"chunks and {out['saturation_retries']} retries")
+    # the run again FLOW_BENCH_REPS times back to back, each timed on the
+    # host clock around the call, unrounded
+    rep_s = []
+    for _ in range(FLOW_BENCH_REPS):
+        t0 = time.perf_counter()
+        rep = bench_flows.run(device=FLOW_DEVICE)
+        rep_s.append(time.perf_counter() - t0)
+        if rep["digest"] != out["digest"]:
+            fail("phase 20 (b): a repeated bench_flows run differs")
+    # and once more, each launch timed by CUDA events (device ms)
+    in_run = []
+
+    def timed_chunk(w, cap):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        w2 = floweng.clone_world(w)
+        e0.record()
+        st = floweng.flow_window_(w2, FLOW_CHUNK, wus,
+                                  max_events_per_window=cap)
+        e1.record()
+        in_run.append((e0, e1, st))
+        return w2, st
+
+    floweng.run_to_completion(bench_w0, wus, max_sim_s=40.0,
+                              chunk_windows=FLOW_CHUNK, probe_every=2,
+                              run_fn=timed_chunk)
+    torch.cuda.synchronize()
+    run_ms = [e0.elapsed_time(e1) for e0, e1, _ in in_run]
+    max_steps = max(int(st.max()) for _, _, st in in_run)
+    bench_bytes = 2 * flow_world_bytes(bench_w0)
+    bench_bound_ms = bench_bytes / PEAK_BYTES_PER_S * 1e3
+    seg = out["segments"]
+    rates = dict(wall_segments_per_s=seg * len(rep_s) / sum(rep_s),
+                 device_segments_per_s=seg / (sum(run_ms) / 1e3))
+    print(f"20 (b) bench_flows {out['flows']} flows x "
+          f"{out['bytes_per_flow']} B: {out['flows_complete']} complete in "
+          f"{out['sim_seconds']} s simulated, {seg} segments, "
+          f"{out['retransmits']} retransmits, {out['saturation_retries']} "
+          f"retries; digest == GOLDEN_FLOW_DIGEST; F launched "
+          f"{b_launches} times ({chunks} chunks); first run "
+          f"{out['wall_seconds']} s wall (the tool's rounding); "
+          f"{FLOW_BENCH_REPS} more back to back {rep_s} s wall, "
+          f"{rates['wall_segments_per_s']} segments a wall second; in-run "
+          f"device ms a launch {run_ms} (sum {sum(run_ms)}, "
+          f"{rates['device_segments_per_s']} segments a device second; "
+          f"max {max_steps} steps a window; bound {bench_bound_ms:.5f} ms: "
+          f"the world's {bench_bytes} B read and written once a launch) on "
+          f"{ident}")
+
+    # (c) the rung-3 deployment, then killed after a bucket and resumed
+    want = json.loads(flowplan.RUNG3_RECORD.read_text())
+    want.pop("source")
+    text = flowplan.RUNG3_YAML.read_text()
+    floweng.reset_launches()
+    t0 = time.perf_counter()
+    stats = flowplan.run_config(load_config_str(text), device=FLOW_DEVICE)
+    c_wall = time.perf_counter() - t0
+    c_launches = floweng.LAUNCHES["flow_window"]
+    got = flowplan.stats_record(stats)
+    if got != want:
+        fail(f"phase 20 (c): the rung-3 run's record {got} != the JAX "
+             f"Manager's {want}")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        killed = flow_run_killed(floweng, flowplan, load_config_str(text),
+                                 tmp, FLOW_DEVICE)
+        resumed = flowplan.run_config(
+            load_config_str(text), device=FLOW_DEVICE,
+            resume_from=os.path.join(tmp, "flow-progress"))
+        r_wall = time.perf_counter() - t0
+    if not killed:
+        fail("phase 20 (c): the rung-3 run has one bucket; nothing killed")
+    if flowplan.stats_record(resumed) != want:
+        fail("phase 20 (c): the rung-3 run killed after its first bucket "
+             "and resumed differs from the JAX Manager's record")
+    print(f"20 (c) rung 3 on the flow engine ({len(stats.flow_complete_us)}"
+          f" flows, {stats.sim_time_ns / 1e9:.0f} s simulated, "
+          f"{stats.rounds} windows): record == the JAX Manager's "
+          f"({stats.packets_sent} packets, {stats.packets_dropped} dropped, "
+          f"{stats.flow_retransmits} retransmits, "
+          f"{len(stats.process_failures)} failures); {c_wall:.2f} s wall, "
+          f"{c_launches} launches of F; killed where its second bucket "
+          f"starts and resumed: equal ({r_wall:.2f} s wall for both parts) "
+          f"on {ident}")
+
+    bound_ms, bound_by = bench_bound_ms, "bytes"
+    sched_batch, pull_cap = 8, 8
+    a_bytes = 2 * flow_world_bytes(w0)
+    row = dict(
+        max_abs_err=max(r["max_abs_err"] for r in (
+            *a_rows.values(), bench_row, rung3_row)),
+        ms=f_ms, warm_ms=f_warm, cold_clean_ms=f_clean,
+        plain_ms=bench_row["plain_s"][0] * 1e3, restore_ms=f_restore,
+        bound_ms=bound_ms, bound_by=bound_by, bytes=bench_bytes,
+        share_of_bound=bound_ms / max(f_ms, 1e-9),
+        a_ms=a_ms, a_warm_ms=a_warm, a_cold_clean_ms=a_clean,
+        a_restore_ms=a_restore,
+        a_plain_ms=a_rows["default"]["plain_s"][0] * 1e3, a_bytes=a_bytes,
+        a_bound_ms=a_bytes / PEAK_BYTES_PER_S * 1e3,
+        in_run_ms=run_ms, in_run_mean_ms=sum(run_ms) / len(run_ms),
+        bench=out, bench_rep_wall_s=rep_s, bench_rates=rates, a=a_rows,
+        bench_chunk=bench_row, rung3_chunks=rung3_row,
+        rung3_wall_s=c_wall, rung3_resume_wall_s=r_wall,
+        launches_bench=b_launches, launches_rung3=c_launches,
+        # the serial chain of a thread: both lanes' scheduled events and
+        # pulls, 2 * (sched_batch + pull_cap) + 2 app phases a fused step
+        chain_events_per_step=2 * (sched_batch + pull_cap) + 2,
+        bench_max_steps_per_window=max_steps,
+        phase_s=time.perf_counter() - t_all)
+    record["flow_engine"] = row
+    print(f"20 kernel F: {row['ms']:.5f} ms cold a chunk of bench_flows' "
+          f"world, bound_ms={bound_ms:.5f} ({bound_by}, {bench_bytes} B: "
+          f"the world read and written once) share="
+          f"{row['share_of_bound']:.4f}; in-run mean "
+          f"{row['in_run_mean_ms']:.4f} ms; max_abs_err "
+          f"{row['max_abs_err']}; the serial chain: up to "
+          f"{row['chain_events_per_step']} events a fused step, "
+          f"{max_steps} steps in bench_flows' busiest window; "
+          f"library_ms=null; phase {row['phase_s']:.1f} s on {ident}")
+    return row, b_launches, c_launches
+
+
+class FlowKill(RuntimeError):
+    """The simulated kill of a flow run (`flow_run_killed`)."""
+
+
+def flow_run_killed(floweng, flowplan, config, ckpt_dir, device) -> bool:
+    """`run_config` with checkpoints in `ckpt_dir`, killed where its
+    second bucket starts: `floweng.run_to_completion` raises once the
+    first bucket's `flow-progress` checkpoint exists. Returns whether
+    the run was killed (a one-bucket run finishes)."""
+    real = floweng.run_to_completion
+    ckpt = os.path.join(ckpt_dir, "flow-progress")
+
+    def killing(*args, **kw):
+        if os.path.exists(ckpt):
+            raise FlowKill(f"killed after the checkpoint {ckpt}")
+        return real(*args, **kw)
+
+    floweng.run_to_completion = killing
+    try:
+        flowplan.run_config(config, device=device, checkpoint_dir=ckpt_dir)
+    except FlowKill:
+        return True
+    finally:
+        floweng.run_to_completion = real
+    return False
+
+
 def kernel_entry(name, source, replaces, launches, row, ens_launches,
-                 section_launches, mesh_launches=None):
+                 section_launches, mesh_launches):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
             "ensemble_launches": ens_launches,
             "section_launches": section_launches,
-            "mesh_launches_per_rank": mesh_launches or [0] * MESH_RANKS,
+            "mesh_launches_per_rank": mesh_launches,
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "warm_ms": row["warm_ms"], "cold_clean_ms": row["cold_clean_ms"],
             "plain_ms": row["plain_ms"],
@@ -2972,7 +3348,7 @@ def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this needs a CUDA card")
     from shadow_tpu_torch import _build, bench, convert
-    from shadow_tpu_torch.tpu import elastic, pipeline
+    from shadow_tpu_torch.tpu import elastic, floweng, pipeline
 
     ident = gpu_identity()
     kind = torch.cuda.get_device_name(0)
@@ -3031,12 +3407,18 @@ def main():
                           record, ident)
     timed("16 run infrastructure", check_run_infra, torch, bench, convert,
           pipeline, record, ident, fleet_rec)
+    floweng.reset_launches()
     ens = timed("17 ensembles", check_ensembles, torch, bench, convert,
                 pipeline, record, ident)
+    ens["flow_window"] = floweng.LAUNCHES["flow_window"]
+    floweng.reset_launches()
     sec = timed("18 section profiler", check_section_profiler, torch, bench,
                 pipeline, record, ident)
+    sec["flow_window"] = floweng.LAUNCHES["flow_window"]
     mesh_l = timed("19 mesh", check_mesh, torch, bench, convert, pipeline,
                    record, ident)
+    f_row, f_launches, f_rung3 = timed("20 flow engine", check_flow_engine,
+                                       torch, record, ident)
     record["phase_s"] = phase_s
     print(f"phase seconds: {json.dumps(phase_s)}")
 
@@ -3045,27 +3427,33 @@ def main():
                      "shadow_tpu_torch/csrc/egress_rank.cu",
                      "shadow_tpu/tpu/pallas_pipeline.py:77",
                      fused["egress_rank"], a, ens["egress_rank"],
-                     sec["egress_rank"], mesh_l.get("egress_rank")),
+                     sec["egress_rank"], mesh_l["egress_rank"]),
         kernel_entry("route_place_kernel",
                      "shadow_tpu_torch/csrc/route_place.cu",
                      "shadow_tpu/tpu/pallas_pipeline.py:188",
                      fused["route_place"], b, ens["route_place"],
-                     sec["route_place"], mesh_l.get("route_place")),
+                     sec["route_place"], mesh_l["route_place"]),
         kernel_entry("egress_gate_kernel",
                      "shadow_tpu_torch/csrc/egress_gate.cu",
                      "shadow_tpu/tpu/pallas_egress.py:91",
                      split["egress_gate"], c, ens["egress_gate"],
-                     sec["egress_gate"], mesh_l.get("egress_gate")),
+                     sec["egress_gate"], mesh_l["egress_gate"]),
         kernel_entry("route_scatter_kernel",
                      "shadow_tpu_torch/csrc/route_scatter.cu",
                      "shadow_tpu/tpu/pallas_route.py:48",
                      split["route_scatter"], d, ens["route_scatter"],
-                     sec["route_scatter"], mesh_l.get("route_scatter")),
+                     sec["route_scatter"], mesh_l["route_scatter"]),
         kernel_entry("router_drain_kernel",
                      "shadow_tpu_torch/csrc/router_drain.cu",
                      "shadow_tpu/tpu/codel.py:578 (router_drain, "
                      "lax.fori_loop)", e_launches, e, ens["router_drain"],
-                     sec["router_drain"]),
+                     sec["router_drain"], mesh_l["router_drain"]),
+        dict(kernel_entry("flow_window_kernel",
+                          "shadow_tpu_torch/csrc/flow_window.cu",
+                          "shadow_tpu/tpu/floweng.py:531 (run_windows, "
+                          "lax.scan of lax.while_loop)", f_launches, f_row,
+                          ens["flow_window"], sec["flow_window"],
+                          mesh_l["flow_window"]), rung3_launches=f_rung3),
     ]
     print(f"record: {json.dumps(record, default=str)}")
     print(json.dumps({"kernels": kernels}))

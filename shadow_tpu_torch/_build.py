@@ -42,6 +42,8 @@ SIGNATURES = {
     "router_drain": ("router_drain_launch",
                      [_I, _I, _I] + [_P] * 5 + [_P] * 13 + [_P] * 13
                      + [_P] * 5 + [_P]),
+    # ten ints, then an array of the world's tensor pointers and its length
+    "flow_window": ("flow_window_launch", [_I] * 10 + [_P, _I] + [_P]),
 }
 _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 

@@ -21,6 +21,13 @@ for a plane that is off) goes to the host with `carry_to_host`: the same
 structure of numpy arrays, in the JAX package's dtypes (`HOST_DTYPES`),
 so a memo key, a checkpoint or a digest of it is the JAX carry's.
 `carry_to_device` and `leaf_to_device` bring it back.
+
+A flow-engine world (`tpu.floweng.FlowWorld`) goes as a dict keyed by
+field with `plane` a dict keyed by `TcpPlane` field; its uint32 leaves
+(the plane's `iss`, `irs`, `last_ts_recv` and the world's `loss_u32`)
+are int64 tensors in the port: `flow_world_from_numpy` and
+`flow_world_to_numpy` convert them, and take the JAX world as numpy
+(`jax.tree.map(np.asarray, world)`) as well as the dict.
 """
 
 from __future__ import annotations
@@ -31,6 +38,8 @@ import numpy as np
 import torch
 
 from .telemetry.flightrec import FlightRecArrays
+from .tpu import floweng
+from .tpu import tcp as dtcp
 from .tpu.codel import CodelState, RouterDownState
 from .tpu.mesh import gather_state
 from .tpu.plane import NetPlaneParams, NetPlaneState
@@ -234,3 +243,40 @@ def digest_pytrees(*trees) -> str:
             h.update(str(a.dtype).encode())
             h.update(np.ascontiguousarray(a).tobytes())
     return h.hexdigest()
+
+
+def _fields_of(t) -> dict:
+    return t if isinstance(t, dict) else t._asdict()
+
+
+def _u32_tensor(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype == np.uint32:
+        a = a.astype(np.int64)
+    return _tensor(a, device)
+
+
+def flow_world_from_numpy(d, device) -> floweng.FlowWorld:
+    """A `FlowWorld` on `device` from its numpy form (a dict, or the JAX
+    FlowWorld with numpy leaves); uint32 leaves become int64 tensors."""
+    d = _fields_of(d)
+    plane = _fields_of(d["plane"])
+    tp = dtcp.TcpPlane(**{f: _u32_tensor(plane[f], device)
+                          for f in dtcp.TcpPlane._fields})
+    return floweng.FlowWorld(plane=tp, **{
+        f: _u32_tensor(d[f], device)
+        for f in floweng.FlowWorld._fields if f != "plane"})
+
+
+def flow_world_to_numpy(world: floweng.FlowWorld) -> dict:
+    """The numpy form of a `FlowWorld`, in the JAX package's dtypes (the
+    uint32 leaves back to uint32)."""
+    def leaf(t, u32: bool):
+        a = t.detach().cpu().numpy()
+        return a.astype(np.uint32) if u32 else a
+
+    out = {"plane": {f: leaf(getattr(world.plane, f), f in dtcp.U32_FIELDS)
+                     for f in dtcp.TcpPlane._fields}}
+    out.update({f: leaf(getattr(world, f), f == "loss_u32")
+                for f in floweng.FlowWorld._fields if f != "plane"})
+    return out

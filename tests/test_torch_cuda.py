@@ -342,3 +342,61 @@ def test_ensemble_launches_each_kernel_once_a_window(cuda, kernel, pair):
             chain, n_rounds=8, chain_len=4)
         assert convert.state_digest(solo) == convert.state_digest(
             elastic.world_slice(rec["states"], w)), w
+
+
+def flow_world(floweng, n_flows, device, queue_slots=16):
+    rng = np.random.default_rng(n_flows)
+    lat = rng.integers(2, 40, n_flows) * 1000
+    size = rng.integers(20, 200, n_flows) * 1000
+    w = floweng.make_flow_world(
+        lat, size, start_us=rng.integers(0, 30, n_flows) * 1000,
+        queue_slots=queue_slots, seed=3, loss=0.02, loss_back=0.01,
+        latency_back_us=rng.integers(2, 40, n_flows) * 1000, device=device)
+    total = w.total.cpu().numpy()
+    total[2::4], total[3::4] = total[3::4].copy(), total[2::4].copy()
+    return w._replace(total=torch.from_numpy(total).to(device))
+
+
+@pytest.mark.parametrize("opts", [{}, dict(gso_segs=1,
+                                           max_events_per_window=2)],
+                         ids=["default", "gso1-cap2"])
+def test_flow_window_kernel_matches_plain(cuda, opts):
+    """Kernel F bitwise against `run_windows_plain` on the card, every
+    FlowWorld leaf and steps_per_window, one launch a call."""
+    from shadow_tpu_torch.tpu import floweng
+
+    w0 = flow_world(floweng, 48, cuda)
+    before = floweng.LAUNCHES["flow_window"]
+    got, steps = floweng.run_windows(w0, 40, 2000, **opts)
+    ref, ref_steps = floweng.run_windows_plain(w0, 40, 2000, **opts)
+    torch.cuda.synchronize()
+    assert floweng.LAUNCHES["flow_window"] == before + 1
+    assert torch.equal(steps, ref_steps)
+    assert_flow_worlds_equal(got, ref)
+
+
+def assert_flow_worlds_equal(got, ref):
+    a = convert.flow_world_to_numpy(got)
+    b = convert.flow_world_to_numpy(ref)
+    for k in b:
+        if k == "plane":
+            for g in b[k]:
+                assert np.array_equal(a[k][g], b[k][g]), g
+        else:
+            assert np.array_equal(a[k], b[k]), k
+
+
+def test_flow_window_kernel_matches_plain_at_bench_flows_shape(cuda):
+    """Kernel F bitwise against `run_windows_plain` on bench_flows' first
+    chunk: 975 flows (8 blocks of 128 threads), Q=128, 25 windows."""
+    from shadow_tpu_torch.tools import bench_flows
+    from shadow_tpu_torch.tpu import floweng
+
+    lats, sizes, queue_slots, window_us = bench_flows.default_world_args()
+    w0 = floweng.make_flow_world(lats, sizes, queue_slots=queue_slots,
+                                 device=cuda)
+    got, steps = floweng.run_windows(w0, 25, window_us)
+    ref, ref_steps = floweng.run_windows_plain(w0, 25, window_us)
+    torch.cuda.synchronize()
+    assert torch.equal(steps, ref_steps) and int(steps.sum()) > 0
+    assert_flow_worlds_equal(got, ref)
