@@ -104,14 +104,14 @@ printed:
    tensors back to the host counted (one a chained window), and one idle
    window from (b)'s drained end;
 16. the run infrastructure (no kernel of its own): (a) the PHOLD main
-   path at N=32768, R=192 through each kernel pair with the telemetry
+   path at N=32768, R=64 through each kernel pair with the telemetry
    harvester every 32 windows and the run ledger (and "xla" with the
-   histograms too), each state equal to the bare run's, 192 launches of
+   histograms too), each state equal to the bare run's, 64 launches of
    each kernel of the pair, the harvests and heartbeat lines counted,
    device kernels and busy ms a window with and without
    (torch.profiler, windows 32-63 of a 64-window run, the set-up and
    the first chain before it); (d) the memo rep (`bench.run_memo`: a
-   16-host ring allreduce over 4096 windows in chains of 64, cold and
+   16-host ring allreduce over 1024 windows in chains of 64, cold and
    memoized), hits and digest parity; then in child processes, the
    killed runs at once and the resumed runs at once: (b) the fused
    PHOLD main path checkpointed every 32 windows, killed at round 96
@@ -191,7 +191,23 @@ printed:
    `stats_record` equal to the JAX Manager's committed record, then run
    again with a checkpoint directory, stopped after its first bucket and
    resumed, equal again;
-21. one JSON line describing every kernel, then the result line.
+21. the device transport (`tpu/transport.py`): (a) its functions
+   (`ingest_guarded`, `step_compact` with a negative shift, a 64-window
+   `chain`, a 32-window `batch_verify` with three poisoned windows), the
+   guard and histogram planes on, at the rung-3 deployment's width
+   (N=1000, CI=256, ingest batches of 512 with overflowing rows and pad
+   sources) and after one elastic growth (CI=512), on the card bitwise
+   the same functions on the CPU; (b) the committed rung-3 call log
+   (`workloads/rung3_transport.log.npz`, recorded from the JAX Manager)
+   through the port's `DeviceTransport` on the card by
+   `tools/transport_replay.py`: sync mode with every round's pushes and
+   next event equal to the record, mirrored mode with no divergence and
+   the JAX transport's verified windows and packets, and `mode="auto"`'s
+   D2H probe and choice; (c) wall seconds of each replay, device ms a
+   dispatch by CUDA events, and device kernels and busy ms a round over
+   the sync replay's first 160 rounds (torch.profiler); no kernel of
+   A-F launches on this path;
+22. one JSON line describing every kernel, then the result line.
 
 Usage: python3 chip_smoke.py   (from the repository root; one card).
 A fuller record of every measurement is printed on the `record:` line.
@@ -1672,6 +1688,8 @@ def check_router_aqm(torch, pipeline, record, ident):
 
 # phase 16: the run infrastructure
 P16_HARVEST = 32  # windows between harvests (the chain length)
+P16_ROUNDS = 64  # (a)'s windows: two harvests
+P16_MEMO_WINDOWS = 1024  # (d)'s memo rep (the bench's default is 4096)
 P16_CKPT_EVERY = 32
 P16_KILL = 96
 P16_ENTRIES = (("ring_allreduce.yaml", ("--check",)),
@@ -1717,14 +1735,14 @@ def check_phold_telemetry(torch, bench, convert, pipeline, tmp, ident):
         tdir = str(Path(tmp) / f"tel-{kernel}")
         tel = dict(telemetry=tdir, hist=hist, harvest_every=P16_HARVEST,
                    trace=str(Path(tmp) / f"{kernel}.ledger.jsonl"))
-        off = bench.run_phold(N_HOSTS, rounds=ROUNDS, kernel=kernel,
+        off = bench.run_phold(N_HOSTS, rounds=P16_ROUNDS, kernel=kernel,
                               chain_len=P16_HARVEST, **size)
         pipeline.reset_launches()
-        on = bench.run_phold(N_HOSTS, rounds=ROUNDS, kernel=kernel, **tel,
-                             **size)
+        on = bench.run_phold(N_HOSTS, rounds=P16_ROUNDS, kernel=kernel,
+                             **tel, **size)
         launches = dict(pipeline.LAUNCHES)
         for name, count in launches.items():
-            want = ROUNDS if name in pair else 0
+            want = P16_ROUNDS if name in pair else 0
             if count != want:
                 fail(f"telemetry run, kernel={kernel!r}: {name} launched "
                      f"{count} times, expected {want}")
@@ -1734,7 +1752,7 @@ def check_phold_telemetry(torch, bench, convert, pipeline, tmp, ident):
             fail(f"kernel={kernel!r}: the harvester, histograms or tracer "
                  "changed the run")
         t = on["telemetry"]
-        want_harvests = ROUNDS // P16_HARVEST
+        want_harvests = P16_ROUNDS // P16_HARVEST
         if t["harvests"] != want_harvests or \
                 t["heartbeats"] != want_harvests * (N_HOSTS + 1):
             fail(f"kernel={kernel!r}: {t['harvests']} harvests and "
@@ -1754,7 +1772,7 @@ def check_phold_telemetry(torch, bench, convert, pipeline, tmp, ident):
             events_per_s_on=on["packet_events_per_sec"],
             profile_off=prof_off, profile_on=prof_on,
             latency=t.get("latency"))
-        print(f"16 (a) kernel={kernel}: N={N_HOSTS} R={ROUNDS}, harvest "
+        print(f"16 (a) kernel={kernel}: N={N_HOSTS} R={P16_ROUNDS}, harvest "
               f"every {P16_HARVEST}{' + histograms' if hist else ''} + "
               f"ledger: state equal to the bare run's, launches "
               f"{launches}, {t['harvests']} harvests, {t['heartbeats']} "
@@ -1873,7 +1891,7 @@ def check_run_infra(torch, bench, convert, pipeline, record, ident,
 
         # (d) the memo rep, alone in this process
         t = time.perf_counter()
-        memo = bench.run_memo()
+        memo = bench.run_memo(windows=P16_MEMO_WINDOWS)
         if not memo["digest_parity"] or memo["memo"]["hits"] == 0:
             fail(f"memo rep: parity {memo['digest_parity']}, hits "
                  f"{memo['memo']['hits']}")
@@ -3328,6 +3346,310 @@ def flow_run_killed(floweng, flowplan, config, ckpt_dir, device) -> bool:
     return False
 
 
+# phase 21: the device transport (tpu/transport.py) at rung-3 width
+TX_HOSTS = 1000  # the rung-3 deployment's hosts
+TX_CI = 256  # its in-flight slots a destination (tpu_ingress_cap)
+TX_BATCH = 512  # an ingest batch's pad (the log's largest round: 383)
+TX_K = 32  # windows a mirrored dispatch
+TX_COMPACT = 4096  # tpu_compact_cap
+TX_LOG = Path(__file__).resolve().parent / "shadow_tpu_torch" / \
+    "workloads" / "rung3_transport.log.npz"
+TX_DEVICE = "cuda"  # phase 21's device ("cpu" in a CPU rehearsal)
+
+
+def tx_state(n, ci, seed):
+    """A transport state (numpy): half the slots live with deliver times
+    over 4 ms and a few at the top and bottom of int32, a full row (1)
+    and an empty one (2), counters that keep the conservation law."""
+    rng = np.random.default_rng(seed)
+    valid = rng.random((n, ci)) < 0.5
+    valid[1], valid[2] = True, False
+    deliver = rng.integers(-50_000, 4_000_000, (n, ci))
+    edge = rng.random((n, ci)) < 0.02
+    deliver[edge] = rng.choice([2**31 - 3, -2**31, -2**31 + 7], edge.sum())
+    deliver[~valid] = 2**31 - 1
+    n_rel = rng.integers(0, 50, n)
+    n_out = np.zeros(n, np.int64)
+    n_out[0] = valid.sum() + n_rel.sum()
+    i32 = lambda a: np.asarray(a, np.int32)
+    return dict(in_src=i32(rng.integers(0, n, (n, ci))),
+                in_seq=i32(rng.integers(0, 2**31 - 1, (n, ci))),
+                in_tag=i32(rng.integers(0, 2**31 - 1, (n, ci))),
+                in_deliver=i32(deliver), in_valid=valid,
+                n_overflow=np.zeros(n, np.int32), n_out=i32(n_out),
+                n_released=i32(n_rel))
+
+
+def tx_batch(n, b, seed, real):
+    """An ingest batch: `real` live rows, a fifth of them for row 0 (past
+    its free slots), three for the full row 1, two with an out-of-range
+    destination; the pads' source out of range."""
+    rng = np.random.default_rng(seed)
+    src, dst = rng.integers(0, n, b), rng.integers(0, n, b)
+    h = real // 5
+    dst[:h], dst[h:h + 3] = 0, 1
+    dst[h + 3:h + 5] = n + 1
+    send = rng.integers(0, 1_000_000, b)
+    clamp = send + rng.integers(-300_000, 300_000, b)
+    valid = np.arange(b) < real
+    src[~valid] = n
+    i32 = lambda a: np.asarray(a, np.int32)
+    return [i32(src), i32(dst), i32(rng.integers(0, 2**31 - 1, b)),
+            i32(rng.integers(0, 2**31 - 1, b)), i32(send), i32(clamp), valid]
+
+
+def tx_functions(torch, transport, elastic, seed, grow: bool):
+    """(a): `ingest_guarded`, `step_compact` (a negative shift), `chain`
+    (64 windows) and `batch_verify` (TX_K windows, three poisoned) with
+    guards and histograms on, on TX_DEVICE and on the CPU from the same
+    numpy inputs: a TX_HOSTS x TX_CI state, or that state grown once
+    (`grow`). The expected fingerprints are the CPU's. Returns {name:
+    (device out, cpu out, warm device ms)}."""
+    n = TX_HOSTS
+    rng = np.random.default_rng(seed)
+    lat = rng.integers(20_000_000, 200_000_000, (40, 40)).astype(np.int32)
+    node = rng.integers(0, 40, n)
+    st0 = tx_state(n, TX_CI, seed)
+    spread = np.where(st0["in_valid"], 2_000_000 + 3_000 * rng.permutation(
+        n * TX_CI).reshape(n, TX_CI), 2**31 - 1).astype(np.int32)
+    cols = tx_batch(n, TX_BATCH, seed + 1, real=383)
+    k_cols = [tx_batch(n, TX_BATCH, seed + 2 + i, real=int(rng.integers(
+        0, 383))) for i in range(TX_K)]
+    shifts = rng.integers(0, 400_000, TX_K).tolist()
+    widths = rng.integers(0, 500_000, TX_K).tolist()
+    names = ("src", "dst", "seq", "tag", "send", "clamp", "valid")
+
+    def on(dev):
+        t = lambda a: torch.from_numpy(np.array(a)).to(dev)
+        st = transport.TransportState(**{f: t(v) for f, v in st0.items()})
+        if grow:
+            st = elastic.grow_transport_state(st, 2 * TX_CI)
+        ch = st._replace(in_deliver=elastic._pad_cols(
+            t(spread), st.in_valid.shape[1], 2**31 - 1))
+        g = transport.make_transport_guard(dev)
+        h = transport.make_transport_hist(n, dev)
+        kw = dict(latency=t(lat), host_node=t(node))
+        ing = {f: t(np.stack([c[i] for c in k_cols]))
+               for i, f in enumerate(names)}
+        return st, ch, g, h, kw, [t(c) for c in cols], ing
+
+    # the true fingerprints of the TX_K windows (on the CPU), 3 poisoned
+    _st, ch, _g, _h, kw, _c, ing = on("cpu")
+    exp_np = np.zeros((3, TX_K), np.int64)
+    for i in range(TX_K):
+        ch, due, deliver, _ = transport.step(ch, shifts[i], widths[i])
+        exp_np[:, i] = [int(v) for v in transport.fingerprint(
+            ch, due, deliver)]
+        ch, _ = transport.ingest(ch, None, *(ing[f][i] for f in names), **kw)
+    exp_np[0, 3] ^= 1
+    exp_np[1, 11] ^= 1
+    exp_np[2, 17] += 1
+
+    runs = {}
+    for i, dev in enumerate((TX_DEVICE, "cpu")):
+        st, ch, g, h, kw, c, ing = on(dev)
+        exp = torch.from_numpy(exp_np).to(dev)
+        div = torch.zeros((), dtype=torch.int32, device=dev)
+        calls = {
+            "ingest": lambda: transport.ingest_guarded(st, g, h, *c, **kw),
+            "step_compact": lambda: transport.step_compact(
+                st, g, h, -10_000_000, 1_000_000, cap=TX_COMPACT),
+            "chain": lambda: transport.chain(
+                ch, g, h, 0, 1_000_000, 0, 10**9, 10**9, cap=TX_COMPACT),
+            "batch_verify": lambda: transport.batch_verify(
+                ch, g, h, shifts, widths, ing, exp[0], exp[1],
+                exp[2].to(torch.int32), div, **kw)}
+        for name, fn in calls.items():
+            out = fn()
+            ms = None
+            if i == 0 and not grow:
+                ms = warm_ms(torch, fn)
+            runs.setdefault(name, []).append((out, ms))
+    return {name: (d[0], c[0], d[1]) for name, (d, c) in runs.items()}
+
+
+def warm_ms(torch, fn, reps: int = 3) -> float:
+    """Device ms a call of `fn`, called `reps` times back to back after
+    a warm-up, between two CUDA events (a call that reads the host waits
+    for the card there, so its span is in the time)."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def tx_leaves(torch, tree) -> list:
+    if tree is None:
+        return []
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    return [x for t in tree for x in tx_leaves(torch, t)]
+
+
+def timed_transport(torch, transport, events: list):
+    """The port's `DeviceTransport` with each dispatch between two CUDA
+    events, appended to `events` as (kind, start, end)."""
+
+    class Timed(transport.DeviceTransport):
+        def _retrying(self, fn, what, *a, **k):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            out = super()._retrying(fn, what, *a, **k)
+            e.record()
+            events.append((what, s, e))
+            return out
+
+    return Timed
+
+
+def dispatch_ms(torch, events) -> dict:
+    """Dispatches and device ms a dispatch, by kind, of timed events."""
+    torch.cuda.synchronize()
+    by = {}
+    for what, s, e in events:
+        n, ms = by.get(what, (0, 0.0))
+        by[what] = (n + 1, ms + s.elapsed_time(e))
+    return {w: {"dispatches": n, "ms_per_dispatch": ms / n}
+            for w, (n, ms) in by.items()}
+
+
+TX_PROFILE_ROUNDS = 160  # (c): rounds of each replay under the profiler
+
+
+def profile_transport(torch, replay, log, mode: str) -> dict:
+    """(c): the card's kernels and busy ms a round over the first
+    TX_PROFILE_ROUNDS rounds of a `mode` replay of `log` (torch.profiler;
+    its wall time is not reported), and the six kernels that take the
+    most device time, by name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        replay.replay(log, mode, rounds=TX_PROFILE_ROUNDS, device=TX_DEVICE)
+        torch.cuda.synchronize()
+    on_card, out = card_work(prof, TX_PROFILE_ROUNDS)
+    if not on_card:
+        fail(f"phase 21 (c): the profiler recorded no device work in the "
+             f"{mode} replay")
+    by = {}
+    for ev in on_card:
+        n, us = by.get(ev.name, (0, 0.0))
+        by[ev.name] = (n + 1, us + ev.time_range.elapsed_us())
+    top = sorted(by.items(), key=lambda kv: -kv[1][1])[:6]
+    out["top_kernels"] = [{"name": k[:80], "launches": n, "ms": us / 1e3}
+                          for k, (n, us) in top]
+    return {k.replace("window", "round"): v for k, v in out.items()}
+
+
+def check_transport(torch, record, ident):
+    """Phase 21: the device transport. (a) its functions at rung-3 width
+    on the card bitwise against the CPU, at CI=TX_CI and after one
+    growth; (b) the rung-3 call log replayed in sync mode (every round
+    against the JAX record) and mirrored mode (no divergence, JAX's
+    verified windows and packets), and `mode="auto"`'s probe; (c) wall
+    seconds and device ms a dispatch."""
+    from shadow_tpu_torch.tools import transport_replay as replay
+    from shadow_tpu_torch.tpu import elastic, transport
+
+    t_all = time.perf_counter()
+    rows, div = {}, None
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # the CPU reference: small ops, one thread
+    try:
+        outs = [tx_functions(torch, transport, elastic, 21, grow)
+                for grow in (False, True)]
+    finally:
+        torch.set_num_threads(threads)
+    for grow, out in zip((False, True), outs):
+        ci = 2 * TX_CI if grow else TX_CI
+        for name, (dev_out, cpu_out, ms) in out.items():
+            a = [x.cpu() for x in tx_leaves(torch, dev_out)]
+            b = tx_leaves(torch, cpu_out)
+            err = max_abs_err(torch, a, b)
+            if err or len(a) != len(b):
+                fail(f"phase 21 (a): {name} at CI={ci} differs from the CPU "
+                     f"(max abs err {err})")
+            rows[f"{name}@{ci}"] = {"device_ms": ms, "max_abs_err": err}
+            if name == "batch_verify":
+                div = int(dev_out[3])
+                if div != 3:
+                    fail(f"phase 21 (a): batch_verify at CI={ci} counted "
+                         f"{div} diverged windows of the 3 poisoned")
+            if name == "chain" and int(dev_out[1].windows) != 64:
+                fail("phase 21 (a): the chain did not run 64 windows")
+    t_a = time.perf_counter() - t_all
+    print(f"21 (a) transport functions at N={TX_HOSTS}, CI={TX_CI} and "
+          f"grown to {2 * TX_CI}, on the card bitwise the CPU (guards and "
+          f"histograms on; warm device ms by CUDA events): "
+          + ", ".join(f"{k} {v['device_ms']:.4f}" for k, v in rows.items()
+                      if v["device_ms"] is not None)
+          + f"  [{ident}]")
+
+    log = replay.load_log(str(TX_LOG))
+    meta = log["meta"]
+    runs = {}
+    for mode in ("sync", "mirrored"):
+        events = []
+        cls = timed_transport(torch, transport, events)
+        make = lambda hosts, routing, mode, **kw: cls(
+            hosts, routing, None, mode=mode, device=TX_DEVICE, **kw)
+        try:
+            out = replay.replay(log, mode, make_transport=make)
+        except replay.Mismatch as e:
+            fail(f"phase 21 (b): the {mode} replay of the rung-3 log: {e}")
+        out.pop("transport")
+        out["device"] = dispatch_ms(torch, events)
+        runs[mode] = out
+        print(f"21 (b) rung-3 log, {mode}: {out['rounds']} rounds, "
+              f"{out['captures']} captures, {out['dispatches']} dispatches "
+              f"in {out['wall_s']:.3f} s wall; divergence "
+              f"{out['divergence_count']}, verified "
+              f"{out['verified_windows']} windows / "
+              f"{out['verified_packets']} packets (JAX "
+              f"{meta['mirrored']['verified_windows']} / "
+              f"{meta['mirrored']['verified_packets']}); device ms a "
+              f"dispatch {json.dumps(out['device'])}  [{ident}]")
+    if runs["sync"]["rounds"] != meta["rounds"] or \
+            runs["sync"]["captures"] != meta["captures"]:
+        fail("phase 21 (b): the sync replay did not run the whole log")
+    t_b = time.perf_counter() - t_all - t_a
+    # the sync replay, the mode auto picks on the card
+    prof = profile_transport(torch, replay, log, "sync")
+    runs["sync"]["profile"] = prof
+    wall_ms = runs["sync"]["wall_s"] * 1e3 / runs["sync"]["rounds"]
+    print(f"21 (c) sync replay, rounds 0-{TX_PROFILE_ROUNDS - 1} under "
+          f"torch.profiler: {prof['kernel_launches_per_round']:.1f} device "
+          f"kernels and {prof['device_busy_ms_per_round']:.5f} ms busy a "
+          f"round (the whole replay's wall: {wall_ms:.5f} ms a round); the "
+          f"most device time: {json.dumps(prof['top_kernels'])}  [{ident}]")
+    hosts = [replay._Host(i + 1, int(nd), [])
+             for i, nd in enumerate(log["host_node"])]
+    auto = transport.DeviceTransport(hosts, replay._Routing(log["latency"]),
+                                     None, mode="auto", device=TX_DEVICE,
+                                     **replay.transport_kwargs(meta))
+    print(f"21 (b) mode=auto: D2H probe {auto.d2h_probe_ms:.4f} ms -> "
+          f"{auto.mode}  [{ident}]")
+    phase_s = time.perf_counter() - t_all
+    row = {"functions": rows, "replay": runs,
+           "auto": {"d2h_probe_ms": auto.d2h_probe_ms, "mode": auto.mode},
+           "phase_s": phase_s, "part_s": {"a": t_a, "b": t_b,
+                                          "c": phase_s - t_a - t_b},
+           "gpu": ident}
+    record["transport"] = row
+    print(f"21 device transport: sync {runs['sync']['wall_s']:.3f} s, "
+          f"mirrored {runs['mirrored']['wall_s']:.3f} s for "
+          f"{meta['rounds']} rounds and {meta['captures']} captures; phase "
+          f"{phase_s:.1f} s ((a) {t_a:.1f}, (b) {t_b:.1f}, (c) and the "
+          f"probe {phase_s - t_a - t_b:.1f})  [{ident}]")
+    return row
+
+
 def kernel_entry(name, source, replaces, launches, row, ens_launches,
                  section_launches, mesh_launches):
     return {"name": name, "route": "cuda", "source": source,
@@ -3419,6 +3741,15 @@ def main():
                    record, ident)
     f_row, f_launches, f_rung3 = timed("20 flow engine", check_flow_engine,
                                        torch, record, ident)
+    # the transport's path launches no hand-written kernel: its counts
+    # are read around phase 21 like every other path's
+    pipeline.reset_launches()
+    floweng.reset_launches()
+    timed("21 device transport", check_transport, torch, record, ident)
+    tx_launches = {**pipeline.LAUNCHES, **floweng.LAUNCHES}
+    if any(tx_launches.values()):
+        fail(f"phase 21 launched kernels {tx_launches}")
+    record["transport_launches"] = tx_launches
     record["phase_s"] = phase_s
     print(f"phase seconds: {json.dumps(phase_s)}")
 

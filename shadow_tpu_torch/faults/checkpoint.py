@@ -18,9 +18,10 @@ so a checkpoint either package writes, the other reads:
   (`ChainMemo.save/load`) ride it.
 
 The checksums detect corruption (truncation, bit rot, schema drift);
-they are not a tamper seal. The CPU `Manager`'s snapshots
-(`manager_snapshot`, `write_manager_checkpoint`) are not ported: the
-port has no `Manager`.
+they are not a tamper seal. The CPU `Manager`'s diagnostic snapshots
+(kind ``manager``: `manager_snapshot`, `write_manager_checkpoint`) take
+the manager duck-typed, so a Manager running over the port's device
+transport writes them with its tensors read through `.cpu().numpy()`.
 """
 
 from __future__ import annotations
@@ -431,3 +432,81 @@ def load_plane_checkpoint(path: str, *, state_template,
     out["extra"] = {k[len("extra."):]: v for k, v in arrays.items()
                     if k.startswith("extra.")}
     return out
+
+
+# ---------------------------------------------------------------------------
+# manager snapshots (kind="manager"): periodic + emergency diagnostics
+# ---------------------------------------------------------------------------
+
+
+def manager_snapshot(manager, now_ns: int, *, reason: str) -> dict:
+    """The serializable core of a round-loop manager: RNG streams,
+    clocks, tracker counters, stats, telemetry totals, and the device
+    transport's counter arrays. Diagnostic, not resumable: host event
+    queues hold live closures no serializer can see."""
+    meta: dict[str, Any] = {
+        "kind": "manager",
+        "resumable": False,
+        "reason": reason,
+        "clock_ns": int(now_ns),
+        "rounds": int(manager.stats.rounds),
+        "seed": int(manager.config.general.seed),
+        "stop_time_ns": int(manager.config.general.stop_time),
+        "global_rng_state": [int(s) for s in manager.global_rng.s],
+        "hosts": {
+            h.name: {
+                "now_ns": int(h.now()),
+                "rng_state": [int(s) for s in h.rng.s],
+                "events_executed": int(h.n_events_executed),
+                "fault_down": bool(getattr(h, "fault_down", False)),
+                "fault_packets_dropped": int(
+                    getattr(h, "fault_packets_dropped", 0)),
+            }
+            for h in manager.hosts
+        },
+        "trackers": {name: t.counters.as_dict()
+                     for name, t in manager.trackers.items()},
+        "stats": manager.stats.as_dict(),
+    }
+    if manager.harvester is not None:
+        meta["telemetry"] = {
+            "harvests": manager.harvester.harvests,
+            "emitted": manager.harvester.emitted,
+        }
+    ledger = getattr(manager, "_guard_ledger", None)
+    if ledger is not None:
+        # the violation ledger rides every snapshot: an emergency
+        # checkpoint of an aborted run carries the findings that ended it
+        meta["guards"] = ledger.as_dict()
+    arrays: dict[str, np.ndarray] = {}
+    transport = getattr(manager, "transport", None)
+    if transport is not None:
+        # the capacity trajectory rides every snapshot (getattr: a
+        # stand-in transport may lack the policy)
+        cap_summary = getattr(transport, "capacity_summary", None)
+        if cap_summary is not None:
+            meta["capacity"] = cap_summary()
+        for name, arr in transport.telemetry_arrays().items():
+            arrays[f"transport.{name}"] = arr.detach().cpu().numpy()
+    return {"meta": meta, "arrays": arrays}
+
+
+def write_manager_checkpoint(manager, directory: str, now_ns: int, *,
+                             reason: str, keep: int = 2) -> Optional[str]:
+    """Periodic/emergency manager snapshot; never raises (a failing
+    emergency checkpoint must not mask the crash it documents)."""
+    try:
+        snap = manager_snapshot(manager, now_ns, reason=reason)
+        name = ("emergency" if reason == "emergency"
+                else f"ckpt-{manager.stats.rounds:012d}")
+        path = os.path.join(directory, name)
+        write_checkpoint(path, meta=snap["meta"], arrays=snap["arrays"])
+        if reason != "emergency":
+            prune_checkpoints(directory, keep)
+        log.info("checkpoint: wrote %s snapshot at simtime %d -> %s",
+                 reason, now_ns, path)
+        return path
+    except Exception:
+        log.error("checkpoint: failed to write %s snapshot", reason,
+                  exc_info=True)
+        return None

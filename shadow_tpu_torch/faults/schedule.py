@@ -1,7 +1,9 @@
 """The `faults:` block compiled into a deterministic schedule.
 
-The port's copy of `shadow_tpu/faults/schedule.py` (the CPU plane's
-send filter, `filter_send`, is not ported: the port has no CPU plane).
+The port's copy of `shadow_tpu/faults/schedule.py`, the CPU plane's
+send filter `filter_send` included (a caller that runs hosts on the CPU,
+such as the JAX package's Manager over the port's device transport,
+calls it on every cross-host send).
 Explicit events and seeded `random:` generators compile into one
 virtual-time event list, a pure function of (config, seed); `advance`
 folds the events due by a time into the numpy mask state, and
@@ -367,6 +369,31 @@ class FaultSchedule:
             fa.lat_mult[src, dst] = torch.tensor(self.lat_mult[src, dst],
                                                  device=dev)
         return fa
+
+    # -- the CPU-plane send filter ----------------------------------------
+
+    def filter_send(self, src_host, dst_host, packet, src_node: int,
+                    dst_node: int, latency: int) -> tuple[bool, int]:
+        """Apply the fault overlay to one cross-host send. Returns (drop,
+        latency'). The corruption draw comes from the source host's RNG
+        stream and happens only while a burst is active for that host, so
+        a schedule without corruption never moves the stream."""
+        if getattr(src_host, "fault_down", False) \
+                or getattr(dst_host, "fault_down", False):
+            return True, latency
+        if self._node_map is not None:
+            src_node = self._node_map.get(src_node, -1)
+            dst_node = self._node_map.get(dst_node, -1)
+        if (0 <= src_node < self.n_nodes and 0 <= dst_node < self.n_nodes):
+            mult = int(self.lat_mult[src_node, dst_node])
+            if mult > 1:
+                latency = latency * mult
+        i = self.host_index.get(src_host.name)
+        if i is not None and self.corrupt_p[i] > 0.0 \
+                and packet.payload_size() > 0 \
+                and src_host.rng.random() < float(self.corrupt_p[i]):
+            return True, latency
+        return False, latency
 
 
 def compile_schedule(faults_opts, *, host_names: list[str], n_nodes: int,

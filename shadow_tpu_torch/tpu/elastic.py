@@ -79,6 +79,30 @@ def grow_state(state, new_egress_cap: int, new_ingress_cap: int):
     )
 
 
+def grow_transport_state(state, new_ingress_cap: int):
+    """Repack a `transport.TransportState` into wider per-destination
+    in-flight rings. Transport slots are sparse (never compacted) and its
+    ingest fills the lowest free columns first, so while no packet was
+    overflow-dropped the grown state is bitwise a run pre-provisioned at
+    the wider capacity, dead lanes included: the new lanes carry the
+    construction fills (0, I32_MAX deliver, invalid). Shrinking is
+    refused; returns `state` itself when nothing grows."""
+    ci = int(state.in_src.shape[1])
+    if new_ingress_cap < ci:
+        raise ValueError(
+            f"grow_transport_state cannot shrink: have CI={ci}, asked "
+            f"for {new_ingress_cap}")
+    if new_ingress_cap == ci:
+        return state
+    pad = lambda t, fill: _pad_cols(t, new_ingress_cap, fill)
+    return state._replace(
+        in_src=pad(state.in_src, 0), in_seq=pad(state.in_seq, 0),
+        in_tag=pad(state.in_tag, 0),
+        in_deliver=pad(state.in_deliver, I32_MAX),
+        in_valid=pad(state.in_valid, False),
+    )
+
+
 def canonical_state(state):
     """Set a `NetPlaneState`'s dead lanes to the `make_state` fills,
     leaving live lanes and every per-host tensor untouched. Dead-lane

@@ -21,11 +21,13 @@ from shadow_tpu_torch.faults import plane as fplane  # noqa: E402
 from shadow_tpu_torch.guards import plane as gplane  # noqa: E402
 from shadow_tpu_torch.telemetry import flightrec, histo, metrics  # noqa: E402
 from shadow_tpu_torch.tpu import (compute, elastic, flows, plane,  # noqa: E402
-                                  profiling)
-from shadow_tpu_torch.tools import profile_plane  # noqa: E402
+                                  profiling, transport)
+from shadow_tpu_torch.tools import profile_plane, transport_replay  # noqa: E402
 from shadow_tpu_torch.workloads import runner, spec  # noqa: E402
 
 REPO = Path(__file__).resolve().parent.parent
+TRANSPORT_LOG = (REPO / "shadow_tpu_torch" / "workloads"
+                 / "phold_transport.log.npz")
 PORT_FILES = sorted((REPO / "shadow_tpu_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py"]
 
@@ -237,6 +239,13 @@ def test_entry_points_default_to_cuda_and_refuse_without_a_card():
         lambda: profile_plane.main(["--hosts", "4", "--reps", "1",
                                     "--nodes", "2", "--egress-cap", "4",
                                     "--ingress-cap", "4"]),
+        lambda: transport.DeviceTransport(
+            [transport_replay._Host(1, 0, [])],
+            transport_replay._Routing(lat[:1, :1]), None, mode="sync"),
+        lambda: transport.make_transport_guard(),
+        lambda: transport.make_transport_hist(4),
+        lambda: transport_replay.main([str(TRANSPORT_LOG), "--mode",
+                                       "mirrored", "--rounds", "4"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -287,6 +296,43 @@ def test_mesh_modules_import_no_jax_and_nothing_of_shadow_tpu():
                 rel, mod)
 
 
+def test_transport_modules_import_no_jax_and_nothing_of_shadow_tpu():
+    """The device transport, its satellites and the replay tool stand
+    alone too (named here so that a move cannot drop them from the
+    scan)."""
+    for rel in ("tpu/transport.py", "guards/reconcile.py",
+                "faults/healing.py", "faults/schedule.py",
+                "faults/checkpoint.py", "tpu/elastic.py",
+                "tools/transport_replay.py"):
+        path = REPO / "shadow_tpu_torch" / rel
+        assert path in PORT_FILES
+        for mod in imported_modules(path):
+            assert mod.split(".")[0] not in ("jax", "jaxlib", "shadow_tpu"), (
+                rel, mod)
+
+
+# the transport's device functions: none reads the host but `chain`, which
+# reads one small tensor once a chained window (the JAX while_loop's
+# condition); `batch_verify`, the mirrored replay, reads nothing
+TRANSPORT_FUNCTIONS = {"guard_update": {}, "hist_step": {}, "ingest": {},
+                       "step": {}, "fingerprint": {}, "_compact": {},
+                       "step_compact": {}, "batch_verify": {},
+                       "ingest_guarded": {}, "_add_at": {}, "_put": {},
+                       "_mul32": {}, "_sum32": {}, "_stable_argsort": {},
+                       "chain": {"tolist": 1}}
+
+
+def test_transport_device_functions_read_nothing_back_to_the_host():
+    path = REPO / "shadow_tpu_torch" / "tpu" / "transport.py"
+    tree = ast.parse(path.read_text(encoding="utf-8"), str(path))
+    for name, allowed in TRANSPORT_FUNCTIONS.items():
+        (fn,) = _nested(tree, name)
+        got = {}
+        for _line, read in _host_reads(fn, LOOP_READS):
+            got[read] = got.get(read, 0) + 1
+        assert got == allowed, (name, got)
+
+
 # the tensor methods that read a tensor back to the host
 HOST_READ_METHODS = ("tolist", "item", "cpu", "numpy", "__bool__", "__int__",
                      "__float__", "__index__")
@@ -324,3 +370,53 @@ def test_sharded_chain_reads_the_host_once_a_chained_window(monkeypatch):
                          False, device="cpu")
     assert got["chain"][2] == 16
     assert reads == {"tolist": 15}
+
+
+def _count_host_reads(monkeypatch):
+    reads, active = {}, [False]
+    for name in HOST_READ_METHODS:
+        real = getattr(torch.Tensor, name)
+
+        def counted(self, *a, _real=real, _name=name, **k):
+            if active[0]:
+                reads[_name] = reads.get(_name, 0) + 1
+            return _real(self, *a, **k)
+
+        monkeypatch.setattr(torch.Tensor, name, counted)
+    return reads, active
+
+
+def test_mirrored_replay_reads_nothing_back_and_chain_once_a_window(
+        monkeypatch):
+    """At run time: `batch_verify` over 32 windows (each a step, the
+    fingerprint against the ledger's and an ingest) makes no host read;
+    a 64-window `chain` makes 63, one `.tolist()` after each window it
+    could follow."""
+    n, ci, k, b = 8, 16, 32, 8
+    lat = torch.full((2, 2), 1000, dtype=torch.int32)
+    node = torch.arange(n) % 2
+    st = transport.make_transport_state(n, ci, "cpu")
+    st = st._replace(in_valid=torch.arange(n * ci).reshape(n, ci) % 3 == 0,
+                     in_deliver=torch.arange(n * ci, dtype=torch.int32
+                                             ).reshape(n, ci) * 1000)
+    zeros = torch.zeros((k, b), dtype=torch.int32)
+    ing = {c: zeros for c in ("src", "dst", "seq", "tag", "send", "clamp")}
+    ing["valid"] = torch.ones((k, b), dtype=torch.bool)
+    ing["dst"] = torch.arange(k * b, dtype=torch.int32).reshape(k, b) % n
+    g = transport.make_transport_guard("cpu")
+    h = transport.make_transport_hist(n, "cpu")
+    exp = torch.zeros(k, dtype=torch.int64)
+    reads, active = _count_host_reads(monkeypatch)
+    active[0] = True
+    out = transport.batch_verify(st, g, h, [1000] * k, [500] * k, ing, exp,
+                                 exp, exp.to(torch.int32),
+                                 torch.zeros((), dtype=torch.int32),
+                                 latency=lat, host_node=node)
+    active[0] = False
+    assert reads == {}
+    assert int(out[1].windows) == k and int(out[3]) > 0
+    active[0] = True
+    out = transport.chain(st, g, None, 0, 0, 0, 10**6, 10**6, cap=64)
+    active[0] = False
+    assert reads == {"tolist": 63}
+    assert int(out[1].windows) == 64
