@@ -180,9 +180,15 @@ printed:
    world (asymmetric 2-40 ms latencies, both transfer directions, 2 %/1 %
    loss, staggered starts, 16-slot rings), once with the default options
    and once with one-MSS pulls under a step cap of 2 (ring-overflow drops
-   and saturated windows occur); F timed a chunk cold, clean and warm
-   beside the plain version; (b) `bench_flows`' default world at full
-   width (975 flows x 256 KiB, 20 ms windows, chunks of 25) through F by
+   and saturated windows occur), the same world at (flows, ring slots)
+   `FLOW_GRID` (pair counts that leave a block part empty, rings of 16
+   to 1024 slots), bench_flows' first chunk and rung 3's largest bucket
+   through its first chunk with work; F timed a chunk cold, clean and
+   warm beside the plain version at (a)'s, bench_flows' and rung 3's
+   chunks, its launch geometry (blocks, pairs a block, shared bytes)
+   and the longest pair's events (counted on the plain run) with the
+   microseconds an event they imply; (b) `bench_flows`' default world at
+   full width (975 flows x 256 KiB, 20 ms windows, chunks of 25) through F by
    `run_to_completion`: its `flow_results` digest equal to
    `GOLDEN_FLOW_DIGEST`, F's launches equal to the chunks run, wall
    seconds and segments a wall second, and F's device ms of every launch
@@ -3003,25 +3009,14 @@ FLOW_A = dict(n_flows=64, n_windows=60, window_us=2000, queue_slots=16)
 FLOW_A_RUNS = (("default", {}),
                ("gso1-cap2", dict(gso_segs=1, max_events_per_window=2)))
 FLOW_CHUNK = 25  # bench_flows' chunk of windows
+# (a)'s world at pair counts that do not fill a block and rings from 16 to
+# 1024 slots (with bench_flows' 975 pairs at Q=128, (a)'s 64 at Q=16 and
+# rung 3's 1024 at Q=256, every pair count and Q of the card tests): flows,
+# ring slots; FLOW_GRID_WINDOWS windows of (a)'s width
+FLOW_GRID = ((1, 16), (33, 256), (975, 1024))
+FLOW_GRID_WINDOWS = 24
 FLOW_BENCH_REPS = 8  # (b): bench_flows' runs back to back for its rate
 FLOW_DEVICE = "cuda"  # phase 20's device ("cpu" in a CPU rehearsal)
-
-
-def flow_world_a(floweng, device):
-    """(a)'s world: odd flows fetch (their passive side writes)."""
-    rng = np.random.default_rng(5)
-    n = FLOW_A["n_flows"]
-    lat = rng.integers(2, 40, n) * 1000
-    lat_back = rng.integers(2, 40, n) * 1000
-    size = rng.integers(20, 200, n) * 1000
-    start = rng.integers(0, 30, n) * 1000
-    w = floweng.make_flow_world(
-        lat, size, start_us=start, queue_slots=FLOW_A["queue_slots"],
-        seed=3, loss=0.02, loss_back=0.01, latency_back_us=lat_back,
-        device=device)
-    total = w.total.clone()
-    total[2::4], total[3::4] = w.total[3::4], w.total[2::4]
-    return w._replace(total=total)
 
 
 def flow_leaves(convert, world) -> dict:
@@ -3050,21 +3045,33 @@ def flow_diff(convert, got, ref) -> tuple[int, list]:
 
 
 def f_against_plain(torch, convert, floweng, world, n_chunks, n_win, win,
-                    label, **opts):
+                    label, count=False, **opts):
     """Kernel F (`run_windows`) and `run_windows_plain` from `world`,
     `n_chunks` chunks of `n_win` windows each, every `FlowWorld` leaf
     and `steps_per_window` held bitwise after each chunk. Returns the
-    plain version's world and a row: the largest absolute difference,
-    F's and the plain version's wall seconds, each chunk's steps."""
+    plain version's world, a row (the largest absolute difference, F's
+    and the plain version's wall seconds, each chunk's steps and, with
+    `count`, each chunk's longest pair, `kernel_f_probe.longest_pair`,
+    counted on the plain run, whose seconds then include the count) and
+    the plain world before the last chunk."""
+    from shadow_tpu_torch.tools import kernel_f_probe
+
     got = ref = world
-    row = dict(max_abs_err=0, f_wall_s=[], plain_s=[], steps=[])
+    row = dict(max_abs_err=0, f_wall_s=[], plain_s=[], steps=[], events=[])
     for k in range(n_chunks):
         t0 = time.perf_counter()
         got, steps = floweng.run_windows(got, n_win, win, **opts)
         torch.cuda.synchronize()
         row["f_wall_s"].append(time.perf_counter() - t0)
+        start = ref
         t0 = time.perf_counter()
-        ref, ref_steps = floweng.run_windows_plain(ref, n_win, win, **opts)
+        if count:
+            ref, ref_steps, ev = kernel_f_probe.pair_events(
+                floweng, ref, n_win, win, **opts)
+            row["events"].append(kernel_f_probe.longest_pair(ev))
+        else:
+            ref, ref_steps = floweng.run_windows_plain(ref, n_win, win,
+                                                       **opts)
         torch.cuda.synchronize()
         row["plain_s"].append(time.perf_counter() - t0)
         err, bad = flow_diff(convert, got, ref)
@@ -3075,28 +3082,18 @@ def f_against_plain(torch, convert, floweng, world, n_chunks, n_win, win,
                  f"its plain version in {bad or 'steps_per_window'} (max "
                  f"abs err {err})")
         row["steps"].append(ref_steps.tolist())
-    return ref, row
+    return ref, row, start
 
 
 def time_flow_chunk(torch, floweng, world, n_win, win):
-    """F's device ms a chunk of `n_win` windows from `world` (warm,
-    cold, cold clean), the world restored before each launch and the
-    restore's own time taken off; and the restore's cold ms."""
-    work = floweng.clone_world(world)
-    src = list(world.plane) + list(world[1:])
-    dst = list(work.plane) + list(work[1:])
+    """F's device ms of a launch on a chunk of `n_win` windows from
+    `world`: (warm, cold, cold clean), CUDA events around
+    `floweng.flow_window_` (`kernel_f_probe.time_launch`)."""
+    from shadow_tpu_torch.tools import kernel_f_probe
 
-    def restore():
-        for d, s_ in zip(dst, src):
-            d.copy_(s_)
-
-    def one_chunk():
-        restore()
-        floweng.flow_window_(work, n_win, win)
-
-    warm, cold, clean = time_device(torch, one_chunk, reps=20)
-    r_warm, r_cold, r_clean = time_device(torch, restore, reps=20)
-    return warm - r_warm, cold - r_cold, clean - r_clean, r_cold
+    t = kernel_f_probe.time_launch(
+        torch, lambda w: floweng.flow_window_(w, n_win, win), world)
+    return t["warm"], t["cold"], t["clean"]
 
 
 def check_flow_engine(torch, record, ident):
@@ -3107,17 +3104,18 @@ def check_flow_engine(torch, record, ident):
     from shadow_tpu_torch import convert
     from shadow_tpu_torch.core import flowplan
     from shadow_tpu_torch.core.config import load_config_str
-    from shadow_tpu_torch.tools import bench_flows
+    from shadow_tpu_torch.tools import bench_flows, kernel_f_probe
     from shadow_tpu_torch.tpu import floweng
 
     t_all = time.perf_counter()
     # (a) bitwise against the plain version on the card
     n_win, win = FLOW_A["n_windows"], FLOW_A["window_us"]
-    w0 = flow_world_a(floweng, FLOW_DEVICE)
+    w0 = kernel_f_probe.world_a(floweng, FLOW_DEVICE, FLOW_A["n_flows"],
+                                FLOW_A["queue_slots"])
     a_rows = {}
     for name, opts in FLOW_A_RUNS:
-        ref, row = f_against_plain(torch, convert, floweng, w0, 1, n_win,
-                                   win, name, **opts)
+        ref, row, _ = f_against_plain(torch, convert, floweng, w0, 1,
+                                      n_win, win, name, **opts)
         res = floweng.flow_results(ref)
         a_rows[name] = dict(
             row, segments=res["segments"], wire_drops=res["wire_drops"],
@@ -3128,8 +3126,8 @@ def check_flow_engine(torch, record, ident):
             or a_rows["default"]["wire_drops"] <= 0:
         fail(f"phase 20 (a): the worlds must show wire drops, ring drops "
              f"and saturated windows: {a_rows}")
-    a_warm, a_ms, a_clean, a_restore = time_flow_chunk(torch, floweng, w0,
-                                                       n_win, win)
+    a_warm, a_ms, a_clean = time_flow_chunk(torch, floweng, w0, n_win,
+                                            win)
     for name, row in a_rows.items():
         print(f"20 (a) kernel F vs run_windows_plain, {FLOW_A['n_flows']} "
               f"flows x {n_win} windows, {name}: bitwise on every leaf and "
@@ -3140,28 +3138,39 @@ def check_flow_engine(torch, record, ident):
               f"call {row['f_wall_s'][0]:.4f} s wall, plain "
               f"{row['plain_s'][0]:.3f} s wall")
     print(f"20 (a) kernel F a {n_win}-window chunk: {a_ms:.5f} ms cold "
-          f"(clean {a_clean:.5f}; warm {a_warm:.5f}; each less the world's "
-          f"restore, {a_restore:.5f} cold) vs the plain version "
+          f"(clean {a_clean:.5f}; warm {a_warm:.5f}) vs the plain version "
           f"{a_rows['default']['plain_s'][0] * 1e3:.1f} ms wall on {ident}")
+    # (a)'s world at pair counts that leave a block part empty and at
+    # rings of 16 to 1024 slots
+    grid = {}
+    for n_flows, q in FLOW_GRID:
+        wg = kernel_f_probe.world_a(floweng, FLOW_DEVICE, n_flows, q)
+        _ref, row, _ = f_against_plain(torch, convert, floweng, wg, 1,
+                                       FLOW_GRID_WINDOWS, win,
+                                       f"{n_flows} flows, Q={q}")
+        if not any(row["steps"][0]):
+            fail(f"phase 20 (a): {n_flows} flows at Q={q} ran no step")
+        row["geometry"] = floweng.f_geometry(wg)
+        grid[f"{n_flows}x{q}"] = row
+    print(f"20 (a) kernel F vs run_windows_plain at (flows, Q) "
+          f"{list(FLOW_GRID)}, {FLOW_GRID_WINDOWS} windows of {win} us: "
+          f"bitwise on every leaf and steps_per_window; launches "
+          f"{[r['geometry'] for r in grid.values()]}")
     # (a) at the main paths' shapes: bench_flows' first chunk, and the
     # rung-3 run's largest bucket (its first attempt's rings) through
     # its first chunk with work
     lats, sizes, qs, wus = bench_flows.default_world_args()
     bench_w0 = floweng.make_flow_world(lats, sizes, queue_slots=qs,
                                        device=FLOW_DEVICE)
-    _ref, bench_row = f_against_plain(torch, convert, floweng, bench_w0, 1,
-                                      FLOW_CHUNK, wus, "bench_flows")
-    cfg = load_config_str(flowplan.RUNG3_YAML.read_text())
-    plan = flowplan.compile_flow_plan(cfg, flowplan.routing_from_config(cfg))
-    r_wus, r_idx = max(flowplan.flow_buckets(plan).items(),
-                       key=lambda kv: len(kv[1]))
-    r_chunk = flowplan.bucket_chunk(r_wus)
-    r_w0 = flowplan.bucket_world(plan, r_wus, r_idx, flowplan.QUEUE_SLOTS0,
-                                 FLOW_DEVICE)
-    r_busy = int(plan.start_us[r_idx].min()) // (r_chunk * r_wus)
-    _ref, rung3_row = f_against_plain(torch, convert, floweng, r_w0,
-                                      r_busy + 1, r_chunk, r_wus,
-                                      "rung-3 bucket")
+    _ref, bench_row, _ = f_against_plain(torch, convert, floweng, bench_w0,
+                                         1, FLOW_CHUNK, wus, "bench_flows",
+                                         count=True)
+    r = kernel_f_probe.rung3_bucket(FLOW_DEVICE)
+    r_w0, r_wus, r_chunk, r_busy = (r["world"], r["window_us"], r["chunk"],
+                                    r["busy"])
+    _ref, rung3_row, r_start = f_against_plain(
+        torch, convert, floweng, r_w0, r_busy + 1, r_chunk, r_wus,
+        "rung-3 bucket", count=True)
     if not any(rung3_row["steps"][-1]) or not any(bench_row["steps"][0]):
         fail("phase 20 (a): a main-path chunk held against the plain "
              "version ran no step")
@@ -3171,20 +3180,48 @@ def check_flow_engine(torch, record, ident):
              f"{2 * len(lats)} lanes, Q={qs}, {FLOW_CHUNK} windows of "
              f"{wus} us"),
             (f"rung 3's {r_wus} us bucket, chunks 0-{r_busy}", rung3_row,
-             f"{len(r_idx)} flows padded to {r_lanes} lanes, Q={r_q}, "
+             f"{r['flows']} flows padded to {r_lanes} lanes, Q={r_q}, "
              f"{r_chunk} windows of {r_wus} us a chunk")):
         print(f"20 (a) kernel F vs run_windows_plain at {label} ({shape}): "
               f"bitwise on every leaf and steps_per_window after each "
               f"chunk ({sum(map(sum, row['steps']))} steps); F "
-              f"{sum(row['f_wall_s']):.4f} s wall, plain "
-              f"{sum(row['plain_s']):.3f} s wall")
-    f_warm, f_ms, f_clean, f_restore = time_flow_chunk(
-        torch, floweng, bench_w0, FLOW_CHUNK, wus)
+              f"{sum(row['f_wall_s']):.4f} s wall, plain (its events "
+              f"counted) {sum(row['plain_s']):.3f} s wall")
+    bench_row["geometry"] = floweng.f_geometry(bench_w0)
+    rung3_row["geometry"] = floweng.f_geometry(r_w0)
+    f_warm, f_ms, f_clean = time_flow_chunk(torch, floweng, bench_w0,
+                                            FLOW_CHUNK, wus)
     print(f"20 (a) kernel F bench_flows' first {FLOW_CHUNK}-window chunk: "
-          f"{f_ms:.5f} ms cold (clean {f_clean:.5f}; warm {f_warm:.5f}; "
-          f"each less the world's restore, {f_restore:.5f} cold) vs the "
-          f"plain version {bench_row['plain_s'][0] * 1e3:.1f} ms wall on "
+          f"{f_ms:.5f} ms cold (clean {f_clean:.5f}; warm {f_warm:.5f}) vs "
+          f"the plain version {bench_row['plain_s'][0] * 1e3:.1f} ms wall "
+          f"on {ident}")
+    r_warm, r_ms, r_clean = time_flow_chunk(torch, floweng, r_start,
+                                            r_chunk, r_wus)
+    print(f"20 (a) kernel F rung 3's {r_wus} us bucket, chunk {r_busy}: "
+          f"{r_ms:.5f} ms cold (clean {r_clean:.5f}; warm {r_warm:.5f}) on "
           f"{ident}")
+    # the serial chain: the longest pair's events against F's time
+    chain = {}
+    for key, label, shape, row, ms, clean in (
+            ("bench", "bench_flows' first chunk",
+             f"{2 * len(lats)} lanes, Q={qs}", bench_row, f_ms, f_clean),
+            ("rung3", f"rung 3's chunk {r_busy}", f"{r_lanes} lanes, Q={r_q}",
+             rung3_row, r_ms, r_clean)):
+        top = dict(row["events"][-1], us_per_event_cold=ms * 1e3 / max(
+            row["events"][-1]["events"], 1), us_per_event_clean=clean
+            * 1e3 / max(row["events"][-1]["events"], 1))
+        chain[key] = top
+        g = row["geometry"]
+        print(f"20 (a) kernel F at {label} ({shape}): {g['blocks']} blocks "
+              f"of {g['pairs_a_block']} pairs ({g['smem_bytes']} B of "
+              f"shared memory a block) on {g['sms']} SMs; the longest pair "
+              f"(pair {top['pair']}) {top['events']} events "
+              f"({top['sched']} scheduled, {top['pulls']} pulls, "
+              f"{top['app']} app phases; its busier lane "
+              f"{top['busier_lane']}; the mean pair "
+              f"{top['mean_pair_events']:.1f}), "
+              f"{top['us_per_event_clean']:.3f} us an event clean "
+              f"({top['us_per_event_cold']:.3f} cold) on {ident}")
 
     # (b) bench_flows' default world at full width
     floweng.reset_launches()
@@ -3206,13 +3243,16 @@ def check_flow_engine(torch, record, ident):
         rep_s.append(time.perf_counter() - t0)
         if rep["digest"] != out["digest"]:
             fail("phase 20 (b): a repeated bench_flows run differs")
-    # and once more, each launch timed by CUDA events (device ms)
+    # and once more, each launch timed by CUDA events (device ms); a spin
+    # queued before the first event keeps the card busy while the host
+    # enqueues the wrapper's work, so its host time does not show
     in_run = []
 
     def timed_chunk(w, cap):
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         w2 = floweng.clone_world(w)
+        torch.cuda._sleep(kernel_f_probe.SPIN_CYCLES)
         e0.record()
         st = floweng.flow_window_(w2, FLOW_CHUNK, wus,
                                   max_events_per_window=cap)
@@ -3289,11 +3329,12 @@ def check_flow_engine(torch, record, ident):
         max_abs_err=max(r["max_abs_err"] for r in (
             *a_rows.values(), bench_row, rung3_row)),
         ms=f_ms, warm_ms=f_warm, cold_clean_ms=f_clean,
-        plain_ms=bench_row["plain_s"][0] * 1e3, restore_ms=f_restore,
+        plain_ms=bench_row["plain_s"][0] * 1e3,
         bound_ms=bound_ms, bound_by=bound_by, bytes=bench_bytes,
         share_of_bound=bound_ms / max(f_ms, 1e-9),
         a_ms=a_ms, a_warm_ms=a_warm, a_cold_clean_ms=a_clean,
-        a_restore_ms=a_restore,
+        rung3_ms=r_ms, rung3_warm_ms=r_warm, rung3_cold_clean_ms=r_clean,
+        grid=grid, chain=chain,
         a_plain_ms=a_rows["default"]["plain_s"][0] * 1e3, a_bytes=a_bytes,
         a_bound_ms=a_bytes / PEAK_BYTES_PER_S * 1e3,
         in_run_ms=run_ms, in_run_mean_ms=sum(run_ms) / len(run_ms),
@@ -3301,7 +3342,7 @@ def check_flow_engine(torch, record, ident):
         bench_chunk=bench_row, rung3_chunks=rung3_row,
         rung3_wall_s=c_wall, rung3_resume_wall_s=r_wall,
         launches_bench=b_launches, launches_rung3=c_launches,
-        # the serial chain of a thread: both lanes' scheduled events and
+        # the serial chain of a pair: both lanes' scheduled events and
         # pulls, 2 * (sched_batch + pull_cap) + 2 app phases a fused step
         chain_events_per_step=2 * (sched_batch + pull_cap) + 2,
         bench_max_steps_per_window=max_steps,
@@ -3314,7 +3355,8 @@ def check_flow_engine(torch, record, ident):
           f"{row['in_run_mean_ms']:.4f} ms; max_abs_err "
           f"{row['max_abs_err']}; the serial chain: up to "
           f"{row['chain_events_per_step']} events a fused step, "
-          f"{max_steps} steps in bench_flows' busiest window; "
+          f"{max_steps} steps in bench_flows' busiest window, the longest "
+          f"pair of its first chunk {chain['bench']['events']} events; "
           f"library_ms=null; phase {row['phase_s']:.1f} s on {ident}")
     return row, b_launches, c_launches
 

@@ -1,24 +1,27 @@
-// Kernel F: the flow engine's windows, one thread a flow pair, for Hopper
-// (sm_90a).
+// Kernel F: the flow engine's windows for Hopper (sm_90a): one flow pair
+// a warp, its two lanes on two threads, its slots and rings' heads in
+// shared memory.
 //
 // Replaces: shadow_tpu/tpu/floweng.py, run_windows (a lax.scan of windows,
 // each a lax.while_loop of fused steps holding the scheduled-event loop and
 // the egress pull loop; not a Pallas kernel). Its plain PyTorch version is
 // `tpu/floweng.run_windows_plain`, which this kernel equals bit for bit.
 //
-// One launch advances the world n_windows windows in place. A thread owns
-// the pair (2p, 2p+1): it loads both lanes' TCP scalars, runs the windows
-// and stores them back; the reassembly and SACK slots and the [C, Q] and
-// [C, Q, 16] segment rings stay in global memory in the plain version's
-// layout. In each window the thread runs fused steps while its pair has
-// work (a scheduled event before the window's end, or a segment to pull)
-// and fewer than max_events steps ran: up to sched_batch scheduled events
-// of each lane, the app phase of each lane, then up to pull_cap pulls,
-// each pulling lane a then lane b. The two lanes step in lockstep in the
-// order of JAX's global loops; a pull reads the peer's ring head and
-// count, which only the peer's own scheduled events and this lane's
-// emissions change, so the ring slots, the ring-overflow drops and the
-// loss-hash counters equal the batched loop's. After a window that ran
+// One launch advances the world n_windows windows in place. Pair p's two
+// threads are lanes 0 and 1 of one warp (FW_PAIRS_A_WARP pairs a warp):
+// the even thread runs lane 2p, the odd one lane 2p + 1, each with its
+// lane's TCP scalars in registers. In each window the pair runs fused
+// steps while it has work (a scheduled event before the window's end, or
+// a segment to pull) and fewer than max_events steps ran: up to
+// sched_batch scheduled events, the app phase, then up to pull_cap pulls.
+// These are JAX's phases, each acting on every lane at once, and the two
+// threads run each phase at once: in a scheduled-event pass a lane pops
+// only its own ring; in the app phase it reads only itself and its peer's
+// constant `total`; in a pull it writes its own state and pushes only to
+// its peer's ring, whose head no pull moves and whose count only this lane
+// raises. `__syncwarp` over the pair parts the phases; each loop's
+// condition (has work, another scheduled event, another pull, saturated)
+// is the two lanes' vote by `__shfl_xor_sync`. After a window that ran
 // steps, a pull pass with ack_every = 1 flushes the delayed ACKs.
 //
 // Stopping a pair early is exact: a scheduled-event pass, the app phase, a
@@ -29,12 +32,38 @@
 // (sat[w] = 1; the wrapper adds the windows to n_saturated and advances
 // clock_us).
 //
-// The loss draw (_wire_draw) is uint32 arithmetic. The TCP machine is
+// A block's pairs stage, for the whole launch, each lane's reassembly
+// (2 x RS) and SACK (2 x 16) slots, its ring's arrival times (Q), head
+// and count in shared memory: the whole block copies them in, coalesced,
+// before the windows and out after them. `Conn`'s slot pointers point
+// there, so the slot loops of tcp_fsm.cuh and every `sched_time` read
+// shared memory. The ring's [Q, 16] fields stay in global memory (read
+// once an arrival, written once a push). The launcher spreads the pairs
+// over every SM (warps a block = the warps needed over the SMs, at most
+// FW_MAX_WARPS), within the 227 KB a block may stage; a Q whose pair does
+// not fit is refused (floweng.flow_window_ raises ValueError first). The
+// kernel is built for the flow world's 32 reassembly slots (FW_RS), so
+// the slot loops have a constant trip count; a power-of-two Q takes a
+// ring slot by a mask, not a division.
+//
+// What bounds it on the card: not bytes (bench_flows' world, 36 MB read
+// and written once, would take ~0.011 ms) but the longest pair's serial
+// chain of events through the TCP machine, each a data-dependent walk of
+// branches and slot loops, a few hundred dependent instructions that one
+// warp issues one after another (~2.1 us an event at bench_flows' first
+// chunk, PERF.md). One thread a pair with 32 pairs a warp ran the union
+// of 32 pairs' branches (~4x slower there than one pair a warp). The SM
+// count, the lanes on two warps and two pairs a warp bought nothing; the
+// slot loops across a warp's lanes would shorten the chain.
+//
+// The loss draw (wire_draw) is uint32 arithmetic. The TCP machine is
 // tcp_fsm.cuh.
 //
 // Built without nvcc (no __CUDACC__), the file is plain C++ whose
-// flow_window_host runs the same thread loop for every pair in turn, on
-// host memory: `g++ -x c++ -O2 -shared -fPIC`.
+// flow_window_host runs the same phase functions over the same staged
+// layout for each pair in turn, lane a then lane b within each phase (lane
+// b first under FW_HOST_LANES_REVERSED, a build the tests use to show the
+// order does not matter): `g++ -x c++ -O2 -shared -fPIC`.
 
 #include <stdint.h>
 #include <string.h>
@@ -43,9 +72,10 @@
 
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
-#define FW_HD __device__
+#define FW_HD __device__ __forceinline__
 #else
-#define FW_HD
+#include <vector>
+#define FW_HD inline
 #endif
 
 using namespace fsm;
@@ -73,8 +103,9 @@ using namespace fsm;
   X(int32_t, retransmit_count) X(int32_t, retransmitted_bytes)               \
   X(uint8_t, last_retx) X(uint8_t, sack_on) X(uint8_t, sack_ok)
 
+// the world's per-lane scalars after the staged ring head and count
 #define FW_WORLD_SCALARS(X)                                                  \
-  X(int32_t, q_head) X(int32_t, q_count) X(int32_t, q_dropped)               \
+  X(int32_t, q_dropped)                                                      \
   X(uint8_t, opened) X(uint8_t, close_sent) X(int32_t, written)              \
   X(int32_t, read_bytes) X(int32_t, total) X(int32_t, t_start)               \
   X(int32_t, latency_us) X(int64_t, loss_u32) X(int32_t, lane_id)            \
@@ -91,6 +122,8 @@ struct FlowPtrs {
   int32_t* reass_len;
   int32_t* q_time;     // [C, Q]
   int32_t* q_fields;   // [C, Q, 16]
+  int32_t* q_head;     // [C]
+  int32_t* q_count;    // [C]
   FW_WORLD_SCALARS(FW_DECL)
   int32_t* clock_us;   // []
   int32_t* steps;      // [n_windows] out (atomicMax)
@@ -104,23 +137,125 @@ static_assert(sizeof(FlowPtrs) == FW_N_PTRS * sizeof(void*),
 struct Params {
   int n_pairs, Q, RS, n_windows, window_us, max_events, ack_every,
       sched_batch, pull_cap, gso_segs;
+  int q_mask;  // Q - 1 when Q is a power of two, else -1 (ring_slot)
 };
 
-// One lane: its TCP machine and the world's per-lane columns.
+static inline Params fw_params(int n_pairs, int q, int rs, int n_windows,
+                               int window_us, int max_events, int ack_every,
+                               int sched_batch, int pull_cap, int gso_segs) {
+  return Params{n_pairs, q, rs, n_windows, window_us, max_events, ack_every,
+                sched_batch, pull_cap, gso_segs,
+                q > 0 && (q & (q - 1)) == 0 ? q - 1 : -1};
+}
+
+// -- the launch geometry and the staged layout -------------------------------
+
+// pairs a warp: one, so a warp runs one pair's branches (PERF.md §6: of
+// 1, 2, 4 and 8 pairs a warp, one was the fastest at bench_flows' and
+// (a)'s chunks and level with the others at rung 3's)
+constexpr int FW_PAIRS_A_WARP = 1;
+// the reassembly slots a lane has (make_flow_world's), known when compiled
+constexpr int FW_RS = 32;
+constexpr int FW_MAX_WARPS = 8;           // warps a block
+constexpr int FW_SMEM_MAX = 232448;       // shared bytes a block may use
+constexpr int FW_SMEM_DEFAULT = 48 * 1024;  // without the opt-in attribute
+
+// A lane's staged words: reass_off [RS], reass_len [RS], sacked_s [16],
+// sacked_e [16], q_time [Q], q_head, q_count; an odd count, so lanes
+// reading the same offset fall in different banks.
+FSM_HD int lane_words(int Q, int RS) {
+  return (2 * RS + 2 * SACK_SLOTS + Q + 2) | 1;
+}
+FSM_HD int off_sacked(int RS) { return 2 * RS; }
+FSM_HD int off_q_time(int RS) { return 2 * RS + 2 * SACK_SLOTS; }
+
+// shared bytes a pair stages
+static inline int64_t fw_pair_bytes(int Q, int RS) {
+  return 2 * static_cast<int64_t>(lane_words(Q, RS)) * 4;
+}
+
+struct Geometry {
+  int pairs_a_block, blocks, smem_bytes;
+};
+
+// The pairs over the SMs: as many warps a block as spread the pairs' warps
+// over n_sms blocks (one block an SM), at most FW_MAX_WARPS and at most
+// what the block can stage. Returns false when one pair cannot stage.
+static inline bool fw_geometry(int n_pairs, int Q, int RS, int n_sms,
+                               Geometry& g) {
+  int64_t pair_bytes = fw_pair_bytes(Q, RS);
+  if (Q < 1 || RS < 1 || n_sms < 1 || pair_bytes > FW_SMEM_MAX)
+    return false;
+  int fit = static_cast<int>(FW_SMEM_MAX / pair_bytes);
+  int warps = (n_pairs + FW_PAIRS_A_WARP - 1) / FW_PAIRS_A_WARP;
+  int wpb = (warps + n_sms - 1) / n_sms;
+  wpb = wpb < 1 ? 1 : (wpb > FW_MAX_WARPS ? FW_MAX_WARPS : wpb);
+  int ppb = wpb * FW_PAIRS_A_WARP;
+  if (ppb > fit) ppb = fit;
+  if (n_pairs > 0 && ppb > n_pairs) ppb = n_pairs;
+  if (ppb < 1) ppb = 1;
+  g.pairs_a_block = ppb;
+  g.blocks = (n_pairs + ppb - 1) / ppb;
+  g.smem_bytes = static_cast<int>(ppb * pair_bytes);
+  return true;
+}
+
+// Copy `n` lanes' rows of one [C, per] int32 tensor from lane `l0` into
+// their staged words at `off` (or back, with `in` false); thread t0 of dt
+// copies every dt-th word.
+FW_HD void stage_rows(int32_t* g, int per, int l0, int n, int* s,
+                      int stride, int off, int t0, int dt, bool in) {
+  g += static_cast<int64_t>(l0) * per;
+  for (int k = t0; k < n * per; k += dt) {
+    int lane = k / per;
+    int* w = s + lane * stride + off + (k - lane * per);
+    if (in)
+      *w = g[k];
+    else
+      g[k] = *w;
+  }
+}
+
+// every staged tensor of lanes [l0, l0 + n)
+FW_HD void stage_lanes(const FlowPtrs& P, const Params& K, int l0, int n,
+                       int* s, int t0, int dt, bool in) {
+  const int st = lane_words(K.Q, K.RS), RS = K.RS, qt = off_q_time(RS);
+  stage_rows(P.reass_off, RS, l0, n, s, st, 0, t0, dt, in);
+  stage_rows(P.reass_len, RS, l0, n, s, st, RS, t0, dt, in);
+  stage_rows(P.sacked_s, SACK_SLOTS, l0, n, s, st, off_sacked(RS), t0, dt,
+             in);
+  stage_rows(P.sacked_e, SACK_SLOTS, l0, n, s, st,
+             off_sacked(RS) + SACK_SLOTS, t0, dt, in);
+  stage_rows(P.q_time, K.Q, l0, n, s, st, qt, t0, dt, in);
+  stage_rows(P.q_head, 1, l0, n, s, st, qt + K.Q, t0, dt, in);
+  stage_rows(P.q_count, 1, l0, n, s, st, qt + K.Q + 1, t0, dt, in);
+}
+
+// One lane: its TCP machine, the world's per-lane columns, its ring (to
+// pop) and its peer's (to push).
 struct Lane {
   Conn c;
-  int q_head, q_count, q_dropped;
+  int q_dropped;
   bool opened, close_sent;
   int written, read_bytes, total, t_start, latency_us;
   uint32_t loss_u32;
   int lane_id, w_iss, conn_t, complete_us, n_segments, seg_units,
       wire_drops, unacked;
-  int* q_time;    // this lane's ring row [Q]
-  int* q_fields;  // [Q, 16]
+  int peer_total;
+  int* q_time;     // staged [Q]
+  int* q_head;     // staged
+  int* q_count;    // staged
+  int* q_fields;   // global [Q, 16]
+  int* p_time;     // the peer's, staged
+  int* p_head;
+  int* p_count;
+  int* p_fields;   // the peer's, global
 };
 
-FW_HD inline void load_lane(const FlowPtrs& P, const Params& K, int i,
-                            Lane& L) {
+// lane i's scalars from the world, its slots and ring from its staged
+// words `s` (the peer's at `ps`)
+FW_HD void load_lane(const FlowPtrs& P, const Params& K, int i, int* s,
+                     int* ps, Lane& L) {
 #define FW_LOAD_C(t, n) L.c.n = static_cast<decltype(L.c.n)>(P.n[i]);
   FW_PLANE_SCALARS(FW_LOAD_C)
 #undef FW_LOAD_C
@@ -129,16 +264,24 @@ FW_HD inline void load_lane(const FlowPtrs& P, const Params& K, int i,
 #define FW_LOAD_W(t, n) L.n = static_cast<decltype(L.n)>(P.n[i]);
   FW_WORLD_SCALARS(FW_LOAD_W)
 #undef FW_LOAD_W
-  L.c.sacked_s = P.sacked_s + static_cast<int64_t>(i) * SACK_SLOTS;
-  L.c.sacked_e = P.sacked_e + static_cast<int64_t>(i) * SACK_SLOTS;
-  L.c.reass_off = P.reass_off + static_cast<int64_t>(i) * K.RS;
-  L.c.reass_len = P.reass_len + static_cast<int64_t>(i) * K.RS;
+  L.peer_total = P.total[i ^ 1];
+  const int qt = off_q_time(K.RS);
+  L.c.reass_off = s;
+  L.c.reass_len = s + K.RS;
+  L.c.sacked_s = s + off_sacked(K.RS);
+  L.c.sacked_e = s + off_sacked(K.RS) + SACK_SLOTS;
   L.c.rs = K.RS;
-  L.q_time = P.q_time + static_cast<int64_t>(i) * K.Q;
+  L.q_time = s + qt;
+  L.q_head = s + qt + K.Q;
+  L.q_count = s + qt + K.Q + 1;
+  L.p_time = ps + qt;
+  L.p_head = ps + qt + K.Q;
+  L.p_count = ps + qt + K.Q + 1;
   L.q_fields = P.q_fields + static_cast<int64_t>(i) * K.Q * N_FIELDS;
+  L.p_fields = P.q_fields + static_cast<int64_t>(i ^ 1) * K.Q * N_FIELDS;
 }
 
-FW_HD inline void store_lane(const FlowPtrs& P, int i, const Lane& L) {
+FW_HD void store_lane(const FlowPtrs& P, int i, const Lane& L) {
 #define FW_STORE_C(t, n) P.n[i] = static_cast<t>(L.c.n);
   FW_PLANE_SCALARS(FW_STORE_C)
 #undef FW_STORE_C
@@ -149,12 +292,18 @@ FW_HD inline void store_lane(const FlowPtrs& P, int i, const Lane& L) {
 
 // -- the flow engine's per-lane steps (tpu/floweng.py) -------------------------
 
-FW_HD inline int us_of_ms(int ms) { return mul32(ms, 1000); }
+FW_HD int us_of_ms(int ms) { return mul32(ms, 1000); }
+
+// a ring position's slot (a mask in place of the division when Q is a
+// power of two; positions never go negative)
+FW_HD int ring_slot(int pos, const Params& K) {
+  return K.q_mask >= 0 ? pos & K.q_mask : pos % K.Q;
+}
 
 // _sched_times: the earliest scheduled event; the parts by reference
-FW_HD inline int sched_times(const Lane& L, int Q, int& arr_t, int& rto_t,
-                             int& tw_t, int& ps_t) {
-  arr_t = L.q_count > 0 ? L.q_time[L.q_head % Q] : I32_MAX;
+FW_HD int sched_times(const Lane& L, const Params& K, int& arr_t,
+                      int& rto_t, int& tw_t, int& ps_t) {
+  arr_t = *L.q_count > 0 ? L.q_time[ring_slot(*L.q_head, K)] : I32_MAX;
   rto_t = L.c.rto_armed ? us_of_ms(L.c.rto_deadline_ms) : I32_MAX;
   tw_t = L.c.state == TIME_WAIT ? us_of_ms(L.c.rto_deadline_ms) : I32_MAX;
   ps_t = L.c.persist_armed ? us_of_ms(L.c.persist_deadline_ms) : I32_MAX;
@@ -162,12 +311,12 @@ FW_HD inline int sched_times(const Lane& L, int Q, int& arr_t, int& rto_t,
   return imin(imin(arr_t, rto_t), imin(imin(tw_t, ps_t), open_t));
 }
 
-FW_HD inline int sched_time(const Lane& L, int Q) {
+FW_HD int sched_time(const Lane& L, const Params& K) {
   int a, r, t, p;
-  return sched_times(L, Q, a, r, t, p);
+  return sched_times(L, K, a, r, t, p);
 }
 
-FW_HD inline bool pull_wanted(const Lane& L, int ack_every) {
+FW_HD bool pull_wanted(const Lane& L, int ack_every) {
   int kind = next_kind(L.c);
   if (kind == K_NONE || !L.opened) return false;
   const Conn& p = L.c;
@@ -178,9 +327,9 @@ FW_HD inline bool pull_wanted(const Lane& L, int ack_every) {
 }
 
 // _sched_event for one lane; returns whether it was active
-FW_HD inline bool sched_event(Lane& L, int Q, int end) {
+FW_HD bool sched_event(Lane& L, const Params& K, int end) {
   int arr_t, rto_t, tw_t, ps_t;
-  int sched_t = sched_times(L, Q, arr_t, rto_t, tw_t, ps_t);
+  int sched_t = sched_times(L, K, arr_t, rto_t, tw_t, ps_t);
   if (!(sched_t < end)) return false;
   int t = imax(sched_t, L.conn_t);
   int now_ms = t / 1000;
@@ -188,7 +337,7 @@ FW_HD inline bool sched_event(Lane& L, int Q, int end) {
   for (int k = 0; k < N_FIELDS; ++k) f[k] = 0;
   int kind = EV_NONE;
   if (sched_t == arr_t) {  // arrival > rto > time-wait > persist > open
-    const int* af = L.q_fields + (L.q_head % Q) * N_FIELDS;
+    const int* af = L.q_fields + ring_slot(*L.q_head, K) * N_FIELDS;
     if (L.opened) {
       kind = EV_SEG;
       for (int k = 0; k < N_FIELDS; ++k) f[k] = af[k];
@@ -203,8 +352,8 @@ FW_HD inline bool sched_event(Lane& L, int Q, int end) {
       f[5] = af[7];
       f[6] = af[8];
     }  // else popped and dropped
-    L.q_head += 1;
-    L.q_count -= 1;
+    *L.q_head += 1;
+    *L.q_count -= 1;
   } else if (sched_t == rto_t) {
     kind = EV_TIMER_RTO;
     f[0] = L.c.rto_gen;
@@ -225,7 +374,7 @@ FW_HD inline bool sched_event(Lane& L, int Q, int end) {
 }
 
 // _app_phase for one lane
-FW_HD inline void app_phase(Lane& L, int peer_total) {
+FW_HD void app_phase(Lane& L) {
   Conn& p = L.c;
   int now_ms = L.conn_t / 1000;
   bool healthy = p.error == 0;
@@ -237,8 +386,8 @@ FW_HD inline void app_phase(Lane& L, int peer_total) {
     p.ack_pending = true;
   }
   L.read_bytes = add32(L.read_bytes, got);
-  if (L.complete_us == I32_MAX && L.read_bytes >= peer_total
-      && peer_total > 0 && drain)
+  if (L.complete_us == I32_MAX && L.read_bytes >= L.peer_total
+      && L.peer_total > 0 && drain)
     L.complete_us = L.conn_t;
   int n = imin(send_space(p), L.total - L.written);
   if (state_ok && healthy && L.opened && n > 0) {
@@ -266,7 +415,7 @@ FW_HD inline void app_phase(Lane& L, int peer_total) {
   }
 }
 
-FW_HD inline uint32_t wire_draw(int idx, uint32_t counter) {
+FW_HD uint32_t wire_draw(int idx, uint32_t counter) {
   uint32_t z = static_cast<uint32_t>(idx) * 0x9E3779B9u
                + counter * 0x85EBCA6Bu + 0x6A09E667u;
   z = (z ^ (z >> 16)) * 0x21F0AAADu;
@@ -275,16 +424,15 @@ FW_HD inline uint32_t wire_draw(int idx, uint32_t counter) {
 }
 
 // enqueue one wire segment into the peer's ring at `slot`
-FW_HD inline void ring_put(Lane& peer, int slot, int t, const int* seg) {
-  peer.q_time[slot] = t;
-  int* dst = peer.q_fields + slot * N_FIELDS;
+FW_HD void ring_put(Lane& L, int slot, int t, const int* seg) {
+  L.p_time[slot] = t;
+  int* dst = L.p_fields + slot * N_FIELDS;
   for (int k = 0; k < N_FIELDS; ++k) dst[k] = seg[k];
 }
 
 // one pull of one lane (an iteration of _pull_phase's body, this lane's
 // part): emit, draw the wire loss per MSS unit, enqueue at the peer
-FW_HD inline void pull_lane(Lane& L, Lane& peer, const Params& K,
-                            int ack_every) {
+FW_HD void pull_lane(Lane& L, const Params& K, int ack_every) {
   if (!pull_wanted(L, ack_every)) return;
   int out[N_OUT];
   ev_pull(L.c, L.conn_t / 1000, K.gso_segs, out);
@@ -321,7 +469,7 @@ FW_HD inline void pull_lane(Lane& L, Lane& peer, const Params& K,
   int seg[N_FIELDS];
   for (int k = 0; k < 8; ++k) seg[k] = out[1 + k];
   for (int k = 8; k < N_FIELDS; ++k) seg[k] = out[2 + k];
-  int p_count = peer.q_count, p_head = peer.q_head;
+  int p_count = *L.p_count, p_head = *L.p_head;
   int arrive = add32(L.conn_t, L.latency_us);
   bool roomA = p_count < K.Q;
   int occA = (hasA && roomA) ? 1 : 0;
@@ -329,15 +477,15 @@ FW_HD inline void pull_lane(Lane& L, Lane& peer, const Params& K,
   int seg4 = seg[4];
   if (hasA && roomA) {
     seg[4] = imin(seg4, lenA);
-    ring_put(peer, (p_head + p_count) % K.Q, arrive, seg);
-    peer.q_count += 1;
+    ring_put(L, ring_slot(p_head + p_count, K), arrive, seg);
+    *L.p_count += 1;
   }
   if (hasB && roomB) {
     seg[4] = lenB;
     seg[1] = static_cast<int>(static_cast<uint32_t>(out[2])
                               + static_cast<uint32_t>(startB));
-    ring_put(peer, (p_head + p_count + occA) % K.Q, arrive, seg);
-    peer.q_count += 1;
+    ring_put(L, ring_slot(p_head + p_count + occA, K), arrive, seg);
+    *L.p_count += 1;
   }
   L.q_dropped += (hasA && !roomA) + (hasB && !roomB);
   L.wire_drops += units - delivered;
@@ -346,31 +494,41 @@ FW_HD inline void pull_lane(Lane& L, Lane& peer, const Params& K,
   L.unacked = 0;
 }
 
-FW_HD inline void pull_phase(Lane& a, Lane& b, const Params& K,
-                             int ack_every) {
+// -- a pair's phases, over its two lanes -------------------------------------
+//
+// `Pair` runs a phase on both lanes (`each`), votes a condition over them
+// (`any`, which runs its function on both lanes before it answers) and
+// parts two phases (`sync`): on the card each thread holds one lane and
+// the pair's two threads meet in `__syncwarp`; on the host one caller runs
+// lane a and then lane b.
+
+template <class Pair>
+FW_HD bool pair_has_work(Pair& pr, const Params& K, int end,
+                          int ack_every) {
+  return pr.any([&](Lane& L) {
+    return sched_time(L, K) < end || pull_wanted(L, ack_every);
+  });
+}
+
+template <class Pair>
+FW_HD void pull_phase(Pair& pr, const Params& K, int ack_every) {
   for (int i = 0; i < K.pull_cap; ++i) {
-    pull_lane(a, b, K, ack_every);
-    pull_lane(b, a, K, ack_every);
-    if (!pull_wanted(a, ack_every) && !pull_wanted(b, ack_every)) break;
+    pr.each([&](Lane& L) { pull_lane(L, K, ack_every); });
+    if (!pr.any([&](Lane& L) { return pull_wanted(L, ack_every); })) break;
   }
+  pr.sync();  // the pushes land before the lanes read their rings
 }
 
-FW_HD inline bool pair_has_work(const Lane& a, const Lane& b, int Q, int end,
-                                int ack_every) {
-  return sched_time(a, Q) < end || sched_time(b, Q) < end
-         || pull_wanted(a, ack_every) || pull_wanted(b, ack_every);
-}
-
-FW_HD inline void fused_step(Lane& a, Lane& b, const Params& K, int end) {
+template <class Pair>
+FW_HD void fused_step(Pair& pr, const Params& K, int end) {
   for (int i = 0; i < K.sched_batch; ++i) {
-    bool act = sched_event(a, K.Q, end);
-    act = sched_event(b, K.Q, end) || act;
-    if (!(act && (sched_time(a, K.Q) < end || sched_time(b, K.Q) < end)))
+    bool act = pr.any([&](Lane& L) { return sched_event(L, K, end); });
+    if (!(act && pr.any([&](Lane& L) { return sched_time(L, K) < end; })))
       break;
   }
-  app_phase(a, b.total);
-  app_phase(b, a.total);
-  pull_phase(a, b, K, K.ack_every);
+  pr.sync();  // the pops land before the peer's pulls read the heads
+  pr.each([&](Lane& L) { app_phase(L); });
+  pull_phase(pr, K, K.ack_every);
 }
 
 #ifdef __CUDACC__
@@ -387,28 +545,23 @@ inline void note_window(int32_t* steps, int32_t* sat, int w, int n,
 }
 #endif
 
-// the thread loop of pair p over the chunk's windows
-FW_HD inline void run_pair(const FlowPtrs& P, const Params& K, int p) {
-  Lane a, b;
-  load_lane(P, K, 2 * p, a);
-  load_lane(P, K, 2 * p + 1, b);
+// the windows of one pair
+template <class Pair>
+FW_HD void run_pair(Pair& pr, const FlowPtrs& P, const Params& K) {
   const int clock0 = *P.clock_us;
   for (int w = 0; w < K.n_windows; ++w) {
     int end = add32(clock0, mul32(w + 1, K.window_us));
     int n = 0;
-    while (n < K.max_events && pair_has_work(a, b, K.Q, end, K.ack_every)) {
-      fused_step(a, b, K, end);
+    while (n < K.max_events && pair_has_work(pr, K, end, K.ack_every)) {
+      fused_step(pr, K, end);
       ++n;
     }
     bool saturated = n >= K.max_events
-                     && pair_has_work(a, b, K.Q, end, K.ack_every);
-    if (n > 0) pull_phase(a, b, K, 1);  // flush the delayed ACKs
-    a.conn_t = imax(a.conn_t, end);
-    b.conn_t = imax(b.conn_t, end);
-    note_window(P.steps, P.sat, w, n, saturated);
+                     && pair_has_work(pr, K, end, K.ack_every);
+    if (n > 0) pull_phase(pr, K, 1);  // flush the delayed ACKs
+    pr.each([&](Lane& L) { L.conn_t = imax(L.conn_t, end); });
+    if (pr.leader()) note_window(P.steps, P.sat, w, n, saturated);
   }
-  store_lane(P, 2 * p, a);
-  store_lane(P, 2 * p + 1, b);
 }
 
 static bool fw_params_ok(const Params& K) {
@@ -417,12 +570,63 @@ static bool fw_params_ok(const Params& K) {
          && K.max_events >= 0 && K.ack_every >= 1;
 }
 
+// the staged bytes of one pair, for the wrapper's check (both builds)
+extern "C" int flow_window_pair_bytes(int q, int rs) {
+  int64_t b = fw_pair_bytes(q, rs);
+  return b > 0x7FFFFFFF ? -1 : static_cast<int>(b);
+}
+
+// pairs a block, blocks and shared bytes a block of a launch over n_sms
+// SMs (out[3]); 1 when one pair cannot stage
+extern "C" int flow_window_geometry(int n_pairs, int q, int rs, int n_sms,
+                                    int* out) {
+  Geometry g;
+  if (!fw_geometry(n_pairs, q, rs, n_sms, g)) return 1;
+  out[0] = g.pairs_a_block;
+  out[1] = g.blocks;
+  out[2] = g.smem_bytes;
+  return 0;
+}
+
 #ifdef __CUDACC__
 
-__global__ void __launch_bounds__(128)
-    flow_window_kernel(const FlowPtrs P, const Params K) {
-  int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p < K.n_pairs) run_pair(P, K, p);
+// this thread's lane of its pair
+struct ThreadPair {
+  Lane& L;
+  unsigned mask;  // the pair's two lanes of the warp
+  template <class F>
+  __device__ void each(F f) { f(L); }
+  template <class F>
+  __device__ bool any(F f) {
+    int v = f(L) ? 1 : 0;
+    return (v | __shfl_xor_sync(mask, v, 1)) != 0;
+  }
+  __device__ void sync() { __syncwarp(mask); }
+  __device__ bool leader() const { return (threadIdx.x & 1) == 0; }
+};
+
+__global__ void __launch_bounds__(FW_MAX_WARPS * 32, 1)
+    flow_window_kernel(const FlowPtrs P, const Params K, int pairs_a_block) {
+  extern __shared__ int staged[];
+  const int p0 = blockIdx.x * pairs_a_block;
+  const int np = imin(pairs_a_block, K.n_pairs - p0);
+  stage_lanes(P, K, 2 * p0, 2 * np, staged, threadIdx.x, blockDim.x, true);
+  __syncthreads();
+  const int wl = threadIdx.x & 31;
+  const int lp = (threadIdx.x >> 5) * FW_PAIRS_A_WARP + (wl >> 1);
+  if ((wl >> 1) < FW_PAIRS_A_WARP && lp < np) {
+    const int st = lane_words(K.Q, K.RS);
+    const int li = 2 * lp + (wl & 1);  // the block's lane
+    Lane L;
+    load_lane(P, K, 2 * p0 + li, staged + li * st, staged + (li ^ 1) * st,
+              L);
+    L.c.rs = FW_RS;  // a constant trip count for the slot loops
+    ThreadPair pr{L, 3u << (wl & 30)};
+    run_pair(pr, P, K);
+    store_lane(P, 2 * p0 + li, L);
+  }
+  __syncthreads();
+  stage_lanes(P, K, 2 * p0, 2 * np, staged, threadIdx.x, blockDim.x, false);
 }
 
 extern "C" int flow_window_launch(int n_pairs, int q, int rs, int n_windows,
@@ -431,32 +635,85 @@ extern "C" int flow_window_launch(int n_pairs, int q, int rs, int n_windows,
                                   int pull_cap, int gso_segs,
                                   void* const* ptrs, int n_ptrs,
                                   void* stream_ptr) {
-  const Params K{n_pairs, q, rs, n_windows, window_us, max_events,
-                 ack_every, sched_batch, pull_cap, gso_segs};
-  if (n_ptrs != FW_N_PTRS || !fw_params_ok(K))
+  const Params K = fw_params(n_pairs, q, rs, n_windows, window_us,
+                             max_events, ack_every, sched_batch, pull_cap,
+                             gso_segs);
+  if (n_ptrs != FW_N_PTRS || !fw_params_ok(K) || rs != FW_RS)
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_pairs == 0 || n_windows == 0) return static_cast<int>(cudaSuccess);
+  int dev = 0, n_sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&n_sms, cudaDevAttrMultiProcessorCount,
+                                 dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  Geometry g;
+  if (!fw_geometry(n_pairs, q, rs, n_sms, g))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (g.smem_bytes > FW_SMEM_DEFAULT) {
+    err = cudaFuncSetAttribute(flow_window_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               g.smem_bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   FlowPtrs P;
   memcpy(&P, ptrs, sizeof P);
-  const int threads = 128;
-  const int blocks = (n_pairs + threads - 1) / threads;
-  flow_window_kernel<<<blocks, threads, 0,
-                       static_cast<cudaStream_t>(stream_ptr)>>>(P, K);
+  const int warps = (g.pairs_a_block + FW_PAIRS_A_WARP - 1) / FW_PAIRS_A_WARP;
+  flow_window_kernel<<<g.blocks, warps * 32, g.smem_bytes,
+                       static_cast<cudaStream_t>(stream_ptr)>>>(
+      P, K, g.pairs_a_block);
   return static_cast<int>(cudaGetLastError());
 }
 
 #else  // the host build
 
+// lane a then lane b within each phase (b then a when reversed)
+struct HostPair {
+  Lane* l[2];
+  template <class F>
+  void each(F f) {
+    f(*l[0]);
+    f(*l[1]);
+  }
+  template <class F>
+  bool any(F f) {
+    bool first = f(*l[0]);
+    bool second = f(*l[1]);
+    return first || second;
+  }
+  void sync() {}
+  bool leader() const { return true; }
+};
+
 extern "C" int flow_window_host(int n_pairs, int q, int rs, int n_windows,
                                 int window_us, int max_events, int ack_every,
                                 int sched_batch, int pull_cap, int gso_segs,
                                 void* const* ptrs, int n_ptrs) {
-  const Params K{n_pairs, q, rs, n_windows, window_us, max_events,
-                 ack_every, sched_batch, pull_cap, gso_segs};
-  if (n_ptrs != FW_N_PTRS || !fw_params_ok(K)) return 1;
+  const Params K = fw_params(n_pairs, q, rs, n_windows, window_us,
+                             max_events, ack_every, sched_batch, pull_cap,
+                             gso_segs);
+  if (n_ptrs != FW_N_PTRS || !fw_params_ok(K)
+      || fw_pair_bytes(q, rs) > FW_SMEM_MAX)
+    return 1;
   FlowPtrs P;
   memcpy(&P, ptrs, sizeof P);
-  for (int p = 0; p < n_pairs; ++p) run_pair(P, K, p);
+  const int st = lane_words(q, rs);
+  std::vector<int> staged(2 * static_cast<size_t>(st));
+  for (int p = 0; p < n_pairs; ++p) {
+    stage_lanes(P, K, 2 * p, 2, staged.data(), 0, 1, true);
+    Lane a, b;
+    load_lane(P, K, 2 * p, staged.data(), staged.data() + st, a);
+    load_lane(P, K, 2 * p + 1, staged.data() + st, staged.data(), b);
+#ifdef FW_HOST_LANES_REVERSED
+    HostPair pr{{&b, &a}};
+#else
+    HostPair pr{{&a, &b}};
+#endif
+    run_pair(pr, P, K);
+    store_lane(P, 2 * p, a);
+    store_lane(P, 2 * p + 1, b);
+    stage_lanes(P, K, 2 * p, 2, staged.data(), 0, 1, false);
+  }
   return 0;
 }
 

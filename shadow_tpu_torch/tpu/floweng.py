@@ -16,9 +16,10 @@ are held up to `ack_every` segments or the window barrier, where a pull
 pass with `ack_every=1` flushes them. Time is int32 microseconds.
 
 `run_windows` is the entry point. On CUDA tensors it launches kernel F
-(`csrc/flow_window.cu`): one thread a flow pair advances both lanes
-through a whole chunk of windows in one launch, in the order of JAX's
-global loops. That is exact because pairs never interact and a fused
+(`csrc/flow_window.cu`): a flow pair a warp, its two lanes on two
+threads that run each of JAX's phases at once, advances through a whole
+chunk of windows in one launch, its slots and ring heads staged in
+shared memory. That is exact because pairs never interact and a fused
 step, the app phase and the barrier flush leave a pair with no work
 unchanged (`tests/test_torch_floweng.py` holds the pair-independence
 test that shows it), so a pair may stop where it has none; the window's
@@ -387,11 +388,13 @@ def _pull_once(w: FlowWorld, ack_every: int, gso_segs: int) -> FlowWorld:
 
 
 def _pull_phase(w: FlowWorld, ack_every: int, pull_cap: int,
-                gso_segs: int = 1) -> FlowWorld:
+                gso_segs: int = 1, counts=None) -> FlowWorld:
     """Drain egress until no connection wants to pull, at most pull_cap
     times (the loop predicate read back to the host)."""
     i, pending = 0, True
     while pending and i < pull_cap:
+        if counts is not None:
+            counts["pulls"] += _pull_wanted(w, ack_every)
         w = _pull_once(w, ack_every, gso_segs)
         i += 1
         pending = bool(_pull_wanted(w, ack_every).any())
@@ -399,35 +402,51 @@ def _pull_phase(w: FlowWorld, ack_every: int, pull_cap: int,
 
 
 def _fused_step(w: FlowWorld, window_end, ack_every: int, sched_batch: int,
-                pull_cap: int, gso_segs: int) -> FlowWorld:
+                pull_cap: int, gso_segs: int, counts=None) -> FlowWorld:
     """One fused step: up to sched_batch scheduled events a
     connection (stopping when none is left), the app phase, then the
     egress pull loop."""
+    if counts is not None:
+        work = ((_sched_times(w)[0] < window_end)
+                | _pull_wanted(w, ack_every))
+        counts["steps"] += work | work[_peer(w)]
     i, alive = 0, True
     while alive and i < sched_batch:
+        if counts is not None:
+            counts["sched"] += _sched_times(w)[0] < window_end
         w, any_active = _sched_event(w, window_end)
         sched_t, *_ = _sched_times(w)
         i += 1
         alive = bool(any_active & (sched_t < window_end).any())
-    return _pull_phase(_app_phase(w), ack_every, pull_cap, gso_segs)
+    return _pull_phase(_app_phase(w), ack_every, pull_cap, gso_segs, counts)
 
 
 def run_windows_plain(world: FlowWorld, n_windows: int, window_us: int,
                       max_events_per_window: int = 512, ack_every: int = 2,
                       sched_batch: int = 8, pull_cap: int = 8,
-                      gso_segs: int = 16):
+                      gso_segs: int = 16, counts: dict | None = None):
     """Kernel F's function in plain PyTorch: JAX's `run_windows` loop
     structure, its loop predicates read back to the host. Returns
-    (world', steps_per_window [n_windows] int32)."""
+    (world', steps_per_window [n_windows] int32). With `counts` (a
+    dict), adds each lane's work into int64 [C] tensors there: "sched"
+    its scheduled events (a lane whose next event falls before the
+    window's end, at each pass), "pulls" its pulls (a lane that wants
+    to pull, at each pass, the barrier flush's too) and "steps" the
+    fused steps in which its pair has work; the serial work kernel F's
+    threads of a pair run."""
     w = world
     steps = []
+    if counts is not None:
+        for k in ("sched", "pulls", "steps"):
+            counts.setdefault(k, torch.zeros(
+                w.conn_t.shape[0], dtype=torch.int64, device=w.conn_t.device))
     for _ in range(n_windows):
         end = w.clock_us + window_us
         n = 0
         while n < max_events_per_window and bool(_any_work(w, end,
                                                            ack_every)):
             w = _fused_step(w, end, ack_every, sched_batch, pull_cap,
-                            gso_segs)
+                            gso_segs, counts)
             n += 1
         saturated = n >= max_events_per_window and bool(
             _any_work(w, end, ack_every))
@@ -435,7 +454,7 @@ def run_windows_plain(world: FlowWorld, n_windows: int, window_us: int,
         # window ran no steps)
         if n > 0:
             w = _pull_phase(w, ack_every=1, pull_cap=pull_cap,
-                            gso_segs=gso_segs)
+                            gso_segs=gso_segs, counts=counts)
         w = w._replace(clock_us=end, conn_t=torch.maximum(w.conn_t, end),
                        n_saturated=w.n_saturated + int(saturated))
         steps.append(n)
@@ -452,6 +471,45 @@ def run_windows_plain(world: FlowWorld, n_windows: int, window_us: int,
 F_PLANE_FIELDS = dtcp.TcpPlane._fields
 F_WORLD_FIELDS = tuple(f for f in FlowWorld._fields
                        if f not in ("plane", "clock_us", "n_saturated"))
+#: the shared memory one block may use on the card (H100: 227 KB)
+F_SMEM_BYTES = 232448
+#: the reassembly slots a lane has that kernel F is built for
+#: (`make_flow_world`'s; `FW_RS` in `csrc/flow_window.cu`)
+F_RS = 32
+
+
+def f_pair_bytes(Q: int, RS: int) -> int:
+    """The shared bytes kernel F stages for one pair: each lane's
+    reassembly and SACK slots, ring times, head and count, an odd number
+    of words a lane (`csrc/flow_window.cu`, `lane_words`)."""
+    return 2 * 4 * ((2 * RS + 2 * dtcp.SACK_SLOTS + Q + 2) | 1)
+
+
+def f_queue_slots_max() -> int:
+    """The largest ring kernel F can stage: one pair's `f_pair_bytes`
+    at F_RS within F_SMEM_BYTES (28957 slots)."""
+    return F_SMEM_BYTES // 8 - 2 * F_RS - 2 * dtcp.SACK_SLOTS - 3
+
+
+def f_geometry(world: FlowWorld) -> dict:
+    """Kernel F's launch on `world` (CUDA tensors): pairs a block, blocks
+    and shared bytes a block, as its launcher works them out, and the
+    card's SMs."""
+    import ctypes
+
+    from .._build import load_kernel
+
+    C, Q = world.q_time.shape
+    RS = world.plane.reass_off.shape[1]
+    sms = torch.cuda.get_device_properties(
+        world.conn_t.device).multi_processor_count
+    fn = load_kernel("flow_window").flow_window_geometry
+    out = (ctypes.c_int * 3)()
+    if fn(C // 2, Q, RS, sms, out):
+        raise ValueError(f"kernel F: a pair at Q={Q}, RS={RS} does not fit "
+                         f"a block's shared memory")
+    return dict(pairs_a_block=out[0], blocks=out[1], smem_bytes=out[2],
+                sms=sms)
 
 
 def _leaf_dtype(owner: str, field: str):
@@ -469,8 +527,22 @@ def flow_window_(world: FlowWorld, n_windows: int, window_us: int,
                  sched_batch: int = 8, pull_cap: int = 8,
                  gso_segs: int = 16) -> torch.Tensor:
     """Kernel F: advance `world` (CUDA tensors) `n_windows` windows IN
-    PLACE with one launch, one thread a flow pair. Returns
-    steps_per_window [n_windows] int32. No host read."""
+    PLACE with one launch, a flow pair a warp. Returns steps_per_window
+    [n_windows] int32. No host read. Raises ValueError when the world's
+    lanes have other than F_RS reassembly slots, or one pair's staged
+    slots and ring (`f_pair_bytes`) do not fit a block's shared
+    memory."""
+    return _flow_window(world, n_windows, window_us, max_events_per_window,
+                        ack_every, sched_batch, pull_cap, gso_segs)
+
+
+def _flow_window(world: FlowWorld, n_windows: int, window_us: int,
+                 max_events_per_window: int = 512, ack_every: int = 2,
+                 sched_batch: int = 8, pull_cap: int = 8,
+                 gso_segs: int = 16, entry=None) -> torch.Tensor:
+    """`flow_window_` launching `entry`, the C entry point of a build of
+    kernel F (None: the package's own, `csrc/flow_window.cu`;
+    `tools/kernel_f_probe` passes others)."""
     from .pipeline import _check
 
     p = world.plane
@@ -479,6 +551,15 @@ def flow_window_(world: FlowWorld, n_windows: int, window_us: int,
     dev = world.conn_t.device
     if C % 2:
         raise ValueError(f"flow world: {C} lanes is not whole pairs")
+    if RS != F_RS:
+        raise ValueError(f"kernel F is built for {F_RS} reassembly slots a "
+                         f"lane, not {RS}")
+    if f_pair_bytes(Q, RS) > F_SMEM_BYTES:
+        raise ValueError(
+            f"kernel F stages a pair's rings in shared memory: Q={Q} "
+            f"(RS={RS}) needs {f_pair_bytes(Q, RS)} B, above the "
+            f"{F_SMEM_BYTES} B a block may use (Q <= "
+            f"{f_queue_slots_max()} at this RS)")
     for f in F_PLANE_FIELDS:
         shape = {"reass_off": (C, RS), "reass_len": (C, RS),
                  "sacked_s": (C, dtcp.SACK_SLOTS),
@@ -497,7 +578,7 @@ def flow_window_(world: FlowWorld, n_windows: int, window_us: int,
         _launch_f(dev, (C // 2, Q, RS, n_windows, int(window_us),
                         int(max_events_per_window), int(ack_every),
                         int(sched_batch), int(pull_cap), int(gso_segs)),
-                  _pointers(world, steps, sat))
+                  _pointers(world, steps, sat), entry)
     world.clock_us.add_(n_windows * int(window_us))
     world.n_saturated.add_(sat.sum().to(torch.int32))
     return steps
@@ -510,14 +591,14 @@ def _pointers(world: FlowWorld, steps, sat) -> list[torch.Tensor]:
             world.clock_us, steps, sat]
 
 
-def _launch_f(dev, ints, tensors):
-    """Launch kernel F on the current stream of `dev`; raise on a
-    refused launch."""
+def _launch_f(dev, ints, tensors, entry=None):
+    """Launch kernel F (`entry`, or the package's build) on the current
+    stream of `dev`; raise on a refused launch."""
     import ctypes
 
     from .._build import load_kernel
 
-    fn = load_kernel("flow_window").flow_window_launch
+    fn = entry or load_kernel("flow_window").flow_window_launch
     ptrs = (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

@@ -388,7 +388,7 @@ def assert_flow_worlds_equal(got, ref):
 
 def test_flow_window_kernel_matches_plain_at_bench_flows_shape(cuda):
     """Kernel F bitwise against `run_windows_plain` on bench_flows' first
-    chunk: 975 flows (8 blocks of 128 threads), Q=128, 25 windows."""
+    chunk: 975 flows (122 blocks of 8 pairs), Q=128, 25 windows."""
     from shadow_tpu_torch.tools import bench_flows
     from shadow_tpu_torch.tpu import floweng
 
@@ -397,6 +397,27 @@ def test_flow_window_kernel_matches_plain_at_bench_flows_shape(cuda):
                                  device=cuda)
     got, steps = floweng.run_windows(w0, 25, window_us)
     ref, ref_steps = floweng.run_windows_plain(w0, 25, window_us)
+    torch.cuda.synchronize()
+    assert torch.equal(steps, ref_steps) and int(steps.sum()) > 0
+    assert_flow_worlds_equal(got, ref)
+
+
+@pytest.mark.parametrize("queue_slots", [16, 128, 256, 1024])
+@pytest.mark.parametrize("n_flows", [1, 33, 975])
+def test_flow_window_kernel_matches_plain_at_pair_counts_and_rings(
+        cuda, n_flows, queue_slots):
+    """Kernel F bitwise against `run_windows_plain` where the pairs do not
+    fill a block (one pair, 33 blocks of one, 122 blocks of 8) and at
+    rings of 16 to 1024 slots (1024 stages past the 48 KB a block has
+    without the opt-in at 975 pairs)."""
+    from shadow_tpu_torch.tpu import floweng
+
+    w0 = flow_world(floweng, n_flows, cuda, queue_slots=queue_slots)
+    geo = floweng.f_geometry(w0)
+    assert geo["blocks"] * geo["pairs_a_block"] >= n_flows
+    assert geo["blocks"] == -(-n_flows // geo["pairs_a_block"])
+    got, steps = floweng.run_windows(w0, 30, 2000)
+    ref, ref_steps = floweng.run_windows_plain(w0, 30, 2000)
     torch.cuda.synchronize()
     assert torch.equal(steps, ref_steps) and int(steps.sum()) > 0
     assert_flow_worlds_equal(got, ref)

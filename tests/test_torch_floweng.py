@@ -10,7 +10,10 @@ The pair-independence test is what kernel F rests on: the plain run of
 the whole world equals the merge of every pair run alone, apart from
 `steps_per_window`, which is the largest pair's. The host build of
 kernel F's source (`csrc/flow_window.cu` through a C++ compiler, one
-pair after another) is held to the plain version here too."""
+pair after another over the staged layout the card uses, lane a then
+lane b within each phase) is held to the plain version here too, and so
+is a build that runs lane b first: the card runs the two lanes at once,
+which is exact only if neither order matters."""
 
 from __future__ import annotations
 
@@ -216,22 +219,39 @@ def test_pair_independence(plain_runs):
     assert 0 < max(sats) <= int(whole.n_saturated) <= sum(sats)
 
 
-@pytest.fixture(scope="module")
-def host_kernel(tmp_path_factory):
+def build_host_lib(tmp_path_factory, *defines):
     """Kernel F's source built for the host by a C++ compiler."""
     cxx = shutil.which("g++") or shutil.which("c++") or shutil.which(
         "clang++")
     if cxx is None:
         pytest.skip("needs a C++ compiler for the host build of kernel F")
     lib = tmp_path_factory.mktemp("fw") / "libflow_window_host.so"
-    subprocess.run([cxx, "-x", "c++", "-std=c++17", "-O2", "-shared",
-                    "-fPIC", "-o", str(lib),
+    subprocess.run([cxx, "-x", "c++", "-std=c++17", "-O2", *defines,
+                    "-shared", "-fPIC", "-o", str(lib),
                     str(REPO / "shadow_tpu_torch/csrc/flow_window.cu")],
                    check=True, capture_output=True, text=True)
-    fn = ctypes.CDLL(str(lib)).flow_window_host
-    fn.argtypes = [ctypes.c_int] * 10 + [ctypes.c_void_p, ctypes.c_int]
-    fn.restype = ctypes.c_int
-    return fn
+    lib = ctypes.CDLL(str(lib))
+    lib.flow_window_host.argtypes = [ctypes.c_int] * 10 + [
+        ctypes.c_void_p, ctypes.c_int]
+    lib.flow_window_host.restype = ctypes.c_int
+    return lib
+
+
+@pytest.fixture(scope="module")
+def host_lib(tmp_path_factory):
+    return build_host_lib(tmp_path_factory)
+
+
+@pytest.fixture(scope="module")
+def host_kernel(host_lib):
+    return host_lib.flow_window_host
+
+
+@pytest.fixture(scope="module")
+def host_kernel_reversed(tmp_path_factory):
+    """The host build that runs lane b before lane a in every phase."""
+    return build_host_lib(tmp_path_factory,
+                          "-DFW_HOST_LANES_REVERSED").flow_window_host
 
 
 def host_windows(fn, world, n_windows, window_us, cap, **opts):
@@ -275,6 +295,126 @@ def test_kernel_f_host_build_matches_plain_on_tight_rings(host_kernel):
     assert tfe.flow_results(want[0])["queue_drops"] > 0
     assert torch.equal(got[1], want[1])
     assert_worlds_equal(got[0], want[0])
+
+
+@pytest.mark.parametrize("cap", CAPS)
+def test_kernel_f_host_build_lanes_reversed_matches_plain(
+        host_kernel_reversed, plain_runs, cap):
+    """Lane b before lane a in every phase gives the same world: the
+    phases the card runs on two threads at once touch disjoint state."""
+    w0, out = plain_runs
+    w, steps = host_windows(host_kernel_reversed, w0, N_WINDOWS, WINDOW_US,
+                            cap, gso_segs=GSO)
+    assert torch.equal(steps, out[cap][1])
+    assert_worlds_equal(w, out[cap][0])
+
+
+def test_kernel_f_host_build_lanes_reversed_matches_plain_on_tight_rings(
+        host_kernel, host_kernel_reversed):
+    """As the tight-ring test, lanes in both orders: each pull pushes
+    into a ring its peer pops, on rings that fill."""
+    w0 = port_world(6)
+    w0 = w0._replace(q_time=w0.q_time[:, :4].contiguous(),
+                     q_fields=w0.q_fields[:, :4].contiguous())
+    opts = dict(sched_batch=1, pull_cap=1, gso_segs=4)
+    want = tfe.run_windows_plain(w0, 50, WINDOW_US, max_events_per_window=3,
+                                 **opts)
+    assert tfe.flow_results(want[0])["queue_drops"] > 0
+    for fn in (host_kernel, host_kernel_reversed):
+        got = host_windows(fn, w0, 50, WINDOW_US, 3, **opts)
+        assert torch.equal(got[1], want[1])
+        assert_worlds_equal(got[0], want[0])
+
+
+@pytest.mark.parametrize("queue_slots", [3, 6])
+def test_kernel_f_host_build_matches_plain_on_rings_not_a_power_of_two(
+        host_kernel, host_kernel_reversed, queue_slots):
+    """A ring of Q slots where Q is no power of two takes its slot by
+    division, not by the mask: both lane orders equal the plain run."""
+    w0 = port_world(6)
+    w0 = w0._replace(
+        q_time=w0.q_time[:, :queue_slots].contiguous(),
+        q_fields=w0.q_fields[:, :queue_slots].contiguous())
+    opts = dict(sched_batch=2, pull_cap=2, gso_segs=4)
+    want = tfe.run_windows_plain(w0, 50, WINDOW_US, max_events_per_window=3,
+                                 **opts)
+    assert tfe.flow_results(want[0])["queue_drops"] > 0
+    assert int(want[0].q_head.max()) > queue_slots  # the rings wrapped
+    for fn in (host_kernel, host_kernel_reversed):
+        got = host_windows(fn, w0, 50, WINDOW_US, 3, **opts)
+        assert torch.equal(got[1], want[1])
+        assert_worlds_equal(got[0], want[0])
+
+
+def test_kernel_f_staging_and_geometry(host_lib):
+    """The wrapper's staged bytes are the source's, every ring the flow
+    plan grows to (256 doubled up to capacity.max_doublings times) fits a
+    block, and the launch spreads pairs over the SMs: bench_flows' 975
+    pairs in 122 blocks of 8 on 132 SMs."""
+    from shadow_tpu_torch.core import flowplan
+    from shadow_tpu_torch.core.config import CapacityOptions
+
+    for q in (1, 16, 128, 256, 1024, 2048, 28957, 28958, 40000):
+        for rs in (1, 32, 33):
+            assert host_lib.flow_window_pair_bytes(q, rs) == \
+                tfe.f_pair_bytes(q, rs), (q, rs)
+    doublings = CapacityOptions().max_doublings
+    for k in range(doublings + 1):
+        assert tfe.f_pair_bytes(flowplan.QUEUE_SLOTS0 << k, 32) \
+            <= tfe.F_SMEM_BYTES
+    out = (ctypes.c_int * 3)()
+    for n, q, want in ((1, 128, [1, 1, 1816]), (33, 16, [1, 33, 920]),
+                       (975, 128, [8, 122, 14528]),
+                       (1024, 256, [8, 128, 22720]),
+                       (975, 1024, [8, 122, 71872])):
+        assert host_lib.flow_window_geometry(n, q, 32, 132, out) == 0
+        assert list(out) == want, (n, q)
+        assert want[2] == want[0] * tfe.f_pair_bytes(q, 32)
+    assert host_lib.flow_window_geometry(5, 28958, 32, 132, out) == 1
+
+
+def test_flow_window_refuses_a_ring_it_cannot_stage(monkeypatch, host_kernel):
+    """A Q whose pair cannot stage in a block's shared memory raises
+    ValueError in `flow_window_`'s checks, before any launch; the largest
+    Q that fits passes them. The host build refuses the same Q."""
+    launched = []
+    monkeypatch.setattr(tfe, "_launch_f", lambda *a: launched.append(a))
+    q_max = 28957  # at RS = 32: (2 * 32 + 2 * 16 + Q + 2) | 1 words a lane
+    for q in (q_max + 1, 40000):
+        w = tfe.make_flow_world([5000], [10_000], queue_slots=q,
+                                device="cpu")
+        with pytest.raises(ValueError, match="shared memory.*Q <= 28957"):
+            tfe.flow_window_(w, 2, 2000)
+        assert launched == []
+        assert int(w.clock_us) == 0
+        steps = torch.zeros(2, dtype=torch.int32)
+        ts = tfe._pointers(w, steps, torch.zeros(2, dtype=torch.int32))
+        ptrs = (ctypes.c_void_p * len(ts))(*(t.data_ptr() for t in ts))
+        assert host_kernel(1, q, 32, 2, 2000, 512, 2, 8, 8, 16, ptrs,
+                           len(ts)) == 1
+    w = tfe.make_flow_world([5000], [10_000], queue_slots=q_max,
+                            device="cpu")
+    tfe.flow_window_(w, 2, 2000)
+    assert len(launched) == 1 and launched[0][1][:3] == (1, q_max, 32)
+
+
+def test_flow_window_refuses_a_slot_count_it_was_not_built_for(monkeypatch):
+    """Kernel F is compiled for `make_flow_world`'s 32 reassembly slots a
+    lane: a world with another count raises ValueError before any
+    launch."""
+    launched = []
+    monkeypatch.setattr(tfe, "_launch_f", lambda *a: launched.append(a))
+    w = tfe.make_flow_world([5000], [10_000], device="cpu")
+    assert w.plane.reass_off.shape[1] == tfe.F_RS
+    p = w.plane
+    w16 = w._replace(plane=p._replace(
+        reass_off=p.reass_off[:, :16].contiguous(),
+        reass_len=p.reass_len[:, :16].contiguous()))
+    with pytest.raises(ValueError, match="32 reassembly slots"):
+        tfe.flow_window_(w16, 2, 2000)
+    assert launched == []
+    tfe.flow_window_(w, 2, 2000)
+    assert len(launched) == 1
 
 
 def test_run_to_completion_doubles_the_cap_until_no_window_saturates():

@@ -289,3 +289,40 @@ def test_golden_flow_digest_is_what_the_jax_package_computes():
         summary["flows_complete"]
     for k in ("segments", "retransmits", "queue_drops", "wire_drops"):
         assert res[k] == summary[k], k
+
+
+@pytest.mark.parametrize("doublings", [6, 7, 9])
+def test_ring_budget_kernel_f_cannot_stage_is_refused_before_any_run(
+        monkeypatch, doublings):
+    """On the card, a config whose rings may double past what kernel F
+    stages in a block's shared memory (256 << 7 = 32768 > 28957 slots)
+    raises ValueError, naming the limit, before its first bucket runs;
+    6 doublings (16384 slots) pass the check, and the CPU's plain
+    version, which stages nothing, takes any budget."""
+    import shadow_tpu_torch
+    from shadow_tpu_torch.tpu import floweng
+
+    class Reached(Exception):
+        pass
+
+    def first_bucket(*a, **k):
+        raise Reached
+
+    monkeypatch.setattr(tfp, "bucket_world", first_bucket)
+    cfg = lambda: t_load(f"capacity: {{max_doublings: {doublings}}}\n"
+                         + tgen_cfg(n_clients=2, size=30_000))
+    assert cfg().capacity.max_doublings == doublings
+    assert floweng.f_queue_slots_max() == 28957
+    with pytest.raises(Reached):
+        tfp.run_config(cfg(), device="cpu")
+    monkeypatch.setattr(shadow_tpu_torch, "resolve_device",
+                        lambda device=None: torch.device("cuda"))
+    if doublings <= 6:
+        with pytest.raises(Reached):
+            tfp.run_config(cfg())
+        return
+    with pytest.raises(ValueError, match=(
+            f"max_doublings={doublings} grows the rings to "
+            f"{256 << doublings} slots, above the 28957 kernel F can "
+            r"stage .*\(max_doublings <= 6\)")):
+        tfp.run_config(cfg())
