@@ -194,9 +194,14 @@ printed:
    seconds and segments a wall second, and F's device ms of every launch
    of the run; (c) the rung-3 flow-engine deployment
    (`workloads/rung3_floweng.yaml`) through `flowplan.run_config`, its
-   `stats_record` equal to the JAX Manager's committed record, then run
-   again with a checkpoint directory, stopped after its first bucket and
-   resumed, equal again;
+   `stats_record` equal to the JAX Manager's committed record, F's device
+   ms of each launch (CUDA events), then run again with a checkpoint
+   directory, stopped after its first bucket and resumed, equal again;
+   (d) the multichip dry run's flow world (12 flows a shard, 400 windows
+   of 20 ms) through `run_windows_sharded` at 2 and 8 shards on the one
+   card, bitwise a single launch of F on every leaf, F launched once a
+   shard, each shard's steps those of F on that shard alone, each
+   shard's device ms and both runs' wall;
 21. the device transport (`tpu/transport.py`): (a) its functions
    (`ingest_guarded`, `step_compact` with a negative shift, a 64-window
    `chain`, a 32-window `batch_verify` with three poisoned windows), the
@@ -221,6 +226,7 @@ A fuller record of every measurement is printed on the `record:` line.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -3017,6 +3023,9 @@ FLOW_GRID = ((1, 16), (33, 256), (975, 1024))
 FLOW_GRID_WINDOWS = 24
 FLOW_BENCH_REPS = 8  # (b): bench_flows' runs back to back for its rate
 FLOW_DEVICE = "cuda"  # phase 20's device ("cpu" in a CPU rehearsal)
+# (d): the multichip dry run's shard counts (8: `dryrun_multichip(8)`),
+# every shard on the one card
+FLOW_SHARDS = (2, 8)
 
 
 def flow_leaves(convert, world) -> dict:
@@ -3083,6 +3092,93 @@ def f_against_plain(torch, convert, floweng, world, n_chunks, n_win, win,
                  f"abs err {err})")
         row["steps"].append(ref_steps.tolist())
     return ref, row, start
+
+
+@contextlib.contextmanager
+def timed_f_launches(torch, floweng):
+    """While open, each launch of kernel F sits between two CUDA events on
+    the stream it launches on; yields the list of (start, end) pairs."""
+    real = floweng._launch_f
+    events = []
+
+    def launch(dev, ints, tensors, entry=None):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record(torch.cuda.current_stream(dev))
+        real(dev, ints, tensors, entry)
+        e1.record(torch.cuda.current_stream(dev))
+        events.append((e0, e1))
+
+    floweng._launch_f = launch
+    try:
+        yield events
+    finally:
+        floweng._launch_f = real
+
+
+def check_flow_sharded(torch, convert, floweng, ident) -> dict:
+    """Phase 20 (d): the multichip dry run's flow world (12 flows a shard,
+    400 windows of 20 ms) at each of FLOW_SHARDS shards on the one card:
+    `run_windows_sharded` against a single launch of F on the whole
+    world, bitwise on every leaf; F launched once a shard; each shard's
+    steps against F on that shard alone; the input world unchanged.
+    Returns {n_shards: row}."""
+    from shadow_tpu_torch.tools import multichip
+
+    n_win, win = multichip.FLOW_WINDOWS, multichip.FLOW_WINDOW_US
+    rows = {}
+    for n in FLOW_SHARDS:
+        n_flows = 12 * n
+        t0 = time.perf_counter()
+        single, _ = floweng.run_windows(
+            multichip.flow_world(n_flows, FLOW_DEVICE), n_win, win)
+        torch.cuda.synchronize()
+        single_s = time.perf_counter() - t0
+        w0 = multichip.flow_world(n_flows, FLOW_DEVICE)
+        keep = floweng.clone_world(w0)
+        floweng.reset_launches()
+        with timed_f_launches(torch, floweng) as events:
+            t0 = time.perf_counter()
+            sharded, steps = floweng.run_windows_sharded(w0, n_win, win,
+                                                         n_shards=n)
+            torch.cuda.synchronize()
+            sharded_s = time.perf_counter() - t0
+        launches = floweng.LAUNCHES["flow_window"]
+        if launches != n:
+            fail(f"phase 20 (d): {launches} launches of F for {n} shards")
+        shard_ms = [e0.elapsed_time(e1) for e0, e1 in events]
+        err, bad = flow_diff(convert, sharded, single)
+        if bad:
+            fail(f"phase 20 (d): {n} shards differ from one launch of F in "
+                 f"{bad} (max abs err {err})")
+        if flow_diff(convert, w0, keep)[1]:
+            fail("phase 20 (d): the sharded run changed its input world")
+        split = floweng.split_flow_world(w0, n)
+        for s in range(n):
+            alone = floweng.clone_world(floweng._shard(split, s))
+            st = floweng.flow_window_(alone, n_win, win)
+            if tuple(steps.shape) != (n, n_win) or not torch.equal(
+                    st, steps[s]):
+                fail(f"phase 20 (d): shard {s} of {n}: its steps differ "
+                     f"from F launched on that shard alone")
+        res = floweng.flow_results(sharded)
+        done = int((res["bytes_read"] >= res["bytes_expected"]).sum())
+        if done == 0 or int(steps.sum()) == 0:
+            fail(f"phase 20 (d): {n} shards ran no transfer to its end")
+        rows[n] = dict(flows=n_flows, launches=launches, shard_ms=shard_ms,
+                       single_wall_s=single_s, sharded_wall_s=sharded_s,
+                       complete=done, segments=res["segments"],
+                       wire_drops=res["wire_drops"],
+                       retransmits=res["retransmits"], max_abs_err=err)
+        print(f"20 (d) run_windows_sharded, {n_flows} flows x {n} shards, "
+              f"{n_win} windows of {win} us: bitwise == one launch of F on "
+              f"every leaf; F launched {launches} times; each shard's steps "
+              f"== F on that shard alone; {done}/{n_flows} complete, "
+              f"{res['segments']} segments, {res['wire_drops']} wire drops; "
+              f"device ms a shard {shard_ms}; wall sharded {sharded_s:.4f} "
+              f"s vs one launch {single_s:.4f} s (shards share one card: "
+              f"placement, not speedup) on {ident}")
+    return rows
 
 
 def time_flow_chunk(torch, floweng, world, n_win, win):
@@ -3291,10 +3387,14 @@ def check_flow_engine(torch, record, ident):
     want.pop("source")
     text = flowplan.RUNG3_YAML.read_text()
     floweng.reset_launches()
-    t0 = time.perf_counter()
-    stats = flowplan.run_config(load_config_str(text), device=FLOW_DEVICE)
-    c_wall = time.perf_counter() - t0
+    with timed_f_launches(torch, floweng) as c_events:
+        t0 = time.perf_counter()
+        stats = flowplan.run_config(load_config_str(text),
+                                    device=FLOW_DEVICE)
+        c_wall = time.perf_counter() - t0
     c_launches = floweng.LAUNCHES["flow_window"]
+    torch.cuda.synchronize()
+    c_ms = [e0.elapsed_time(e1) for e0, e1 in c_events]
     got = flowplan.stats_record(stats)
     if got != want:
         fail(f"phase 20 (c): the rung-3 run's record {got} != the JAX "
@@ -3318,9 +3418,15 @@ def check_flow_engine(torch, record, ident):
           f"({stats.packets_sent} packets, {stats.packets_dropped} dropped, "
           f"{stats.flow_retransmits} retransmits, "
           f"{len(stats.process_failures)} failures); {c_wall:.2f} s wall, "
-          f"{c_launches} launches of F; killed where its second bucket "
-          f"starts and resumed: equal ({r_wall:.2f} s wall for both parts) "
-          f"on {ident}")
+          f"{c_launches} launches of F, device ms summed {sum(c_ms)} "
+          f"(CUDA events around each launch: {c_ms}); killed where its "
+          f"second bucket starts and resumed: equal ({r_wall:.2f} s wall "
+          f"for both parts) on {ident}")
+
+    # (d) the multichip dry run's world sharded over the one card
+    t_d = time.perf_counter()
+    d_rows = check_flow_sharded(torch, convert, floweng, ident)
+    d_s = time.perf_counter() - t_d
 
     bound_ms, bound_by = bench_bound_ms, "bytes"
     sched_batch, pull_cap = 8, 8
@@ -3341,7 +3447,10 @@ def check_flow_engine(torch, record, ident):
         bench=out, bench_rep_wall_s=rep_s, bench_rates=rates, a=a_rows,
         bench_chunk=bench_row, rung3_chunks=rung3_row,
         rung3_wall_s=c_wall, rung3_resume_wall_s=r_wall,
+        rung3_in_run_ms=c_ms, rung3_in_run_sum_ms=sum(c_ms),
         launches_bench=b_launches, launches_rung3=c_launches,
+        sharded=d_rows, sharded_s=d_s,
+        launches_sharded={n: r["launches"] for n, r in d_rows.items()},
         # the serial chain of a pair: both lanes' scheduled events and
         # pulls, 2 * (sched_batch + pull_cap) + 2 app phases a fused step
         chain_events_per_step=2 * (sched_batch + pull_cap) + 2,
@@ -3826,7 +3935,8 @@ def main():
                           "shadow_tpu/tpu/floweng.py:531 (run_windows, "
                           "lax.scan of lax.while_loop)", f_launches, f_row,
                           ens["flow_window"], sec["flow_window"],
-                          mesh_l["flow_window"]), rung3_launches=f_rung3),
+                          mesh_l["flow_window"]), rung3_launches=f_rung3,
+             sharded_launches=f_row["launches_sharded"]),
     ]
     print(f"record: {json.dumps(record, default=str)}")
     print(json.dumps({"kernels": kernels}))

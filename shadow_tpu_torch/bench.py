@@ -693,8 +693,8 @@ def profile_windows(n_hosts: int = 32768, windows: int = 16, *,
             / windows,
             "kernels": {name: len(v) / windows
                         for name, v in stage_kernels.items()},
-            "placed_slots_per_window": sum(
-                int(t.sum(dtype=torch.int64)) for t in takes) / windows,
+            "placed_slots_per_window": int(sum(
+                t.sum(dtype=torch.int64) for t in takes)) / windows,
         },
     }
 

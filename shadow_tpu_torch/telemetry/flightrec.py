@@ -179,15 +179,17 @@ class FlightRecorder:
     snapshot, then starts copying the current ring and cursor to the
     host: on the card into pinned buffers with `non_blocking` copies and
     an event, which the next tick waits on; nothing blocks the drive in
-    between. Decoded hops accumulate in `hops` and stream to `sink` (a
+    between. Decoded hops accumulate in `hops` (unless `retain` is
+    False: a long run's hops then only stream) and stream to `sink` (a
     path or a file object) as JSONL with sorted keys. `overwritten`
     counts events the ring lost between two drains."""
 
-    def __init__(self, *, window_ns: int, sink=None):
+    def __init__(self, *, window_ns: int, sink=None, retain: bool = True):
         self.window_ns = int(window_ns)
         self.hops: list[dict] = []
         self.recorded = 0  # hops decoded across all drains
         self.overwritten = 0  # events lost to ring overwrite
+        self._retain = retain
         self._pending = None  # (columns, cursor, event or None)
         self._pinned: dict[str, torch.Tensor] = {}
         self._prev_cursor_raw = 0
@@ -282,7 +284,8 @@ class FlightRecorder:
     def _write(self, rec: dict) -> None:
         if self._sink is not None:
             self._sink.write(json.dumps(rec, sort_keys=True) + "\n")
-        self.hops.append(rec)
+        if self._retain:
+            self.hops.append(rec)
         self.recorded += 1
 
     def summary(self) -> dict:

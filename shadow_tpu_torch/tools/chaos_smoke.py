@@ -146,8 +146,8 @@ def parse_args(argv=None):
 def main(argv=None) -> int:
     args = parse_args(argv)
     from .. import resolve_device
-    from ..convert import (digest_pytrees, flightrec_from_numpy,
-                           flightrec_to_numpy)
+    from ..convert import (carry_to_host, digest_pytrees,
+                           flightrec_from_numpy, flightrec_to_numpy)
     from ..faults.checkpoint import (load_plane_checkpoint,
                                      save_plane_checkpoint)
     from ..faults.plane import neutral_faults
@@ -449,20 +449,20 @@ def main(argv=None) -> int:
         trace_info = export.write_perfetto_trace(
             harvester.heartbeats, os.path.join(args.telemetry, "trace.json"),
             hops=recorder.hops if recorder is not None else None)
+        h = carry_to_host(hist)
         telemetry_out = {
             "dir": args.telemetry,
             "heartbeats": harvester.emitted,
             "trace": trace_info,
             "latency": {
                 name[len(HIST_PREFIX):]: percentiles(
-                    t.detach().cpu().numpy().astype(np.int64).sum(axis=0))
-                for name, t in hist._asdict().items()},
+                    np.asarray(arr, np.int64).sum(axis=0))
+                for name, arr in h._asdict().items()},
         }
         if recorder is not None:
             telemetry_out["flight_recorder"] = recorder.summary()
             telemetry_out["trace_ring"] = int(fr.ev_kind.shape[0])
-    m = {f: getattr(metrics, f).detach().cpu().numpy()
-         for f in metrics._fields}
+    m = carry_to_host(metrics)._asdict()
     out = {
         "hosts": N,
         "windows": R,

@@ -1,4 +1,5 @@
-"""The sharded step's contract on a host-axis mesh of ranks.
+"""The sharded step's contract on a host-axis mesh of ranks, and the
+flow engine's over shards.
 
     python -m shadow_tpu_torch.tools.multichip --ranks N [--device cpu]
         [--backend gloo|nccl] [--hosts H]
@@ -20,14 +21,18 @@ the others spawned, each owning N_hosts / N contiguous host rows.
    `chain_windows` through `--kernel` ("xla", as JAX's) that walks
    every window: state, delivered dict, (off, next, n_windows) and the
    overflow drops equal the one-rank run's, bitwise.
+3. The flow engine (`check_flow_engine`, in this process after the
+   ranks): JAX's dry-run world of 12 flows a shard over N shards,
+   400 windows of 20 ms through `floweng.run_windows` and through
+   `floweng.run_windows_sharded(n_shards=N)`, one controller and no
+   collective (pairs never interact): completion times, bytes read and
+   the segment, retransmit and drop counters equal.
 
 The devices default to the CUDA card (NCCL when each rank has a card of
 its own, else gloo, each collective through host memory; `--backend`
 names one); `--device cpu` runs gloo on the CPU. The JSON line at the end carries
-the results and wall seconds (virtual ranks that share one host or one
-card: this checks placement, not speedup). The flow-engine half of the
-JAX dry run waits for the port of `floweng`, the integrated transport
-(ROADMAP.md queue A).
+the results and wall seconds (virtual ranks or shards that share one
+host or one card: this checks placement, not speedup).
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ import numpy as np
 import torch
 
 from .. import convert
+from ..tpu import floweng
 from ..tpu import mesh as meshmod
 from ..tpu.plane import (KERNELS, chain_windows, ingest, make_params,
                          make_state, window_step)
@@ -52,6 +58,10 @@ STRESS_INGRESS_CAP = 16
 STRESS_NODES = 64
 TWO_ROUND_SEED = 7
 STRESS_SEED = 11
+FLOW_SEED = 23
+FLOW_WINDOWS = 400
+FLOW_WINDOW_US = 20_000
+FLOW_COUNTERS = ("segments", "retransmits", "wire_drops", "queue_drops")
 
 
 def _np(tree):
@@ -257,6 +267,55 @@ def check_stress(mesh, n_hosts: int = STRESS_HOSTS,
     return out
 
 
+# -- 3. the flow engine -------------------------------------------------------
+
+
+def flow_world(n_flows: int, device):
+    """`__graft_entry__._flow_engine_multichip`'s world: 20-120 ms paths,
+    30-120 KB fetches (the passive side writes) starting in the first
+    400 ms, up to 1 % loss, 128-slot rings."""
+    rng = np.random.default_rng(FLOW_SEED)
+    lats = rng.integers(20, 120, n_flows) * 1000
+    sizes = rng.integers(30_000, 120_000, n_flows)
+    starts = rng.integers(0, 400, n_flows) * 1000
+    loss = rng.uniform(0.0, 0.01, n_flows)
+    return floweng.make_flow_world(lats, sizes, start_us=starts, loss=loss,
+                                   server_writes=True, queue_slots=128,
+                                   device=device)
+
+
+def _timed(fn, *args, **kw):
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    if out[0].conn_t.device.type == "cuda":
+        torch.cuda.synchronize(out[0].conn_t.device)
+    return out, time.perf_counter() - t0
+
+
+def check_flow_engine(n_shards: int, device, n_flows_per_shard: int = 12,
+                      n_windows: int = FLOW_WINDOWS) -> dict:
+    """Part 3: the flow world over `n_shards` shards on `device`, run
+    whole and sharded. Returns the results that differ (`diff`, empty
+    when equal), the flows complete and both runs' wall seconds."""
+    n_flows = n_flows_per_shard * n_shards
+    (single, _), single_s = _timed(floweng.run_windows,
+                                   flow_world(n_flows, device), n_windows,
+                                   FLOW_WINDOW_US)
+    (sharded, steps), sharded_s = _timed(
+        floweng.run_windows_sharded, flow_world(n_flows, device), n_windows,
+        FLOW_WINDOW_US, n_shards=n_shards)
+    rs, rp = floweng.flow_results(single), floweng.flow_results(sharded)
+    diff = [k for k in ("complete_us", "bytes_read")
+            if not np.array_equal(rs[k], rp[k])]
+    diff += [k for k in FLOW_COUNTERS if rs[k] != rp[k]]
+    return {"flows": n_flows, "shards": n_shards, "windows": n_windows,
+            "window_us": FLOW_WINDOW_US, "diff": diff,
+            "complete": int((rp["bytes_read"] >= rp["bytes_expected"]).sum()),
+            "steps_shape": list(steps.shape),
+            **{k: rp[k] for k in FLOW_COUNTERS},
+            "single_wall_s": single_s, "sharded_wall_s": sharded_s}
+
+
 def rank_main(mesh, hosts: int, kernel: str) -> dict:
     """Both parts on one rank (the CLI's body)."""
     t0 = time.perf_counter()
@@ -274,9 +333,7 @@ def rank_main(mesh, hosts: int, kernel: str) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m shadow_tpu_torch.tools.multichip",
-        description=__doc__.split("\n\n")[0] + " (the flow-engine half of "
-        "__graft_entry__.dryrun_multichip waits for the port of floweng, "
-        "the integrated transport)")
+        description=__doc__.split("\n\n")[0])
     ap.add_argument("--ranks", type=int, required=True)
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     ap.add_argument("--backend", choices=("nccl", "gloo"), default=None)
@@ -288,6 +345,7 @@ def main(argv=None) -> int:
                  f"{args.ranks} ranks")
     rep = meshmod.run_ranks(rank_main, args.ranks, args.hosts, args.kernel,
                             backend=args.backend, device=args.device)
+    flow = rep["flow_engine"] = check_flow_engine(args.ranks, args.device)
     bad = {k: v for k, v in rep["two_rounds"].items() if v}
     st = rep["stress"]
     print(f"two rounds on {4 * args.ranks} hosts x {args.ranks} ranks "
@@ -302,9 +360,17 @@ def main(argv=None) -> int:
           + f"; wall one rank {st['one_rank_wall_s']:.2f}s vs "
           f"{args.ranks} ranks {st['sharded_wall_s']:.2f}s (ranks share "
           "one host: placement, not speedup)", file=sys.stderr)
+    print(f"flow engine: {flow['flows']} flows x {flow['shards']} shards, "
+          f"{flow['complete']}/{flow['flows']} complete, "
+          + ("sharded == one run" if not flow["diff"]
+             else f"DIVERGED in {flow['diff']}")
+          + f" ({flow['segments']} segments, {flow['wire_drops']} wire "
+          f"drops); wall one run {flow['single_wall_s']:.2f}s vs sharded "
+          f"{flow['sharded_wall_s']:.2f}s (shards share one device: "
+          "placement, not speedup)", file=sys.stderr)
     print(json.dumps(rep, sort_keys=True))
     ok = (not bad and not st["diff"] and st["overflow_drops"] > 0
-          and st["chain"][2] == STRESS_WINDOWS)
+          and st["chain"][2] == STRESS_WINDOWS and not flow["diff"])
     return 0 if ok else 1
 
 

@@ -15,11 +15,12 @@ loss drawn per MSS unit from a counter hash). Pure ACKs of in-order data
 are held up to `ack_every` segments or the window barrier, where a pull
 pass with `ack_every=1` flushes them. Time is int32 microseconds.
 
-`run_windows` is the entry point. On CUDA tensors it launches kernel F
-(`csrc/flow_window.cu`): a flow pair a warp, its two lanes on two
-threads that run each of JAX's phases at once, advances through a whole
-chunk of windows in one launch, its slots and ring heads staged in
-shared memory. That is exact because pairs never interact and a fused
+`run_windows` is the entry point (`run_windows_sharded` splits the world
+on whole pairs and runs each shard as it does). On CUDA tensors it
+launches kernel F (`csrc/flow_window.cu`): a flow pair a warp, its two
+lanes on two threads that run each of JAX's phases at once, advances
+through a whole chunk of windows in one launch, its slots and ring heads
+staged in shared memory. That is exact because pairs never interact and a fused
 step, the app phase and the barrier flush leave a pair with no work
 unchanged (`tests/test_torch_floweng.py` holds the pair-independence
 test that shows it), so a pair may stop where it has none; the window's
@@ -758,3 +759,52 @@ def merge_flow_world(sharded: FlowWorld) -> FlowWorld:
     out = FlowWorld(plane, *(merge(x) for x in sharded[1:]))
     return out._replace(n_saturated=sharded.n_saturated.sum().to(
         torch.int32))
+
+
+def _shard(sharded: FlowWorld, s: int) -> FlowWorld:
+    """Shard `s` of a split world: views of row `s` of every leaf (the
+    scalars' 0-d views write through to their [n_shards] leaves)."""
+    return FlowWorld(dtcp.TcpPlane(*(x[s] for x in sharded.plane)),
+                     *(x[s] for x in sharded[1:]))
+
+
+def run_windows_sharded(world: FlowWorld, n_windows: int, window_us: int,
+                        n_shards: int | None = None, **opts):
+    """`run_windows` on each of `n_shards` pair-aligned shards of the
+    world (`split_flow_world`), merged back (`merge_flow_world`): JAX's
+    pmap of `run_windows` from one controller. Pairs never interact, so
+    the shards need no collective and the merged world equals the
+    unsharded run's, bitwise. `n_shards` defaults to the visible cards
+    for a CUDA world and to 1 for a CPU world; every shard runs on the
+    world's device. On CUDA tensors each shard is one launch of kernel F
+    on its own stream, so shards on one card may overlap; on CPU tensors
+    each runs `run_windows_plain`. The input world is not changed.
+    Returns (merged world, steps [n_shards, n_windows] int32)."""
+    dev = world.conn_t.device
+    if n_shards is None:
+        n_shards = torch.cuda.device_count() if dev.type == "cuda" else 1
+    if n_shards < 1:
+        raise ValueError(f"n_shards must be at least 1, not {n_shards}")
+    sharded = clone_world(split_flow_world(world, n_shards))
+    shards = [_shard(sharded, s) for s in range(n_shards)]
+    if dev.type == "cpu":
+        steps = []
+        for w in shards:
+            out, st = run_windows_plain(w, n_windows, window_us, **opts)
+            for x, y in zip((*w.plane, *w[1:]), (*out.plane, *out[1:])):
+                x.copy_(y)
+            steps.append(st)
+    else:
+        # every shard's stream starts after the clone, and the merge
+        # after every shard
+        main = torch.cuda.current_stream(dev)
+        sides = [torch.cuda.Stream(device=dev) for _ in shards]
+        steps = []
+        for w, side in zip(shards, sides):
+            side.wait_stream(main)
+            with torch.cuda.stream(side):
+                steps.append(flow_window_(w, n_windows, window_us, **opts))
+        for side, st in zip(sides, steps):
+            main.wait_stream(side)
+            st.record_stream(main)
+    return merge_flow_world(sharded), torch.stack(steps)

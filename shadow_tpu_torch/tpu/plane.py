@@ -248,6 +248,7 @@ def _gather_hops(mesh, classes):
 
 def ingest(state: NetPlaneState, src, dst, nbytes, prio, seq, ctrl,
            valid=None, send_rel=None, clamp_rel=None, sock=None, *,
+           packed_sort: bool = True,
            metrics: PlaneMetrics | None = None,
            guards: GuardState | None = None, mesh=None):
     """Append a flat batch of packets ([B] tensors, src = emitting host)
@@ -259,11 +260,13 @@ def ingest(state: NetPlaneState, src, dst, nbytes, prio, seq, ctrl,
     overflow also lands in `drop_ring_full`; `guards` checks that each
     row gained its incoming packets less the overflow. Returns the bare
     state without them, else (state'[, metrics'][, guards']).
+    `packed_sort=False` raises ValueError, as in `window_step`.
 
     Under a host-axis `mesh` (`tpu/mesh.Mesh`) the state is the rank's
     rows and the batch is the whole batch, the same on every rank: the
     rank appends the packets whose src is one of its hosts, in the same
     order, and leaves the others to their ranks."""
+    _check_packed_sort(packed_sort, "ingest")
     N, CE = state.eg_dst.shape
     src = src.to(torch.int64) - (0 if mesh is None else mesh.row0(N))
     if valid is not None:
@@ -325,6 +328,7 @@ def ingest(state: NetPlaneState, src, dst, nbytes, prio, seq, ctrl,
 
 def ingest_rows(state: NetPlaneState, dst, nbytes, prio, seq, ctrl, valid,
                 send_rel=None, clamp_rel=None, sock=None, *,
+                packed_sort: bool = True, gate_idle: bool = True,
                 metrics: PlaneMetrics | None = None,
                 guards: GuardState | None = None,
                 hist: PlaneHistograms | None = None,
@@ -333,7 +337,9 @@ def ingest_rows(state: NetPlaneState, dst, nbytes, prio, seq, ctrl, valid,
     after each row's existing entries, in column order: the packed
     single-key merge (validity | column rank). The JAX plane's idle gate
     is not taken; the merge of an entry-free batch is the identity
-    (SL505), and skipping the gate avoids a host read.
+    (SL505), and skipping the gate avoids a host read, so `gate_idle`
+    (JAX's switch for it) changes nothing. `packed_sort=False` raises
+    ValueError, as in `window_step`.
 
     `metrics` adds the overflow to `drop_ring_full`; `guards` checks
     append conservation; `hist` samples the post-append egress occupancy
@@ -345,6 +351,7 @@ def ingest_rows(state: NetPlaneState, dst, nbytes, prio, seq, ctrl, valid,
     order. Under a host-axis `mesh` the rows are the rank's hosts; only
     the recorder needs it (global host ids, and its ring, which every
     rank holds whole, takes every rank's hops)."""
+    _check_packed_sort(packed_sort, "ingest_rows")
     N, CE = state.eg_dst.shape
     if send_rel is None:
         send_rel = torch.zeros_like(seq)
@@ -985,6 +992,14 @@ _PRESENCE_PLANES = ("faults", "metrics", "guards", "hist", "flightrec",
 KERNELS = ("pallas_fused", "pallas", "xla")
 
 
+def _check_packed_sort(packed_sort: bool, where: str):
+    if not packed_sort:
+        raise ValueError(
+            f"{where}: the port implements the packed/bucketed ordering "
+            "only; packed_sort=False is a JAX-side parity reference "
+            "(ROADMAP.md)")
+
+
 def _check_step_options(kernel: str, rr_enabled: bool, packed_sort: bool,
                         planes: dict):
     """The JAX step's refusals (ValueError, as there: the Pallas kernels
@@ -1002,11 +1017,7 @@ def _check_step_options(kernel: str, rr_enabled: bool, packed_sort: bool,
         raise ValueError(
             f"plane_kernel={kernel!r} fuses the FIFO qdisc only; pass "
             "rr_enabled=False (all-FIFO configs) or use kernel='xla'")
-    if not packed_sort:
-        raise ValueError(
-            f"plane_kernel={kernel!r}: the port implements the packed/"
-            "bucketed ordering only; packed_sort=False is a JAX-side "
-            "parity reference (ROADMAP.md)")
+    _check_packed_sort(packed_sort, f"plane_kernel={kernel!r}")
     refused = [k for k in _PRESENCE_PLANES
                if k != "metrics" and planes.get(k) is not None]
     if fused and refused:

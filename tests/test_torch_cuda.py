@@ -421,3 +421,31 @@ def test_flow_window_kernel_matches_plain_at_pair_counts_and_rings(
     torch.cuda.synchronize()
     assert torch.equal(steps, ref_steps) and int(steps.sum()) > 0
     assert_flow_worlds_equal(got, ref)
+
+
+@pytest.mark.parametrize("n_shards", [2, 8])
+def test_sharded_flow_engine_equals_one_launch_on_the_card(cuda, n_shards):
+    """`run_windows_sharded` on one card: one launch of kernel F a shard,
+    each on its own stream, merged bitwise equal to the single launch of
+    the whole world, each shard's steps equal to F on that shard alone,
+    and the input world unchanged."""
+    from shadow_tpu_torch.tools import multichip
+    from shadow_tpu_torch.tpu import floweng
+
+    n_flows = 12 * n_shards
+    w0 = multichip.flow_world(n_flows, cuda)
+    keep = floweng.clone_world(w0)
+    ref, _ = floweng.run_windows(w0, 400, multichip.FLOW_WINDOW_US)
+    before = floweng.LAUNCHES["flow_window"]
+    got, steps = floweng.run_windows_sharded(
+        w0, 400, multichip.FLOW_WINDOW_US, n_shards=n_shards)
+    torch.cuda.synchronize()
+    assert floweng.LAUNCHES["flow_window"] == before + n_shards
+    assert steps.shape == (n_shards, 400) and int(steps.sum()) > 0
+    assert_flow_worlds_equal(got, ref)
+    assert_flow_worlds_equal(w0, keep)
+    split = floweng.split_flow_world(w0, n_shards)
+    for s in range(n_shards):
+        alone = floweng.clone_world(floweng._shard(split, s))
+        st = floweng.flow_window_(alone, 400, multichip.FLOW_WINDOW_US)
+        assert torch.equal(st, steps[s]), s

@@ -147,6 +147,37 @@ def test_flight_recorder_drain_matches_jax(cursor):
     assert tfr.flightrec_meta(tf) == jfr.flightrec_meta(jf)
 
 
+def test_flight_recorder_retain_false_only_streams():
+    """`retain=False`, as in JAX: every decoded hop still goes to the
+    sink and counts in `recorded`, but none is kept in `hops`."""
+    rng = np.random.default_rng(8)
+    jf, tf = both(ring=16)
+    sinks = {k: io.StringIO() for k in ("jax", "keep", "stream")}
+    jrec = jfr.FlightRecorder(window_ns=5 * MS, sink=sinks["jax"],
+                              retain=False)
+    keep = tfr.FlightRecorder(window_ns=5 * MS, sink=sinks["keep"])
+    stream = tfr.FlightRecorder(window_ns=5 * MS, sink=sinks["stream"],
+                                retain=False)
+    for b in (10, 30, 5):
+        cols, mask = _candidates(rng, b)
+        jf = jfr.advance_window(jfr.record_events(
+            jf, *map(jnp.asarray, cols), jnp.asarray(mask)))
+        tf = tfr.advance_window(tfr.record_events(
+            tf, *map(torch.from_numpy, cols), torch.from_numpy(mask)))
+        for rec in (jrec, keep, stream):
+            rec.tick(tf if rec is not jrec else jf)
+    for rec in (jrec, keep, stream):
+        rec.finalize()
+    assert keep.recorded > 0 and len(keep.hops) == keep.recorded
+    assert stream.hops == [] and jrec.hops == []
+    assert stream.recorded == keep.recorded == jrec.recorded
+    assert stream.summary() == jrec.summary()
+    assert sinks["stream"].getvalue() == sinks["keep"].getvalue() \
+        == sinks["jax"].getvalue()
+    assert tfr.read_hops(sinks["stream"].getvalue().splitlines()) == \
+        keep.hops
+
+
 def test_step_and_ingest_rows_flightrec_match_jax():
     """`window_step(kernel="xla")` with faults, guards and the recorder
     (every other packet sampled) and `ingest_rows` with the recorder

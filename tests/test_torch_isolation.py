@@ -167,6 +167,278 @@ def test_ensemble_chain_reads_nothing_back_to_the_host():
     assert [r for _l, r in _host_reads(probe, LOOP_READS)] == ["int", "item"]
 
 
+# SL603 of the JAX package's cost model, over the port's driver modules:
+# the files that own a loop driving windows, chains or runs, and the
+# tracer and its report, which must not smuggle a per-span read in
+DRIVER_MODULES = (
+    "shadow_tpu_torch/bench.py",
+    "shadow_tpu_torch/tools/chaos_smoke.py",
+    "shadow_tpu_torch/tools/trace_report.py",
+    "shadow_tpu_torch/workloads/runner.py",
+    "shadow_tpu_torch/tpu/elastic.py",
+    "shadow_tpu_torch/telemetry/tracer.py",
+)
+#: (path, enclosing function) -> why that function may read in a loop
+HOST_SYNC_ALLOWED = {
+    ("shadow_tpu_torch/tpu/elastic.py", "run_elastic_window"): (
+        "the elastic capacity policy's decision point: one per-ring "
+        "overflow readback per CHAIN attempt is the driver contract "
+        "(docs/robustness.md 'Elastic capacity') — chain_len amortizes "
+        "the sync, and the growth decision cannot be made without "
+        "materializing the overflow counters"),
+}
+# a tensor method that reads it back, a call that waits for the card, and
+# the calls that read a tensor they are given
+SYNC_METHODS = HOST_READS - {"synchronize", "bool"}
+SYNC_CALLS = {"torch.cuda.synchronize"}
+MATERIALIZERS = {"bool", "int", "float", "numpy.asarray", "numpy.array"}
+# calls whose result is on the host: the carry's one-synchronise pull
+# (the port's `jax.device_get`) and the host-side report functions
+HOST_RESULTS = {"carry_to_host"} | HOST_SIDE
+# parameter annotations that name host values: scalars, numpy arrays,
+# and the workload spec and its compiled program (modules without torch)
+HOST_TYPES = {"int", "float", "bool", "str", "np.ndarray", "ScenarioSpec",
+              "TrafficProgram"}
+
+
+def _dotted(imports: dict, node) -> str | None:
+    parts = []
+    while isinstance(node, ast.Attribute):
+        parts.append(node.attr)
+        node = node.value
+    if not isinstance(node, ast.Name):
+        return None
+    parts.append(imports.get(node.id, node.id))
+    return ".".join(reversed(parts))
+
+
+class SyncFence(ast.NodeVisitor):
+    """JAX's `_SyncFence` for PyTorch: every read of `LOOP_READS` in a
+    `for` or `while` body (a while's test included) or a comprehension,
+    per enclosing function, unless its operand is provably on the host:
+    every name it touches holds a host value (a read's or a host call's
+    result, a loop target over a host iterable or a `range`, a parameter
+    annotated with a `HOST_TYPES` type), or it is a literal."""
+
+    def __init__(self):
+        self.imports: dict[str, str] = {}
+        self.hosts: list[set] = [set()]
+        self.depth = 0
+        self.fns: list[str] = []
+        self.found: list[tuple[int, str, str]] = []
+
+    def visit_Import(self, node):
+        for a in node.names:
+            self.imports[a.asname or a.name.split(".")[0]] = (
+                a.name if a.asname else a.name.split(".")[0])
+
+    def visit_ImportFrom(self, node):
+        for a in node.names:
+            self.imports[a.asname or a.name] = \
+                f"{node.module or ''}.{a.name}".lstrip(".")
+
+    def _is_host(self, node) -> bool:
+        if self._pulls(node):
+            return True
+        called = {id(n.func) for n in ast.walk(node)
+                  if isinstance(n, ast.Call)}
+        names = [n.id for n in ast.walk(node)
+                 if isinstance(n, ast.Name) and id(n) not in called]
+        return all(any(n in s for s in self.hosts) for n in names)
+
+    def _pulls(self, node) -> bool:
+        for n in ast.walk(node):
+            if not isinstance(n, ast.Call):
+                continue
+            f = n.func
+            leaf = f.attr if isinstance(f, ast.Attribute) else getattr(
+                f, "id", None)
+            if leaf in HOST_RESULTS or (
+                    isinstance(f, ast.Attribute) and leaf in SYNC_METHODS):
+                return True
+            if _dotted(self.imports, f) in MATERIALIZERS - {"bool", "int",
+                                                            "float"}:
+                return True
+        return False
+
+    def _mark(self, target, host: bool):
+        for n in ast.walk(target):
+            if isinstance(n, ast.Name):
+                if host:
+                    self.hosts[-1].add(n.id)
+                else:
+                    for s in self.hosts:
+                        s.discard(n.id)
+
+    def _fn(self, node):
+        self.fns.append(node.name)
+        self.hosts.append(set())
+        a = node.args
+        for arg in a.posonlyargs + a.args + a.kwonlyargs:
+            if arg.annotation is not None and \
+                    ast.unparse(arg.annotation) in HOST_TYPES:
+                self.hosts[-1].add(arg.arg)
+        # a def inside a loop runs later, not once an iteration
+        outer, self.depth = self.depth, 0
+        self.generic_visit(node)
+        self.depth = outer
+        self.hosts.pop()
+        self.fns.pop()
+
+    visit_FunctionDef = visit_AsyncFunctionDef = _fn
+
+    def visit_Assign(self, node):
+        host = self._is_host(node.value)
+        for t in node.targets:
+            self._mark(t, host)
+        self.generic_visit(node)
+
+    def _target(self, target, it):
+        ranged = (isinstance(it, ast.Call) and isinstance(it.func, ast.Name)
+                  and it.func.id == "range")
+        if ranged or self._is_host(it):
+            self._mark(target, True)
+
+    def _loop(self, node):
+        if isinstance(node, ast.While):
+            self.depth += 1
+            self.visit(node.test)
+        else:  # the iterable runs once
+            self.visit(node.iter)
+            self._target(node.target, node.iter)
+            self.depth += 1
+        for stmt in node.body + node.orelse:
+            self.visit(stmt)
+        self.depth -= 1
+
+    visit_For = visit_AsyncFor = visit_While = _loop
+
+    def _comp(self, node):
+        gens = node.generators
+        self.visit(gens[0].iter)
+        self._target(gens[0].target, gens[0].iter)
+        self.depth += 1
+        for i, gen in enumerate(gens):
+            if i:
+                self.visit(gen.iter)
+                self._target(gen.target, gen.iter)
+            for cond in gen.ifs:
+                self.visit(cond)
+        for part in ((node.key, node.value) if isinstance(node, ast.DictComp)
+                     else (node.elt,)):
+            self.visit(part)
+        self.depth -= 1
+
+    visit_ListComp = visit_SetComp = visit_DictComp = _comp
+    visit_GeneratorExp = _comp
+
+    def visit_Call(self, node):
+        f = node.func
+        path = _dotted(self.imports, f)
+        what = None
+        if path in SYNC_CALLS:
+            what = path
+        elif isinstance(f, ast.Attribute) and f.attr in SYNC_METHODS \
+                and not (isinstance(f.value, ast.Name)
+                         and f.value.id in self.imports) \
+                and not self._is_host(f.value):
+            what = f".{f.attr}()"
+        elif path in MATERIALIZERS and node.args \
+                and not self._is_host(node.args[0]):
+            what = f"{path}(...)"
+        if what and self.depth:
+            self.found.append((node.lineno, self.fns[-1] if self.fns
+                               else "<module>", what))
+        self.generic_visit(node)
+
+
+def host_syncs(source: str) -> list[tuple[int, str, str]]:
+    """(line, enclosing function, read) of each read the fence flags."""
+    fence = SyncFence()
+    fence.visit(ast.parse(source))
+    return fence.found
+
+
+@pytest.mark.parametrize("rel", DRIVER_MODULES)
+def test_driver_modules_read_nothing_back_inside_a_loop(rel):
+    """SL603 (`analysis/costmodel.py`, `check_host_sync`) over the port's
+    driver modules: no loop or comprehension reads a tensor back, but in
+    a function of HOST_SYNC_ALLOWED. A listed module that is missing
+    fails, as JAX's fence reports it."""
+    path = REPO / rel
+    assert path.is_file(), f"driver module missing: {rel}"
+    bad = [(line, fn, what) for line, fn, what in
+           host_syncs(path.read_text(encoding="utf-8"))
+           if (rel, fn) not in HOST_SYNC_ALLOWED]
+    assert not bad, (rel, bad)
+
+
+def test_host_sync_registry_holds_only_reads_that_happen():
+    """Every allowed function exists and reads in a loop (its entry is
+    not stale), and the workload types the fence takes as host values
+    come from modules that do not import torch."""
+    for (rel, fn), why in HOST_SYNC_ALLOWED.items():
+        assert rel in DRIVER_MODULES and why
+        found = host_syncs((REPO / rel).read_text(encoding="utf-8"))
+        assert any(f == fn for _l, f, _w in found), (rel, fn)
+    for mod in ("spec.py", "compile.py"):
+        path = REPO / "shadow_tpu_torch" / "workloads" / mod
+        assert "torch" not in {m.split(".")[0] for m in
+                               imported_modules(path)}, mod
+
+
+def test_host_sync_fence_probe():
+    """The fence catches each read kind in a loop, in a while's test and
+    in a comprehension, and passes host operands and reads outside
+    loops."""
+    probe = (
+        "import numpy as np\n"
+        "import torch\n"
+        "def drive(w, n: int, a: np.ndarray):\n"
+        "    w.item()\n"
+        "    for i in range(n):\n"
+        "        w.item(); w.cpu(); w.tolist(); w.numpy(); w.nonzero()\n"
+        "        torch.cuda.synchronize()\n"
+        "        bool(w); int(w); float(w)\n"
+        "        np.asarray(w); np.array(w)\n"
+        "        int(i); int(n); float(a.sum()); int(3); np.asarray(a)\n"
+        "        h = w.cpu()\n"
+        "        int(h.sum()); h.tolist()\n"
+        "    while bool(w.any()):\n"
+        "        pass\n"
+        "    xs = [w[j].item() for j in range(n)]\n"
+        "    ys = {k: int(v) for k, v in w.items()}\n"
+        "    return sum(int(r) for r in a)\n")
+    got = [(line, what) for line, fn, what in host_syncs(probe)]
+    assert {fn for _l, fn, _w in host_syncs(probe)} == {"drive"}
+    assert got == [
+        (6, ".item()"), (6, ".cpu()"), (6, ".tolist()"), (6, ".numpy()"),
+        (6, ".nonzero()"), (7, "torch.cuda.synchronize"), (8, "bool(...)"),
+        (8, "int(...)"), (8, "float(...)"), (9, "numpy.asarray(...)"),
+        (9, "numpy.array(...)"), (11, ".cpu()"), (13, "bool(...)"),
+        (15, ".item()"), (16, "int(...)")]
+
+
+@pytest.mark.parametrize("read, pulled", [
+    # bench.profile_windows' placed slots: one read a window's take
+    ("sum(int(t.sum()) for t in takes)", "int(sum(t.sum() for t in takes))"),
+    # chaos_smoke's metrics: one read a field (JAX pulls the tree once)
+    ("{f: getattr(m, f).cpu().numpy() for f in m._fields}",
+     "carry_to_host(m)._asdict()"),
+    # and its histograms' percentiles
+    ("{k: p(t.cpu().numpy().sum(0)) for k, t in h._asdict().items()}",
+     "{k: p(np.asarray(a).sum(0)) for k, a in "
+     "carry_to_host(h)._asdict().items()}"),
+])
+def test_repaired_driver_reads_stay_out_of_loops(read, pulled):
+    """The reads the fence found in the port's driver modules, which the
+    JAX tools make once outside a loop: the old spelling is flagged, the
+    repaired one (one pull, then host values) is not."""
+    wrap = "import numpy as np\ndef f(takes, m, h, p):\n    return {}\n"
+    assert host_syncs(wrap.format(read))
+    assert not host_syncs(wrap.format(pulled))
+
+
 def test_copied_workload_modules_stand_alone():
     """The port's copies of the JAX package's JAX-free workload modules
     (spec, compile, serve) import nothing of it, and the op-timing table

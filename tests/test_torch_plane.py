@@ -110,6 +110,61 @@ def test_ingest_rows_matches_jax():
                             convert.state_to_numpy(got))
 
 
+@pytest.mark.parametrize("gate_idle", [True, False])
+def test_ingest_rows_gate_idle_keyword_matches_jax(gate_idle):
+    """`gate_idle=` is JAX's switch for its idle gate, which leaves the
+    result unchanged: the port takes either value and gives its default
+    result, equal to JAX's with the same value, for a batch with entries
+    and an all-invalid one (the gate's skip branch)."""
+    (_p, jst), (_tp, tst) = both_worlds()
+    rng = np.random.default_rng(6)
+    K = 6
+    cols = dict(
+        dst=rng.integers(0, N, (N, K)).astype(np.int32),
+        nbytes=rng.integers(100, 900, (N, K)).astype(np.int32),
+        prio=rng.integers(0, 30, (N, K)).astype(np.int32),
+        seq=rng.integers(100, 200, (N, K)).astype(np.int32),
+        ctrl=rng.random((N, K)) < 0.3,
+    )
+    for valid in (rng.random((N, K)) < 0.5, np.zeros((N, K), bool)):
+        tcols = {k: torch.from_numpy(v) for k, v in cols.items()}
+        ref = ingest_rows(jst, **{k: jnp.asarray(v) for k, v in cols.items()},
+                          valid=jnp.asarray(valid), gate_idle=gate_idle)
+        got = tplane.ingest_rows(tst, **tcols, valid=torch.from_numpy(valid),
+                                 gate_idle=gate_idle)
+        default = tplane.ingest_rows(tst, **tcols,
+                                     valid=torch.from_numpy(valid))
+        assert_states_equal(jax_state_to_numpy(ref),
+                            convert.state_to_numpy(got))
+        assert_states_equal(convert.state_to_numpy(default),
+                            convert.state_to_numpy(got))
+
+
+def test_ingest_packed_sort_false_is_refused():
+    """Both appends take JAX's `packed_sort=` keyword; the port keeps the
+    packed path only, so False raises the step's ValueError, and True is
+    the default."""
+    params, state, batch = busy_world()
+    tst = convert.state_from_numpy(jax_state_to_numpy(state), "cpu")
+    flat = {k: torch.from_numpy(v) for k, v in batch.items()}
+    K = 4
+    rows = {k: torch.zeros((N, K), dtype=torch.int32)
+            for k in ("dst", "nbytes", "prio", "seq")}
+    rows["ctrl"] = torch.zeros((N, K), dtype=torch.bool)
+    rows["valid"] = torch.ones((N, K), dtype=torch.bool)
+    with pytest.raises(ValueError, match="packed_sort=False"):
+        tplane.ingest(tst, **flat, packed_sort=False)
+    with pytest.raises(ValueError, match="packed_sort=False"):
+        tplane.ingest_rows(tst, **rows, packed_sort=False)
+    assert_states_equal(
+        convert.state_to_numpy(tplane.ingest(tst, **flat, packed_sort=True)),
+        convert.state_to_numpy(tplane.ingest(tst, **flat)))
+    assert_states_equal(
+        convert.state_to_numpy(tplane.ingest_rows(tst, **rows,
+                                                  packed_sort=True)),
+        convert.state_to_numpy(tplane.ingest_rows(tst, **rows)))
+
+
 def run_both(windows, **kw):
     (params, jst), (tparams, tst) = both_worlds(**kw.pop("world", {}))
     key = jax.random.key(RNG_SEED)
