@@ -505,52 +505,68 @@ def check_kernel_a(torch, pipeline, record):
 
 
 def ptxas_report(log: str) -> dict[str, dict]:
-    """Registers, shared memory, stack and spill bytes of each entry
-    function in an `nvcc -Xptxas -v` log, by function name."""
+    """Registers, shared memory, stack and spill bytes of each function
+    in an `nvcc -Xptxas -v` log, by function name (an entry lacks what
+    the log does not say of it)."""
     out, fn = {}, None
     for line in log.splitlines():
         m = re.search(r"Function properties for (\S+)", line)
         if m:
             fn = m.group(1)
+            # ptxas prints no smem count for a kernel without static
+            # shared memory
+            out.setdefault(fn, dict(smem=0))
             continue
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                       r"(\d+) bytes spill loads", line)
         if m and fn:
-            out.setdefault(fn, {}).update(
-                stack=int(m.group(1)), spill_stores=int(m.group(2)),
-                spill_loads=int(m.group(3)))
+            out[fn].update(stack=int(m.group(1)),
+                           spill_stores=int(m.group(2)),
+                           spill_loads=int(m.group(3)))
             continue
-        m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
+        m = re.search(r"Used (\d+) registers", line)
         if m and fn:
-            out.setdefault(fn, {}).update(registers=int(m.group(1)),
-                                          smem=int(m.group(2)))
+            out[fn]["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            if m:
+                out[fn]["smem"] = int(m.group(1))
     return out
 
 
-def check_kernel_c_build(record):
-    """ptxas' report of kernel C's kernels, one line a CE; fails on a
-    spill."""
+def check_ptxas(record, lib, label, key, kernel, builds, arg=None):
+    """ptxas' report of kernel `kernel` of library `lib`, one line a
+    build: a value of its first template argument `arg`, or its one
+    build (`builds` (None,)). Fails on a spill, on a build whose report
+    lacks its registers or spills, and on builds other than `builds`."""
     from shadow_tpu_torch import _build
 
-    if "egress_gate" not in _build.LOGS:
-        _build.build(["egress_gate"], verbose_ptxas=True)
-    report = ptxas_report(_build.LOGS["egress_gate"])
+    report = ptxas_report(_build.LOGS.get(lib, ""))
+    if not report:  # not built in this process, or built without -v
+        _build.build([lib], verbose_ptxas=True)
+        report = ptxas_report(_build.LOGS[lib])
     rows = {}
     for fn, r in report.items():
-        m = re.search(r"ILi(\d+)E", fn)
-        if not m:
+        if kernel not in fn:
             continue
-        rows[int(m.group(1))] = r
-    if not rows:
-        fail("no ptxas report of kernel C's kernels")
-    for ce, r in sorted(rows.items()):
-        print(f"kernel C egress_gate ptxas CE={ce}: {r['registers']} "
-              f"registers, {r['smem']} B smem, {r['stack']} B stack, "
-              f"spill stores {r['spill_stores']} B, loads "
-              f"{r['spill_loads']} B")
+        if not {"registers", "spill_stores"} <= r.keys():
+            fail(f"ptxas' report of {label} lacks registers or spills: "
+                 f"{fn} {r}")
+        m = re.search(r"ILi(\d+)E", fn)
+        rows[int(m.group(1)) if m else None] = r
+    order = lambda v: -1 if v is None else v
+    if sorted(rows, key=order) != sorted(builds, key=order):
+        fail(f"ptxas reports {label} builds {sorted(rows, key=order)}, "
+             f"expected {sorted(builds, key=order)}")
+    for v in sorted(rows, key=order):
+        r = rows[v]
+        print(f"{label} ptxas{'' if v is None else f' {arg}={v}'}: "
+              f"{r['registers']} registers, {r['smem']} B smem, "
+              f"{r['stack']} B stack, spill stores {r['spill_stores']} B, "
+              f"loads {r['spill_loads']} B")
         if r["spill_stores"] or r["spill_loads"]:
-            fail(f"kernel C spills at CE={ce}")
-    record["kernel_c_ptxas"] = rows
+            fail(f"{label} spills" + ("" if v is None else f" at {arg}={v}"))
+    record[key] = {str(v): r for v, r in rows.items()}
+    return record[key]
 
 
 def check_kernel_c(torch, pipeline, record):
@@ -561,7 +577,10 @@ def check_kernel_c(torch, pipeline, record):
     sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
     from torch_parity import EDGE_SHIFTS, gate_edge_columns
 
-    check_kernel_c_build(record)
+    # one build a power-of-two CE in [2, 1024]
+    check_ptxas(record, "egress_gate", "kernel C egress_gate",
+                "kernel_c_ptxas", "egress_gate_kernel",
+                [2 << i for i in range(10)], "CE")
     rows = []
     for ce in C_SWEEP:
         full = egress_inputs(torch, N_HOSTS, ce, seed=100 + ce)
@@ -1396,7 +1415,11 @@ def check_kernel_e(torch, codel, snapshot_args, record):
     copy_warm, copy_ms, copy_clean = time_device(torch,
                                                  lambda: dst.copy_(src))
     n, k = args[0].shape
+    geo = codel.e_geometry(n, k)
+    ptxas = check_ptxas(record, "router_drain", "kernel E router_drain",
+                        "kernel_e_ptxas", "router_drain_kernel", [None])
     row = dict(n=n, k=k, cases=list(errs), max_abs_err=max(errs.values()),
+               geometry=geo, ptxas=ptxas,
                ms=ms, warm_ms=warm_ms, cold_clean_ms=clean_ms,
                plain_ms=plain_ms, bytes=moved, ops=ops,
                micro_steps=total_steps, max_steps=int(steps.max()),
@@ -1414,7 +1437,9 @@ def check_kernel_e(torch, codel, snapshot_args, record):
           f"the longest thread runs {row['max_steps']} of "
           f"{row['trip_count']} micro-steps; library_ms=null; a copy of "
           f"{moved} B: {copy_ms:.5f} cold, {copy_clean:.5f} clean, "
-          f"{copy_warm:.5f} warm")
+          f"{copy_warm:.5f} warm; the launch: {geo['hosts_a_tile']} hosts a "
+          f"tile, a block of one warp a tile, {geo['blocks']} blocks of "
+          f"{geo['smem_bytes']} B shared")
     return row
 
 
@@ -2327,6 +2352,41 @@ def batched_bound(torch, name, args, outs, work) -> tuple[float, str, int]:
     return (*bound(moved, ops, shuffles), moved)
 
 
+def time_call_and_launch(torch, pipeline, fn, reps):
+    """`time_device(fn, reps)` twice: once as it is, and once with CUDA
+    events around every `pipeline._launch` inside `fn` (one a call).
+    Returns ((warm, cold, cold_clean) ms of the call, the same of its
+    launch alone). The rest of a call is the host's work around the
+    launch: the vmap rule's fold and unfold and the outputs'
+    allocations. The launch's events stay out of the call's timing, where
+    their host time would show."""
+    call = time_device(torch, fn, reps=reps)
+    events = []
+    real = pipeline._launch
+
+    def timed(name, *args):
+        pair = (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+        pair[0].record()
+        real(name, *args)
+        pair[1].record()
+        events.append(pair)
+
+    pipeline._launch = timed
+    try:
+        time_device(torch, fn, reps=reps)
+    finally:
+        pipeline._launch = real
+    # time_device's calls: one, reps on the host clock, then reps each
+    # warm, cold and cold_clean
+    if len(events) != 1 + 4 * reps:
+        fail(f"{len(events)} launches in {1 + 4 * reps} timed calls")
+    mean = lambda part: sum(s.elapsed_time(e) for s, e in part) / reps
+    warm, cold, clean = (mean(events[1 + reps * i:1 + reps * (i + 1)])
+                         for i in (1, 2, 3))
+    return call, (warm, cold, clean)
+
+
 def check_batched_launches(torch, pipeline):
     """17 (b): each kernel under vmap over ENS_WORLDS distinct worlds at
     the bench's width (one launch for W * N rows) against its plain
@@ -2356,20 +2416,29 @@ def check_batched_launches(torch, pipeline):
             fail(f"batched {name} over {ENS_WORLDS} worlds disagrees with "
                  f"its vmapped plain version (max abs err {err})")
         work = clone()
-        warm_ms, ms, clean_ms = time_device(torch, lambda: kern(*work),
-                                            reps=10)
+        (warm_ms, ms, clean_ms), (l_warm, l_ms, l_clean) = \
+            time_call_and_launch(torch, pipeline, lambda: kern(*work), 10)
         bound_ms, bound_by, moved = batched_bound(
             torch, name, args, kern(*clone()), work)
         rows[name] = dict(worlds=ENS_WORLDS, rows=ENS_WORLDS * N_HOSTS,
                           max_abs_err=err, ms=ms, cold_clean_ms=clean_ms,
-                          warm_ms=warm_ms, bytes=moved, bound_ms=bound_ms,
-                          bound_by=bound_by, share_of_bound=bound_ms / ms)
+                          warm_ms=warm_ms, launch_ms=l_ms,
+                          launch_cold_clean_ms=l_clean, launch_warm_ms=l_warm,
+                          bytes=moved, bound_ms=bound_ms, bound_by=bound_by,
+                          share_of_bound=bound_ms / ms,
+                          launch_share_of_bound=bound_ms / l_ms)
     times = {k: [v["ms"], v["cold_clean_ms"], v["warm_ms"], v["bound_ms"],
                  v["bound_by"], v["share_of_bound"]]
              for k, v in rows.items()}
+    alone = {k: [v["launch_ms"], v["launch_cold_clean_ms"],
+                 v["launch_warm_ms"], v["launch_share_of_bound"]]
+             for k, v in rows.items()}
     print(f"17 (b) batched launches over {ENS_WORLDS} worlds x N={N_HOSTS}: "
           f"each bitwise its vmapped plain version, one launch a call; ms "
-          f"cold/clean/warm, bound ms, by, cold share {json.dumps(times)}")
+          f"cold/clean/warm, bound ms, by, cold share {json.dumps(times)}; "
+          f"the launch alone (CUDA events around pipeline._launch; the rest "
+          f"is the vmap rule's fold, unfold and allocations) ms "
+          f"cold/clean/warm, cold share {json.dumps(alone)}")
     return rows
 
 

@@ -1,6 +1,7 @@
 // Kernel E of the window step: the destination router's drain (CoDel AQM,
-// then the down-bandwidth relay) of one window, one thread a host, for
-// Hopper (sm_90a).
+// then the down-bandwidth relay) of one window, for Hopper (sm_90a): a
+// host a lane, a block a warp and a tile of 32 hosts whose rows it
+// stages in shared memory by asynchronous copy.
 //
 // Replaces: shadow_tpu/tpu/codel.py, router_drain (a vmapped
 // lax.fori_loop of 4*K + 16 micro-steps, not a Pallas kernel; the JAX
@@ -32,24 +33,55 @@
 // The queue count n_pushed (searchsorted(arrival, now, right)) is a
 // pointer that walks the sorted row forward (and back, should `now` ever
 // decrease), carrying the wrapping byte sum of the entries it passed: the
-// JAX prefix-sum column is never built.
+// JAX prefix-sum column is never built. The valid entries (arrival <
+// I32_MAX) of a sorted row are a prefix of it, so "eidx < n_valid and the
+// head arrives before the window ends" is "eidx < K and A[eidx] <
+// window_ns" (window_ns <= I32_MAX): the row is never counted.
 //
-// What bounds it on the card: bytes, against the serial chain of
-// micro-steps each thread runs (data-dependent, at most 4*K + 16). The
-// bytes: the arrival/size rows in, status/deliver_t out (16 B a slot),
-// 13 state fields in and out (86 B a host), dn_rate/dn_cap in and
-// co_mask/co_t/cached_idx out (17 B a host): at N=32768, K=32, 20.2 MB,
-// 6.0 us at 3.35 TB/s. The design: a block of 32 hosts (fewer for rows
-// wider than 442) stages its rows of arrival and size in shared memory
-// with a coalesced load (row stride K + 1, odd, so a warp's rows start in
-// 32 different banks), keeps the
-// CoDel, bucket and cache scalars in registers, builds status/deliver_t in
-// shared memory and stores them coalesced at the end. A warp runs as long
-// as its slowest host. On chip_smoke.py's AQM world (phase 15: N=32768,
-// K=32, the rows of a window where CoDel drops and every relay caches) no
-// thread runs more than 4 micro-steps, and the kernel took 2.6x its byte
-// bound cold and 1.4x warm on an NVIDIA H100 80GB HBM3 at 700 W: the
-// bytes and a cold launch's fixed cost set its time there, not the chain.
+// What bounds it on the card: bytes. The arrival/size rows in and
+// status/deliver_t out (16 B a slot), 13 state fields in and out (86 B a
+// host), dn_rate/dn_cap in and co_mask/co_t/cached_idx out (17 B a host):
+// at N=32768, K=32, 20.2 MB, 6.0 us at 3.35 TB/s. The serial chain of
+// micro-steps (at most 4*K + 16 a host, data-dependent) is short on the
+// main path: no thread of chip_smoke.py's AQM world runs more than 4.
+// Rows whose buckets are tiny run tens of micro-steps, and the warps'
+// latency then sets the time: warps resident on an SM are what hides it.
+//
+// The design. A block is one warp and one tile of 32 hosts (fewer for
+// rows wider than 907 words), a host a lane, the grid a block a tile.
+// Blocks are independent and retire as soon as their own hosts halt, so
+// a long chain holds only its own warp, and the blocks resident on an SM
+// (24 at K=32) overlap one tile's machines with another's loads.
+//   - Staging: a tile's rows of arrival and size are one contiguous slab
+//     of each input. All 32 lanes issue 4-byte cp.async copies of it into
+//     shared memory, lanes on consecutive words, so the warp has its whole
+//     slab in flight (8 KB at K=32) where a thread used to hold a few
+//     words, and no register holds it on the way. Any storage offset
+//     takes word copies. A row's stride there is odd (K for an odd K,
+//     K + 1 for an even one), so the 32 lanes reading column j of their
+//     rows hit 32 banks; (row, column) is stepped by counters, never by a
+//     division a word. The host's state fields load into registers while
+//     the slab lands.
+//   - Results: the warp writes the tile's status/deliver_t slab as
+//     kQueued/I32_MAX with coalesced stores that drain while the slab
+//     lands; after __syncwarp (which orders them first), each lane's
+//     machine writes the few entries it consumes straight to device
+//     memory. The 13 state fields and the 5 per-host outputs are one
+//     coalesced access a field a warp.
+// Built, measured on an H100 (PERF.md, PR 17) and taken out: a second
+// input stage on a persistent grid (the next tile's slab landing during
+// the machines) and status/deliver_t built in shared memory, which cost
+// shared memory and so warps an SM (rows with long chains ran slower);
+// blocks of 2, 4 or 8 warps, which hold an SM's room until their slowest
+// warp halts; 16-byte fill stores, 16-byte copies into rows of K + 4 and
+// prefetched state, which bought nothing.
+// Resources (nvcc -Xptxas -v, sm_90a, CUDA 12.8): 52 registers, no
+// spill, no stack, no static shared memory. Dynamic shared memory a
+// block: 2 arrays x 32 rows x the stride, 8448 B at K=32, so 24 blocks
+// fit an SM's 228 KB (1 KB reserved a block); wider rows halve the tile.
+// The launcher takes K up to kMaxK = 14527, the widest row this kernel
+// has always taken (its buffers would fit K = 29055); a wider row is
+// refused.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -62,7 +94,9 @@ constexpr int kInterval = 100 * kMs;
 constexpr int kI32Max = 0x7fffffff;
 constexpr int kMtu = 1500;
 constexpr int kMaxCount = 4096;
-constexpr int kMaxHosts = 32;  // hosts (threads) a block: one warp
+constexpr int kWarp = 32;
+constexpr int kMaxTile = 32;        // hosts a tile: a warp, one a lane
+constexpr int kMaxK = 14527;        // the widest row the launcher takes
 constexpr size_t kMaxSmem = 232448;  // shared memory a block may use
 
 constexpr int kQueued = 0;
@@ -126,6 +160,35 @@ struct StateOut {
   int* dropped;
 };
 
+// A host's scalars: its bucket and the 13 state fields
+struct Host {
+  int rate, cap, mode, ie, dn, cur, prev, bal, lref, c_size, resume, dropped;
+  bool has_ie, has_dn, has_c;
+};
+
+__device__ __forceinline__ Host load_host(const StateIn& in,
+                                          const int* __restrict__ dn_rate,
+                                          const int* __restrict__ dn_cap,
+                                          int h) {
+  Host s;
+  s.rate = dn_rate[h];
+  s.cap = dn_cap[h];
+  s.mode = in.mode[h];
+  s.has_ie = in.has_ie[h];
+  s.ie = in.ie[h];
+  s.has_dn = in.has_dn[h];
+  s.dn = in.dn[h];
+  s.cur = in.cur[h];
+  s.prev = in.prev[h];
+  s.bal = in.bal[h];
+  s.lref = in.lref[h];
+  s.has_c = in.has_c[h];
+  s.c_size = in.c_size[h];
+  s.resume = in.resume[h];
+  s.dropped = in.dropped[h];
+  return s;
+}
+
 struct Bucket {
   int rate;
   int cap;
@@ -150,224 +213,332 @@ struct Bucket {
   }
 };
 
-__global__ void __launch_bounds__(kMaxHosts) router_drain_kernel(
-    int n, int k, int window_ns, const int* __restrict__ arrival,
-    const int* __restrict__ size, const int* __restrict__ dn_rate,
-    const int* __restrict__ dn_cap, const int* __restrict__ table, StateIn in,
-    StateOut out, int* __restrict__ status, int* __restrict__ deliver_t,
-    bool* __restrict__ co_mask_out, int* __restrict__ co_t_out,
-    int* __restrict__ cached_idx_out) {
-  extern __shared__ int smem[];
-  const int hosts = blockDim.x;
-  const int stride = k + 1;
-  int* arr_s = smem;
-  int* size_s = arr_s + hosts * stride;
-  int* status_s = size_s + hosts * stride;
-  int* deliver_s = status_s + hosts * stride;
+// One host's drain over its staged row A/S (K entries), recording into
+// its staged status/deliver_t row ST/DT; leaves the new state in `s`.
+__device__ __forceinline__ void drain_host(
+    Host& s, const int* A, const int* S, int* ST, int* DT, int k,
+    int window_ns, const int* __restrict__ table, bool& co_mask, int& co_t,
+    int& c_idx) {
+  const Bucket bucket{s.rate, s.cap};
+  int mode = s.mode, ie = s.ie, dn = s.dn;
+  bool has_ie = s.has_ie, has_dn = s.has_dn, has_c = s.has_c;
+  int cur = s.cur, prev = s.prev;
+  int bal = s.bal, lref = s.lref;
+  int c_size = s.c_size, resume = s.resume;
+  int dropped = s.dropped;
+  int eidx = 0, cbytes = 0, T = 0, phase = kIdle;
+  c_idx = -1;
+  co_mask = false;
+  co_t = 0;
 
-  const int base = blockIdx.x * hosts;
-  const int rows = min(hosts, n - base);
-  const int64_t off = static_cast<int64_t>(base) * k;
-  const int total = rows * k;
-  for (int i = threadIdx.x; i < total; i += hosts) {
-    const int r = i / k;
-    const int s = r * stride + (i - r * k);
-    arr_s[s] = arrival[off + i];
-    size_s[s] = size[off + i];
-    status_s[s] = kQueued;
-    deliver_s[s] = kI32Max;
-  }
-  __syncthreads();
+  int n_pushed = 0;  // entries with arrival <= the chain time
+  int pushed = 0;    // their real bytes, wrapping
 
-  const int t = threadIdx.x;
-  if (t < rows) {
-    const int h = base + t;
-    const int* A = arr_s + t * stride;
-    const int* S = size_s + t * stride;
-    int* ST = status_s + t * stride;
-    int* DT = deliver_s + t * stride;
-    const Bucket bucket{dn_rate[h], dn_cap[h]};
-
-    int mode = in.mode[h], ie = in.ie[h], dn = in.dn[h];
-    bool has_ie = in.has_ie[h], has_dn = in.has_dn[h], has_c = in.has_c[h];
-    int cur = in.cur[h], prev = in.prev[h];
-    int bal = in.bal[h], lref = in.lref[h];
-    int c_size = in.c_size[h], resume = in.resume[h];
-    int dropped = in.dropped[h];
-    int c_idx = -1, eidx = 0, cbytes = 0, T = 0, phase = kIdle;
-    bool co_mask = false;
-    int co_t = 0;
-
-    int n_valid = 0;
-    for (int c = 0; c < k; ++c) n_valid += A[c] < kI32Max;
-    int n_pushed = 0;  // entries with arrival <= the chain time
-    int pushed = 0;    // their real bytes, wrapping
-
-    const int trips = 4 * k + 16;
-    for (int it = 0; it < trips; ++it) {
-      if (phase == kIdle) {
-        if (has_c && resume < window_ns) {
-          // the cached packet's resume: refill, conformance re-check
-          int r_bal, r_lref;
-          bucket.refill(bal, lref, resume, r_bal, r_lref);
-          lref = r_lref;
-          if (c_size <= r_bal) {
-            bal = sub(r_bal, c_size);
-            if (c_idx >= 0) {
-              ST[c_idx] = kDelivered;
-              DT[c_idx] = resume;
-            } else {
-              co_mask = true;
-              co_t = resume;
-            }
-            has_c = false;
-            c_idx = -1;
-            T = resume;
-            phase = kStart;
+  const int trips = 4 * k + 16;
+  for (int it = 0; it < trips; ++it) {
+    if (phase == kIdle) {
+      if (has_c && resume < window_ns) {
+        // the cached packet's resume: refill, conformance re-check
+        int r_bal, r_lref;
+        bucket.refill(bal, lref, resume, r_bal, r_lref);
+        lref = r_lref;
+        if (c_size <= r_bal) {
+          bal = sub(r_bal, c_size);
+          if (c_idx >= 0) {
+            ST[c_idx] = kDelivered;
+            DT[c_idx] = resume;
           } else {
-            bal = r_bal;
-            resume = bucket.wait_until(resume, sub(c_size, r_bal), r_lref);
+            co_mask = true;
+            co_t = resume;
           }
-          continue;
-        }
-        const int head_arr = A[min(eidx, k - 1)];
-        if (!has_c && eidx < n_valid && head_arr < window_ns) {
-          // an idle chain starts at the head entry's arrival
-          T = head_arr;
+          has_c = false;
+          c_idx = -1;
+          T = resume;
           phase = kStart;
-          continue;
-        }
-        break;  // halted: no later micro-step writes anything
-      }
-
-      // one CoDel pop at chain time T
-      const int now = T;
-      while (n_pushed < k && A[n_pushed] <= now) {
-        if (A[n_pushed] < kI32Max) pushed = add(pushed, S[n_pushed]);
-        ++n_pushed;
-      }
-      while (n_pushed > 0 && A[n_pushed - 1] > now) {
-        --n_pushed;
-        if (A[n_pushed] < kI32Max) pushed = sub(pushed, S[n_pushed]);
-      }
-      const bool empty = eidx >= n_pushed;
-      const int e = min(eidx, k - 1);
-      const int e_size = S[e];
-      const int total_after = sub(sub(pushed, cbytes), e_size);
-
-      const bool below = sub(now, A[e]) < kTarget || total_after <= kMtu;
-      const bool ok = !below && has_ie && now >= ie;
-      if (!below && !has_ie) ie = add(now, kInterval);
-      bool any_empty = false, deliver = false, drop = false;
-      int n_phase = phase;
-      if (phase == kStart) {
-        if (empty) {
-          any_empty = true;
-          mode = kStore;
-        } else if (!ok) {
-          deliver = true;
-          mode = kStore;
-        } else if (mode == kStore) {
-          // store-mode drop: count bookkeeping, enter the after-drop phase
-          const bool recently =
-              has_dn && max(sub(now, dn), 0) < kInterval * 16;
-          const int delta = sub(cur, prev);
-          const int new_cur = (recently && delta > 1) ? delta : 1;
-          cur = prev = new_cur;
-          dn = add(now, table[min(max(new_cur, 1), kMaxCount)]);
-          has_dn = true;
-          mode = kDrop;
-          n_phase = kAfterStoreDrop;
-          drop = true;
-        } else if (mode == kDrop) {
-          if (has_dn && now >= dn) {
-            cur = add(cur, 1);
-            n_phase = kDropLoop;
-            drop = true;
-          } else {
-            deliver = true;
-          }
-        }
-      } else if (phase == kAfterStoreDrop) {
-        if (empty) any_empty = true;
-        else deliver = true;  // whatever its ok flag
-      } else {  // kDropLoop
-        if (empty) {
-          any_empty = true;
         } else {
-          const int dn_upd =
-              ok ? add(dn, table[min(max(cur, 1), kMaxCount)]) : dn;
-          dn = dn_upd;
-          if (ok && has_dn && now >= dn_upd) {
-            cur = add(cur, 1);
-            drop = true;
-          } else {
-            deliver = true;
-            if (!ok) mode = kStore;
-          }
+          bal = r_bal;
+          resume = bucket.wait_until(resume, sub(c_size, r_bal), r_lref);
         }
+        continue;
       }
-      has_ie = !below && !any_empty;
-
-      int rec = drop ? kDropped : kQueued;
-      if (deliver) {
-        // the relay's token gate
-        int g_bal, g_lref;
-        bucket.refill(bal, lref, now, g_bal, g_lref);
-        lref = g_lref;
-        if (e_size <= g_bal) {
-          bal = sub(g_bal, e_size);
-          rec = kDelivered;
-          n_phase = kStart;  // a forwarded pop restarts the chain
-        } else {
-          bal = g_bal;
-          rec = kTaken;
-          has_c = true;
-          c_size = e_size;
-          c_idx = e;
-          resume = bucket.wait_until(now, sub(e_size, g_bal), g_lref);
-          n_phase = kIdle;
-        }
-      } else if (any_empty) {
-        n_phase = kIdle;
+      if (!has_c && eidx < k && A[eidx] < window_ns) {
+        // an idle chain starts at the head entry's arrival
+        T = A[eidx];
+        phase = kStart;
+        continue;
       }
-      phase = n_phase;
-      if (drop || deliver) {
-        ST[e] = rec;
-        if (rec == kDelivered) DT[e] = now;
-        if (drop) dropped = add(dropped, 1);
-        eidx += 1;
-        cbytes = add(cbytes, e_size);
-      }
+      break;  // halted: no later micro-step writes anything
     }
 
-    out.mode[h] = mode;
-    out.has_ie[h] = has_ie;
-    out.ie[h] = ie;
-    out.has_dn[h] = has_dn;
-    out.dn[h] = dn;
-    out.cur[h] = cur;
-    out.prev[h] = prev;
-    out.bal[h] = bal;
-    out.lref[h] = lref;
-    out.has_c[h] = has_c;
-    out.c_size[h] = c_size;
-    out.resume[h] = resume;
-    out.dropped[h] = dropped;
-    co_mask_out[h] = co_mask;
-    co_t_out[h] = co_t;
-    cached_idx_out[h] = c_idx;
+    // one CoDel pop at chain time T
+    const int now = T;
+    while (n_pushed < k && A[n_pushed] <= now) {
+      if (A[n_pushed] < kI32Max) pushed = add(pushed, S[n_pushed]);
+      ++n_pushed;
+    }
+    while (n_pushed > 0 && A[n_pushed - 1] > now) {
+      --n_pushed;
+      if (A[n_pushed] < kI32Max) pushed = sub(pushed, S[n_pushed]);
+    }
+    const bool empty = eidx >= n_pushed;
+    const int e = min(eidx, k - 1);
+    const int e_size = S[e];
+    const int total_after = sub(sub(pushed, cbytes), e_size);
+
+    const bool below = sub(now, A[e]) < kTarget || total_after <= kMtu;
+    const bool ok = !below && has_ie && now >= ie;
+    if (!below && !has_ie) ie = add(now, kInterval);
+    bool any_empty = false, deliver = false, drop = false;
+    int n_phase = phase;
+    if (phase == kStart) {
+      if (empty) {
+        any_empty = true;
+        mode = kStore;
+      } else if (!ok) {
+        deliver = true;
+        mode = kStore;
+      } else if (mode == kStore) {
+        // store-mode drop: count bookkeeping, enter the after-drop phase
+        const bool recently =
+            has_dn && max(sub(now, dn), 0) < kInterval * 16;
+        const int delta = sub(cur, prev);
+        const int new_cur = (recently && delta > 1) ? delta : 1;
+        cur = prev = new_cur;
+        dn = add(now, __ldg(table + min(max(new_cur, 1), kMaxCount)));
+        has_dn = true;
+        mode = kDrop;
+        n_phase = kAfterStoreDrop;
+        drop = true;
+      } else if (mode == kDrop) {
+        if (has_dn && now >= dn) {
+          cur = add(cur, 1);
+          n_phase = kDropLoop;
+          drop = true;
+        } else {
+          deliver = true;
+        }
+      }
+    } else if (phase == kAfterStoreDrop) {
+      if (empty) any_empty = true;
+      else deliver = true;  // whatever its ok flag
+    } else {  // kDropLoop
+      if (empty) {
+        any_empty = true;
+      } else {
+        const int dn_upd =
+            ok ? add(dn, __ldg(table + min(max(cur, 1), kMaxCount))) : dn;
+        dn = dn_upd;
+        if (ok && has_dn && now >= dn_upd) {
+          cur = add(cur, 1);
+          drop = true;
+        } else {
+          deliver = true;
+          if (!ok) mode = kStore;
+        }
+      }
+    }
+    has_ie = !below && !any_empty;
+
+    int rec = drop ? kDropped : kQueued;
+    if (deliver) {
+      // the relay's token gate
+      int g_bal, g_lref;
+      bucket.refill(bal, lref, now, g_bal, g_lref);
+      lref = g_lref;
+      if (e_size <= g_bal) {
+        bal = sub(g_bal, e_size);
+        rec = kDelivered;
+        n_phase = kStart;  // a forwarded pop restarts the chain
+      } else {
+        bal = g_bal;
+        rec = kTaken;
+        has_c = true;
+        c_size = e_size;
+        c_idx = e;
+        resume = bucket.wait_until(now, sub(e_size, g_bal), g_lref);
+        n_phase = kIdle;
+      }
+    } else if (any_empty) {
+      n_phase = kIdle;
+    }
+    phase = n_phase;
+    if (drop || deliver) {
+      ST[e] = rec;
+      if (rec == kDelivered) DT[e] = now;
+      if (drop) dropped = add(dropped, 1);
+      eidx += 1;
+      cbytes = add(cbytes, e_size);
+    }
   }
-  __syncthreads();
-  for (int i = threadIdx.x; i < total; i += hosts) {
-    const int r = i / k;
-    const int s = r * stride + (i - r * k);
-    status[off + i] = status_s[s];
-    deliver_t[off + i] = deliver_s[s];
+  s.mode = mode;
+  s.has_ie = has_ie;
+  s.ie = ie;
+  s.has_dn = has_dn;
+  s.dn = dn;
+  s.cur = cur;
+  s.prev = prev;
+  s.bal = bal;
+  s.lref = lref;
+  s.has_c = has_c;
+  s.c_size = c_size;
+  s.resume = resume;
+  s.dropped = dropped;
+}
+
+// ---------------------------------------------------------------------------
+// staging: asynchronous copies into shared memory
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void cp_async4(int* dst, const int* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Issue the copies of one input slab (`cnt` words at `src`) into `dst`,
+// slab element i (row i / K, column i % K) at word (i / K) * stride + i %
+// K: one 4-byte copy a word, lane l on words l, l + 32, ..., its (column,
+// shared word) stepped by counters, never by a division a word.
+__device__ __forceinline__ void stage_slab(int* dst,
+                                           const int* __restrict__ src,
+                                           int cnt, int k, int stride,
+                                           int lane) {
+  const int pad = stride - k;
+  const int dcol = kWarp % k, dpos = kWarp + pad * (kWarp / k);
+  int col = lane % k, pos = lane + pad * (lane / k);
+  for (int i = lane; i < cnt; i += kWarp) {
+    cp_async4(dst + pos, src + i);
+    col += dcol;
+    pos += dpos;
+    if (col >= k) {
+      col -= k;
+      pos += pad;
+    }
   }
 }
 
+// The launch's geometry (`choose_geometry`)
+struct Geometry {
+  int tile;     // hosts a tile (a power of two, at most 32)
+  int stride;   // a staged row, in words: K for an odd K, else K + 1
+  int words;    // one staged array of a tile, in words
+  size_t smem;  // bytes a block: its two staged arrays
+};
+
+// A launch's arguments
+struct Args {
+  int n, k, window_ns;
+  Geometry g;
+  const int* arrival;
+  const int* size;
+  const int* dn_rate;
+  const int* dn_cap;
+  const int* table;
+  StateIn in;
+  StateOut out;
+  int* status;
+  int* deliver_t;
+  bool* co_mask;
+  int* co_t;
+  int* cached_idx;
+};
+
+// A block is a warp and a tile: stage its rows, fill its outputs, run
+// its machines.
+__global__ void __launch_bounds__(kWarp) router_drain_kernel(const Args a) {
+  extern __shared__ __align__(16) int smem[];
+  const int k = a.k;
+  const Geometry g = a.g;
+  const int lane = threadIdx.x;
+  const int first = blockIdx.x * g.tile;
+  const int rows = min(g.tile, a.n - first);
+  const int cnt = rows * k;
+  const int64_t off = static_cast<int64_t>(first) * k;
+
+  int* const A = smem;
+  int* const S = smem + g.words;
+  stage_slab(A, a.arrival + off, cnt, k, g.stride, lane);
+  stage_slab(S, a.size + off, cnt, k, g.stride, lane);
+  cp_async_commit();
+  Host host{};
+  if (lane < rows) host = load_host(a.in, a.dn_rate, a.dn_cap, first + lane);
+  // every entry queued and undelivered until a machine says otherwise;
+  // the stores drain while the slab lands
+  int* const st = a.status + off;
+  int* const dt = a.deliver_t + off;
+  for (int i = lane; i < cnt; i += kWarp) {
+    st[i] = kQueued;
+    dt[i] = kI32Max;
+  }
+  cp_async_wait_all();
+  __syncwarp();  // the slab in every lane's view, the fills before
+
+  if (lane >= rows) return;
+  const int h = first + lane;
+  const int row = lane * g.stride;
+  bool co_mask;
+  int co_t, c_idx;
+  drain_host(host, A + row, S + row, st + lane * k, dt + lane * k, k,
+             a.window_ns, a.table, co_mask, co_t, c_idx);
+  const StateOut& out = a.out;
+  out.mode[h] = host.mode;
+  out.has_ie[h] = host.has_ie;
+  out.ie[h] = host.ie;
+  out.has_dn[h] = host.has_dn;
+  out.dn[h] = host.dn;
+  out.cur[h] = host.cur;
+  out.prev[h] = host.prev;
+  out.bal[h] = host.bal;
+  out.lref[h] = host.lref;
+  out.has_c[h] = host.has_c;
+  out.c_size[h] = host.c_size;
+  out.resume[h] = host.resume;
+  out.dropped[h] = host.dropped;
+  a.co_mask[h] = co_mask;
+  a.co_t[h] = co_t;
+  a.cached_idx[h] = c_idx;
+}
+
+// The launch's geometry over n rows of K words: a tile of 32 hosts where
+// its two staged arrays fit a block's shared memory, halved for wider
+// rows (one host of K = 14527 takes 116216 B); a block a tile. False
+// past kMaxK.
+bool choose_geometry(int n, int k, Geometry& g, int& blocks) {
+  if (k < 1 || k > kMaxK) return false;
+  g.stride = k | 1;
+  g.tile = kMaxTile;
+  while (2 * sizeof(int) * static_cast<size_t>(g.tile) * g.stride > kMaxSmem)
+    g.tile /= 2;
+  g.words = g.tile * g.stride;
+  g.smem = 2 * sizeof(int) * static_cast<size_t>(g.words);
+  blocks = static_cast<int>((static_cast<int64_t>(n) + g.tile - 1) / g.tile);
+  return true;
+}
+
 }  // namespace
+
+// The geometry of a launch over n rows of k words: out = {hosts a tile,
+// blocks, shared bytes a block}. Returns a cudaError_t.
+extern "C" int router_drain_geometry(int n, int k, int* out) {
+  Geometry g;
+  int blocks = 0;
+  if (!choose_geometry(n, k, g, blocks))
+    return static_cast<int>(cudaErrorInvalidValue);
+  out[0] = g.tile;
+  out[1] = blocks;
+  out[2] = static_cast<int>(g.smem);
+  return 0;
+}
 
 extern "C" int router_drain_launch(
     int n, int k, int window_ns, const void* arrival, const void* size,
@@ -381,7 +552,16 @@ extern "C" int router_drain_launch(
     void* dropped_o, void* status, void* deliver_t, void* co_mask,
     void* co_t, void* cached_idx, void* stream_ptr) {
   if (n <= 0) return static_cast<int>(cudaSuccess);
-  if (k <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  Geometry g;
+  int blocks = 0;
+  if (!choose_geometry(n, k, g, blocks))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (g.smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        router_drain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(g.smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   const StateIn in{
       static_cast<const int*>(mode), static_cast<const bool*>(has_ie),
       static_cast<const int*>(ie), static_cast<const bool*>(has_dn),
@@ -398,27 +578,15 @@ extern "C" int router_drain_launch(
       static_cast<int*>(lref_o), static_cast<bool*>(has_c_o),
       static_cast<int*>(c_size_o), static_cast<int*>(resume_o),
       static_cast<int*>(dropped_o)};
-  // a block stages 4 rows of k + 1 words a host: 32 hosts up to k = 442,
-  // fewer above, down to one (k = 14527)
-  const size_t row_bytes = sizeof(int) * 4 * static_cast<size_t>(k + 1);
-  int hosts = kMaxHosts;
-  while (hosts > 1 && hosts * row_bytes > kMaxSmem) hosts /= 2;
-  const size_t smem = hosts * row_bytes;
-  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        router_drain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const int blocks = (n + hosts - 1) / hosts;
-  router_drain_kernel<<<blocks, hosts, smem,
-                        static_cast<cudaStream_t>(stream_ptr)>>>(
-      n, k, window_ns, static_cast<const int*>(arrival),
-      static_cast<const int*>(size), static_cast<const int*>(dn_rate),
-      static_cast<const int*>(dn_cap), static_cast<const int*>(table), in, out,
-      static_cast<int*>(status), static_cast<int*>(deliver_t),
-      static_cast<bool*>(co_mask), static_cast<int*>(co_t),
-      static_cast<int*>(cached_idx));
+  const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const Args a{n, k, window_ns, g, static_cast<const int*>(arrival),
+               static_cast<const int*>(size),
+               static_cast<const int*>(dn_rate),
+               static_cast<const int*>(dn_cap),
+               static_cast<const int*>(table), in, out,
+               static_cast<int*>(status), static_cast<int*>(deliver_t),
+               static_cast<bool*>(co_mask), static_cast<int*>(co_t),
+               static_cast<int*>(cached_idx)};
+  router_drain_kernel<<<blocks, kWarp, g.smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

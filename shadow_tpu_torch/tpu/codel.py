@@ -20,7 +20,9 @@ Counterpart of `shadow_tpu/tpu/codel.py`, bitwise:
 The JAX drain is one `lax.fori_loop` vmapped over hosts: serial per
 host, independent across hosts. As eager PyTorch on the card it is
 ~130 launches a micro-step, ~19000 a window at CI=32; kernel E runs it
-as one thread per host in one launch (see its source note).
+in one launch, a host a lane, a block a warp and a tile of 32 hosts
+whose rows it stages in shared memory by asynchronous copy (see its
+source note; `e_geometry` reads the launch's tile and grid).
 """
 
 from __future__ import annotations
@@ -542,16 +544,35 @@ _router_drain_op = row_op(
     + ", ".join(["Tensor"] * (len(DRAIN_FIELDS) + 5)) + ")")
 
 
+def e_geometry(n: int, k: int) -> dict:
+    """Kernel E's launch over `n` rows of `k` entries, as its launcher
+    works it out: hosts a tile (a block of one warp), blocks and shared
+    bytes a block. A `k` the kernel does not take raises RuntimeError, as
+    its launch does."""
+    import ctypes
+
+    from .._build import load_kernel
+
+    out = (ctypes.c_int * 3)()
+    fn = load_kernel("router_drain").router_drain_geometry
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    err = fn(n, k, out)
+    if err:
+        raise RuntimeError(f"router_drain_kernel: CUDA error {err} at "
+                           f"geometry (K={k})")
+    return dict(zip(("hosts_a_tile", "blocks", "smem_bytes"), out))
+
+
 def router_drain(arrival: torch.Tensor, size: torch.Tensor, window_ns: int,
                  dn_rate: torch.Tensor, dn_cap: torch.Tensor,
                  state: RouterDownState, *, plain: bool = False):
     """Kernel E (`csrc/router_drain.cu`) on CUDA tensors, its plain
     version (`router_drain_plain`, the same function) on CPU tensors or
     with `plain=True`. Every output is a fresh tensor; the input state is
-    not written. A row too wide for the kernel to stage in shared memory
-    is refused by its launcher (RuntimeError). Both go through the op
+    not written. A row wider than the kernel takes (K > 14527) is
+    refused by its launcher (RuntimeError). Both go through the op
     `shadow_tpu_torch::router_drain` (unless `plain`), whose vmap rule
-    drains every world of an ensemble in one launch, one thread a host."""
+    drains every world of an ensemble in one launch, a host a lane."""
     if plain:
         return router_drain_plain(arrival, size, window_ns, dn_rate, dn_cap,
                                   state)

@@ -16,7 +16,8 @@ torch = pytest.importorskip("torch")
 
 from torch_parity import (BATCHED_KERNELS, EDGE_SHIFTS,  # noqa: E402
                           batched_kernel_case, drain_inputs, flat_outputs,
-                          gate_edge_columns, placement_inputs)
+                          gate_edge_columns, long_chain_drain_inputs,
+                          placement_inputs)
 
 from shadow_tpu_torch import bench, convert  # noqa: E402
 from shadow_tpu_torch.tpu import pipeline  # noqa: E402
@@ -171,35 +172,120 @@ def test_corpus_entry_on_the_card_matches_golden(cuda):
     assert rec == runner.run_scenario(sp, device="cpu")
 
 
-@pytest.mark.parametrize("n,k", [(n, k) for k in (8, 32, 64)
-                                 for n in (1, 37, 4099)]
-                         + [(37, 300), (4099, 300), (37, 1024)])
-def test_router_drain_kernel_matches_plain(cuda, n, k):
-    """Kernel E against `router_drain_plain` on the card, on random rows
-    and mid-run router states (`drain_inputs`), at a block-aligned and
-    ragged host counts, rows that fill 32, 16 and 4 hosts' shared memory
-    a block, in a short window and one so long that resumes wrap int32;
-    every output a fresh tensor."""
+def drain_on_card(cuda, inputs, window_ns, view=False):
+    """Kernel E and `router_drain_plain` on the same card tensors, one
+    launch, every output bitwise and fresh; with `view`, each input is a
+    view one element into a longer tensor (`[1:]` of its flat storage), so
+    the rows start a word past a 16-byte boundary whatever K is. Returns
+    the plain loop's micro-steps a host."""
     from shadow_tpu_torch.tpu import codel
 
+    arrival, size, rate, cap, state = inputs
+
+    def t(a):
+        if not view:
+            return torch.from_numpy(a).to(cuda)
+        flat = a.reshape(-1)
+        big = torch.from_numpy(np.concatenate([flat[:1], flat])).to(cuda)
+        return big[1:].view(a.shape)
+
+    st = codel.RouterDownState(**{
+        f: t(np.asarray(v)) for f, v in convert.router_from_numpy(
+            state, "cpu")._asdict().items()})
+    args = (t(arrival), t(size), window_ns, t(rate), t(cap), st)
+    if view:
+        assert args[0].data_ptr() % 16 == 4 and args[1].data_ptr() % 16 == 4
+    before = pipeline.LAUNCHES["router_drain"]
+    got = codel.router_drain(*args)
+    ref = codel._router_drain_loop(*args)
+    torch.cuda.synchronize()
+    assert pipeline.LAUNCHES["router_drain"] == before + 1
+    for f in codel.RouterDownState._fields:
+        g, r = getattr(got[0], f), getattr(ref[0], f)
+        assert g.dtype == r.dtype and torch.equal(g, r), (window_ns, f)
+        if f in codel.DRAIN_FIELDS:
+            assert g.data_ptr() != getattr(st, f).data_ptr()
+    for g, r in zip(got[1:], ref[1:6]):
+        assert g.dtype == r.dtype and torch.equal(g, r), window_ns
+    return ref[6]
+
+
+@pytest.mark.parametrize("n,k", [(n, k) for k in (8, 32, 64)
+                                 for n in (1, 37, 4099)]
+                         + [(37, 300), (4099, 300), (37, 1024)]
+                         + [(31, 32), (32, 32), (33, 32), (37, 1), (37, 7),
+                            (4099, 7), (37, 33), (4099, 33), (9, 2047)])
+def test_router_drain_kernel_matches_plain(cuda, n, k):
+    """Kernel E against `router_drain_plain` on the card, on random rows
+    and mid-run router states (`drain_inputs`), at host counts of one, a
+    tile less one, a tile, a tile plus one and ragged ones, odd widths
+    whose slabs lie off 16 bytes (1, 7, 33, 2047), rows wide enough to
+    need more than 48 KB of shared memory (300) or to shrink the tile
+    (1024: 16 hosts; 2047: 8), in a short window and one so long that
+    resumes wrap int32; every output a fresh tensor."""
     for window_ns in (10 * MS, 2**30):
-        arrival, size, rate, cap, state = drain_inputs(
-            n, k, seed=n + k, window_ns=window_ns)
-        t = lambda a: torch.from_numpy(a).to(cuda)
-        st = convert.router_from_numpy(state, cuda)
-        args = (t(arrival), t(size), window_ns, t(rate), t(cap), st)
-        before = pipeline.LAUNCHES["router_drain"]
-        got = codel.router_drain(*args)
-        ref = codel.router_drain_plain(*args)
-        torch.cuda.synchronize()
-        assert pipeline.LAUNCHES["router_drain"] == before + 1
-        for f in codel.RouterDownState._fields:
-            g, r = getattr(got[0], f), getattr(ref[0], f)
-            assert g.dtype == r.dtype and torch.equal(g, r), (window_ns, f)
-            if f in codel.DRAIN_FIELDS:
-                assert g.data_ptr() != getattr(st, f).data_ptr()
-        for g, r in zip(got[1:], ref[1:]):
-            assert g.dtype == r.dtype and torch.equal(g, r), window_ns
+        drain_on_card(cuda, drain_inputs(n, k, seed=n + k,
+                                         window_ns=window_ns), window_ns)
+
+
+@pytest.mark.parametrize("n,k", [(37, 1), (37, 7), (70, 32), (70, 33),
+                                 (33, 64)])
+def test_router_drain_kernel_on_unaligned_row_views(cuda, n, k):
+    """Inputs that are views one element into longer tensors: rows that
+    start a word past a 16-byte boundary, at odd and even K."""
+    drain_on_card(cuda, drain_inputs(n, k, seed=3 * n + k), 10 * MS,
+                  view=True)
+
+
+@pytest.mark.parametrize("n,k", [(65, 32), (97, 33)])
+def test_router_drain_kernel_long_chains_beside_halting_hosts(cuda, n, k):
+    """A host a tile whose tiny bucket caches and resumes each packet, so
+    that it runs more than K micro-steps, beside hosts that halt at once:
+    one lane's long chain holds only its own tile."""
+    steps = drain_on_card(cuda, long_chain_drain_inputs(n, k, seed=5), 2**30)
+    assert (steps[::32] > k).all() and (steps[1::32] == 1).all()
+
+
+@pytest.mark.parametrize("k", [14526, 14527])
+def test_router_drain_kernel_stages_the_widest_rows(cuda, k):
+    """The widest rows the kernel takes (two hosts a tile at K = 14526
+    and 14527): rows of padding, with one entry that arrives after the
+    window, halt at once, so the drain leaves the state as it was and
+    every entry queued (the plain version's 4K + 16 fixed micro-steps
+    are too slow to run at this width)."""
+    from shadow_tpu_torch.tpu import codel
+
+    _a, _s, rate, cap, state = drain_inputs(3, 8, seed=1)
+    state["has_cached"][:] = False
+    arrival = np.full((3, k), 2**31 - 1, np.int32)
+    arrival[1, 0] = 11 * MS
+    size = np.full((3, k), 1500, np.int32)
+    t = lambda a: torch.from_numpy(a).to(cuda)
+    st = convert.router_from_numpy(state, cuda)
+    got = codel.router_drain(t(arrival), t(size), 10 * MS, t(rate), t(cap),
+                             st)
+    torch.cuda.synchronize()
+    for f in codel.RouterDownState._fields:
+        assert torch.equal(getattr(got[0], f), getattr(st, f)), f
+    assert (got[1] == codel.STATUS_QUEUED).all()
+    assert (got[2] == 2**31 - 1).all()
+    assert not got[3].any() and (got[4] == 0).all()
+    assert (got[5] == -1).all()
+
+
+def test_batched_router_drain_with_ragged_rows(cuda):
+    """Kernel E under `torch.func.vmap` over 3 worlds of 37 hosts (111
+    rows: no whole tile at the world boundaries) at K=33: one launch,
+    equal to the plain version vmapped over the worlds."""
+    wrapper, plain, args, in_dims, _m = batched_kernel_case(
+        "router_drain", 37, (4, 5, 6), cuda, k=33)
+    before = pipeline.LAUNCHES["router_drain"]
+    got = flat_outputs(torch.func.vmap(wrapper, in_dims=in_dims)(*args))
+    ref = flat_outputs(torch.func.vmap(plain, in_dims=in_dims)(*args))
+    torch.cuda.synchronize()
+    assert pipeline.LAUNCHES["router_drain"] == before + 1
+    for g, r in zip(got, ref):
+        assert g.dtype == r.dtype and torch.equal(g, r)
 
 
 def test_router_drain_kernel_refuses_rows_it_cannot_stage(cuda):

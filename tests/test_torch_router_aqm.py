@@ -25,6 +25,7 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 from torch_parity import (MS, assert_states_equal, assert_tuples_equal,  # noqa: E402
                           drain_inputs, jax_params_to_numpy,
+                          long_chain_drain_inputs,
                           jax_state_to_numpy, phold_both, rr_world)
 
 from shadow_tpu.net.packet import CONFIG_HEADER_SIZE_UDPIPETH  # noqa: E402
@@ -82,162 +83,238 @@ def _floordiv(a, b):
     return a // b  # Python floors, like jnp and the kernel's floordiv
 
 
-def kernel_model(arrival, size, window_ns, rate, cap, state):
-    """Kernel E's thread loop (`csrc/router_drain.cu`), line for line, on
-    Python ints wrapped to int32: a host at a time, stopping at `halted`,
-    the queue count as a pointer walk carrying the pushed bytes."""
+class Row:
+    """A host's row in the modelled shared memory: words base, base + 1..."""
+
+    def __init__(self, mem, base):
+        self.mem, self.base = mem, base
+
+    def __getitem__(self, c):
+        return self.mem[self.base + c]
+
+    def __setitem__(self, c, v):
+        self.mem[self.base + c] = v
+
+
+def host_model(A, S, ST, DT, k, window_ns, r, c, g, table):
+    """One lane's `drain_host`, line for line, on Python ints wrapped to
+    int32: it stops at `halted`, walks the queue count as a pointer
+    carrying the pushed bytes, and starts a chain while `A[eidx]` (a
+    sorted row's valid entries are its prefix) arrives in the window.
+    Returns (state, co_mask, co_t, cached_idx, micro-steps)."""
+
+    def refill(bal, lref, now):
+        span = max(_i32(now - lref), 0)
+        num = span // MS
+        headroom = max(_i32(c - bal), 0)
+        need = _floordiv(_i32(headroom + r - 1), r)
+        bal2 = _i32(c - max(_i32(headroom - _i32(r * min(num, need))), 0))
+        return bal2, _i32(max(now, lref) - span % MS)
+
+    def wait_until(now, required, lref):
+        n_refills = _floordiv(_i32(required + r - 1), r)
+        w = _i32(_i32(MS - _i32(now - lref)) + _i32((n_refills - 1) * MS))
+        res = _i32(now + w)
+        return I32_MAX - MS if res < now else res
+
+    mode, ie, dn = g["mode"], g["interval_end"], g["drop_next"]
+    has_ie, has_dn, has_c = (g["has_interval_end"], g["has_drop_next"],
+                             g["has_cached"])
+    cur, prev = g["cur_count"], g["prev_count"]
+    bal, lref = g["dn_balance"], g["dn_last_refill"]
+    c_size, resume, dropped = g["cached_bytes"], g["resume"], g["dropped"]
+    c_idx, eidx, cbytes, T, phase = -1, 0, 0, 0, 3
+    cm, ct = False, 0
+    n_pushed, pushed = 0, 0
+    it = 0
+    while it < 4 * k + 16:
+        it += 1
+        if phase == 3:
+            if has_c and resume < window_ns:
+                r_bal, r_lref = refill(bal, lref, resume)
+                lref = r_lref
+                if c_size <= r_bal:
+                    bal = _i32(r_bal - c_size)
+                    if c_idx >= 0:
+                        ST[c_idx] = 1
+                        DT[c_idx] = resume
+                    else:
+                        cm, ct = True, resume
+                    has_c, c_idx, T, phase = False, -1, resume, 0
+                else:
+                    bal = r_bal
+                    resume = wait_until(resume, _i32(c_size - r_bal),
+                                        r_lref)
+                continue
+            if not has_c and eidx < k and A[eidx] < window_ns:
+                T, phase = A[eidx], 0
+                continue
+            break
+        now = T
+        while n_pushed < k and A[n_pushed] <= now:
+            if A[n_pushed] < I32_MAX:
+                pushed = _i32(pushed + S[n_pushed])
+            n_pushed += 1
+        while n_pushed > 0 and A[n_pushed - 1] > now:
+            n_pushed -= 1
+            if A[n_pushed] < I32_MAX:
+                pushed = _i32(pushed - S[n_pushed])
+        empty = eidx >= n_pushed
+        e = min(eidx, k - 1)
+        e_size = S[e]
+        total_after = _i32(_i32(pushed - cbytes) - e_size)
+        below = _i32(now - A[e]) < 10 * MS or total_after <= 1500
+        ok = not below and has_ie and now >= ie
+        if not below and not has_ie:
+            ie = _i32(now + 100 * MS)
+        any_empty = deliver_now = drop = False
+        n_phase = phase
+        if phase == 0:
+            if empty:
+                any_empty, mode = True, 0
+            elif not ok:
+                deliver_now, mode = True, 0
+            elif mode == 0:
+                recently = has_dn and max(_i32(now - dn), 0) < 1_600_000_000
+                delta = _i32(cur - prev)
+                new_cur = delta if (recently and delta > 1) else 1
+                cur = prev = new_cur
+                dn = _i32(now + table[min(max(new_cur, 1), 4096)])
+                has_dn, mode, n_phase, drop = True, 1, 1, True
+            elif mode == 1:
+                if has_dn and now >= dn:
+                    cur, n_phase, drop = _i32(cur + 1), 2, True
+                else:
+                    deliver_now = True
+        elif phase == 1:
+            if empty:
+                any_empty = True
+            else:
+                deliver_now = True
+        else:
+            if empty:
+                any_empty = True
+            else:
+                dn_upd = (_i32(dn + table[min(max(cur, 1), 4096)])
+                          if ok else dn)
+                dn = dn_upd
+                if ok and has_dn and now >= dn_upd:
+                    cur, drop = _i32(cur + 1), True
+                else:
+                    deliver_now = True
+                    if not ok:
+                        mode = 0
+        has_ie = not below and not any_empty
+        rec = 2 if drop else 0
+        if deliver_now:
+            g_bal, g_lref = refill(bal, lref, now)
+            lref = g_lref
+            if e_size <= g_bal:
+                bal, rec, n_phase = _i32(g_bal - e_size), 1, 0
+            else:
+                bal, rec, has_c, c_size, c_idx = g_bal, 3, True, e_size, e
+                resume = wait_until(now, _i32(e_size - g_bal), g_lref)
+                n_phase = 3
+        elif any_empty:
+            n_phase = 3
+        phase = n_phase
+        if drop or deliver_now:
+            ST[e] = rec
+            if rec == 1:
+                DT[e] = now
+            if drop:
+                dropped = _i32(dropped + 1)
+            eidx += 1
+            cbytes = _i32(cbytes + e_size)
+    out = dict(mode=mode, has_interval_end=has_ie, interval_end=ie,
+               has_drop_next=has_dn, drop_next=dn, cur_count=cur,
+               prev_count=prev, dn_balance=bal, dn_last_refill=lref,
+               has_cached=has_c, cached_bytes=c_size, resume=resume,
+               dropped=dropped)
+    return out, cm, ct, c_idx, it
+
+
+MAX_SMEM = 232448  # the shared bytes a block may use
+MAX_K = 14527  # the widest row the launcher takes
+
+
+def e_geometry_model(k):
+    """`choose_geometry`: (hosts a tile, words of a staged row, words of
+    one staged array), or None past the widest row the launcher takes."""
+    if not 1 <= k <= MAX_K:
+        return None
+    stride = k | 1
+    tile = 32
+    while 2 * 4 * tile * stride > MAX_SMEM:
+        tile //= 2
+    return tile, stride, tile * stride
+
+
+def stage_slab_model(smem, dst, mem, src, cnt, k, stride):
+    """`stage_slab` for the 32 lanes: `mem` is device memory by word
+    address, `dst` a word of the modelled shared memory; slab word i
+    lands at row i // k, column i % k of rows `stride` words apart."""
+    pad = stride - k
+    for lane in range(32):
+        col, pos = lane % k, lane + pad * (lane // k)
+        for i in range(lane, cnt, 32):
+            smem[dst + pos] = mem[src + i]
+            col += 32 % k
+            pos += 32 + pad * (32 // k)
+            if col >= k:
+                col -= k
+                pos += pad
+
+
+def kernel_model(arrival, size, window_ns, rate, cap, state, *,
+                 phases=(0, 0, 0, 0)):
+    """Kernel E (`csrc/router_drain.cu`) as its warps run it: the
+    geometry of `choose_geometry`, a warp a tile; the tile's slabs of
+    arrival and size staged word by word into the warp's shared buffers
+    at the kernel's stride; its status and deliver_t slabs filled with
+    kQueued and I32_MAX; a lane's `host_model` on its staged rows,
+    writing the entries it consumes to device memory. Device memory is
+    word-addressed; `phases` puts arrival, size, status and deliver_t at
+    those words mod 4 (a row view's storage offset). Shared and output
+    words start as garbage, so a word read or left unwritten shows."""
     n, k = arrival.shape
+    geo = e_geometry_model(k)
+    assert geo is not None, f"K={k} does not fit"
+    tile, stride, words = geo
     table = [int(x) for x in tcodel.CTRL_TABLE]
+    span = (n * k + 7) & ~3  # an array's words and room to offset it
+    bases = [i * span + p + 4 for i, p in enumerate(phases)]
+    mem = [-54321] * (4 * span + 4)
+    for b, a in zip(bases[:2], (arrival, size)):
+        mem[b:b + n * k] = [int(v) for v in a.reshape(-1)]
     out = {f: np.array(v, copy=True) for f, v in state.items()}
-    status = np.zeros((n, k), np.int32)
-    deliver = np.full((n, k), I32_MAX, np.int32)
     co_mask = np.zeros(n, bool)
     co_t = np.zeros(n, np.int32)
     c_idx_out = np.full(n, -1, np.int32)
     steps = np.zeros(n, np.int32)
-
-    for h in range(n):
-        A = [int(x) for x in arrival[h]]
-        S = [int(x) for x in size[h]]
-        r, c = int(rate[h]), int(cap[h])
-
-        def refill(bal, lref, now):
-            span = max(_i32(now - lref), 0)
-            num = span // MS
-            headroom = max(_i32(c - bal), 0)
-            need = _floordiv(_i32(headroom + r - 1), r)
-            bal2 = _i32(c - max(_i32(headroom - _i32(r * min(num, need))), 0))
-            return bal2, _i32(max(now, lref) - span % MS)
-
-        def wait_until(now, required, lref):
-            n_refills = _floordiv(_i32(required + r - 1), r)
-            w = _i32(_i32(MS - _i32(now - lref)) + _i32((n_refills - 1) * MS))
-            res = _i32(now + w)
-            return I32_MAX - MS if res < now else res
-
-        g = {f: (bool(v[h]) if v.dtype == bool else int(v[h]))
-             for f, v in state.items()}
-        mode, ie, dn = g["mode"], g["interval_end"], g["drop_next"]
-        has_ie, has_dn, has_c = (g["has_interval_end"], g["has_drop_next"],
-                                 g["has_cached"])
-        cur, prev = g["cur_count"], g["prev_count"]
-        bal, lref = g["dn_balance"], g["dn_last_refill"]
-        c_size, resume, dropped = g["cached_bytes"], g["resume"], g["dropped"]
-        c_idx, eidx, cbytes, T, phase = -1, 0, 0, 0, 3
-        cm, ct = False, 0
-        n_valid = sum(a < I32_MAX for a in A)
-        n_pushed, pushed = 0, 0
-        it = 0
-        while it < 4 * k + 16:
-            it += 1
-            if phase == 3:
-                if has_c and resume < window_ns:
-                    r_bal, r_lref = refill(bal, lref, resume)
-                    lref = r_lref
-                    if c_size <= r_bal:
-                        bal = _i32(r_bal - c_size)
-                        if c_idx >= 0:
-                            status[h, c_idx] = 1
-                            deliver[h, c_idx] = resume
-                        else:
-                            cm, ct = True, resume
-                        has_c, c_idx, T, phase = False, -1, resume, 0
-                    else:
-                        bal = r_bal
-                        resume = wait_until(resume, _i32(c_size - r_bal),
-                                            r_lref)
-                    continue
-                head_arr = A[min(eidx, k - 1)]
-                if not has_c and eidx < n_valid and head_arr < window_ns:
-                    T, phase = head_arr, 0
-                    continue
-                break
-            now = T
-            while n_pushed < k and A[n_pushed] <= now:
-                if A[n_pushed] < I32_MAX:
-                    pushed = _i32(pushed + S[n_pushed])
-                n_pushed += 1
-            while n_pushed > 0 and A[n_pushed - 1] > now:
-                n_pushed -= 1
-                if A[n_pushed] < I32_MAX:
-                    pushed = _i32(pushed - S[n_pushed])
-            empty = eidx >= n_pushed
-            e = min(eidx, k - 1)
-            e_size = S[e]
-            total_after = _i32(_i32(pushed - cbytes) - e_size)
-            below = _i32(now - A[e]) < 10 * MS or total_after <= 1500
-            ok = not below and has_ie and now >= ie
-            if not below and not has_ie:
-                ie = _i32(now + 100 * MS)
-            any_empty = deliver_now = drop = False
-            n_phase = phase
-            if phase == 0:
-                if empty:
-                    any_empty, mode = True, 0
-                elif not ok:
-                    deliver_now, mode = True, 0
-                elif mode == 0:
-                    recently = has_dn and max(_i32(now - dn), 0) < 1_600_000_000
-                    delta = _i32(cur - prev)
-                    new_cur = delta if (recently and delta > 1) else 1
-                    cur = prev = new_cur
-                    dn = _i32(now + table[min(max(new_cur, 1), 4096)])
-                    has_dn, mode, n_phase, drop = True, 1, 1, True
-                elif mode == 1:
-                    if has_dn and now >= dn:
-                        cur, n_phase, drop = _i32(cur + 1), 2, True
-                    else:
-                        deliver_now = True
-            elif phase == 1:
-                if empty:
-                    any_empty = True
-                else:
-                    deliver_now = True
-            else:
-                if empty:
-                    any_empty = True
-                else:
-                    dn_upd = (_i32(dn + table[min(max(cur, 1), 4096)])
-                              if ok else dn)
-                    dn = dn_upd
-                    if ok and has_dn and now >= dn_upd:
-                        cur, drop = _i32(cur + 1), True
-                    else:
-                        deliver_now = True
-                        if not ok:
-                            mode = 0
-            has_ie = not below and not any_empty
-            rec = 2 if drop else 0
-            if deliver_now:
-                g_bal, g_lref = refill(bal, lref, now)
-                lref = g_lref
-                if e_size <= g_bal:
-                    bal, rec, n_phase = _i32(g_bal - e_size), 1, 0
-                else:
-                    bal, rec, has_c, c_size, c_idx = g_bal, 3, True, e_size, e
-                    resume = wait_until(now, _i32(e_size - g_bal), g_lref)
-                    n_phase = 3
-            elif any_empty:
-                n_phase = 3
-            phase = n_phase
-            if drop or deliver_now:
-                status[h, e] = rec
-                if rec == 1:
-                    deliver[h, e] = now
-                if drop:
-                    dropped = _i32(dropped + 1)
-                eidx += 1
-                cbytes = _i32(cbytes + e_size)
-        steps[h] = it
-        for f, v in (("mode", mode), ("has_interval_end", has_ie),
-                     ("interval_end", ie), ("has_drop_next", has_dn),
-                     ("drop_next", dn), ("cur_count", cur),
-                     ("prev_count", prev), ("dn_balance", bal),
-                     ("dn_last_refill", lref), ("has_cached", has_c),
-                     ("cached_bytes", c_size), ("resume", resume),
-                     ("dropped", dropped)):
-            out[f][h] = v
-        co_mask[h], co_t[h], c_idx_out[h] = cm, ct, c_idx
+    a0, s0 = 0, words
+    for first in range(0, n, tile):
+        smem = [-12345] * (2 * words)
+        rows = min(tile, n - first)
+        cnt = rows * k
+        slab = [b + first * k for b in bases]
+        for which, dst in ((0, a0), (1, s0)):
+            stage_slab_model(smem, dst, mem, slab[which], cnt, k, stride)
+        mem[slab[2]:slab[2] + cnt] = [0] * cnt
+        mem[slab[3]:slab[3] + cnt] = [I32_MAX] * cnt
+        for lane in range(rows):
+            h = first + lane
+            g = {f: (bool(v[h]) if v.dtype == bool else int(v[h]))
+                 for f, v in state.items()}
+            st, cm, ct, ci, it = host_model(
+                Row(smem, a0 + lane * stride), Row(smem, s0 + lane * stride),
+                Row(mem, slab[2] + lane * k), Row(mem, slab[3] + lane * k),
+                k, window_ns, int(rate[h]), int(cap[h]), g, table)
+            for f, v in st.items():
+                out[f][h] = v
+            co_mask[h], co_t[h], c_idx_out[h], steps[h] = cm, ct, ci, it
+    status, deliver = (np.array(mem[b:b + n * k], np.int32).reshape(n, k)
+                       for b in bases[2:])
     return (out, status, deliver, co_mask, co_t, c_idx_out), steps
 
 
@@ -257,7 +334,7 @@ def test_router_drain_plain_matches_jax(k, seed, window_ns):
 
 
 @pytest.mark.parametrize("k,seed,window_ns", [
-    (8, 5, 10 * MS), (16, 6, 2**30), (32, 7, 10 * MS)])
+    (8, 5, 10 * MS), (16, 6, 2**30), (32, 7, 10 * MS), (33, 8, 10 * MS)])
 def test_kernel_model_matches_plain(k, seed, window_ns):
     """The kernel's loop (stopping at `halted`, pointer-walked queue,
     branches) equals the fixed trip count of selects, and the steps it
@@ -276,6 +353,88 @@ def test_kernel_model_matches_plain(k, seed, window_ns):
                         (st_got, *got[1:]), (k, seed))
     assert np.array_equal(steps, ref[6].numpy())
     assert (steps < 4 * k + 16).all(), "a host ran out of micro-steps"
+
+
+def model_against_plain(args, window_ns, **kw):
+    """`kernel_model` against the plain loop, every output bitwise;
+    returns the micro-steps each host ran."""
+    arrival, size, rate, cap, state = args
+    got, steps = kernel_model(arrival, size, window_ns, rate, cap, state,
+                              **kw)
+    t = torch.from_numpy
+    ref = tcodel._router_drain_loop(
+        t(arrival), t(size), window_ns, t(rate), t(cap),
+        convert.router_from_numpy(state, "cpu"))
+    st_ref = {f: v for f, v in convert.tuple_to_numpy(ref[0]).items()
+              if f in tcodel.DRAIN_FIELDS}
+    st_got = {f: got[0][f] for f in tcodel.DRAIN_FIELDS}
+    assert_drains_equal((st_ref, *(a.numpy() for a in ref[1:6])),
+                        (st_got, *got[1:]), kw)
+    assert np.array_equal(steps, ref[6].numpy())
+    return steps
+
+
+@pytest.mark.parametrize("n,k,phases", [
+    (1, 32, (0, 0, 0, 0)), (31, 32, (1, 2, 3, 0)), (32, 32, (0, 0, 0, 0)),
+    (33, 32, (3, 1, 0, 2)), (70, 32, (2, 2, 1, 1)), (40, 1, (3, 1, 2, 0)),
+    (40, 2, (1, 0, 3, 1)), (40, 7, (1, 1, 1, 1)), (70, 33, (2, 3, 0, 1)),
+    (40, 33, (0, 0, 0, 0)), (9, 300, (1, 0, 0, 3)),
+    (20, 1024, (0, 1, 2, 3))])
+def test_kernel_model_tiles_and_alignment(n, k, phases):
+    """The kernel's tiles, staging and fills, modelled word by word: host
+    counts about one tile, odd and even K, slabs at every word phase mod
+    16 bytes (a row view's storage offset), tiles of 16 hosts at K=1024;
+    every output bitwise the plain loop's."""
+    args = drain_inputs(n, k, seed=1000 + n + k)
+    model_against_plain(args, 10 * MS, phases=phases)
+
+
+@pytest.mark.parametrize("n,k", [(65, 32), (40, 33)])
+def test_kernel_model_long_chains_beside_halting_hosts(n, k):
+    """A host a tile whose tiny bucket caches and resumes every packet
+    runs more than K micro-steps, beside a host that halts at once."""
+    args = long_chain_drain_inputs(n, k, seed=77)
+    steps = model_against_plain(args, 2**30, phases=(1, 3, 2, 1))
+    assert (steps[::32] > k).all(), steps[::32]
+    assert (steps[1::32] == 1).all()
+
+
+@pytest.mark.parametrize("k,phases", [(14526, (1, 2, 3, 1)),
+                                      (14527, (1, 2, 3, 1)),
+                                      (14527, (0, 0, 0, 0))])
+def test_kernel_model_stages_the_widest_rows(k, phases):
+    """The widest rows (two hosts a tile): rows of
+    padding, one with an entry after the window, halt at once and leave
+    the state as it was, every entry queued."""
+    _a, _s, rate, cap, state = drain_inputs(3, 8, seed=1)
+    state["has_cached"][:] = False
+    arrival = np.full((3, k), I32_MAX, np.int32)
+    arrival[1, 0] = 11 * MS
+    size = np.full((3, k), 1500, np.int32)
+    (out, status, deliver, co_mask, co_t, c_idx), steps = kernel_model(
+        arrival, size, 10 * MS, rate, cap, state, phases=phases)
+    for f in tcodel.DRAIN_FIELDS:
+        assert np.array_equal(out[f], state[f]), f
+    assert (status == 0).all() and (deliver == I32_MAX).all()
+    assert not co_mask.any() and (co_t == 0).all() and (c_idx == -1).all()
+    assert (steps == 1).all()
+
+
+def test_e_geometry_model_edges():
+    """`choose_geometry`'s tiles: 32 hosts up to K = 907, smaller tiles
+    for wider rows, two hosts at the widest, odd strides (K for an
+    odd K, K + 1 for an even one), nothing past the widest row the
+    launcher takes (K = 14527)."""
+    assert e_geometry_model(32) == (32, 33, 1056)
+    assert e_geometry_model(33) == (32, 33, 1056)
+    assert e_geometry_model(907) == (32, 907, 29024)
+    assert e_geometry_model(908) == (16, 909, 14544)
+    assert e_geometry_model(909) == (16, 909, 14544)
+    assert e_geometry_model(1024)[0] == 16
+    assert e_geometry_model(14526) == (2, 14527, 29054)
+    assert e_geometry_model(14527) == (2, 14527, 29054)
+    assert e_geometry_model(0) is None
+    assert e_geometry_model(14528) is None
 
 
 def test_router_drain_on_cpu_runs_the_plain_version():

@@ -143,6 +143,27 @@ def drain_inputs(n, k, seed, *, window_ns=10 * MS):
     return i32(arrival), i32(size), i32(rate), i32(cap), state
 
 
+def long_chain_drain_inputs(n, k, seed, *, every=32):
+    """`drain_inputs` over a window of 2**30 ns where host 0 of every
+    `every` holds K full packets that arrive 1 µs apart behind a bucket
+    of 100 B/ms (each packet is cached, waits ~15 ms and resumes, so the
+    host runs more than K micro-steps) and host 1 of every `every` holds
+    no packet and no cache (it halts on its first micro-step)."""
+    arrival, size, rate, cap, state = drain_inputs(n, k, seed,
+                                                   window_ns=2**30)
+    long, idle = np.arange(0, n, every), np.arange(1, n, every)
+    arrival[long] = np.arange(k, dtype=np.int32) * 1000
+    size[long] = 1500
+    rate[long], cap[long] = 100, 1600
+    arrival[idle] = I32_MAX
+    for f, v in (("mode", 0), ("has_interval_end", False),
+                 ("has_drop_next", False), ("has_cached", False),
+                 ("cached_bytes", 0), ("dn_balance", 0),
+                 ("dn_last_refill", 0)):
+        state[f][np.concatenate([long, idle])] = v
+    return arrival, size, rate, cap, state
+
+
 def assert_states_equal(a: dict, b: dict, ctx=None):
     """Every leaf bitwise equal, dtype and shape included."""
     assert a.keys() == b.keys(), ctx
