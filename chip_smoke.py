@@ -7,8 +7,14 @@ E, in phases; any failure exits non-zero before the result lines are
 printed:
 
 1. require a CUDA card; print its name and power limit (nvidia-smi);
+   start the CPU runs that phases 9, 12-15 compare the card's with, all at
+   once in a pool of spawned worker processes (CUDA hidden, two torch
+   threads each, (cores - 2) / 2 of them; the count is printed), each
+   phase awaiting its own where it compares;
 2. build the kernels from `shadow_tpu_torch/csrc` (one nvcc per source,
-   in parallel) and print the build seconds and ptxas' resource report;
+   in parallel; kernel F's, the longest, beside phases 3-19, awaited
+   before phase 20) and print the build seconds and ptxas' resource
+   report;
 3. kernel A (egress_rank) against its plain PyTorch version on the card,
    bitwise, at N=32768 and CE in {8, 16, 32, 64}, and timed with its
    inputs in HBM (L2 flushed before each launch by a write: `ms`; by a
@@ -18,7 +24,7 @@ printed:
    of its kernels (a spill fails); bitwise against its plain version at
    CE in {2, 4, 8, 16, 32, 64, 128, 1024} on random inputs at N=32768
    and on the CPU tests' int32 edge inputs at a ragged N=32763; timed as
-   kernel A at CE in {4, 8, 16, 32, 64}, beside a device copy of as many
+   kernel A at CE in {8, 16, 32}, beside a device copy of as many
    bytes timed alike (the floor of the timing at that size);
 5. kernels B (route_place) and D (route_scatter) likewise on one input
    set at N=32768, CE=16, CI=32, with rows whose arrivals overflow the
@@ -51,7 +57,10 @@ printed:
    versions, each kernel of the pair launched R times;
 11. `kernel="xla"` at that width: the state of the fused path's run, no
    kernel launched, and device kernels and busy ms a window of the XLA
-   and fused windows (`bench.profile_windows`);
+   and fused windows (`bench.profile_windows`); (b) 6 PHOLD windows at
+   that width on "xla" with `packed_sort=False` (JAX's pre-diet variadic
+   sorts), every window's state, delivered count and next event equal
+   to the packed sorts' run;
 12. `onoff.yaml` widened to 16384 hosts (the N x N latency and loss
    tables 1 GiB each on the card), 160 windows: two card runs with equal
    records, every host done; the first 8 windows' record equal to the
@@ -102,7 +111,12 @@ printed:
    from the world's start to the end of the traffic, equal to the same
    windows run one at a time with the same boundaries, its reads of
    tensors back to the host counted (one a chained window), and one idle
-   window from (b)'s drained end;
+   window from (b)'s drained end; (e) the AQM world's traffic at N=1024
+   with ingress rings of CI=32768 slots (rows of K=32768: kernel E's
+   device build, which reads its rows in device memory), 8 windows on
+   "xla" and "pallas_fused" equal, the first 2 equal to the CPU's, E's
+   device build launched once a window, its us a launch in the window
+   beside its bound by bytes;
 16. the run infrastructure (no kernel of its own): (a) the PHOLD main
    path at N=32768, R=64 through each kernel pair with the telemetry
    harvester every 32 windows and the run ledger (and "xla" with the
@@ -112,8 +126,10 @@ printed:
    (torch.profiler, windows 32-63 of a 64-window run, the set-up and
    the first chain before it); (d) the memo rep (`bench.run_memo`: a
    16-host ring allreduce over 1024 windows in chains of 64, cold and
-   memoized), hits and digest parity; then in child processes, the
-   killed runs at once and the resumed runs at once: (b) the fused
+   memoized), hits and digest parity; in child processes, the killed
+   runs at once from the phase's start (beside (a), (d)'s memo rep and
+   (c)'s uninterrupted runs) and then the resumed runs at once (beside
+   (b)'s uninterrupted run), each part's seconds printed: (b) the fused
    PHOLD main path checkpointed every 32 windows, killed at round 96
    (exit 137) and resumed from its newest checkpoint, ending as the
    uninterrupted run, with the checkpoint's bytes and the save and
@@ -142,7 +158,7 @@ printed:
    (one launch of 8 N rows) bitwise its plain version vmapped over the
    same worlds, timed cold and warm beside its bound;
 18. the section profiler (`tpu/profiling.profile_sections`) at the
-   bench's width (N=32768, M=64, CE=16, CI=32), all 24 sections timed 20
+   bench's width (N=32768, M=64, CE=16, CI=32), all 24 sections timed 10
    times each (host wall ms around a synchronise, min and median) on
    "xla", "pallas_fused" and "pallas", the launches of each section's
    calls counted: A and B once a call of the step's sections (eight in
@@ -201,7 +217,16 @@ printed:
    of 20 ms) through `run_windows_sharded` at 2 and 8 shards on the one
    card, bitwise a single launch of F on every leaf, F launched once a
    shard, each shard's steps those of F on that shard alone, each
-   shard's device ms and both runs' wall;
+   shard's device ms and both runs' wall; (e) bench_flows' world with
+   rings of 32768 slots and of 30001 (a Q no power of two), past the
+   28957 an earlier F staged, each run to completion equal to
+   `GOLDEN_FLOW_DIGEST`, their per-flow results equal, each launch's
+   device ms, the first chunk timed cold, clean and warm at both in turns
+   beside its bound by bytes; the rung-3 deployment with
+   `capacity.max_doublings: 8` equal to the JAX Manager's record, and
+   again with ring drops added below 32768 slots, so every bucket's
+   rings double from 256 to 32768 and F runs there: the record the JAX
+   Manager's but for those growths;
 21. the device transport (`tpu/transport.py`): (a) its functions
    (`ingest_guarded`, `step_compact` with a negative shift, a 64-window
    `chain`, a 32-window `batch_verify` with three poisoned windows), the
@@ -218,7 +243,8 @@ printed:
    dispatch by CUDA events, and device kernels and busy ms a round over
    the sync replay's first 160 rounds (torch.profiler); no kernel of
    A-F launches on this path;
-22. one JSON line describing every kernel, then the result line.
+22. one JSON line describing every kernel (E's and F's launches of each
+   build), then the result line.
 
 Usage: python3 chip_smoke.py   (from the repository root; one card).
 A fuller record of every measurement is printed on the `record:` line.
@@ -246,6 +272,7 @@ EGRESS_CAP = 16
 INGRESS_CAP = 32
 N_NODES = 64
 CHECK_ROUNDS = 16
+LEGACY_WINDOWS = 6  # 11 (b): windows of packed_sort=False at full width
 GROW_EVERY = 16
 SMALL_CAPS = dict(egress_cap=4, ingress_cap=8)
 # H100 SXM peaks (700 W). Bytes: NVIDIA's data sheet. The data sheet's
@@ -258,7 +285,7 @@ PEAK_INT32_OPS_PER_S = 67e12 / 4
 PEAK_SHUFFLES_PER_S = 67e12 / 8
 # kernel C is held bitwise at every CE of C_SWEEP and timed at C_TIMED
 C_SWEEP = (2, 4, 8, 16, 32, 64, 128, 1024)
-C_TIMED = (4, 8, 16, 32, 64)
+C_TIMED = (8, 16, 32)
 L2_FLUSH_BYTES = 128 << 20  # over twice the H100's 50 MB L2
 NO_CLAMP = -(2**30)
 MS = 1_000_000
@@ -331,6 +358,14 @@ AQM_PLAIN_WINDOWS = 18
 AQM_SNAPSHOT = 13
 AQM_CHAIN_NS = 1_000_000  # run-ahead of the chains (JAX's test's too)
 AQM_RING = 1 << 16  # holds every sampled hop of the run
+# 15 (e): the AQM world's traffic over a router with deep buffers: ingress
+# rings of AQM_WIDE_CI slots, so kernel E's rows are that wide (past what
+# its staged build takes: its device build); a power of two, as kernel B
+# takes
+AQM_WIDE_HOSTS = 1024
+AQM_WIDE_CI = 32768
+AQM_WIDE_WINDOWS = 8
+AQM_WIDE_CPU_WINDOWS = 2
 # kernel E's int32 operations a micro-step (a pop: the queue pointer, the
 # standing-delay test, the state machine's branch, the bucket refill with
 # its division by the rate; a resume or a chain start does fewer): an
@@ -351,6 +386,123 @@ ENS_DEVICE = "cuda"
 
 def fail(msg: str):
     raise SystemExit(f"chip_smoke: FAIL: {msg}")
+
+
+# -- the CPU witnesses -------------------------------------------------------
+#
+# The CPU runs that phases 9, 12-15 hold the card's records against do not
+# depend on the card, so `main` starts them all at once in a pool of
+# worker processes (spawned, CUDA hidden, WITNESS_THREADS torch threads
+# each, sized from the host's cores) and each phase awaits its own where it
+# compares. Run alone (a phase called by hand), a phase computes its
+# witnesses in this process.
+
+WITNESS_THREADS = 2
+_WITNESSES: dict = {}
+
+
+def witness_jobs() -> dict:
+    """Every CPU witness by name: (kind, argument) for `cpu_witness`, in
+    the order the phases need them."""
+    corpus = [p.name for p in sorted(CORPUS.glob("*.yaml"))]
+    jobs = {f"corpus:{n}": ("corpus", n) for n in corpus}
+    jobs["onoff"] = ("onoff", None)
+    jobs["fleet"] = ("fleet", None)
+    jobs.update({f"robust:{n}": ("robust", n) for n in corpus})
+    jobs["fleet-robust"] = ("fleet-robust", None)
+    jobs["aqm"] = ("aqm", None)
+    jobs["aqm-wide"] = ("aqm-wide", None)
+    for name, _opts in FLOW_A_RUNS:
+        jobs[f"flow-a:{name}"] = ("flow-plain", ("a", name))
+    for n_flows, q in FLOW_GRID:
+        jobs[f"flow-grid:{n_flows}x{q}"] = ("flow-plain",
+                                             ("grid", n_flows, q))
+    jobs["flow-rung3"] = ("flow-plain", ("rung3",))
+    return jobs
+
+
+def _witness_worker_init(threads: int):
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    import torch
+
+    torch.set_num_threads(threads)
+
+
+def cpu_witness(kind: str, arg):
+    """One CPU run a card phase compares with: a corpus entry's record
+    (`corpus`; `robust` under ROBUST), onoff's and the fleet's records
+    at their check windows (`onoff`, `fleet`, `fleet-robust`), the AQM
+    world's state digest after AQM_CHECK_WINDOWS (`aqm`) and the wide AQM
+    world's after AQM_WIDE_CPU_WINDOWS (`aqm-wide`), and kernel F's plain
+    version on phase 20 (a)'s worlds (`flow-plain`, `flow_plain_witness`)."""
+    import torch
+
+    from shadow_tpu_torch import convert
+    from shadow_tpu_torch.workloads import runner, spec
+
+    if kind in ("corpus", "robust"):
+        sp = spec.load_scenario_file(str(CORPUS / arg))
+        kw = ROBUST if kind == "robust" else {}
+        return runner.run_scenario(sp, device="cpu", **kw)
+    if kind == "onoff":
+        sp = spec.parse_scenario(ONOFF_WIDE)
+        return runner.run_scenario(dataclasses.replace(
+            sp, windows=ONOFF_CHECK_WINDOWS), device="cpu")
+    if kind in ("fleet", "fleet-robust"):
+        sp = spec.parse_scenario(SERVE_FLEET)
+        kw = (dict(ROBUST, sample_every=FLEET_SAMPLE_EVERY)
+              if kind == "fleet-robust" else {})
+        return runner.run_scenario(dataclasses.replace(
+            sp, windows=FLEET_CHECK_WINDOWS), device="cpu", **kw)
+    if kind == "aqm":
+        st, *_ = aqm_windows(torch, aqm_world("cpu"), "xla",
+                             AQM_CHECK_WINDOWS)
+        return convert.state_digest(st)
+    if kind == "flow-plain":
+        return flow_plain_witness(*arg)
+    if kind == "aqm-wide":
+        # rows of K = AQM_WIDE_CI: the plain drain stops once every host
+        # has halted (bitwise its fixed 4K + 16 micro-steps, too many to
+        # run at this width)
+        from shadow_tpu_torch.tpu import codel
+
+        plain = codel.router_drain_plain
+        codel.router_drain_plain = lambda *a: plain(
+            *a, until=lambda halted: bool(halted.all()))
+        try:
+            st, *_ = aqm_windows(torch, aqm_wide_world("cpu"), "xla",
+                                 AQM_WIDE_CPU_WINDOWS)
+        finally:
+            codel.router_drain_plain = plain
+        return convert.state_digest(st)
+    raise ValueError(f"no CPU witness {kind!r}")
+
+
+def start_witnesses():
+    """Start every CPU witness in a pool of spawned workers; returns the
+    pool (terminate it when done) and its size, printed with the host's
+    cores."""
+    import multiprocessing
+
+    cores = os.cpu_count() or 1
+    workers = max(1, (cores - 2) // WITNESS_THREADS)
+    pool = multiprocessing.get_context("spawn").Pool(
+        workers, _witness_worker_init, (WITNESS_THREADS,))
+    for name, (kind, arg) in witness_jobs().items():
+        _WITNESSES[name] = pool.apply_async(cpu_witness, (kind, arg))
+    print(f"CPU witnesses: {len(_WITNESSES)} runs in a pool of {workers} "
+          f"workers x {WITNESS_THREADS} torch threads on a host of {cores} "
+          f"cores (os.cpu_count())")
+    return pool, workers, cores
+
+
+def witness(name: str):
+    """The CPU witness `name`: awaited from the pool, or computed here
+    when no pool runs it."""
+    job = _WITNESSES.pop(name, None)
+    if job is not None:
+        return job.get()
+    return cpu_witness(*witness_jobs()[name])
 
 
 def gpu_identity() -> str:
@@ -551,7 +703,7 @@ def check_ptxas(record, lib, label, key, kernel, builds, arg=None):
         if not {"registers", "spill_stores"} <= r.keys():
             fail(f"ptxas' report of {label} lacks registers or spills: "
                  f"{fn} {r}")
-        m = re.search(r"ILi(\d+)E", fn)
+        m = re.search(r"IL[ib](\d+)E", fn)
         rows[int(m.group(1)) if m else None] = r
     order = lambda v: -1 if v is None else v
     if sorted(rows, key=order) != sorted(builds, key=order):
@@ -946,7 +1098,7 @@ def check_corpus(torch, pipeline, record, ident):
         if runner.golden_entry(rec) != golden[sp.name]:
             fail(f"{sp.name}: {runner.golden_entry(rec)} != golden "
                  f"{golden[sp.name]}")
-        if rec != runner.run_scenario(sp, device="cpu"):
+        if rec != witness(f"corpus:{path.name}"):
             fail(f"{sp.name}: the card's record differs from the CPU's")
         rate = sp.windows / timings["drive_s"]
         extra = {k: rec[k] for k in ("flows", "compute") if k in rec}
@@ -1050,10 +1202,59 @@ def check_xla_path(torch, bench, convert, pipeline, record, ident,
               f"device kernels a window, device busy "
               f"{p['device_busy_ms_per_window']:.5f} ms a window, wall "
               f"{p['wall_ms_per_window']:.4f} ms a window on {ident}")
+    legacy = check_legacy_sorts(torch, convert, ident)
     record["xla_path"] = dict(digest=fused_digest, wall_s=res["wall_s"],
-                              profile=prof)
+                              profile=prof, legacy_sorts=legacy)
     print(f"kernel=xla, N={N_HOSTS} R={CHECK_ROUNDS}: the fused path's state, "
           f"0 launches")
+
+
+def check_legacy_sorts(torch, convert, ident) -> dict:
+    """Phase 11 (b): PHOLD windows (the step, the respawn and its append)
+    at the main path's width on "xla" with JAX's pre-diet variadic sorts
+    (`packed_sort=False`), bitwise the packed sorts' run, window by
+    window: the packed sorts' first full-width witness on the card."""
+    from shadow_tpu_torch.tpu import plane
+    from shadow_tpu_torch.tpu.profiling import build_world
+    from shadow_tpu_torch.workloads.phold import respawn_batch
+
+    world = build_world(N_HOSTS, n_nodes=N_NODES, egress_cap=EGRESS_CAP,
+                        ingress_cap=INGRESS_CAP, seed=0, warmup_windows=0)
+    params, seed, window = world["params"], world["rng_root"], world["window"]
+    digests, walls = {}, {}
+    for packed in (True, False):
+        st = world["state"]
+        spawn = torch.full((N_HOSTS,), 10_000, dtype=torch.int32,
+                           device=st.in_src.device)
+        out, t = [], time.perf_counter()
+        for r in range(LEGACY_WINDOWS):
+            st, d, nxt = plane.window_step(
+                st, params, seed, 0 if r == 0 else window, window,
+                rr_enabled=False, kernel="xla", packed_sort=packed)
+            mask, dst, nb, seq, ctrl = respawn_batch(d, spawn, r, N_HOSTS,
+                                                     INGRESS_CAP)
+            st = plane.ingest_rows(st, dst, nb, seq, seq, ctrl, mask,
+                                   packed_sort=packed)
+            spawn = spawn + mask.sum(dim=1, dtype=torch.int32)
+            out.append((convert.state_digest(st),
+                        int(d["mask"].sum(dtype=torch.int64)), int(nxt)))
+        walls[packed] = time.perf_counter() - t
+        digests[packed] = out
+    if digests[False] != digests[True]:
+        bad = next(i for i, (a, b) in enumerate(zip(digests[False],
+                                                    digests[True])) if a != b)
+        fail(f"11 (b): packed_sort=False differs from the packed sorts at "
+             f"window {bad}")
+    if sum(n for _d, n, _x in digests[True]) <= 0:
+        fail("11 (b): the windows delivered nothing")
+    print(f"11 (b) kernel=xla, N={N_HOSTS}, {LEGACY_WINDOWS} PHOLD windows "
+          f"with packed_sort=False (JAX's variadic sorts): every window's "
+          f"state, delivered count and next event equal the packed sorts' "
+          f"({sum(n for _d, n, _x in digests[True])} delivered); wall "
+          f"{walls[False]:.3f} s legacy, {walls[True]:.3f} s packed on "
+          f"{ident}")
+    return dict(windows=LEGACY_WINDOWS, digest=digests[True][-1][0],
+                wall_s_legacy=walls[False], wall_s_packed=walls[True])
 
 
 def check_wide_scenario(torch, record, ident):
@@ -1075,8 +1276,7 @@ def check_wide_scenario(torch, record, ident):
              f"{recs[0]['participants']} hosts done")
     short = dataclasses.replace(sp, windows=ONOFF_CHECK_WINDOWS)
     card8 = runner.run_scenario(short)
-    cpu8 = runner.run_scenario(short, device="cpu")
-    if card8 != cpu8:
+    if card8 != witness("onoff"):
         fail(f"onoff-16384 after {ONOFF_CHECK_WINDOWS} windows: the card's "
              "record differs from the CPU's")
     rates = [sp.windows / t["drive_s"] for t in runs]
@@ -1128,8 +1328,7 @@ def check_fleet(torch, pipeline, record, ident):
         fail(f"two card runs of {sp.name}'s first {FLEET_REPEAT_WINDOWS} "
              "windows gave different records")
     short = dataclasses.replace(sp, windows=FLEET_CHECK_WINDOWS)
-    if runner.run_scenario(short) != runner.run_scenario(short,
-                                                         device="cpu"):
+    if runner.run_scenario(short) != witness("fleet"):
         fail(f"{sp.name} after {FLEET_CHECK_WINDOWS} windows: the card's "
              "record differs from the CPU's")
     prof = profile_scenario(torch, runner, sp)
@@ -1172,8 +1371,7 @@ def check_robustness(torch, pipeline, record, ident):
         sp = spec.load_scenario_file(str(path))
         timings = {}
         rec = runner.run_scenario(sp, timings=timings, **ROBUST)
-        cpu = runner.run_scenario(sp, device="cpu", **ROBUST)
-        if rec != cpu:
+        if rec != witness(f"robust:{path.name}"):
             fail(f"{sp.name} with faults, guards and the recorder: the "
                  "card's record differs from the CPU's")
         if not rec["guards"]["clean"]:
@@ -1240,7 +1438,7 @@ def check_robustness(torch, pipeline, record, ident):
              f"{FLEET_REPEAT_WINDOWS} windows gave different records")
     short = dataclasses.replace(sp, windows=FLEET_CHECK_WINDOWS)
     card8 = runner.run_scenario(short, **fleet_kw)
-    if card8 != runner.run_scenario(short, device="cpu", **fleet_kw):
+    if card8 != witness("fleet-robust"):
         fail(f"{sp.name} faulted, first {FLEET_CHECK_WINDOWS} windows: the "
              "card's record differs from the CPU's")
     if card8["drops"]["fault"] <= 0:
@@ -1345,17 +1543,25 @@ def aqm_windows(torch, world, kernel, rounds, *, state=None, first_shift=0,
             planes, kept)
 
 
-def drain_bytes(args, outs) -> int:
+def drain_bytes(args, outs, *, prefix: bool = False) -> int:
     """What kernel E must move: its inputs (the rows, the rates and caps,
     the control-law table, the 13 state fields it reads) read once and
-    its outputs written once."""
-    arrival, size, _w, rate, cap, st = args
+    its outputs written once. With `prefix`, of each row only what this
+    window's data needs: its entries that arrive before the window ends
+    and the one after them (a wide row is mostly padding no machine
+    reads)."""
+    arrival, size, window_ns, rate, cap, st = args
     from shadow_tpu_torch.tpu import codel
 
     fields = [getattr(st, f) for f in codel.DRAIN_FIELDS]
     out_fields = [getattr(outs[0], f) for f in codel.DRAIN_FIELDS]
-    return nbytes([arrival, size, rate, cap, codel.CTRL_TABLE, *fields,
-                   *out_fields, *outs[1:]])
+    moved = nbytes([arrival, size, rate, cap, codel.CTRL_TABLE, *fields,
+                    *out_fields, *outs[1:]])
+    if prefix:
+        n, k = arrival.shape
+        read = ((arrival < window_ns).sum(dim=1) + 1).clamp(max=k)
+        moved -= 2 * 4 * (n * k - int(read.sum()))
+    return moved
 
 
 def check_kernel_e(torch, codel, snapshot_args, record):
@@ -1384,13 +1590,16 @@ def check_kernel_e(torch, codel, snapshot_args, record):
         # the plain version (`router_drain_plain` is its first six
         # outputs), with the micro-steps each host ran
         ref = codel._router_drain_loop(*args)
+        # the device build, forced at a K the staged build takes
+        dev = codel.router_drain(*args, _build="device")
         torch.cuda.synchronize()
         if steps is None:  # the world's rows
             steps = ref[6]
-        err = max_abs_err(torch, flat(got), flat(ref[:6]))
+        err = max(max_abs_err(torch, flat(got), flat(ref[:6])),
+                  max_abs_err(torch, flat(dev), flat(got)))
         if err != 0:
             fail(f"router_drain_kernel ({what}) disagrees with its plain "
-                 f"version (max abs err {err})")
+                 f"version or its device build (max abs err {err})")
         errs[what] = err
     args = snapshot_args
     got = codel.router_drain(*args)
@@ -1402,6 +1611,8 @@ def check_kernel_e(torch, codel, snapshot_args, record):
              f"CoDel drops and {taken} relay caches; both must occur")
     warm_ms, ms, clean_ms = time_device(torch, lambda: codel.router_drain(
         *args))
+    dev_warm, dev_ms, dev_clean = time_device(
+        torch, lambda: codel.router_drain(*args, _build="device"))
     _, plain_ms, _ = time_device(
         torch, lambda: codel.router_drain_plain(*args), reps=1)
     moved = drain_bytes(args, got)
@@ -1417,7 +1628,8 @@ def check_kernel_e(torch, codel, snapshot_args, record):
     n, k = args[0].shape
     geo = codel.e_geometry(n, k)
     ptxas = check_ptxas(record, "router_drain", "kernel E router_drain",
-                        "kernel_e_ptxas", "router_drain_kernel", [None])
+                        "kernel_e_ptxas", "router_drain_kernel", [0, 1],
+                        "kStaged")
     row = dict(n=n, k=k, cases=list(errs), max_abs_err=max(errs.values()),
                geometry=geo, ptxas=ptxas,
                ms=ms, warm_ms=warm_ms, cold_clean_ms=clean_ms,
@@ -1426,7 +1638,10 @@ def check_kernel_e(torch, codel, snapshot_args, record):
                trip_count=4 * k + 16, drops=drops, caches=taken,
                bound_ms=bound_ms, bound_by=bound_by,
                share_of_bound=bound_ms / ms, copy_ms=copy_ms,
-               copy_clean_ms=copy_clean, copy_warm_ms=copy_warm)
+               copy_clean_ms=copy_clean, copy_warm_ms=copy_warm,
+               device_build=dict(ms=dev_ms, cold_clean_ms=dev_clean,
+                                 warm_ms=dev_warm,
+                                 geometry=codel.e_geometry(n, k, "device")))
     record["kernel_e"] = row
     print(f"kernel E router_drain N={n} K={k}: bitwise ok on {list(errs)} "
           f"(the world rows: {drops} CoDel drops, {taken} relay caches), "
@@ -1439,7 +1654,104 @@ def check_kernel_e(torch, codel, snapshot_args, record):
           f"{moved} B: {copy_ms:.5f} cold, {copy_clean:.5f} clean, "
           f"{copy_warm:.5f} warm; the launch: {geo['hosts_a_tile']} hosts a "
           f"tile, a block of one warp a tile, {geo['blocks']} blocks of "
-          f"{geo['smem_bytes']} B shared")
+          f"{geo['smem_bytes']} B shared ({geo['build']} build); the device "
+          f"build forced on the same rows: bitwise, {dev_ms:.5f} ms cold "
+          f"(clean {dev_clean:.5f}; warm {dev_warm:.5f})")
+    return row
+
+
+def aqm_wide_world(device):
+    """The AQM world's traffic at AQM_WIDE_HOSTS hosts whose ingress
+    rings hold AQM_WIDE_CI slots (15 (e))."""
+    from shadow_tpu_torch.tpu import profiling
+
+    return profiling.build_world(
+        AQM_WIDE_HOSTS, n_nodes=N_NODES, egress_cap=EGRESS_CAP,
+        ingress_cap=AQM_WIDE_CI, warmup_windows=0,
+        down_bw_bps=AQM_DOWN_BPS, seed_packets=AQM_SEED_PACKETS,
+        device=device)
+
+
+def check_aqm_wide(torch, pipeline, ident) -> dict:
+    """Phase 15 (e): the router AQM with rows of K = AQM_WIDE_CI entries
+    (kernel E's device build): AQM_WIDE_WINDOWS windows on "xla" and on
+    "pallas_fused", equal to each other, the first AQM_WIDE_CPU_WINDOWS
+    equal to the CPU's; E's us a launch in the window beside its bound
+    by bytes."""
+    from shadow_tpu_torch import convert
+    from shadow_tpu_torch.tpu import codel
+
+    world = aqm_wide_world("cuda")
+    n, k = world["state"].in_src.shape
+    build = codel.e_geometry(n, k)["build"]
+    if build != "device":
+        fail(f"15 (e): rows of K={k} run E's {build} build")
+    runs = {}
+    for kernel in ("xla", "pallas_fused"):
+        pipeline.reset_launches()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        st, counts, cached, _p, kept = aqm_windows(
+            torch, world, kernel, AQM_WIDE_WINDOWS,
+            keep=(AQM_WIDE_CPU_WINDOWS,))
+        torch.cuda.synchronize()
+        runs[kernel] = dict(
+            digest=convert.state_digest(st), counts=counts, cached=cached,
+            check_digest=convert.state_digest(kept[AQM_WIDE_CPU_WINDOWS]),
+            wall_s=time.perf_counter() - t,
+            launches=dict(pipeline.LAUNCHES),
+            device_build_launches=pipeline.E_BUILD_LAUNCHES["device"],
+            drops=int(st.router.dropped.sum(dtype=torch.int64)),
+            delivered=int(st.n_delivered.sum(dtype=torch.int64)))
+        if dict(pipeline.E_BUILD_LAUNCHES) != {"staged": 0,
+                                               "device": AQM_WIDE_WINDOWS}:
+            fail(f"15 (e) kernel={kernel!r}: E's builds launched "
+                 f"{pipeline.E_BUILD_LAUNCHES} for {AQM_WIDE_WINDOWS} "
+                 "windows, expected all in the device build")
+    x, f = runs["xla"], runs["pallas_fused"]
+    if (x["digest"], x["counts"]) != (f["digest"], f["counts"]):
+        fail("15 (e): 'xla' and 'pallas_fused' end in other states")
+    if sum(x["counts"]) <= 0:
+        fail("15 (e): nothing delivered")
+    cpu = witness("aqm-wide")
+    if cpu != x["check_digest"]:
+        fail(f"15 (e): the first {AQM_WIDE_CPU_WINDOWS} windows on the card "
+             "differ from the CPU's")
+    # E's bound on these rows: the drain's bytes of one window's call
+    caught = []
+    real_drain = codel.router_drain
+
+    def spy(*args, **kw):
+        out = real_drain(*args, **kw)
+        caught.append((args, out))
+        return out
+
+    codel.router_drain = spy
+    try:
+        aqm_windows(torch, world, "xla", 1)
+    finally:
+        codel.router_drain = real_drain
+    moved = drain_bytes(*caught[0], prefix=True)
+    bound_ms = moved / PEAK_BYTES_PER_S * 1e3
+    prof = profile_aqm(torch, world, "pallas_fused",
+                       windows=AQM_WIDE_WINDOWS)
+    e_us = prof["router_drain_us_per_launch"]
+    row = dict(hosts=n, k=k, runs=runs, cpu_windows=AQM_WIDE_CPU_WINDOWS,
+               bytes=moved, bound_ms=bound_ms, e_us_per_launch=e_us,
+               geometry=codel.e_geometry(n, k), profile=prof)
+    print(f"15 (e) AQM with rows of K={k} (N={n}, CI={k}: "
+          f"{n * k * 4} B an array): {AQM_WIDE_WINDOWS} windows on 'xla' "
+          f"and 'pallas_fused' equal ({x['drops']} router drops, "
+          f"{x['delivered']} delivered, at most {max(x['cached'])} cached), "
+          f"the first {AQM_WIDE_CPU_WINDOWS} equal to the CPU's; E's device "
+          f"build launched once a window ({row['geometry']}); in the window "
+          f"{e_us} us a launch beside its bound {bound_ms * 1e3:.2f} us "
+          f"(bytes, {moved} B: each row's entries before the window's end "
+          f"read once, the outputs written once); walls "
+          f"{x['wall_s']:.2f} s xla, {f['wall_s']:.2f} s fused; "
+          f"{prof['kernel_launches_per_window']:.1f} device kernels and "
+          f"{prof['device_busy_ms_per_window']:.5f} ms busy a window on "
+          f"{ident}")
     return row
 
 
@@ -1583,6 +1895,10 @@ def check_router_aqm(torch, pipeline, record, ident):
             if count != want:
                 fail(f"AQM run, kernel={kernel!r}: {name} launched {count} "
                      f"times, expected {want}")
+        e_builds = dict(pipeline.E_BUILD_LAUNCHES)
+        if e_builds != {"staged": AQM_ROUNDS, "device": 0}:
+            fail(f"AQM run, kernel={kernel!r}: E's builds launched "
+                 f"{e_builds}, expected all {AQM_ROUNDS} staged")
         plain_st, plain_counts, *_ = aqm_windows(torch, world, kernel,
                                                  AQM_PLAIN_WINDOWS, plain=True)
         if convert.state_digest(plain_st) != convert.state_digest(
@@ -1596,7 +1912,7 @@ def check_router_aqm(torch, pipeline, record, ident):
         digest = convert.state_digest(st)
         paths[kernel] = dict(
             digest=digest, counts=counts, cached=cached, launches=launches,
-            wall_s=wall, windows_per_s=AQM_ROUNDS / wall,
+            e_builds=e_builds, wall_s=wall, windows_per_s=AQM_ROUNDS / wall,
             check_digest=convert.state_digest(kept[AQM_CHECK_WINDOWS]),
             end=st,
             drops=int(st.router.dropped.sum(dtype=torch.int64)),
@@ -1609,10 +1925,9 @@ def check_router_aqm(torch, pipeline, record, ident):
             fail(f"AQM run: kernel={kernel!r} ends in another state or "
                  "delivers other counts than kernel='pallas_fused'")
     t = time.perf_counter()
-    cpu_world = aqm_world("cpu")
-    cpu_st, *_ = aqm_windows(torch, cpu_world, "xla", AQM_CHECK_WINDOWS)
+    cpu_digest = witness("aqm")
     cpu_s = time.perf_counter() - t
-    if convert.state_digest(cpu_st) != ref["check_digest"]:
+    if cpu_digest != ref["check_digest"]:
         fail(f"AQM run: the first {AQM_CHECK_WINDOWS} windows on the card "
              "differ from the CPU's")
     if ref["drops"] <= 0 or max(ref["cached"]) <= 0:
@@ -1632,7 +1947,7 @@ def check_router_aqm(torch, pipeline, record, ident):
               f"window over the first {prof['windows']} (kernel E "
               f"{prof['router_drain_us_per_launch']} us a launch) on {ident}")
     print(f"AQM: the first {AQM_CHECK_WINDOWS} windows equal the CPU's "
-          f"({cpu_s:.1f}s on the CPU)")
+          f"({cpu_s:.1f}s awaiting the CPU's witness)")
     t_b = time.perf_counter() - t0 - t_a
 
     # (c) the observability planes on "xla"
@@ -1709,18 +2024,24 @@ def check_router_aqm(torch, pipeline, record, ident):
         fail("chain_windows: no chain advanced more than one window")
     if len({c["digest"] for c in chains.values()}) != 1:
         fail("chain_windows: the three kernels end in different states")
+    paths_rec = {k: {f: v for f, v in p.items() if f != "end"}
+                 for k, p in paths.items()}
+    fused_e = paths["pallas_fused"]["launches"]["router_drain"]
+    fused_e_builds = paths["pallas_fused"]["e_builds"]
     t_d = time.perf_counter() - t0 - t_a - t_b - t_c
+    del world, paths
+    wide = check_aqm_wide(torch, pipeline, ident)
+    t_e = time.perf_counter() - t0 - t_a - t_b - t_c - t_d
     record["router_aqm"] = dict(
-        paths={k: {f: v for f, v in p.items() if f != "end"}
-               for k, p in paths.items()},
-        cpu_check_s=cpu_s,
+        paths=paths_rec, cpu_check_s=cpu_s,
         planes=dict(guards_clean=guards["clean"],
                     checks=guards["checks_evaluated"], drop_qdisc=qdisc,
                     hops=hops, aqm_hops=aqm_hops),
-        chains=chains, seconds=dict(a=t_a, b=t_b, c=t_c, d=t_d))
+        chains=chains, wide=wide,
+        seconds=dict(a=t_a, b=t_b, c=t_c, d=t_d, e=t_e))
     print(f"AQM phase seconds: (a) {t_a:.1f}, (b) {t_b:.1f}, (c) {t_c:.1f}, "
-          f"(d) {t_d:.1f}")
-    return e_row, paths["pallas_fused"]["launches"]["router_drain"]
+          f"(d) {t_d:.1f}, (e) {t_e:.1f}")
+    return e_row, fused_e, fused_e_builds, wide
 
 
 # phase 16: the run infrastructure
@@ -1757,11 +2078,12 @@ def profile_phold(torch, bench, kernel, **kw):
         P16_HARVEST, 2 * P16_HARVEST)
 
 
-def check_phold_telemetry(torch, bench, convert, pipeline, tmp, ident):
+def check_phold_telemetry(torch, bench, convert, pipeline, tmp, ident,
+                          between=None):
     """16 (a): PHOLD at full width through each kernel pair with the
     harvester every P16_HARVEST windows and the run ledger, and through
     "xla" with the histograms too, each against the same run without
-    them."""
+    them; `between()`, given, is called after each kernel."""
     size = dict(n_nodes=N_NODES, egress_cap=EGRESS_CAP,
                 ingress_cap=INGRESS_CAP, warmup=False)
     out = {}
@@ -1822,6 +2144,8 @@ def check_phold_telemetry(torch, bench, convert, pipeline, tmp, ident):
               f"{prof_on['device_busy_ms_per_window']:.5f} ms busy "
               f"(profile of windows {P16_HARVEST}-{2 * P16_HARVEST - 1}) on "
               f"{ident}")
+        if between is not None:
+            between()
     return out
 
 
@@ -1893,6 +2217,15 @@ def wait_children(children: dict) -> dict:
     return out
 
 
+def kill_children(children: dict):
+    """Kill what is left of `children` (a failed check's way out)."""
+    for proc, fh, _log in children.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        fh.close()
+
+
 def last_json(text: str) -> dict:
     return json.loads([ln for ln in text.splitlines()
                        if ln.startswith("{")][-1])
@@ -1912,42 +2245,125 @@ def heartbeats_after(path: Path, after_ns: int):
     return lines, notes
 
 
+def run_infra_beside_children(torch, bench, convert, pipeline, ident, tmp,
+                              root, rec, children, t_w1, wave1, entries,
+                              dev, c_args, child_b):
+    """Phase 16's work in this process while its child processes run:
+    (d)'s memo rep, (c)'s uninterrupted runs, (a) and (b)'s uninterrupted
+    run, beside the killed wave and then the resumed wave, which starts
+    as soon as the killed wave has ended (looked at between (a)'s
+    kernels; `children` holds the running wave). Returns both waves'
+    results, (b)'s digest and delivered total."""
+    from shadow_tpu_torch.workloads import run_scenarios
+
+    waves = {}
+
+    def start_wave2(block: bool):
+        """Collect the killed wave and start the resumed one, if the
+        killed wave has ended (or, with `block`, once it has)."""
+        if "done1" in waves or not block and any(
+                proc.poll() is None for proc, _fh, _l in children.values()):
+            return
+        t = time.perf_counter()
+        done1 = wait_children(children)
+        rec["seconds_wait_wave1"] = time.perf_counter() - t
+        rec["seconds_wave1"] = time.perf_counter() - t_w1
+        for name, (rc, text) in done1.items():
+            want = 0 if name.endswith("-full") or name == "d-corpus" else 137
+            if rc != want:
+                fail(f"16 child {name}: exit {rc}, expected {want}:\n"
+                     f"{text[-3000:]}")
+        waves["done1"], waves["t_w2"] = done1, time.perf_counter()
+        wave2 = {"b": child_b.format(0, True)}
+        for name in entries:
+            wave2[name] = c_args(name, ["--resume"])
+        for tag in ("e", "e-memo"):
+            wave2[f"{tag}-resumed"] = wave1[f"{tag}-killed"][:-2] + [
+                "--resume", str(tmp / f"{tag}.ck" / f"ckpt-{CHAOS_KILL:012d}")]
+        children.clear()
+        children.update({n: (*start_child(a, root, tmp / f"{n}.2.log"),
+                             tmp / f"{n}.2.log") for n, a in wave2.items()})
+
+    # (d) the memo rep, beside the children
+    t = time.perf_counter()
+    memo = bench.run_memo(windows=P16_MEMO_WINDOWS)
+    if not memo["digest_parity"] or memo["memo"]["hits"] == 0:
+        fail(f"memo rep: parity {memo['digest_parity']}, hits "
+             f"{memo['memo']['hits']}")
+    rec["memo_rep"] = memo
+    rec["seconds_d_rep"] = time.perf_counter() - t
+    print(f"16 (d) memo rep: ring allreduce, {memo['hosts']} hosts, "
+          f"{memo['windows']} windows in chains of {memo['chain_len']}: "
+          f"{memo['memo']['hits']} hits, {memo['memo']['misses']} "
+          f"misses, {memo['memo']['fast_forwarded_windows']} windows "
+          f"fast-forwarded, parity true; cold "
+          f"{memo['windows_per_s_cold']:.1f} windows/s "
+          f"({memo['cold_s']:.3f}s), memoized "
+          f"{memo['windows_per_s_memo']:.1f} ({memo['memo_s']:.3f}s), "
+          f"x{memo['speedup']:.2f} (beside the children) on {ident}")
+
+    # the uninterrupted runs of (c)'s two entries
+    t = time.perf_counter()
+    for name, (args, _kill, _every) in entries.items():
+        if name == "c-fleet":
+            continue
+        if run_scenarios.main(args + dev + [
+                "-o", str(tmp / f"{name}.full.json"), "--telemetry",
+                str(tmp / f"{name}.tf")]) != 0:
+            fail(f"16 (c) {name}: the uninterrupted run failed")
+    rec["seconds_c_full"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    rec["phold_telemetry"] = check_phold_telemetry(
+        torch, bench, convert, pipeline, tmp, ident,
+        between=lambda: start_wave2(block=False))
+    rec["seconds_a"] = time.perf_counter() - t
+
+    # (b)'s uninterrupted run
+    t = time.perf_counter()
+    from shadow_tpu_torch.tpu.profiling import build_world
+    world = build_world(N_HOSTS, n_nodes=N_NODES, egress_cap=EGRESS_CAP,
+                        ingress_cap=INGRESS_CAP, seed=0, warmup_windows=0)
+    ref_state, ref_total = bench.run_chain(world, ROUNDS, P16_CKPT_EVERY,
+                                           kernel="pallas_fused")
+    ref_digest = convert.state_digest(ref_state)
+    rec["seconds_b_full"] = time.perf_counter() - t
+    start_wave2(block=True)
+    t = time.perf_counter()
+    done2 = wait_children(children)
+    rec["seconds_wait_wave2"] = time.perf_counter() - t
+    rec["seconds_wave2"] = time.perf_counter() - waves["t_w2"]
+    for name, (rc, text) in done2.items():
+        if rc != 0:
+            fail(f"16 child {name} (resumed): exit {rc}:\n"
+                 f"{text[-3000:]}")
+    print(f"16 seconds: (d) memo rep {rec['seconds_d_rep']:.1f}, (c)'s "
+          f"uninterrupted runs {rec['seconds_c_full']:.1f}, (a) "
+          f"{rec['seconds_a']:.1f}, (b)'s uninterrupted run "
+          f"{rec['seconds_b_full']:.1f}, one after another here; beside "
+          f"them the killed wave of children "
+          f"{rec['seconds_wave1']:.1f} from the phase's start (waited "
+          f"{rec['seconds_wait_wave1']:.1f} at its end), then the resumed "
+          f"wave {rec['seconds_wave2']:.1f} (waited "
+          f"{rec['seconds_wait_wave2']:.1f} at its end)")
+    return waves["done1"], done2, ref_digest, ref_total
+
+
 def check_run_infra(torch, bench, convert, pipeline, record, ident,
                     fleet_record):
     """Phase 16: the run infrastructure on the card."""
-    from shadow_tpu_torch.workloads import run_scenarios, spec
+    from shadow_tpu_torch.workloads import spec
 
     root = Path(__file__).resolve().parent
     rec = {}
     with tempfile.TemporaryDirectory() as tmp_name:
         tmp = Path(tmp_name)
-        t = time.perf_counter()
-        rec["phold_telemetry"] = check_phold_telemetry(
-            torch, bench, convert, pipeline, tmp, ident)
-        rec["seconds_a"] = time.perf_counter() - t
-
-        # (d) the memo rep, alone in this process
-        t = time.perf_counter()
-        memo = bench.run_memo(windows=P16_MEMO_WINDOWS)
-        if not memo["digest_parity"] or memo["memo"]["hits"] == 0:
-            fail(f"memo rep: parity {memo['digest_parity']}, hits "
-                 f"{memo['memo']['hits']}")
-        rec["memo_rep"] = memo
-        rec["seconds_d_rep"] = time.perf_counter() - t
-        print(f"16 (d) memo rep: ring allreduce, {memo['hosts']} hosts, "
-              f"{memo['windows']} windows in chains of {memo['chain_len']}: "
-              f"{memo['memo']['hits']} hits, {memo['memo']['misses']} "
-              f"misses, {memo['memo']['fast_forwarded_windows']} windows "
-              f"fast-forwarded, parity true; cold "
-              f"{memo['windows_per_s_cold']:.1f} windows/s "
-              f"({memo['cold_s']:.3f}s), memoized "
-              f"{memo['windows_per_s_memo']:.1f} ({memo['memo_s']:.3f}s), "
-              f"x{memo['speedup']:.2f} on {ident}")
-
         # (b), (c), (e) and the corpus under --memo in child processes:
         # the killed runs (and the chaos smoke's uninterrupted ones) at
-        # once, then the resumed runs at once
-        t = time.perf_counter()
+        # once from the phase's start, beside (a), (d)'s memo rep and
+        # (c)'s uninterrupted runs here; then the resumed runs at once,
+        # beside (b)'s uninterrupted run here
+        t_w1 = time.perf_counter()
         fleet_yaml = tmp / "serve_fleet.yaml"
         fleet_yaml.write_text(json.dumps(SERVE_FLEET))
         dev = ["--device", CHILD_DEVICE]
@@ -1984,49 +2400,19 @@ def check_run_infra(torch, bench, convert, pipeline, record, ident,
         wave1["d-corpus"] = rs + ["--memo", "--check"]
         children = {n: (*start_child(a, root, tmp / f"{n}.log"),
                         tmp / f"{n}.log") for n, a in wave1.items()}
-        # meanwhile, here: the uninterrupted runs of (c)'s two entries
-        for name, (args, _kill, _every) in entries.items():
-            if name == "c-fleet":
-                continue
-            if run_scenarios.main(args + dev + [
-                    "-o", str(tmp / f"{name}.full.json"), "--telemetry",
-                    str(tmp / f"{name}.tf")]) != 0:
-                fail(f"16 (c) {name}: the uninterrupted run failed")
-        done1 = wait_children(children)
-        rec["seconds_wave1"] = time.perf_counter() - t
-        for name, (rc, text) in done1.items():
-            want = 0 if name.endswith("-full") or name == "d-corpus" else 137
-            if rc != want:
-                fail(f"16 child {name}: exit {rc}, expected {want}:\n"
-                     f"{text[-3000:]}")
-        wave2 = {"b": child_b.format(0, True)}
-        for name in entries:
-            wave2[name] = c_args(name, ["--resume"])
-        for tag in ("e", "e-memo"):
-            wave2[f"{tag}-resumed"] = wave1[f"{tag}-killed"][:-2] + [
-                "--resume", str(tmp / f"{tag}.ck" / f"ckpt-{CHAOS_KILL:012d}")]
-        children = {n: (*start_child(a, root, tmp / f"{n}.2.log"),
-                        tmp / f"{n}.2.log") for n, a in wave2.items()}
-        done2 = wait_children(children)
-        for name, (rc, text) in done2.items():
-            if rc != 0:
-                fail(f"16 child {name} (resumed): exit {rc}:\n"
-                     f"{text[-3000:]}")
-        rec["seconds_children"] = time.perf_counter() - t
-        print(f"16 seconds: (a) {rec['seconds_a']:.1f}, (d) memo rep "
-              f"{rec['seconds_d_rep']:.1f}, children "
-              f"{rec['seconds_children']:.1f} (the killed wave "
-              f"{rec['seconds_wave1']:.1f})")
+
+        try:
+            done1, done2, ref_digest, ref_total = run_infra_beside_children(
+                torch, bench, convert, pipeline, ident, tmp, root, rec,
+                children, t_w1, wave1, entries, dev, c_args, child_b)
+        except BaseException:
+            kill_children(children)
+            raise
 
         # (b) the PHOLD checkpoint
-        from shadow_tpu_torch.tpu.profiling import build_world
-        world = build_world(N_HOSTS, n_nodes=N_NODES, egress_cap=EGRESS_CAP,
-                            ingress_cap=INGRESS_CAP, seed=0, warmup_windows=0)
-        ref_state, ref_total = bench.run_chain(world, ROUNDS, P16_CKPT_EVERY,
-                                               kernel="pallas_fused")
         res = last_json(done2["b"][1])
         ckpt = Path(res["resumed_from"] or "")
-        if res["digest"] != convert.state_digest(ref_state) or \
+        if res["digest"] != ref_digest or \
                 res["delivered"] != ref_total or not ckpt.name.endswith(
                     f"r{P16_KILL:08d}.runstate.npz"):
             fail(f"16 (b): the resumed PHOLD run ({res}) differs from the "
@@ -2486,7 +2872,7 @@ def check_ensembles(torch, bench, convert, pipeline, record, ident):
 
 
 # phase 18: the section profiler (tpu/profiling.profile_sections)
-PROF_REPS = 20
+PROF_REPS = 10
 PROF_KERNELS = (("xla", ()),
                 ("pallas_fused", ("egress_rank", "route_place")),
                 ("pallas", ("egress_gate", "route_scatter")))
@@ -3095,6 +3481,16 @@ FLOW_DEVICE = "cuda"  # phase 20's device ("cpu" in a CPU rehearsal)
 # (d): the multichip dry run's shard counts (8: `dryrun_multichip(8)`),
 # every shard on the one card
 FLOW_SHARDS = (2, 8)
+# (e): bench_flows' world with rings past the 28957 slots an earlier
+# kernel F staged in shared memory, at a power of two (a ring slot by a
+# mask) and at a Q that is none (by a division); the rung-3 deployment
+# with this growth budget
+FLOW_Q_LARGE = (32768, 30001)
+FLOW_MAX_DOUBLINGS = 8
+# ... and with ring drops added to every bucket run whose rings hold fewer
+# than FLOW_GROW_TO slots, so every bucket's rings double up to it
+FLOW_GROW_TO = 32768
+FLOW_GROW_DROPS = 5
 
 
 def flow_leaves(convert, world) -> dict:
@@ -3122,45 +3518,100 @@ def flow_diff(convert, got, ref) -> tuple[int, list]:
     return err, bad
 
 
-def f_against_plain(torch, convert, floweng, world, n_chunks, n_win, win,
-                    label, count=False, **opts):
-    """Kernel F (`run_windows`) and `run_windows_plain` from `world`,
-    `n_chunks` chunks of `n_win` windows each, every `FlowWorld` leaf
-    and `steps_per_window` held bitwise after each chunk. Returns the
-    plain version's world, a row (the largest absolute difference, F's
-    and the plain version's wall seconds, each chunk's steps and, with
-    `count`, each chunk's longest pair, `kernel_f_probe.longest_pair`,
-    counted on the plain run, whose seconds then include the count) and
-    the plain world before the last chunk."""
+def f_plain_chunks(floweng, world, n_chunks, n_win, win, count=False,
+                   **opts):
+    """`run_windows_plain` from `world`, `n_chunks` chunks of `n_win`
+    windows each: after each chunk the world's leaves (`flow_leaves`), its
+    steps_per_window, its seconds and, with `count`, the chunk's longest
+    pair (`kernel_f_probe.longest_pair`, counted on this run, whose
+    seconds then include the count)."""
+    from shadow_tpu_torch import convert
     from shadow_tpu_torch.tools import kernel_f_probe
 
-    got = ref = world
-    row = dict(max_abs_err=0, f_wall_s=[], plain_s=[], steps=[], events=[])
-    for k in range(n_chunks):
-        t0 = time.perf_counter()
-        got, steps = floweng.run_windows(got, n_win, win, **opts)
-        torch.cuda.synchronize()
-        row["f_wall_s"].append(time.perf_counter() - t0)
-        start = ref
+    ref, chunks = world, []
+    for _k in range(n_chunks):
         t0 = time.perf_counter()
         if count:
             ref, ref_steps, ev = kernel_f_probe.pair_events(
                 floweng, ref, n_win, win, **opts)
-            row["events"].append(kernel_f_probe.longest_pair(ev))
+            top = kernel_f_probe.longest_pair(ev)
         else:
             ref, ref_steps = floweng.run_windows_plain(ref, n_win, win,
                                                        **opts)
+            top = None
+        if ref_steps.device.type == "cuda":
+            import torch
+
+            torch.cuda.synchronize()
+        chunks.append(dict(leaves=flow_leaves(convert, ref),
+                           steps=ref_steps.tolist(), events=top,
+                           seconds=time.perf_counter() - t0))
+    return chunks
+
+
+def flow_plain_witness(what, *arg):
+    """Phase 20 (a)'s plain runs on the CPU (`cpu_witness`): (a)'s world
+    under FLOW_A_RUNS' options `arg[0]`, at (flows, Q) `arg` of FLOW_GRID,
+    or rung 3's largest bucket through its first chunk with work."""
+    from shadow_tpu_torch.tools import kernel_f_probe
+    from shadow_tpu_torch.tpu import floweng
+
+    win = FLOW_A["window_us"]
+    if what == "a":
+        w0 = kernel_f_probe.world_a(floweng, "cpu", FLOW_A["n_flows"],
+                                    FLOW_A["queue_slots"])
+        return f_plain_chunks(floweng, w0, 1, FLOW_A["n_windows"], win,
+                              **dict(FLOW_A_RUNS)[arg[0]])
+    if what == "grid":
+        w0 = kernel_f_probe.world_a(floweng, "cpu", *arg)
+        return f_plain_chunks(floweng, w0, 1, FLOW_GRID_WINDOWS, win)
+    r = kernel_f_probe.rung3_bucket("cpu")
+    return f_plain_chunks(floweng, r["world"], r["busy"] + 1, r["chunk"],
+                          r["window_us"], count=True)
+
+
+def f_against_plain(torch, convert, floweng, world, n_chunks, n_win, win,
+                    label, count=False, plain=None, **opts):
+    """Kernel F (`run_windows`) and `run_windows_plain` from `world`,
+    `n_chunks` chunks of `n_win` windows each, every `FlowWorld` leaf
+    and `steps_per_window` held bitwise after each chunk. The plain
+    run is `plain` (`f_plain_chunks`' chunks, from a CPU witness) or run
+    here, on `world`'s device. Returns F's world, a row (the largest
+    absolute difference, F's and the plain version's wall seconds, each
+    chunk's steps and, with `count`, each chunk's longest pair) and F's
+    world before the last chunk."""
+    got = world
+    plain_device = "cpu" if plain is not None else str(world.conn_t.device)
+    if plain is None:
+        plain = f_plain_chunks(floweng, world, n_chunks, n_win, win, count,
+                               **opts)
+    row = dict(max_abs_err=0, f_wall_s=[], plain_s=[], steps=[], events=[],
+               plain_device=plain_device)
+    for k, ref in enumerate(plain):
+        start = got
+        t0 = time.perf_counter()
+        got, steps = floweng.run_windows(got, n_win, win, **opts)
         torch.cuda.synchronize()
-        row["plain_s"].append(time.perf_counter() - t0)
-        err, bad = flow_diff(convert, got, ref)
-        err = max(err, int((steps.long() - ref_steps.long()).abs().max()))
+        row["f_wall_s"].append(time.perf_counter() - t0)
+        row["plain_s"].append(ref["seconds"])
+        if ref["events"] is not None:
+            row["events"].append(ref["events"])
+        leaves = flow_leaves(convert, got)
+        bad = [f for f in ref["leaves"] if not np.array_equal(
+            leaves[f], ref["leaves"][f])]
+        err = max((int(np.abs(leaves[f].astype(np.int64)
+                              - ref["leaves"][f].astype(np.int64)).max())
+                   for f in bad), default=0)
+        ref_steps = torch.tensor(ref["steps"], dtype=steps.dtype)
+        err = max(err, int((steps.cpu().long() - ref_steps.long()).abs()
+                           .max()))
         row["max_abs_err"] = max(row["max_abs_err"], err)
-        if bad or not torch.equal(steps, ref_steps):
+        if bad or not torch.equal(steps.cpu(), ref_steps):
             fail(f"phase 20 (a) {label}, chunk {k}: kernel F differs from "
                  f"its plain version in {bad or 'steps_per_window'} (max "
                  f"abs err {err})")
-        row["steps"].append(ref_steps.tolist())
-    return ref, row, start
+        row["steps"].append(ref["steps"])
+    return got, row, start
 
 
 @contextlib.contextmanager
@@ -3280,7 +3731,9 @@ def check_flow_engine(torch, record, ident):
     a_rows = {}
     for name, opts in FLOW_A_RUNS:
         ref, row, _ = f_against_plain(torch, convert, floweng, w0, 1,
-                                      n_win, win, name, **opts)
+                                      n_win, win, name,
+                                      plain=witness(f"flow-a:{name}"),
+                                      **opts)
         res = floweng.flow_results(ref)
         a_rows[name] = dict(
             row, segments=res["segments"], wire_drops=res["wire_drops"],
@@ -3301,18 +3754,19 @@ def check_flow_engine(torch, record, ident):
               f"wire drops, {row['queue_drops']} ring drops, "
               f"{row['saturated_windows']} saturated windows); F first "
               f"call {row['f_wall_s'][0]:.4f} s wall, plain "
-              f"{row['plain_s'][0]:.3f} s wall")
+              f"{row['plain_s'][0]:.3f} s wall on the "
+              f"{row['plain_device']}")
     print(f"20 (a) kernel F a {n_win}-window chunk: {a_ms:.5f} ms cold "
-          f"(clean {a_clean:.5f}; warm {a_warm:.5f}) vs the plain version "
-          f"{a_rows['default']['plain_s'][0] * 1e3:.1f} ms wall on {ident}")
+          f"(clean {a_clean:.5f}; warm {a_warm:.5f}) on {ident}")
     # (a)'s world at pair counts that leave a block part empty and at
     # rings of 16 to 1024 slots
     grid = {}
     for n_flows, q in FLOW_GRID:
         wg = kernel_f_probe.world_a(floweng, FLOW_DEVICE, n_flows, q)
-        _ref, row, _ = f_against_plain(torch, convert, floweng, wg, 1,
-                                       FLOW_GRID_WINDOWS, win,
-                                       f"{n_flows} flows, Q={q}")
+        _ref, row, _ = f_against_plain(
+            torch, convert, floweng, wg, 1, FLOW_GRID_WINDOWS, win,
+            f"{n_flows} flows, Q={q}",
+            plain=witness(f"flow-grid:{n_flows}x{q}"))
         if not any(row["steps"][0]):
             fail(f"phase 20 (a): {n_flows} flows at Q={q} ran no step")
         row["geometry"] = floweng.f_geometry(wg)
@@ -3335,7 +3789,7 @@ def check_flow_engine(torch, record, ident):
                                     r["busy"])
     _ref, rung3_row, r_start = f_against_plain(
         torch, convert, floweng, r_w0, r_busy + 1, r_chunk, r_wus,
-        "rung-3 bucket", count=True)
+        "rung-3 bucket", count=True, plain=witness("flow-rung3"))
     if not any(rung3_row["steps"][-1]) or not any(bench_row["steps"][0]):
         fail("phase 20 (a): a main-path chunk held against the plain "
              "version ran no step")
@@ -3351,7 +3805,8 @@ def check_flow_engine(torch, record, ident):
               f"bitwise on every leaf and steps_per_window after each "
               f"chunk ({sum(map(sum, row['steps']))} steps); F "
               f"{sum(row['f_wall_s']):.4f} s wall, plain (its events "
-              f"counted) {sum(row['plain_s']):.3f} s wall")
+              f"counted) {sum(row['plain_s']):.3f} s wall on the "
+              f"{row['plain_device']}")
     bench_row["geometry"] = floweng.f_geometry(bench_w0)
     rung3_row["geometry"] = floweng.f_geometry(r_w0)
     f_warm, f_ms, f_clean = time_flow_chunk(torch, floweng, bench_w0,
@@ -3497,6 +3952,12 @@ def check_flow_engine(torch, record, ident):
     d_rows = check_flow_sharded(torch, convert, floweng, ident)
     d_s = time.perf_counter() - t_d
 
+    # (e) rings past 28957 slots, and grown there by the flow plan
+    t_e = time.perf_counter()
+    e_row = check_flow_large_rings(torch, floweng, flowplan, want, text,
+                                   ident)
+    e_s = time.perf_counter() - t_e
+
     bound_ms, bound_by = bench_bound_ms, "bytes"
     sched_batch, pull_cap = 8, 8
     a_bytes = 2 * flow_world_bytes(w0)
@@ -3510,7 +3971,8 @@ def check_flow_engine(torch, record, ident):
         a_ms=a_ms, a_warm_ms=a_warm, a_cold_clean_ms=a_clean,
         rung3_ms=r_ms, rung3_warm_ms=r_warm, rung3_cold_clean_ms=r_clean,
         grid=grid, chain=chain,
-        a_plain_ms=a_rows["default"]["plain_s"][0] * 1e3, a_bytes=a_bytes,
+        a_plain_cpu_ms=a_rows["default"]["plain_s"][0] * 1e3,
+        a_bytes=a_bytes,
         a_bound_ms=a_bytes / PEAK_BYTES_PER_S * 1e3,
         in_run_ms=run_ms, in_run_mean_ms=sum(run_ms) / len(run_ms),
         bench=out, bench_rep_wall_s=rep_s, bench_rates=rates, a=a_rows,
@@ -3520,6 +3982,7 @@ def check_flow_engine(torch, record, ident):
         launches_bench=b_launches, launches_rung3=c_launches,
         sharded=d_rows, sharded_s=d_s,
         launches_sharded={n: r["launches"] for n, r in d_rows.items()},
+        large_rings=e_row, large_rings_s=e_s,
         # the serial chain of a pair: both lanes' scheduled events and
         # pulls, 2 * (sched_batch + pull_cap) + 2 app phases a fused step
         chain_events_per_step=2 * (sched_batch + pull_cap) + 2,
@@ -3537,6 +4000,211 @@ def check_flow_engine(torch, record, ident):
           f"pair of its first chunk {chain['bench']['events']} events; "
           f"library_ms=null; phase {row['phase_s']:.1f} s on {ident}")
     return row, b_launches, c_launches
+
+
+def f_ring_bytes(world) -> int:
+    """The bytes of a flow world's rings (q_time, q_fields)."""
+    return nbytes([world.q_time, world.q_fields])
+
+
+def check_flow_large_rings(torch, floweng, flowplan, want, rung3_text,
+                           ident) -> dict:
+    """Phase 20 (e): bench_flows' world (975 flows x 256 KiB) with rings
+    of each of FLOW_Q_LARGE slots, run to completion: `GOLDEN_FLOW_DIGEST`
+    and the same per-flow results; each launch's device ms; the first
+    chunk timed cold, clean and warm at each Q, in turns, beside its bound
+    by bytes. Then the rung-3 deployment with `capacity.max_doublings:
+    FLOW_MAX_DOUBLINGS`, which a card once refused, equal to the JAX
+    Manager's record; and again with ring drops added below FLOW_GROW_TO
+    slots (`flow_run_grown`): every bucket's rings grown to FLOW_GROW_TO,
+    F launched there, the record the JAX Manager's with those growths."""
+    from shadow_tpu_torch.core.config import load_config_str
+    from shadow_tpu_torch.tools import bench_flows, kernel_f_probe
+
+    lats, sizes, _q, wus = bench_flows.default_world_args()
+    worlds, runs = {}, {}
+    for q in FLOW_Q_LARGE:
+        w0 = floweng.make_flow_world(lats, sizes, queue_slots=q,
+                                     device=FLOW_DEVICE)
+        geo = floweng.f_geometry(w0)
+        floweng.reset_launches()
+        events = []
+
+        def timed_chunk(w, cap, events=events):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            w2 = floweng.clone_world(w)
+            torch.cuda._sleep(kernel_f_probe.SPIN_CYCLES)
+            e0.record()
+            floweng.flow_window_(w2, FLOW_CHUNK, wus,
+                                 max_events_per_window=cap)
+            e1.record()
+            events.append((e0, e1))
+            return w2, None
+
+        t0 = time.perf_counter()
+        w, sim_s, retries = floweng.run_to_completion(
+            w0, wus, max_sim_s=40.0, chunk_windows=FLOW_CHUNK,
+            probe_every=2, run_fn=timed_chunk)
+        res = floweng.flow_results(w)
+        wall = time.perf_counter() - t0
+        ms = [e0.elapsed_time(e1) for e0, e1 in events]
+        launches = floweng.LAUNCHES["flow_window"]
+        if launches != len(events):
+            fail(f"20 (e) Q={q}: {launches} launches of F for "
+                 f"{len(events)} chunks")
+        digest = bench_flows.results_digest(res)
+        if digest != bench_flows.GOLDEN_FLOW_DIGEST:
+            fail(f"20 (e) Q={q}: flow_results digest {digest} != "
+                 "GOLDEN_FLOW_DIGEST")
+        worlds[q] = w0
+        runs[q] = dict(geometry=geo, sim_seconds=sim_s, retries=retries,
+                       wall_s=wall, in_run_ms=ms, in_run_sum_ms=sum(ms),
+                       launches=launches, ring_bytes=f_ring_bytes(w0),
+                       res=res)
+        del w
+    a, b = (runs[q]["res"] for q in FLOW_Q_LARGE)
+    for k in a:
+        if not np.array_equal(np.asarray(a[k]), np.asarray(b[k])):
+            fail(f"20 (e): flow_results[{k!r}] at Q={FLOW_Q_LARGE[1]} "
+                 f"differs from Q={FLOW_Q_LARGE[0]}'s")
+    # the first chunk, cold, clean and warm, the two Q in turns; its bound
+    # by bytes: every leaf but the rings read and written once, and each
+    # ring entry the chunk pushes (its 16 fields and its time) written
+    # once and read once
+    q0 = FLOW_Q_LARGE[0]
+    first = floweng.clone_world(worlds[q0])
+    floweng.flow_window_(first, FLOW_CHUNK, wus)
+    pushed = int((first.n_segments - worlds[q0].n_segments).sum(
+        dtype=torch.int64))
+    del first
+    times = {q: [] for q in worlds}
+    for q in (*FLOW_Q_LARGE, *FLOW_Q_LARGE[::-1]):
+        times[q].append(time_flow_chunk(torch, floweng, worlds[q],
+                                        FLOW_CHUNK, wus))
+    for q, w0 in worlds.items():
+        r = runs[q]
+        moved = 2 * (flow_world_bytes(w0) - f_ring_bytes(w0)) + \
+            2 * pushed * (w0.q_fields.shape[2] + 1) * 4
+        r.pop("res")
+        r.update(chunk_ms=[dict(warm=t[0], cold=t[1], clean=t[2])
+                           for t in times[q]],
+                 chunk_bytes=moved,
+                 chunk_bound_ms=moved / PEAK_BYTES_PER_S * 1e3)
+        print(f"20 (e) bench_flows' world at Q={q} "
+              f"({r['geometry']['blocks']} blocks of "
+              f"{r['geometry']['pairs_a_block']} pairs, "
+              f"{r['geometry']['smem_bytes']} B shared a block; rings "
+              f"{r['ring_bytes']} B): digest == GOLDEN_FLOW_DIGEST in "
+              f"{r['sim_seconds']} s simulated, {r['launches']} launches "
+              f"({r['wall_s']:.2f} s wall), device ms a launch "
+              f"{r['in_run_ms']} (sum {r['in_run_sum_ms']}); the first "
+              f"chunk in turns {r['chunk_ms']} ms beside its bound "
+              f"{r['chunk_bound_ms']:.5f} ms (bytes, {r['chunk_bytes']} B: "
+              f"the world but its rings, and the {pushed} entries the chunk "
+              f"pushes) on {ident}")
+    print(f"20 (e) every per-flow result at Q={FLOW_Q_LARGE[1]} equals "
+          f"Q={FLOW_Q_LARGE[0]}'s")
+    del worlds
+    torch.cuda.empty_cache()
+    # the rung-3 deployment with the growth budget a card once refused
+    cfg = load_config_str(f"capacity: {{max_doublings: {FLOW_MAX_DOUBLINGS}}}"
+                          f"\n" + rung3_text)
+    if cfg.capacity.max_doublings != FLOW_MAX_DOUBLINGS:
+        fail("20 (e): the config's capacity section was not read")
+    floweng.reset_launches()
+    t0 = time.perf_counter()
+    stats = flowplan.run_config(cfg, device=FLOW_DEVICE)
+    r3_wall = time.perf_counter() - t0
+    if flowplan.stats_record(stats) != want:
+        fail(f"20 (e): rung 3 at capacity.max_doublings={FLOW_MAX_DOUBLINGS}"
+             " differs from the JAX Manager's record")
+    r3 = dict(max_doublings=FLOW_MAX_DOUBLINGS, wall_s=r3_wall,
+              launches=floweng.LAUNCHES["flow_window"],
+              capacity_events=list(stats.capacity_events))
+    print(f"20 (e) rung 3 with capacity.max_doublings={FLOW_MAX_DOUBLINGS} "
+          f"(rings up to {256 << FLOW_MAX_DOUBLINGS} slots allowed): runs, "
+          f"record == the JAX Manager's ({len(stats.capacity_events)} ring "
+          f"growths, {r3['launches']} F launches, {r3_wall:.2f} s wall) on "
+          f"{ident}")
+    # ... and grown there: the rings of every bucket double from 256 to
+    # FLOW_GROW_TO, each size a fresh world and a re-run of the bucket
+    t0 = time.perf_counter()
+    stats, bucket_runs = flow_run_grown(floweng, flowplan, cfg, FLOW_DEVICE)
+    grow_wall = time.perf_counter() - t0
+    got = flowplan.stats_record(stats)
+    events = got["stats"]["capacity_events"]
+    got["stats"]["capacity_events"] = want["stats"]["capacity_events"]
+    if got != want:
+        fail("20 (e): rung 3 with its rings grown differs from the JAX "
+             "Manager's record")
+    if events != want["stats"]["capacity_events"] + flow_grown_events(
+            flowplan, cfg):
+        fail(f"20 (e): rung 3's ring growths {events} are not every "
+             f"bucket's doublings from {flowplan.QUEUE_SLOTS0} to "
+             f"{FLOW_GROW_TO}")
+    top = [n for q, n in bucket_runs if q == FLOW_GROW_TO]
+    if not top or min(top) <= 0:
+        fail(f"20 (e): F's launches by ring size {bucket_runs}: none at "
+             f"Q={FLOW_GROW_TO} in some bucket")
+    r3.update(grown=dict(wall_s=grow_wall, growths=len(events),
+                         runs_by_q=bucket_runs))
+    print(f"20 (e) rung 3 with {FLOW_GROW_DROPS} ring drops added below "
+          f"{FLOW_GROW_TO} slots: {len(events)} ring growths (every "
+          f"bucket {flowplan.QUEUE_SLOTS0} -> {FLOW_GROW_TO}), F launches "
+          f"by (Q, launches) {bucket_runs}, record == the JAX Manager's "
+          f"but those growths ({grow_wall:.2f} s wall) on {ident}")
+    return dict(runs={str(q): r for q, r in runs.items()}, pushed=pushed,
+                rung3=r3)
+
+
+def flow_run_grown(floweng, flowplan, config, device):
+    """`run_config` with FLOW_GROW_DROPS ring drops added to the result
+    of each bucket run whose rings hold fewer than FLOW_GROW_TO slots, so
+    the flow plan grows every bucket's rings to FLOW_GROW_TO (no traffic
+    of the TCP model does: a lane's ring holds its peer's window of
+    segments and ACKs, a few hundred at most). Returns (stats, [(ring
+    slots, F launches) for each bucket run])."""
+    real_results, real_world = floweng.flow_results, flowplan.bucket_world
+    marks = []
+
+    def results(world):
+        res = real_results(world)
+        if world.q_time.shape[1] < FLOW_GROW_TO:
+            res = dict(res, queue_drops=res["queue_drops"] + FLOW_GROW_DROPS)
+        return res
+
+    def bucket_world(plan, window_us, idx, queue_slots, dev):
+        marks.append((queue_slots, floweng.LAUNCHES["flow_window"]))
+        return real_world(plan, window_us, idx, queue_slots, dev)
+
+    floweng.flow_results, flowplan.bucket_world = results, bucket_world
+    try:
+        stats = flowplan.run_config(config, device=device)
+    finally:
+        floweng.flow_results, flowplan.bucket_world = real_results, \
+            real_world
+    ends = [n for _q, n in marks[1:]] + [floweng.LAUNCHES["flow_window"]]
+    return stats, [(q, end - n) for (q, n), end in zip(marks, ends)]
+
+
+def flow_grown_events(flowplan, config) -> list:
+    """The capacity events of `flow_run_grown(config)`: each bucket's
+    rings doubled from flowplan.QUEUE_SLOTS0 to FLOW_GROW_TO, the buckets
+    widest window first, as `run_flow_simulation` records them."""
+    plan = flowplan.compile_flow_plan(config,
+                                      flowplan.routing_from_config(config))
+    out = []
+    for window_us in sorted(flowplan.flow_buckets(plan), reverse=True):
+        q = flowplan.QUEUE_SLOTS0
+        while q < FLOW_GROW_TO:
+            out.append({"kind": "capacity-growth",
+                        "time_ns": config.general.stop_time,
+                        "ring": "flow-queue", "from": q, "to": 2 * q,
+                        "overflow": FLOW_GROW_DROPS, "plane": "floweng",
+                        "bucket_window_us": window_us})
+            q *= 2
+    return out
 
 
 class FlowKill(RuntimeError):
@@ -3870,6 +4538,32 @@ def check_transport(torch, record, ident):
     return row
 
 
+def start_build_beside(_build, name: str):
+    """Start the build of kernel `name` in a thread; returns a function
+    that waits for it and returns its seconds (raising what the build
+    raised)."""
+    import threading
+
+    out = {}
+
+    def run():
+        try:
+            out["s"] = _build.build([name], verbose_ptxas=True)[name]
+        except BaseException as exc:  # re-raised by the waiter
+            out["error"] = exc
+
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+
+    def wait() -> float:
+        thread.join()
+        if "error" in out:
+            raise out["error"]
+        return out["s"]
+
+    return wait
+
+
 def kernel_entry(name, source, replaces, launches, row, ens_launches,
                  section_launches, mesh_launches):
     return {"name": name, "route": "cuda", "source": source,
@@ -3889,6 +4583,15 @@ def main():
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this needs a CUDA card")
+    pool, workers, cores = start_witnesses()
+    try:
+        return run_phases(torch, workers, cores)
+    finally:
+        pool.terminate()
+        pool.join()
+
+
+def run_phases(torch, workers: int, cores: int):
     from shadow_tpu_torch import _build, bench, convert
     from shadow_tpu_torch.tpu import elastic, floweng, pipeline
 
@@ -3897,14 +4600,22 @@ def main():
     print(f"gpu: {ident}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"devices {torch.cuda.device_count()}")
-    record = {"gpu": ident, "kind": kind, "torch": torch.__version__}
+    record = {"gpu": ident, "kind": kind, "torch": torch.__version__,
+              "witness_pool": dict(workers=workers, cores=cores,
+                                   threads=WITNESS_THREADS)}
 
+    # kernel F's nvcc, the longest by far, builds beside phases 3-19 (F
+    # first runs in phase 20); the others before phase 3, all at once
     t0 = time.perf_counter()
-    build_s = _build.build(verbose_ptxas=True)
+    f_build = start_build_beside(_build, "flow_window")
+    build_s = _build.build([n for n in _build.SIGNATURES
+                            if n != "flow_window"], verbose_ptxas=True)
+    build_wall = time.perf_counter() - t0
     record["build_s"] = build_s
-    print(f"build: {json.dumps(build_s)} wall {time.perf_counter() - t0:.2f}s")
+    print(f"build: {json.dumps(build_s)} wall {build_wall:.2f}s (kernel F "
+          f"builds beside the phases)")
 
-    phase_s = {}
+    phase_s = {"build": build_wall}
 
     def timed(name, fn, *args):
         t = time.perf_counter()
@@ -3945,8 +4656,8 @@ def main():
     fleet_rec = timed("13 serving fleet", check_fleet, torch, pipeline,
                       record, ident)
     timed("14 robustness", check_robustness, torch, pipeline, record, ident)
-    e, e_launches = timed("15 router AQM", check_router_aqm, torch, pipeline,
-                          record, ident)
+    e, e_launches, e_builds, e_wide = timed(
+        "15 router AQM", check_router_aqm, torch, pipeline, record, ident)
     timed("16 run infrastructure", check_run_infra, torch, bench, convert,
           pipeline, record, ident, fleet_rec)
     floweng.reset_launches()
@@ -3959,8 +4670,20 @@ def main():
     sec["flow_window"] = floweng.LAUNCHES["flow_window"]
     mesh_l = timed("19 mesh", check_mesh, torch, bench, convert, pipeline,
                    record, ident)
+    f_wait = "20 kernel F's build, awaited"
+    build_s["flow_window"] = timed(f_wait, f_build)
+    print(f"build of kernel F: {build_s['flow_window']:.2f}s beside phases "
+          f"3-19, awaited {phase_s[f_wait]:.2f}s")
     f_row, f_launches, f_rung3 = timed("20 flow engine", check_flow_engine,
                                        torch, record, ident)
+    big_run = f_row["large_rings"]["runs"][str(FLOW_Q_LARGE[0])]
+    big_chunk = big_run["chunk_ms"]
+    f_big = dict(q=FLOW_Q_LARGE[0], launches=big_run["launches"],
+                 ms=max(t["cold"] for t in big_chunk),
+                 cold_clean_ms=max(t["clean"] for t in big_chunk),
+                 warm_ms=max(t["warm"] for t in big_chunk),
+                 bound_ms=big_run["chunk_bound_ms"], bound_by="bytes",
+                 in_run_ms=big_run["in_run_ms"])
     # the transport's path launches no hand-written kernel: its counts
     # are read around phase 21 like every other path's
     pipeline.reset_launches()
@@ -3972,6 +4695,9 @@ def main():
     record["transport_launches"] = tx_launches
     record["phase_s"] = phase_s
     print(f"phase seconds: {json.dumps(phase_s)}")
+    print(f"phase seconds summed, the build's wait included: "
+          f"{sum(phase_s.values()):.1f} (CPU witnesses in a pool of "
+          f"{workers} workers on {cores} cores)")
 
     kernels = [
         kernel_entry("egress_rank_kernel",
@@ -3994,18 +4720,28 @@ def main():
                      "shadow_tpu/tpu/pallas_route.py:48",
                      split["route_scatter"], d, ens["route_scatter"],
                      sec["route_scatter"], mesh_l["route_scatter"]),
-        kernel_entry("router_drain_kernel",
-                     "shadow_tpu_torch/csrc/router_drain.cu",
-                     "shadow_tpu/tpu/codel.py:578 (router_drain, "
-                     "lax.fori_loop)", e_launches, e, ens["router_drain"],
-                     sec["router_drain"], mesh_l["router_drain"]),
+        dict(kernel_entry("router_drain_kernel",
+                          "shadow_tpu_torch/csrc/router_drain.cu",
+                          "shadow_tpu/tpu/codel.py:578 (router_drain, "
+                          "lax.fori_loop)", e_launches, e,
+                          ens["router_drain"], sec["router_drain"],
+                          mesh_l["router_drain"]),
+             launches_by_build={
+                 "staged": e_builds["staged"],
+                 "device": e_wide["runs"]["pallas_fused"][
+                     "device_build_launches"]},
+             device_build=dict(e["device_build"],
+                               in_window_us=e_wide["e_us_per_launch"],
+                               in_window_bound_us=e_wide["bound_ms"] * 1e3,
+                               k=e_wide["k"])),
         dict(kernel_entry("flow_window_kernel",
                           "shadow_tpu_torch/csrc/flow_window.cu",
                           "shadow_tpu/tpu/floweng.py:531 (run_windows, "
                           "lax.scan of lax.while_loop)", f_launches, f_row,
                           ens["flow_window"], sec["flow_window"],
                           mesh_l["flow_window"]), rung3_launches=f_rung3,
-             sharded_launches=f_row["launches_sharded"]),
+             sharded_launches=f_row["launches_sharded"],
+             large_rings=f_big),
     ]
     print(f"record: {json.dumps(record, default=str)}")
     print(json.dumps({"kernels": kernels}))

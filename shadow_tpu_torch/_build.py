@@ -40,7 +40,7 @@ SIGNATURES = {
                       [_I, _I, _I, _I] + [_P] * 3 + [_P] * 2 + [_P] * 4
                       + [_P] * 6 + [_P]),
     "router_drain": ("router_drain_launch",
-                     [_I, _I, _I] + [_P] * 5 + [_P] * 13 + [_P] * 13
+                     [_I, _I, _I, _I] + [_P] * 5 + [_P] * 13 + [_P] * 13
                      + [_P] * 5 + [_P]),
     # ten ints, then an array of the world's tensor pointers and its length
     "flow_window": ("flow_window_launch", [_I] * 10 + [_P, _I] + [_P]),

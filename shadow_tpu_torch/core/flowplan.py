@@ -353,16 +353,6 @@ def run_flow_simulation(config, routing, stats, *, checkpoint_dir=None,
     cap_opts = getattr(config, "capacity", None)
     max_doublings = cap_opts.max_doublings if cap_opts else 3
     cap_mode = cap_opts.mode if cap_opts else "fixed"
-    q_max = floweng.f_queue_slots_max()
-    if dev.type != "cpu" and QUEUE_SLOTS0 << max_doublings > q_max:
-        # kernel F stages each pair's rings in shared memory: refuse a
-        # growth budget it could not see through before any bucket runs
-        raise ValueError(
-            f"flow engine: capacity.max_doublings={max_doublings} grows "
-            f"the rings to {QUEUE_SLOTS0 << max_doublings} slots, above "
-            f"the {q_max} kernel F can stage in a block's shared memory "
-            f"(max_doublings <= "
-            f"{(q_max // QUEUE_SLOTS0).bit_length() - 1})")
     trajectory = CapacityTrajectory(cap_mode)
     fingerprint = _plan_fingerprint(plan)
     done_buckets: set[int] = set()

@@ -1,6 +1,6 @@
 // Kernel F: the flow engine's windows for Hopper (sm_90a): one flow pair
-// a warp, its two lanes on two threads, its slots and rings' heads in
-// shared memory.
+// a warp, its two lanes on two threads, its slots and rings' heads and
+// counts in shared memory, its rings in device memory.
 //
 // Replaces: shadow_tpu/tpu/floweng.py, run_windows (a lax.scan of windows,
 // each a lax.while_loop of fused steps holding the scheduled-event loop and
@@ -33,15 +33,18 @@
 // clock_us).
 //
 // A block's pairs stage, for the whole launch, each lane's reassembly
-// (2 x RS) and SACK (2 x 16) slots, its ring's arrival times (Q), head
-// and count in shared memory: the whole block copies them in, coalesced,
-// before the windows and out after them. `Conn`'s slot pointers point
-// there, so the slot loops of tcp_fsm.cuh and every `sched_time` read
-// shared memory. The ring's [Q, 16] fields stay in global memory (read
-// once an arrival, written once a push). The launcher spreads the pairs
-// over every SM (warps a block = the warps needed over the SMs, at most
-// FW_MAX_WARPS), within the 227 KB a block may stage; a Q whose pair does
-// not fit is refused (floweng.flow_window_ raises ValueError first). The
+// (2 x RS) and SACK (2 x 16) slots and its ring's head and count in
+// shared memory (792 B a pair at RS = 32): the whole block copies them
+// in, coalesced, before the windows and out after them. `Conn`'s slot
+// pointers point there, so the slot loops of tcp_fsm.cuh read shared
+// memory. The ring itself, its arrival times [Q] and fields [Q, 16],
+// stays in device memory (`Lane::q_time` and `q_fields` point at the
+// lane's rows: a time read once a scheduled-event test, fields read once
+// an arrival, both written once a push), so any Q runs, and the ring's
+// size never limits the pairs a block. (Staging the ring's times too was
+// no faster at Q = 128 and up to 9x slower where it cut the pairs a
+// block, PERF.md.) The launcher spreads the pairs over every SM (warps a
+// block = the warps needed over the SMs, at most FW_MAX_WARPS). The
 // kernel is built for the flow world's 32 reassembly slots (FW_RS), so
 // the slot loops have a constant trip count; a power-of-two Q takes a
 // ring slot by a mask, not a division.
@@ -103,7 +106,7 @@ using namespace fsm;
   X(int32_t, retransmit_count) X(int32_t, retransmitted_bytes)               \
   X(uint8_t, last_retx) X(uint8_t, sack_on) X(uint8_t, sack_ok)
 
-// the world's per-lane scalars after the staged ring head and count
+// the world's per-lane scalars after the ring's head and count
 #define FW_WORLD_SCALARS(X)                                                  \
   X(int32_t, q_dropped)                                                      \
   X(uint8_t, opened) X(uint8_t, close_sent) X(int32_t, written)              \
@@ -157,46 +160,44 @@ constexpr int FW_PAIRS_A_WARP = 1;
 // the reassembly slots a lane has (make_flow_world's), known when compiled
 constexpr int FW_RS = 32;
 constexpr int FW_MAX_WARPS = 8;           // warps a block
-constexpr int FW_SMEM_MAX = 232448;       // shared bytes a block may use
-constexpr int FW_SMEM_DEFAULT = 48 * 1024;  // without the opt-in attribute
 
 // A lane's staged words: reass_off [RS], reass_len [RS], sacked_s [16],
-// sacked_e [16], q_time [Q], q_head, q_count; an odd count, so lanes
-// reading the same offset fall in different banks.
-FSM_HD int lane_words(int Q, int RS) {
-  return (2 * RS + 2 * SACK_SLOTS + Q + 2) | 1;
+// sacked_e [16], q_head, q_count; an odd count, so lanes reading the
+// same offset fall in different banks.
+FSM_HD constexpr int lane_words(int RS) {
+  return (2 * RS + 2 * SACK_SLOTS + 2) | 1;
 }
 FSM_HD int off_sacked(int RS) { return 2 * RS; }
-FSM_HD int off_q_time(int RS) { return 2 * RS + 2 * SACK_SLOTS; }
+FSM_HD int off_q_head(int RS) { return 2 * RS + 2 * SACK_SLOTS; }
 
 // shared bytes a pair stages
-static inline int64_t fw_pair_bytes(int Q, int RS) {
-  return 2 * static_cast<int64_t>(lane_words(Q, RS)) * 4;
+static inline int64_t fw_pair_bytes(int RS) {
+  return 2 * static_cast<int64_t>(lane_words(RS)) * 4;
 }
+// a full block of the card's build stages within the 48 KB a block may
+// use without opting in
+static_assert(FW_MAX_WARPS * FW_PAIRS_A_WARP * 2 * lane_words(FW_RS) * 4
+                  <= 48 * 1024,
+              "a block's staged slots fit the default shared memory");
 
 struct Geometry {
   int pairs_a_block, blocks, smem_bytes;
 };
 
 // The pairs over the SMs: as many warps a block as spread the pairs' warps
-// over n_sms blocks (one block an SM), at most FW_MAX_WARPS and at most
-// what the block can stage. Returns false when one pair cannot stage.
+// over n_sms blocks (one block an SM), at most FW_MAX_WARPS. Returns false
+// for a Q, RS or SM count the kernel does not take.
 static inline bool fw_geometry(int n_pairs, int Q, int RS, int n_sms,
                                Geometry& g) {
-  int64_t pair_bytes = fw_pair_bytes(Q, RS);
-  if (Q < 1 || RS < 1 || n_sms < 1 || pair_bytes > FW_SMEM_MAX)
-    return false;
-  int fit = static_cast<int>(FW_SMEM_MAX / pair_bytes);
+  if (Q < 1 || RS < 1 || n_sms < 1) return false;
   int warps = (n_pairs + FW_PAIRS_A_WARP - 1) / FW_PAIRS_A_WARP;
   int wpb = (warps + n_sms - 1) / n_sms;
   wpb = wpb < 1 ? 1 : (wpb > FW_MAX_WARPS ? FW_MAX_WARPS : wpb);
   int ppb = wpb * FW_PAIRS_A_WARP;
-  if (ppb > fit) ppb = fit;
   if (n_pairs > 0 && ppb > n_pairs) ppb = n_pairs;
-  if (ppb < 1) ppb = 1;
   g.pairs_a_block = ppb;
   g.blocks = (n_pairs + ppb - 1) / ppb;
-  g.smem_bytes = static_cast<int>(ppb * pair_bytes);
+  g.smem_bytes = static_cast<int>(ppb * fw_pair_bytes(RS));
   return true;
 }
 
@@ -219,16 +220,15 @@ FW_HD void stage_rows(int32_t* g, int per, int l0, int n, int* s,
 // every staged tensor of lanes [l0, l0 + n)
 FW_HD void stage_lanes(const FlowPtrs& P, const Params& K, int l0, int n,
                        int* s, int t0, int dt, bool in) {
-  const int st = lane_words(K.Q, K.RS), RS = K.RS, qt = off_q_time(RS);
+  const int st = lane_words(K.RS), RS = K.RS, qh = off_q_head(RS);
   stage_rows(P.reass_off, RS, l0, n, s, st, 0, t0, dt, in);
   stage_rows(P.reass_len, RS, l0, n, s, st, RS, t0, dt, in);
   stage_rows(P.sacked_s, SACK_SLOTS, l0, n, s, st, off_sacked(RS), t0, dt,
              in);
   stage_rows(P.sacked_e, SACK_SLOTS, l0, n, s, st,
              off_sacked(RS) + SACK_SLOTS, t0, dt, in);
-  stage_rows(P.q_time, K.Q, l0, n, s, st, qt, t0, dt, in);
-  stage_rows(P.q_head, 1, l0, n, s, st, qt + K.Q, t0, dt, in);
-  stage_rows(P.q_count, 1, l0, n, s, st, qt + K.Q + 1, t0, dt, in);
+  stage_rows(P.q_head, 1, l0, n, s, st, qh, t0, dt, in);
+  stage_rows(P.q_count, 1, l0, n, s, st, qh + 1, t0, dt, in);
 }
 
 // One lane: its TCP machine, the world's per-lane columns, its ring (to
@@ -242,18 +242,18 @@ struct Lane {
   int lane_id, w_iss, conn_t, complete_us, n_segments, seg_units,
       wire_drops, unacked;
   int peer_total;
-  int* q_time;     // staged [Q]
+  int* q_time;     // global [Q]
   int* q_head;     // staged
   int* q_count;    // staged
   int* q_fields;   // global [Q, 16]
-  int* p_time;     // the peer's, staged
+  int* p_time;     // the peer's, global
   int* p_head;
   int* p_count;
   int* p_fields;   // the peer's, global
 };
 
-// lane i's scalars from the world, its slots and ring from its staged
-// words `s` (the peer's at `ps`)
+// lane i's scalars from the world, its slots and ring's head and count
+// from its staged words `s` (the peer's at `ps`), its ring from the world
 FW_HD void load_lane(const FlowPtrs& P, const Params& K, int i, int* s,
                      int* ps, Lane& L) {
 #define FW_LOAD_C(t, n) L.c.n = static_cast<decltype(L.c.n)>(P.n[i]);
@@ -265,18 +265,18 @@ FW_HD void load_lane(const FlowPtrs& P, const Params& K, int i, int* s,
   FW_WORLD_SCALARS(FW_LOAD_W)
 #undef FW_LOAD_W
   L.peer_total = P.total[i ^ 1];
-  const int qt = off_q_time(K.RS);
+  const int qh = off_q_head(K.RS);
   L.c.reass_off = s;
   L.c.reass_len = s + K.RS;
   L.c.sacked_s = s + off_sacked(K.RS);
   L.c.sacked_e = s + off_sacked(K.RS) + SACK_SLOTS;
   L.c.rs = K.RS;
-  L.q_time = s + qt;
-  L.q_head = s + qt + K.Q;
-  L.q_count = s + qt + K.Q + 1;
-  L.p_time = ps + qt;
-  L.p_head = ps + qt + K.Q;
-  L.p_count = ps + qt + K.Q + 1;
+  L.q_time = P.q_time + static_cast<int64_t>(i) * K.Q;
+  L.p_time = P.q_time + static_cast<int64_t>(i ^ 1) * K.Q;
+  L.q_head = s + qh;
+  L.q_count = s + qh + 1;
+  L.p_head = ps + qh;
+  L.p_count = ps + qh + 1;
   L.q_fields = P.q_fields + static_cast<int64_t>(i) * K.Q * N_FIELDS;
   L.p_fields = P.q_fields + static_cast<int64_t>(i ^ 1) * K.Q * N_FIELDS;
 }
@@ -570,14 +570,14 @@ static bool fw_params_ok(const Params& K) {
          && K.max_events >= 0 && K.ack_every >= 1;
 }
 
-// the staged bytes of one pair, for the wrapper's check (both builds)
-extern "C" int flow_window_pair_bytes(int q, int rs) {
-  int64_t b = fw_pair_bytes(q, rs);
+// the bytes one pair stages, for the wrapper's check (both builds)
+extern "C" int flow_window_pair_bytes(int rs) {
+  int64_t b = fw_pair_bytes(rs);
   return b > 0x7FFFFFFF ? -1 : static_cast<int>(b);
 }
 
 // pairs a block, blocks and shared bytes a block of a launch over n_sms
-// SMs (out[3]); 1 when one pair cannot stage
+// SMs (out[3]); 1 for a Q, RS or SM count the kernel does not take
 extern "C" int flow_window_geometry(int n_pairs, int q, int rs, int n_sms,
                                     int* out) {
   Geometry g;
@@ -615,7 +615,7 @@ __global__ void __launch_bounds__(FW_MAX_WARPS * 32, 1)
   const int wl = threadIdx.x & 31;
   const int lp = (threadIdx.x >> 5) * FW_PAIRS_A_WARP + (wl >> 1);
   if ((wl >> 1) < FW_PAIRS_A_WARP && lp < np) {
-    const int st = lane_words(K.Q, K.RS);
+    const int st = lane_words(K.RS);
     const int li = 2 * lp + (wl & 1);  // the block's lane
     Lane L;
     load_lane(P, K, 2 * p0 + li, staged + li * st, staged + (li ^ 1) * st,
@@ -650,12 +650,6 @@ extern "C" int flow_window_launch(int n_pairs, int q, int rs, int n_windows,
   Geometry g;
   if (!fw_geometry(n_pairs, q, rs, n_sms, g))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (g.smem_bytes > FW_SMEM_DEFAULT) {
-    err = cudaFuncSetAttribute(flow_window_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               g.smem_bytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
   FlowPtrs P;
   memcpy(&P, ptrs, sizeof P);
   const int warps = (g.pairs_a_block + FW_PAIRS_A_WARP - 1) / FW_PAIRS_A_WARP;
@@ -692,12 +686,10 @@ extern "C" int flow_window_host(int n_pairs, int q, int rs, int n_windows,
   const Params K = fw_params(n_pairs, q, rs, n_windows, window_us,
                              max_events, ack_every, sched_batch, pull_cap,
                              gso_segs);
-  if (n_ptrs != FW_N_PTRS || !fw_params_ok(K)
-      || fw_pair_bytes(q, rs) > FW_SMEM_MAX)
-    return 1;
+  if (n_ptrs != FW_N_PTRS || !fw_params_ok(K)) return 1;
   FlowPtrs P;
   memcpy(&P, ptrs, sizeof P);
-  const int st = lane_words(q, rs);
+  const int st = lane_words(rs);
   std::vector<int> staged(2 * static_cast<size_t>(st));
   for (int p = 0; p < n_pairs; ++p) {
     stage_lanes(P, K, 2 * p, 2, staged.data(), 0, 1, true);

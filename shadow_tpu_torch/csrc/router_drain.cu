@@ -78,10 +78,18 @@
 // Resources (nvcc -Xptxas -v, sm_90a, CUDA 12.8): 52 registers, no
 // spill, no stack, no static shared memory. Dynamic shared memory a
 // block: 2 arrays x 32 rows x the stride, 8448 B at K=32, so 24 blocks
-// fit an SM's 228 KB (1 KB reserved a block); wider rows halve the tile.
-// The launcher takes K up to kMaxK = 14527, the widest row this kernel
-// has always taken (its buffers would fit K = 29055); a wider row is
-// refused.
+// fit an SM's 228 KB (1 KB reserved a block); wider rows halve the tile,
+// down to one host of K = 29055 (kMaxStagedK: 232440 B).
+//
+// Two builds of the one kernel body (router_drain_kernel's template
+// parameter): "staged", as above, for K up to kMaxStagedK, and "device"
+// for wider rows, whose machines read their rows straight from the [N, K]
+// inputs in device memory (a tile of 32 hosts, no shared memory, no
+// staging). A row in device memory is read by its own lane, entry after
+// entry as its chain advances: the lanes' loads do not coalesce, but a
+// row that wide is long in bytes, not in the entries a window consumes.
+// The launcher picks the build by K; `want` forces one (the tests hold the
+// device build to the staged one at K the staged build takes).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -96,7 +104,7 @@ constexpr int kMtu = 1500;
 constexpr int kMaxCount = 4096;
 constexpr int kWarp = 32;
 constexpr int kMaxTile = 32;        // hosts a tile: a warp, one a lane
-constexpr int kMaxK = 14527;        // the widest row the launcher takes
+constexpr int kMaxStagedK = 29055;  // the widest row a block stages
 constexpr size_t kMaxSmem = 232448;  // shared memory a block may use
 
 constexpr int kQueued = 0;
@@ -427,12 +435,18 @@ __device__ __forceinline__ void stage_slab(int* dst,
   }
 }
 
+// the builds, as the launcher takes them (`want`) and reports them
+constexpr int kBuildByK = 0;
+constexpr int kBuildStaged = 1;
+constexpr int kBuildDevice = 2;
+
 // The launch's geometry (`choose_geometry`)
 struct Geometry {
   int tile;     // hosts a tile (a power of two, at most 32)
   int stride;   // a staged row, in words: K for an odd K, else K + 1
   int words;    // one staged array of a tile, in words
-  size_t smem;  // bytes a block: its two staged arrays
+  size_t smem;  // bytes a block: its two staged arrays (0: device build)
+  int build;    // kBuildStaged or kBuildDevice
 };
 
 // A launch's arguments
@@ -453,8 +467,10 @@ struct Args {
   int* cached_idx;
 };
 
-// A block is a warp and a tile: stage its rows, fill its outputs, run
-// its machines.
+// A block is a warp and a tile: stage its rows (the staged build), fill
+// its outputs, run its machines over the staged rows or, in the device
+// build, over the rows in device memory.
+template <bool kStaged>
 __global__ void __launch_bounds__(kWarp) router_drain_kernel(const Args a) {
   extern __shared__ __align__(16) int smem[];
   const int k = a.k;
@@ -465,11 +481,17 @@ __global__ void __launch_bounds__(kWarp) router_drain_kernel(const Args a) {
   const int cnt = rows * k;
   const int64_t off = static_cast<int64_t>(first) * k;
 
-  int* const A = smem;
-  int* const S = smem + g.words;
-  stage_slab(A, a.arrival + off, cnt, k, g.stride, lane);
-  stage_slab(S, a.size + off, cnt, k, g.stride, lane);
-  cp_async_commit();
+  const int* A = a.arrival + off;
+  const int* S = a.size + off;
+  int stride = k;
+  if (kStaged) {
+    stage_slab(smem, A, cnt, k, g.stride, lane);
+    stage_slab(smem + g.words, S, cnt, k, g.stride, lane);
+    cp_async_commit();
+    A = smem;
+    S = smem + g.words;
+    stride = g.stride;
+  }
   Host host{};
   if (lane < rows) host = load_host(a.in, a.dn_rate, a.dn_cap, first + lane);
   // every entry queued and undelivered until a machine says otherwise;
@@ -480,12 +502,12 @@ __global__ void __launch_bounds__(kWarp) router_drain_kernel(const Args a) {
     st[i] = kQueued;
     dt[i] = kI32Max;
   }
-  cp_async_wait_all();
+  if (kStaged) cp_async_wait_all();
   __syncwarp();  // the slab in every lane's view, the fills before
 
   if (lane >= rows) return;
   const int h = first + lane;
-  const int row = lane * g.stride;
+  const int64_t row = static_cast<int64_t>(lane) * stride;
   bool co_mask;
   int co_t, c_idx;
   drain_host(host, A + row, S + row, st + lane * k, dt + lane * k, k,
@@ -509,39 +531,70 @@ __global__ void __launch_bounds__(kWarp) router_drain_kernel(const Args a) {
   a.cached_idx[h] = c_idx;
 }
 
-// The launch's geometry over n rows of K words: a tile of 32 hosts where
-// its two staged arrays fit a block's shared memory, halved for wider
-// rows (one host of K = 14527 takes 116216 B); a block a tile. False
-// past kMaxK.
-bool choose_geometry(int n, int k, Geometry& g, int& blocks) {
-  if (k < 1 || k > kMaxK) return false;
-  g.stride = k | 1;
-  g.tile = kMaxTile;
-  while (2 * sizeof(int) * static_cast<size_t>(g.tile) * g.stride > kMaxSmem)
-    g.tile /= 2;
-  g.words = g.tile * g.stride;
-  g.smem = 2 * sizeof(int) * static_cast<size_t>(g.words);
+// The launch's geometry over n rows of K words, in the build `want` asks
+// for (kBuildByK: staged up to kMaxStagedK, device beyond). Staged: a tile
+// of 32 hosts where its two staged arrays fit a block's shared memory,
+// halved for wider rows (one host of K = 29055 takes 232440 B). Device: a
+// tile of 32 hosts, no shared memory. A block a tile. False for a K the
+// build does not take.
+bool choose_geometry(int n, int k, int want, Geometry& g, int& blocks) {
+  if (k < 1) return false;
+  if (want == kBuildByK) want = k <= kMaxStagedK ? kBuildStaged : kBuildDevice;
+  if (want == kBuildStaged && k <= kMaxStagedK) {
+    g.stride = k | 1;
+    g.tile = kMaxTile;
+    while (2 * sizeof(int) * static_cast<size_t>(g.tile) * g.stride >
+           kMaxSmem)
+      g.tile /= 2;
+    g.words = g.tile * g.stride;
+    g.smem = 2 * sizeof(int) * static_cast<size_t>(g.words);
+  } else if (want == kBuildDevice) {
+    g.stride = k;
+    g.tile = kMaxTile;
+    g.words = 0;
+    g.smem = 0;
+  } else {
+    return false;
+  }
+  g.build = want;
   blocks = static_cast<int>((static_cast<int64_t>(n) + g.tile - 1) / g.tile);
   return true;
 }
 
 }  // namespace
 
-// The geometry of a launch over n rows of k words: out = {hosts a tile,
-// blocks, shared bytes a block}. Returns a cudaError_t.
-extern "C" int router_drain_geometry(int n, int k, int* out) {
+// The geometry of a launch over n rows of k words in the build `want`
+// asks for (0 by K, 1 staged, 2 device): out = {hosts a tile, blocks,
+// shared bytes a block, build}. Returns a cudaError_t.
+extern "C" int router_drain_geometry(int n, int k, int want, int* out) {
   Geometry g;
   int blocks = 0;
-  if (!choose_geometry(n, k, g, blocks))
+  if (!choose_geometry(n, k, want, g, blocks))
     return static_cast<int>(cudaErrorInvalidValue);
   out[0] = g.tile;
   out[1] = blocks;
   out[2] = static_cast<int>(g.smem);
+  out[3] = g.build;
   return 0;
 }
 
+template <bool kStaged>
+static cudaError_t start(const Args& a, int blocks, cudaStream_t stream) {
+  if (a.g.smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        router_drain_kernel<kStaged>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(a.g.smem));
+    if (err != cudaSuccess) return err;
+  }
+  router_drain_kernel<kStaged><<<blocks, kWarp, a.g.smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// The launch in the build `want` asks for (0 by K, 1 staged, 2 device).
 extern "C" int router_drain_launch(
-    int n, int k, int window_ns, const void* arrival, const void* size,
+    int n, int k, int window_ns, int want, const void* arrival,
+    const void* size,
     const void* dn_rate, const void* dn_cap, const void* table,
     const void* mode, const void* has_ie, const void* ie, const void* has_dn,
     const void* dn, const void* cur, const void* prev, const void* bal,
@@ -554,14 +607,8 @@ extern "C" int router_drain_launch(
   if (n <= 0) return static_cast<int>(cudaSuccess);
   Geometry g;
   int blocks = 0;
-  if (!choose_geometry(n, k, g, blocks))
+  if (!choose_geometry(n, k, want, g, blocks))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (g.smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        router_drain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(g.smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
   const StateIn in{
       static_cast<const int*>(mode), static_cast<const bool*>(has_ie),
       static_cast<const int*>(ie), static_cast<const bool*>(has_dn),
@@ -587,6 +634,7 @@ extern "C" int router_drain_launch(
                static_cast<int*>(status), static_cast<int*>(deliver_t),
                static_cast<bool*>(co_mask), static_cast<int*>(co_t),
                static_cast<int*>(cached_idx)};
-  router_drain_kernel<<<blocks, kWarp, g.smem, stream>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(g.build == kBuildStaged
+                              ? start<true>(a, blocks, stream)
+                              : start<false>(a, blocks, stream));
 }

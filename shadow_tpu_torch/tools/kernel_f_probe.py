@@ -11,7 +11,8 @@ in turns (forward, then backward) at three chunks: bench_flows' first
 `chip_smoke.py` phase 20 uses too). Every build is held bitwise to the
 first one at each chunk (every world leaf and `steps_per_window`).
 
-`--in-run` times bench_flows' whole run with each build (CUDA events
+`--bench-queue-slots Q ...` adds bench_flows' first chunk with rings
+of each Q slots. `--in-run` times bench_flows' whole run with each build (CUDA events
 around each launch, in turns). `--events` counts each pair's events on
 the plain version (`run_windows_plain(counts=)`) at the bench and
 rung-3 chunks: the pair's scheduled events, pulls and app phases, the
@@ -19,8 +20,8 @@ serial work its threads must run; the longest pair sets the launch's
 time.
 
 Usage: python -m shadow_tpu_torch.tools.kernel_f_probe
-           [--source NAME=PATH ...] [--in-run] [--events] [--reps N]
-           [--json OUT]
+           [--source NAME=PATH ...] [--bench-queue-slots Q ...]
+           [--in-run] [--events] [--reps N] [--json OUT]
 (on the card; the first source is the reference, by default the
 package's own `csrc/flow_window.cu`).
 """
@@ -166,9 +167,11 @@ def rung3_bucket(device) -> dict:
                 busy=int(plan.start_us[idx].min()) // (chunk * wus))
 
 
-def shapes(fn, device) -> dict:
+def shapes(fn, device, bench_qs=()) -> dict:
     """{label: (world at the chunk's start, windows, window us)}. Rung
-    3's world is advanced to its first chunk with work by `fn`."""
+    3's world is advanced to its first chunk with work by `fn`; each Q of
+    `bench_qs` adds bench_flows' first chunk with rings of Q slots
+    ("bench_q<Q>")."""
     from ..tpu import floweng
     from . import bench_flows
 
@@ -182,6 +185,9 @@ def shapes(fn, device) -> dict:
     for _ in range(r["busy"]):
         launch(fn, w, r["chunk"], r["window_us"])
     out["rung3"] = (w, r["chunk"], r["window_us"])
+    for q in bench_qs:
+        out[f"bench_q{q}"] = (floweng.make_flow_world(
+            lats, sizes, queue_slots=q, device=device), BENCH_CHUNK, wus)
     return out
 
 
@@ -256,6 +262,9 @@ def main(argv=None):
     ap.add_argument("--in-run", action="store_true")
     ap.add_argument("--events", action="store_true")
     ap.add_argument("--reps", type=int, default=2)
+    ap.add_argument("--bench-queue-slots", type=int, nargs="*", default=[],
+                    help="also bench_flows' first chunk with rings of "
+                         "each of these slot counts")
     ap.add_argument("--json", default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -279,7 +288,7 @@ def main(argv=None):
             print(f"ptxas {k}: {' | '.join(ptxas)}", flush=True)
         names = list(fns)
         dev = torch.device("cuda")
-        chunks = shapes(fns[names[0]], dev)
+        chunks = shapes(fns[names[0]], dev, args.bench_queue_slots)
         for label, (w0, n_win, win) in chunks.items():
             outs = {}
             for k in names:

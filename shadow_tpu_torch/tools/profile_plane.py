@@ -12,9 +12,8 @@ bench shapes and prints one JSON report, `{"metric": "plane_section_ms",
         --sections routing_scatter,routing_rank,routing_place
     python -m shadow_tpu_torch.tools.profile_plane --device cpu --hosts 64
 
-`--legacy-sort` exits 2: the port implements the packed orderings only
-(the JAX tool's pre-diet variadic sorts are a JAX-side parity
-reference).
+`--legacy-sort` times the pre-diet variadic sorts (`packed_sort=False`,
+kernel xla only), as the JAX tool does.
 """
 
 from __future__ import annotations
@@ -37,7 +36,8 @@ def main(argv=None) -> int:
     ap.add_argument("--rr", action="store_true",
                     help="profile with the round-robin qdisc (kernel xla)")
     ap.add_argument("--legacy-sort", action="store_true",
-                    help="refused: the port has the packed sorts only")
+                    help="profile the pre-diet variadic sorts "
+                         "(packed_sort=False) for before/after comparison")
     ap.add_argument("--kernel", choices=("xla", "pallas", "pallas_fused"),
                     default="xla",
                     help="window_step kernel (default xla; pallas = kernels "
@@ -48,12 +48,6 @@ def main(argv=None) -> int:
     ap.add_argument("-o", "--out", default=None,
                     help="also write the JSON report to this path")
     args = ap.parse_args(argv)
-    if args.legacy_sort:
-        print("profile_plane: --legacy-sort: the port implements the packed "
-              "orderings only; the legacy variadic sorts are a JAX-side "
-              "parity reference (profile them with tools/profile_plane.py)",
-              file=sys.stderr)
-        return 2
 
     from ..tpu import profiling
 
@@ -61,6 +55,7 @@ def main(argv=None) -> int:
     for n in (int(h) for h in args.hosts.split(",") if h.strip()):
         shapes.append(profiling.profile_sections(
             n, reps=args.reps, rr_enabled=args.rr, kernel=args.kernel,
+            packed_sort=not args.legacy_sort,
             n_nodes=args.nodes, egress_cap=args.egress_cap,
             ingress_cap=args.ingress_cap,
             sections=(args.sections.split(",") if args.sections else None),

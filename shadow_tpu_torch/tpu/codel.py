@@ -27,6 +27,7 @@ source note; `e_geometry` reads the launch's tile and grid).
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
@@ -357,9 +358,16 @@ def rebase_router_state(st: RouterDownState, shift_ns: int, dn_rate,
 
 
 def _router_drain_loop(arrival, size, window_ns: int, dn_rate, dn_cap,
-                       st: RouterDownState):
+                       st: RouterDownState, *, until=None):
     """`router_drain_plain`'s loop; also returns the micro-steps each host
-    ran before it halted ([N] int32: the steps kernel E runs)."""
+    ran before it halted ([N] int32: the steps kernel E runs). `until`,
+    given, is a host-side caller's stop: called with `halted` [N] bool
+    after each micro-step, it ends the loop when it returns True. A
+    halted host changes nothing, so stopping once every host has halted
+    (`until=lambda h: bool(h.all())`, a read of the device a micro-step,
+    which only host-side references take: the card's checks of wide
+    rows, the CPU's witnesses) equals JAX's fixed `4*K + 16`
+    micro-steps; the window step's path passes none and reads nothing."""
     N, K = arrival.shape
     dev = arrival.device
     table = ctrl_table(dev)
@@ -401,6 +409,8 @@ def _router_drain_loop(arrival, size, window_ns: int, dn_rate, dn_cap,
     status = torch.zeros((N, K), dtype=torch.int32, device=dev)
     deliver_t = torch.full((N, K), I32_MAX, dtype=torch.int32, device=dev)
     for _ in range(4 * K + 16):
+        if until is not None and until(halted):
+            break
         steps = steps + (~halted).to(torch.int32)
         # event selection while no pop chain is active
         idle = (phase == _PH_IDLE) & ~halted
@@ -490,9 +500,11 @@ def _router_drain_loop(arrival, size, window_ns: int, dn_rate, dn_cap,
 
 def router_drain_plain(arrival: torch.Tensor, size: torch.Tensor,
                        window_ns: int, dn_rate: torch.Tensor,
-                       dn_cap: torch.Tensor, state: RouterDownState):
+                       dn_cap: torch.Tensor, state: RouterDownState, *,
+                       until=None):
     """Kernel E's function in plain PyTorch: the JAX `router_drain`'s
-    fixed `4*K + 16` micro-steps over [N] vectors.
+    fixed `4*K + 16` micro-steps over [N] vectors (`until` stops early,
+    as in `_router_drain_loop`).
 
     arrival/size: [N, K] int32, arrival ascending per row with I32_MAX
     padding. Returns (state', status [N, K], deliver_t [N, K], co_mask
@@ -502,15 +514,16 @@ def router_drain_plain(arrival: torch.Tensor, size: torch.Tensor,
     in the pre-drain state) was delivered at co_t. The state's cached
     src/seq/sock pass through unchanged."""
     return _router_drain_loop(arrival, size, window_ns, dn_rate, dn_cap,
-                              state)[:6]
+                              state, until=until)[:6]
 
 
 def _router_drain_impl(arrival, size, dn_rate, dn_cap, *args):
     """The `router_drain` op: `router_drain_plain` on CPU tensors, kernel
     E on CUDA tensors. The arguments after dn_cap are the state's
-    DRAIN_FIELDS, then window_ns; returns the drained fields in that
-    order, then status, deliver_t, co_mask, co_t and cached_idx."""
-    *fields, window_ns = args
+    DRAIN_FIELDS, then window_ns and the build wanted (the launcher's
+    code: 0 by K); returns the drained fields in that order, then status,
+    deliver_t, co_mask, co_t and cached_idx."""
+    *fields, window_ns, want = args
     if arrival.device.type == "cpu":
         st = RouterDownState(**dict(zip(DRAIN_FIELDS, fields)),
                              cached_src=None, cached_seq=None,
@@ -529,10 +542,11 @@ def _router_drain_impl(arrival, size, dn_rate, dn_cap, *args):
     co_t = torch.empty(N, dtype=torch.int32, device=dev)
     cached_idx = torch.empty(N, dtype=torch.int32, device=dev)
     if N:
-        pipeline._launch("router_drain", N, K, int(window_ns), arrival,
-                         size, dn_rate, dn_cap, ctrl_table(dev), *fields,
-                         *outs, status, deliver_t, co_mask, co_t,
+        pipeline._launch("router_drain", N, K, int(window_ns), int(want),
+                         arrival, size, dn_rate, dn_cap, ctrl_table(dev),
+                         *fields, *outs, status, deliver_t, co_mask, co_t,
                          cached_idx)
+        pipeline.E_BUILD_LAUNCHES[_e_geometry(N, K, int(want))[3]] += 1
     return (*outs, status, deliver_t, co_mask, co_t, cached_idx)
 
 
@@ -540,39 +554,62 @@ _router_drain_op = row_op(
     "router_drain", _router_drain_impl,
     "(Tensor arrival, Tensor size, Tensor dn_rate, Tensor dn_cap, "
     + ", ".join(f"Tensor {f}" for f in DRAIN_FIELDS)
-    + ", int window_ns) -> ("
+    + ", int window_ns, int want) -> ("
     + ", ".join(["Tensor"] * (len(DRAIN_FIELDS) + 5)) + ")")
 
 
-def e_geometry(n: int, k: int) -> dict:
-    """Kernel E's launch over `n` rows of `k` entries, as its launcher
-    works it out: hosts a tile (a block of one warp), blocks and shared
-    bytes a block. A `k` the kernel does not take raises RuntimeError, as
-    its launch does."""
+#: kernel E's two builds (`csrc/router_drain.cu`): "staged" copies a
+#: tile's rows into shared memory (rows up to 29055 entries), "device"
+#: reads them where they lie; the launcher's codes for them (0 picks by
+#: the rows' width)
+E_BUILDS = {"staged": 1, "device": 2}
+
+
+@functools.lru_cache(maxsize=64)
+def _e_geometry(n: int, k: int, want: int) -> tuple:
+    """The launcher's geometry of kernel E over `n` rows of `k` entries
+    with the build code `want`: (hosts a tile, blocks, shared bytes a
+    block, the build it runs); RuntimeError where it takes no launch."""
     import ctypes
 
     from .._build import load_kernel
 
-    out = (ctypes.c_int * 3)()
+    out = (ctypes.c_int * 4)()
     fn = load_kernel("router_drain").router_drain_geometry
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    err = fn(n, k, out)
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p]
+    err = fn(n, k, want, out)
     if err:
         raise RuntimeError(f"router_drain_kernel: CUDA error {err} at "
-                           f"geometry (K={k})")
-    return dict(zip(("hosts_a_tile", "blocks", "smem_bytes"), out))
+                           f"geometry (K={k}, build code {want})")
+    names = {v: b for b, v in E_BUILDS.items()}
+    return out[0], out[1], out[2], names[out[3]]
+
+
+def e_geometry(n: int, k: int, build: str | None = None) -> dict:
+    """Kernel E's launch over `n` rows of `k` entries, as its launcher
+    works it out: hosts a tile (a block of one warp), blocks, shared
+    bytes a block and the build ("staged" or "device", picked by `k`
+    unless `build` forces one). A `k` the build does not take raises
+    RuntimeError, as its launch does."""
+    g = _e_geometry(n, k, E_BUILDS[build] if build else 0)
+    return dict(zip(("hosts_a_tile", "blocks", "smem_bytes", "build"), g))
 
 
 def router_drain(arrival: torch.Tensor, size: torch.Tensor, window_ns: int,
                  dn_rate: torch.Tensor, dn_cap: torch.Tensor,
-                 state: RouterDownState, *, plain: bool = False):
+                 state: RouterDownState, *, plain: bool = False,
+                 _build: str | None = None):
     """Kernel E (`csrc/router_drain.cu`) on CUDA tensors, its plain
     version (`router_drain_plain`, the same function) on CPU tensors or
     with `plain=True`. Every output is a fresh tensor; the input state is
-    not written. A row wider than the kernel takes (K > 14527) is
-    refused by its launcher (RuntimeError). Both go through the op
-    `shadow_tpu_torch::router_drain` (unless `plain`), whose vmap rule
-    drains every world of an ensemble in one launch, a host a lane."""
+    not written. The launcher picks the kernel's build by the rows'
+    width (staged up to 29055 entries, rows read from device memory
+    beyond; `e_geometry`); `_build` forces one ("staged" or "device",
+    the tests' handle; a staged launch past 29055 raises RuntimeError).
+    Both go through the op `shadow_tpu_torch::router_drain` (unless
+    `plain`), whose vmap rule drains every world of an ensemble in one
+    launch, a host a lane."""
     if plain:
         return router_drain_plain(arrival, size, window_ns, dn_rate, dn_cap,
                                   state)
@@ -593,6 +630,6 @@ def router_drain(arrival: torch.Tensor, size: torch.Tensor, window_ns: int,
             pipeline._check(f"state.{f}", getattr(state, f), dt, (N,), dev)
     out = _router_drain_op(arrival, size, dn_rate, dn_cap,
                            *(getattr(state, f) for f in DRAIN_FIELDS),
-                           int(window_ns))
+                           int(window_ns), E_BUILDS[_build] if _build else 0)
     n = len(DRAIN_FIELDS)
     return (state._replace(**dict(zip(DRAIN_FIELDS, out[:n]))), *out[n:])

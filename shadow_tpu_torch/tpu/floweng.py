@@ -472,24 +472,17 @@ def run_windows_plain(world: FlowWorld, n_windows: int, window_us: int,
 F_PLANE_FIELDS = dtcp.TcpPlane._fields
 F_WORLD_FIELDS = tuple(f for f in FlowWorld._fields
                        if f not in ("plane", "clock_us", "n_saturated"))
-#: the shared memory one block may use on the card (H100: 227 KB)
-F_SMEM_BYTES = 232448
 #: the reassembly slots a lane has that kernel F is built for
 #: (`make_flow_world`'s; `FW_RS` in `csrc/flow_window.cu`)
 F_RS = 32
 
 
-def f_pair_bytes(Q: int, RS: int) -> int:
+def f_pair_bytes(RS: int) -> int:
     """The shared bytes kernel F stages for one pair: each lane's
-    reassembly and SACK slots, ring times, head and count, an odd number
-    of words a lane (`csrc/flow_window.cu`, `lane_words`)."""
-    return 2 * 4 * ((2 * RS + 2 * dtcp.SACK_SLOTS + Q + 2) | 1)
-
-
-def f_queue_slots_max() -> int:
-    """The largest ring kernel F can stage: one pair's `f_pair_bytes`
-    at F_RS within F_SMEM_BYTES (28957 slots)."""
-    return F_SMEM_BYTES // 8 - 2 * F_RS - 2 * dtcp.SACK_SLOTS - 3
+    reassembly and SACK slots, ring head and count, an odd number of
+    words a lane (`csrc/flow_window.cu`, `lane_words`; the rings stay in
+    device memory)."""
+    return 2 * 4 * ((2 * RS + 2 * dtcp.SACK_SLOTS + 2) | 1)
 
 
 def f_geometry(world: FlowWorld) -> dict:
@@ -507,8 +500,7 @@ def f_geometry(world: FlowWorld) -> dict:
     fn = load_kernel("flow_window").flow_window_geometry
     out = (ctypes.c_int * 3)()
     if fn(C // 2, Q, RS, sms, out):
-        raise ValueError(f"kernel F: a pair at Q={Q}, RS={RS} does not fit "
-                         f"a block's shared memory")
+        raise ValueError(f"kernel F takes no launch at Q={Q}, RS={RS}")
     return dict(pairs_a_block=out[0], blocks=out[1], smem_bytes=out[2],
                 sms=sms)
 
@@ -528,11 +520,10 @@ def flow_window_(world: FlowWorld, n_windows: int, window_us: int,
                  sched_batch: int = 8, pull_cap: int = 8,
                  gso_segs: int = 16) -> torch.Tensor:
     """Kernel F: advance `world` (CUDA tensors) `n_windows` windows IN
-    PLACE with one launch, a flow pair a warp. Returns steps_per_window
-    [n_windows] int32. No host read. Raises ValueError when the world's
-    lanes have other than F_RS reassembly slots, or one pair's staged
-    slots and ring (`f_pair_bytes`) do not fit a block's shared
-    memory."""
+    PLACE with one launch, a flow pair a warp, at any ring size Q (the
+    rings stay in device memory). Returns steps_per_window [n_windows]
+    int32. No host read. Raises ValueError when the world's lanes have
+    other than F_RS reassembly slots."""
     return _flow_window(world, n_windows, window_us, max_events_per_window,
                         ack_every, sched_batch, pull_cap, gso_segs)
 
@@ -555,12 +546,6 @@ def _flow_window(world: FlowWorld, n_windows: int, window_us: int,
     if RS != F_RS:
         raise ValueError(f"kernel F is built for {F_RS} reassembly slots a "
                          f"lane, not {RS}")
-    if f_pair_bytes(Q, RS) > F_SMEM_BYTES:
-        raise ValueError(
-            f"kernel F stages a pair's rings in shared memory: Q={Q} "
-            f"(RS={RS}) needs {f_pair_bytes(Q, RS)} B, above the "
-            f"{F_SMEM_BYTES} B a block may use (Q <= "
-            f"{f_queue_slots_max()} at this RS)")
     for f in F_PLANE_FIELDS:
         shape = {"reass_off": (C, RS), "reass_len": (C, RS),
                  "sacked_s": (C, dtcp.SACK_SLOTS),

@@ -72,6 +72,9 @@ from .prims import I32_MAX, take
 # kernel launches since the last reset, by kernel name
 LAUNCHES = {"egress_rank": 0, "route_place": 0, "egress_gate": 0,
             "route_scatter": 0, "router_drain": 0}
+# kernel E's launches of each of its builds (as its launcher reports them,
+# `codel.e_geometry`)
+E_BUILD_LAUNCHES = {"staged": 0, "device": 0}
 # widest egress row kernels A and C take (one thread block holds a row)
 MAX_EGRESS_CAP = 1024
 
@@ -79,6 +82,8 @@ MAX_EGRESS_CAP = 1024
 def reset_launches():
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    for build in E_BUILD_LAUNCHES:
+        E_BUILD_LAUNCHES[build] = 0
 
 
 def _require_pow2(cap: int, what: str):

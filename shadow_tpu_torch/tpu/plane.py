@@ -22,8 +22,11 @@ kernel: int32 state, int32 arithmetic that wraps where the JAX plane's
 does, and the float32 loss and corruption draws computed from the same
 threefry bits. Sorts that the JAX plane runs outside its Pallas kernels
 stay `torch.sort` (stable) on composite int64 keys that give the same
-permutation. Nothing in `window_step` reads a tensor back to the host;
-`chain_windows` reads one small tensor a chained window.
+permutation; `packed_sort=False` ("xla", `ingest`, `ingest_rows`) runs
+JAX's pre-diet variadic sorts instead, as stable passes least
+significant key first (`_row_sort`). Nothing in `window_step` reads a
+tensor back to the host; `chain_windows` reads one small tensor a
+chained window.
 """
 
 from __future__ import annotations
@@ -246,6 +249,60 @@ def _gather_hops(mesh, classes):
     return [*(glob[:, k].contiguous() for k in range(5)), glob[:, 5] != 0]
 
 
+def _sort_keys(keys):
+    """Sort keys as torch sorts them: bool as int32 (False first)."""
+    return [k.to(torch.int32) if k.dtype == torch.bool else k for k in keys]
+
+
+def _row_sort(*arrays, keys: int):
+    """JAX's variadic `_row_sort`: each row of the [N, C] arrays in the
+    stable lexicographic order of the first `keys` arrays (ties in
+    column order), every array reordered; stable passes, least
+    significant key first (`_row_perm_sort`)."""
+    perm = _row_perm_sort(*_sort_keys(arrays[:keys]))
+    return tuple(take(a, perm) for a in arrays)
+
+
+def _flat_sort(*arrays, keys: int):
+    """`jax.lax.sort` of [B] arrays, stable, on the first `keys`."""
+    out = _row_sort(*(a[None, :] for a in arrays), keys=keys)
+    return tuple(a[0] for a in out)
+
+
+def _scatter_append(group, live, n_valid, cap: int, n_groups: int):
+    """JAX's `_scatter_append`: append slots for items whose destination
+    row `group` [B] is sorted ascending (>= n_groups: drop), each row's
+    items after its `n_valid` entries in their order. Returns (flat_idx
+    [B] int64 into [n_groups, cap], out of bounds for a dropped or
+    overflowing item; ok [B]; overflow [n_groups] int32)."""
+    group = group.to(torch.int64)
+    B = group.shape[0]
+    idx = _arange(B, group, torch.int64)
+    is_start = torch.ones(B, dtype=torch.bool, device=group.device)
+    is_start[1:] = group[1:] != group[:-1]
+    first = torch.cummax(torch.where(is_start, idx, 0), dim=0).values
+    rank = idx - first
+    in_range = group < n_groups
+    g = torch.clamp(group, 0, n_groups - 1)
+    slot = torch.where(in_range, n_valid.to(torch.int64)[g] + rank, cap)
+    ok = live & (slot < cap) & in_range
+    flat_idx = torch.where(ok, group * cap + slot, n_groups * cap)
+    overflow = scatter_add_i32(n_groups, g, live & in_range & (slot >= cap))
+    return flat_idx, ok, overflow
+
+
+def _put_drop(buf, flat_idx, vals):
+    """`buf.reshape(-1).at[flat_idx].set(vals, mode="drop")` of JAX,
+    reshaped back: a negative index counts from the end, as numpy's, and
+    one still out of bounds drops."""
+    out = buf.reshape(-1).clone()
+    size = out.shape[0]
+    idx = torch.where(flat_idx < 0, flat_idx + size, flat_idx)
+    keep = (idx >= 0) & (idx < size)
+    out[idx[keep]] = vals[keep].to(out.dtype)
+    return out.reshape(buf.shape)
+
+
 def ingest(state: NetPlaneState, src, dst, nbytes, prio, seq, ctrl,
            valid=None, send_rel=None, clamp_rel=None, sock=None, *,
            packed_sort: bool = True,
@@ -256,18 +313,25 @@ def ingest(state: NetPlaneState, src, dst, nbytes, prio, seq, ctrl,
     batch position) order; what overflows a row is counted and dropped.
     The JAX plane's packed bucketed append: one stable sort on the
     composite key (src << 32 | seq ^ SIGN), binary-searched row bounds,
-    and one stacked gather of the payload columns. With `metrics` the
+    and one stacked gather of the payload columns. `packed_sort=False`
+    runs JAX's reference instead: one stable two-key (src, seq) sort
+    carrying every column, then the grouped scatter-append (equal for
+    every src in [0, N]). With `metrics` the
     overflow also lands in `drop_ring_full`; `guards` checks that each
     row gained its incoming packets less the overflow. Returns the bare
     state without them, else (state'[, metrics'][, guards']).
-    `packed_sort=False` raises ValueError, as in `window_step`.
 
     Under a host-axis `mesh` (`tpu/mesh.Mesh`) the state is the rank's
     rows and the batch is the whole batch, the same on every rank: the
     rank appends the packets whose src is one of its hosts, in the same
-    order, and leaves the others to their ranks."""
-    _check_packed_sort(packed_sort, "ingest")
+    order, and leaves the others to their ranks (`packed_sort=False`
+    raises ValueError under a mesh)."""
+    _check_packed_sort(packed_sort, mesh, "ingest")
     N, CE = state.eg_dst.shape
+    if not packed_sort:
+        return _ingest_legacy(state, src, dst, nbytes, prio, seq, ctrl,
+                              valid, send_rel, clamp_rel, sock,
+                              metrics=metrics, guards=guards)
     src = src.to(torch.int64) - (0 if mesh is None else mesh.row0(N))
     if valid is not None:
         src = torch.where(valid, src, N)
@@ -326,6 +390,51 @@ def ingest(state: NetPlaneState, src, dst, nbytes, prio, seq, ctrl,
     return out if len(out) > 1 else new_state
 
 
+def _ingest_legacy(state: NetPlaneState, src, dst, nbytes, prio, seq, ctrl,
+                   valid, send_rel, clamp_rel, sock, *, metrics, guards):
+    """`ingest(packed_sort=False)`: JAX's pre-diet flat append, the
+    9-array two-key sort and the grouped scatters."""
+    N, CE = state.eg_dst.shape
+    if valid is not None:
+        src = torch.where(valid, src, N)
+    if send_rel is None:
+        send_rel = torch.zeros_like(seq)
+    if clamp_rel is None:
+        clamp_rel = torch.full_like(seq, NO_CLAMP)
+    if sock is None:
+        sock = torch.zeros_like(seq)
+    n_valid = state.eg_valid.sum(dim=1, dtype=torch.int32)
+    (src_s, seq_s, dst_s, bytes_s, prio_s, ctrl_s, tsend_s, clamp_s,
+     sock_s) = _flat_sort(src, seq, dst, nbytes, prio, ctrl, send_rel,
+                          clamp_rel, sock, keys=2)
+    live = torch.ones_like(src_s, dtype=torch.bool)
+    flat, _ok, overflow = _scatter_append(src_s, live, n_valid, CE, N)
+    put = lambda buf, vals: _put_drop(buf, flat, vals)
+    new_state = state._replace(
+        eg_dst=put(state.eg_dst, dst_s), eg_bytes=put(state.eg_bytes, bytes_s),
+        eg_prio=put(state.eg_prio, prio_s), eg_seq=put(state.eg_seq, seq_s),
+        eg_ctrl=put(state.eg_ctrl, ctrl_s),
+        eg_tsend=put(state.eg_tsend, tsend_s),
+        eg_clamp=put(state.eg_clamp, clamp_s),
+        eg_sock=put(state.eg_sock, sock_s), eg_valid=put(state.eg_valid, live),
+        n_overflow_dropped=state.n_overflow_dropped + overflow,
+    )
+    out = (new_state,)
+    if metrics is not None:
+        out += (metrics._replace(
+            drop_ring_full=metrics.drop_ring_full + overflow),)
+    if guards is not None:
+        # incoming a row: the batch's slots routed to in-range rows
+        src64 = src_s.to(torch.int64)
+        out += (guards_plane.check_ingest(
+            guards, occ_before=n_valid,
+            occ_after=new_state.eg_valid.sum(dim=1, dtype=torch.int32),
+            incoming=scatter_add_i32(N, torch.clamp(src64, 0, N - 1),
+                                     src64 < N),
+            overflow=overflow),)
+    return out if len(out) > 1 else new_state
+
+
 def ingest_rows(state: NetPlaneState, dst, nbytes, prio, seq, ctrl, valid,
                 send_rel=None, clamp_rel=None, sock=None, *,
                 packed_sort: bool = True, gate_idle: bool = True,
@@ -338,8 +447,9 @@ def ingest_rows(state: NetPlaneState, dst, nbytes, prio, seq, ctrl, valid,
     single-key merge (validity | column rank). The JAX plane's idle gate
     is not taken; the merge of an entry-free batch is the identity
     (SL505), and skipping the gate avoids a host read, so `gate_idle`
-    (JAX's switch for it) changes nothing. `packed_sort=False` raises
-    ValueError, as in `window_step`.
+    (JAX's switch for it) changes nothing. `packed_sort=False` runs
+    JAX's reference merge, the stable sort by validity alone carrying
+    every column.
 
     `metrics` adds the overflow to `drop_ring_full`; `guards` checks
     append conservation; `hist` samples the post-append egress occupancy
@@ -351,7 +461,7 @@ def ingest_rows(state: NetPlaneState, dst, nbytes, prio, seq, ctrl, valid,
     order. Under a host-axis `mesh` the rows are the rank's hosts; only
     the recorder needs it (global host ids, and its ring, which every
     rank holds whole, takes every rank's hops)."""
-    _check_packed_sort(packed_sort, "ingest_rows")
+    _check_packed_sort(packed_sort, mesh, "ingest_rows")
     N, CE = state.eg_dst.shape
     if send_rel is None:
         send_rel = torch.zeros_like(seq)
@@ -362,9 +472,12 @@ def ingest_rows(state: NetPlaneState, dst, nbytes, prio, seq, ctrl, valid,
     cat = lambda a, b: torch.cat([a, b], dim=1)
     valid_all = cat(state.eg_valid, valid)
     W = valid_all.shape[1]
-    rank = _arange(W, valid, torch.int64).expand(N, W)
-    key = torch.sort(_pack_rank_key(valid_all, rank, W), dim=1).values
-    perm = (key & 0x7FFFFFFF)[:, :CE]
+    if packed_sort:
+        rank = _arange(W, valid, torch.int64).expand(N, W)
+        key = torch.sort(_pack_rank_key(valid_all, rank, W), dim=1).values
+        perm = (key & 0x7FFFFFFF)[:, :CE]
+    else:
+        perm = _row_perm_sort(*_sort_keys([~valid_all]))[:, :CE]
     tk = lambda a, b: take(cat(a, b), perm)
     overflow = torch.clamp(valid_all.sum(dim=1, dtype=torch.int32) - CE,
                            min=0)
@@ -532,14 +645,22 @@ def _take_egress(state: NetPlaneState, perm):
 
 
 def _egress_order(state: NetPlaneState, qkey1, qkey2, eg_tsend_rb,
-                  eg_clamp_rb):
+                  eg_clamp_rb, *, packed_sort: bool = True):
     """Section 2b: the XLA path's qdisc sort (kernel C's plain ordering,
     the round-robin tiebreak `qkey2` included) and the gathers of the
     other columns through its permutation. Returns the 9 sorted columns
     (prio, sock, dst, bytes, seq, ctrl, tsend, clamp, valid), as the JAX
     function. The JAX plane skips the sort of an already ordered FIFO
     row; the stable sort of an ordered key is the identity (SL505), so
-    the port always sorts."""
+    the port always sorts. `packed_sort=False`: JAX's 12-array variadic
+    sort on (invalid, qkey1, qkey2)."""
+    if not packed_sort:
+        inv = (~state.eg_valid).to(torch.int32)
+        qkey2 = torch.zeros_like(state.eg_sock) if qkey2 is None else qkey2
+        return _row_sort(
+            inv, qkey1, qkey2, state.eg_prio, state.eg_sock, state.eg_dst,
+            state.eg_bytes, state.eg_seq, state.eg_ctrl, eg_tsend_rb,
+            eg_clamp_rb, state.eg_valid, keys=3)[3:]
     perm, eg_bytes, eg_tsend, eg_clamp, eg_valid = _egress_sort(
         state.eg_valid, qkey1, state.eg_bytes, eg_tsend_rb, eg_clamp_rb,
         qkey2)
@@ -669,14 +790,19 @@ def _loss_latency(state: NetPlaneState, params: NetPlaneParams, seed,
     return sent, lost, corrupt, rng_counter, deliver_rel
 
 
-def _compact_ingress(state: NetPlaneState, in_deliver):
+def _compact_ingress(state: NetPlaneState, in_deliver, *,
+                     packed_sort: bool = True):
     """Section 4: surviving ingress front-packed by (validity, deliver)
-    through one packed key. The JAX plane skips the sort when rows are
-    already ordered; the stable sort of an ordered key is the identity
-    (SL505), so the port always sorts. Returns (deliver_c, src_c, seq_c,
-    sock_c, bytes_c, valid_c, n_valid_in)."""
+    through one packed key (`packed_sort=False`: JAX's two-key variadic
+    sort). The JAX plane skips the sort when rows are already ordered;
+    the stable sort of an ordered key is the identity (SL505), so the
+    port always sorts. Returns (deliver_c, src_c, seq_c, sock_c, bytes_c,
+    valid_c, n_valid_in)."""
     key_deliver = torch.where(state.in_valid, in_deliver, I32_MAX)
-    perm = _row_perm_sort(_pack_time_key(state.in_valid, key_deliver))
+    if packed_sort:
+        perm = _row_perm_sort(_pack_time_key(state.in_valid, key_deliver))
+    else:
+        perm = _row_perm_sort(*_sort_keys([~state.in_valid, key_deliver]))
     in_valid_c = take(state.in_valid, perm)
     return (take(key_deliver, perm), take(state.in_src, perm),
             take(state.in_seq, perm), take(state.in_sock, perm),
@@ -759,18 +885,69 @@ def _routing_place(row_perm, o_pos, offsets, take_n, n_valid_in, eg_seq,
         in_deliver_c, in_valid_c, plain=True)
 
 
+def _routing_rank_legacy(sent, eg_dst, eg_seq, eg_bytes, eg_sock,
+                         deliver_rel, n_valid_in, ingress_cap: int):
+    """Section 5a, JAX's reference: the flat stable 4-key sort on (dst,
+    deliver, src, seq) carrying every column (an unsent slot's dst is N,
+    never placed), then the grouped scatter-append ranks. Returns
+    (flat_idx, ok, o_deliver, o_src, o_seq, o_bytes, o_sock, overflow)."""
+    N, CE = eg_dst.shape
+    flat_sent = sent.reshape(-1)
+    flat_dst = torch.where(flat_sent, eg_dst.reshape(-1), N)
+    src = _arange(N, eg_dst)[:, None].expand(N, CE).reshape(-1)
+    (o_dst, o_deliver, o_src, o_seq, o_bytes, o_sock, o_sent) = _flat_sort(
+        flat_dst, deliver_rel.reshape(-1), src, eg_seq.reshape(-1),
+        eg_bytes.reshape(-1), eg_sock.reshape(-1), flat_sent, keys=4)
+    flat_idx, ok, overflow = _scatter_append(o_dst, o_sent, n_valid_in,
+                                             ingress_cap, N)
+    return flat_idx, ok, o_deliver, o_src, o_seq, o_bytes, o_sock, overflow
+
+
+def _routing_place_legacy(flat_idx, ok, o_deliver, o_src, o_seq, o_bytes,
+                          o_sock, in_deliver_c, in_src_c, in_seq_c,
+                          in_sock_c, in_bytes_c, in_valid_c):
+    """Section 5b, JAX's reference: a scatter a column from the sorted
+    payload; a dropped or overflowing arrival's index is out of bounds,
+    so only the accepted ones flip their slot valid. Returns the merged
+    (src, seq, sock, bytes, deliver, valid), fresh tensors."""
+    put = lambda buf, vals: _put_drop(buf, flat_idx, vals)
+    return (put(in_src_c, o_src), put(in_seq_c, o_seq),
+            put(in_sock_c, o_sock), put(in_bytes_c, o_bytes),
+            put(torch.where(in_valid_c, in_deliver_c, I32_MAX), o_deliver),
+            put(in_valid_c, torch.ones_like(ok)))
+
+
 def _route_scatter(sent, eg_dst, eg_seq, eg_bytes, eg_sock, deliver_rel,
                    in_deliver_c, in_src_c, in_seq_c, in_sock_c, in_bytes_c,
                    in_valid_c, n_valid_in, *, kernel: str = "xla",
-                   plain: bool = False, mesh=None):
+                   plain: bool = False, mesh=None, packed_sort: bool = True):
     """Section 5 off the fused pair: `_routing_rank` and the placement,
     through kernel D on `kernel="pallas"` (CUDA tensors, unless
     `plain`) and through its plain version, the JAX XLA path's
     placement, on every other kernel, as the JAX function dispatches.
     Returns the merged ingress columns + overflow [N], the compacted
     ingress tensors updated in place (`pipeline.route_scatter`; under a
-    host-axis `mesh` after the routing exchange)."""
+    host-axis `mesh` after the routing exchange). `packed_sort=False`
+    ("xla" only) runs JAX's reference (`_routing_rank_legacy`,
+    `_routing_place_legacy`; fresh tensors), which drops a sent slot
+    whose dst is out of range through an out-of-bounds scatter, as
+    JAX's does."""
     from . import pipeline  # pipeline imports this module
+
+    if not packed_sort:
+        if kernel == "pallas":
+            raise ValueError(
+                "kernel='pallas' implements the packed/bucketed ordering "
+                "only; use kernel='xla' for the packed_sort=False parity "
+                "reference")
+        (flat_idx, ok, o_deliver, o_src, o_seq, o_bytes, o_sock,
+         overflow) = _routing_rank_legacy(
+            sent, eg_dst, eg_seq, eg_bytes, eg_sock, deliver_rel,
+            n_valid_in, in_src_c.shape[1])
+        return (*_routing_place_legacy(
+            flat_idx, ok, o_deliver, o_src, o_seq, o_bytes, o_sock,
+            in_deliver_c, in_src_c, in_seq_c, in_sock_c, in_bytes_c,
+            in_valid_c), overflow)
 
     return pipeline.route_scatter(
         sent, eg_dst, eg_seq, eg_bytes, eg_sock, deliver_rel, in_deliver_c,
@@ -779,21 +956,27 @@ def _route_scatter(sent, eg_dst, eg_seq, eg_bytes, eg_sock, deliver_rel,
 
 
 def _release_due(in_deliver_m, in_src_m, in_seq_m, in_sock_m, in_bytes_m,
-                 in_valid_m, window_ns):
+                 in_valid_m, window_ns, *, packed_sort: bool = True):
     """Section 5b: split the merged ingress into this window's due
     deliveries (row tail, in (deliver, src, seq) order) and the
     front-packed survivors. The JAX plane's wrapped key
     `biased(deliver) - biased(window)` orders not-due before due, each
     ascending; it is masked back into [0, 2**32) after the subtraction.
     (wkey, src, seq, column) is a total order, realised here as two
-    stable passes: by seq, then by (wkey << 32 | biased src). Returns
+    stable passes: by seq, then by (wkey << 32 | biased src).
+    `packed_sort=False`: JAX's reference, the stable 4-key (is_due,
+    deliver, src, seq) variadic sort, the same order. Returns
     (delivered, due, deliver', src', seq', sock', bytes', valid')."""
     in_deliver_key = torch.where(in_valid_m, in_deliver_m, I32_MAX)
     due = in_valid_m & (in_deliver_key < window_ns)
-    w_bias = (window_ns & 0xFFFFFFFF) ^ _SIGN32
-    wkey = ((u32(in_deliver_key) ^ _SIGN32) - w_bias) & 0xFFFFFFFF
-    hi = (wkey - _SIGN32) << 32  # signed high word keeps unsigned order
-    perm = _row_perm_sort(hi | (u32(in_src_m) ^ _SIGN32), in_seq_m)
+    if packed_sort:
+        w_bias = (window_ns & 0xFFFFFFFF) ^ _SIGN32
+        wkey = ((u32(in_deliver_key) ^ _SIGN32) - w_bias) & 0xFFFFFFFF
+        hi = (wkey - _SIGN32) << 32  # signed high word keeps unsigned order
+        perm = _row_perm_sort(hi | (u32(in_src_m) ^ _SIGN32), in_seq_m)
+    else:
+        perm = _row_perm_sort(*_sort_keys([due, in_deliver_key, in_src_m,
+                                           in_seq_m]))
     d_t = take(in_deliver_key, perm)  # == the key unwrapped (bijective)
     d_src, d_seq = take(in_src_m, perm), take(in_seq_m, perm)
     d_sock, d_bytes = take(in_sock_m, perm), take(in_bytes_m, perm)
@@ -835,7 +1018,8 @@ def _router_order(in_deliver_m, in_src_m, in_seq_m, in_sock_m, in_bytes_m,
 
 def _router_release(in_deliver_m, in_src_m, in_seq_m, in_sock_m, in_bytes_m,
                     in_valid_m, window_ns, params: NetPlaneParams,
-                    rt: codel.RouterDownState, *, plain: bool):
+                    rt: codel.RouterDownState, *, plain: bool,
+                    packed_sort: bool = True):
     """Section 5b under the router AQM: the inbound pipeline (router
     CoDel, down-bandwidth relay, delivery) in place of the due release.
     Stored times are arrivals at the destination router. The rows go to
@@ -847,7 +1031,9 @@ def _router_release(in_deliver_m, in_src_m, in_seq_m, in_sock_m, in_bytes_m,
     in (deliver, src, seq) order; the untouched FIFO suffix is
     front-packed. Returns (delivered, due, deliver', src', seq', sock',
     bytes', valid', router state', (src_s, seq_s, arr_s, aqm_dropped))
-    with the last the flight recorder's AQM-drop candidates."""
+    with the last the flight recorder's AQM-drop candidates.
+    `packed_sort=False` front-packs the survivors by JAX's reference
+    two-key (invalid, arrival) variadic sort."""
     CI = in_src_m.shape[1]
     arr_s, src_s, seq_s, sock_s, bytes_s, valid_s = _router_order(
         in_deliver_m, in_src_m, in_seq_m, in_sock_m, in_bytes_m, in_valid_m)
@@ -882,7 +1068,11 @@ def _router_release(in_deliver_m, in_src_m, in_seq_m, in_sock_m, in_bytes_m,
     }
     # the surviving queue: the untouched FIFO suffix, re-front-packed
     keep = valid_s & (rstatus == codel.STATUS_QUEUED)
-    kperm = _row_perm_sort(_pack_time_key(keep, arr_s))
+    if packed_sort:
+        kperm = _row_perm_sort(_pack_time_key(keep, arr_s))
+    else:
+        kperm = _row_perm_sort(*_sort_keys([
+            ~keep, torch.where(keep, arr_s, I32_MAX)]))
     aqm_dropped = valid_s & (rstatus == codel.STATUS_DROPPED)
     return (delivered, d_due, take(torch.where(keep, arr_s, I32_MAX), kperm),
             take(src_s, kperm), take(seq_s, kperm), take(sock_s, kperm),
@@ -891,10 +1081,15 @@ def _router_release(in_deliver_m, in_src_m, in_seq_m, in_sock_m, in_bytes_m,
 
 
 def _compact_egress(eg_prio, eg_dst, eg_bytes, eg_seq, eg_ctrl, eg_tsend,
-                    eg_clamp, eg_sock, eg_valid_left):
-    """Section 6: leftover egress front-packed by (validity, priority)."""
+                    eg_clamp, eg_sock, eg_valid_left, *,
+                    packed_sort: bool = True):
+    """Section 6: leftover egress front-packed by (validity, priority)
+    (`packed_sort=False`: JAX's two-key variadic sort)."""
     eg_prio_left = torch.where(eg_valid_left, eg_prio, I32_MAX)
-    perm = _row_perm_sort(_pack_time_key(eg_valid_left, eg_prio_left))
+    if packed_sort:
+        perm = _row_perm_sort(_pack_time_key(eg_valid_left, eg_prio_left))
+    else:
+        perm = _row_perm_sort(*_sort_keys([~eg_valid_left, eg_prio_left]))
     return tuple(take(a, perm) for a in (
         eg_prio_left, eg_dst, eg_bytes, eg_seq, eg_ctrl, eg_tsend,
         eg_clamp, eg_sock, eg_valid_left))
@@ -992,20 +1187,20 @@ _PRESENCE_PLANES = ("faults", "metrics", "guards", "hist", "flightrec",
 KERNELS = ("pallas_fused", "pallas", "xla")
 
 
-def _check_packed_sort(packed_sort: bool, where: str):
-    if not packed_sort:
+def _check_packed_sort(packed_sort: bool, mesh, where: str):
+    """`packed_sort=False` (JAX's pre-diet variadic sorts) runs on one
+    card's rows only: its flat appends would need every rank's rows."""
+    if not packed_sort and mesh is not None:
         raise ValueError(
-            f"{where}: the port implements the packed/bucketed ordering "
-            "only; packed_sort=False is a JAX-side parity reference "
-            "(ROADMAP.md)")
+            f"{where}: packed_sort=False does not run under a host-axis "
+            "mesh (its flat scatter-appends index the whole host axis)")
 
 
 def _check_step_options(kernel: str, rr_enabled: bool, packed_sort: bool,
                         planes: dict):
     """The JAX step's refusals (ValueError, as there: the Pallas kernels
     are FIFO-only, packed-sort-only and fuse no presence plane but
-    metrics) and the port's own (`packed_sort=False` on any kernel). The
-    router AQM runs on every kernel, as in the JAX step."""
+    metrics). The router AQM runs on every kernel, as in the JAX step."""
     if kernel not in KERNELS:
         raise ValueError(f"unknown plane kernel {kernel!r}: expected one of "
                          f"{KERNELS}")
@@ -1017,7 +1212,12 @@ def _check_step_options(kernel: str, rr_enabled: bool, packed_sort: bool,
         raise ValueError(
             f"plane_kernel={kernel!r} fuses the FIFO qdisc only; pass "
             "rr_enabled=False (all-FIFO configs) or use kernel='xla'")
-    _check_packed_sort(packed_sort, f"plane_kernel={kernel!r}")
+    if fused and not packed_sort:
+        raise ValueError(
+            f"plane_kernel={kernel!r} implements the packed/bucketed "
+            "ordering only; the packed_sort=False parity reference is an "
+            "XLA-path concept: use kernel='xla' to measure or compare "
+            "against the legacy variadic sorts")
     refused = [k for k in _PRESENCE_PLANES
                if k != "metrics" and planes.get(k) is not None]
     if fused and refused:
@@ -1119,6 +1319,7 @@ def window_step(state: NetPlaneState, params: NetPlaneParams, rng_seed,
     _check_step_options(kernel, rr_enabled, packed_sort,
                         dict(planes, faults=faults, metrics=metrics,
                              guards=guards, hist=hist, flightrec=flightrec))
+    _check_packed_sort(packed_sort, mesh, "window_step")
     if mesh is not None:
         _check_mesh_options(router_aqm, planes)
     from . import pipeline
@@ -1152,7 +1353,8 @@ def window_step(state: NetPlaneState, params: NetPlaneParams, rng_seed,
                 state.eg_valid, state.eg_tsend, state.eg_clamp, shift_ns)
             (eg_prio, eg_sock, eg_dst, eg_bytes, eg_seq, eg_ctrl, eg_tsend,
              eg_clamp, eg_valid) = _egress_order(state, qkey1, qkey2,
-                                                 eg_tsend_rb, eg_clamp_rb)
+                                                 eg_tsend_rb, eg_clamp_rb,
+                                                 packed_sort=packed_sort)
             if faults is not None:
                 # 2f. a down host transmits nothing: its queued egress
                 # drops here, before the gate, once a slot
@@ -1192,7 +1394,8 @@ def window_step(state: NetPlaneState, params: NetPlaneParams, rng_seed,
 
     # --- 4 + 5. compact surviving ingress, route (kernel B or D) --------
     (in_deliver_c, in_src_c, in_seq_c, in_sock_c, in_bytes_c, in_valid_c,
-     n_valid_in) = _compact_ingress(state, in_deliver)
+     n_valid_in) = _compact_ingress(state, in_deliver,
+                                    packed_sort=packed_sort)
     routed = (sent, eg_dst, eg_seq, eg_bytes, eg_sock, deliver_rel,
               in_deliver_c, in_src_c, in_seq_c, in_sock_c, in_bytes_c,
               in_valid_c, n_valid_in)
@@ -1201,7 +1404,7 @@ def window_step(state: NetPlaneState, params: NetPlaneParams, rng_seed,
                                       mesh=mesh)
     else:
         merged = _route_scatter(*routed, kernel=kernel, plain=plain_kernels,
-                                mesh=mesh)
+                                mesh=mesh, packed_sort=packed_sort)
     (in_src_m, in_seq_m, in_sock_m, in_bytes_m, in_deliver_m, in_valid_m,
      overflowed) = merged
 
@@ -1211,19 +1414,20 @@ def window_step(state: NetPlaneState, params: NetPlaneParams, rng_seed,
          in_sock_new, in_bytes_new, in_valid_new, rt_out,
          aqm_hops) = _router_release(
             in_deliver_m, in_src_m, in_seq_m, in_sock_m, in_bytes_m,
-            in_valid_m, window_ns, params, rt, plain=plain_kernels)
+            in_valid_m, window_ns, params, rt, plain=plain_kernels,
+            packed_sort=packed_sort)
     else:
         (delivered, due, in_deliver_new, in_src_new, in_seq_new,
          in_sock_new, in_bytes_new, in_valid_new) = _release_due(
             in_deliver_m, in_src_m, in_seq_m, in_sock_m, in_bytes_m,
-            in_valid_m, window_ns)
+            in_valid_m, window_ns, packed_sort=packed_sort)
         rt_out, aqm_hops = rt, None
 
     # --- 6. compact leftover egress --------------------------------------
     (eg_prio_c, eg_dst_c, eg_bytes_c, eg_seq_c, eg_ctrl_c, eg_tsend_c,
      eg_clamp_c, eg_sock_c, eg_valid_c) = _compact_egress(
         eg_prio, eg_dst, eg_bytes, eg_seq, eg_ctrl, eg_tsend, eg_clamp,
-        eg_sock, eg_valid_left)
+        eg_sock, eg_valid_left, packed_sort=packed_sort)
 
     # --- 7. stats + next-event reduction ---------------------------------
     per_host_in_next = torch.where(in_valid_new, in_deliver_new,

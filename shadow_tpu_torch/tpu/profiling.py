@@ -37,9 +37,10 @@ functions return new arrays, so each call of `routing_scatter` and
 `routing_place` gets fresh clones of those inputs, made before the clock
 starts (`MUTATED_ARGS`, `fresh_args`); `fused_stage` compacts its own.
 
-`packed_sort=False` is refused (ValueError): the port implements the
-packed orderings only. Drive it from the CLI: `python -m
-shadow_tpu_torch.tools.profile_plane`.
+`packed_sort=False` times JAX's pre-diet variadic sorts on "xla"
+(`routing_rank` and `routing_place` are then the legacy rank and
+scatters), as JAX's does; the Pallas kernels refuse it. Drive it from
+the CLI: `python -m shadow_tpu_torch.tools.profile_plane`.
 """
 
 from __future__ import annotations
@@ -193,7 +194,7 @@ def _time_call(fn, args, reps: int, *, device: torch.device,
 
 def section_calls(world: dict, *, kernel: str = "xla",
                   rr_enabled: bool = False, wanted=DEFAULT_SECTIONS,
-                  plain: bool = False) -> dict:
+                  plain: bool = False, packed_sort: bool = True) -> dict:
     """Each wanted section of the window step on `world` (a
     `build_world` dict) as {name: (fn, args)}: `fn(*fresh_args(name,
     args))` runs it once. Each section's inputs are computed here,
@@ -201,8 +202,10 @@ def section_calls(world: dict, *, kernel: str = "xla",
     launches nothing). `plain=True` runs every section through the plain
     versions too (the reference a card run is held against); otherwise
     CUDA tensors go through the kernels `kernel` selects, as in
-    `window_step`."""
-    plane._check_step_options(kernel, rr_enabled, True, {})
+    `window_step`. `packed_sort=False` runs every section that sorts
+    through JAX's pre-diet variadic sorts ("xla" only)."""
+    plane._check_step_options(kernel, rr_enabled, packed_sort, {})
+    ps = dict(packed_sort=packed_sort)
     wanted = tuple(wanted)
     unknown = sorted(set(wanted) - set(DEFAULT_SECTIONS))
     if unknown:
@@ -217,7 +220,7 @@ def section_calls(world: dict, *, kernel: str = "xla",
     def step(st, sh, *, kernel=kernel, **planes):
         return window_step(st, params, seed, sh, window,
                            rr_enabled=rr_enabled, kernel=kernel,
-                           plain_kernels=plain, **planes)
+                           plain_kernels=plain, **ps, **planes)
 
     def rebase_refill(st, sh):
         in_deliver, balance, rem = plane._rebase_refill(st, params, sh)
@@ -230,30 +233,41 @@ def section_calls(world: dict, *, kernel: str = "xla",
                                    sendable, window, no_loss=False)
 
     def route(*args):
-        return plane._route_scatter(*args, kernel=kernel, plain=plain)
-
-    def rank(sent, dst, seq, deliver, nv):
-        return plane._routing_rank(sent, dst, seq, deliver, nv, CI)
+        return plane._route_scatter(*args, kernel=kernel, plain=plain, **ps)
 
     # each section's inputs, once
     in_deliver, balance, _rem, tsend_rb, clamp_rb = rebase_refill(state,
                                                                   shift)
     qk1, qk2, _aux = plane._qdisc_keys(state, params, rr_enabled=rr_enabled)
     (eg_prio, eg_sock, eg_dst, eg_bytes, eg_seq, eg_ctrl, eg_tsend, eg_clamp,
-     eg_valid) = plane._egress_order(state, qk1, qk2, tsend_rb, clamp_rb)
+     eg_valid) = plane._egress_order(state, qk1, qk2, tsend_rb, clamp_rb,
+                                     **ps)
     sendable, _bal = plane._token_gate(eg_valid, eg_bytes, balance)
     sent, _lost, _corrupt, _rc, deliver_rel = loss_latency(
         state, eg_dst, eg_ctrl, eg_tsend, eg_clamp, sendable)
-    compacted = plane._compact_ingress(state, in_deliver)
+    compacted = plane._compact_ingress(state, in_deliver, **ps)
     n_valid_in = compacted[6]
     route_args = (sent, eg_dst, eg_seq, eg_bytes, eg_sock, deliver_rel,
                   *compacted)
     (in_src_m, in_seq_m, in_sock_m, in_bytes_m, in_deliver_m, in_valid_m,
      _ovf) = plane._route_scatter(*fresh_args("routing_scatter", route_args),
-                                  plain=True)
-    rank_args = (sent, eg_dst, eg_seq, deliver_rel, n_valid_in)
-    place_args = (*rank(*rank_args)[:4], n_valid_in, eg_seq, eg_bytes,
-                  eg_sock, deliver_rel, *compacted[:6])
+                                  plain=True, **ps)
+    # the routing sub-sections (5a rank, 5b place) of the sort mode; the
+    # place inputs are the rank outputs, computed here
+    if packed_sort:
+        rank = lambda s, d, q, dl, nv: plane._routing_rank(s, d, q, dl, nv,
+                                                           CI)
+        place = plane._routing_place
+        rank_args = (sent, eg_dst, eg_seq, deliver_rel, n_valid_in)
+        place_args = (*rank(*rank_args)[:4], n_valid_in, eg_seq, eg_bytes,
+                      eg_sock, deliver_rel, *compacted[:6])
+    else:
+        rank = lambda s, d, q, b, k, dl, nv: plane._routing_rank_legacy(
+            s, d, q, b, k, dl, nv, CI)
+        place = plane._routing_place_legacy
+        rank_args = (sent, eg_dst, eg_seq, eg_bytes, eg_sock, deliver_rel,
+                     n_valid_in)
+        place_args = (*rank(*rank_args)[:7], *compacted[:6])
     merged = (in_deliver_m, in_src_m, in_seq_m, in_sock_m, in_bytes_m,
               in_valid_m)
 
@@ -289,15 +303,15 @@ def section_calls(world: dict, *, kernel: str = "xla",
                  f_valid) = plane._egress_order(
                     st, qk1f, qk2f,
                     *plane._rebase_egress(st.eg_valid, st.eg_tsend,
-                                          st.eg_clamp, sh))
+                                          st.eg_clamp, sh), **ps)
                 f_send, _b = plane._token_gate(f_valid, f_bytes, balance2)
             f_sent, _l, _c, _rc, f_dr = loss_latency(
                 st, f_dst, f_ctrl, f_tsend, f_clamp, f_send)
             *m, f_ovf = route(f_sent, f_dst, f_seq, f_bytes, f_sock, f_dr,
-                              *plane._compact_ingress(st, in_dl))
+                              *plane._compact_ingress(st, in_dl, **ps))
         m_src, m_seq, m_sock, m_bytes, m_del, m_valid = m
         return f_ovf, plane._release_due(m_del, m_src, m_seq, m_sock,
-                                         m_bytes, m_valid, window)
+                                         m_bytes, m_valid, window, **ps)
 
     def chain8(st, sh):
         """Eight windows back to back: the driver's chain unit."""
@@ -374,8 +388,9 @@ def section_calls(world: dict, *, kernel: str = "xla",
         spawn_seq = torch.full((N,), 10_000, dtype=torch.int32, device=dev)
         mask, new_dst, row_bytes, seq_vals, row_ctrl = respawn_batch(
             world["delivered"], spawn_seq, 1, N, CI)
-        return plane.ingest_rows, (state, new_dst, row_bytes, seq_vals,
-                                   seq_vals, row_ctrl, mask)
+        return (lambda *a: plane.ingest_rows(*a, **ps),
+                (state, new_dst, row_bytes, seq_vals, seq_vals, row_ctrl,
+                 mask))
 
     arr_s, _src_s, _seq_s, _sock_s, bytes_s, _valid_s = plane._router_order(
         *merged)
@@ -386,19 +401,19 @@ def section_calls(world: dict, *, kernel: str = "xla",
         "rr_tensors": lambda: (
             lambda st: plane._qdisc_keys(st, params, rr_enabled=True),
             (state,)),
-        "qdisc_sort": lambda: (plane._egress_order,
+        "qdisc_sort": lambda: (lambda *a: plane._egress_order(*a, **ps),
                                (state, qk1, qk2, tsend_rb, clamp_rb)),
         "token_gate": lambda: (plane._token_gate,
                                (eg_valid, eg_bytes, balance)),
         "loss_latency": lambda: (loss_latency, (state, eg_dst, eg_ctrl,
                                                 eg_tsend, eg_clamp, sendable)),
-        "ingress_compact": lambda: (plane._compact_ingress,
-                                    (state, in_deliver)),
+        "ingress_compact": lambda: (
+            lambda *a: plane._compact_ingress(*a, **ps), (state, in_deliver)),
         "routing_scatter": lambda: (route, route_args),
         "routing_rank": lambda: (rank, rank_args),
-        "routing_place": lambda: (plane._routing_place, place_args),
+        "routing_place": lambda: (place, place_args),
         "release_due": lambda: (
-            lambda *a: plane._release_due(*a, window),
+            lambda *a: plane._release_due(*a, window, **ps),
             (in_deliver_m, in_src_m, in_seq_m, in_sock_m, in_bytes_m,
              in_valid_m)),
         "codel_drain": lambda: (
@@ -406,7 +421,7 @@ def section_calls(world: dict, *, kernel: str = "xla",
                                                params.dn_cap, r, plain=plain),
             (arr_s, bytes_s, rt)),
         "egress_compact": lambda: (
-            plane._compact_egress,
+            lambda *a: plane._compact_egress(*a, **ps),
             (eg_prio, eg_dst, eg_bytes, eg_seq, eg_ctrl, eg_tsend, eg_clamp,
              eg_sock, eg_valid & ~sendable)),
         "ingest_rows": ingest_rows,
@@ -427,18 +442,14 @@ def profile_sections(n_hosts: int, *, reps: int = 20, sections=None,
     """Time each window-step section at the given bench shape (the JAX
     `profile_sections`, with its record's keys). Returns a JSON-ready
     dict; `backend` names the device as `jax.default_backend()` names
-    its platforms ("gpu" for a CUDA card, "cpu")."""
-    if not packed_sort:
-        raise ValueError(
-            "packed_sort=False: the port implements the packed orderings "
-            "only; the legacy variadic sorts are a JAX-side parity "
-            "reference (ROADMAP.md)")
+    its platforms ("gpu" for a CUDA card, "cpu"). `packed_sort=False`
+    times JAX's pre-diet variadic sorts ("xla" only, as in JAX)."""
     device = resolve_device(device)
     wanted = tuple(sections) if sections is not None else DEFAULT_SECTIONS
     world = build_world(n_hosts, n_nodes=n_nodes, egress_cap=egress_cap,
                         ingress_cap=ingress_cap, seed=seed, device=device)
     calls = section_calls(world, kernel=kernel, rr_enabled=rr_enabled,
-                          wanted=wanted)
+                          wanted=wanted, packed_sort=packed_sort)
     out_sections = {}
     for name in wanted:
         fn, args = calls[name]

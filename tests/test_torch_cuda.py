@@ -15,9 +15,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from torch_parity import (BATCHED_KERNELS, EDGE_SHIFTS,  # noqa: E402
-                          batched_kernel_case, drain_inputs, flat_outputs,
+                          all_halted, batched_kernel_case, drain_inputs, flat_outputs,
                           gate_edge_columns, long_chain_drain_inputs,
-                          placement_inputs)
+                          placement_inputs, wide_drain_inputs)
 
 from shadow_tpu_torch import bench, convert  # noqa: E402
 from shadow_tpu_torch.tpu import pipeline  # noqa: E402
@@ -172,12 +172,14 @@ def test_corpus_entry_on_the_card_matches_golden(cuda):
     assert rec == runner.run_scenario(sp, device="cpu")
 
 
-def drain_on_card(cuda, inputs, window_ns, view=False):
+def drain_on_card(cuda, inputs, window_ns, view=False, build=None):
     """Kernel E and `router_drain_plain` on the same card tensors, one
     launch, every output bitwise and fresh; with `view`, each input is a
     view one element into a longer tensor (`[1:]` of its flat storage), so
-    the rows start a word past a 16-byte boundary whatever K is. Returns
-    the plain loop's micro-steps a host."""
+    the rows start a word past a 16-byte boundary whatever K is; `build`
+    forces kernel E's build (else K picks it). The plain loop stops once
+    every host has halted. Returns its micro-steps a host and the
+    outputs of the launch."""
     from shadow_tpu_torch.tpu import codel
 
     arrival, size, rate, cap, state = inputs
@@ -196,10 +198,15 @@ def drain_on_card(cuda, inputs, window_ns, view=False):
     if view:
         assert args[0].data_ptr() % 16 == 4 and args[1].data_ptr() % 16 == 4
     before = pipeline.LAUNCHES["router_drain"]
-    got = codel.router_drain(*args)
-    ref = codel._router_drain_loop(*args)
+    built = dict(pipeline.E_BUILD_LAUNCHES)
+    got = codel.router_drain(*args, _build=build)
+    ref = codel._router_drain_loop(*args, until=all_halted)
     torch.cuda.synchronize()
     assert pipeline.LAUNCHES["router_drain"] == before + 1
+    ran = codel.e_geometry(*arrival.shape, build)["build"]
+    assert ran == (build or ("staged" if arrival.shape[1] <= 29055
+                             else "device"))
+    assert pipeline.E_BUILD_LAUNCHES[ran] == built[ran] + 1
     for f in codel.RouterDownState._fields:
         g, r = getattr(got[0], f), getattr(ref[0], f)
         assert g.dtype == r.dtype and torch.equal(g, r), (window_ns, f)
@@ -207,7 +214,7 @@ def drain_on_card(cuda, inputs, window_ns, view=False):
             assert g.data_ptr() != getattr(st, f).data_ptr()
     for g, r in zip(got[1:], ref[1:6]):
         assert g.dtype == r.dtype and torch.equal(g, r), window_ns
-    return ref[6]
+    return ref[6], got
 
 
 @pytest.mark.parametrize("n,k", [(n, k) for k in (8, 32, 64)
@@ -242,17 +249,53 @@ def test_router_drain_kernel_long_chains_beside_halting_hosts(cuda, n, k):
     """A host a tile whose tiny bucket caches and resumes each packet, so
     that it runs more than K micro-steps, beside hosts that halt at once:
     one lane's long chain holds only its own tile."""
-    steps = drain_on_card(cuda, long_chain_drain_inputs(n, k, seed=5), 2**30)
+    steps, _ = drain_on_card(cuda, long_chain_drain_inputs(n, k, seed=5),
+                             2**30)
     assert (steps[::32] > k).all() and (steps[1::32] == 1).all()
 
 
-@pytest.mark.parametrize("k", [14526, 14527])
+@pytest.mark.parametrize("n,k", [(37, 1), (37, 7), (4099, 33), (9, 2047),
+                                 (40, 29055)])
+def test_router_drain_device_build_matches_staged_and_plain(cuda, n, k):
+    """Kernel E's device build forced at K its staged build takes (the
+    widest, 29055, with a few hundred packets a row) equals the plain
+    version and the staged build, bitwise, in a short window and a long
+    one."""
+    from shadow_tpu_torch.tpu import codel
+
+    for window_ns in (10 * MS, 2**30):
+        inputs = (wide_drain_inputs(n, k, seed=k) if k > 2047 else
+                  drain_inputs(n, k, seed=7 * n + k, window_ns=window_ns))
+        _, dev = drain_on_card(cuda, inputs, window_ns, build="device")
+        arrival, size, rate, cap, state = inputs
+        t = lambda a: torch.from_numpy(a).to(cuda)
+        staged = codel.router_drain(
+            t(arrival), t(size), window_ns, t(rate), t(cap),
+            convert.router_from_numpy(state, cuda), _build="staged")
+        for a, b in zip(dev[1:], staged[1:]):
+            assert torch.equal(a, b)
+        for f in dev[0]._fields:
+            assert torch.equal(getattr(dev[0], f), getattr(staged[0], f))
+
+
+@pytest.mark.parametrize("k", [14528, 29055, 29056, 32768, 65536])
+def test_router_drain_kernel_takes_wide_rows_with_real_packets(cuda, k):
+    """Rows as wide as a router with deep buffers (the staged build up to
+    K = 29055, the device build beyond), a few hundred packets queued in
+    each, long chains among them: bitwise the plain version, which stops
+    once every host has halted."""
+    steps, got = drain_on_card(cuda, wide_drain_inputs(40, k, seed=k), 2**30)
+    assert (steps[::32] > 100).all() and (steps[1::32] == 1).all()
+    assert int(steps.max()) > 300
+    assert (got[1] != 0).any(), "no packet left the queue: a dead test"
+
+
+@pytest.mark.parametrize("k", [29054, 29055])
 def test_router_drain_kernel_stages_the_widest_rows(cuda, k):
-    """The widest rows the kernel takes (two hosts a tile at K = 14526
-    and 14527): rows of padding, with one entry that arrives after the
-    window, halt at once, so the drain leaves the state as it was and
-    every entry queued (the plain version's 4K + 16 fixed micro-steps
-    are too slow to run at this width)."""
+    """The widest rows the staged build takes (one host a tile at K =
+    29054 and 29055): rows of padding, with one entry that arrives after
+    the window, halt at once, so the drain leaves the state as it was
+    and every entry queued."""
     from shadow_tpu_torch.tpu import codel
 
     _a, _s, rate, cap, state = drain_inputs(3, 8, seed=1)
@@ -289,16 +332,29 @@ def test_batched_router_drain_with_ragged_rows(cuda):
 
 
 def test_router_drain_kernel_refuses_rows_it_cannot_stage(cuda):
+    """The staged build forced past the widest row it stages refuses at
+    its launcher; unforced, the launch runs the device build."""
     from shadow_tpu_torch.tpu import codel
 
     _a, _s, rate, cap, state = drain_inputs(4, 8, seed=0)
-    # a block stages four rows of K + 1 words a host in its 227 KB of
-    # shared memory: K = 14527 at most, and the launcher refuses wider
-    wide = np.full((4, 14528), 2**31 - 1, np.int32)
+    # a block stages two rows of K + 1 words a host in its 227 KB of
+    # shared memory: K = 29055 at most in the staged build
+    wide = np.full((4, 29056), 2**31 - 1, np.int32)
     t = lambda a: torch.from_numpy(a).to(cuda)
-    with pytest.raises(RuntimeError, match="router_drain_kernel: CUDA error"):
-        codel.router_drain(t(wide), t(wide), 10 * MS, t(rate), t(cap),
-                           convert.router_from_numpy(state, cuda))
+    args = (t(wide), t(wide), 10 * MS, t(rate), t(cap),
+            convert.router_from_numpy(state, cuda))
+    with pytest.raises(RuntimeError,
+                       match="router_drain_kernel: CUDA error"):
+        codel.router_drain(*args, _build="staged")
+    assert codel.e_geometry(4, 29056)["build"] == "device"
+    assert codel.e_geometry(4, 29055)["build"] == "staged"
+    with pytest.raises(RuntimeError, match="geometry"):
+        codel.e_geometry(4, 29056, "staged")
+    before = pipeline.E_BUILD_LAUNCHES["device"]
+    out = codel.router_drain(*args)
+    torch.cuda.synchronize()
+    assert pipeline.E_BUILD_LAUNCHES["device"] == before + 1
+    assert (out[1] == codel.STATUS_QUEUED).all()
 
 
 @pytest.mark.parametrize("kernel", ["pallas_fused", "pallas", "xla"])
@@ -488,14 +544,55 @@ def test_flow_window_kernel_matches_plain_at_bench_flows_shape(cuda):
     assert_flow_worlds_equal(got, ref)
 
 
+@pytest.mark.parametrize("queue_slots", [16, 256, 1024])
+@pytest.mark.parametrize("n_flows", [1, 33, 975])
+def test_flow_window_kernel_matches_plain_on_wrapping_rings(
+        cuda, n_flows, queue_slots):
+    """Kernel F on rings whose heads start at the last slot, so they wrap
+    at once: bitwise `run_windows_plain`, one launch."""
+    from shadow_tpu_torch.tpu import floweng
+
+    w0 = flow_world(floweng, n_flows, cuda, queue_slots=queue_slots)
+    w0 = w0._replace(q_head=torch.full_like(w0.q_head, queue_slots - 1))
+    opts = dict(sched_batch=2, pull_cap=8, gso_segs=1,
+                max_events_per_window=3)
+    w = floweng.clone_world(w0)
+    before = floweng.LAUNCHES["flow_window"]
+    steps = floweng.flow_window_(w, 40, 2000, **opts)
+    ref, ref_steps = floweng.run_windows_plain(w0, 40, 2000, **opts)
+    torch.cuda.synchronize()
+    assert floweng.LAUNCHES["flow_window"] == before + 1
+    assert int(ref.q_head.max()) >= queue_slots  # a pop past the last slot
+    assert torch.equal(steps, ref_steps)
+    assert_flow_worlds_equal(w, ref)
+
+
+@pytest.mark.parametrize("queue_slots", [28958, 30001, 32768])
+def test_flow_window_kernel_takes_rings_past_28957_slots(cuda, queue_slots):
+    """Rings larger than an earlier kernel F could stage in shared memory
+    (by the mask at 32768, by division at 28958 and 30001): 33 flows
+    whose rings wrap at once, bitwise `run_windows_plain`."""
+    from shadow_tpu_torch.tpu import floweng
+
+    w0 = flow_world(floweng, 33, cuda, queue_slots=queue_slots)
+    w0 = w0._replace(q_head=torch.full_like(w0.q_head, queue_slots - 2))
+    before = floweng.LAUNCHES["flow_window"]
+    got, steps = floweng.run_windows(w0, 40, 2000)
+    ref, ref_steps = floweng.run_windows_plain(w0, 40, 2000)
+    torch.cuda.synchronize()
+    assert floweng.LAUNCHES["flow_window"] == before + 1
+    assert int(ref.q_head.max()) > queue_slots
+    assert torch.equal(steps, ref_steps)
+    assert_flow_worlds_equal(got, ref)
+
+
 @pytest.mark.parametrize("queue_slots", [16, 128, 256, 1024])
 @pytest.mark.parametrize("n_flows", [1, 33, 975])
 def test_flow_window_kernel_matches_plain_at_pair_counts_and_rings(
         cuda, n_flows, queue_slots):
     """Kernel F bitwise against `run_windows_plain` where the pairs do not
     fill a block (one pair, 33 blocks of one, 122 blocks of 8) and at
-    rings of 16 to 1024 slots (1024 stages past the 48 KB a block has
-    without the opt-in at 975 pairs)."""
+    rings of 16 to 1024 slots."""
     from shadow_tpu_torch.tpu import floweng
 
     w0 = flow_world(floweng, n_flows, cuda, queue_slots=queue_slots)

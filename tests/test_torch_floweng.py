@@ -346,56 +346,114 @@ def test_kernel_f_host_build_matches_plain_on_rings_not_a_power_of_two(
         assert_worlds_equal(got[0], want[0])
 
 
-def test_kernel_f_staging_and_geometry(host_lib):
-    """The wrapper's staged bytes are the source's, every ring the flow
-    plan grows to (256 doubled up to capacity.max_doublings times) fits a
-    block, and the launch spreads pairs over the SMs: bench_flows' 975
-    pairs in 122 blocks of 8 on 132 SMs."""
-    from shadow_tpu_torch.core import flowplan
-    from shadow_tpu_torch.core.config import CapacityOptions
+def ring_world(n_flows, queue_slots, head, jax_side=False):
+    """The test world's first `n_flows` flows with rings of `queue_slots`
+    slots whose heads start at `head` (every ring empty), so the first
+    pushes wrap past the last slot; JAX's world when `jax_side`."""
+    args, kw = world_args(n_flows)
+    kw = dict(kw, queue_slots=queue_slots)
+    if jax_side:
+        w = jfe.make_flow_world(*args, **kw)
+        w = mixed(w, np.asarray(w.total))
+        return w._replace(q_head=jnp.full_like(w.q_head, head))
+    w = tfe.make_flow_world(*args, device="cpu", **kw)
+    w = mixed(w, w.total.numpy())
+    return w._replace(q_head=torch.full_like(w.q_head, head))
 
-    for q in (1, 16, 128, 256, 1024, 2048, 28957, 28958, 40000):
-        for rs in (1, 32, 33):
-            assert host_lib.flow_window_pair_bytes(q, rs) == \
-                tfe.f_pair_bytes(q, rs), (q, rs)
-    doublings = CapacityOptions().max_doublings
-    for k in range(doublings + 1):
-        assert tfe.f_pair_bytes(flowplan.QUEUE_SLOTS0 << k, 32) \
-            <= tfe.F_SMEM_BYTES
+
+@pytest.mark.parametrize("queue_slots", [16, 256, 1024])
+def test_kernel_f_host_build_matches_plain_on_wrapping_rings(
+        host_kernel, host_kernel_reversed, queue_slots):
+    """Rings that wrap at once, and fill at Q=16, equal the plain run in
+    both lane orders (the ring's times and fields read and written in
+    the world's [C, Q] tensors)."""
+    w0 = ring_world(6, queue_slots, queue_slots - 3)
+    opts = dict(sched_batch=2, pull_cap=8, gso_segs=1)
+    want = tfe.run_windows_plain(w0, 50, WINDOW_US, max_events_per_window=3,
+                                 **opts)
+    assert int(want[0].q_head.max()) > queue_slots  # the rings wrapped
+    if queue_slots == 16:
+        assert tfe.flow_results(want[0])["queue_drops"] > 0
+    for fn in (host_kernel, host_kernel_reversed):
+        got = host_windows(fn, w0, 50, WINDOW_US, 3, **opts)
+        assert torch.equal(got[1], want[1])
+        assert_worlds_equal(got[0], want[0])
+
+
+@pytest.mark.parametrize("queue_slots", [28958, 30001, 32768])
+def test_kernel_f_host_build_takes_rings_past_28957_slots(host_kernel,
+                                                          queue_slots):
+    """Rings larger than an earlier kernel F could stage in shared memory
+    (28957 slots at RS=32): two flows whose rings wrap at once (by the
+    mask at 32768, by division at 28958 and 30001) equal the plain run,
+    and both equal JAX's `run_windows` on the same world."""
+    w0 = ring_world(2, queue_slots, queue_slots - 2)
+    j0 = ring_world(2, queue_slots, queue_slots - 2, jax_side=True)
+    assert_worlds_equal(j0, w0)
+    opts = dict(sched_batch=2, pull_cap=2, gso_segs=4)
+    jw, jsteps = jax.jit(lambda w: jfe.run_windows(
+        w, 50, WINDOW_US, max_events_per_window=3, **opts))(j0)
+    want = tfe.run_windows_plain(w0, 50, WINDOW_US, max_events_per_window=3,
+                                 **opts)
+    assert int(want[0].q_head.max()) > queue_slots
+    assert np.array_equal(np.asarray(jsteps), want[1].numpy())
+    assert_worlds_equal(jw, want[0])
+    got = host_windows(host_kernel, w0, 50, WINDOW_US, 3, **opts)
+    assert torch.equal(got[1], want[1])
+    assert_worlds_equal(got[0], want[0])
+
+
+def test_kernel_f_staging_and_geometry(host_lib):
+    """The wrapper's staged bytes are the source's (a pair's slots, ring
+    heads and counts: 792 B at RS=32, whatever Q), and the launch spreads
+    pairs over the SMs: bench_flows' 975 pairs in 122 blocks of 8 on 132
+    SMs at any Q, the flow plan's largest rings included."""
+    for rs in (1, 32, 33):
+        assert host_lib.flow_window_pair_bytes(rs) == tfe.f_pair_bytes(rs)
+    assert tfe.f_pair_bytes(32) == 792
     out = (ctypes.c_int * 3)()
-    for n, q, want in ((1, 128, [1, 1, 1816]), (33, 16, [1, 33, 920]),
-                       (975, 128, [8, 122, 14528]),
-                       (1024, 256, [8, 128, 22720]),
-                       (975, 1024, [8, 122, 71872])):
+    for n, q, want in ((1, 128, [1, 1, 792]), (33, 16, [1, 33, 792]),
+                       (975, 128, [8, 122, 6336]),
+                       (1024, 256, [8, 128, 6336]),
+                       (975, 1024, [8, 122, 6336]),
+                       (975, 28958, [8, 122, 6336]),
+                       (975, 30001, [8, 122, 6336]),
+                       (975, 256 << 8, [8, 122, 6336])):
         assert host_lib.flow_window_geometry(n, q, 32, 132, out) == 0
         assert list(out) == want, (n, q)
-        assert want[2] == want[0] * tfe.f_pair_bytes(q, 32)
-    assert host_lib.flow_window_geometry(5, 28958, 32, 132, out) == 1
+        assert want[2] == want[0] * tfe.f_pair_bytes(32)
+    assert host_lib.flow_window_geometry(5, 0, 32, 132, out) == 1
+    assert host_lib.flow_window_geometry(5, 16, 32, 0, out) == 1
 
 
 def test_flow_window_refuses_a_ring_it_cannot_stage(monkeypatch, host_kernel):
-    """A Q whose pair cannot stage in a block's shared memory raises
-    ValueError in `flow_window_`'s checks, before any launch; the largest
-    Q that fits passes them. The host build refuses the same Q."""
+    """Kernel F keeps its rings in device memory, so no Q is too large to
+    stage: one past the 28957 slots an earlier layout staged in shared
+    memory passes `flow_window_`'s checks and launches, and the host
+    build runs it. What F does refuse is a world of unpaired lanes
+    (ValueError before any launch) and, in its host build, an empty
+    ring."""
     launched = []
     monkeypatch.setattr(tfe, "_launch_f", lambda *a: launched.append(a))
-    q_max = 28957  # at RS = 32: (2 * 32 + 2 * 16 + Q + 2) | 1 words a lane
-    for q in (q_max + 1, 40000):
+    for q in (28958, 40000):
         w = tfe.make_flow_world([5000], [10_000], queue_slots=q,
                                 device="cpu")
-        with pytest.raises(ValueError, match="shared memory.*Q <= 28957"):
-            tfe.flow_window_(w, 2, 2000)
-        assert launched == []
-        assert int(w.clock_us) == 0
         steps = torch.zeros(2, dtype=torch.int32)
         ts = tfe._pointers(w, steps, torch.zeros(2, dtype=torch.int32))
         ptrs = (ctypes.c_void_p * len(ts))(*(t.data_ptr() for t in ts))
         assert host_kernel(1, q, 32, 2, 2000, 512, 2, 8, 8, 16, ptrs,
+                           len(ts)) == 0
+        assert host_kernel(1, 0, 32, 2, 2000, 512, 2, 8, 8, 16, ptrs,
                            len(ts)) == 1
-    w = tfe.make_flow_world([5000], [10_000], queue_slots=q_max,
-                            device="cpu")
-    tfe.flow_window_(w, 2, 2000)
-    assert len(launched) == 1 and launched[0][1][:3] == (1, q_max, 32)
+        before = len(launched)
+        tfe.flow_window_(w, 2, 2000)
+        assert len(launched) == before + 1
+        assert launched[-1][1][:3] == (1, q, 32)
+    odd = tfe.FlowWorld(tfe.dtcp.TcpPlane(*(t[:1] for t in w.plane)),
+                        *(t if t.dim() == 0 else t[:1] for t in w[1:]))
+    with pytest.raises(ValueError, match="not whole pairs"):
+        tfe.flow_window_(odd, 2, 2000)
+    assert len(launched) == 2
 
 
 def test_flow_window_refuses_a_slot_count_it_was_not_built_for(monkeypatch):

@@ -292,15 +292,14 @@ def test_golden_flow_digest_is_what_the_jax_package_computes():
 
 
 @pytest.mark.parametrize("doublings", [6, 7, 9])
-def test_ring_budget_kernel_f_cannot_stage_is_refused_before_any_run(
+def test_ring_budget_past_what_kernel_f_stages_reaches_the_first_bucket(
         monkeypatch, doublings):
-    """On the card, a config whose rings may double past what kernel F
-    stages in a block's shared memory (256 << 7 = 32768 > 28957 slots)
-    raises ValueError, naming the limit, before its first bucket runs;
-    6 doublings (16384 slots) pass the check, and the CPU's plain
-    version, which stages nothing, takes any budget."""
+    """On the card, a config whose rings may double past the 28957 slots
+    an earlier kernel F could stage in a block's shared memory (256 << 7
+    = 32768) runs as JAX's does: its first bucket starts. So do 6
+    doublings (16384 slots), and the CPU's plain version takes any
+    budget."""
     import shadow_tpu_torch
-    from shadow_tpu_torch.tpu import floweng
 
     class Reached(Exception):
         pass
@@ -312,17 +311,35 @@ def test_ring_budget_kernel_f_cannot_stage_is_refused_before_any_run(
     cfg = lambda: t_load(f"capacity: {{max_doublings: {doublings}}}\n"
                          + tgen_cfg(n_clients=2, size=30_000))
     assert cfg().capacity.max_doublings == doublings
-    assert floweng.f_queue_slots_max() == 28957
     with pytest.raises(Reached):
         tfp.run_config(cfg(), device="cpu")
     monkeypatch.setattr(shadow_tpu_torch, "resolve_device",
                         lambda device=None: torch.device("cuda"))
-    if doublings <= 6:
-        with pytest.raises(Reached):
-            tfp.run_config(cfg())
-        return
-    with pytest.raises(ValueError, match=(
-            f"max_doublings={doublings} grows the rings to "
-            f"{256 << doublings} slots, above the 28957 kernel F can "
-            r"stage .*\(max_doublings <= 6\)")):
+    with pytest.raises(Reached):
         tfp.run_config(cfg())
+
+
+def test_rings_grown_past_28957_slots_match_the_jax_record(jax_run):
+    """Ring drops added to each bucket run below 32768 slots make
+    `run_flow_simulation` grow the rings 256 -> 32768
+    (`chip_smoke.flow_run_grown`, which phase 20 (e) runs on the card):
+    each size a fresh world and a re-run of the bucket, the last past the
+    28957 slots an earlier kernel F staged. The record is the JAX
+    Manager's with those growths in `capacity_events`, and the last run
+    was at 32768 slots."""
+    import chip_smoke
+    from shadow_tpu_torch.tpu import floweng
+
+    want, _ck = jax_run
+    cfg = t_load("capacity: {max_doublings: 7}\n"
+                 + tgen_cfg(n_clients=2, size=30_000))
+    stats, runs = chip_smoke.flow_run_grown(floweng, tfp, cfg, "cpu")
+    assert [q for q, _n in runs] == [256 << k for k in range(8)]
+    got = tfp.stats_record(stats)
+    grown = chip_smoke.flow_grown_events(tfp, cfg)
+    assert len(grown) == 7 and grown[-1]["to"] == 32768
+    assert got["stats"]["capacity_events"] == \
+        want["stats"]["capacity_events"] + grown
+    rest = lambda rec: dict(rec, stats=dict(rec["stats"],
+                                            capacity_events=None))
+    assert rest(got) == rest(want)

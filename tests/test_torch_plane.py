@@ -140,29 +140,55 @@ def test_ingest_rows_gate_idle_keyword_matches_jax(gate_idle):
                             convert.state_to_numpy(got))
 
 
-def test_ingest_packed_sort_false_is_refused():
-    """Both appends take JAX's `packed_sort=` keyword; the port keeps the
-    packed path only, so False raises the step's ValueError, and True is
-    the default."""
+def test_ingest_packed_sort_false_matches_jax():
+    """Both appends take JAX's `packed_sort=` keyword: False runs JAX's
+    pre-diet reference (the flat append's 9-array two-key sort and
+    grouped scatters, dead slots to src N; the row merge's validity
+    sort), equal to JAX's with the same flag, metrics and guards
+    included, and to the packed append; True is the default."""
+    from shadow_tpu.guards.plane import make_guards as jguards
+    from shadow_tpu.telemetry import make_metrics as jmetrics
+    from shadow_tpu_torch.guards.plane import make_guards
+    from shadow_tpu_torch.telemetry.metrics import make_metrics
+    from torch_parity import assert_tuples_equal
+
     params, state, batch = busy_world()
+    batch["valid"] = np.arange(len(batch["seq"])) % 5 != 3
     tst = convert.state_from_numpy(jax_state_to_numpy(state), "cpu")
     flat = {k: torch.from_numpy(v) for k, v in batch.items()}
+    jflat = {k: jnp.asarray(v) for k, v in batch.items()}
+    rng = np.random.default_rng(4)
     K = 4
-    rows = {k: torch.zeros((N, K), dtype=torch.int32)
+    rows = {k: rng.integers(0, 1000, (N, K)).astype(np.int32)
             for k in ("dst", "nbytes", "prio", "seq")}
-    rows["ctrl"] = torch.zeros((N, K), dtype=torch.bool)
-    rows["valid"] = torch.ones((N, K), dtype=torch.bool)
-    with pytest.raises(ValueError, match="packed_sort=False"):
-        tplane.ingest(tst, **flat, packed_sort=False)
-    with pytest.raises(ValueError, match="packed_sort=False"):
-        tplane.ingest_rows(tst, **rows, packed_sort=False)
+    rows["ctrl"] = rng.random((N, K)) < 0.3
+    rows["valid"] = rng.random((N, K)) < 0.6
+    trows = {k: torch.from_numpy(v) for k, v in rows.items()}
+    jrows = {k: jnp.asarray(v) for k, v in rows.items()}
+    planes = dict(metrics=jmetrics(N), guards=jguards(N))
+    tplanes = dict(metrics=make_metrics(N, device="cpu"),
+                   guards=make_guards(N, device="cpu"))
+    for jfn, tfn, jargs, targs in (
+            (ingest, tplane.ingest, jflat, flat),
+            (ingest_rows, tplane.ingest_rows, jrows, trows)):
+        for st in (state, ingest(state, **jflat)):  # rings that overflow
+            t = convert.state_from_numpy(jax_state_to_numpy(st), "cpu")
+            jst, jm, jg = jfn(st, **jargs, packed_sort=False, **planes)
+            got = tfn(t, **targs, packed_sort=False, **tplanes)
+            assert_states_equal(jax_state_to_numpy(jst),
+                                convert.state_to_numpy(got[0]))
+            assert_tuples_equal(jm, got[1])
+            assert_tuples_equal(jg, got[2])
+            assert_states_equal(
+                convert.state_to_numpy(got[0]),
+                convert.state_to_numpy(tfn(t, **targs, **tplanes)[0]))
     assert_states_equal(
         convert.state_to_numpy(tplane.ingest(tst, **flat, packed_sort=True)),
         convert.state_to_numpy(tplane.ingest(tst, **flat)))
     assert_states_equal(
-        convert.state_to_numpy(tplane.ingest_rows(tst, **rows,
+        convert.state_to_numpy(tplane.ingest_rows(tst, **trows,
                                                   packed_sort=True)),
-        convert.state_to_numpy(tplane.ingest_rows(tst, **rows)))
+        convert.state_to_numpy(tplane.ingest_rows(tst, **trows)))
 
 
 def run_both(windows, **kw):
@@ -206,7 +232,7 @@ def test_window_steps_with_ingress_overflow():
 
 def test_window_step_refuses_what_is_not_ported():
     """What the JAX plane refuses for its Pallas kernels raises
-    ValueError, as there, and so does packed_sort=False on any kernel.
+    ValueError, as there (packed_sort=False among it; "xla" runs it).
     The metrics plane and the router AQM ride every kernel; the fault,
     guard, histogram, flight-recorder, flow and compute planes ride
     "xla"."""
@@ -226,8 +252,8 @@ def test_window_step_refuses_what_is_not_ported():
         # delivered dict has the relay's carried-over column
         out = step(rr_enabled=False, router_aqm=True, kernel=kernel)
         assert out[1]["mask"].shape == (N, tst.in_src.shape[1] + 1)
-    with pytest.raises(ValueError, match="packed"):
-        step(packed_sort=False, kernel="xla")
+    # JAX's pre-diet sorts run on "xla" (tests/test_torch_xla_step.py)
+    assert len(step(packed_sort=False, kernel="xla")) == 3
     # the fault, guard and flight-recorder planes are ported: "xla"
     # takes them (tests/test_torch_faults.py, _guards.py, _flightrec.py)
     from shadow_tpu_torch.faults.plane import neutral_faults

@@ -74,14 +74,13 @@ def assert_leaves_equal(ref: list, got: list, ctx):
             assert r.tobytes() == g.tobytes(), (ctx, i)
 
 
-@pytest.fixture(scope="module")
-def jax_sections():
-    """{kernel: ({section: leaves}, record)} from JAX's profiler."""
+def run_jax_sections(runs):
+    """{name: ({section: leaves}, record)} of JAX's profiler for each
+    (name, kernel, sections, packed_sort) in `runs`."""
     out = {}
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jax, "jit", lambda f, **kw: f)
-        for kernel, wanted in (("xla", jprof.DEFAULT_SECTIONS),
-                               ("pallas_fused", KERNEL_SECTIONS)):
+        for name, kernel, wanted, packed_sort in runs:
             got = []
 
             def capture(fn, args, reps):
@@ -90,9 +89,26 @@ def jax_sections():
             mp.setattr(jprof, "_time_call", capture)
             rec = jprof.profile_sections(N, reps=1, kernel=kernel,
                                          sections=wanted, egress_cap=CE,
-                                         ingress_cap=CI)
-            out[kernel] = dict(zip(wanted, got)), rec
+                                         ingress_cap=CI,
+                                         packed_sort=packed_sort)
+            out[name] = dict(zip(wanted, got)), rec
     return out
+
+
+@pytest.fixture(scope="module")
+def jax_sections():
+    """{kernel: ({section: leaves}, record)} from JAX's profiler."""
+    return run_jax_sections(
+        (("xla", "xla", jprof.DEFAULT_SECTIONS, True),
+         ("pallas_fused", "pallas_fused", KERNEL_SECTIONS, True)))
+
+
+@pytest.fixture(scope="module")
+def jax_legacy_sections():
+    """({section: leaves}, record) of JAX's profiler on "xla" with
+    packed_sort=False."""
+    return run_jax_sections(
+        (("legacy", "xla", jprof.DEFAULT_SECTIONS, False),))["legacy"]
 
 
 @pytest.fixture(scope="module")
@@ -159,8 +175,34 @@ def test_record_keys_and_section_tuples_are_jax(jax_sections):
 
 
 def test_legacy_sort_is_refused():
-    with pytest.raises(ValueError, match="packed_sort=False"):
-        tprof.profile_sections(N, reps=1, packed_sort=False, device="cpu")
+    """The Pallas kernels refuse packed_sort=False, as JAX's do."""
+    for kernel in ("pallas_fused", "pallas"):
+        with pytest.raises(ValueError, match="packed_sort=False"):
+            tprof.profile_sections(N, reps=1, packed_sort=False,
+                                   kernel=kernel, device="cpu")
+
+
+@pytest.mark.parametrize("section", jprof.DEFAULT_SECTIONS)
+def test_legacy_sort_section_matches_jax(jax_legacy_sections, world,
+                                         section):
+    """Each section with packed_sort=False (JAX's pre-diet variadic
+    sorts; routing_rank and routing_place the legacy rank and scatters)
+    equals JAX's profiler's with the same flag, and reads the world
+    without writing it; the record says packed_sort false."""
+    ref = jax_legacy_sections[0][section]
+    assert ref, section
+    fn, args = tprof.section_calls(world, wanted=(section,),
+                                   packed_sort=False)[section]
+    state_before = [t.clone() for t in leaves(world["state"])]
+    got = leaves(fn(*tprof.fresh_args(section, args)))
+    assert_leaves_equal(ref, got, (section, "legacy"))
+    assert_leaves_equal(state_before, leaves(world["state"]),
+                        ("world", section))
+    if section == "routing_place":
+        rec = tprof.profile_sections(N, reps=1, egress_cap=CE,
+                                     ingress_cap=CI, packed_sort=False,
+                                     sections=(section,), device="cpu")
+        assert rec["packed_sort"] is jax_legacy_sections[1]["packed_sort"]
 
 
 def test_unknown_sections_are_refused(world):

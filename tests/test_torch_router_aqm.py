@@ -17,6 +17,8 @@ package's, bitwise:
 
 from __future__ import annotations
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -24,7 +26,7 @@ jax = pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 from torch_parity import (MS, assert_states_equal, assert_tuples_equal,  # noqa: E402
-                          drain_inputs, jax_params_to_numpy,
+                          all_halted, drain_inputs, jax_params_to_numpy,
                           long_chain_drain_inputs,
                           jax_state_to_numpy, phold_both, rr_world)
 
@@ -36,6 +38,7 @@ from shadow_tpu_torch.tpu import codel as tcodel  # noqa: E402
 from shadow_tpu_torch.tpu import pipeline  # noqa: E402
 from shadow_tpu_torch.tpu import plane as tplane  # noqa: E402
 
+REPO = Path(__file__).resolve().parent.parent
 I32_MAX = 2**31 - 1
 U32 = 1 << 32
 
@@ -235,19 +238,24 @@ def host_model(A, S, ST, DT, k, window_ns, r, c, g, table):
 
 
 MAX_SMEM = 232448  # the shared bytes a block may use
-MAX_K = 14527  # the widest row the launcher takes
+MAX_STAGED_K = 29055  # the widest row the staged build takes
 
 
-def e_geometry_model(k):
-    """`choose_geometry`: (hosts a tile, words of a staged row, words of
-    one staged array), or None past the widest row the launcher takes."""
-    if not 1 <= k <= MAX_K:
+def e_geometry_model(k, build=None):
+    """`choose_geometry`: (build, hosts a tile, words of a row as the
+    machines read it, words of one staged array), the build picked by K
+    (staged up to MAX_STAGED_K, device beyond) unless `build` forces one;
+    None for a K the build does not take."""
+    build = build or ("staged" if k <= MAX_STAGED_K else "device")
+    if k < 1 or (build == "staged" and k > MAX_STAGED_K):
         return None
+    if build == "device":
+        return build, 32, k, 0
     stride = k | 1
     tile = 32
     while 2 * 4 * tile * stride > MAX_SMEM:
         tile //= 2
-    return tile, stride, tile * stride
+    return build, tile, stride, tile * stride
 
 
 def stage_slab_model(smem, dst, mem, src, cnt, k, stride):
@@ -267,20 +275,21 @@ def stage_slab_model(smem, dst, mem, src, cnt, k, stride):
 
 
 def kernel_model(arrival, size, window_ns, rate, cap, state, *,
-                 phases=(0, 0, 0, 0)):
+                 phases=(0, 0, 0, 0), build=None):
     """Kernel E (`csrc/router_drain.cu`) as its warps run it: the
-    geometry of `choose_geometry`, a warp a tile; the tile's slabs of
-    arrival and size staged word by word into the warp's shared buffers
-    at the kernel's stride; its status and deliver_t slabs filled with
-    kQueued and I32_MAX; a lane's `host_model` on its staged rows,
-    writing the entries it consumes to device memory. Device memory is
+    geometry of `choose_geometry`, a warp a tile; in the staged build the
+    tile's slabs of arrival and size staged word by word into the warp's
+    shared buffers at the kernel's stride (the device build reads its
+    rows in device memory); its status and deliver_t slabs filled with
+    kQueued and I32_MAX; a lane's `host_model` on its rows, writing the
+    entries it consumes to device memory. Device memory is
     word-addressed; `phases` puts arrival, size, status and deliver_t at
     those words mod 4 (a row view's storage offset). Shared and output
     words start as garbage, so a word read or left unwritten shows."""
     n, k = arrival.shape
-    geo = e_geometry_model(k)
+    geo = e_geometry_model(k, build)
     assert geo is not None, f"K={k} does not fit"
-    tile, stride, words = geo
+    build, tile, stride, words = geo
     table = [int(x) for x in tcodel.CTRL_TABLE]
     span = (n * k + 7) & ~3  # an array's words and room to offset it
     bases = [i * span + p + 4 for i, p in enumerate(phases)]
@@ -298,8 +307,14 @@ def kernel_model(arrival, size, window_ns, rate, cap, state, *,
         rows = min(tile, n - first)
         cnt = rows * k
         slab = [b + first * k for b in bases]
-        for which, dst in ((0, a0), (1, s0)):
-            stage_slab_model(smem, dst, mem, slab[which], cnt, k, stride)
+        if build == "staged":
+            for which, dst in ((0, a0), (1, s0)):
+                stage_slab_model(smem, dst, mem, slab[which], cnt, k, stride)
+            rows_a = lambda lane: (Row(smem, a0 + lane * stride),
+                                   Row(smem, s0 + lane * stride))
+        else:
+            rows_a = lambda lane: (Row(mem, slab[0] + lane * k),
+                                   Row(mem, slab[1] + lane * k))
         mem[slab[2]:slab[2] + cnt] = [0] * cnt
         mem[slab[3]:slab[3] + cnt] = [I32_MAX] * cnt
         for lane in range(rows):
@@ -307,7 +322,7 @@ def kernel_model(arrival, size, window_ns, rate, cap, state, *,
             g = {f: (bool(v[h]) if v.dtype == bool else int(v[h]))
                  for f, v in state.items()}
             st, cm, ct, ci, it = host_model(
-                Row(smem, a0 + lane * stride), Row(smem, s0 + lane * stride),
+                *rows_a(lane),
                 Row(mem, slab[2] + lane * k), Row(mem, slab[3] + lane * k),
                 k, window_ns, int(rate[h]), int(cap[h]), g, table)
             for f, v in st.items():
@@ -399,11 +414,11 @@ def test_kernel_model_long_chains_beside_halting_hosts(n, k):
     assert (steps[1::32] == 1).all()
 
 
-@pytest.mark.parametrize("k,phases", [(14526, (1, 2, 3, 1)),
-                                      (14527, (1, 2, 3, 1)),
-                                      (14527, (0, 0, 0, 0))])
+@pytest.mark.parametrize("k,phases", [(29054, (1, 2, 3, 1)),
+                                      (29055, (1, 2, 3, 1)),
+                                      (29055, (0, 0, 0, 0))])
 def test_kernel_model_stages_the_widest_rows(k, phases):
-    """The widest rows (two hosts a tile): rows of
+    """The widest rows the staged build takes (one host a tile): rows of
     padding, one with an entry after the window, halt at once and leave
     the state as it was, every entry queued."""
     _a, _s, rate, cap, state = drain_inputs(3, 8, seed=1)
@@ -422,19 +437,73 @@ def test_kernel_model_stages_the_widest_rows(k, phases):
 
 def test_e_geometry_model_edges():
     """`choose_geometry`'s tiles: 32 hosts up to K = 907, smaller tiles
-    for wider rows, two hosts at the widest, odd strides (K for an
-    odd K, K + 1 for an even one), nothing past the widest row the
-    launcher takes (K = 14527)."""
-    assert e_geometry_model(32) == (32, 33, 1056)
-    assert e_geometry_model(33) == (32, 33, 1056)
-    assert e_geometry_model(907) == (32, 907, 29024)
-    assert e_geometry_model(908) == (16, 909, 14544)
-    assert e_geometry_model(909) == (16, 909, 14544)
-    assert e_geometry_model(1024)[0] == 16
-    assert e_geometry_model(14526) == (2, 14527, 29054)
-    assert e_geometry_model(14527) == (2, 14527, 29054)
+    for wider rows, two hosts at K = 14527, one at the widest staged row
+    (K = 29055: 232440 B), odd strides (K for an odd K, K + 1 for an even
+    one); wider rows in the device build (32 hosts a tile, rows K words
+    apart where they lie, no shared memory), which any K may force."""
+    s = "staged"
+    assert e_geometry_model(32) == (s, 32, 33, 1056)
+    assert e_geometry_model(33) == (s, 32, 33, 1056)
+    assert e_geometry_model(907) == (s, 32, 907, 29024)
+    assert e_geometry_model(908) == (s, 16, 909, 14544)
+    assert e_geometry_model(909) == (s, 16, 909, 14544)
+    assert e_geometry_model(1024)[1] == 16
+    assert e_geometry_model(14526) == (s, 2, 14527, 29054)
+    assert e_geometry_model(14527) == (s, 2, 14527, 29054)
+    assert e_geometry_model(14528) == (s, 1, 14529, 14529)
+    assert e_geometry_model(29054) == (s, 1, 29055, 29055)
+    assert e_geometry_model(29055) == (s, 1, 29055, 29055)
+    assert 2 * 4 * 29055 <= MAX_SMEM < 2 * 4 * 29057
+    for k in (29056, 32768, 65536):
+        assert e_geometry_model(k) == ("device", 32, k, 0)
+    assert e_geometry_model(7, "device") == ("device", 32, 7, 0)
+    assert e_geometry_model(29056, "staged") is None
     assert e_geometry_model(0) is None
-    assert e_geometry_model(14528) is None
+    src = (REPO / "shadow_tpu_torch/csrc/router_drain.cu").read_text()
+    assert f"kMaxStagedK = {MAX_STAGED_K};" in src
+
+
+@pytest.mark.parametrize("n,k,phases", [
+    (40, 1, (3, 1, 2, 0)), (40, 7, (1, 1, 1, 1)), (70, 33, (2, 3, 0, 1)),
+    (9, 300, (1, 0, 0, 3)), (3, 2047, (0, 1, 2, 3))])
+def test_kernel_model_device_build_matches_plain(n, k, phases):
+    """The device build forced at K the staged build takes: its machines
+    read their rows where they lie, at every word phase; every output
+    bitwise the plain loop's, and the staged build's."""
+    args = drain_inputs(n, k, seed=2000 + n + k)
+    steps = model_against_plain(args, 10 * MS, phases=phases,
+                                build="device")
+    assert np.array_equal(steps, model_against_plain(args, 10 * MS,
+                                                     phases=phases))
+
+
+@pytest.mark.parametrize("k,seed,window_ns,long_chains", [
+    (8, 11, 10 * MS, False), (16, 12, 2**30, False), (33, 13, 2**30, True),
+    (64, 14, 10 * MS, True)])
+def test_router_drain_plain_stops_once_every_host_halted(k, seed, window_ns,
+                                                        long_chains):
+    """The plain version's stop once every host has halted (`until`)
+    equals JAX's fixed 4K + 16 micro-steps bitwise (the fixed-trip loop
+    and JAX's `router_drain`), and stops well before them."""
+    make = long_chain_drain_inputs if long_chains else drain_inputs
+    args = (make(70, k, seed) if long_chains
+            else make(70, k, seed, window_ns=window_ns))
+    arrival, size, rate, cap, state = args
+    t = torch.from_numpy
+    targs = (t(arrival), t(size), window_ns, t(rate), t(cap),
+             convert.router_from_numpy(state, "cpu"))
+    stopped = tcodel._router_drain_loop(*targs, until=all_halted)
+    fixed = tcodel._router_drain_loop(*targs)
+    for a, b in zip(convert.tuple_to_numpy(stopped[0]).values(),
+                    convert.tuple_to_numpy(fixed[0]).values()):
+        assert np.array_equal(a, b)
+    for a, b in zip(stopped[1:], fixed[1:]):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert int(stopped[6].max()) < 4 * k + 16
+    ref = jax_drain(arrival, size, window_ns, rate, cap, state)
+    st, *rest = tcodel.router_drain_plain(*targs, until=all_halted)
+    got = (convert.tuple_to_numpy(st), *(a.numpy() for a in rest))
+    assert_drains_equal(ref, got, (k, seed))
 
 
 def test_router_drain_on_cpu_runs_the_plain_version():

@@ -104,6 +104,13 @@ def gate_edge_columns(n, ce, seed):
                 tsend=i32(tsend), clamp=i32(clamp), balance=i32(balance))
 
 
+def all_halted(halted) -> bool:
+    """Kernel E's plain loop's stop once every host has halted
+    (`codel._router_drain_loop(until=)`): one read of the device a
+    micro-step."""
+    return bool(halted.all())
+
+
 def drain_inputs(n, k, seed, *, window_ns=10 * MS):
     """Kernel E's arguments as numpy (arrival, size, dn_rate, dn_cap, the
     router state as a dict): ascending arrivals (some before the window
@@ -162,6 +169,19 @@ def long_chain_drain_inputs(n, k, seed, *, every=32):
                  ("dn_last_refill", 0)):
         state[f][np.concatenate([long, idle])] = v
     return arrival, size, rate, cap, state
+
+
+def wide_drain_inputs(n, k, seed, *, queued=300):
+    """`long_chain_drain_inputs` of `queued` entries a row, each row
+    padded with I32_MAX out to K entries: a router with deep buffers
+    holding a few hundred packets, hosts with long chains among them."""
+    arrival, size, rate, cap, state = long_chain_drain_inputs(
+        n, min(k, queued), seed)
+    wide = np.full((n, k), I32_MAX, np.int32)
+    wide_size = np.full((n, k), 1500, np.int32)
+    wide[:, :arrival.shape[1]] = arrival
+    wide_size[:, :arrival.shape[1]] = size
+    return wide, wide_size, rate, cap, state
 
 
 def assert_states_equal(a: dict, b: dict, ctx=None):
@@ -227,14 +247,15 @@ def assert_tuples_equal(ref, got, ctx=None):
 
 def phold_both(world, windows, *, kernel="xla", jax_kernel="xla",
                rr_enabled=False, no_loss=False, metrics=False, hist=False,
-               router_aqm=False, seed=3):
+               router_aqm=False, seed=3, packed_sort=True):
     """`windows` PHOLD windows (window_step + respawn + ingest_rows) of
     the JAX plane and the port on one world, with the metrics and
     histogram planes threaded through both calls when asked (as the JAX
     bench threads them), compared leaf by leaf after every window: the
     state, every delivered column, the next-event scalar and each plane.
     The respawn batch is as wide as the delivered dict (CI + 1 columns
-    under `router_aqm`). Returns the final (port state, metrics, hist)."""
+    under `router_aqm`); `packed_sort` goes to both sides' step and
+    append. Returns the final (port state, metrics, hist)."""
     import jax
     import jax.numpy as jnp
     import torch
@@ -261,12 +282,12 @@ def phold_both(world, windows, *, kernel="xla", jax_kernel="xla",
         out = window_step(st, params, key, sh, jnp.int32(10 * MS),
                           rr_enabled=rr_enabled, no_loss=no_loss,
                           router_aqm=router_aqm, kernel=jax_kernel,
-                          metrics=m, hist=h)
+                          packed_sort=packed_sort, metrics=m, hist=h)
         (st, d, nx), m, _g, h, _f = unpack_planes(out, metrics=m, hist=h)
         mask, dst, nb, seq, ctrl = respawn_batch(d, spawn, r, n,
                                                  d["mask"].shape[1])
         out = ingest_rows(st, dst, nb, seq, seq, ctrl, valid=mask,
-                          metrics=m, hist=h)
+                          packed_sort=packed_sort, metrics=m, hist=h)
         (st,), m, _g, h, _f = unpack_planes(out, metrics=m, hist=h,
                                             n_lead=1)
         return st, d, nx, spawn + mask.sum(axis=1, dtype=jnp.int32), m, h
@@ -280,13 +301,15 @@ def phold_both(world, windows, *, kernel="xla", jax_kernel="xla",
         out = tplane.window_step(tst, tparams, seed, shift, 10 * MS,
                                  rr_enabled=rr_enabled, no_loss=no_loss,
                                  router_aqm=router_aqm, kernel=kernel,
-                                 metrics=tm, hist=th)
+                                 packed_sort=packed_sort, metrics=tm,
+                                 hist=th)
         (tst, td, tn), tm, _g, th, _f = tplane.unpack_planes(
             out, metrics=tm, hist=th)
         mask, dst, nb, seq, ctrl = trespawn(td, tspawn, r, n,
                                             td["mask"].shape[1])
         out = tplane.ingest_rows(tst, dst, nb, seq, seq, ctrl, mask,
-                                 metrics=tm, hist=th)
+                                 packed_sort=packed_sort, metrics=tm,
+                                 hist=th)
         (tst,), tm, _g, th, _f = tplane.unpack_planes(
             out, metrics=tm, hist=th, n_lead=1)
         tspawn = tspawn + mask.sum(dim=1, dtype=torch.int32)
