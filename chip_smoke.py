@@ -7,10 +7,10 @@ E, in phases; any failure exits non-zero before the result lines are
 printed:
 
 1. require a CUDA card; print its name and power limit (nvidia-smi);
-   start the CPU runs that phases 9, 12-15 compare the card's with, all at
-   once in a pool of spawned worker processes (CUDA hidden, two torch
-   threads each, (cores - 2) / 2 of them; the count is printed), each
-   phase awaiting its own where it compares;
+   start the CPU runs that phases 9, 12-15, 20 and 22 compare the card's
+   with, all at once in a pool of spawned worker processes (CUDA hidden,
+   two torch threads each, (cores - 2) / 2 of them; the count is
+   printed), each phase awaiting its own where it compares;
 2. build the kernels from `shadow_tpu_torch/csrc` (one nvcc per source,
    in parallel; kernel F's, the longest, beside phases 3-19, awaited
    before phase 20) and print the build seconds and ptxas' resource
@@ -19,18 +19,26 @@ printed:
    bitwise, at N=32768 and CE in {8, 16, 32, 64}, and timed with its
    inputs in HBM (L2 flushed before each launch by a write: `ms`; by a
    write and a read, so no dirty lines are left: `cold_clean_ms`) and
-   in L2 (back-to-back launches: `warm_ms`);
+   in L2 (back-to-back launches: `warm_ms`); (d) at the egress
+   capacities no main path runs but JAX's kernel takes, CE in {1, 2048,
+   4096, 16384} (one-slot rows in the warp build; the wide build, a block
+   of 1024 threads a row over device memory, past 1024), on 2^24 slots of
+   columns (~1.09 GB) and on the int32 edge inputs, each launch counted
+   under the build its launcher picked, timed as above beside the bound
+   by bytes, with ptxas' report of the wide build;
 4. kernel C (egress_gate): ptxas' registers, shared memory and spills
    of its kernels (a spill fails); bitwise against its plain version at
    CE in {2, 4, 8, 16, 32, 64, 128, 1024} on random inputs at N=32768
    and on the CPU tests' int32 edge inputs at a ragged N=32763; timed as
    kernel A at CE in {8, 16, 32}, beside a device copy of as many
-   bytes timed alike (the floor of the timing at that size);
+   bytes timed alike (the floor of the timing at that size); (d) as A's
+   (d), on 2^25 slots (~1.17 GB);
 5. kernels B (route_place) and D (route_scatter) likewise on one input
    set at N=32768, CE=16, CI=32, with rows whose arrivals overflow the
    ring and rows that read outside the arrivals, each kernel and plain
    version on its own clone (they update the ingress in place); D and B
-   agree, and both are timed on it;
+   agree, and both are timed on it; (d) kernel B with rings of one slot
+   (CI = 1) through the routing stage, bitwise its plain version;
 6. the golden digest: `run_phold` at N=1024, R=16 through each kernel
    pair must end in the state the JAX package's run ends in (pinned by
    the CPU tests);
@@ -243,8 +251,27 @@ printed:
    dispatch by CUDA events, and device kernels and busy ms a round over
    the sync replay's first 160 rounds (torch.profiler); no kernel of
    A-F launches on this path;
-22. one JSON line describing every kernel (E's and F's launches of each
-   build), then the result line.
+22. the simulator's own entry point, `python -m shadow_tpu_torch CONFIG`
+   (`cli.main` -> `core/manager.Manager`: hosts, the simulated TCP/UDP
+   stack and the built-in apps on the CPU, cross-host packets through the
+   device transport on the card), each CPU witness the same CLI with
+   `--device cpu` and the CPU routing, in the pool: (a) the Quickstart
+   configs `examples/basic-file-transfer.yaml` and `examples/phold.yaml`
+   with `use_tpu_transport` in sync and in mirrored mode, each data
+   directory the witness's (sim-stats.json less wall_seconds, etc-hosts,
+   the processed config less the transport's keys), no divergence; (b)
+   rung 3 live (1000 hosts, 975 tgen clients of 256 KiB) with the sync
+   transport to 15 s (every client started), its calls recorded
+   (`transport_replay.recording_class`): every release but the last equal
+   to the committed call log's round for round (push count, push rows as
+   a set less their pool tags against phase 21's sync replay, next
+   event), its sim-stats the witness's; (c) the rung-3 flow-engine
+   deployment through the CLI, its stats record the JAX Manager's, F
+   launched; (d) PHOLD at CE=2048 through both kernel pairs (A and C in
+   their wide build every window) and at CI=1 through the fused pair,
+   each state the "xla" run's;
+23. one JSON line describing every kernel (E's and F's launches of each
+   build, A's and C's widths), then the result line.
 
 Usage: python3 chip_smoke.py   (from the repository root; one card).
 A fuller record of every measurement is printed on the `record:` line.
@@ -286,6 +313,19 @@ PEAK_SHUFFLES_PER_S = 67e12 / 8
 # kernel C is held bitwise at every CE of C_SWEEP and timed at C_TIMED
 C_SWEEP = (2, 4, 8, 16, 32, 64, 128, 1024)
 C_TIMED = (8, 16, 32)
+# 3-5 (d): kernels A and C at the egress capacities no main path runs but
+# JAX's kernels take (a row of one slot, and the wide build past 1024), on
+# as many rows as fill 1-2 GB of columns (A moves 65 B a slot, C 35 B),
+# and kernel B with rings of one slot
+WIDE_CES = (1, 2048, 4096, 16384)
+WIDE_SLOTS = {"A": 1 << 24, "C": 1 << 25}
+WIDE_EDGE_ROWS = 24  # rows of the int32 edge inputs at each width
+WIDE_REPS = 10  # timed launches of each kind at each width
+# 22 (d): a short PHOLD run through both kernel pairs with rows of this
+# many egress slots (kernels A and C in their wide build), and one with
+# rings of one ingress slot (kernel B), each against "xla"
+PHOLD_WIDE = dict(n_hosts=1024, rounds=8, egress_cap=2048, ingress_cap=32)
+PHOLD_CI1 = dict(n_hosts=4096, rounds=8, egress_cap=16, ingress_cap=1)
 L2_FLUSH_BYTES = 128 << 20  # over twice the H100's 50 MB L2
 NO_CLAMP = -(2**30)
 MS = 1_000_000
@@ -403,9 +443,13 @@ _WITNESSES: dict = {}
 
 def witness_jobs() -> dict:
     """Every CPU witness by name: (kind, argument) for `cpu_witness`, in
-    the order the phases need them."""
+    the order the pool runs them (the order the phases need them, but
+    phase 22's first)."""
     corpus = [p.name for p in sorted(CORPUS.glob("*.yaml"))]
-    jobs = {f"corpus:{n}": ("corpus", n) for n in corpus}
+    # phase 22's first: rung 3's CPU plane runs a worker thread a core,
+    # which the host-bound phases 20-22 should not share
+    jobs = {f"cli:{name}": ("cli", name) for name in (*QUICKSTART, "rung3")}
+    jobs.update({f"corpus:{n}": ("corpus", n) for n in corpus})
     jobs["onoff"] = ("onoff", None)
     jobs["fleet"] = ("fleet", None)
     jobs.update({f"robust:{n}": ("robust", n) for n in corpus})
@@ -460,6 +504,11 @@ def cpu_witness(kind: str, arg):
         return convert.state_digest(st)
     if kind == "flow-plain":
         return flow_plain_witness(*arg)
+    if kind == "cli":
+        if arg == "rung3":
+            return cli_witness(with_experimental(
+                rung3_live_text(), CLI_CPU_ROUTING), stop=RUNG3_LIVE_STOP)
+        return cli_witness(quickstart_text(arg))
     if kind == "aqm-wide":
         # rows of K = AQM_WIDE_CI: the plain drain stops once every host
         # has halted (bitwise its fixed 4K + 16 micro-steps, too many to
@@ -590,28 +639,21 @@ def bound(n_bytes: float, int_ops: float,
 
 
 def egress_inputs(torch, n, ce, seed):
-    rng = np.random.default_rng(seed)
-    valid = rng.random((n, ce)) < 0.7
-    clamp = np.where(rng.random((n, ce)) < 0.5, NO_CLAMP,
-                     rng.integers(-5 * MS, 20 * MS, (n, ce)))
-    cols = dict(
-        valid=valid,
-        prio=rng.integers(0, 8, (n, ce)),  # duplicates: ties by column
-        nbytes=rng.integers(60, 1500, (n, ce)),
-        tsend=rng.integers(-20 * MS, 10 * MS, (n, ce)),
-        clamp=clamp,
-        dst=rng.integers(-1, n, (n, ce)),
-        seq=rng.integers(0, 4 * ce, (n, ce)),  # duplicates too
-        sock=rng.integers(0, 64, (n, ce)),
-        ctrl=rng.random((n, ce)) < 0.2,
-    )
-    dev = torch.device("cuda")
-    t = {k: torch.from_numpy(np.ascontiguousarray(
-        v, bool if v.dtype == bool else np.int32)).to(dev)
-        for k, v in cols.items()}
-    balance = torch.from_numpy(
-        rng.integers(0, ce * 1500, n).astype(np.int32)).to(dev)
-    return (*t.values(), balance, 10 * MS)
+    """Kernel A's arguments on the card, drawn there by a seeded CUDA
+    generator (at the widths of 3 (d) numpy would take the host
+    seconds): 70 % of the slots valid, duplicate priorities and seqs
+    (ties by column), garbage in invalid slots, NO_CLAMP and real
+    clamps, starved and full token buckets."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    draw = lambda lo, hi, shape=(n, ce): torch.randint(
+        lo, hi, shape, generator=g, device="cuda", dtype=torch.int32)
+    coin = lambda p: torch.rand((n, ce), generator=g, device="cuda") < p
+    valid = coin(0.7)
+    clamp = torch.where(coin(0.5), NO_CLAMP, draw(-5 * MS, 20 * MS))
+    cols = (valid, draw(0, 8), draw(60, 1500), draw(-20 * MS, 10 * MS),
+            clamp, draw(-1, n), draw(0, 4 * ce), draw(0, 64), coin(0.2))
+    return (*cols, draw(0, ce * 1500, (n,)), 10 * MS)
 
 
 def check_kernel_a(torch, pipeline, record):
@@ -729,10 +771,10 @@ def check_kernel_c(torch, pipeline, record):
     sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
     from torch_parity import EDGE_SHIFTS, gate_edge_columns
 
-    # one build a power-of-two CE in [2, 1024]
+    # one build a power-of-two CE in [1, 1024], and the wide build
     check_ptxas(record, "egress_gate", "kernel C egress_gate",
                 "kernel_c_ptxas", "egress_gate_kernel",
-                [2 << i for i in range(10)], "CE")
+                [1 << i for i in range(11)], "CE")
     rows = []
     for ce in C_SWEEP:
         full = egress_inputs(torch, N_HOSTS, ce, seed=100 + ce)
@@ -793,6 +835,142 @@ def check_kernel_c(torch, pipeline, record):
               f"{copy_clean:.5f} clean, {copy_warm:.5f} warm")
     record["kernel_c"] = rows
     return next(r for r in rows if r["ce"] == EGRESS_CAP)
+
+
+def egress_edge_inputs(torch, n, ce, seed, shift):
+    """Kernel A's arguments at the edges of int32: the CPU tests' edge
+    columns (`tests/torch_parity.gate_edge_columns`: negative priorities,
+    wrapping rebases and prefix sums, NO_CLAMP, extreme balances) and
+    random dst, seq, sock and ctrl, on the card."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    from torch_parity import gate_edge_columns
+
+    cols = gate_edge_columns(n, ce, seed)
+    rng = np.random.default_rng(seed)
+    i32 = lambda a: np.asarray(a, np.int32)
+    extra = dict(dst=i32(rng.integers(-1, n, (n, ce))),
+                 seq=i32(rng.integers(-2**31, 2**31, (n, ce))),
+                 sock=i32(rng.integers(0, 64, (n, ce))),
+                 ctrl=rng.random((n, ce)) < 0.2)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()
+    order = ("valid", "prio", "nbytes", "tsend", "clamp")
+    return (*(t(cols[k]) for k in order),
+            *(t(extra[k]) for k in ("dst", "seq", "sock", "ctrl")),
+            t(cols["balance"]), shift)
+
+
+def check_egress_widths(torch, pipeline, record, ident, which: str):
+    """3 (d) / 4 (d): kernel A (`which` "A") or C ("C") at each egress
+    capacity of WIDE_CES, on WIDE_SLOTS[which] slots of random columns
+    and on WIDE_EDGE_ROWS rows of int32 edge columns (both shifts),
+    bitwise against the plain version; the build the launcher ran, by
+    its launch count; timed cold, clean and warm beside its bound by
+    bytes (each input read and each output written once)."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    from torch_parity import EDGE_SHIFTS
+
+    if which == "A":
+        stage, plain = pipeline.egress_rank_stage, pipeline.egress_rank_plain
+        builds, name = pipeline.A_BUILD_LAUNCHES, "egress_rank"
+        pick = lambda full: full
+    else:
+        stage, plain = pipeline.egress_order_gate, pipeline.egress_gate_plain
+        builds, name = pipeline.C_BUILD_LAUNCHES, "egress_gate"
+        pick = lambda full: (*full[:5], full[9], full[10])
+    check_ptxas(record, name, f"kernel {which}'s wide build",
+                f"kernel_{which.lower()}_wide_ptxas", f"{name}_wide", [None])
+    rows = []
+    for ce in WIDE_CES:
+        n = WIDE_SLOTS[which] // ce
+        cases = [("random", pick(egress_inputs(torch, n, ce,
+                                                       seed=7 * ce + 1)))]
+        for shift in EDGE_SHIFTS:
+            cases.append((f"edge shift={shift}", pick(egress_edge_inputs(
+                torch, WIDE_EDGE_ROWS, ce, ce + 3, shift))))
+        for what, case in cases:
+            pipeline.reset_launches()
+            got = stage(*case)
+            torch.cuda.synchronize()
+            launched = {k: v for k, v in builds.items() if v}
+            want_build = pipeline.egress_build(name, ce)
+            if launched != {want_build: 1} or pipeline.LAUNCHES[name] != 1:
+                fail(f"kernel {which} at CE={ce} launched {launched} "
+                     f"({pipeline.LAUNCHES[name]} launches), expected one "
+                     f"of its {want_build} build")
+            ref = plain(*case)
+            err = max_abs_err(torch, got, ref)
+            if err != 0:
+                fail(f"kernel {which} ({name}) at CE={ce} ({what} inputs) "
+                     f"disagrees with its plain version (max abs err {err})")
+            if what == "random":
+                outs = got
+            del got, ref
+        args = cases[0][1]
+        warm_ms, ms, clean_ms = time_device(
+            torch, lambda: stage(*args), reps=WIDE_REPS)
+        _, plain_ms, _ = time_device(torch, lambda: plain(*args), reps=2)
+        moved = nbytes(a for a in args if isinstance(a, torch.Tensor)) + \
+            nbytes(outs)
+        bound_ms, bound_by = bound(moved, 0)
+        row = dict(ce=ce, n=n, build=want_build, max_abs_err=0, ms=ms,
+                   warm_ms=warm_ms, cold_clean_ms=clean_ms,
+                   plain_ms=plain_ms, bytes=moved, bound_ms=bound_ms,
+                   bound_by=bound_by, share_of_bound=bound_ms / ms)
+        rows.append(row)
+        print(f"{which} (d) {name} CE={ce} N={n} ({want_build} build, one "
+              f"launch a call): bitwise ok on random inputs and int32 edge "
+              f"inputs (N={WIDE_EDGE_ROWS}, shifts {EDGE_SHIFTS}); "
+              f"kernel_ms={ms:.5f} (cold L2; clean {clean_ms:.5f}; warm "
+              f"{warm_ms:.5f}) plain_ms={plain_ms:.5f} bound_ms="
+              f"{bound_ms:.5f} ({bound_by}, {moved} B) share="
+              f"{bound_ms / ms:.3f}  [{ident}]")
+        del cases, args, outs
+        torch.cuda.empty_cache()
+    record[f"kernel_{which.lower()}_widths"] = rows
+    return rows
+
+
+def check_b_one_slot(torch, pipeline, record, ident):
+    """5 (d): kernel B with rings of one slot (CI = 1, which JAX's
+    `_place_kernel` takes): the routing stage `route_place` at N=32768,
+    CE=16 on the card, through B and through its plain version on
+    clones of the same inputs, bitwise; rows overflow."""
+    n, ce = N_HOSTS, EGRESS_CAP
+    full = egress_inputs(torch, n, ce, seed=5)
+    full = (*full[:5], torch.remainder(full[5], n), *full[6:])
+    out = pipeline.egress_rank_stage(*full)
+    sock, dst, nb, seq, valid, row_perm = (out[1], out[2], out[3], out[4],
+                                           out[8], out[11])
+    g = torch.Generator(device="cuda")
+    g.manual_seed(6)
+    sent = valid & (torch.rand((n, ce), generator=g, device="cuda") < 0.8)
+    deliver = torch.randint(-MS, 30 * MS, (n, ce), generator=g,
+                            device="cuda", dtype=torch.int32)
+    n_in = torch.randint(0, 2, (n,), generator=g, device="cuda",
+                         dtype=torch.int32)
+    in_valid = (n_in == 1)[:, None].clone()
+    in_deliver = torch.where(in_valid, 5 * MS, 2**31 - 1).to(torch.int32)
+    rings = [torch.randint(-9, 500, (n, 1), generator=g, device="cuda",
+                           dtype=torch.int32) for _ in range(4)]
+    args = (sent, dst, seq, nb, sock, deliver, in_deliver, *rings, in_valid,
+            n_in, row_perm)
+    clone = lambda: [a.clone() for a in args]
+    pipeline.reset_launches()
+    got = pipeline.route_place(*clone())
+    launches = pipeline.LAUNCHES["route_place"]
+    ref = pipeline.route_place(*clone(), plain=True)
+    torch.cuda.synchronize()
+    err = max_abs_err(torch, got, ref)
+    if err != 0 or launches != 1:
+        fail(f"kernel B at CI=1: max abs err {err}, {launches} launches")
+    overflow = int(got[-1].sum())
+    if overflow == 0:
+        fail("kernel B at CI=1: no ring overflowed")
+    record["kernel_b_ci1"] = dict(n=n, ce=ce, overflow=overflow,
+                                  max_abs_err=err)
+    print(f"5 (d) kernel B route_place at CI=1 (N={n}, CE={ce}): bitwise "
+          f"its plain version through the routing stage, {overflow} "
+          f"arrivals overflowed  [{ident}]")
 
 
 def placement_inputs(torch, n=N_HOSTS, n_src=None):
@@ -4492,6 +4670,10 @@ def check_transport(torch, record, ident):
         except replay.Mismatch as e:
             fail(f"phase 21 (b): the {mode} replay of the rung-3 log: {e}")
         out.pop("transport")
+        if mode == "sync":
+            untagged = out.pop("untagged_digests")
+        else:
+            out.pop("untagged_digests")
         out["device"] = dispatch_ms(torch, events)
         runs[mode] = out
         print(f"21 (b) rung-3 log, {mode}: {out['rounds']} rounds, "
@@ -4535,7 +4717,380 @@ def check_transport(torch, record, ident):
           f"{meta['rounds']} rounds and {meta['captures']} captures; phase "
           f"{phase_s:.1f} s ((a) {t_a:.1f}, (b) {t_b:.1f}, (c) and the "
           f"probe {phase_s - t_a - t_b:.1f})  [{ident}]")
+    return row, untagged
+
+
+# -- phase 22: the simulator's own entry point --------------------------------
+#
+# `python -m shadow_tpu_torch CONFIG` (`cli.main` -> `core/manager.Manager`
+# -> hosts, the simulated TCP/UDP stack and the built-in apps on the CPU,
+# packets crossing hosts through the port's device transport on the card),
+# run in this process; each CPU witness is the same CLI with `--device cpu`
+# and the CPU routing, in the witness pool.
+
+EXAMPLES = Path(__file__).resolve().parent / "examples"
+QUICKSTART = ("basic-file-transfer", "phold")  # examples/ on the card
+TX_MODES = ("sync", "mirrored")
+RUNG3_LIVE_STOP = "15s"  # (b): every client has started by 11 s
+CLI_TRANSPORT = ("experimental: {{use_tpu_transport: true, "
+                 "tpu_transport_mode: {mode}}}")
+CLI_CPU_ROUTING = "experimental: {}"
+# what a CPU-routing witness's processed-config.yaml lacks of the card
+# run's: the transport's switch and mode
+TRANSPORT_KEYS = ("use_tpu_transport", "tpu_transport_mode")
+
+
+def with_experimental(text: str, line: str) -> str:
+    """A config's text with its one-line `experimental:` mapping replaced
+    by `line`, or `line` appended where it has none."""
+    out, n = re.subn(r"(?m)^experimental:.*$", line, text)
+    if n > 1 or (n and not re.search(r"(?m)^experimental:\s*\{", text)):
+        raise ValueError("the config's experimental: block is not one "
+                         "inline mapping")
+    return out if n else text.rstrip("\n") + "\n" + line + "\n"
+
+
+def run_cli(argv, managers=None) -> int:
+    """The port's CLI (`cli.main`) in this process, warnings and worse
+    logged; returns its exit code. The log handler it installs is closed
+    after the run. Each Manager it builds is appended to `managers`."""
+    import logging
+
+    from shadow_tpu_torch import cli
+
+    logger = logging.getLogger("shadow_tpu_torch")
+    before = list(logger.handlers)
+    orig = cli.Manager
+    if managers is not None:
+        class Kept(orig):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                managers.append(self)
+
+        cli.Manager = Kept
+    try:
+        return cli.main([*map(str, argv), "--log-level", "warning"])
+    finally:
+        cli.Manager = orig
+        for h in list(logger.handlers):
+            if h not in before:
+                logger.removeHandler(h)
+                h.close()
+
+
+def data_dir_contents(path) -> dict:
+    """A CLI data directory file by file (relative path -> bytes), with
+    sim-stats.json parsed less its wall_seconds and processed-config.yaml
+    parsed less general.data_directory."""
+    import yaml
+
+    out = {}
+    for f in sorted(Path(path).rglob("*")):
+        if not f.is_file():
+            continue
+        rel = f.relative_to(path).as_posix()
+        if rel == "sim-stats.json":
+            d = json.loads(f.read_text())
+            d.pop("wall_seconds")
+        elif rel == "processed-config.yaml":
+            d = yaml.safe_load(f.read_text())
+            d["general"].pop("data_directory")
+        else:
+            d = f.read_bytes()
+        out[rel] = d
+    return out
+
+
+def cli_witness(text: str, stop=None) -> dict:
+    """The port's CLI on config `text` with `--device cpu` (and
+    `--stop-time stop`): its exit code and data directory."""
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = Path(tmp) / "config.yaml"
+        cfg.write_text(text)
+        argv = [cfg, "-d", Path(tmp) / "data", "--device", "cpu"]
+        rc = run_cli(argv + (["--stop-time", stop] if stop else []))
+        return {"rc": rc, "data": data_dir_contents(Path(tmp) / "data")}
+
+
+def quickstart_text(name: str) -> str:
+    return (EXAMPLES / f"{name}.yaml").read_text()
+
+
+def rung3_live_text() -> str:
+    from shadow_tpu_torch.core import flowplan
+
+    return flowplan.RUNG3_YAML.read_text()
+
+
+def same_data_dirs(card: dict, cpu: dict, what: str) -> None:
+    """A card run's data directory against its CPU-routing witness's:
+    every file equal (sim-stats.json but its wall_seconds), the
+    processed config but the transport's keys."""
+    if card.keys() != cpu.keys():
+        fail(f"{what}: the data directories hold {sorted(card)} on the "
+             f"card and {sorted(cpu)} on the CPU")
+    for rel in card:
+        a, b = card[rel], cpu[rel]
+        if rel == "processed-config.yaml":
+            a, b = (dict(d, experimental={
+                k: v for k, v in d["experimental"].items()
+                if k not in TRANSPORT_KEYS}) for d in (a, b))
+        if a != b:
+            fail(f"{what}: {rel} differs from the CPU witness's")
+
+
+def quickstart_card_runs() -> list[dict]:
+    """22 (a)'s card runs: each of QUICKSTART through the port's CLI with
+    the device transport on TX_DEVICE, in sync and mirrored mode. Returns
+    a row a run: its exit code, data directory, wall seconds, kernel
+    launches and the transport's device, mode, dispatches, divergence,
+    packets in flight and verified windows and packets."""
+    from shadow_tpu_torch.tpu import floweng, pipeline
+
+    runs = []
+    for name in QUICKSTART:
+        for mode in TX_MODES:
+            text = with_experimental(quickstart_text(name),
+                                     CLI_TRANSPORT.format(mode=mode))
+            with tempfile.TemporaryDirectory() as tmp:
+                cfg = Path(tmp) / "config.yaml"
+                cfg.write_text(text)
+                mgrs = []
+                pipeline.reset_launches()
+                floweng.reset_launches()
+                t0 = time.perf_counter()
+                rc = run_cli([cfg, "-d", Path(tmp) / "data"], mgrs)
+                wall = time.perf_counter() - t0
+                data = data_dir_contents(Path(tmp) / "data")
+            (mgr,) = mgrs
+            tr = mgr.transport
+            runs.append(dict(
+                name=name, mode=mode, rc=rc, data=data, wall_s=wall,
+                launches={k: v for k, v in {**pipeline.LAUNCHES,
+                                            **floweng.LAUNCHES}.items() if v},
+                transport=None if tr is None else dict(
+                    device=tr.device.type, mode=tr.mode,
+                    dispatches=tr.dispatches,
+                    divergence=tr.divergence_count, in_flight=tr.in_flight,
+                    verified_windows=tr.verified_windows,
+                    verified_packets=tr.verified_packets)))
+    return runs
+
+
+def quickstart_child(out: str) -> None:
+    """22 (a)'s card runs in a child process, pickled to `out`."""
+    import pickle
+
+    runs = quickstart_card_runs()
+    with open(out, "wb") as fh:
+        pickle.dump(runs, fh)
+
+
+def start_quickstart_beside(tmp: Path):
+    """Start 22 (a)'s card runs in a child process (beside 22 (b): both
+    are host-bound, time nothing on the card, and the host has cores to
+    spare by then); returns (wait, kill): `wait()` waits for them and
+    returns their rows, `kill()` stops the child if it still runs."""
+    import pickle
+
+    out = tmp / "quickstart.pickle"
+    log = tmp / "quickstart.log"
+    children = {"quickstart": (*start_child(
+        f"import chip_smoke as c; c.quickstart_child({str(out)!r})",
+        Path(__file__).resolve().parent, log), log)}
+
+    def wait() -> list[dict]:
+        rc, text = wait_children(children)["quickstart"]
+        if rc != 0:
+            fail(f"22 (a): the card runs' child exited {rc}:\n"
+                 f"{text[-3000:]}")
+        with open(out, "rb") as fh:
+            return pickle.load(fh)
+
+    return wait, lambda: kill_children(children)
+
+
+def check_quickstart(torch, record, ident, runs):
+    """22 (a): the card runs of `quickstart_card_runs` (`runs`): exit 0,
+    the data directory the CPU routing's (a witness), the transport on
+    the card in the mode asked, no divergence, nothing in flight, no
+    kernel launched."""
+    rows = {}
+    for run in runs:
+        name, mode, tr = run["name"], run["mode"], run["transport"]
+        what = f"22 (a) {name} ({mode})"
+        cpu = witness(f"cli:{name}")
+        if cpu["rc"] != 0:
+            fail(f"22 (a): the CPU witness of {name} exited {cpu['rc']}")
+        if run["rc"] != 0 or tr is None or tr["device"] != TX_DEVICE:
+            fail(f"{what}: exit {run['rc']}, transport {tr}")
+        if tr["mode"] != mode or tr["divergence"] or tr["in_flight"]:
+            fail(f"{what}: {tr}")
+        same_data_dirs(run["data"], cpu["data"], what)
+        if run["launches"]:
+            fail(f"{what} launched {run['launches']}")
+        stats = run["data"]["sim-stats.json"]
+        rows[f"{name}:{mode}"] = dict(
+            wall_s=run["wall_s"], rounds=stats["rounds"],
+            packets=stats["packets_sent"], **tr)
+        print(f"{what}: exit 0, the data directory the CPU routing's "
+              f"(sim-stats less wall_seconds, etc-hosts, the config less "
+              f"the transport's keys); {stats['rounds']} rounds, "
+              f"{stats['packets_sent']} packets, {tr['dispatches']} "
+              f"dispatches, divergence 0, verified {tr['verified_windows']}"
+              f" windows / {tr['verified_packets']} packets; "
+              f"{run['wall_s']:.2f} s wall  [{ident}]")
+    record["quickstart"] = rows
+    return rows
+
+
+def rung3_live(torch, record, ident, stop=RUNG3_LIVE_STOP, untagged=None,
+               cpu=None):
+    """22 (b): rung 3 (1000 hosts, 975 tgen clients of 256 KiB) under the
+    port's Manager through its CLI, the device transport in sync mode on
+    the card, to `stop` (None: the config's 120 s), its calls recorded
+    (`transport_replay.recording_class`): every release but the last
+    equal to the committed call log's round for round (push count, push
+    rows as a set less their pool tags against `untagged`, a sync
+    replay's, and next event; the replay runs here when not given). At
+    120 s, all of the log's releases and its stats; else its sim-stats
+    equal to the witness named `cpu` (the CPU routing's run to `stop`),
+    if given."""
+    from shadow_tpu_torch.tools import transport_replay as replay
+    from shadow_tpu_torch.tpu import transport
+
+    log = replay.load_log(str(TX_LOG))
+    if untagged is None:
+        untagged = replay.replay(log, "sync",
+                                 device=TX_DEVICE)["untagged_digests"]
+    text = with_experimental(rung3_live_text(),
+                             CLI_TRANSPORT.format(mode="sync"))
+    sink, mgrs = [], []
+    orig = transport.DeviceTransport
+    transport.DeviceTransport = replay.recording_class(sink)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            cfg = Path(tmp) / "config.yaml"
+            cfg.write_text(text)
+            t0 = time.perf_counter()
+            rc = run_cli([cfg, "-d", Path(tmp) / "data"]
+                         + (["--stop-time", stop] if stop else []), mgrs)
+            wall = time.perf_counter() - t0
+            card = data_dir_contents(Path(tmp) / "data")
+    finally:
+        transport.DeviceTransport = orig
+    (tr,) = sink
+    if tr.device.type != TX_DEVICE:
+        fail(f"22 (b): the transport ran on {tr.device}")
+    stats = card["sim-stats.json"]
+    n_rel = len(tr.log.rel)
+    whole = stop is None
+    try:
+        compared = replay.compare_releases(
+            tr.log, log, rounds=n_rel if whole else n_rel - 1,
+            untagged=untagged)
+    except replay.Mismatch as e:
+        fail(f"22 (b): rung 3 live to {stop or '120s'}: {e}")
+    if whole:
+        want = log["meta"]["stats"]
+        got = {"rounds": stats["rounds"],
+               "packets_sent": stats["packets_sent"],
+               "packets_dropped": stats["packets_dropped"],
+               "process_failures": len(stats["process_failures"])}
+        if compared != len(log["rel"]) or got != want or rc != 0:
+            fail(f"22 (b): rung 3 live to 120 s: {compared} releases of "
+                 f"{len(log['rel'])}, stats {got} (exit {rc}), the log's "
+                 f"{want}")
+    elif cpu is not None:
+        cpu = witness(cpu)
+        if rc != cpu["rc"] or stats != cpu["data"]["sim-stats.json"]:
+            fail(f"22 (b): rung 3 live to {stop}: exit {rc} and its "
+                 f"sim-stats differ from the CPU routing's (exit "
+                 f"{cpu['rc']})")
+    row = dict(stop=stop or "120s", releases=n_rel, compared=compared,
+               rounds=stats["rounds"], packets=stats["packets_sent"],
+               dropped=stats["packets_dropped"],
+               captures=len(tr.log.caps), dispatches=tr.dispatches,
+               wall_s=wall, exit=rc, gpu=ident)
+    record["rung3_live"] = row
+    print(f"22 (b) rung 3 live to {row['stop']} (1000 hosts, the port's "
+          f"Manager, sync transport on the card): {stats['rounds']} rounds, "
+          f"{stats['packets_sent']} packets ({stats['packets_dropped']} "
+          f"dropped), {len(tr.log.caps)} captures, {tr.dispatches} "
+          f"dispatches, {wall:.2f} s wall; releases 0-{compared - 1} of "
+          f"{n_rel} equal to the committed log's (push count, rows as a "
+          f"set less pool tags, next event)"
+          + ("; stats the log's" if whole else
+             "; sim-stats the CPU routing's" if cpu is not None else "")
+          + f"  [{ident}]")
     return row
+
+
+def check_flow_cli(torch, record, ident):
+    """22 (c): `python -m shadow_tpu_torch` on the rung-3 flow-engine
+    deployment (kernel F on the card), its stats record the JAX
+    Manager's committed one."""
+    from shadow_tpu_torch.core import flowplan
+    from shadow_tpu_torch.tpu import floweng
+
+    want = json.loads(flowplan.RUNG3_RECORD.read_text())
+    want.pop("source")
+    mgrs = []
+    floweng.reset_launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        rc = run_cli([flowplan.RUNG3_YAML, "-d", Path(tmp) / "data"], mgrs)
+        wall = time.perf_counter() - t0
+        card = data_dir_contents(Path(tmp) / "data")
+    launches = floweng.LAUNCHES["flow_window"]
+    (mgr,) = mgrs
+    got = flowplan.stats_record(mgr.stats)
+    if got != want or rc != 0 or launches == 0:
+        fail(f"22 (c): the flow engine through the CLI: exit {rc}, "
+             f"{launches} launches of F, record {got} != {want}")
+    if card["sim-stats.json"]["rounds"] != want["stats"]["rounds"]:
+        fail("22 (c): sim-stats.json disagrees with the run's stats")
+    record["flow_cli"] = dict(wall_s=wall, launches=launches)
+    print(f"22 (c) rung 3 on the flow engine through `python -m "
+          f"shadow_tpu_torch`: exit 0, record == the JAX Manager's, "
+          f"{launches} launches of F, {wall:.2f} s wall  [{ident}]")
+    return launches
+
+
+def check_phold_widths(torch, bench, convert, pipeline, record, ident):
+    """22 (d): PHOLD_WIDE through "pallas_fused" and "pallas" (kernels A
+    and C in their wide build, every window) and PHOLD_CI1 through
+    "pallas_fused" (kernel B with one-slot rings), each state equal to
+    the "xla" run's."""
+    rows = {}
+    for size, paths in ((PHOLD_WIDE, ("pallas_fused", "pallas")),
+                        (PHOLD_CI1, ("pallas_fused",))):
+        size = dict(size)
+        n = size.pop("n_hosts")
+        ref = bench.run_phold(n, warmup=False, kernel="xla", **size)
+        want = convert.state_digest(ref["state"])
+        for kernel in paths:
+            pipeline.reset_launches()
+            out = bench.run_phold(n, warmup=False, kernel=kernel, **size)
+            builds = {**{f"A:{k}": v for k, v in
+                         pipeline.A_BUILD_LAUNCHES.items() if v},
+                      **{f"C:{k}": v for k, v in
+                         pipeline.C_BUILD_LAUNCHES.items() if v}}
+            launches = {k: v for k, v in pipeline.LAUNCHES.items() if v}
+            got = convert.state_digest(out["state"])
+            key = f"{kernel}@CE={size['egress_cap']},CI={size['ingress_cap']}"
+            pair = (("egress_rank", "route_place") if kernel == "pallas_fused"
+                    else ("egress_gate", "route_scatter"))
+            if got != want or launches != {p: size["rounds"] for p in pair}:
+                fail(f"22 (d) PHOLD {key}: digest {got[:16]} vs xla "
+                     f"{want[:16]}, launches {launches}")
+            rows[key] = dict(builds=builds, launches=launches,
+                             delivered=out["delivered"])
+            print(f"22 (d) PHOLD N={n} R={size['rounds']} {key}: state == "
+                  f"xla's ({out['delivered']} delivered); launches "
+                  f"{launches}, by build {builds}  [{ident}]")
+    record["phold_widths"] = rows
+    return rows
 
 
 def start_build_beside(_build, name: str):
@@ -4624,7 +5179,11 @@ def run_phases(torch, workers: int, cores: int):
         return out
 
     a = timed("3 kernel A", check_kernel_a, torch, pipeline, record)
+    a_widths = timed("3 (d) kernel A widths", check_egress_widths, torch,
+                     pipeline, record, ident, "A")
     c = timed("4 kernel C", check_kernel_c, torch, pipeline, record)
+    c_widths = timed("4 (d) kernel C widths", check_egress_widths, torch,
+                     pipeline, record, ident, "C")
     b, b_out = timed("5 kernel B", check_placement, torch, pipeline, record,
                      "kernel_b", "kernel B route_place", pipeline.place,
                      pipeline.place_plain)
@@ -4633,6 +5192,8 @@ def run_phases(torch, workers: int, cores: int):
                      pipeline.scatter_plain)
     if max_abs_err(torch, d_out, b_out) != 0:
         fail("kernels D and B disagree on the same inputs")
+    timed("5 (d) kernel B CI=1", check_b_one_slot, torch, pipeline, record,
+          ident)
     print(f"kernels D and B on the same inputs: equal; D {d['ms']:.5f} ms "
           f"vs B {b['ms']:.5f} ms cold, {d['cold_clean_ms']:.5f} vs "
           f"{b['cold_clean_ms']:.5f} cold clean, {d['warm_ms']:.5f} vs "
@@ -4688,33 +5249,58 @@ def run_phases(torch, workers: int, cores: int):
     # are read around phase 21 like every other path's
     pipeline.reset_launches()
     floweng.reset_launches()
-    timed("21 device transport", check_transport, torch, record, ident)
+    _tx, untagged = timed("21 device transport", check_transport, torch,
+                          record, ident)
     tx_launches = {**pipeline.LAUNCHES, **floweng.LAUNCHES}
     if any(tx_launches.values()):
         fail(f"phase 21 launched kernels {tx_launches}")
     record["transport_launches"] = tx_launches
+    # 22 (a)'s card runs in a child process beside 22 (b)
+    with tempfile.TemporaryDirectory() as tmp:
+        qs_wait, qs_kill = start_quickstart_beside(Path(tmp))
+        try:
+            timed("22 (b) rung 3 live", rung3_live, torch, record, ident,
+                  RUNG3_LIVE_STOP, untagged, "cli:rung3")
+            qs_runs = timed("22 (a) quickstart's child, awaited", qs_wait)
+        finally:
+            qs_kill()
+    timed("22 (a) quickstart", check_quickstart, torch, record, ident,
+          qs_runs)
+    f_cli = timed("22 (c) flow engine CLI", check_flow_cli, torch, record,
+                  ident)
+    phold_widths = timed("22 (d) PHOLD widths", check_phold_widths, torch,
+                         bench, convert, pipeline, record, ident)
     record["phase_s"] = phase_s
     print(f"phase seconds: {json.dumps(phase_s)}")
     print(f"phase seconds summed, the build's wait included: "
           f"{sum(phase_s.values()):.1f} (CPU witnesses in a pool of "
           f"{workers} workers on {cores} cores)")
 
+    widths = lambda rows: [{k: r[k] for k in (
+        "ce", "n", "build", "ms", "cold_clean_ms", "warm_ms", "plain_ms",
+        "bound_ms", "bound_by")} for r in rows]
     kernels = [
-        kernel_entry("egress_rank_kernel",
-                     "shadow_tpu_torch/csrc/egress_rank.cu",
-                     "shadow_tpu/tpu/pallas_pipeline.py:77",
-                     fused["egress_rank"], a, ens["egress_rank"],
-                     sec["egress_rank"], mesh_l["egress_rank"]),
+        dict(kernel_entry("egress_rank_kernel",
+                          "shadow_tpu_torch/csrc/egress_rank.cu",
+                          "shadow_tpu/tpu/pallas_pipeline.py:77",
+                          fused["egress_rank"], a, ens["egress_rank"],
+                          sec["egress_rank"], mesh_l["egress_rank"]),
+             widths=widths(a_widths), phold_wide=phold_widths[
+                 f"pallas_fused@CE={PHOLD_WIDE['egress_cap']},"
+                 f"CI={PHOLD_WIDE['ingress_cap']}"]["builds"]),
         kernel_entry("route_place_kernel",
                      "shadow_tpu_torch/csrc/route_place.cu",
                      "shadow_tpu/tpu/pallas_pipeline.py:188",
                      fused["route_place"], b, ens["route_place"],
                      sec["route_place"], mesh_l["route_place"]),
-        kernel_entry("egress_gate_kernel",
-                     "shadow_tpu_torch/csrc/egress_gate.cu",
-                     "shadow_tpu/tpu/pallas_egress.py:91",
-                     split["egress_gate"], c, ens["egress_gate"],
-                     sec["egress_gate"], mesh_l["egress_gate"]),
+        dict(kernel_entry("egress_gate_kernel",
+                          "shadow_tpu_torch/csrc/egress_gate.cu",
+                          "shadow_tpu/tpu/pallas_egress.py:91",
+                          split["egress_gate"], c, ens["egress_gate"],
+                          sec["egress_gate"], mesh_l["egress_gate"]),
+             widths=widths(c_widths), phold_wide=phold_widths[
+                 f"pallas@CE={PHOLD_WIDE['egress_cap']},"
+                 f"CI={PHOLD_WIDE['ingress_cap']}"]["builds"]),
         kernel_entry("route_scatter_kernel",
                      "shadow_tpu_torch/csrc/route_scatter.cu",
                      "shadow_tpu/tpu/pallas_route.py:48",
@@ -4740,6 +5326,7 @@ def run_phases(torch, workers: int, cores: int):
                           "lax.scan of lax.while_loop)", f_launches, f_row,
                           ens["flow_window"], sec["flow_window"],
                           mesh_l["flow_window"]), rung3_launches=f_rung3,
+             cli_launches=f_cli,
              sharded_launches=f_row["launches_sharded"],
              large_rings=f_big),
     ]

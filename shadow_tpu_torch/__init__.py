@@ -6,6 +6,11 @@ Pallas kernels as hand-written CUDA kernels for Hopper (`csrc/`), and
 runs the whole scenario corpus (`workloads/`), its lossy and serving
 entries through the flow and compute planes (`tpu/flows.py`,
 `tpu/compute.py`).
+`python -m shadow_tpu_torch CONFIG` (`cli.py`, `core/manager.py`) runs a
+Shadow config as the JAX package's CLI does, over the port's copy of the
+object plane (hosts, the simulated TCP/UDP stack, the built-in apps),
+its cross-host packets on the CPU routing, the device transport
+(`tpu/transport.py`) or the flow engine (`tpu/floweng.py`).
 It imports nothing of `shadow_tpu` and no JAX.
 
 Every entry point takes `device=None`, which means the CUDA card. With

@@ -1,9 +1,10 @@
 """The host-side deterministic RNG the fault schedule draws from.
 
-The port's copy of `shadow_tpu/core/rng.py`'s generators: splitmix64
-seeding, xoshiro256++ and the stable hostname hash, bit for bit, so a
-seeded `random:` fault block expands to the same events in both
-packages. Nothing on the device uses these streams.
+The port's copy of `shadow_tpu/core/rng.py`: splitmix64 seeding,
+xoshiro256++, the stable hostname hash and the per-host seeds, bit for
+bit, so a seeded `random:` fault block expands to the same events and
+the Manager shuffles and seeds its hosts as in both packages. Nothing on
+the device uses these streams.
 """
 
 from __future__ import annotations
@@ -64,3 +65,25 @@ class Xoshiro256pp:
         if span <= 0:
             raise ValueError("empty range")
         return lo + (self.next_u64() * span >> 64)
+
+    def random(self) -> float:
+        """Uniform float in [0, 1) with 53 bits of precision."""
+        return (self.next_u64() >> 11) * (2.0**-53)
+
+    def bernoulli(self, p: float) -> bool:
+        return self.random() < p
+
+    def shuffle(self, xs: list) -> None:
+        for i in range(len(xs) - 1, 0, -1):
+            j = self.randrange(0, i + 1)
+            xs[i], xs[j] = xs[j], xs[i]
+
+
+def host_seed_for(global_rng: Xoshiro256pp, hostname: str) -> int:
+    """Per-host seed: a draw from the global stream XOR the hostname hash.
+
+    Drawing in config-declared host order makes the seed independent of
+    scheduling; XORing the name hash decorrelates hosts that would otherwise
+    share a draw position across config edits.
+    """
+    return global_rng.next_u64() ^ hostname_hash(hostname)

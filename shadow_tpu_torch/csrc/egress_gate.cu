@@ -51,6 +51,11 @@
 //   - the inputs are loaded with an L2 evict-first policy: read once, they
 //     make room for the outputs before lines that must be written back.
 // Cold, it runs in the time of that device copy of its bytes.
+//
+// At CE = 1 a thread holds four rows, and the network and the scan are
+// empty. Rows wider than 1024 slots (which no main path runs) take the
+// wide build: a block of 1024 threads a row, its network run over device
+// memory with a block barrier a stage.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -436,23 +441,75 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// One block of kWideBlock threads a row for CE > 1024 (the tile design's
+// key exchange holds at most a 1024-slot row): the network runs over
+// device memory through perm_o (row_bitonic::wide_bitonic), its keys read
+// from the inputs, and each thread gathers, scans and writes its own run
+// of CE / kWideBlock consecutive slots. Nothing of the main paths runs it.
+__global__ void __launch_bounds__(row_bitonic::kWideBlock)
+    egress_gate_wide(const Args a, int ce) {
+  using row_bitonic::kWideBlock;
+  __shared__ uint32_t buf[kWideBlock];
+  __shared__ uint32_t spent_acc;
+  const int64_t row = blockIdx.x;
+  const int64_t r0 = row * ce;
+  const int run = ce / kWideBlock;
+  const int c0 = threadIdx.x * run;
+  if (threadIdx.x == 0) spent_acc = 0u;
+  row_bitonic::wide_bitonic(a.perm_o + r0, ce, [&](int i) {
+    return fifo_key(a.valid[r0 + i] != 0, a.prio[r0 + i]);
+  });
+
+  // gather the thread's run of slots; sum its valid bytes
+  uint32_t total = 0;
+  for (int c = c0; c < c0 + run; ++c) {
+    const int64_t e = r0 + c;
+    const int64_t s = r0 + a.perm_o[e];
+    const bool v = a.valid[s] != 0;
+    const bool v_s = (fifo_key(v, a.prio[s]) & kSign) == 0;
+    a.bytes_o[e] = a.nbytes[s];
+    a.tsend_o[e] = rebase_tsend(v, a.tsend[s], a.shift);
+    a.clamp_o[e] = rebase_clamp(v, a.clamp[s], a.shift);
+    a.valid_o[e] = static_cast<uint8_t>(v_s);
+    if (v_s) total += static_cast<uint32_t>(a.nbytes[s]);
+  }
+
+  row_bitonic::wide_token_gate(a.valid_o + r0, a.bytes_o + r0,
+                               a.sendable_o + r0, c0, run, total,
+                               a.balance[row], buf, &spent_acc);
+  __syncthreads();
+  if (threadIdx.x == 0) a.spent_o[row] = static_cast<int>(spent_acc);
+}
+
+// The build a row of ce slots runs: 1 the tile design (ce <= 1024), 2 the
+// wide build; 0 for a ce the kernel does not take (not a power of two, or
+// not positive).
+int build_of(int ce) {
+  if (ce <= 0 || (ce & (ce - 1)) != 0) return 0;
+  return ce <= 1024 ? 1 : 2;
+}
+
 bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
 
 }  // namespace
 
+// The build egress_gate_launch runs for rows of ce slots (see build_of).
+extern "C" int egress_gate_build(int ce) { return build_of(ce); }
+
 // Inputs: valid (bool), prio, bytes, tsend, clamp (int32), all [n_rows, ce]
 // row-major; balance [n_rows] int32. Outputs: perm, bytes, tsend, clamp
 // (int32), valid, sendable (bool), all [n_rows, ce]; spent [n_rows] int32.
-// ce is a power of two in [2, 1024]; the [n_rows, ce] columns start on 16
-// bytes. Returns the launch's cudaError_t.
+// ce is a power of two; the [n_rows, ce] columns start on 16 bytes.
+// Returns the launch's cudaError_t.
 extern "C" int egress_gate_launch(
     int n_rows, int ce, int shift, const void* valid, const void* prio,
     const void* nbytes, const void* tsend, const void* clamp,
     const void* balance, void* perm_o, void* bytes_o, void* tsend_o,
     void* clamp_o, void* valid_o, void* sendable_o, void* spent_o,
     void* stream_ptr) {
+  if (build_of(ce) == 0) return static_cast<int>(cudaErrorInvalidValue);
   if (n_rows <= 0) return static_cast<int>(cudaSuccess);
   const void* cols[] = {valid,   prio,    nbytes,  tsend,  clamp,     perm_o,
                         bytes_o, tsend_o, clamp_o, valid_o, sendable_o};
@@ -476,6 +533,7 @@ extern "C" int egress_gate_launch(
                static_cast<int*>(spent_o)};
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   switch (ce) {
+    case 1: return static_cast<int>(launch<1>(a, stream));
     case 2: return static_cast<int>(launch<2>(a, stream));
     case 4: return static_cast<int>(launch<4>(a, stream));
     case 8: return static_cast<int>(launch<8>(a, stream));
@@ -486,6 +544,8 @@ extern "C" int egress_gate_launch(
     case 256: return static_cast<int>(launch<256>(a, stream));
     case 512: return static_cast<int>(launch<512>(a, stream));
     case 1024: return static_cast<int>(launch<1024>(a, stream));
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    default:
+      egress_gate_wide<<<n_rows, row_bitonic::kWideBlock, 0, stream>>>(a, ce);
+      return static_cast<int>(cudaGetLastError());
   }
 }

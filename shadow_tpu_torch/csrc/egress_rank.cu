@@ -25,7 +25,10 @@
 // __shfl_xor_sync, the payload permutation is one __shfl_sync per column,
 // and the scan and the row sum are warp shuffles; loads and stores of a
 // column are consecutive across lanes. For 64 <= CE <= 1024 one block holds
-// one row in shared memory.
+// one row in shared memory. Wider rows (CE >= 2048, which no main path
+// runs) take the wide build: a block of 1024 threads a row, its two sorting
+// networks run over device memory with a block barrier a stage. At CE = 1
+// a warp holds 32 rows, and the networks, the scan and the sum are empty.
 //
 // The sorting networks, the scans and the rebase are row_bitonic.cuh's,
 // shared with kernel C (egress_gate.cu).
@@ -189,6 +192,64 @@ __global__ void egress_rank_block(
   if (c == 0) spent_o[row] = static_cast<int>(spent_acc);
 }
 
+// One block of kWideBlock threads a row for CE > 1024 (no block holds such
+// a row in shared memory): both networks run over device memory through
+// row_perm_o (wide_bitonic), their keys read from the inputs and from
+// seq_o, and each thread permutes, scans and writes its own run of CE /
+// kWideBlock consecutive slots. Nothing of the main paths runs it.
+__global__ void __launch_bounds__(kWideBlock) egress_rank_wide(
+    int ce, int shift, const uint8_t* __restrict__ valid,
+    const int* __restrict__ prio, const int* __restrict__ nbytes,
+    const int* __restrict__ tsend, const int* __restrict__ clamp,
+    const int* __restrict__ dst, const int* __restrict__ seq,
+    const int* __restrict__ sock, const uint8_t* __restrict__ ctrl,
+    const int* __restrict__ balance, int* prio_o, int* sock_o, int* dst_o,
+    int* bytes_o, int* seq_o, uint8_t* ctrl_o, int* tsend_o, int* clamp_o,
+    uint8_t* valid_o, uint8_t* sendable_o, int* spent_o, int* row_perm_o) {
+  __shared__ uint32_t buf[kWideBlock];
+  __shared__ uint32_t spent_acc;
+  const int64_t row = blockIdx.x;
+  const int64_t r0 = row * ce;
+  const int run = ce / kWideBlock;
+  const int c0 = threadIdx.x * run;
+  int* idx = row_perm_o + r0;
+  if (threadIdx.x == 0) spent_acc = 0u;
+
+  // the FIFO order, its column indices in row_perm_o for now
+  wide_bitonic(idx, ce, [&](int i) {
+    return fifo_key(valid[r0 + i] != 0, prio[r0 + i]);
+  });
+
+  // permute the thread's run of slots; sum its valid bytes
+  uint32_t total = 0;
+  for (int c = c0; c < c0 + run; ++c) {
+    const int64_t e = r0 + c;
+    const int64_t s = r0 + idx[c];
+    const bool v = valid[s] != 0;
+    const int p = prio[s];
+    const bool v_s = (fifo_key(v, p) & kSign) == 0;
+    prio_o[e] = p;
+    sock_o[e] = sock[s];
+    dst_o[e] = dst[s];
+    bytes_o[e] = nbytes[s];
+    seq_o[e] = seq[s];
+    ctrl_o[e] = static_cast<uint8_t>(ctrl[s] != 0);
+    tsend_o[e] = rebase_tsend(v, tsend[s], shift);
+    clamp_o[e] = rebase_clamp(v, clamp[s], shift);
+    valid_o[e] = static_cast<uint8_t>(v_s);
+    if (v_s) total += static_cast<uint32_t>(nbytes[s]);
+  }
+
+  wide_token_gate(valid_o + r0, bytes_o + r0, sendable_o + r0, c0, run,
+                  total, balance[row], buf, &spent_acc);
+
+  // routing phase A: the sorted row's (seq, column) order, over seq_o
+  wide_bitonic(idx, ce, [&](int i) {
+    return static_cast<uint32_t>(seq_o[r0 + i]) ^ kSign;
+  });
+  if (threadIdx.x == 0) spent_o[row] = static_cast<int>(spent_acc);
+}
+
 template <int CE>
 cudaError_t launch_warp(int n_rows, int shift, const void* const* in,
                         void* const* out, cudaStream_t stream) {
@@ -229,13 +290,42 @@ cudaError_t launch_block(int n_rows, int ce, int shift, const void* const* in,
   return cudaGetLastError();
 }
 
+cudaError_t launch_wide(int n_rows, int ce, int shift, const void* const* in,
+                        void* const* out, cudaStream_t stream) {
+  egress_rank_wide<<<n_rows, kWideBlock, 0, stream>>>(
+      ce, shift, static_cast<const uint8_t*>(in[0]),
+      static_cast<const int*>(in[1]), static_cast<const int*>(in[2]),
+      static_cast<const int*>(in[3]), static_cast<const int*>(in[4]),
+      static_cast<const int*>(in[5]), static_cast<const int*>(in[6]),
+      static_cast<const int*>(in[7]), static_cast<const uint8_t*>(in[8]),
+      static_cast<const int*>(in[9]), static_cast<int*>(out[0]),
+      static_cast<int*>(out[1]), static_cast<int*>(out[2]),
+      static_cast<int*>(out[3]), static_cast<int*>(out[4]),
+      static_cast<uint8_t*>(out[5]), static_cast<int*>(out[6]),
+      static_cast<int*>(out[7]), static_cast<uint8_t*>(out[8]),
+      static_cast<uint8_t*>(out[9]), static_cast<int*>(out[10]),
+      static_cast<int*>(out[11]));
+  return cudaGetLastError();
+}
+
+// The build a row of ce slots runs: 1 warp segments (ce <= 32), 2 a block
+// in shared memory (64 <= ce <= 1024), 3 the wide build; 0 for a ce the
+// kernel does not take (not a power of two, or not positive).
+int build_of(int ce) {
+  if (ce <= 0 || (ce & (ce - 1)) != 0) return 0;
+  return ce <= 32 ? 1 : ce <= 1024 ? 2 : 3;
+}
+
 }  // namespace
+
+// The build egress_rank_launch runs for rows of ce slots (see build_of).
+extern "C" int egress_rank_build(int ce) { return build_of(ce); }
 
 // Inputs: valid (bool), prio, bytes, tsend, clamp, dst, seq, sock (int32),
 // ctrl (bool), all [n_rows, ce] row-major; balance [n_rows] int32.
 // Outputs: prio, sock, dst, bytes, seq (int32), ctrl (bool), tsend, clamp
 // (int32), valid, sendable (bool), spent [n_rows] int32, row_perm int32.
-// ce is a power of two in [2, 1024]. Returns the launch's cudaError_t.
+// ce is a power of two. Returns the launch's cudaError_t.
 extern "C" int egress_rank_launch(
     int n_rows, int ce, int shift, const void* valid, const void* prio,
     const void* nbytes, const void* tsend, const void* clamp, const void* dst,
@@ -248,16 +338,18 @@ extern "C" int egress_rank_launch(
   void* out[12] = {prio_o,  sock_o,  dst_o,   bytes_o,    seq_o,   ctrl_o,
                    tsend_o, clamp_o, valid_o, sendable_o, spent_o, row_perm_o};
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (build_of(ce) == 0) return static_cast<int>(cudaErrorInvalidValue);
   if (n_rows <= 0) return static_cast<int>(cudaSuccess);
   switch (ce) {
+    case 1: return static_cast<int>(launch_warp<1>(n_rows, shift, in, out, stream));
     case 2: return static_cast<int>(launch_warp<2>(n_rows, shift, in, out, stream));
     case 4: return static_cast<int>(launch_warp<4>(n_rows, shift, in, out, stream));
     case 8: return static_cast<int>(launch_warp<8>(n_rows, shift, in, out, stream));
     case 16: return static_cast<int>(launch_warp<16>(n_rows, shift, in, out, stream));
     case 32: return static_cast<int>(launch_warp<32>(n_rows, shift, in, out, stream));
     default:
-      if (ce < 64 || ce > 1024 || (ce & (ce - 1)) != 0)
-        return static_cast<int>(cudaErrorInvalidValue);
-      return static_cast<int>(launch_block(n_rows, ce, shift, in, out, stream));
+      return static_cast<int>(
+          build_of(ce) == 2 ? launch_block(n_rows, ce, shift, in, out, stream)
+                            : launch_wide(n_rows, ce, shift, in, out, stream));
   }
 }

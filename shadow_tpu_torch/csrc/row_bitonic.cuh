@@ -1,5 +1,6 @@
 // Device code of the egress-stage kernels: kernel A's (egress_rank.cu)
-// per-row ascending bitonic sort of (key, column) pairs in its two forms
+// per-row ascending bitonic sort of (key, column) pairs in its three forms
+// (a warp segment, a block in shared memory, a block over device memory)
 // and the token gate's prefix sum, and the clock rebase and FIFO key that
 // kernel C (egress_gate.cu) shares with it.
 //
@@ -123,6 +124,74 @@ __device__ inline uint32_t block_inclusive_scan(uint32_t* buf, uint32_t x,
   const uint32_t out = buf[c];
   __syncthreads();
   return out;
+}
+
+// --- the wide build (CE > 1024): one block of kWideBlock threads a row, the
+// row in device memory.
+
+constexpr int kWideBlock = 1024;
+
+// Ascending bitonic sort of a row's columns 0..n-1 by (key(i), i) into
+// `idx` (n words of device memory, one row of an output column): the
+// network moves the column indices only and reads each one's key through
+// `key` (from the inputs, or from an output column written before the
+// call). Each thread takes n / (2 * kWideBlock) compare-exchanges a stage,
+// with a block barrier a stage; n is a power of two >= 2 * kWideBlock.
+// Starts with a barrier (the caller's last reads of `idx` and its writes
+// to what `key` reads are done) and ends synchronised.
+template <class Key>
+__device__ __forceinline__ void wide_bitonic(int* idx, int n, Key key) {
+  __syncthreads();
+  for (int i = threadIdx.x; i < n; i += kWideBlock) idx[i] = i;
+  __syncthreads();
+  for (int size = 2; size <= n; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int p = threadIdx.x; p < n / 2; p += kWideBlock) {
+        // the pair (a, a + stride): a has bit `stride` clear
+        const int a = ((p & ~(stride - 1)) << 1) | (p & (stride - 1));
+        const int b = a + stride;
+        const int ia = idx[a], ib = idx[b];
+        const bool up = (a & size) == 0;
+        if (up != pair_less(key(ia), ia, key(ib), ib)) {
+          idx[a] = ib;
+          idx[b] = ia;
+        }
+      }
+      __syncthreads();
+    }
+  }
+}
+
+// The row's prefix before this thread's run of slots: x is the sum of
+// the thread's own run (thread t owns slots [t * n / kWideBlock, (t + 1) *
+// n / kWideBlock)); returns the sum over the earlier threads' runs, in
+// uint32. `buf` is kWideBlock words of shared memory. Ends synchronised.
+__device__ __forceinline__ uint32_t wide_exclusive_prefix(uint32_t* buf,
+                                                          uint32_t x) {
+  return block_inclusive_scan(buf, x, kWideBlock, threadIdx.x) - x;
+}
+
+// The token gate over this thread's run of a sorted row, slots [c0, c0 +
+// run) of the row's valid_o and bytes_o (written by this thread), `total`
+// the run's valid bytes: the row's inclusive prefix of valid bytes against
+// `bal` gives sendable_o, and the run's sendable bytes are added to
+// *spent_acc (shared memory, zeroed before a barrier the call follows).
+// `buf` is kWideBlock words of shared memory. Read *spent_acc only after
+// a barrier.
+__device__ __forceinline__ void wide_token_gate(
+    const uint8_t* valid_o, const int* bytes_o, uint8_t* sendable_o, int c0,
+    int run, uint32_t total, int bal, uint32_t* buf, uint32_t* spent_acc) {
+  uint32_t cum = wide_exclusive_prefix(buf, total);
+  uint32_t spent = 0;
+  for (int c = c0; c < c0 + run; ++c) {
+    const bool v_s = valid_o[c] != 0;
+    const uint32_t b = static_cast<uint32_t>(bytes_o[c]);
+    if (v_s) cum += b;
+    const bool sendable = v_s && static_cast<int>(cum) <= bal;
+    sendable_o[c] = static_cast<uint8_t>(sendable);
+    if (sendable) spent += b;
+  }
+  atomicAdd(spent_acc, spent);
 }
 
 }  // namespace row_bitonic

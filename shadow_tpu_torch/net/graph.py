@@ -1,18 +1,20 @@
 """The network graph: topology parsing and path computation.
 
-The port's own copy of the parts of `shadow_tpu/net/graph.py` that the
-flow engine's plan needs (`core/flowplan.py`): the
+The port's own copy of `shadow_tpu/net/graph.py`, for the flow
+engine's plan (`core/flowplan.py`) and the Manager: the
 GML topology, all-pairs shortest paths by (latency, then loss) as a
 Floyd-Warshall over dense [N, N] numpy matrices (path composition
 latency_a + latency_b, loss 1-(1-a)(1-b); every used node needs exactly
 one self-loop, which supplies the node->node path), direct single-edge
-paths otherwise, and the `RoutingInfo` tables. Built on the host in
+paths otherwise, the `RoutingInfo` tables, and the IP assignment
+(`IpAssignment`: from 11.0.0.0, skipping .0 and .255). Built on the host in
 numpy, as in JAX.
 """
 
 from __future__ import annotations
 
 import gzip
+import ipaddress
 import lzma
 from dataclasses import dataclass
 from typing import Optional
@@ -235,6 +237,35 @@ class NetworkGraph:
             return [self.node_id_to_index[i] for i in used_ids]
         except KeyError as missing:
             raise GraphError(f"graph node {missing} doesn't exist") from None
+
+
+class IpAssignment:
+    """IP ↔ graph-node registry (`graph/mod.rs:352-420`)."""
+
+    def __init__(self):
+        self._ip_to_node: dict[str, int] = {}
+        self._counter = int(ipaddress.IPv4Address("11.0.0.0"))
+
+    def assign_manual(self, ip: str, node_id: int) -> None:
+        ip = str(ipaddress.IPv4Address(ip))
+        if ip in self._ip_to_node:
+            raise GraphError(f"IP {ip} previously assigned")
+        self._ip_to_node[ip] = node_id
+
+    def assign_auto(self, node_id: int) -> str:
+        while True:
+            self._counter += 1
+            ip = ipaddress.IPv4Address(self._counter)
+            last = int(ip) & 0xFF
+            if last in (0, 255):
+                continue  # skip .0 and .255
+            s = str(ip)
+            if s not in self._ip_to_node:
+                self._ip_to_node[s] = node_id
+                return s
+
+    def node_for(self, ip: str) -> Optional[int]:
+        return self._ip_to_node.get(str(ip))
 
 
 class RoutingInfo:

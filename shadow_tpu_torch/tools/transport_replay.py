@@ -23,6 +23,14 @@ the verified windows and packets of the recording package's own
 mirrored replay of the log (`meta["mirrored"]`). It raises `Mismatch`
 naming the first round that differs.
 
+`recording_class` records such a log beside a live run of the port's own
+`Manager`, and `compare_releases` holds that run's releases to a
+committed log, round for round; the push rows are then compared as a
+set without their pool tags (`untagged_digest`, against a sync replay's
+`untagged_digests`), since the worker threads of two live runs
+interleave their captures, and so the tags and the order of equal
+deliver times, differently.
+
 Usage: python -m shadow_tpu_torch.tools.transport_replay LOG
        --mode sync|mirrored|auto [--rounds N] [--device cpu]
 
@@ -57,6 +65,18 @@ def push_digest(rows) -> int:
     rows `(dst, deliver_abs, src_id, seq, tag)` as int64."""
     a = np.asarray(rows, np.int64).reshape(-1, 5)
     return int.from_bytes(hashlib.sha256(a.tobytes()).digest()[:8], "little")
+
+
+def untagged_digest(rows) -> int:
+    """`push_digest` of push rows in sorted order with their pool tags
+    set to -1. The tags, and the order of pushes with equal deliver
+    times, follow the order in which the captures reached the transport,
+    which the worker threads of a live run interleave differently from
+    run to run; a host's event queue orders its pushes by (deliver,
+    src_id, seq) whatever order they come in."""
+    a = np.asarray(rows, np.int64).reshape(-1, 5).copy()
+    a[:, 4] = -1
+    return push_digest(a[np.lexsort(a[:, ::-1].T)])
 
 
 def _opt(v: Optional[int]) -> int:
@@ -104,7 +124,7 @@ class LogWriter:
 
     def release_result(self, rows, next_pending) -> None:
         self.rel_out.append((len(rows), push_digest(rows),
-                             _opt(next_pending)))
+                             _opt(next_pending), untagged_digest(rows)))
 
     def capture(self, src, dst, seq, now, round_end, deliver) -> None:
         if self.kinds and self.kinds[-1] == OP_CAPTURES:
@@ -152,6 +172,140 @@ class LogWriter:
             cap_now=cap[:, 3].astype(np.int32),
             cap_clamp=cap[:, 4].astype(np.int32),
             cap_lat=cap[:, 5].astype(np.int32))
+
+
+def recording_class(sink: list, base=None):
+    """A subclass of the port's `DeviceTransport` (or of `base`, a
+    transport class with its attributes: the JAX package's, for
+    `tests/transport_recorder.py`) that writes every call a live
+    simulation makes into a `LogWriter` (its `log`), with each release's
+    pushes and `next_pending_abs`, and appends itself to `sink` when
+    built. Captures come from the worker threads and are serialised under
+    one lock, so the log's order is the order the transport saw. Build
+    the Manager with it in place of `tpu/transport.DeviceTransport` (the
+    Manager imports that name when it is built)."""
+    import threading
+
+    if base is None:
+        from ..tpu.transport import DeviceTransport as base
+
+    class Recording(base):
+        def __init__(self, hosts, routing, ip_to_node_id, **kw):
+            super().__init__(hosts, routing, ip_to_node_id, **kw)
+            self._rec_lock = threading.Lock()
+            self._rec_tags: dict[int, int] = {}
+            self._rec_pushes: list = []
+            host_node = self._host_node
+            self.log = LogWriter(
+                self._base_latency_np, np.asarray(
+                    host_node.cpu() if hasattr(host_node, "cpu")
+                    else host_node),
+                {"ingress_cap": self._ingress_cap,
+                 "compact_cap": self._compact_cap,
+                 "capacity_mode": self._capacity_mode,
+                 "max_doublings": self._max_doublings,
+                 "capacity_strict": self._capacity_strict,
+                 "recorded_mode": self.mode})
+            for h in self.hosts:
+                h.push_packet_event = self._recording_push(h)
+            sink.append(self)
+
+        def _recording_push(self, host):
+            orig = host.push_packet_event
+
+            def push(packet, deliver_abs, src_id, seq):
+                self._rec_pushes.append((
+                    host.host_id - 1, deliver_abs, src_id, seq,
+                    self._rec_tags.pop(id(packet), -1)))
+                return orig(packet, deliver_abs, src_id, seq)
+
+            return push
+
+        def enable_guards(self):
+            self.log.meta["guards"] = True
+            super().enable_guards()
+
+        def enable_histograms(self):
+            self.log.meta["histograms"] = True
+            super().enable_histograms()
+
+        def capture(self, src_host, dst_host, packet, now_ns, seq,
+                    round_end_ns, deliver_ns):
+            with self._rec_lock:
+                super().capture(src_host, dst_host, packet, now_ns, seq,
+                                round_end_ns, deliver_ns)
+                if not self.mirrored:
+                    self._rec_tags[id(packet)] = self._pending[-1][3]
+                self.log.capture(src_host.host_id - 1,
+                                 dst_host.host_id - 1, seq, now_ns,
+                                 round_end_ns, deliver_ns)
+
+        def release(self, start_ns, end_ns, horizon_ns=None,
+                    runahead_ns=None, stop_ns=None):
+            self.log.release(start_ns, end_ns, horizon_ns, runahead_ns,
+                             stop_ns)
+            self._rec_pushes = []
+            super().release(start_ns, end_ns, horizon_ns, runahead_ns,
+                            stop_ns)
+            self.log.release_result(self._rec_pushes, self.next_pending_abs)
+
+        def finish_round(self, start_ns, end_ns):
+            self.log.finish(start_ns, end_ns)
+            super().finish_round(start_ns, end_ns)
+
+        def apply_fault_latency(self, lat_mult):
+            self.log.latency_change(lat_mult)
+            super().apply_fault_latency(lat_mult)
+
+        def finalize(self):
+            super().finalize()
+            self.log.meta["retry"] = {
+                k: getattr(self, k) for k in (
+                    "retry_attempts", "retry_backoff_s", "retry_cap_s",
+                    "retry_jitter", "retry_seed")}
+            self.log.finalize({
+                "in_flight": self.in_flight,
+                "divergence_count": self.divergence_count,
+                "verified_windows": self.verified_windows,
+                "verified_packets": self.verified_packets})
+
+    return Recording
+
+
+def compare_releases(writer: LogWriter, log: dict, untagged: list,
+                     rounds: Optional[int] = None) -> int:
+    """Hold the releases a live run recorded (`writer`) to a call log's
+    (`load_log`), round for round: the release's window, horizon and
+    runahead, its push count, its push rows and `next_pending_abs` (not
+    its stop time: a run cut short stops earlier). The push rows are
+    compared as a set without their pool tags against `untagged` (the
+    log's untagged digests a round, `replay`'s `untagged_digests`):
+    the tags differ between two runs whose worker threads interleave
+    their captures differently. Compares the first `rounds` releases
+    (all that `writer` holds by default). Returns the number compared;
+    raises `Mismatch` at the first difference."""
+    n = len(writer.rel) if rounds is None else rounds
+    if n > len(writer.rel) or n > len(log["rel"]):
+        raise Mismatch(min(len(writer.rel), len(log["rel"])),
+                       f"{len(writer.rel)} releases recorded, the log has "
+                       f"{len(log['rel'])}, {n} asked for")
+    for ri in range(n):
+        got_args = tuple(int(v) for v in writer.rel[ri][:4])
+        want_args = tuple(log["rel"][ri][:4].tolist())
+        if got_args != want_args:
+            raise Mismatch(ri, f"release (start, end, horizon, runahead) "
+                           f"{got_args}, the record has {want_args}")
+        n_push, _, nxt, digest_untagged = writer.rel_out[ri]
+        if n_push != int(log["rel_pushes"][ri]):
+            raise Mismatch(ri, f"{n_push} pushes, the record has "
+                           f"{int(log['rel_pushes'][ri])}")
+        if digest_untagged != untagged[ri]:
+            raise Mismatch(ri, "the push rows differ from the record's "
+                           "digest")
+        if nxt != int(log["rel_next"][ri]):
+            raise Mismatch(ri, f"next_pending_abs {_unopt(nxt)}, the "
+                           f"record has {_unopt(log['rel_next'][ri])}")
+    return n
 
 
 def load_log(path: str) -> dict:
@@ -244,6 +398,7 @@ def replay(log: dict, mode: str, *, make_transport=port_transport,
             for c in ("src", "dst", "seq", "now", "clamp", "lat")]
     ci = ri = fi = li = 0
     base = 0
+    untagged = []
     wall0 = time.perf_counter()
     for kind, n in zip(log["op_kind"].tolist(), log["op_n"].tolist()):
         if kind == OP_RELEASE:
@@ -262,6 +417,7 @@ def replay(log: dict, mode: str, *, make_transport=port_transport,
                 if push_digest(pushes) != int(log["rel_digest"][ri]):
                     raise Mismatch(ri, "the push rows differ from the "
                                    "record's digest")
+                untagged.append(untagged_digest(pushes))
                 want = _unopt(log["rel_next"][ri])
                 if t.next_pending_abs != want:
                     raise Mismatch(ri, f"next_pending_abs "
@@ -296,7 +452,7 @@ def replay(log: dict, mode: str, *, make_transport=port_transport,
             "verified_windows": t.verified_windows,
             "verified_packets": t.verified_packets,
             "d2h_probe_ms": getattr(t, "d2h_probe_ms", None),
-            "transport": t}
+            "untagged_digests": untagged, "transport": t}
 
 
 def _check_end(t, meta: dict, ri: int) -> None:
@@ -334,6 +490,7 @@ def main(argv=None) -> int:
         print(f"transport_replay: MISMATCH at {e}", file=sys.stderr)
         return 1
     out.pop("transport")
+    out.pop("untagged_digests")
     print(json.dumps(out, sort_keys=True))
     return 0
 

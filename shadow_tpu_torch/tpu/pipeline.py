@@ -60,6 +60,7 @@ and `route_scatter(plain=True)` is `_route_scatter`, so
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -75,22 +76,43 @@ LAUNCHES = {"egress_rank": 0, "route_place": 0, "egress_gate": 0,
 # kernel E's launches of each of its builds (as its launcher reports them,
 # `codel.e_geometry`)
 E_BUILD_LAUNCHES = {"staged": 0, "device": 0}
-# widest egress row kernels A and C take (one thread block holds a row)
-MAX_EGRESS_CAP = 1024
+# kernel A's launches of each of its builds, as its launcher picks them by
+# the egress capacity (`egress_build`): "warp" segments up to 32 slots, a
+# "block" a row in shared memory up to 1024, "wide" beyond
+A_BUILD_LAUNCHES = {"warp": 0, "block": 0, "wide": 0}
+# kernel C's: the "tile" design up to 1024 slots, "wide" beyond
+C_BUILD_LAUNCHES = {"tile": 0, "wide": 0}
+_BUILD_LAUNCHES = {"egress_rank": A_BUILD_LAUNCHES,
+                   "egress_gate": C_BUILD_LAUNCHES}
 
 
 def reset_launches():
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
-    for build in E_BUILD_LAUNCHES:
-        E_BUILD_LAUNCHES[build] = 0
+    for counts in (LAUNCHES, E_BUILD_LAUNCHES, A_BUILD_LAUNCHES,
+                   C_BUILD_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 def _require_pow2(cap: int, what: str):
-    if cap < 2 or cap & (cap - 1):
+    if cap < 1 or cap & (cap - 1):
         raise ValueError(
             f"the fused egress/route kernels need a power-of-two {what} "
-            f"of at least 2 (the bitonic network width), got {cap}")
+            f"(the bitonic network width), got {cap}")
+
+
+@functools.lru_cache(maxsize=64)
+def egress_build(name: str, ce: int) -> str:
+    """The build of kernel A (`name` "egress_rank") or C ("egress_gate")
+    that its launcher runs for rows of `ce` slots, as the launcher's
+    `<name>_build` reports it (see `A_BUILD_LAUNCHES`,
+    `C_BUILD_LAUNCHES`); RuntimeError for a width it does not take."""
+    fn = getattr(load_kernel(name), f"{name}_build")
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_int
+    code = fn(int(ce))
+    if code == 0:
+        raise RuntimeError(f"{name}_kernel takes no rows of {ce} slots")
+    return list(_BUILD_LAUNCHES[name])[code - 1]
 
 
 def _check(name: str, t: torch.Tensor, dtype, shape, device):
@@ -110,14 +132,11 @@ def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
 
 
 def _egress_checks(valid, cols: dict, balance):
-    """The guards of kernels A and C: a power-of-two row no wider than
-    the kernels take, and every column of the dtype, shape, device and
+    """The guards of kernels A and C: a power-of-two row, as JAX's
+    kernels take, and every column of the dtype, shape, device and
     layout the kernel reads. Returns (N, CE, device)."""
     N, CE = valid.shape
     _require_pow2(CE, "egress capacity")
-    if CE > MAX_EGRESS_CAP:
-        raise ValueError(f"egress capacity {CE} exceeds the kernel's "
-                         f"widest row, {MAX_EGRESS_CAP}")
     dev = valid.device
     for name, t in cols.items():
         dt = torch.bool if name in ("valid", "ctrl") else torch.int32
@@ -183,6 +202,7 @@ def _egress_gate_impl(valid, prio, nbytes, tsend, clamp, balance,
             torch.empty(N, dtype=torch.int32, device=dev))
     _launch("egress_gate", N, CE, int(shift_ns), valid, prio, nbytes, tsend,
             clamp, balance, *outs)
+    C_BUILD_LAUNCHES[egress_build("egress_gate", CE)] += 1
     return outs
 
 
@@ -242,6 +262,7 @@ def _egress_rank_impl(valid, prio, nbytes, tsend, clamp, dst, seq, sock,
     outs = (i32(), i32(), i32(), i32(), i32(), b8(), i32(), i32(), b8(),
             b8(), torch.empty(N, dtype=torch.int32, device=dev), i32())
     _launch("egress_rank", N, CE, int(shift_ns), *ins, *outs)
+    A_BUILD_LAUNCHES[egress_build("egress_rank", CE)] += 1
     return outs
 
 

@@ -47,7 +47,8 @@ def egress_args(n, ce, device, seed=0):
             t(rng.integers(0, ce * 900, n)), 10 * MS)
 
 
-@pytest.mark.parametrize("ce", [2, 4, 8, 16, 32, 64, 128, 1024])
+@pytest.mark.parametrize("ce", [1, 2, 4, 8, 16, 32, 64, 128, 1024, 2048,
+                                4096, 16384])
 def test_egress_rank_kernel_matches_plain(cuda, ce):
     args = egress_args(300, ce, cuda, seed=ce)
     before = pipeline.LAUNCHES["egress_rank"]
@@ -59,7 +60,8 @@ def test_egress_rank_kernel_matches_plain(cuda, ce):
         assert g.dtype == r.dtype and torch.equal(g, r)
 
 
-@pytest.mark.parametrize("ce", [2, 4, 8, 16, 32, 64, 128, 1024])
+@pytest.mark.parametrize("ce", [1, 2, 4, 8, 16, 32, 64, 128, 1024, 2048,
+                                4096, 16384])
 def test_egress_gate_kernel_matches_plain(cuda, ce):
     valid, prio, nbytes, tsend, clamp, _d, _s, _k, _c, balance, shift = \
         egress_args(300, ce, cuda, seed=ce)
@@ -89,6 +91,58 @@ def test_egress_gate_kernel_matches_plain_on_edge_values(cuda, n, ce):
         torch.cuda.synchronize()
         for g, r in zip(got, ref):
             assert g.dtype == r.dtype and torch.equal(g, r), (shift, n, ce)
+
+
+@pytest.mark.parametrize("ce", [1, 2048, 4096, 16384])
+@pytest.mark.parametrize("n", [1, 37])
+def test_egress_kernels_match_plain_on_edge_values_at_new_widths(cuda, n,
+                                                                  ce):
+    """Kernels A and C at a one-slot row and in their wide build, on the
+    int32 edge columns (prefix sums past 2^31 across rows of 2^11-2^14
+    slots), with both shifts; each launch counted under the build its
+    launcher picks by the width."""
+    cols = gate_edge_columns(n, ce, seed=3 * n + ce)
+    rng = np.random.default_rng(ce)
+    extra = [torch.from_numpy(np.asarray(a, dt)).to(cuda) for a, dt in (
+        (rng.integers(-1, n, (n, ce)), np.int32),
+        (rng.integers(-2**31, 2**31, (n, ce)), np.int32),
+        (rng.integers(0, 40, (n, ce)), np.int32),
+        (rng.random((n, ce)) < 0.2, bool))]
+    for shift in EDGE_SHIFTS:
+        c = [torch.from_numpy(v).to(cuda) for v in cols.values()]
+        for stage, plain, args, name, builds in (
+                (pipeline.egress_order_gate, pipeline.egress_gate_plain,
+                 (*c, shift), "egress_gate", pipeline.C_BUILD_LAUNCHES),
+                (pipeline.egress_rank_stage, pipeline.egress_rank_plain,
+                 (*c[:5], *extra, c[5], shift), "egress_rank",
+                 pipeline.A_BUILD_LAUNCHES)):
+            build = pipeline.egress_build(name, ce)
+            assert build == ("wide" if ce > 1024 else
+                             "warp" if name == "egress_rank" else "tile")
+            before = builds[build]
+            got = stage(*args)
+            ref = plain(*args)
+            torch.cuda.synchronize()
+            assert builds[build] == before + 1
+            for g, r in zip(got, ref):
+                assert g.dtype == r.dtype and torch.equal(g, r), (
+                    name, shift, n, ce)
+
+
+def test_route_place_kernel_takes_one_slot_rings(cuda):
+    """Kernel B with ingress rings of one slot (CI = 1), which JAX's
+    `_place_kernel` takes: B against its plain version on clones of the
+    same inputs (both update the rings in place)."""
+    args = [torch.from_numpy(a).to(cuda)
+            for a in placement_inputs(2048, 16, 1, seed=9)]
+    clone = lambda: [a.clone() for a in args]
+    before = pipeline.LAUNCHES["route_place"]
+    got = pipeline.place(*clone())
+    ref = pipeline.place_plain(*clone())
+    torch.cuda.synchronize()
+    assert pipeline.LAUNCHES["route_place"] == before + 1
+    for g, r in zip(got, ref):
+        assert g.dtype == r.dtype and torch.equal(g, r)
 
 
 def test_egress_gate_kernel_refuses_misaligned_columns(cuda):

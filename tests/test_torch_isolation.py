@@ -6,6 +6,7 @@ without change."""
 from __future__ import annotations
 
 import ast
+import json
 import os
 import subprocess
 import sys
@@ -581,6 +582,73 @@ def test_transport_modules_import_no_jax_and_nothing_of_shadow_tpu():
         for mod in imported_modules(path):
             assert mod.split(".")[0] not in ("jax", "jaxlib", "shadow_tpu"), (
                 rel, mod)
+
+
+# the object plane and the CLI (the Manager's import closure, less the
+# managed native processes, which the port does not run yet)
+OBJECT_PLANE = (
+    "__main__.py", "cli.py", "core/manager.py", "core/controller.py",
+    "core/event.py", "core/resource_usage.py", "core/scheduler.py",
+    "core/shadowlog.py", "core/worker.py", "net/packet.py",
+    "net/interface.py", "net/namespace.py", "net/router.py", "net/relay.py",
+    "net/dns.py", "tcp/__init__.py", "tcp/seq.py", "tcp/rtt.py",
+    "tcp/cong.py", "tcp/connection.py", "kernel/errors.py",
+    "kernel/status.py", "kernel/pipe.py", "kernel/eventfd.py",
+    "kernel/timerfd.py", "kernel/epoll.py", "kernel/socket/tcp.py",
+    "kernel/socket/udp.py", "host/cpu.py", "host/host.py",
+    "host/tracker.py", "process/__init__.py", "process/condition.py",
+    "process/process.py", "process/pidwatcher.py", "apps/__init__.py",
+    "guards/progress.py", "faults/watchdog.py", "utils/pcap.py")
+
+
+def test_object_plane_modules_import_no_jax_and_nothing_of_shadow_tpu():
+    """The Manager, the CLI and the object plane they run stand alone too
+    (named here so that a move cannot drop them from the scan), and no
+    module of the port is the managed-process plane, which the Manager
+    refuses by name instead."""
+    for rel in OBJECT_PLANE:
+        path = REPO / "shadow_tpu_torch" / rel
+        assert path in PORT_FILES, rel
+        for mod in imported_modules(path):
+            assert mod.split(".")[0] not in ("jax", "jaxlib", "shadow_tpu"), (
+                rel, mod)
+    for rel in ("process/managed.py", "process/syscall_handler.py",
+                "interpose"):
+        assert not (REPO / "shadow_tpu_torch" / rel).exists(), rel
+
+
+def test_cli_runs_with_jax_and_the_jax_package_unimportable(tmp_path):
+    """`python -m shadow_tpu_torch examples/phold.yaml --device cpu` in a
+    fresh interpreter in which `jax`, `jaxlib` and `shadow_tpu` cannot be
+    imported, as on the card's machine: exit 0, the data directory
+    written, CUDA never initialised."""
+    data = tmp_path / "data"
+    argv = ["shadow_tpu_torch", str(REPO / "examples" / "phold.yaml"), "-d",
+            str(data), "--device", "cpu", "--log-level", "error"]
+    code = (
+        "import runpy, sys\n"
+        "for m in ('jax', 'jaxlib', 'shadow_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        f"sys.argv = {argv!r}\n"
+        "try:\n"
+        "    runpy.run_module('shadow_tpu_torch', run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    rc = e.code\n"
+        "import torch\n"
+        "assert not torch.cuda.is_initialized()\n"
+        "assert not [m for m, v in sys.modules.items() if v is not None\n"
+        "            and m.split('.')[0] in ('jax', 'jaxlib', 'shadow_tpu')]\n"
+        "sys.exit(rc)\n")
+    env = {"PATH": os.path.dirname(sys.executable), "PYTHONPATH": str(REPO),
+           "HOME": os.environ.get("HOME", "/tmp")}
+    out = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    stats = json.loads((data / "sim-stats.json").read_text())
+    assert stats["packets_sent"] > 0 and stats["process_failures"] == []
+    assert (data / "processed-config.yaml").exists()
+    assert (data / "etc-hosts").exists()
 
 
 # the transport's device functions: none reads the host but `chain`, which

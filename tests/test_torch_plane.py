@@ -270,3 +270,123 @@ def test_window_step_refuses_what_is_not_ported():
         step(rr_enabled=False, kernel="mosaic")
     with pytest.raises(TypeError, match="unexpected"):
         step(rr_enabled=False, tracer=object())
+
+
+@pytest.mark.parametrize("ce", [2, 8])
+def test_route_place_takes_one_slot_rings_as_jax_does(ce):
+    """Kernel B with ingress rings of one slot (CI = 1), which JAX's
+    `_place_kernel` takes: the port's routing stage (B's plain version
+    on the CPU) against JAX's `route_place` in interpret mode, every
+    output bitwise; most arrivals overflow."""
+    from test_torch_pipeline import assert_outputs_equal, route_inputs
+
+    from shadow_tpu.tpu import pallas_pipeline
+    from shadow_tpu_torch.tpu import pipeline
+
+    args = route_inputs(16, ce, 1, seed=40 + ce)
+    ref = pallas_pipeline.route_place(*(jnp.asarray(a) for a in args))
+    got = pipeline.route_place(*(torch.from_numpy(np.array(a))
+                                 for a in args))
+    assert_outputs_equal(ref, got)
+    assert int(np.asarray(ref[-1]).sum()) > 0, "no overflow: dead case"
+
+
+# an elastic run whose egress rows grow past 1024 slots: rows of 1024
+# slots, a burst of BURST packets into host 0's row in round 0 (past the
+# row), rings doubled once to 2048 and the chain run again
+WIDE_CE, WIDE_CI, BURST, WIDE_ROUNDS = 1024, 16, 1100, 4
+
+
+def burst_batch(seed=11):
+    """[N, BURST] appends: host 0's whole row, three for every other
+    host."""
+    rng = np.random.default_rng(seed)
+    mask = np.zeros((N, BURST), bool)
+    mask[0] = True
+    mask[1:, :3] = True
+    i32 = lambda a: np.asarray(a, np.int32)
+    return (i32(rng.integers(0, N, (N, BURST))),
+            i32(rng.integers(100, 1500, (N, BURST))),
+            i32(np.tile(np.arange(BURST), (N, 1))), np.zeros((N, BURST), bool),
+            mask)
+
+
+def test_elastic_run_grows_egress_past_1024_as_jax_does():
+    """The port's elastic driver on "pallas_fused" and "pallas" (kernels
+    A and C past 1024 slots: their wide build on the card, their plain
+    versions here) against the JAX elastic driver on "xla", over
+    WIDE_ROUNDS windows with a burst that overflows a 1024-slot row: the
+    same growth events, and the same canonical end state."""
+    from shadow_tpu.core import capacity as jcapacity
+    from shadow_tpu.tpu import elastic as jelastic
+    from shadow_tpu_torch.core import capacity
+    from shadow_tpu_torch.tpu import elastic
+
+    rng = np.random.default_rng(5)
+    lat = rng.integers(1 * MS, 20 * MS, size=(N, N)).astype(np.int32)
+    params = make_params(lat, np.full((N, N), 0.1, np.float32),
+                         np.full((N,), 2_000_000, np.int64),
+                         qdisc_rr=np.zeros(N, bool))
+    state = make_state(N, egress_cap=WIDE_CE, ingress_cap=WIDE_CI,
+                       params=params,
+                       initial_tokens=np.asarray(params.tb_cap))
+    burst = burst_batch()
+    window = 10 * MS
+    kw = dict(n_rounds=WIDE_ROUNDS, chain_len=2, window_ns=window)
+    policy = lambda mod: mod.RingPolicy(
+        mode="elastic", max_doublings=2, plane="bench", egress_cap=WIDE_CE,
+        ingress_cap=WIDE_CI)
+
+    key = jax.random.key(RNG_SEED)
+    jstep = jax.jit(lambda s, sh: window_step(
+        s, params, key, sh, jnp.int32(window), rr_enabled=False,
+        kernel="xla"))
+
+    def jax_chain(st, extras, rids, _pr):
+        eg = inn = jnp.zeros((N,), jnp.int32)
+        for r in np.asarray(rids):
+            before = st.n_overflow_dropped
+            st, _d, _n = jstep(st, jnp.int32(0 if r == 0 else window))
+            inn = inn + st.n_overflow_dropped - before
+            if r == 0:
+                before = st.n_overflow_dropped
+                dst, nb, seq, ctrl, mask = (jnp.asarray(a) for a in burst)
+                st = ingest_rows(st, dst, nb, seq, seq, ctrl, valid=mask)
+                eg = eg + st.n_overflow_dropped - before
+        return st, extras, eg, inn
+
+    jpol = policy(jcapacity)
+    jst, _ = jelastic.drive_chained_windows(state, 0, jax_chain, policy=jpol,
+                                            **kw)
+    want = jax_state_to_numpy(jelastic.canonical_state(jst))
+    assert jelastic.ring_dims(jst) == (2 * WIDE_CE, WIDE_CI)
+
+    tparams = convert.params_from_numpy(jax_params_to_numpy(params), "cpu")
+    tburst = [torch.from_numpy(a) for a in burst]
+    for kernel in ("pallas_fused", "pallas"):
+        def port_chain(st, extras, r0, r1):
+            eg = inn = torch.zeros(N, dtype=torch.int32)
+            for r in range(r0, r1):
+                before = st.n_overflow_dropped
+                st, _d, _n = tplane.window_step(
+                    st, tparams, RNG_SEED, 0 if r == 0 else window, window,
+                    rr_enabled=False, kernel=kernel)
+                inn = inn + st.n_overflow_dropped - before
+                if r == 0:
+                    before = st.n_overflow_dropped
+                    dst, nb, seq, ctrl, mask = tburst
+                    st = tplane.ingest_rows(st, dst, nb, seq, seq, ctrl,
+                                            valid=mask)
+                    eg = eg + st.n_overflow_dropped - before
+            return st, extras, eg, inn
+
+        tpol = policy(capacity)
+        tst, _ = elastic.drive_chained_windows(
+            convert.state_from_numpy(jax_state_to_numpy(state), "cpu"), 0,
+            port_chain, policy=tpol, **kw)
+        assert tpol.trajectory.as_dict()["events"] == \
+            jpol.trajectory.as_dict()["events"]
+        assert tuple(tst.eg_dst.shape) == (N, 2 * WIDE_CE)
+        assert_states_equal(want, convert.state_to_numpy(
+            elastic.canonical_state(tst)))
+    assert int(want["n_delivered"].sum()) > 0

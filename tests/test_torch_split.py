@@ -250,3 +250,51 @@ def test_library_path_hashes_included_headers(tmp_path, monkeypatch):
         assert again[name] != after[name], name
     for name in ("egress_rank", "egress_gate"):
         assert again[name] == after[name], name
+
+
+@pytest.mark.parametrize("ce", [1, 2048])
+def test_egress_kernels_take_every_width_jax_takes(ce):
+    """Kernels A and C at a row of one slot and at one wider than 1024
+    (the kernels' wide build on the card), both widths JAX's Pallas
+    kernels take: the port's wrappers (the plain versions on the CPU)
+    against JAX's `egress_rank_stage` and `egress_order_gate` in
+    interpret mode, on random rows and on the int32 edge rows, every
+    output bitwise; no launch and no build counted."""
+    from test_torch_pipeline import egress_columns
+
+    from shadow_tpu.tpu import pallas_pipeline
+
+    before = [dict(d) for d in (pipeline.LAUNCHES, pipeline.A_BUILD_LAUNCHES,
+                                pipeline.C_BUILD_LAUNCHES)]
+    cols = egress_columns(8, ce, seed=ce)
+    shift = 10 * MS
+    ref = pallas_pipeline.egress_rank_stage(
+        *(jnp.asarray(v) for v in cols.values()), jnp.int32(shift))
+    got = pipeline.egress_rank_stage(
+        *(torch.from_numpy(v) for v in cols.values()), shift)
+    assert_outputs_equal(ref, got)
+    edge = gate_edge_columns(12, ce, seed=ce + 1)
+    for case in (gate_columns(8, ce, seed=ce), edge):
+        ref = pallas_egress.egress_order_gate(
+            *(jnp.asarray(v) for v in case.values()), jnp.int32(shift))
+        got = pipeline.egress_order_gate(
+            *(torch.from_numpy(v) for v in case.values()), shift)
+        assert_outputs_equal(ref, got)
+    sendable = np.asarray(ref[5])
+    assert sendable.any() and not sendable.all(), "dead token gate"
+    assert [dict(d) for d in (pipeline.LAUNCHES, pipeline.A_BUILD_LAUNCHES,
+                              pipeline.C_BUILD_LAUNCHES)] == before
+
+
+def test_egress_checks_take_powers_of_two_only():
+    """`_egress_checks` and the routing stage take what JAX takes: any
+    power of two, one slot included, and refuse the rest."""
+    for ce in (1, 2, 2048, 1 << 16):
+        valid = torch.zeros((2, ce), dtype=torch.bool)
+        cols = dict(valid=valid, prio=torch.zeros((2, ce), dtype=torch.int32))
+        assert pipeline._egress_checks(valid, cols, torch.zeros(
+            2, dtype=torch.int32))[1] == ce
+    for bad in (0, 3, 6, 1536):
+        with pytest.raises(ValueError, match="power-of-two"):
+            pipeline._require_pow2(bad, "egress capacity")
+    assert not hasattr(pipeline, "MAX_EGRESS_CAP")

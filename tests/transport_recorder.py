@@ -25,7 +25,6 @@ from __future__ import annotations
 import json
 import re
 import sys
-import threading
 import time
 from pathlib import Path
 
@@ -52,88 +51,10 @@ def transport_config(cfg_text: str) -> str:
 
 
 def recording_class(sink: list):
-    """A `DeviceTransport` subclass that records into a `LogWriter`,
-    appended to `sink` at construction."""
-    base = jax_transport.DeviceTransport
-
-    class Recording(base):
-        def __init__(self, hosts, routing, ip_to_node_id, **kw):
-            super().__init__(hosts, routing, ip_to_node_id, **kw)
-            self._rec_lock = threading.Lock()
-            self._rec_tags: dict[int, int] = {}
-            self._rec_pushes: list = []
-            self.log = tr.LogWriter(
-                self._base_latency_np, np.asarray(self._host_node),
-                {"ingress_cap": self._ingress_cap,
-                 "compact_cap": self._compact_cap,
-                 "capacity_mode": self._capacity_mode,
-                 "max_doublings": self._max_doublings,
-                 "capacity_strict": self._capacity_strict,
-                 "recorded_mode": self.mode})
-            for h in self.hosts:
-                h.push_packet_event = self._recording_push(h)
-            sink.append(self)
-
-        def _recording_push(self, host):
-            orig = host.push_packet_event
-
-            def push(packet, deliver_abs, src_id, seq):
-                self._rec_pushes.append((
-                    host.host_id - 1, deliver_abs, src_id, seq,
-                    self._rec_tags.pop(id(packet), -1)))
-                return orig(packet, deliver_abs, src_id, seq)
-
-            return push
-
-        def enable_guards(self):
-            self.log.meta["guards"] = True
-            super().enable_guards()
-
-        def enable_histograms(self):
-            self.log.meta["histograms"] = True
-            super().enable_histograms()
-
-        def capture(self, src_host, dst_host, packet, now_ns, seq,
-                    round_end_ns, deliver_ns):
-            with self._rec_lock:
-                super().capture(src_host, dst_host, packet, now_ns, seq,
-                                round_end_ns, deliver_ns)
-                if not self.mirrored:
-                    self._rec_tags[id(packet)] = self._pending[-1][3]
-                self.log.capture(src_host.host_id - 1,
-                                 dst_host.host_id - 1, seq, now_ns,
-                                 round_end_ns, deliver_ns)
-
-        def release(self, start_ns, end_ns, horizon_ns=None,
-                    runahead_ns=None, stop_ns=None):
-            self.log.release(start_ns, end_ns, horizon_ns, runahead_ns,
-                             stop_ns)
-            self._rec_pushes = []
-            super().release(start_ns, end_ns, horizon_ns, runahead_ns,
-                            stop_ns)
-            self.log.release_result(self._rec_pushes, self.next_pending_abs)
-
-        def finish_round(self, start_ns, end_ns):
-            self.log.finish(start_ns, end_ns)
-            super().finish_round(start_ns, end_ns)
-
-        def apply_fault_latency(self, lat_mult):
-            self.log.latency_change(lat_mult)
-            super().apply_fault_latency(lat_mult)
-
-        def finalize(self):
-            super().finalize()
-            self.log.meta["retry"] = {
-                k: getattr(self, k) for k in (
-                    "retry_attempts", "retry_backoff_s", "retry_cap_s",
-                    "retry_jitter", "retry_seed")}
-            self.log.finalize({
-                "in_flight": self.in_flight,
-                "divergence_count": self.divergence_count,
-                "verified_windows": self.verified_windows,
-                "verified_packets": self.verified_packets})
-
-    return Recording
+    """A JAX `DeviceTransport` subclass that records into a `LogWriter`,
+    appended to `sink` at construction (the port's recorder over the JAX
+    transport class)."""
+    return tr.recording_class(sink, base=jax_transport.DeviceTransport)
 
 
 def record(cfg_text: str):
