@@ -7,7 +7,7 @@ E, in phases; any failure exits non-zero before the result lines are
 printed:
 
 1. require a CUDA card; print its name and power limit (nvidia-smi);
-   start the CPU runs that phases 9, 12-15, 20, 22 and 23 compare the
+   start the CPU runs that phases 9, 12-15, 20, 22-24 compare the
    card's with, all at once in a pool of spawned worker processes (CUDA
    hidden, two torch threads each, (cores - 2) / 2 of them; the count is
    printed), each phase awaiting its own where it compares;
@@ -40,7 +40,8 @@ printed:
    ring and rows that read outside the arrivals, each kernel and plain
    version on its own clone (they update the ingress in place); D and B
    agree, and both are timed on it; (d) kernel B with rings of one slot
-   (CI = 1) through the routing stage, bitwise its plain version;
+   (CI = 1) through the routing stage, bitwise its plain version, then
+   timed alone on the stage's arguments beside its byte bound;
 6. the golden digest: `run_phold` at N=1024, R=16 through each kernel
    pair must end in the state the JAX package's run ends in (pinned by
    the CPU tests);
@@ -183,7 +184,11 @@ printed:
    device busy time beside it (`bench.profile_windows`); `bench --kernel
    xla` and `--kernel xla --faults` in turns (through `bench.main`),
    their final states equal and their records read by
-   `tools/compare_runs.py --bench`; `run_scenarios --config` on a
+   `tools/compare_runs.py --bench`, each carrying JAX's baselines
+   (`vs_baseline` over the port's object plane, `compiled_events_per_sec`
+   and `vs_compiled` over `tools/phold_compiled.cc`, or null where there
+   is no g++, and `prior_round` skipped against the JAX records);
+   `run_scenarios --config` on a
    simulation config naming a corpus entry, with that entry's
    `scenarios/GOLDEN.json` digests;
 19. the host-axis mesh (`tpu/mesh.py`) on the one card: (a) two ranks
@@ -289,7 +294,21 @@ printed:
    CPU routing's, no divergence, no kernel of A-F launched; spawns and
    syscall dispatches counted and timed; (c) the TCP pair of
    tests/test_managed_network.py (1 MiB at 2 % loss) likewise;
-24. one JSON line describing every kernel (E's and F's launches of each
+24. the benchmark ladder through the port's twin
+   (`shadow_tpu_torch/tools/bench_ladder.py`, the port's Manager): (a)
+   rungs 1 (`python3 -m http.server` serving 10 MiB to two `curl`
+   clients), 2 (the 100-host tgen mesh) and interpose (100 compiled
+   processes) at the JAX tool's shapes, with the device transport on the
+   card in sync and mirrored mode, in two children (a mode each) beside
+   22 (b): each run's JSON line printed, its data directory (every
+   host's files, the fetched files included, and etc-hosts) and packets
+   those of a CPU witness on the CPU routing (in the pool), no
+   divergence, nothing in flight, no kernel of A-F launched (counted in
+   the children); (b) the twin's YAML for rung 3 is byte for byte the
+   config phases 22 (b) and (c) run (and the same lines with the
+   transport's keys), and its
+   rung-4 YAML with each transport is byte for byte phase 23 (b)'s;
+25. one JSON line describing every kernel (E's and F's launches of each
    build, A's and C's widths), then the result line.
 
 Usage: python3 chip_smoke.py   (from the repository root; one card).
@@ -468,6 +487,11 @@ def witness_jobs() -> dict:
     # phase 22's first: rung 3's CPU plane runs a worker thread a core,
     # which the host-bound phases 20-22 should not share
     jobs = {f"cli:{name}": ("cli", name) for name in (*QUICKSTART, "rung3")}
+    # then phase 18's object-plane baseline and phase 24's rungs, short
+    # runs the end of the smoke would otherwise wait for
+    jobs["cpu-baseline"] = ("cpu-baseline", None)
+    jobs.update({f"ladder:{rung}": ("ladder", rung)
+                 for rung in LADDER_RUNGS})
     jobs.update({f"corpus:{n}": ("corpus", n) for n in corpus})
     jobs["onoff"] = ("onoff", None)
     jobs["fleet"] = ("fleet", None)
@@ -502,7 +526,9 @@ def cpu_witness(kind: str, arg):
     world's state digest after AQM_CHECK_WINDOWS (`aqm`) and the wide AQM
     world's after AQM_WIDE_CPU_WINDOWS (`aqm-wide`), and kernel F's plain
     version on phase 20 (a)'s worlds (`flow-plain`, `flow_plain_witness`),
-    and phase 23's managed runs through the CLI (`managed`)."""
+    phase 23's managed runs through the CLI (`managed`), phase 24's
+    rungs through the ladder's twin on the CPU routing (`ladder`), and
+    the bench record's object-plane rate (`cpu-baseline`)."""
     import torch
 
     from shadow_tpu_torch import convert
@@ -530,6 +556,12 @@ def cpu_witness(kind: str, arg):
         return flow_plain_witness(*arg)
     if kind == "managed":
         return managed_witness(*arg)
+    if kind == "ladder":
+        return ladder_witness(arg)
+    if kind == "cpu-baseline":
+        from shadow_tpu_torch import bench
+
+        return bench.bench_cpu_baseline()
     if kind == "cli":
         if arg == "rung3":
             return cli_witness(with_experimental(
@@ -960,7 +992,9 @@ def check_b_one_slot(torch, pipeline, record, ident):
     """5 (d): kernel B with rings of one slot (CI = 1, which JAX's
     `_place_kernel` takes): the routing stage `route_place` at N=32768,
     CE=16 on the card, through B and through its plain version on
-    clones of the same inputs, bitwise; rows overflow."""
+    clones of the same inputs, bitwise; rows overflow. Then B alone on
+    the stage's arguments, timed cold, clean and warm beside its plain
+    version, with its byte bound (`placement_bytes`)."""
     n, ce = N_HOSTS, EGRESS_CAP
     full = egress_inputs(torch, n, ce, seed=5)
     full = (*full[:5], torch.remainder(full[5], n), *full[6:])
@@ -992,11 +1026,34 @@ def check_b_one_slot(torch, pipeline, record, ident):
     overflow = int(got[-1].sum())
     if overflow == 0:
         fail("kernel B at CI=1: no ring overflowed")
-    record["kernel_b_ci1"] = dict(n=n, ce=ce, overflow=overflow,
-                                  max_abs_err=err)
+    # B alone on the routing stage's arguments, timed as check_placement
+    # times it (the untimed first call rewrites every invalid deliver)
+    work, _ = pipeline._placement_args(*clone())
+    warm_ms, ms, clean_ms = time_device(torch, lambda: pipeline.place(*work))
+    _, plain_ms, _ = time_device(
+        torch, lambda: pipeline.place(*work, plain=True), reps=20)
+    nv, offsets, take = (t.cpu().numpy()[:, None] for t in work[:3])
+    placed = (nv <= 0) & (0 < nv + take)
+    j = offsets - nv
+    inside = placed & (j >= 0) & (j < n * ce)
+    moved, rewrites = placement_bytes(work[13], work[14], placed, inside)
+    if rewrites != 0:
+        fail(f"kernel B at CI=1 left {rewrites} invalid delivers "
+             f"unrewritten")
+    ops = n * 6 + int(placed.sum()) * 30
+    bound_ms, bound_by = bound(moved, ops)
+    record["kernel_b_ci1"] = dict(
+        n=n, ce=ce, overflow=overflow, max_abs_err=err, ms=ms,
+        cold_clean_ms=clean_ms, warm_ms=warm_ms, plain_ms=plain_ms,
+        placed=int(placed.sum()), bytes=moved, bound_ms=bound_ms,
+        bound_by=bound_by, share_of_bound=bound_ms / ms)
     print(f"5 (d) kernel B route_place at CI=1 (N={n}, CE={ce}): bitwise "
           f"its plain version through the routing stage, {overflow} "
-          f"arrivals overflowed  [{ident}]")
+          f"arrivals overflowed; B alone on the stage's arguments "
+          f"kernel_ms={ms:.5f} (cold L2; clean {clean_ms:.5f}; warm "
+          f"{warm_ms:.5f}) plain_ms={plain_ms:.5f} bound_ms={bound_ms:.5f} "
+          f"({bound_by}, {moved} B, {int(placed.sum())} slots placed) "
+          f"share={bound_ms / ms:.3f}  [{ident}]")
 
 
 def placement_inputs(torch, n=N_HOSTS, n_src=None):
@@ -3261,19 +3318,44 @@ def check_sections_bitwise(torch, pipeline, profiling, kernel, pair,
     return list(wanted)
 
 
+BASELINE_FNS = ("bench_cpu_baseline", "bench_compiled_baseline")
+
+
 def check_bench_records(torch, bench, tmp: Path, ident):
     """`bench --kernel xla` and `--kernel xla --faults` in turns, through
     its `main`: the same final state, the section breakdown in both
-    records, and `tools/compare_runs.py --bench` reads the two."""
+    records, and `tools/compare_runs.py --bench` reads the two. Each
+    record carries JAX's baselines (`check_baselines`). Their rates are
+    the host's, not the run's: the object plane's is the witness
+    `cpu-baseline` (`bench.bench_cpu_baseline` in the pool, beside the
+    phases, off the critical path), the microbench's is measured by the
+    first record's run; the second record reuses both."""
     import contextlib
     import io
 
-    recs = {}
-    for tag, argv in (("xla", []), ("faults", ["--faults"])):
-        path = tmp / f"bench-{tag}.json"
-        with contextlib.redirect_stdout(io.StringIO()):
-            bench.main(["--kernel", "xla", *argv, "--out", str(path)])
-        recs[tag] = json.loads(path.read_text())
+    recs, rates = {}, {"bench_cpu_baseline": witness("cpu-baseline")}
+    saved = {name: getattr(bench, name) for name in BASELINE_FNS}
+
+    def measured_once(name):
+        def once():
+            if name not in rates:
+                rates[name] = saved[name]()
+            return rates[name]
+        return once
+
+    for name in BASELINE_FNS:
+        setattr(bench, name, measured_once(name))
+    try:
+        for tag, argv in (("xla", []), ("faults", ["--faults"])):
+            path = tmp / f"bench-{tag}.json"
+            with contextlib.redirect_stdout(io.StringIO()):
+                bench.main(["--kernel", "xla", *argv, "--out", str(path)])
+            recs[tag] = json.loads(path.read_text())
+    finally:
+        for name, fn in saved.items():
+            setattr(bench, name, fn)
+    for tag, rec in recs.items():
+        check_baselines(rec, rates, f"18 bench {tag}", ident)
     plain, faulted = recs["xla"], recs["faults"]
     if faulted["state_digest"] != plain["state_digest"]:
         fail("bench --faults (neutral masks) ends in another state than "
@@ -3298,9 +3380,50 @@ def check_bench_records(torch, bench, tmp: Path, ident):
           f"{plain['value']} vs {faulted['value']}, the same state "
           f"({plain['state_digest'][:12]}); compare_runs.py --bench:\n"
           f"{cmp.stdout.rstrip()}\n(on {ident})")
-    return {tag: {"value": r["value"], "sections": r["sections"],
-                  "state_digest": r["state_digest"]}
-            for tag, r in recs.items()}
+    return {tag: {k: r[k] for k in (
+        "value", "sections", "state_digest", "vs_baseline", "vs_compiled",
+        "compiled_events_per_sec", "prior_round")}
+        for tag, r in recs.items()}
+
+
+def check_baselines(rec: dict, rates: dict, what: str, ident: str):
+    """JAX's four baseline keys on a card's bench record: `vs_baseline`
+    positive and the run's rate over the object plane's (`rates`, the
+    measured ones); `prior_round` skipped as of another backend (every
+    committed BENCH_r*.json is a JAX run's); `compiled_events_per_sec`
+    positive with `vs_compiled` its ratio, or, where there is no g++,
+    `vs_compiled` null and a line saying so. Prints them."""
+    import shutil
+
+    rate = rec["packet_events_per_sec"]
+    cpu = rates["bench_cpu_baseline"]
+    prior = rec.get("prior_round") or {}
+    if rec.get("vs_baseline", 0) <= 0 or \
+            rec["vs_baseline"] != round(rate / cpu, 2):
+        fail(f"{what}: vs_baseline {rec.get('vs_baseline')} for "
+             f"{rate} events/s over the object plane's {cpu}")
+    if prior.get("skipped_mismatched_backend") is not True:
+        fail(f"{what}: prior_round {rec.get('prior_round')} was not skipped "
+             f"as of another backend")
+    compiled = rec.get("compiled_events_per_sec")
+    if compiled is None or "vs_compiled" not in rec:
+        fail(f"{what}: the record lacks compiled_events_per_sec/vs_compiled")
+    if compiled > 0:
+        if rec["vs_compiled"] is None or \
+                abs(rec["vs_compiled"] - rate / compiled) > 1e-3:
+            fail(f"{what}: vs_compiled {rec['vs_compiled']} for {rate} over "
+                 f"{compiled}")
+    elif rec["vs_compiled"] is not None or shutil.which("g++") is not None:
+        fail(f"{what}: no compiled rate ({compiled}) though g++ is "
+             f"{shutil.which('g++')}, vs_compiled {rec['vs_compiled']}")
+    else:
+        print(f"{what}: g++ is missing on this host: no compiled baseline, "
+              f"vs_compiled null")
+    print(f"{what} baselines: vs_baseline {rec['vs_baseline']} (the port's "
+          f"object plane {cpu:.1f} events/s on the host), "
+          f"compiled_events_per_sec {compiled}, vs_compiled "
+          f"{rec['vs_compiled']}, prior_round {json.dumps(prior)}  "
+          f"[{ident}]")
 
 
 def check_config_run(tmp: Path):
@@ -4970,31 +5093,32 @@ def quickstart_card_runs() -> list[dict]:
     return runs
 
 
-def runs_child(fn: str, out: str) -> None:
-    """A phase's card runs (`fn`, a function of this module returning
-    rows: `quickstart_card_runs`, `managed_card_runs`) in a child
-    process, pickled to `out`."""
+def runs_child(fn: str, out: str, *args) -> None:
+    """A phase's card runs (`fn(*args)`, a function of this module
+    returning rows: `quickstart_card_runs`, `managed_card_runs`,
+    `ladder_card_runs`) in a child process, pickled to `out`."""
     import pickle
 
-    runs = globals()[fn]()
+    runs = globals()[fn](*args)
     with open(out, "wb") as fh:
         pickle.dump(runs, fh)
 
 
-def start_runs_beside(tag: str, fn: str, tmp: Path):
-    """Start `fn`'s card runs in a child process (beside 22 (b): 22 (a)'s
-    and 23's are host-bound and time nothing on the card, the host has
-    cores to spare by then, and a fresh process spawns its helpers
-    cheaply); returns (wait, kill): `wait()` waits for them and returns
-    their rows, failing phase `tag` if the child did, `kill()` stops the
-    child if it still runs."""
+def start_runs_beside(tag: str, fn: str, tmp: Path, *args: str):
+    """Start `fn(*args)`'s card runs in a child process (beside 22 (b):
+    22 (a)'s, 23's and 24's are host-bound and time nothing on the card
+    that is compared, the host has cores to spare by then, and a fresh
+    process spawns its helpers cheaply); returns (wait, kill): `wait()`
+    waits for them and returns their rows, failing phase `tag` if the
+    child did, `kill()` stops the child if it still runs."""
     import pickle
 
-    out = tmp / f"{fn}.pickle"
-    log = tmp / f"{fn}.log"
+    name = "-".join((fn, *args))
+    out = tmp / f"{name}.pickle"
+    log = tmp / f"{name}.log"
+    call = ", ".join(map(repr, (fn, str(out), *args)))
     children = {fn: (*start_child(
-        f"import chip_smoke as c; c.runs_child({fn!r}, {str(out)!r})",
-        HERE, log), log)}
+        f"import chip_smoke as c; c.runs_child({call})", HERE, log), log)}
 
     def wait() -> list[dict]:
         rc, text = wait_children(children)[fn]
@@ -5013,10 +5137,13 @@ def check_quickstart(torch, record, ident, runs):
     the card in the mode asked, no divergence, nothing in flight, no
     kernel launched."""
     rows = {}
+    # a witness a config, awaited once (the pool hands each result out
+    # once; a second call would run it again in this process)
+    witnesses = {name: witness(f"cli:{name}") for name in QUICKSTART}
     for run in runs:
         name, mode, tr = run["name"], run["mode"], run["transport"]
         what = f"22 (a) {name} ({mode})"
-        cpu = witness(f"cli:{name}")
+        cpu = witnesses[name]
         if cpu["rc"] != 0:
             fail(f"22 (a): the CPU witness of {name} exited {cpu['rc']}")
         if run["rc"] != 0 or tr is None or tr["device"] != TX_DEVICE:
@@ -5195,34 +5322,23 @@ def managed_test_sources() -> dict[str, str]:
     return out
 
 
-def managed_programs() -> Path:
-    """Rung 4's relay and client (`tools/onion/*.c`) and the TCP pair,
-    compiled with `gcc -O1` into a directory of `_build_out/` named by a
-    hash of their sources: built once, by whichever process comes first
-    (a temporary directory renamed into place whole). Returns it."""
+def built_once(prefix: str, key, fill) -> Path:
+    """A directory of `_build_out/` named by `prefix` and a hash of `key`
+    (as JSON), filled by `fill(directory)` once, by whichever process
+    comes first (a temporary directory renamed into place whole).
+    Returns it."""
     import hashlib
     import shutil
 
-    from shadow_tpu_torch.workloads import rung4
-
-    tcp = managed_test_sources()
-    sources = {n: (rung4.ONION_SOURCES / f"{n}.c").read_text()
-               for n in rung4.PROGRAMS}
-    digest = hashlib.sha256(json.dumps([sources, tcp],
-                                       sort_keys=True).encode())
+    digest = hashlib.sha256(json.dumps(key, sort_keys=True).encode())
     out = HERE / "shadow_tpu_torch" / "_build_out" / \
-        f"programs-{digest.hexdigest()[:16]}"
+        f"{prefix}-{digest.hexdigest()[:16]}"
     if out.is_dir():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = Path(tempfile.mkdtemp(prefix=out.name + ".", dir=out.parent))
     try:
-        rung4.compile_onion(tmp)
-        for name, text in tcp.items():
-            (tmp / f"{name}.c").write_text(text)
-            subprocess.run(["gcc", "-O1", "-o", str(tmp / name),
-                            str(tmp / f"{name}.c")], check=True,
-                           capture_output=True, text=True)
+        fill(tmp)
         try:
             tmp.rename(out)
         except OSError:
@@ -5231,6 +5347,27 @@ def managed_programs() -> Path:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return out
+
+
+def managed_programs() -> Path:
+    """Rung 4's relay and client (`tools/onion/*.c`) and the TCP pair,
+    compiled with `gcc -O1` into a directory of `_build_out/` named by a
+    hash of their sources, once (`built_once`). Returns it."""
+    from shadow_tpu_torch.workloads import rung4
+
+    tcp = managed_test_sources()
+    sources = {n: (rung4.ONION_SOURCES / f"{n}.c").read_text()
+               for n in rung4.PROGRAMS}
+
+    def fill(tmp: Path):
+        rung4.compile_onion(tmp)
+        for name, text in tcp.items():
+            (tmp / f"{name}.c").write_text(text)
+            subprocess.run(["gcc", "-O1", "-o", str(tmp / name),
+                            str(tmp / f"{name}.c")], check=True,
+                           capture_output=True, text=True)
+
+    return built_once("programs", [sources, tcp], fill)
 
 
 def exec_text(config: str) -> str:
@@ -5605,6 +5742,223 @@ def build_managed():
     return os.path.dirname(interpose.build()), managed_programs()
 
 
+# -- phase 24: the benchmark ladder through the port's twin -----------------
+#
+# `shadow_tpu_torch/tools/bench_ladder.py`'s rungs 1, 2 and interpose at the
+# JAX tool's shapes through the port's Manager, the device transport on the
+# card (in a child beside 22 (b)), each against a CPU witness on the CPU
+# routing in the pool; rungs 3, 3f and 4 run in phases 22 and 23 already,
+# and their YAML is held to the twin's builders.
+
+LADDER_RUNGS = ("1", "2", "interpose")
+LADDER_SERVED = 10 * 1024 * 1024  # rung 1's file (bench_ladder.rung1's size)
+
+
+def ladder_programs() -> Path:
+    """Rung 1's served file and the interposition rung's TCP pair
+    (`bench_ladder.compile_tcp_pair`), made once into a directory of
+    `_build_out/` (`built_once`, by the pair's sources and the file's
+    size): every card run and witness reads the same paths, so their
+    configs and data directories compare. Returns it."""
+    from shadow_tpu_torch.tools import bench_ladder
+
+    def fill(tmp: Path):
+        bench_ladder.write_served_file(tmp, LADDER_SERVED)
+        bench_ladder.compile_tcp_pair(tmp)
+
+    return built_once("ladder", [bench_ladder.tcp_pair_sources(),
+                                 LADDER_SERVED], fill)
+
+
+def ladder_run(rung: str, transport: str, data_dir: Path, device) -> dict:
+    """The twin's rung `rung` at the JAX tool's shape with `transport`
+    on `device`, its data directory `data_dir`; returns its JSON line."""
+    from shadow_tpu_torch.tools import bench_ladder
+
+    programs = ladder_programs()
+    kw = dict(data_dir=data_dir, device=device, transport=transport)
+    if rung == "1":
+        line = bench_ladder.rung1(LADDER_SERVED, tmp=programs, **kw)
+    elif rung == "2":
+        line = bench_ladder.rung2(**kw)
+    else:
+        line = bench_ladder.rung_interpose(tmp=programs, **kw)
+    if not line:
+        fail(f"24 (a): rung {rung} skipped: no python3 or no curl binary")
+    return line
+
+
+def ladder_witness(rung: str) -> dict:
+    """The CPU witness of a phase-24 rung: the twin on the CPU routing
+    with `device="cpu"`; its JSON line and data directory."""
+    import io
+
+    with tempfile.TemporaryDirectory() as tmp:
+        with contextlib.redirect_stdout(io.StringIO()):
+            line = ladder_run(rung, "cpu", Path(tmp) / "data", "cpu")
+        return {"line": line, "data": data_dir_contents(Path(tmp) / "data")}
+
+
+def ladder_card_runs(*modes: str) -> list[dict]:
+    """Phase 24's card runs: each of LADDER_RUNGS through the twin's
+    runner with the device transport on the card, in each of `modes`
+    (default TX_MODES; the smoke runs a child a mode). Returns a row a
+    run: its JSON line, data directory, kernel
+    launches, managed (native) processes, spawns and syscall dispatches,
+    and the
+    transport's device, mode, dispatches, divergence, packets in flight
+    and verified windows and packets."""
+    import io
+
+    from shadow_tpu_torch.process.managed import \
+        ManagedSimProcess as managed_cls
+    from shadow_tpu_torch.tools import bench_ladder
+    from shadow_tpu_torch.tpu import floweng, pipeline
+
+    mgrs = []
+    orig = bench_ladder.Manager
+
+    class Kept(orig):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            mgrs.append(self)
+
+    bench_ladder.Manager = Kept
+    runs = []
+    try:
+        for mode in modes or TX_MODES:
+            for rung in LADDER_RUNGS:
+                mgrs.clear()
+                with tempfile.TemporaryDirectory() as tmp:
+                    pipeline.reset_launches()
+                    floweng.reset_launches()
+                    with managed_counters() as counts, \
+                            contextlib.redirect_stdout(io.StringIO()) as out:
+                        line = ladder_run(rung, mode, Path(tmp) / "data",
+                                          None)
+                    launches = {k: v for k, v in {
+                        **pipeline.LAUNCHES, **floweng.LAUNCHES}.items()
+                        if v}
+                    data = data_dir_contents(Path(tmp) / "data")
+                (mgr,) = mgrs
+                tr = mgr.transport
+                runs.append(dict(
+                    rung=rung, mode=mode, line=line,
+                    printed=out.getvalue(), data=data, launches=launches,
+                    processes=sum(isinstance(cell.get("proc"), managed_cls)
+                                  for _n, _p, cell in mgr._spawned),
+                    counts=dict(counts),
+                    transport=None if tr is None else dict(
+                        device=tr.device.type, mode=tr.mode,
+                        dispatches=tr.dispatches,
+                        divergence=tr.divergence_count,
+                        in_flight=tr.in_flight,
+                        verified_windows=tr.verified_windows,
+                        verified_packets=tr.verified_packets)))
+    finally:
+        bench_ladder.Manager = orig
+    return runs
+
+
+def check_ladder_texts(ident) -> None:
+    """24 (b): the twin's rung-3 YAML is byte for byte the config phases
+    22 (b) and (c) run, and with the transport's keys the lines 22 (b)
+    runs; its rung-4 YAML with each transport is byte for byte phase 23
+    (b)'s."""
+    from shadow_tpu_torch.tools import bench_ladder
+    from shadow_tpu_torch.workloads import rung4
+
+    if bench_ladder.rung3_text(use_flow_engine=True) != rung3_live_text():
+        fail("24 (b): the twin's rung 3f YAML is not the one 22 (b) and (c) "
+             "run")
+    # the same lines, the transport's in another place: 22 (b) puts it
+    # where the flow engine's was, the twin after the hosts
+    live = with_experimental(rung3_live_text(),
+                             CLI_TRANSPORT.format(mode="sync"))
+    twin = bench_ladder.with_transport(bench_ladder.rung3_text(), "sync")
+    if sorted(twin.splitlines()) != sorted(live.splitlines()):
+        fail("24 (b): the twin's rung 3 with the sync transport is not the "
+             "config 22 (b) runs")
+    programs = managed_programs()
+    for mode in TX_MODES:
+        twin = bench_ladder.with_transport(
+            rung4.rung4_text(programs, **RUNG4), mode)
+        if twin != managed_text("rung4", mode):
+            fail(f"24 (b): the twin's rung 4 ({mode}) is not 23 (b)'s YAML")
+    print(f"24 (b) the twin's YAML: rung 3f byte for byte the config of 22 "
+          f"(b) and (c), rung 3 with the sync transport 22 (b)'s lines, "
+          f"rung 4 with each transport byte for byte 23 (b)'s; not run "
+          f"again  [{ident}]")
+
+
+def check_ladder(torch, record, ident, runs):
+    """Phase 24: (a) the card runs of `ladder_card_runs` (`runs`), each
+    against its rung's CPU witness: no process failure, the packets and
+    simulated seconds the witness's, the data directory the witness's
+    (`same_data_dirs`: every host's files, rung 1's fetched files among
+    them, and etc-hosts), the transport on the card in the mode asked, no
+    divergence, nothing in flight, a spawn a managed process, no kernel
+    of A-F launched; each run's JSON line printed; (b)
+    `check_ladder_texts`."""
+    rows, launched = {}, {}
+    # a witness a rung, awaited once (as in check_quickstart)
+    witnesses = {rung: witness(f"ladder:{rung}") for rung in LADDER_RUNGS}
+    for run in runs:
+        rung, mode, tr, line = (run["rung"], run["mode"], run["transport"],
+                                run["line"])
+        what = f"24 (a) rung {rung} ({mode})"
+        cpu = witnesses[rung]
+        wl = cpu["line"]
+        if line["failures"] or wl["failures"]:
+            fail(f"{what}: {line['failures']} process failures (witness "
+                 f"{wl['failures']})")
+        if tr is None or tr["device"] != TX_DEVICE or tr["mode"] != mode:
+            fail(f"{what}: the transport ran {tr}")
+        if tr["divergence"] or tr["in_flight"]:
+            fail(f"{what}: divergence {tr['divergence']}, {tr['in_flight']} "
+                 f"packets in flight")
+        if (line["packets"], line["sim_seconds"]) != (wl["packets"],
+                                                      wl["sim_seconds"]):
+            fail(f"{what}: {line['packets']} packets in {line['sim_seconds']}"
+                 f" s, the witness {wl['packets']} in {wl['sim_seconds']} s")
+        same_data_dirs(run["data"], cpu["data"], what)
+        counts = run["counts"]
+        if counts["spawns"] != run["processes"]:
+            fail(f"{what}: {counts['spawns']} spawns of {run['processes']} "
+                 f"managed processes")
+        for k, v in run["launches"].items():
+            launched[k] = launched.get(k, 0) + v
+        if run["launches"]:
+            fail(f"{what} launched {run['launches']}")
+        print(run["printed"].rstrip())
+        rows[f"{rung}:{mode}"] = dict(
+            {k: line[k] for k in ("rung", "sim_seconds", "wall_seconds",
+                                  "sim_per_wall", "events_per_sec",
+                                  "events", "packets", "failures")},
+            peak_rss_mib=line.get("peak_rss_mib"),
+            witness_wall_seconds=wl["wall_seconds"],
+            witness_events=wl["events"], dispatches=tr["dispatches"],
+            verified_windows=tr["verified_windows"],
+            verified_packets=tr["verified_packets"], **counts)
+        print(f"{what}: {line['rung']} {line['sim_seconds']} s simulated, "
+              f"{line['packets']} packets (the witness's), {line['events']} "
+              f"events (witness {wl['events']}), the data directory the CPU "
+              f"witness's ({len(run['data'])} files), {tr['dispatches']} "
+              f"dispatches, divergence 0, {counts['spawns']} spawns "
+              f"{counts['spawn_s']:.2f} s, {counts['syscalls']} syscalls "
+              f"{counts['syscall_s']:.2f} s; {line['wall_seconds']} s wall, "
+              f"sim/wall {line['sim_per_wall']} (the witness's "
+              f"{wl['wall_seconds']} s on the CPU routing)  [{ident}]")
+    if sorted(rows) != sorted(f"{r}:{m}" for r in LADDER_RUNGS
+                              for m in TX_MODES):
+        fail(f"24 (a): the card runs were {sorted(rows)}")
+    print(f"24 (a) kernel launches of A-F in the ladder's children: "
+          f"{sum(launched.values())}")
+    check_ladder_texts(ident)
+    record["ladder"] = rows
+    return rows
+
+
 def check_phold_widths(torch, bench, convert, pipeline, record, ident):
     """22 (d): PHOLD_WIDE through "pallas_fused" and "pallas" (kernels A
     and C in their wide build, every window) and PHOLD_CI1 through
@@ -5791,6 +6145,9 @@ def run_phases(torch, workers: int, cores: int):
             "22 (a)", "quickstart_card_runs", Path(tmp))
         mg_wait, mg_kill = start_runs_beside(
             "23", "managed_card_runs", Path(tmp))
+        # the ladder's card runs, a child a mode
+        ladder = [start_runs_beside("24", "ladder_card_runs", Path(tmp),
+                                    mode) for mode in TX_MODES]
         try:
             timed("22 (b) rung 3 live", rung3_live, torch, record, ident,
                   RUNG3_LIVE_STOP, untagged, "cli:rung3")
@@ -5804,13 +6161,18 @@ def run_phases(torch, workers: int, cores: int):
             qs_runs = timed("22 (a) quickstart's child, awaited", qs_wait)
             mg_runs = timed("23 managed processes' child, awaited",
                             mg_wait)
+            lad_runs = timed("24 ladder's children, awaited", lambda: [
+                run for wait, _kill in ladder for run in wait()])
         finally:
             qs_kill()
             mg_kill()
+            for _wait, kill in ladder:
+                kill()
     timed("22 (a) quickstart", check_quickstart, torch, record, ident,
           qs_runs)
     timed("23 managed processes", check_managed, torch, record, ident,
           managed_built, mg_runs)
+    timed("24 ladder", check_ladder, torch, record, ident, lad_runs)
     record["phase_s"] = phase_s
     print(f"phase seconds: {json.dumps(phase_s)}")
     print(f"phase seconds summed, the build's wait included: "

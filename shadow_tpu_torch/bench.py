@@ -35,24 +35,33 @@ The JSON line carries the JAX record's keys `metric`
 fingerprint, `telemetry/tracer.backend_fingerprint`), `hosts`, `kernel`
 (with `faults_threaded`), `driver`, `capacity`, `telemetry`, `worlds`,
 `memo` and `sections`, so `tools/compare_runs.py --bench` diffs two of
-them (and prints its mismatched-backend banner against a TPU record).
-It leaves out `vs_baseline`, `compiled_events_per_sec`, `vs_compiled`
-and `prior_round`: the first two need the CPU object plane and the C++
-microbench, which the port does not have (it is the device side only),
-and `prior_round` compares with the `BENCH_r*.json` records, which were
-measured on a TPU. Beside them it keeps its own keys (the events, the
-wall seconds, the device, `state_digest`).
+them (and prints its mismatched-backend banner against a TPU record),
+and JAX's baselines: `vs_baseline`, the run's rate over the port's own
+object plane's (`bench_cpu_baseline`: 64-host PHOLD through the port's
+`core/manager.Manager` on the host); `compiled_events_per_sec` and
+`vs_compiled`, over the C++ PHOLD microbench `tools/phold_compiled.cc`,
+built with g++ into `_build_out/` (`bench_compiled_baseline`; 0.0 and
+`vs_compiled` null without g++, as in JAX); and `prior_round`, JAX's
+regression guard against the newest `BENCH_r*.json` of the same hosts
+(`_regression_guard`), which skips a record whose `backend` fingerprint
+differs from the run's: every committed record is a JAX run's. Beside
+them it keeps its own keys (the events, the wall seconds, the device,
+`state_digest`).
 """
 
 from __future__ import annotations
 
 import contextlib
+import json
 import os
+import sys
 import time
+from pathlib import Path
 
 import torch
 
 from . import resolve_device
+from ._build import BUILD_DIR
 from .core.capacity import CAPACITY_MODES
 from .faults import runstate
 from .faults.plane import neutral_faults
@@ -77,6 +86,23 @@ GOLDEN_PHOLD = dict(n_hosts=1024, n_nodes=64, egress_cap=16, ingress_cap=32,
 GOLDEN_PHOLD_DIGEST = (
     "3997ae828b6430c7919a8a864ba9c9c978dcfaa218c7d2f9145cbcf8fdbfed60")
 SPAWN_SEQ0 = 10_000
+REPO = Path(__file__).resolve().parents[1]
+MS = 1_000_000
+# the compiled baseline: the repository's C++ PHOLD microbench, its
+# arguments (hosts, nodes, millions of events) JAX's bench's
+PHOLD_COMPILED = REPO / "tools" / "phold_compiled.cc"
+PHOLD_COMPILED_ARGS = ("64", "64", "20")
+BASELINE_TEXT = (
+    "vs_baseline: the port's own Python object plane (64-host PHOLD on "
+    "the Host/EventQueue path of shadow_tpu_torch.core.manager.Manager, "
+    "on the host CPU). vs_compiled: the in-tree C++ PHOLD microbench "
+    "(tools/phold_compiled.cc, built with g++ -O2 into "
+    "shadow_tpu_torch/_build_out/) pricing compiled-Shadow-class "
+    "per-event cost on one core, an optimistic floor for the reference, "
+    "so the ratio understates the device plane. prior_round: the newest "
+    "BENCH_r*.json of the same hosts, skipped when its backend "
+    "fingerprint is not this run's. See shadow_tpu_torch.tools."
+    "bench_ladder for the end-to-end rung measurements")
 # torch.profiler range over each window's routing stage (profile_windows)
 ROUTING_STAGE = "routing_stage"
 
@@ -712,6 +738,168 @@ def bench_sections(kernel: str, n_hosts: int = 32768, n_nodes: int = 64,
     return {name: vals["min_ms"] for name, vals in rep["sections"].items()}
 
 
+def cpu_baseline_run(stop_time: str = "2s") -> tuple[int, float]:
+    """PHOLD on the port's object plane (the Host/EventQueue/Worker path
+    of `core/manager.Manager`), JAX's `bench_cpu_baseline` world: 64
+    hosts on a `1_gbit_switch`, seed 1, each starting four UDP sends at
+    1 ms and answering every arrival with one to a random peer, for
+    `stop_time` of simulated time. Returns (the events its app counted,
+    the wall seconds of `Manager.run`)."""
+    from .core.config import load_config_str
+    from .core.manager import Manager
+    from .net.packet import Packet, Protocol
+
+    hosts_yaml = "\n".join(
+        f"  peer{i}:\n    network_node_id: 0" for i in range(64))
+    cfg = load_config_str(
+        f"general:\n  stop_time: {stop_time}\n  seed: 1\n"
+        f"network:\n  graph:\n    type: 1_gbit_switch\nhosts:\n{hosts_yaml}")
+    mgr = Manager(cfg)
+    peer_ips = [h.ip for h in mgr.hosts]
+    events = [0]
+
+    class App:
+        PORT = 9000
+
+        def __init__(self, host):
+            self.host = host
+            self.outq = []
+            host.netns.associate(self, Protocol.UDP, "0.0.0.0", self.PORT)
+
+        def pull_out_packet(self):
+            return self.outq.pop(0) if self.outq else None
+
+        def peek_next_priority(self):
+            return self.outq[0].priority if self.outq else None
+
+        def push_in_packet(self, packet):
+            events[0] += 1
+            self.send_one()
+
+        def send_one(self):
+            events[0] += 1
+            dst = peer_ips[self.host.rng.randrange(0, len(peer_ips))]
+            self.outq.append(Packet(
+                Protocol.UDP, (self.host.ip, self.PORT), (dst, self.PORT),
+                b"x" * 1400, priority=self.host.get_next_packet_priority()))
+            self.host.notify_socket_has_packets(self.host.ip, self)
+
+        def start(self, host):
+            for _ in range(4):
+                self.send_one()
+
+    for host in mgr.hosts:
+        host.add_application(MS, App(host).start)
+    t0 = time.monotonic()
+    mgr.run()
+    return events[0], time.monotonic() - t0
+
+
+def bench_cpu_baseline() -> float:
+    """Events a wall second of `cpu_baseline_run` (JAX's
+    `bench_cpu_baseline`, over the port's object plane)."""
+    events, wall = cpu_baseline_run()
+    return events / wall
+
+
+def bench_compiled_baseline() -> float:
+    """The compiled-Shadow-class per-event floor: `tools/phold_compiled.cc`
+    built with `g++ -O2` into `_build_out/` (again when the source is
+    newer than the build; the source is only read) and run at JAX's
+    arguments. Returns its events a second, or 0.0 where there is no
+    g++ or the build or run fails (an auxiliary baseline, as in JAX:
+    it never takes the device rate with it)."""
+    import shutil
+    import subprocess
+
+    try:
+        if shutil.which("g++") is None:
+            return 0.0
+        exe = BUILD_DIR / "phold_compiled"
+        if not exe.exists() or \
+                exe.stat().st_mtime < PHOLD_COMPILED.stat().st_mtime:
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            # built under a name of its own, then renamed into place, so
+            # two processes building at once never run a partial file
+            tmp = BUILD_DIR / f"phold_compiled.{os.getpid()}.tmp"
+            try:
+                subprocess.run(["g++", "-O2", "-o", str(tmp),
+                                str(PHOLD_COMPILED)], check=True,
+                               capture_output=True)
+                os.replace(tmp, exe)
+            finally:
+                tmp.unlink(missing_ok=True)
+        out = subprocess.run([str(exe), *PHOLD_COMPILED_ARGS], check=True,
+                             capture_output=True, text=True).stdout
+        return float(json.loads(out)["events_per_sec"])
+    except (OSError, subprocess.CalledProcessError, ValueError, KeyError):
+        return 0.0
+
+
+def _bench_round(name: str) -> int | None:
+    """The round number of a `BENCH_r<N>.json` file name, or None."""
+    import re
+
+    m = re.search(r"BENCH_r(\d+)", name)
+    return int(m.group(1)) if m else None
+
+
+def _regression_guard(value: float, fingerprint: dict, *, hosts: int,
+                      root=REPO):
+    """JAX's `prior_round`: the newest `BENCH_r*.json` in `root` with the
+    same `hosts` (a driver-wrapped record read through its `parsed`),
+    its `value` against this run's: a ratio, regressed below 0.8. A
+    record whose `backend` dict is not `fingerprint` (or that has none)
+    is not comparable: a warning on stderr and `skipped_mismatched_backend`
+    instead of a verdict. None where no record has this size and a
+    positive value."""
+    best = None
+    for path in Path(root).glob("BENCH_r*.json"):
+        rnd = _bench_round(path.name)
+        if rnd is None:
+            continue
+        try:
+            rec = json.loads(path.read_text())
+        except (OSError, ValueError):
+            continue
+        rec = rec.get("parsed", rec)  # the driver wraps the JSON line
+        if not rec or rec.get("hosts") != hosts:
+            continue
+        if best is None or rnd > best[0]:
+            best = (rnd, rec.get("value"), rec.get("backend"))
+    if best is None or not best[1] or float(best[1]) <= 0:
+        return None
+    rnd, prior, prior_backend = best[0], float(best[1]), best[2]
+    if prior_backend != fingerprint:
+        print(f"bench: WARNING: prior round BENCH_r{rnd:02d} was measured "
+              f"on backend {prior_backend} but this run is on "
+              f"{fingerprint}: cross-backend throughput ratios are "
+              f"meaningless, so the prior_round regression gate is "
+              f"SKIPPED. Re-measure both rounds on one backend.",
+              file=sys.stderr)
+        return {"vs_round": rnd, "skipped_mismatched_backend": True,
+                "prior_backend": prior_backend, "regressed": False}
+    ratio = value / prior
+    return {"vs_round": rnd, "ratio": round(ratio, 3),
+            "regressed": ratio < 0.8}
+
+
+def baseline_record(rate: float, fingerprint: dict, hosts: int) -> dict:
+    """JAX's baseline keys of a record whose device rate is `rate`, the
+    two baseline rates measured here, as the JAX bench rounds them:
+    `vs_baseline`, `vs_compiled` (null without a compiled rate),
+    `compiled_events_per_sec`, `prior_round`, and the `baseline` text."""
+    cpu_rate = bench_cpu_baseline()
+    compiled_rate = bench_compiled_baseline()
+    return {"vs_baseline": round(rate / cpu_rate, 2),
+            "vs_compiled": (round(rate / compiled_rate, 3)
+                            if compiled_rate else None),
+            "compiled_events_per_sec": round(compiled_rate, 1),
+            "prior_round": _regression_guard(rate, fingerprint,
+                                             hosts=hosts),
+            "baseline": BASELINE_TEXT}
+
+
 def bench_record(res: dict, sections: dict | None = None) -> dict:
     """The JSON record of a `run_phold` result: JAX's keys (`metric`,
     `value`, `unit`, `backend`, `hosts`, `sections`, with the driver's
@@ -740,7 +928,6 @@ def bench_record(res: dict, sections: dict | None = None) -> dict:
 
 def main(argv=None):
     import argparse
-    import json
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernel", choices=KERNELS, default="pallas_fused",
@@ -803,6 +990,8 @@ def main(argv=None):
         if not args.no_sections and res["kernel"]["used"] == "xla"
         else None)
     rec = bench_record(res, sections)
+    rec.update(baseline_record(res["packet_events_per_sec"], rec["backend"],
+                               rec["hosts"]))
     if args.worlds:
         worlds = run_worlds(args.worlds, egress_cap=args.egress_cap,
                             ingress_cap=args.ingress_cap,

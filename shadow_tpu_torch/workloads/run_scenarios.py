@@ -7,13 +7,17 @@ golden digests: the corpus mode of `tools/run_scenarios.py`.
         [--telemetry DIR] [--memo] [--memo-report PATH]
         [--memo-cache DIR] [--trace DIR] [--trace-report PATH]
         [--checkpoint-dir DIR] [--checkpoint-every K] [--resume]
-        [--kill-at R] [--shard N]
+        [--kill-at R] [--shard N] [--update-golden --golden PATH]
         [--device cuda|cpu]
 
 With no paths it runs every `scenarios/*.yaml` of the checkout. `--check`
 compares each record's fingerprint, program digest and canonical digest
-with `scenarios/GOLDEN.json` and exits 1 on a mismatch; with no paths a
-golden entry that did not run is a mismatch too. `--config SIM_YAML`
+with `scenarios/GOLDEN.json` (or `--golden PATH`) and exits 1 on a
+mismatch; with no paths a golden entry that did not run is a mismatch
+too. `--update-golden` writes this run's golden entries to `--golden
+PATH` in the JAX tool's format; it refuses (exit 2) to write
+`scenarios/GOLDEN.json`, the reference's record, which the port never
+rewrites. `--config SIM_YAML`
 runs the scenario a simulation config's `workload:` block names instead
 of paths (the path taken against the config's directory, `workload.seed`
 overriding the scenario's seed), with the config's `flows:` knobs
@@ -27,7 +31,7 @@ runner's default fault schedule, `--guards` the guard plane (each line
 then says guards=clean or guards=DIRTY, and a dirty run exits 1), and
 `--sample-every K` the flight recorder with a ring of `--trace-ring`
 slots. A fault or guard run is another world than the golden corpus's,
-so `--check` refuses them (exit 2).
+so `--check` and `--update-golden` refuse them (exit 2).
 
 The run infrastructure, with the JAX tool's meanings and file names:
 
@@ -56,8 +60,7 @@ its own, and over gloo on the CPU or when several share one card. As in
 the JAX tool, `--shard` refuses flow and compute entries,
 `--memo` and `--checkpoint-dir` (the runner's ValueError, exit 2).
 
-The device defaults to the CUDA card. Not ported: `--update-golden`
-(it rewrites `scenarios/GOLDEN.json`, the reference's record).
+The device defaults to the CUDA card.
 """
 
 from __future__ import annotations
@@ -76,9 +79,13 @@ def _refusal(args, memo: bool) -> str | None:
     """The flag combinations the JAX tool refuses (exit 2), as a line;
     `memo` is whether the run memoizes (`--memo` or the config's
     `memo.enabled`)."""
-    if (args.faults or args.guards) and args.check:
-        return ("--faults/--guards runs cannot be checked against the "
-                "golden corpus")
+    if (args.faults or args.guards) and (args.check or args.update_golden):
+        return ("--faults/--guards runs cannot be checked against or "
+                "written as the golden corpus")
+    if args.update_golden and \
+            Path(args.golden).resolve() == GOLDEN.resolve():
+        return (f"--update-golden will not rewrite {GOLDEN}, the "
+                f"reference's record: pass --golden PATH")
     if args.memo_report and not memo:
         return "--memo-report needs --memo (or a config with memo.enabled)"
     if args.memo_cache and not memo:
@@ -189,6 +196,9 @@ def main(argv=None) -> int:
     ap.add_argument("--kill-at", type=int, default=None, metavar="R",
                     help="exit 137 once the round-R checkpoint is on disk "
                          "(R a multiple of --checkpoint-every)")
+    ap.add_argument("--update-golden", action="store_true",
+                    help="write this run's golden entries to --golden "
+                         "(never scenarios/GOLDEN.json)")
     ap.add_argument("--golden", default=str(GOLDEN))
     ap.add_argument("--shard", type=int, default=None, metavar="N",
                     help="host-axis shard over N ranks (digest parity)")
@@ -362,6 +372,11 @@ def main(argv=None) -> int:
         _write_json(args.trace_report, {
             "backend": backend, "schema": tracermod.RUNLEDGER_SCHEMA,
             "scenarios": trace_summaries})
+    if args.update_golden:
+        _write_json(args.golden, {rec["name"]: runner.golden_entry(rec)
+                                  for rec in records})
+        print(f"run_scenarios: golden corpus written: {args.golden}",
+              file=sys.stderr)
     if args.check:
         golden = runner.load_golden(args.golden)
         if args.scenarios:

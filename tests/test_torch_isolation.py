@@ -24,7 +24,8 @@ from shadow_tpu_torch.guards import plane as gplane  # noqa: E402
 from shadow_tpu_torch.telemetry import flightrec, histo, metrics  # noqa: E402
 from shadow_tpu_torch.tpu import (compute, elastic, flows, plane,  # noqa: E402
                                   profiling, transport)
-from shadow_tpu_torch.tools import profile_plane, transport_replay  # noqa: E402
+from shadow_tpu_torch.tools import (bench_ladder, profile_plane,  # noqa: E402
+                                    transport_replay)
 from shadow_tpu_torch.workloads import runner, spec  # noqa: E402
 
 REPO = Path(__file__).resolve().parent.parent
@@ -520,6 +521,7 @@ def test_entry_points_default_to_cuda_and_refuse_without_a_card():
         lambda: transport.make_transport_hist(4),
         lambda: transport_replay.main([str(TRANSPORT_LOG), "--mode",
                                        "mirrored", "--rounds", "4"]),
+        lambda: bench_ladder.main(["2", "--transport", "cpu"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -604,7 +606,7 @@ OBJECT_PLANE = (
     "kernel/socket/netlink.py", "process/memory.py", "process/strace.py",
     "process/syscall_handler.py", "process/managed.py",
     "interpose/__init__.py", "interpose/gen_libc_wrappers.py",
-    "workloads/rung4.py")
+    "workloads/rung4.py", "tools/bench_ladder.py")
 
 
 def test_object_plane_modules_import_no_jax_and_nothing_of_shadow_tpu():
