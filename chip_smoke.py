@@ -23,11 +23,17 @@ printed:
    write and a read, so no dirty lines are left: `cold_clean_ms`) and
    in L2 (back-to-back launches: `warm_ms`); (d) at the egress
    capacities no main path runs but JAX's kernel takes, CE in {1, 2048,
-   4096, 16384} (one-slot rows in the warp build; the wide build, a block
-   of 1024 threads a row over device memory, past 1024), on 2^24 slots of
-   columns (~1.09 GB) and on the int32 edge inputs, each launch counted
-   under the build its launcher picked, timed as above beside the bound
-   by bytes, with ptxas' report of the wide build;
+   4096, 16384} (one-slot rows in the warp build; past 1024 the wide
+   build, a block a row with the row's packed words in shared memory), on
+   2^24 slots of columns (~1.09 GB) and on the int32 edge inputs, each
+   launch counted under the build its launcher picked, timed as above
+   beside the bound by bytes and the wide design's own operation count
+   (a model's estimate, not a measurement); at CE = 8192 (the wide
+   build's one instance that plays two runs a thread) and 32768 (the
+   device build, a block a row over device memory) on 24 rows of random
+   and of edge inputs, untimed; ptxas' report of the
+   wide build's instances (its shared memory a block within the H100's
+   227 KB) and of the device build;
 4. kernel C (egress_gate): ptxas' registers, shared memory and spills
    of its kernels (a spill fails); bitwise against its plain version at
    CE in {2, 4, 8, 16, 32, 64, 128, 1024} on random inputs at N=32768
@@ -277,8 +283,10 @@ printed:
    event), its sim-stats the witness's; (c) the rung-3 flow-engine
    deployment through the CLI, its stats record the JAX Manager's, F
    launched; (d) PHOLD at CE=2048 through both kernel pairs (A and C in
-   their wide build every window) and at CI=1 through the fused pair,
-   each state the "xla" run's;
+   their wide build every window, each launch's time on the card in the
+   window from torch.profiler's kernel events, beside its byte bound; run
+   before (a)'s and 23's children share the card) and at CI=1 through the fused pair, each state the "xla"
+   run's;
 23. managed native processes: real executables under the port's
    interposition shim (`shadow_tpu_torch/interpose`, built into
    `_build_out/`) and syscall handler, through `python -m
@@ -358,6 +366,14 @@ C_TIMED = (8, 16, 32)
 WIDE_CES = (1, 2048, 4096, 16384)
 WIDE_SLOTS = {"A": 1 << 24, "C": 1 << 25}
 WIDE_EDGE_ROWS = 24  # rows of the int32 edge inputs at each width
+# held bitwise, untimed: the wide build's one instance of two passes
+# (8192), and rows past what a block's shared memory holds (the device
+# build)
+WIDE_HELD_CES = (8192, 32768)
+# the wide build's instances (one a CE), and the shared memory a block
+# may take on an H100
+WIDE_BUILD_CES = (2048, 4096, 8192, 16384)
+MAX_SHARED_PER_BLOCK = 232448
 WIDE_REPS = 10  # timed launches of each kind at each width
 # 22 (d): a short PHOLD run through both kernel pairs with rows of this
 # many egress slots (kernels A and C in their wide build), and one with
@@ -917,13 +933,50 @@ def egress_edge_inputs(torch, n, ce, seed, shift):
             t(cols["balance"]), shift)
 
 
-def check_egress_widths(torch, pipeline, record, ident, which: str):
+def wide_design_ops(which: str, ce: int, slots: int) -> dict:
+    """The operations the wide build (`row_bitonic::Wide`) does on
+    `slots` slots at rows of `ce`: each network's stages in registers
+    (strides below a run's 16 slots: ~3 int ops a slot, one 64-bit
+    compare and two selects a pair), through shuffles (strides within a
+    warp's 512 slots: 2 shuffles and ~4 int ops a slot) and in shared
+    memory (strides across warps: ~8 a slot, the pair's loads, stores,
+    addresses and exchange; 2 a slot to load and store the runs again
+    after each merge that has such strides); and beside the networks, ~4
+    int ops a slot a payload column (stage, swizzled gather), ~6 for the
+    token gate and ~4 a network to pack its words. Kernel A runs two
+    networks and 8 payload columns, C one and 3. The stage counts are the
+    design's; the per-stage costs are estimates, not counted on the card,
+    and the total is this design's work, not the least the function
+    needs: a model beside the byte bound, not a bound."""
+    lg = int(math.log2(ce))
+    lv = 4  # log2 of kV, the slots a run
+    span = lv + 5
+    reg = sum(min(ls, lv) for ls in range(1, lg + 1))
+    shfl = sum(max(0, min(ls, span) - lv) for ls in range(1, lg + 1))
+    smem = sum(max(0, ls - span) for ls in range(1, lg + 1))
+    merges = max(0, lg - span)
+    nets, cols = (2, 8) if which == "A" else (1, 3)
+    per_net = 3 * reg + 4 * shfl + 8 * smem + 2 * merges
+    ops = slots * (nets * (per_net + 4) + 4 * cols + 6)
+    shuffles = slots * nets * 2 * shfl
+    ms, _ = bound(0, ops, shuffles)
+    return dict(stages=dict(registers=reg, shuffles=shfl, shared=smem),
+                int_ops=ops, shuffles=shuffles, ms=ms)
+
+
+def check_egress_widths(torch, pipeline, record, ident, which: str,
+                        ces=WIDE_CES, held=WIDE_HELD_CES):
     """3 (d) / 4 (d): kernel A (`which` "A") or C ("C") at each egress
-    capacity of WIDE_CES, on WIDE_SLOTS[which] slots of random columns
-    and on WIDE_EDGE_ROWS rows of int32 edge columns (both shifts),
-    bitwise against the plain version; the build the launcher ran, by
-    its launch count; timed cold, clean and warm beside its bound by
-    bytes (each input read and each output written once)."""
+    capacity of `ces`, on WIDE_SLOTS[which] slots of random columns and
+    on WIDE_EDGE_ROWS rows of int32 edge columns (both shifts), bitwise
+    against the plain version; the build the launcher ran, by its launch
+    count; timed cold, clean and warm beside its bound by bytes (each
+    input read and each output written once) and, for the wide build,
+    the design's own operation count (`wide_design_ops`, a model's
+    estimate). At each CE of `held` the same checks on WIDE_EDGE_ROWS
+    rows of random and of edge columns, untimed. ptxas' report of the wide
+    build's instances and of the device build: a spill, or a block's
+    static and dynamic shared memory past MAX_SHARED_PER_BLOCK, fails."""
     sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
     from torch_parity import EDGE_SHIFTS
 
@@ -935,16 +988,24 @@ def check_egress_widths(torch, pipeline, record, ident, which: str):
         stage, plain = pipeline.egress_order_gate, pipeline.egress_gate_plain
         builds, name = pipeline.C_BUILD_LAUNCHES, "egress_gate"
         pick = lambda full: (*full[:5], full[9], full[10])
-    check_ptxas(record, name, f"kernel {which}'s wide build",
-                f"kernel_{which.lower()}_wide_ptxas", f"{name}_wide", [None])
-    rows = []
-    for ce in WIDE_CES:
-        n = WIDE_SLOTS[which] // ce
-        cases = [("random", pick(egress_inputs(torch, n, ce,
-                                                       seed=7 * ce + 1)))]
-        for shift in EDGE_SHIFTS:
-            cases.append((f"edge shift={shift}", pick(egress_edge_inputs(
-                torch, WIDE_EDGE_ROWS, ce, ce + 3, shift))))
+    wide_ptxas = check_ptxas(
+        record, name, f"kernel {which}'s wide build",
+        f"kernel_{which.lower()}_wide_ptxas", f"{name}_wide",
+        list(WIDE_BUILD_CES), "CE")
+    for ce in WIDE_BUILD_CES:
+        static = wide_ptxas[str(ce)]["smem"]
+        dynamic = pipeline.egress_shared_bytes(name, ce)
+        print(f"kernel {which}'s wide build CE={ce}: {static} B static + "
+              f"{dynamic} B dynamic shared memory a block (at most "
+              f"{MAX_SHARED_PER_BLOCK})")
+        if static + dynamic > MAX_SHARED_PER_BLOCK:
+            fail(f"kernel {which}'s wide build at CE={ce} takes "
+                 f"{static + dynamic} B of shared memory a block")
+    check_ptxas(record, name, f"kernel {which}'s device build",
+                f"kernel_{which.lower()}_device_ptxas", f"{name}_device",
+                [None])
+
+    def hold(ce, cases):
         for what, case in cases:
             pipeline.reset_launches()
             got = stage(*case)
@@ -963,6 +1024,20 @@ def check_egress_widths(torch, pipeline, record, ident, which: str):
             if what == "random":
                 outs = got
             del got, ref
+        return want_build, outs
+
+    def edge_cases(ce):
+        return [(f"edge shift={shift}", pick(egress_edge_inputs(
+            torch, WIDE_EDGE_ROWS, ce, ce + 3, shift)))
+            for shift in EDGE_SHIFTS]
+
+    rows = []
+    for ce in ces:
+        n = WIDE_SLOTS[which] // ce
+        cases = [("random", pick(egress_inputs(torch, n, ce,
+                                                       seed=7 * ce + 1)))]
+        cases += edge_cases(ce)
+        want_build, outs = hold(ce, cases)
         args = cases[0][1]
         warm_ms, ms, clean_ms = time_device(
             torch, lambda: stage(*args), reps=WIDE_REPS)
@@ -974,6 +1049,18 @@ def check_egress_widths(torch, pipeline, record, ident, which: str):
                    warm_ms=warm_ms, cold_clean_ms=clean_ms,
                    plain_ms=plain_ms, bytes=moved, bound_ms=bound_ms,
                    bound_by=bound_by, share_of_bound=bound_ms / ms)
+        design = ""
+        if want_build == "wide":
+            ops = wide_design_ops(which, ce, n * ce)
+            row.update(design_ops=ops)
+            st = ops["stages"]
+            side = "above" if ops["ms"] > bound_ms else "below"
+            design = (f" design: {st['registers']} register / "
+                      f"{st['shuffles']} shuffle / {st['shared']} shared-"
+                      f"memory stages a network, {ops['int_ops']} int ops"
+                      f" and {ops['shuffles']} shuffles, {ops['ms']:.5f} "
+                      f"ms at the peak rates (a model's estimate, {side} "
+                      f"the byte bound);")
         rows.append(row)
         print(f"{which} (d) {name} CE={ce} N={n} ({want_build} build, one "
               f"launch a call): bitwise ok on random inputs and int32 edge "
@@ -981,8 +1068,16 @@ def check_egress_widths(torch, pipeline, record, ident, which: str):
               f"kernel_ms={ms:.5f} (cold L2; clean {clean_ms:.5f}; warm "
               f"{warm_ms:.5f}) plain_ms={plain_ms:.5f} bound_ms="
               f"{bound_ms:.5f} ({bound_by}, {moved} B) share="
-              f"{bound_ms / ms:.3f}  [{ident}]")
+              f"{bound_ms / ms:.3f};{design}  [{ident}]")
         del cases, args, outs
+        torch.cuda.empty_cache()
+    for ce in held:
+        cases = [("random", pick(egress_inputs(torch, WIDE_EDGE_ROWS, ce,
+                                                       seed=7 * ce + 1)))]
+        want_build, _ = hold(ce, cases + edge_cases(ce))
+        print(f"{which} (d) {name} CE={ce} ({want_build} build, one launch "
+              f"a call): bitwise ok on random and int32 edge inputs "
+              f"(N={WIDE_EDGE_ROWS}, shifts {EDGE_SHIFTS}); untimed")
         torch.cuda.empty_cache()
     record[f"kernel_{which.lower()}_widths"] = rows
     return rows
@@ -5959,11 +6054,46 @@ def check_ladder(torch, record, ident, runs):
     return rows
 
 
+def profiled_launches(torch, pipeline, name, symbol, run):
+    """Calls `run()` under torch.profiler, each launch of the pipeline
+    kernel `name` recording the bytes of its tensor arguments (each input
+    read and each output written once). Returns run's result, those
+    launches' bytes, and the µs on the card of each kernel whose symbol
+    holds `symbol`, in the order they ran: the profiler's kernel events,
+    the kernel's own time on the card without the host's enqueue."""
+    from torch.profiler import ProfilerActivity, profile
+
+    real = pipeline._launch
+    sizes = []
+
+    def launch(kernel, *args):
+        if kernel == name:
+            sizes.append(nbytes([a for a in args
+                                 if isinstance(a, torch.Tensor)]))
+        return real(kernel, *args)
+
+    torch.cuda.synchronize()
+    pipeline._launch = launch
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            out = run()
+            torch.cuda.synchronize()
+    finally:
+        pipeline._launch = real
+    on_card, _ = card_work(prof, 1)
+    ran = sorted((ev for ev in on_card if symbol in ev.name),
+                 key=lambda ev: ev.time_range.start)
+    return out, sizes, [ev.time_range.elapsed_us() for ev in ran]
+
+
 def check_phold_widths(torch, bench, convert, pipeline, record, ident):
     """22 (d): PHOLD_WIDE through "pallas_fused" and "pallas" (kernels A
     and C in their wide build, every window) and PHOLD_CI1 through
     "pallas_fused" (kernel B with one-slot rings), each state equal to
-    the "xla" run's."""
+    the "xla" run's. PHOLD_WIDE's runs go under torch.profiler: each
+    launch of A's and C's wide build, its µs on the card in the window
+    beside its byte bound, and launches x (time - bound)."""
     rows = {}
     for size, paths in ((PHOLD_WIDE, ("pallas_fused", "pallas")),
                         (PHOLD_CI1, ("pallas_fused",))):
@@ -5972,8 +6102,16 @@ def check_phold_widths(torch, bench, convert, pipeline, record, ident):
         ref = bench.run_phold(n, warmup=False, kernel="xla", **size)
         want = convert.state_digest(ref["state"])
         for kernel in paths:
+            pair = (("egress_rank", "route_place") if kernel == "pallas_fused"
+                    else ("egress_gate", "route_scatter"))
+            run = lambda: bench.run_phold(n, warmup=False, kernel=kernel,
+                                          **size)
             pipeline.reset_launches()
-            out = bench.run_phold(n, warmup=False, kernel=kernel, **size)
+            if size["egress_cap"] > 1024:
+                out, sizes, us = profiled_launches(
+                    torch, pipeline, pair[0], f"{pair[0]}_wide", run)
+            else:
+                out = run()
             builds = {**{f"A:{k}": v for k, v in
                          pipeline.A_BUILD_LAUNCHES.items() if v},
                       **{f"C:{k}": v for k, v in
@@ -5981,16 +6119,32 @@ def check_phold_widths(torch, bench, convert, pipeline, record, ident):
             launches = {k: v for k, v in pipeline.LAUNCHES.items() if v}
             got = convert.state_digest(out["state"])
             key = f"{kernel}@CE={size['egress_cap']},CI={size['ingress_cap']}"
-            pair = (("egress_rank", "route_place") if kernel == "pallas_fused"
-                    else ("egress_gate", "route_scatter"))
             if got != want or launches != {p: size["rounds"] for p in pair}:
                 fail(f"22 (d) PHOLD {key}: digest {got[:16]} vs xla "
                      f"{want[:16]}, launches {launches}")
-            rows[key] = dict(builds=builds, launches=launches,
-                             delivered=out["delivered"])
+            row = dict(builds=builds, launches=launches,
+                       delivered=out["delivered"])
+            timing = ""
+            if size["egress_cap"] > 1024:
+                if len(us) != len(sizes) or len(set(sizes)) != 1:
+                    fail(f"22 (d) PHOLD {key}: the profiler saw {len(us)} "
+                         f"kernels of {pair[0]}'s wide build for "
+                         f"{len(sizes)} launches of sizes {set(sizes)}")
+                bound_us = bound(sizes[0], 0)[0] * 1e3
+                lost_us = sum(u - bound_us for u in us)
+                row.update(in_window_us=us, bound_us=bound_us,
+                           bytes=sizes[0], lost_us=lost_us)
+                timing = (f"; {pair[0]} in the window (torch.profiler's "
+                          f"kernel events): {len(us)} launches, "
+                          f"{min(us):.2f}-{max(us):.2f} µs (median "
+                          f"{sorted(us)[len(us) // 2]:.2f}, mean "
+                          f"{sum(us) / len(us):.2f}) against a byte bound "
+                          f"of {bound_us:.2f} µs ({sizes[0]} B): "
+                          f"launches x (time - bound) {lost_us:.1f} µs")
+            rows[key] = row
             print(f"22 (d) PHOLD N={n} R={size['rounds']} {key}: state == "
                   f"xla's ({out['delivered']} delivered); launches "
-                  f"{launches}, by build {builds}  [{ident}]")
+                  f"{launches}, by build {builds}{timing}  [{ident}]")
     record["phold_widths"] = rows
     return rows
 
@@ -6137,6 +6291,10 @@ def run_phases(torch, workers: int, cores: int):
     if any(tx_launches.values()):
         fail(f"phase 21 launched kernels {tx_launches}")
     record["transport_launches"] = tx_launches
+    # 22 (d) times A's and C's launches in the window: before the
+    # children below share the card
+    phold_widths = timed("22 (d) PHOLD widths", check_phold_widths, torch,
+                         bench, convert, pipeline, record, ident)
     managed_built = timed("23 (a) shim and programs' build, awaited",
                           managed_build)
     # 22 (a)'s and 23's card runs in child processes beside 22 (b)
@@ -6151,13 +6309,10 @@ def run_phases(torch, workers: int, cores: int):
         try:
             timed("22 (b) rung 3 live", rung3_live, torch, record, ident,
                   RUNG3_LIVE_STOP, untagged, "cli:rung3")
-            # (c) and (d) time nothing on the card: they run while the
-            # children finish
+            # (c) times nothing on the card: it runs while the children
+            # finish
             f_cli = timed("22 (c) flow engine CLI", check_flow_cli, torch,
                           record, ident)
-            phold_widths = timed("22 (d) PHOLD widths", check_phold_widths,
-                                 torch, bench, convert, pipeline, record,
-                                 ident)
             qs_runs = timed("22 (a) quickstart's child, awaited", qs_wait)
             mg_runs = timed("23 managed processes' child, awaited",
                             mg_wait)
@@ -6182,15 +6337,17 @@ def run_phases(torch, workers: int, cores: int):
     widths = lambda rows: [{k: r[k] for k in (
         "ce", "n", "build", "ms", "cold_clean_ms", "warm_ms", "plain_ms",
         "bound_ms", "bound_by")} for r in rows]
+    in_window = lambda key: {k: phold_widths[key].get(k) for k in (
+        "builds", "in_window_us", "bound_us", "lost_us")}
     kernels = [
         dict(kernel_entry("egress_rank_kernel",
                           "shadow_tpu_torch/csrc/egress_rank.cu",
                           "shadow_tpu/tpu/pallas_pipeline.py:77",
                           fused["egress_rank"], a, ens["egress_rank"],
                           sec["egress_rank"], mesh_l["egress_rank"]),
-             widths=widths(a_widths), phold_wide=phold_widths[
+             widths=widths(a_widths), phold_wide=in_window(
                  f"pallas_fused@CE={PHOLD_WIDE['egress_cap']},"
-                 f"CI={PHOLD_WIDE['ingress_cap']}"]["builds"]),
+                 f"CI={PHOLD_WIDE['ingress_cap']}")),
         kernel_entry("route_place_kernel",
                      "shadow_tpu_torch/csrc/route_place.cu",
                      "shadow_tpu/tpu/pallas_pipeline.py:188",
@@ -6201,9 +6358,9 @@ def run_phases(torch, workers: int, cores: int):
                           "shadow_tpu/tpu/pallas_egress.py:91",
                           split["egress_gate"], c, ens["egress_gate"],
                           sec["egress_gate"], mesh_l["egress_gate"]),
-             widths=widths(c_widths), phold_wide=phold_widths[
+             widths=widths(c_widths), phold_wide=in_window(
                  f"pallas@CE={PHOLD_WIDE['egress_cap']},"
-                 f"CI={PHOLD_WIDE['ingress_cap']}"]["builds"]),
+                 f"CI={PHOLD_WIDE['ingress_cap']}")),
         kernel_entry("route_scatter_kernel",
                      "shadow_tpu_torch/csrc/route_scatter.cu",
                      "shadow_tpu/tpu/pallas_route.py:48",

@@ -18,8 +18,13 @@
 // Unlike kernel A it permutes no other column and returns no row_perm: the
 // caller gathers prio/sock/dst/seq/ctrl through `perm`.
 //
-// What bounds it on the card: memory bytes. Each slot reads 4 int32 and 1
-// bool column and writes 4 int32 and 2 bool columns (35 B), plus 8 B a row:
+// It has three builds, which the launcher picks by CE (`egress_gate_build`
+// reports it): "tile" up to 1024 slots, "wide" up to 16384, "device"
+// beyond (the last two at the end of this header).
+//
+// What bounds the tile build on the card: memory bytes. Each slot reads 4
+// int32 and 1 bool column and writes 4 int32 and 2 bool columns (35 B),
+// plus 8 B a row:
 // at N=32768, CE=16, 18.6 MB, 5.6 us at 3.35 TB/s. At that size a device
 // copy of as many bytes, timed as chip_smoke.py times the kernel (inputs in
 // HBM behind an L2 full of dirty lines), takes about twice that on an H100:
@@ -53,9 +58,21 @@
 // Cold, it runs in the time of that device copy of its bytes.
 //
 // At CE = 1 a thread holds four rows, and the network and the scan are
-// empty. Rows wider than 1024 slots (which no main path runs) take the
-// wide build: a block of 1024 threads a row, its network run over device
-// memory with a block barrier a stage.
+// empty.
+//
+// Rows of 2048-16384 slots (a row grows to them when an elastic run
+// doubles its egress rings) take the "wide" build: one block a row, the
+// row's packed words in its shared memory (row_bitonic's `Wide`: runs of
+// 16 slots in registers a pass at a time, shuffles within a warp, shared
+// memory only across warps; 14 B a slot). After the sort bytes and the
+// rebased tsend and clamp are staged there, and each is gathered through
+// the sorted slots' source columns and written coalesced. Operations
+// bound it: a network of 66-105 stages costs more than the 35 B a slot
+// move.
+// Rows of 32768 slots and more, past what a block's shared memory holds,
+// take the "device" build: a block of 1024 threads a row, the network
+// sorting column indices in perm in device memory with each key read
+// through the inputs, a block barrier a stage.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -64,8 +81,10 @@
 
 namespace {
 
+using row_bitonic::evict_first_policy;
 using row_bitonic::fifo_key;
 using row_bitonic::kFull;
+using row_bitonic::load_once;
 using row_bitonic::kSign;
 using row_bitonic::rebase_clamp;
 using row_bitonic::rebase_tsend;
@@ -118,31 +137,6 @@ struct Chunk {
 
 __device__ __forceinline__ int lane_of(const int4& v, int j) {
   return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
-}
-
-// The inputs are read once, so their lines go first when L2 needs room
-// (for the outputs, rather than lines some other kernel left dirty).
-__device__ __forceinline__ uint64_t evict_first_policy() {
-  uint64_t pol;
-  asm("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;" : "=l"(pol));
-  return pol;
-}
-
-__device__ __forceinline__ int4 load_once(const int4* p, uint64_t pol) {
-  int4 v;
-  asm("ld.global.nc.L2::cache_hint.v4.s32 {%0, %1, %2, %3}, [%4], %5;"
-      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
-      : "l"(p), "l"(pol));
-  return v;
-}
-
-__device__ __forceinline__ uint32_t load_once(const uint32_t* p,
-                                              uint64_t pol) {
-  uint32_t v;
-  asm("ld.global.nc.L2::cache_hint.u32 %0, [%1], %2;"
-      : "=r"(v)
-      : "l"(p), "l"(pol));
-  return v;
 }
 
 // Chunk q: slots [kV*q, kV*q + kV) of the flat [n_rows * CE] columns. A
@@ -441,22 +435,99 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// One block of kWideBlock threads a row for CE > 1024 (the tile design's
-// key exchange holds at most a 1024-slot row): the network runs over
-// device memory through perm_o (row_bitonic::wide_bitonic), its keys read
-// from the inputs, and each thread gathers, scans and writes its own run
-// of CE / kWideBlock consecutive slots. Nothing of the main paths runs it.
-__global__ void __launch_bounds__(row_bitonic::kWideBlock)
-    egress_gate_wide(const Args a, int ce) {
-  using row_bitonic::kWideBlock;
-  __shared__ uint32_t buf[kWideBlock];
+// The wide build, 2048 <= CE <= 16384: one block a row, the row in its
+// shared memory (row_bitonic::Wide; a thread plays kPasses runs of kV
+// slots, a pass at a time). After the sort the bytes, rebased tsend and
+// rebased clamp columns are staged there, and each slot's three are
+// gathered from there through its source column (row_bitonic::Layout).
+template <int CE>
+__global__ void __launch_bounds__(row_bitonic::Wide<CE>::kThreads)
+    egress_gate_wide(const Args a) {
+  using W = row_bitonic::Wide<CE>;
+  using row_bitonic::row_start;
+  constexpr int kRun = W::kV, kP = W::kPasses;
+  extern __shared__ __align__(16) uint64_t wide_smem[];
+  __shared__ uint32_t wsum[(kP + 1) * W::kWarps];
+  const row_bitonic::Layout<CE> L(wide_smem);
+  const uint64_t pol = evict_first_policy();
+
+#pragma unroll 1
+  for (int pass = 0; pass < kP; ++pass) {
+    const int base = W::base(pass);
+    const uint32_t vin = row_bitonic::load_bits<kRun>(
+        a.valid + row_start<CE>() + base, pol);
+    uint64_t k[kRun];
+    row_bitonic::load_keys<kRun>(k, vin, a.prio + row_start<CE>() + base,
+                                 base, pol, nullptr);
+    row_bitonic::put_words<kRun>(L.words, base, k);
+  }
+  row_bitonic::wide_sort<CE>(L.words);
+  row_bitonic::sorted_runs<CE>(L);
+  __syncthreads();  // every thread has read its words
+#pragma unroll 1
+  for (int pass = 0; pass < kP; ++pass) {
+    const int base = W::base(pass);
+    // the inputs' validity, read again for the rebase
+    const uint32_t v = row_bitonic::load_bits<kRun>(
+        a.valid + row_start<CE>() + base, pol);
+    row_bitonic::stage_from<kRun>(L.col(0), base,
+                                  a.nbytes + row_start<CE>() + base, pol,
+                                  [](int, int x) { return x; });
+    row_bitonic::stage_from<kRun>(
+        L.col(1), base, a.tsend + row_start<CE>() + base, pol,
+        [&](int j, int x) { return rebase_tsend((v >> j) & 1u, x, a.shift); });
+    row_bitonic::stage_from<kRun>(
+        L.col(2), base, a.clamp + row_start<CE>() + base, pol,
+        [&](int j, int x) { return rebase_clamp((v >> j) & 1u, x, a.shift); });
+  }
+  __syncthreads();
+#pragma unroll 1
+  for (int pass = 0; pass < kP; ++pass) {
+    const int base = W::base(pass);
+    const int64_t e0 = row_start<CE>() + base;
+    row_bitonic::store_src<kRun>(a.perm_o + e0, L.src(), base);
+    row_bitonic::gather_to<kRun>(a.bytes_o + e0, L.col(0), L.src(), base);
+    row_bitonic::gather_to<kRun>(a.tsend_o + e0, L.col(1), L.src(), base);
+    row_bitonic::gather_to<kRun>(a.clamp_o + e0, L.col(2), L.src(), base);
+    row_bitonic::store_bits<kRun>(a.valid_o + e0,
+                                  row_bitonic::valid_bits<kRun>(L.src(), base));
+  }
+  const uint32_t spent = row_bitonic::wide_gate<CE>(
+      L.col(0), L.src(), __ldg(a.balance + blockIdx.x), wsum,
+      [&](int base, uint32_t sendable) {
+        row_bitonic::store_bits<kRun>(
+            a.sendable_o + row_start<CE>() + base, sendable);
+      });
+  if (threadIdx.x == 0) a.spent_o[blockIdx.x] = static_cast<int>(spent);
+}
+
+template <int CE>
+cudaError_t launch_wide(const Args& a, cudaStream_t stream) {
+  using W = row_bitonic::Wide<CE>;
+  static bool allowed[64];
+  const cudaError_t err =
+      row_bitonic::allow_shared(egress_gate_wide<CE>, W::kSmem, allowed);
+  if (err != cudaSuccess) return err;
+  egress_gate_wide<CE><<<a.n_rows, W::kThreads, W::kSmem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// The device build, CE >= 32768 (no block's shared memory holds the row):
+// one block of kDeviceBlock threads a row; the network runs over device
+// memory through perm_o (row_bitonic::device_bitonic), its keys read from
+// the inputs, and each thread gathers, scans and writes its own run of CE
+// / kDeviceBlock consecutive slots.
+__global__ void __launch_bounds__(row_bitonic::kDeviceBlock)
+    egress_gate_device(const Args a, int ce) {
+  using row_bitonic::kDeviceBlock;
+  __shared__ uint32_t buf[kDeviceBlock];
   __shared__ uint32_t spent_acc;
   const int64_t row = blockIdx.x;
   const int64_t r0 = row * ce;
-  const int run = ce / kWideBlock;
+  const int run = ce / kDeviceBlock;
   const int c0 = threadIdx.x * run;
   if (threadIdx.x == 0) spent_acc = 0u;
-  row_bitonic::wide_bitonic(a.perm_o + r0, ce, [&](int i) {
+  row_bitonic::device_bitonic(a.perm_o + r0, ce, [&](int i) {
     return fifo_key(a.valid[r0 + i] != 0, a.prio[r0 + i]);
   });
 
@@ -474,19 +545,19 @@ __global__ void __launch_bounds__(row_bitonic::kWideBlock)
     if (v_s) total += static_cast<uint32_t>(a.nbytes[s]);
   }
 
-  row_bitonic::wide_token_gate(a.valid_o + r0, a.bytes_o + r0,
-                               a.sendable_o + r0, c0, run, total,
-                               a.balance[row], buf, &spent_acc);
+  row_bitonic::device_token_gate(a.valid_o + r0, a.bytes_o + r0,
+                                 a.sendable_o + r0, c0, run, total,
+                                 a.balance[row], buf, &spent_acc);
   __syncthreads();
   if (threadIdx.x == 0) a.spent_o[row] = static_cast<int>(spent_acc);
 }
 
 // The build a row of ce slots runs: 1 the tile design (ce <= 1024), 2 the
-// wide build; 0 for a ce the kernel does not take (not a power of two, or
-// not positive).
+// wide build (ce <= 16384), 3 the device build; 0 for a ce the kernel does
+// not take (not a power of two, or not positive).
 int build_of(int ce) {
   if (ce <= 0 || (ce & (ce - 1)) != 0) return 0;
-  return ce <= 1024 ? 1 : 2;
+  return ce <= 1024 ? 1 : ce <= row_bitonic::kMaxWideCE ? 2 : 3;
 }
 
 bool aligned16(const void* p) {
@@ -497,6 +568,12 @@ bool aligned16(const void* p) {
 
 // The build egress_gate_launch runs for rows of ce slots (see build_of).
 extern "C" int egress_gate_build(int ce) { return build_of(ce); }
+
+// The dynamic shared memory a wide-build launch for rows of ce slots
+// requests, in bytes (0 for a ce another build runs).
+extern "C" int egress_gate_shared_bytes(int ce) {
+  return row_bitonic::wide_shared_bytes(ce);
+}
 
 // Inputs: valid (bool), prio, bytes, tsend, clamp (int32), all [n_rows, ce]
 // row-major; balance [n_rows] int32. Outputs: perm, bytes, tsend, clamp
@@ -544,8 +621,13 @@ extern "C" int egress_gate_launch(
     case 256: return static_cast<int>(launch<256>(a, stream));
     case 512: return static_cast<int>(launch<512>(a, stream));
     case 1024: return static_cast<int>(launch<1024>(a, stream));
+    case 2048: return static_cast<int>(launch_wide<2048>(a, stream));
+    case 4096: return static_cast<int>(launch_wide<4096>(a, stream));
+    case 8192: return static_cast<int>(launch_wide<8192>(a, stream));
+    case 16384: return static_cast<int>(launch_wide<16384>(a, stream));
     default:
-      egress_gate_wide<<<n_rows, row_bitonic::kWideBlock, 0, stream>>>(a, ce);
+      egress_gate_device<<<n_rows, row_bitonic::kDeviceBlock, 0, stream>>>(
+          a, ce);
       return static_cast<int>(cudaGetLastError());
   }
 }

@@ -16,19 +16,38 @@
 //   - a second bitonic over (seq ^ SIGN, column) of the sorted row, whose
 //     index output is the routing stage's row_perm.
 //
-// What bounds it on the card: memory bytes. Each slot reads 7 int32 and 2
-// bool columns and writes 8 int32 and 3 bool columns (65 B), plus 8 B a row;
-// at N=32768, CE=16 that is 34.3 MB, about 10 us at 3.35 TB/s, against
-// some 2 thousand integer operations a row. The design keeps everything but
-// those bytes on chip: for CE <= 32 each row lives in CE lanes of one warp
-// (32/CE rows a warp, one column a lane), both sorts exchange through
-// __shfl_xor_sync, the payload permutation is one __shfl_sync per column,
-// and the scan and the row sum are warp shuffles; loads and stores of a
-// column are consecutive across lanes. For 64 <= CE <= 1024 one block holds
-// one row in shared memory. Wider rows (CE >= 2048, which no main path
-// runs) take the wide build: a block of 1024 threads a row, its two sorting
-// networks run over device memory with a block barrier a stage. At CE = 1
-// a warp holds 32 rows, and the networks, the scan and the sum are empty.
+// What bounds it on the card, and the design, by build (the launcher picks
+// one by CE; `egress_rank_build` reports it):
+//   - "warp" (CE <= 32, the main paths' CE = 16): memory bytes. Each slot
+//     reads 7 int32 and 2 bool columns and writes 8 int32 and 3 bool
+//     columns (65 B), plus 8 B a row; at N=32768, CE=16 that is 34.3 MB,
+//     about 10 us at 3.35 TB/s, against some 2 thousand integer operations
+//     a row. Each row lives in CE lanes of one warp (32/CE rows a warp, one
+//     column a lane), both sorts exchange through __shfl_xor_sync, the
+//     payload permutation is one __shfl_sync per column, and the scan and
+//     the row sum are warp shuffles; loads and stores of a column are
+//     consecutive across lanes. At CE = 1 a warp holds 32 rows, and the
+//     networks, the scan and the sum are empty.
+//   - "block" (64 <= CE <= 1024): one block holds one row in shared
+//     memory, a slot a thread, a barrier a stage.
+//   - "wide" (2048 <= CE <= 16384, which a row grows to when an elastic
+//     run doubles its egress rings): operations. Two networks of 66-105
+//     stages over the row's packed words cost more integer operations and
+//     shuffles than the 65 B a slot take at 3.35 TB/s. One block holds
+//     the row in shared memory (row_bitonic's `Wide`: runs of 16 slots in
+//     registers a pass at a time, shuffles within a warp, shared memory
+//     only across warps). prio is staged before the sort, the other
+//     payload columns after it, up to three at a time, each gathered
+//     through the sorted slots' source columns (kept in shared memory) and
+//     written coalesced, and the second network's (seq ^ SIGN, column)
+//     words come from the gathered seq: no scattered read of device
+//     memory. 14 B a slot of dynamic shared memory (224 KB at 16384: one
+//     block an SM).
+//   - "device" (CE >= 32768, past what a block's shared memory holds):
+//     a block of 1024 threads a row, its two networks sorting column
+//     indices in place in row_perm with each key read through the inputs
+//     and seq_o, a block barrier a stage; barriers and scattered reads
+//     bound it.
 //
 // The sorting networks, the scans and the rebase are row_bitonic.cuh's,
 // shared with kernel C (egress_gate.cu).
@@ -192,12 +211,173 @@ __global__ void egress_rank_block(
   if (c == 0) spent_o[row] = static_cast<int>(spent_acc);
 }
 
-// One block of kWideBlock threads a row for CE > 1024 (no block holds such
-// a row in shared memory): both networks run over device memory through
-// row_perm_o (wide_bitonic), their keys read from the inputs and from
-// seq_o, and each thread permutes, scans and writes its own run of CE /
-// kWideBlock consecutive slots. Nothing of the main paths runs it.
-__global__ void __launch_bounds__(kWideBlock) egress_rank_wide(
+// The wide build's arguments (the launcher's `in` and `out` arrays).
+struct WideArgs {
+  int shift;
+  const uint8_t* valid;
+  const int *prio, *nbytes, *tsend, *clamp, *dst, *seq, *sock;
+  const uint8_t* ctrl;
+  const int* balance;
+  int *prio_o, *sock_o, *dst_o, *bytes_o, *seq_o;
+  uint8_t* ctrl_o;
+  int *tsend_o, *clamp_o;
+  uint8_t *valid_o, *sendable_o;
+  int *spent_o, *row_perm_o;
+};
+
+// The wide build, 2048 <= CE <= 16384: one block a row, the row in its
+// shared memory (row_bitonic::Wide; a thread plays kPasses runs of kV
+// slots, a pass at a time); every [n_rows, CE] column on 16 bytes. prio
+// is staged before the sort in col(2) (row_bitonic::Layout); the other
+// seven payload columns after it, up to three at a time, and each is
+// gathered through the sorted slots' source columns and written out. The
+// second network sorts the (seq ^ SIGN, column) words built from the
+// gathered seq.
+template <int CE>
+__global__ void __launch_bounds__(Wide<CE>::kThreads)
+    egress_rank_wide(const WideArgs a) {
+  using W = Wide<CE>;
+  constexpr int kRun = W::kV, kP = W::kPasses;
+  extern __shared__ __align__(16) uint64_t wide_smem[];
+  __shared__ uint32_t wsum[(kP + 1) * W::kWarps];
+  const Layout<CE> L(wide_smem);
+  const uint64_t pol = evict_first_policy();
+  const auto as_is = [](int, int v) { return v; };
+
+#pragma unroll 1
+  for (int pass = 0; pass < kP; ++pass) {
+    const int base = W::base(pass);
+    const uint32_t vin = load_bits<kRun>(a.valid + row_start<CE>() + base,
+                                         pol);
+    uint64_t k[kRun];
+    load_keys<kRun>(k, vin, a.prio + row_start<CE>() + base, base, pol,
+                    L.col(2));
+    put_words<kRun>(L.words, base, k);
+  }
+  wide_sort<CE>(L.words);
+  sorted_runs<CE>(L);
+
+  // prio (staged), sock, dst
+  __syncthreads();  // every thread has read its words
+#pragma unroll 1
+  for (int pass = 0; pass < kP; ++pass) {
+    const int base = W::base(pass);
+    stage_from<kRun>(L.col(0), base, a.sock + row_start<CE>() + base, pol,
+                     as_is);
+    stage_from<kRun>(L.col(1), base, a.dst + row_start<CE>() + base, pol,
+                     as_is);
+  }
+  __syncthreads();
+#pragma unroll 1
+  for (int pass = 0; pass < kP; ++pass) {
+    const int base = W::base(pass);
+    const int64_t e0 = row_start<CE>() + base;
+    gather_to<kRun>(a.prio_o + e0, L.col(2), L.src(), base);
+    gather_to<kRun>(a.sock_o + e0, L.col(0), L.src(), base);
+    gather_to<kRun>(a.dst_o + e0, L.col(1), L.src(), base);
+    store_bits<kRun>(a.valid_o + e0, valid_bits<kRun>(L.src(), base));
+  }
+
+  // tsend and clamp rebased, ctrl
+  __syncthreads();
+#pragma unroll 1
+  for (int pass = 0; pass < kP; ++pass) {
+    const int base = W::base(pass);
+    // the inputs' validity, read again for the rebase
+    const uint32_t v = load_bits<kRun>(a.valid + row_start<CE>() + base, pol);
+    stage_from<kRun>(L.col(0), base, a.tsend + row_start<CE>() + base, pol,
+                     [&](int j, int x) {
+                       return rebase_tsend((v >> j) & 1u, x, a.shift);
+                     });
+    stage_from<kRun>(L.col(1), base, a.clamp + row_start<CE>() + base, pol,
+                     [&](int j, int x) {
+                       return rebase_clamp((v >> j) & 1u, x, a.shift);
+                     });
+    const uint32_t ctrl =
+        load_bits<kRun>(a.ctrl + row_start<CE>() + base, pol);
+#pragma unroll
+    for (int q = 0; q < kRun / 4; ++q)
+      *reinterpret_cast<int4*>(L.col(2) + col_at(base + 4 * q)) =
+          make_int4(static_cast<int>((ctrl >> (4 * q)) & 1u),
+                    static_cast<int>((ctrl >> (4 * q + 1)) & 1u),
+                    static_cast<int>((ctrl >> (4 * q + 2)) & 1u),
+                    static_cast<int>((ctrl >> (4 * q + 3)) & 1u));
+  }
+  __syncthreads();
+#pragma unroll 1
+  for (int pass = 0; pass < kP; ++pass) {
+    const int base = W::base(pass);
+    const int64_t e0 = row_start<CE>() + base;
+    gather_to<kRun>(a.tsend_o + e0, L.col(0), L.src(), base);
+    gather_to<kRun>(a.clamp_o + e0, L.col(1), L.src(), base);
+    store_bits<kRun>(a.ctrl_o + e0, gather_bits<kRun>(L.col(2), L.src(), base));
+  }
+
+  // bytes -> the token gate; seq -> the second network
+  __syncthreads();
+#pragma unroll 1
+  for (int pass = 0; pass < kP; ++pass) {
+    const int base = W::base(pass);
+    stage_from<kRun>(L.col(0), base, a.nbytes + row_start<CE>() + base, pol,
+                     as_is);
+    stage_from<kRun>(L.col(2), base, a.seq + row_start<CE>() + base, pol,
+                     as_is);
+  }
+  __syncthreads();
+#pragma unroll 1
+  for (int pass = 0; pass < kP; ++pass) {
+    const int base = W::base(pass);
+    const int64_t e0 = row_start<CE>() + base;
+    gather_to<kRun>(a.bytes_o + e0, L.col(0), L.src(), base);
+    gather_to<kRun>(a.seq_o + e0, L.col(2), L.src(), base);
+  }
+  const uint32_t spent = wide_gate<CE>(
+      L.col(0), L.src(), __ldg(a.balance + blockIdx.x), wsum,
+      [&](int base, uint32_t sendable) {
+        store_bits<kRun>(a.sendable_o + row_start<CE>() + base, sendable);
+      });
+  if (threadIdx.x == 0) a.spent_o[blockIdx.x] = static_cast<int>(spent);
+
+  // routing phase A: the sorted row's (seq, column) order. The words go
+  // where col(0) was (the gate's last barrier follows every read of it);
+  // seq is read from col(2).
+#pragma unroll 1
+  for (int pass = 0; pass < kP; ++pass) {
+    const int base = W::base(pass);
+#pragma unroll
+    for (int q = 0; q < kRun / 4; ++q) {
+      int s[4];
+      src4(L.src(), base + 4 * q, s);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        L.words[word_at<kRun>(base + 4 * q + i)] =
+            pack(static_cast<uint32_t>(L.col(2)[col_at(s[i])]) ^ kSign,
+                 base + 4 * q + i);
+    }
+  }
+  wide_sort<CE>(L.words);
+#pragma unroll 1
+  for (int pass = 0; pass < kP; ++pass) {
+    const int base = W::base(pass);
+    int* out = a.row_perm_o + row_start<CE>() + base;
+#pragma unroll
+    for (int q = 0; q < kRun / 4; ++q) {
+      int v[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        v[i] = static_cast<int>(static_cast<uint32_t>(
+            L.words[word_at<kRun>(base + 4 * q + i)]));
+      reinterpret_cast<int4*>(out)[q] = make_int4(v[0], v[1], v[2], v[3]);
+    }
+  }
+}
+
+// The device build, CE >= 32768 (no block's shared memory holds the
+// row): one block of kDeviceBlock threads a row; both networks run over
+// device memory through row_perm_o (device_bitonic), their keys read from
+// the inputs and from seq_o, and each thread permutes, scans and writes
+// its own run of CE / kDeviceBlock consecutive slots.
+__global__ void __launch_bounds__(kDeviceBlock) egress_rank_device(
     int ce, int shift, const uint8_t* __restrict__ valid,
     const int* __restrict__ prio, const int* __restrict__ nbytes,
     const int* __restrict__ tsend, const int* __restrict__ clamp,
@@ -206,17 +386,17 @@ __global__ void __launch_bounds__(kWideBlock) egress_rank_wide(
     const int* __restrict__ balance, int* prio_o, int* sock_o, int* dst_o,
     int* bytes_o, int* seq_o, uint8_t* ctrl_o, int* tsend_o, int* clamp_o,
     uint8_t* valid_o, uint8_t* sendable_o, int* spent_o, int* row_perm_o) {
-  __shared__ uint32_t buf[kWideBlock];
+  __shared__ uint32_t buf[kDeviceBlock];
   __shared__ uint32_t spent_acc;
   const int64_t row = blockIdx.x;
   const int64_t r0 = row * ce;
-  const int run = ce / kWideBlock;
+  const int run = ce / kDeviceBlock;
   const int c0 = threadIdx.x * run;
   int* idx = row_perm_o + r0;
   if (threadIdx.x == 0) spent_acc = 0u;
 
   // the FIFO order, its column indices in row_perm_o for now
-  wide_bitonic(idx, ce, [&](int i) {
+  device_bitonic(idx, ce, [&](int i) {
     return fifo_key(valid[r0 + i] != 0, prio[r0 + i]);
   });
 
@@ -240,11 +420,11 @@ __global__ void __launch_bounds__(kWideBlock) egress_rank_wide(
     if (v_s) total += static_cast<uint32_t>(nbytes[s]);
   }
 
-  wide_token_gate(valid_o + r0, bytes_o + r0, sendable_o + r0, c0, run,
-                  total, balance[row], buf, &spent_acc);
+  device_token_gate(valid_o + r0, bytes_o + r0, sendable_o + r0, c0, run,
+                    total, balance[row], buf, &spent_acc);
 
   // routing phase A: the sorted row's (seq, column) order, over seq_o
-  wide_bitonic(idx, ce, [&](int i) {
+  device_bitonic(idx, ce, [&](int i) {
     return static_cast<uint32_t>(seq_o[r0 + i]) ^ kSign;
   });
   if (threadIdx.x == 0) spent_o[row] = static_cast<int>(spent_acc);
@@ -290,9 +470,54 @@ cudaError_t launch_block(int n_rows, int ce, int shift, const void* const* in,
   return cudaGetLastError();
 }
 
-cudaError_t launch_wide(int n_rows, int ce, int shift, const void* const* in,
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+}
+
+template <int CE>
+cudaError_t launch_wide(int n_rows, int shift, const void* const* in,
                         void* const* out, cudaStream_t stream) {
-  egress_rank_wide<<<n_rows, kWideBlock, 0, stream>>>(
+  using W = Wide<CE>;
+  // the columns move as 16-byte vectors
+  for (int i = 0; i < 9; ++i)
+    if (!aligned16(in[i])) return cudaErrorMisalignedAddress;
+  for (int i = 0; i < 12; ++i)
+    if (i != 10 && !aligned16(out[i])) return cudaErrorMisalignedAddress;
+  const WideArgs a{shift,
+                   static_cast<const uint8_t*>(in[0]),
+                   static_cast<const int*>(in[1]),
+                   static_cast<const int*>(in[2]),
+                   static_cast<const int*>(in[3]),
+                   static_cast<const int*>(in[4]),
+                   static_cast<const int*>(in[5]),
+                   static_cast<const int*>(in[6]),
+                   static_cast<const int*>(in[7]),
+                   static_cast<const uint8_t*>(in[8]),
+                   static_cast<const int*>(in[9]),
+                   static_cast<int*>(out[0]),
+                   static_cast<int*>(out[1]),
+                   static_cast<int*>(out[2]),
+                   static_cast<int*>(out[3]),
+                   static_cast<int*>(out[4]),
+                   static_cast<uint8_t*>(out[5]),
+                   static_cast<int*>(out[6]),
+                   static_cast<int*>(out[7]),
+                   static_cast<uint8_t*>(out[8]),
+                   static_cast<uint8_t*>(out[9]),
+                   static_cast<int*>(out[10]),
+                   static_cast<int*>(out[11])};
+  static bool allowed[64];
+  const cudaError_t err =
+      allow_shared(egress_rank_wide<CE>, W::kSmem, allowed);
+  if (err != cudaSuccess) return err;
+  egress_rank_wide<CE><<<n_rows, W::kThreads, W::kSmem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_device(int n_rows, int ce, int shift,
+                          const void* const* in, void* const* out,
+                          cudaStream_t stream) {
+  egress_rank_device<<<n_rows, kDeviceBlock, 0, stream>>>(
       ce, shift, static_cast<const uint8_t*>(in[0]),
       static_cast<const int*>(in[1]), static_cast<const int*>(in[2]),
       static_cast<const int*>(in[3]), static_cast<const int*>(in[4]),
@@ -309,17 +534,24 @@ cudaError_t launch_wide(int n_rows, int ce, int shift, const void* const* in,
 }
 
 // The build a row of ce slots runs: 1 warp segments (ce <= 32), 2 a block
-// in shared memory (64 <= ce <= 1024), 3 the wide build; 0 for a ce the
-// kernel does not take (not a power of two, or not positive).
+// in shared memory (64 <= ce <= 1024), 3 the wide build (ce <= 16384), 4
+// the device build; 0 for a ce the kernel does not take (not a power of
+// two, or not positive).
 int build_of(int ce) {
   if (ce <= 0 || (ce & (ce - 1)) != 0) return 0;
-  return ce <= 32 ? 1 : ce <= 1024 ? 2 : 3;
+  return ce <= 32 ? 1 : ce <= 1024 ? 2 : ce <= kMaxWideCE ? 3 : 4;
 }
 
 }  // namespace
 
 // The build egress_rank_launch runs for rows of ce slots (see build_of).
 extern "C" int egress_rank_build(int ce) { return build_of(ce); }
+
+// The dynamic shared memory a wide-build launch for rows of ce slots
+// requests, in bytes (0 for a ce another build runs).
+extern "C" int egress_rank_shared_bytes(int ce) {
+  return wide_shared_bytes(ce);
+}
 
 // Inputs: valid (bool), prio, bytes, tsend, clamp, dst, seq, sock (int32),
 // ctrl (bool), all [n_rows, ce] row-major; balance [n_rows] int32.
@@ -347,9 +579,13 @@ extern "C" int egress_rank_launch(
     case 8: return static_cast<int>(launch_warp<8>(n_rows, shift, in, out, stream));
     case 16: return static_cast<int>(launch_warp<16>(n_rows, shift, in, out, stream));
     case 32: return static_cast<int>(launch_warp<32>(n_rows, shift, in, out, stream));
+    case 2048: return static_cast<int>(launch_wide<2048>(n_rows, shift, in, out, stream));
+    case 4096: return static_cast<int>(launch_wide<4096>(n_rows, shift, in, out, stream));
+    case 8192: return static_cast<int>(launch_wide<8192>(n_rows, shift, in, out, stream));
+    case 16384: return static_cast<int>(launch_wide<16384>(n_rows, shift, in, out, stream));
     default:
       return static_cast<int>(
           build_of(ce) == 2 ? launch_block(n_rows, ce, shift, in, out, stream)
-                            : launch_wide(n_rows, ce, shift, in, out, stream));
+                            : launch_device(n_rows, ce, shift, in, out, stream));
   }
 }

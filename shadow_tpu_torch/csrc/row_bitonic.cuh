@@ -1,8 +1,33 @@
-// Device code of the egress-stage kernels: kernel A's (egress_rank.cu)
-// per-row ascending bitonic sort of (key, column) pairs in its three forms
-// (a warp segment, a block in shared memory, a block over device memory)
-// and the token gate's prefix sum, and the clock rebase and FIFO key that
-// kernel C (egress_gate.cu) shares with it.
+// Device code of the egress-stage kernels: the per-row ascending bitonic
+// sort of (key, column) pairs that kernel A (egress_rank.cu) and kernel C
+// (egress_gate.cu) share, in each of their forms, with the token gate's
+// prefix sums, the clock rebase and the FIFO key:
+//   - a warp segment (A, CE <= 32): a slot a lane, shuffles;
+//   - a block in shared memory (A, 64 <= CE <= 1024): a slot a thread, a
+//     barrier a stage;
+//   - the wide build (A and C, 2048 <= CE <= 16384; `Wide`, `wide_sort`,
+//     `wide_gate`): one block a row, the row's packed 64-bit (key << 32 |
+//     column) words in shared memory, cut into runs of 16 slots that a
+//     block of at most 256 threads loads into registers a pass at a time
+//     (one run a thread up to 4096, four at 16384); strides within a run
+//     compare-exchange in registers, strides within a warp's 512 slots
+//     through one 64-bit shuffle a slot, and only strides across warps in
+//     shared memory, in place, a barrier a stage. The sorted slots' source
+//     columns stay in shared memory (16 bits each), and each payload
+//     column is staged there and gathered from there. Bound by
+//     operations, not bytes: a network of log2(CE)(log2(CE) + 1) / 2
+//     stages costs ~3-8 integer operations a slot a stage against the
+//     ~35-65 bytes a slot moves (chip_smoke.wide_design_ops counts them).
+//     Runs of 32 slots, or 512-thread blocks, took more registers than a
+//     thread has and spilled. A block-wide LSD radix sort on the 32-bit
+//     key (4 passes of 8 bits) would need fewer operations at these
+//     widths, but its ranks and scatters need per-digit counts and stable
+//     ranking across the block; the network is the simpler design and was
+//     kept;
+//   - the device build (A and C, CE >= 32768, past what a block's shared
+//     memory holds; `device_bitonic`): one block of 1024 threads a row,
+//     the network sorting column indices in place in an output column of
+//     device memory, each key read through the inputs, a barrier a stage.
 //
 // The (key, column) pairs of a row are distinct, so each network's output
 // is the stable sort by key, which is what the TPU kernels' whole-tile
@@ -126,27 +151,566 @@ __device__ inline uint32_t block_inclusive_scan(uint32_t* buf, uint32_t x,
   return out;
 }
 
-// --- the wide build (CE > 1024): one block of kWideBlock threads a row, the
-// row in device memory.
+// --- loads of inputs read once (kernel C's tile build and the wide builds)
 
-constexpr int kWideBlock = 1024;
+// The inputs are read once, so their lines go first when L2 needs room
+// (for the outputs, rather than lines some other kernel left dirty).
+__device__ __forceinline__ uint64_t evict_first_policy() {
+  uint64_t pol;
+  asm("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;" : "=l"(pol));
+  return pol;
+}
+
+__device__ __forceinline__ int4 load_once(const int4* p, uint64_t pol) {
+  int4 v;
+  asm("ld.global.nc.L2::cache_hint.v4.s32 {%0, %1, %2, %3}, [%4], %5;"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+      : "l"(p), "l"(pol));
+  return v;
+}
+
+__device__ __forceinline__ uint32_t load_once(const uint32_t* p,
+                                              uint64_t pol) {
+  uint32_t v;
+  asm("ld.global.nc.L2::cache_hint.u32 %0, [%1], %2;"
+      : "=r"(v)
+      : "l"(p), "l"(pol));
+  return v;
+}
+
+// A 16-byte load of the wide build, read once (L2 evict-first), kept in
+// program order with the block's barriers: a load the compiler may move
+// (read-only, as load_once) would be hoisted across them, and a row's
+// columns would then all sit in registers at once.
+__device__ __forceinline__ int4 load_staged(const int4* p, uint64_t pol) {
+  int4 v;
+  asm volatile("ld.global.L2::cache_hint.v4.s32 {%0, %1, %2, %3}, [%4], %5;"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "l"(p), "l"(pol));
+  return v;
+}
+
+__host__ __device__ constexpr int ilog2(int x) {
+  return x > 1 ? 1 + ilog2(x / 2) : 0;
+}
+
+// --- the wide build (2048 <= CE <= 16384): one block a row, the row in
+// the block's shared memory.
+//
+// The row's words, one 64-bit (key << 32 | column) word a slot, live in
+// shared memory. The row is cut into runs of kV consecutive slots, one a
+// virtual thread; a block of kThreads threads plays kPasses virtual
+// threads each (thread t plays t, t + kThreads, ...), so no block is
+// wider than 256 threads and a thread may hold a run's words in up to 255
+// registers. For the strides within a warp's span (32 kV slots) each pass
+// loads its run into registers: strides below kV compare-exchange there
+// (compile-time indices), the others through one 64-bit shuffle a slot.
+// Only the strides across warps go through shared memory, compare-
+// exchanged in place with one barrier a stage. Payload columns are staged
+// in shared memory after the sort and gathered from there, so no thread
+// reads device memory by a sorted index; every column moves in 16-byte
+// vectors.
+
+constexpr int kMaxWideCE = 16384;
+
+template <int CE>
+struct Wide {
+  static_assert(CE >= 2048 && CE <= kMaxWideCE && (CE & (CE - 1)) == 0,
+                "the wide build takes power-of-two rows of 2048-16384");
+  static constexpr int kV = 16;             // slots a run
+  static constexpr int kRuns = CE / kV;     // virtual threads
+  static constexpr int kThreads = kRuns < 256 ? kRuns : 256;
+  static constexpr int kPasses = kRuns / kThreads;  // runs a thread
+  static constexpr int kWarps = kThreads / 32;
+  static constexpr int kLog = ilog2(CE);
+  static constexpr int kLogV = ilog2(kV);
+  static constexpr int kLogSpan = kLogV + 5;  // a warp spans 2^kLogSpan slots
+  // dynamic shared memory, 14 B a slot: the row's words (two staged int32
+  // columns after the sort), a third column, and the sorted slots' source
+  // columns as 16-bit values (`Layout`)
+  static constexpr int kSmem = CE * 14;
+  // the first slot of this thread's run in pass p
+  __device__ static int base(int p) {
+    return (p * kThreads + static_cast<int>(threadIdx.x)) * kV;
+  }
+};
+
+// The dynamic shared memory a wide-build launch requests for rows of ce
+// slots (`Wide<ce>::kSmem`, what the launchers request); 0 for a ce the
+// wide build does not take.
+inline int wide_shared_bytes(int ce) {
+  switch (ce) {
+    case 2048: return Wide<2048>::kSmem;
+    case 4096: return Wide<4096>::kSmem;
+    case 8192: return Wide<8192>::kSmem;
+    case 16384: return Wide<16384>::kSmem;
+    default: return 0;
+  }
+}
+
+// Where slot i's word lies in the row's word buffer: a thread's run of kV
+// words is rotated by its index, so the 16 words of a half warp's run
+// writes fall in 16 distinct bank pairs.
+template <int kV>
+__device__ __forceinline__ int word_at(int i) {
+  return i ^ ((i >> ilog2(kV)) & (kV - 1));
+}
+
+// Where slot i lies in a staged int32 column: its 16-byte chunk is
+// permuted by the slot's pair of 16-slot runs, so the 8 chunks of a
+// quarter warp's vector stores fall in 8 distinct groups of banks.
+__device__ __forceinline__ int col_at(int i) {
+  return i ^ (((i >> 5) & 7) << 2);
+}
+
+// The thread's kV bool bytes at p (on 16 bytes) as bits (bit j: byte j
+// is not 0).
+template <int kV>
+__device__ __forceinline__ uint32_t load_bits(const uint8_t* p, uint64_t pol) {
+  uint32_t bits = 0;
+#pragma unroll
+  for (int q = 0; q < kV / 16; ++q) {
+    const int4 v = load_staged(reinterpret_cast<const int4*>(p) + q, pol);
+    const uint32_t w[4] = {static_cast<uint32_t>(v.x),
+                           static_cast<uint32_t>(v.y),
+                           static_cast<uint32_t>(v.z),
+                           static_cast<uint32_t>(v.w)};
+#pragma unroll
+    for (int b = 0; b < 16; ++b)
+      bits |= static_cast<uint32_t>(((w[b >> 2] >> (8 * (b & 3))) & 0xffu)
+                                    != 0) << (16 * q + b);
+  }
+  return bits;
+}
+
+// The packed word of a slot: key above, column below.
+__device__ __forceinline__ uint64_t pack(uint32_t key, int column) {
+  return (static_cast<uint64_t>(key) << 32) | static_cast<uint32_t>(column);
+}
+
+// The thread's packed words from its valid bits `vin` and its run of
+// prio at p (on 16 bytes): slot j's word is (fifo_key, column base + j).
+// Each 16-byte vector of prio goes to *stage* too when stage is not null.
+template <int kV>
+__device__ __forceinline__ void load_keys(uint64_t (&k)[kV], uint32_t vin,
+                                          const int* p, int base,
+                                          uint64_t pol, int* stage) {
+#pragma unroll
+  for (int q = 0; q < kV / 4; ++q) {
+    const int4 v = load_staged(reinterpret_cast<const int4*>(p) + q, pol);
+    const int pv[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int j = 4 * q + i;
+      k[j] = pack(fifo_key((vin >> j) & 1u, pv[i]), base + j);
+    }
+    if (stage != nullptr)
+      *reinterpret_cast<int4*>(stage + col_at(base + 4 * q)) = v;
+  }
+}
+
+template <int kV>
+__device__ __forceinline__ void store_bits(uint8_t* p, uint32_t bits) {
+#pragma unroll
+  for (int q = 0; q < kV / 16; ++q) {
+    uint32_t w[4] = {0, 0, 0, 0};
+#pragma unroll
+    for (int b = 0; b < 16; ++b)
+      w[b >> 2] |= static_cast<uint32_t>((bits >> (16 * q + b)) & 1u)
+                   << (8 * (b & 3));
+    reinterpret_cast<int4*>(p)[q] = make_int4(
+        static_cast<int>(w[0]), static_cast<int>(w[1]),
+        static_cast<int>(w[2]), static_cast<int>(w[3]));
+  }
+}
+
+// The thread's run of an int32 column of device memory (p its first
+// slot, on 16 bytes) into a staged column, 4 slots at a time, slot j's
+// value v as f(j, v): the run never sits in registers whole.
+template <int kV, class F>
+__device__ __forceinline__ void stage_from(int* col, int base, const int* p,
+                                           uint64_t pol, F f) {
+#pragma unroll
+  for (int q = 0; q < kV / 4; ++q) {
+    const int4 v = load_staged(reinterpret_cast<const int4*>(p) + q, pol);
+    *reinterpret_cast<int4*>(col + col_at(base + 4 * q)) =
+        make_int4(f(4 * q, v.x), f(4 * q + 1, v.y), f(4 * q + 2, v.z),
+                  f(4 * q + 3, v.w));
+  }
+}
+
+// The wide build's dynamic shared memory: `words` the row's CE words;
+// after the sort col(0) and col(1) in the words' space and col(2) past it
+// (staged int32 columns), and src each sorted slot's source column (bits
+// 0-14) and validity (bit 15), 16 bits a slot.
+template <int CE>
+struct Layout {
+  uint64_t* words;
+  __device__ explicit Layout(void* smem)
+      : words(static_cast<uint64_t*>(smem)) {}
+  __device__ int* col(int c) const {
+    return reinterpret_cast<int*>(words) + c * CE;
+  }
+  __device__ uint16_t* src() const {
+    return reinterpret_cast<uint16_t*>(reinterpret_cast<int*>(words) +
+                                       3 * CE);
+  }
+};
+
+constexpr uint32_t kSrcValid = 0x8000u;
+
+// Slots at .. at + 3's source columns (at on 4).
+__device__ __forceinline__ void src4(const uint16_t* src, int at,
+                                     int (&s)[4]) {
+  const uint2 v = *reinterpret_cast<const uint2*>(src + at);
+  s[0] = static_cast<int>(v.x & 0x7fffu);
+  s[1] = static_cast<int>((v.x >> 16) & 0x7fffu);
+  s[2] = static_cast<int>(v.y & 0x7fffu);
+  s[3] = static_cast<int>((v.y >> 16) & 0x7fffu);
+}
+
+// Bit j: slot base + j of the sorted row is valid.
+template <int kV>
+__device__ __forceinline__ uint32_t valid_bits(const uint16_t* src,
+                                               int base) {
+  uint32_t bits = 0;
+#pragma unroll
+  for (int q = 0; q < kV / 4; ++q) {
+    const uint2 v = *reinterpret_cast<const uint2*>(src + base + 4 * q);
+    bits |= ((v.x >> 15) & 1u) << (4 * q);
+    bits |= ((v.x >> 31) & 1u) << (4 * q + 1);
+    bits |= ((v.y >> 15) & 1u) << (4 * q + 2);
+    bits |= ((v.y >> 31) & 1u) << (4 * q + 3);
+  }
+  return bits;
+}
+
+// The staged column gathered through the run's sorted source columns and
+// stored at p (16 bytes aligned), 4 slots at a time.
+template <int kV>
+__device__ __forceinline__ void gather_to(int* p, const int* col,
+                                          const uint16_t* src, int base) {
+#pragma unroll
+  for (int q = 0; q < kV / 4; ++q) {
+    int s[4];
+    src4(src, base + 4 * q, s);
+    reinterpret_cast<int4*>(p)[q] =
+        make_int4(col[col_at(s[0])], col[col_at(s[1])],
+                  col[col_at(s[2])], col[col_at(s[3])]);
+  }
+}
+
+// The run's sorted source columns themselves, stored at p.
+template <int kV>
+__device__ __forceinline__ void store_src(int* p, const uint16_t* src,
+                                          int base) {
+#pragma unroll
+  for (int q = 0; q < kV / 4; ++q) {
+    int s[4];
+    src4(src, base + 4 * q, s);
+    reinterpret_cast<int4*>(p)[q] = make_int4(s[0], s[1], s[2], s[3]);
+  }
+}
+
+// Bit j: the staged column at slot base + j's source column is not 0.
+template <int kV>
+__device__ __forceinline__ uint32_t gather_bits(const int* col,
+                                                const uint16_t* src,
+                                                int base) {
+  uint32_t bits = 0;
+#pragma unroll
+  for (int q = 0; q < kV / 4; ++q) {
+    int s[4];
+    src4(src, base + 4 * q, s);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      bits |= static_cast<uint32_t>(col[col_at(s[i])] != 0) << (4 * q + i);
+  }
+  return bits;
+}
+
+// One compare-exchange of two words: the lower keeps the min when `asc`.
+__device__ __forceinline__ void exchange(uint64_t& x, uint64_t& y, bool asc) {
+  const bool swap = (x > y) == asc;
+  const uint64_t lo = swap ? y : x;
+  y = swap ? x : y;
+  x = lo;
+}
+
+// The first slot of this block's row, row index read at each use (a
+// volatile read of %ctaid.x), so the compiler forms each column's address
+// where it is used rather than holding a score of them in registers
+// across the sort.
+template <int CE>
+__device__ __forceinline__ int64_t row_start() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%ctaid.x;" : "=r"(r));
+  return static_cast<int64_t>(r) * CE;
+}
+
+template <int kV>
+__device__ __forceinline__ void put_words(uint64_t* buf, int base,
+                                          const uint64_t (&k)[kV]) {
+#pragma unroll
+  for (int j = 0; j < kV; ++j) buf[word_at<kV>(base + j)] = k[j];
+}
+
+template <int kV>
+__device__ __forceinline__ void get_words(const uint64_t* buf, int base,
+                                          uint64_t (&k)[kV]) {
+#pragma unroll
+  for (int j = 0; j < kV; ++j) k[j] = buf[word_at<kV>(base + j)];
+}
+
+// The strides below 2^min(ls, kLogSpan) of the merge of size 2^ls over a
+// run's words in registers (ls > kLogV): one direction a run.
+template <class W>
+__device__ __forceinline__ void merge_in_warp(uint64_t (&k)[W::kV], int base,
+                                              int ls) {
+  constexpr int kV = W::kV;
+  const bool asc = (base & (1 << ls)) == 0;
+  // the partner slot is the same j of lane ^ (stride / kV)
+#pragma unroll
+  for (int lt = W::kLogSpan - 1; lt >= W::kLogV; --lt) {
+    if (lt >= ls) continue;
+    const bool keep_min = ((base & (1 << lt)) == 0) == asc;
+#pragma unroll
+    for (int j = 0; j < kV; ++j) {
+      const uint64_t p = __shfl_xor_sync(kFull, k[j], 1 << (lt - W::kLogV));
+      k[j] = ((k[j] < p) == keep_min) ? k[j] : p;
+    }
+  }
+  // strides within the run
+#pragma unroll
+  for (int lt = W::kLogV - 1; lt >= 0; --lt) {
+#pragma unroll
+    for (int j = 0; j < kV; ++j)
+      if (!(j & (1 << lt))) exchange(k[j], k[j | (1 << lt)], asc);
+  }
+}
+
+// Ascending bitonic sort of the row's CE packed words, in place in `buf`
+// (CE words of shared memory, slot i's at word_at(i)). Starts with a
+// barrier (the callers' writes of buf are done) and ends with one. The
+// merges within a run are unrolled (compile-time directions); each wider
+// merge is one trip of a loop whose register and shuffle stages are
+// unrolled, which keeps the code small.
+template <int CE>
+__device__ __forceinline__ void wide_sort(uint64_t* buf) {
+  using W = Wide<CE>;
+  constexpr int kV = W::kV;
+  constexpr int kInWarp = W::kLog < W::kLogSpan ? W::kLog : W::kLogSpan;
+  uint64_t k[kV];
+  __syncthreads();
+  // a pass at a time: its run's words alone in registers
+#pragma unroll 1
+  for (int pass = 0; pass < W::kPasses; ++pass) {
+    const int base = W::base(pass);
+    get_words<kV>(buf, base, k);
+#pragma unroll
+    for (int ls = 1; ls <= W::kLogV; ++ls) {
+#pragma unroll
+      for (int lt = ls - 1; lt >= 0; --lt) {
+#pragma unroll
+        for (int j = 0; j < kV; ++j) {
+          if (j & (1 << lt)) continue;
+          const bool asc = ls < W::kLogV ? (j & (1 << ls)) == 0
+                                         : (base & (1 << ls)) == 0;
+          exchange(k[j], k[j | (1 << lt)], asc);
+        }
+      }
+    }
+#pragma unroll 1
+    for (int ls = W::kLogV + 1; ls <= kInWarp; ++ls)
+      merge_in_warp<W>(k, base, ls);
+    put_words<kV>(buf, base, k);
+  }
+#pragma unroll 1
+  for (int ls = W::kLogSpan + 1; ls <= W::kLog; ++ls) {
+    const int size = 1 << ls;
+    __syncthreads();
+    // the strides across warps, in place: the pairs (a, a + stride) of a
+    // stage spread over the block, consecutive across a warp
+#pragma unroll 1
+    for (int lt = ls - 1; lt >= W::kLogSpan; --lt) {
+      const int stride = 1 << lt;
+#pragma unroll
+      for (int i = 0; i < CE / 2 / W::kThreads; ++i) {
+        const int p = static_cast<int>(threadIdx.x) + i * W::kThreads;
+        const int a = ((p >> lt) << (lt + 1)) | (p & (stride - 1));
+        const int wa = word_at<kV>(a), wb = word_at<kV>(a | stride);
+        uint64_t x = buf[wa], y = buf[wb];
+        exchange(x, y, (a & size) == 0);
+        buf[wa] = x;
+        buf[wb] = y;
+      }
+      __syncthreads();
+    }
+#pragma unroll 1
+    for (int pass = 0; pass < W::kPasses; ++pass) {
+      const int base = W::base(pass);
+      get_words<kV>(buf, base, k);
+      merge_in_warp<W>(k, base, ls);
+      put_words<kV>(buf, base, k);
+    }
+  }
+  __syncthreads();
+}
+
+// This thread's sorted runs into L.src(): each slot's source column (its
+// word's low half) and validity (the key's top bit clear). The caller
+// syncs before the words' space is reused.
+template <int CE>
+__device__ __forceinline__ void sorted_runs(const Layout<CE>& L) {
+  using W = Wide<CE>;
+#pragma unroll 1
+  for (int pass = 0; pass < W::kPasses; ++pass) {
+    const int base = W::base(pass);
+#pragma unroll
+    for (int q = 0; q < W::kV / 4; ++q) {
+      uint32_t half[2] = {0, 0};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const uint64_t w = L.words[word_at<W::kV>(base + 4 * q + i)];
+        const uint32_t valid =
+            (static_cast<uint32_t>(w >> 32) & kSign) ? 0u : kSrcValid;
+        half[i >> 1] |= ((static_cast<uint32_t>(w) & 0x7fffu) | valid)
+                        << (16 * (i & 1));
+      }
+      *reinterpret_cast<uint2*>(L.src() + base + 4 * q) =
+          make_uint2(half[0], half[1]);
+    }
+  }
+}
+
+// The valid bytes of the run at `base` (through its source columns from
+// the staged column `bytes`, `v` its validity bits): their uint32 sum,
+// and this lane's exclusive prefix of the warp's sums in *before.
+template <int kV>
+__device__ __forceinline__ uint32_t run_total(const int* bytes,
+                                              const uint16_t* src, int base,
+                                              uint32_t v, uint32_t* before) {
+  uint32_t total = 0;
+#pragma unroll
+  for (int q = 0; q < kV / 4; ++q) {
+    int s[4];
+    src4(src, base + 4 * q, s);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if ((v >> (4 * q + i)) & 1u)
+        total += static_cast<uint32_t>(bytes[col_at(s[i])]);
+  }
+  const int lane = threadIdx.x & 31;
+  uint32_t x = total;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const uint32_t up = __shfl_up_sync(kFull, x, d);
+    if (lane >= d) x += up;
+  }
+  *before = x - total;
+  return x;
+}
+
+// The token gate of a sorted row over this thread's runs: the bytes of
+// each slot read through its source column from the staged column
+// `bytes`, its validity from L.src() (valid_bits); the row's
+// inclusive prefix of valid bytes (uint32, wrapping; runs in slot order)
+// against `bal` gives each run's sendable bits, handed to emit(base,
+// bits); returns the row's sendable bytes, in every thread. `wsum` is
+// (kPasses + 1) * kWarps words of shared memory, not reused after the
+// call. Every read of `bytes` is done when it returns (it ends with a
+// barrier).
+template <int CE, class Emit>
+__device__ __forceinline__ uint32_t wide_gate(const int* bytes,
+                                              const uint16_t* src, int bal,
+                                              uint32_t* wsum, Emit emit) {
+  using W = Wide<CE>;
+  constexpr int kV = W::kV;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll 1
+  for (int pass = 0; pass < W::kPasses; ++pass) {
+    const int base = W::base(pass);
+    uint32_t before;
+    const uint32_t x = run_total<kV>(bytes, src, base,
+                                     valid_bits<kV>(src, base), &before);
+    if (lane == 31) wsum[pass * W::kWarps + warp] = x;
+  }
+  __syncthreads();
+  uint32_t sent = 0;
+#pragma unroll 1
+  for (int pass = 0; pass < W::kPasses; ++pass) {
+    const int base = W::base(pass);
+    const uint32_t v = valid_bits<kV>(src, base);
+    // the runs before this one: every earlier pass's, this pass's
+    // earlier warps' and lanes'
+    uint32_t cum;
+    run_total<kV>(bytes, src, base, v, &cum);
+    for (int w = 0; w < pass * W::kWarps + warp; ++w) cum += wsum[w];
+    uint32_t sendable = 0;
+#pragma unroll
+    for (int q = 0; q < kV / 4; ++q) {
+      int s[4];
+      src4(src, base + 4 * q, s);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int j = 4 * q + i;
+        const bool ok_v = (v >> j) & 1u;
+        const uint32_t b = static_cast<uint32_t>(bytes[col_at(s[i])]);
+        if (ok_v) cum += b;
+        const bool ok = ok_v && static_cast<int>(cum) <= bal;
+        sendable |= static_cast<uint32_t>(ok) << j;
+        if (ok) sent += b;
+      }
+    }
+    emit(base, sendable);
+  }
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) sent += __shfl_xor_sync(kFull, sent, d);
+  uint32_t* wsent = wsum + W::kPasses * W::kWarps;
+  if (lane == 0) wsent[warp] = sent;
+  __syncthreads();
+  uint32_t row = 0;
+#pragma unroll
+  for (int w = 0; w < W::kWarps; ++w) row += wsent[w];
+  return row;
+}
+
+// Lets `kernel` take `bytes` of dynamic shared memory on the current
+// device (once a device); returns the CUDA error of the request.
+template <class Kernel>
+inline cudaError_t allow_shared(Kernel kernel, int bytes, bool (&done)[64]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 64 && done[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess && dev < 64) done[dev] = true;
+  return err;
+}
+
+// --- the device build (CE >= 32768, past what a block's shared memory
+// holds): one block of kDeviceBlock threads a row, the row in device
+// memory.
+
+constexpr int kDeviceBlock = 1024;
 
 // Ascending bitonic sort of a row's columns 0..n-1 by (key(i), i) into
 // `idx` (n words of device memory, one row of an output column): the
 // network moves the column indices only and reads each one's key through
 // `key` (from the inputs, or from an output column written before the
-// call). Each thread takes n / (2 * kWideBlock) compare-exchanges a stage,
-// with a block barrier a stage; n is a power of two >= 2 * kWideBlock.
-// Starts with a barrier (the caller's last reads of `idx` and its writes
-// to what `key` reads are done) and ends synchronised.
+// call). Each thread takes n / (2 * kDeviceBlock) compare-exchanges a
+// stage, with a block barrier a stage; n is a power of two >= 2 *
+// kDeviceBlock. Starts with a barrier (the caller's last reads of `idx`
+// and its writes to what `key` reads are done) and ends synchronised.
 template <class Key>
-__device__ __forceinline__ void wide_bitonic(int* idx, int n, Key key) {
+__device__ __forceinline__ void device_bitonic(int* idx, int n, Key key) {
   __syncthreads();
-  for (int i = threadIdx.x; i < n; i += kWideBlock) idx[i] = i;
+  for (int i = threadIdx.x; i < n; i += kDeviceBlock) idx[i] = i;
   __syncthreads();
   for (int size = 2; size <= n; size <<= 1) {
     for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int p = threadIdx.x; p < n / 2; p += kWideBlock) {
+      for (int p = threadIdx.x; p < n / 2; p += kDeviceBlock) {
         // the pair (a, a + stride): a has bit `stride` clear
         const int a = ((p & ~(stride - 1)) << 1) | (p & (stride - 1));
         const int b = a + stride;
@@ -163,12 +727,12 @@ __device__ __forceinline__ void wide_bitonic(int* idx, int n, Key key) {
 }
 
 // The row's prefix before this thread's run of slots: x is the sum of
-// the thread's own run (thread t owns slots [t * n / kWideBlock, (t + 1) *
-// n / kWideBlock)); returns the sum over the earlier threads' runs, in
-// uint32. `buf` is kWideBlock words of shared memory. Ends synchronised.
-__device__ __forceinline__ uint32_t wide_exclusive_prefix(uint32_t* buf,
-                                                          uint32_t x) {
-  return block_inclusive_scan(buf, x, kWideBlock, threadIdx.x) - x;
+// the thread's own run (thread t owns slots [t * n / kDeviceBlock, (t + 1)
+// * n / kDeviceBlock)); returns the sum over the earlier threads' runs, in
+// uint32. `buf` is kDeviceBlock words of shared memory. Ends synchronised.
+__device__ __forceinline__ uint32_t device_exclusive_prefix(uint32_t* buf,
+                                                            uint32_t x) {
+  return block_inclusive_scan(buf, x, kDeviceBlock, threadIdx.x) - x;
 }
 
 // The token gate over this thread's run of a sorted row, slots [c0, c0 +
@@ -176,12 +740,12 @@ __device__ __forceinline__ uint32_t wide_exclusive_prefix(uint32_t* buf,
 // the run's valid bytes: the row's inclusive prefix of valid bytes against
 // `bal` gives sendable_o, and the run's sendable bytes are added to
 // *spent_acc (shared memory, zeroed before a barrier the call follows).
-// `buf` is kWideBlock words of shared memory. Read *spent_acc only after
+// `buf` is kDeviceBlock words of shared memory. Read *spent_acc only after
 // a barrier.
-__device__ __forceinline__ void wide_token_gate(
+__device__ __forceinline__ void device_token_gate(
     const uint8_t* valid_o, const int* bytes_o, uint8_t* sendable_o, int c0,
     int run, uint32_t total, int bal, uint32_t* buf, uint32_t* spent_acc) {
-  uint32_t cum = wide_exclusive_prefix(buf, total);
+  uint32_t cum = device_exclusive_prefix(buf, total);
   uint32_t spent = 0;
   for (int c = c0; c < c0 + run; ++c) {
     const bool v_s = valid_o[c] != 0;

@@ -77,11 +77,14 @@ LAUNCHES = {"egress_rank": 0, "route_place": 0, "egress_gate": 0,
 # `codel.e_geometry`)
 E_BUILD_LAUNCHES = {"staged": 0, "device": 0}
 # kernel A's launches of each of its builds, as its launcher picks them by
-# the egress capacity (`egress_build`): "warp" segments up to 32 slots, a
-# "block" a row in shared memory up to 1024, "wide" beyond
-A_BUILD_LAUNCHES = {"warp": 0, "block": 0, "wide": 0}
-# kernel C's: the "tile" design up to 1024 slots, "wide" beyond
-C_BUILD_LAUNCHES = {"tile": 0, "wide": 0}
+# the egress capacity (`egress_build`), in the launcher's order: "warp"
+# segments up to 32 slots, a "block" a row in shared memory up to 1024,
+# "wide" (a block a row, the row's packed words in shared memory) up to
+# 16384, "device" (a block a row over device memory) beyond
+A_BUILD_LAUNCHES = {"warp": 0, "block": 0, "wide": 0, "device": 0}
+# kernel C's: the "tile" design up to 1024 slots, "wide" up to 16384,
+# "device" beyond
+C_BUILD_LAUNCHES = {"tile": 0, "wide": 0, "device": 0}
 _BUILD_LAUNCHES = {"egress_rank": A_BUILD_LAUNCHES,
                    "egress_gate": C_BUILD_LAUNCHES}
 
@@ -113,6 +116,18 @@ def egress_build(name: str, ce: int) -> str:
     if code == 0:
         raise RuntimeError(f"{name}_kernel takes no rows of {ce} slots")
     return list(_BUILD_LAUNCHES[name])[code - 1]
+
+
+@functools.lru_cache(maxsize=64)
+def egress_shared_bytes(name: str, ce: int) -> int:
+    """The dynamic shared memory (bytes) a wide-build launch of kernel A
+    (`name` "egress_rank") or C ("egress_gate") requests a block for rows
+    of `ce` slots, as its launcher's `<name>_shared_bytes` reports it (0
+    for a width another build runs)."""
+    fn = getattr(load_kernel(name), f"{name}_shared_bytes")
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return int(fn(int(ce)))
 
 
 def _check(name: str, t: torch.Tensor, dtype, shape, device):
@@ -257,6 +272,13 @@ def _egress_rank_impl(valid, prio, nbytes, tsend, clamp, dst, seq, sock,
         return egress_rank_plain(*ins, shift_ns)
     N, CE = valid.shape
     dev = valid.device
+    if egress_build("egress_rank", CE) == "wide":
+        for name, t in zip(_EGRESS_RANK_INS, ins[:9]):
+            # the wide build moves each thread's run as 16-byte vectors
+            if t.data_ptr() % 16:
+                raise ValueError(f"{name}: kernel A's wide build reads "
+                                 f"16-byte vectors, and this tensor does "
+                                 f"not start on 16 bytes")
     i32 = lambda: torch.empty((N, CE), dtype=torch.int32, device=dev)
     b8 = lambda: torch.empty((N, CE), dtype=torch.bool, device=dev)
     outs = (i32(), i32(), i32(), i32(), i32(), b8(), i32(), i32(), b8(),

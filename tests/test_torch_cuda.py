@@ -93,14 +93,26 @@ def test_egress_gate_kernel_matches_plain_on_edge_values(cuda, n, ce):
             assert g.dtype == r.dtype and torch.equal(g, r), (shift, n, ce)
 
 
-@pytest.mark.parametrize("ce", [1, 2048, 4096, 16384])
-@pytest.mark.parametrize("n", [1, 37])
+def egress_build_name(name, ce):
+    """The build of kernel A (`name` "egress_rank") or C that its
+    launcher must pick for rows of `ce` slots."""
+    if ce > 16384:
+        return "device"
+    if ce > 1024:
+        return "wide"
+    return "warp" if name == "egress_rank" else "tile"
+
+
+@pytest.mark.parametrize("ce,n", [
+    *((ce, n) for ce in (1, 2048, 4096, 8192, 16384) for n in (1, 37)),
+    (32768, 1), (32768, 3), (65536, 1), (65536, 3)])
 def test_egress_kernels_match_plain_on_edge_values_at_new_widths(cuda, n,
                                                                   ce):
-    """Kernels A and C at a one-slot row and in their wide build, on the
-    int32 edge columns (prefix sums past 2^31 across rows of 2^11-2^14
-    slots), with both shifts; each launch counted under the build its
-    launcher picks by the width."""
+    """Kernels A and C at a one-slot row, in their wide build (the row in
+    a block's shared memory) and in their device build (rows past what
+    shared memory holds), on the int32 edge columns (prefix sums past
+    2^31 across rows of 2^11-2^16 slots), with both shifts; each launch
+    counted under the build its launcher picks by the width."""
     cols = gate_edge_columns(n, ce, seed=3 * n + ce)
     rng = np.random.default_rng(ce)
     extra = [torch.from_numpy(np.asarray(a, dt)).to(cuda) for a, dt in (
@@ -117,8 +129,7 @@ def test_egress_kernels_match_plain_on_edge_values_at_new_widths(cuda, n,
                  (*c[:5], *extra, c[5], shift), "egress_rank",
                  pipeline.A_BUILD_LAUNCHES)):
             build = pipeline.egress_build(name, ce)
-            assert build == ("wide" if ce > 1024 else
-                             "warp" if name == "egress_rank" else "tile")
+            assert build == egress_build_name(name, ce)
             before = builds[build]
             got = stage(*args)
             ref = plain(*args)
@@ -127,6 +138,79 @@ def test_egress_kernels_match_plain_on_edge_values_at_new_widths(cuda, n,
             for g, r in zip(got, ref):
                 assert g.dtype == r.dtype and torch.equal(g, r), (
                     name, shift, n, ce)
+
+
+@pytest.mark.parametrize("n", [1, 6])
+def test_egress_kernels_hold_prefix_sums_past_2_31_at_the_widest_wide_build(
+        cuda, n):
+    """The widest rows the wide build holds in shared memory (CE =
+    16384) whose valid bytes alone pass 2^31: every row all valid with
+    bytes in [2^30, 2^31), so the token gate's uint32 prefix wraps within
+    a row; kernels A and C in their wide build, bitwise their plain
+    versions."""
+    ce = 16384
+    cols = gate_edge_columns(n, ce, seed=n)
+    rng = np.random.default_rng(n)
+    cols["valid"][:] = True
+    cols["prio"] = (np.abs(cols["prio"].astype(np.int64) + 1)
+                    % 2**31).astype(np.int32)
+    cols["nbytes"] = rng.integers(2**30, 2**31, (n, ce)).astype(np.int32)
+    cols["balance"][:] = rng.integers(-2**31, 2**31, n)
+    assert (cols["nbytes"].astype(np.int64).sum(axis=1) > 2**31).all()
+    extra = [torch.from_numpy(np.asarray(a, dt)).to(cuda) for a, dt in (
+        (rng.integers(-1, n, (n, ce)), np.int32),
+        (rng.integers(-2**31, 2**31, (n, ce)), np.int32),
+        (rng.integers(0, 40, (n, ce)), np.int32),
+        (rng.random((n, ce)) < 0.2, bool))]
+    for shift in EDGE_SHIFTS:
+        c = [torch.from_numpy(np.ascontiguousarray(v)).to(cuda)
+             for v in cols.values()]
+        for stage, plain, args, name, builds in (
+                (pipeline.egress_order_gate, pipeline.egress_gate_plain,
+                 (*c, shift), "egress_gate", pipeline.C_BUILD_LAUNCHES),
+                (pipeline.egress_rank_stage, pipeline.egress_rank_plain,
+                 (*c[:5], *extra, c[5], shift), "egress_rank",
+                 pipeline.A_BUILD_LAUNCHES)):
+            assert pipeline.egress_build(name, ce) == "wide"
+            before = builds["wide"]
+            got = stage(*args)
+            ref = plain(*args)
+            torch.cuda.synchronize()
+            assert builds["wide"] == before + 1
+            for g, r in zip(got, ref):
+                assert g.dtype == r.dtype and torch.equal(g, r), (
+                    name, shift, n)
+
+
+def test_egress_kernels_read_negative_priorities_as_invalid(cuda):
+    """A negative priority sets the FIFO key's validity bit, so a valid
+    slot with one sorts among the invalid and comes out invalid, as on
+    the TPU: kernels A and C in their wide build at CE = 4096, bitwise
+    their plain versions, with such slots present."""
+    ce, n = 4096, 5
+    args = egress_args(n, ce, cuda, seed=41)
+    rng = np.random.default_rng(41)
+    neg = torch.from_numpy(rng.random((n, ce)) < 0.3).to(cuda)
+    prio = torch.where(neg, -torch.from_numpy(
+        rng.integers(1, 2**31, (n, ce)).astype(np.int32)).to(cuda), args[1])
+    args = (args[0], prio, *args[2:])
+    assert (args[0] & neg).any()
+    gate_args = (*args[:5], args[9], args[10])
+    for stage, plain, a, name, builds in (
+            (pipeline.egress_order_gate, pipeline.egress_gate_plain,
+             gate_args, "egress_gate", pipeline.C_BUILD_LAUNCHES),
+            (pipeline.egress_rank_stage, pipeline.egress_rank_plain, args,
+             "egress_rank", pipeline.A_BUILD_LAUNCHES)):
+        assert pipeline.egress_build(name, ce) == "wide"
+        before = builds["wide"]
+        got = stage(*a)
+        ref = plain(*a)
+        torch.cuda.synchronize()
+        assert builds["wide"] == before + 1
+        for g, r in zip(got, ref):
+            assert g.dtype == r.dtype and torch.equal(g, r), name
+        valid_s = got[4] if name == "egress_gate" else got[8]
+        assert int(valid_s.sum()) == int((args[0] & ~neg).sum())
 
 
 def test_route_place_kernel_takes_one_slot_rings(cuda):

@@ -252,29 +252,31 @@ def test_library_path_hashes_included_headers(tmp_path, monkeypatch):
         assert again[name] == after[name], name
 
 
-@pytest.mark.parametrize("ce", [1, 2048])
+@pytest.mark.parametrize("ce", [1, 2048, 16384])
 def test_egress_kernels_take_every_width_jax_takes(ce):
-    """Kernels A and C at a row of one slot and at one wider than 1024
-    (the kernels' wide build on the card), both widths JAX's Pallas
-    kernels take: the port's wrappers (the plain versions on the CPU)
-    against JAX's `egress_rank_stage` and `egress_order_gate` in
-    interpret mode, on random rows and on the int32 edge rows, every
-    output bitwise; no launch and no build counted."""
+    """Kernels A and C at a row of one slot, at one wider than 1024 and
+    at the widest row a block's shared memory holds (the kernels' wide
+    build on the card), widths JAX's Pallas kernels take: the port's
+    wrappers (the plain versions on the CPU) against JAX's
+    `egress_rank_stage` and `egress_order_gate` in interpret mode, on
+    random rows (2 at 16384) and on the int32 edge rows, every output
+    bitwise; no launch and no build counted."""
     from test_torch_pipeline import egress_columns
 
     from shadow_tpu.tpu import pallas_pipeline
 
+    rows, edge_rows = (2, 6) if ce > 2048 else (8, 12)
     before = [dict(d) for d in (pipeline.LAUNCHES, pipeline.A_BUILD_LAUNCHES,
                                 pipeline.C_BUILD_LAUNCHES)]
-    cols = egress_columns(8, ce, seed=ce)
+    cols = egress_columns(rows, ce, seed=ce)
     shift = 10 * MS
     ref = pallas_pipeline.egress_rank_stage(
         *(jnp.asarray(v) for v in cols.values()), jnp.int32(shift))
     got = pipeline.egress_rank_stage(
         *(torch.from_numpy(v) for v in cols.values()), shift)
     assert_outputs_equal(ref, got)
-    edge = gate_edge_columns(12, ce, seed=ce + 1)
-    for case in (gate_columns(8, ce, seed=ce), edge):
+    edge = gate_edge_columns(edge_rows, ce, seed=ce + 1)
+    for case in (gate_columns(rows, ce, seed=ce), edge):
         ref = pallas_egress.egress_order_gate(
             *(jnp.asarray(v) for v in case.values()), jnp.int32(shift))
         got = pipeline.egress_order_gate(
@@ -284,6 +286,39 @@ def test_egress_kernels_take_every_width_jax_takes(ce):
     assert sendable.any() and not sendable.all(), "dead token gate"
     assert [dict(d) for d in (pipeline.LAUNCHES, pipeline.A_BUILD_LAUNCHES,
                               pipeline.C_BUILD_LAUNCHES)] == before
+
+
+def test_egress_build_names_follow_the_launchers_codes(monkeypatch):
+    """`A_BUILD_LAUNCHES` and `C_BUILD_LAUNCHES` name kernel A's and C's
+    builds in their launchers' order (the `<name>_build` codes 1, 2,
+    ...), which `egress_build` reads by position; `reset_launches` zeroes
+    them. (The card test holds `egress_build` to the real launchers.)"""
+    assert list(pipeline.A_BUILD_LAUNCHES) == ["warp", "block", "wide",
+                                               "device"]
+    assert list(pipeline.C_BUILD_LAUNCHES) == ["tile", "wide", "device"]
+
+    class Lib:
+        # a launcher whose `<name>_build` reports the code it is given
+        def __init__(self, name):
+            setattr(self, f"{name}_build", lambda code: code)
+
+    monkeypatch.setattr(pipeline, "load_kernel", Lib)
+    pipeline.egress_build.cache_clear()
+    try:
+        for name, counts in (("egress_rank", pipeline.A_BUILD_LAUNCHES),
+                             ("egress_gate", pipeline.C_BUILD_LAUNCHES)):
+            for code, build in enumerate(counts, start=1):
+                assert pipeline.egress_build(name, code) == build
+            with pytest.raises(RuntimeError):
+                pipeline.egress_build(name, 0)
+    finally:
+        pipeline.egress_build.cache_clear()
+    for counts in (pipeline.A_BUILD_LAUNCHES, pipeline.C_BUILD_LAUNCHES):
+        for k in counts:
+            counts[k] += 3
+    pipeline.reset_launches()
+    assert not any(pipeline.A_BUILD_LAUNCHES.values())
+    assert not any(pipeline.C_BUILD_LAUNCHES.values())
 
 
 def test_egress_checks_take_powers_of_two_only():
