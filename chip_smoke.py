@@ -23,17 +23,20 @@ printed:
    write and a read, so no dirty lines are left: `cold_clean_ms`) and
    in L2 (back-to-back launches: `warm_ms`); (d) at the egress
    capacities no main path runs but JAX's kernel takes, CE in {1, 2048,
-   4096, 16384} (one-slot rows in the warp build; past 1024 the wide
-   build, a block a row with the row's packed words in shared memory), on
-   2^24 slots of columns (~1.09 GB) and on the int32 edge inputs, each
-   launch counted under the build its launcher picked, timed as above
-   beside the bound by bytes and the wide design's own operation count
-   (a model's estimate, not a measurement); at CE = 8192 (the wide
-   build's one instance that plays two runs a thread) and 32768 (the
-   device build, a block a row over device memory) on 24 rows of random
-   and of edge inputs, untimed; ptxas' report of the
-   wide build's instances (its shared memory a block within the H100's
-   227 KB) and of the device build;
+   4096, 16384, 32768, 65536} (one-slot rows in the warp build; past 1024
+   the wide build, a block a row with the row's packed words in shared
+   memory; past 16384 the cluster build, a thread-block cluster a row
+   over its blocks' shared memory), on 2^24 slots of columns (~1.09 GB)
+   and on the int32 edge inputs, each launch counted under the build its
+   launcher picked, timed as above beside the bound by bytes and the
+   plain version, with the wide design's own operation count (a model's
+   estimate, not a measurement) and the cluster build's blocks a cluster
+   and `cudaOccupancyMaxActiveClusters`; at CE = 8192 (the wide build's
+   one instance that plays two runs a thread) and 131072 (the device
+   build, a block a row over device memory, timed once) on 24 rows of
+   random and of edge inputs; ptxas' report of the wide and cluster
+   builds' instances (their shared memory a block within the H100's 227
+   KB) and of the device build;
 4. kernel C (egress_gate): ptxas' registers, shared memory and spills
    of its kernels (a spill fails); bitwise against its plain version at
    CE in {2, 4, 8, 16, 32, 64, 128, 1024} on random inputs at N=32768
@@ -282,11 +285,12 @@ printed:
    a set less their pool tags against phase 21's sync replay, next
    event), its sim-stats the witness's; (c) the rung-3 flow-engine
    deployment through the CLI, its stats record the JAX Manager's, F
-   launched; (d) PHOLD at CE=2048 through both kernel pairs (A and C in
-   their wide build every window, each launch's time on the card in the
-   window from torch.profiler's kernel events, beside its byte bound; run
-   before (a)'s and 23's children share the card) and at CI=1 through the fused pair, each state the "xla"
-   run's;
+   launched; (d) PHOLD at CE=2048 (1024 hosts) and at CE=32768 (64
+   hosts) through both kernel pairs (A and C in their wide build, then in
+   their cluster build, every window, each launch's time on the card in
+   the window from torch.profiler's kernel events, beside its byte bound;
+   run before (a)'s and 23's children share the card) and at CI=1
+   through the fused pair, each state the "xla" run's;
 23. managed native processes: real executables under the port's
    interposition shim (`shadow_tpu_torch/interpose`, built into
    `_build_out/`) and syscall handler, through `python -m
@@ -317,7 +321,8 @@ printed:
    transport's keys), and its
    rung-4 YAML with each transport is byte for byte phase 23 (b)'s;
 25. one JSON line describing every kernel (E's and F's launches of each
-   build, A's and C's widths), then the result line.
+   build, A's and C's widths and their 22 (d) launches in the wide and
+   cluster builds), then the result line.
 
 Usage: python3 chip_smoke.py   (from the repository root; one card).
 A fuller record of every measurement is printed on the `record:` line.
@@ -360,25 +365,28 @@ PEAK_SHUFFLES_PER_S = 67e12 / 8
 C_SWEEP = (2, 4, 8, 16, 32, 64, 128, 1024)
 C_TIMED = (8, 16, 32)
 # 3-5 (d): kernels A and C at the egress capacities no main path runs but
-# JAX's kernels take (a row of one slot, and the wide build past 1024), on
-# as many rows as fill 1-2 GB of columns (A moves 65 B a slot, C 35 B),
-# and kernel B with rings of one slot
-WIDE_CES = (1, 2048, 4096, 16384)
+# JAX's kernels take (a row of one slot, the wide build past 1024 and the
+# cluster build past 16384), on as many rows as fill 1-2 GB of columns (A
+# moves 65 B a slot, C 35 B), and kernel B with rings of one slot
+WIDE_CES = (1, 2048, 4096, 16384, 32768, 65536)
 WIDE_SLOTS = {"A": 1 << 24, "C": 1 << 25}
 WIDE_EDGE_ROWS = 24  # rows of the int32 edge inputs at each width
-# held bitwise, untimed: the wide build's one instance of two passes
-# (8192), and rows past what a block's shared memory holds (the device
-# build)
-WIDE_HELD_CES = (8192, 32768)
-# the wide build's instances (one a CE), and the shared memory a block
-# may take on an H100
+# held bitwise on WIDE_EDGE_ROWS rows: the wide build's one instance of
+# two passes (8192), untimed, and rows past the portable cluster (the
+# device build), timed once
+WIDE_HELD_CES = (8192, 131072)
+# the wide and cluster builds' instances (one a CE), and the shared
+# memory a block may take on an H100
 WIDE_BUILD_CES = (2048, 4096, 8192, 16384)
+CLUSTER_BUILD_CES = (32768, 65536)
 MAX_SHARED_PER_BLOCK = 232448
 WIDE_REPS = 10  # timed launches of each kind at each width
 # 22 (d): a short PHOLD run through both kernel pairs with rows of this
-# many egress slots (kernels A and C in their wide build), and one with
-# rings of one ingress slot (kernel B), each against "xla"
+# many egress slots (kernels A and C in their wide build, then in their
+# cluster build; both 2^21 slots), and one with rings of one ingress slot
+# (kernel B), each against "xla"
 PHOLD_WIDE = dict(n_hosts=1024, rounds=8, egress_cap=2048, ingress_cap=32)
+PHOLD_CLUSTER = dict(n_hosts=64, rounds=8, egress_cap=32768, ingress_cap=32)
 PHOLD_CI1 = dict(n_hosts=4096, rounds=8, egress_cap=16, ingress_cap=1)
 L2_FLUSH_BYTES = 128 << 20  # over twice the H100's 50 MB L2
 NO_CLAMP = -(2**30)
@@ -964,120 +972,163 @@ def wide_design_ops(which: str, ce: int, slots: int) -> dict:
                 int_ops=ops, shuffles=shuffles, ms=ms)
 
 
+def egress_stage(pipeline, which: str):
+    """Kernel A's (`which` "A") or C's ("C") wrapper, plain version,
+    build counts, library name, and its arguments out of kernel A's."""
+    if which == "A":
+        return (pipeline.egress_rank_stage, pipeline.egress_rank_plain,
+                pipeline.A_BUILD_LAUNCHES, "egress_rank", lambda full: full)
+    return (pipeline.egress_order_gate, pipeline.egress_gate_plain,
+            pipeline.C_BUILD_LAUNCHES, "egress_gate",
+            lambda full: (*full[:5], full[9], full[10]))
+
+
+def hold_egress(torch, pipeline, which: str, ce: int, cases):
+    """Kernel A or C (`which`) at rows of `ce` slots on each (what,
+    arguments) of `cases`: one launch of the build its launcher picks, a
+    launch a call, bitwise its plain version. Returns the build and the
+    outputs of the first case."""
+    stage, plain, builds, name, _pick = egress_stage(pipeline, which)
+    outs = None
+    for what, case in cases:
+        pipeline.reset_launches()
+        got = stage(*case)
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in builds.items() if v}
+        want_build = pipeline.egress_build(name, ce)
+        if launched != {want_build: 1} or pipeline.LAUNCHES[name] != 1:
+            fail(f"kernel {which} at CE={ce} launched {launched} "
+                 f"({pipeline.LAUNCHES[name]} launches), expected one "
+                 f"of its {want_build} build")
+        ref = plain(*case)
+        err = max_abs_err(torch, got, ref)
+        if err != 0:
+            fail(f"kernel {which} ({name}) at CE={ce} ({what} inputs) "
+                 f"disagrees with its plain version (max abs err {err})")
+        if outs is None:
+            outs = got
+        del got, ref
+    return want_build, outs
+
+
+def egress_edge_cases(torch, pipeline, which: str, ce: int):
+    """The int32 edge cases of 3 (d) / 4 (d): WIDE_EDGE_ROWS rows, each
+    shift of EDGE_SHIFTS."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    from torch_parity import EDGE_SHIFTS
+
+    pick = egress_stage(pipeline, which)[4]
+    return [(f"edge shift={shift}", pick(egress_edge_inputs(
+        torch, WIDE_EDGE_ROWS, ce, ce + 3, shift)))
+        for shift in EDGE_SHIFTS]
+
+
+def time_egress(torch, pipeline, which: str, ce: int, n: int, ident: str,
+                reps: int = WIDE_REPS, edge: bool = True) -> dict:
+    """Kernel A or C (`which`) at n rows of `ce` slots of random columns
+    (and, with `edge`, the int32 edge rows), bitwise against its plain
+    version (`hold_egress`), then timed cold, clean and warm (`reps`
+    launches each) beside its bound by bytes (each input read and each
+    output written once) and its plain version; for the wide build, the
+    design's own operation count (`wide_design_ops`, a model's estimate);
+    for the cluster build, its blocks a cluster and the clusters that run
+    at once (`cudaOccupancyMaxActiveClusters`). Prints and returns the
+    row."""
+    stage, plain, _builds, name, pick = egress_stage(pipeline, which)
+    cases = [("random", pick(egress_inputs(torch, n, ce, seed=7 * ce + 1)))]
+    if edge:
+        cases += egress_edge_cases(torch, pipeline, which, ce)
+    want_build, outs = hold_egress(torch, pipeline, which, ce, cases)
+    args = cases[0][1]
+    del cases
+    warm_ms, ms, clean_ms = time_device(torch, lambda: stage(*args),
+                                        reps=reps)
+    _, plain_ms, _ = time_device(torch, lambda: plain(*args), reps=2)
+    moved = nbytes(a for a in args if isinstance(a, torch.Tensor)) + \
+        nbytes(outs)
+    bound_ms, bound_by = bound(moved, 0)
+    row = dict(ce=ce, n=n, build=want_build, max_abs_err=0, ms=ms,
+               warm_ms=warm_ms, cold_clean_ms=clean_ms, plain_ms=plain_ms,
+               bytes=moved, bound_ms=bound_ms, bound_by=bound_by,
+               share_of_bound=bound_ms / ms)
+    design = ""
+    if want_build == "wide":
+        ops = wide_design_ops(which, ce, n * ce)
+        row.update(design_ops=ops)
+        st = ops["stages"]
+        side = "above" if ops["ms"] > bound_ms else "below"
+        design = (f" design: {st['registers']} register / "
+                  f"{st['shuffles']} shuffle / {st['shared']} shared-"
+                  f"memory stages a network, {ops['int_ops']} int ops"
+                  f" and {ops['shuffles']} shuffles, {ops['ms']:.5f} "
+                  f"ms at the peak rates (a model's estimate, {side} "
+                  f"the byte bound);")
+    elif want_build == "cluster":
+        blocks, clusters = pipeline.egress_cluster_occupancy(name, ce)
+        row.update(blocks_a_cluster=blocks, max_active_clusters=clusters)
+        design = (f" {blocks} blocks a cluster, {clusters} clusters at "
+                  f"once (cudaOccupancyMaxActiveClusters), "
+                  f"{-(-n // clusters)} waves of rows;")
+    print(f"{which} (d) {name} CE={ce} N={n} ({want_build} build, one "
+          f"launch a call): bitwise ok on random inputs"
+          f"{' and int32 edge inputs' if edge else ''} (N="
+          f"{WIDE_EDGE_ROWS}); kernel_ms={ms:.5f} (cold L2; clean "
+          f"{clean_ms:.5f}; warm {warm_ms:.5f}; {reps} launches each) "
+          f"plain_ms={plain_ms:.5f} bound_ms={bound_ms:.5f} ({bound_by}, "
+          f"{moved} B) share={bound_ms / ms:.3f};{design}  [{ident}]")
+    return row
+
+
 def check_egress_widths(torch, pipeline, record, ident, which: str,
                         ces=WIDE_CES, held=WIDE_HELD_CES):
     """3 (d) / 4 (d): kernel A (`which` "A") or C ("C") at each egress
     capacity of `ces`, on WIDE_SLOTS[which] slots of random columns and
     on WIDE_EDGE_ROWS rows of int32 edge columns (both shifts), bitwise
-    against the plain version; the build the launcher ran, by its launch
-    count; timed cold, clean and warm beside its bound by bytes (each
-    input read and each output written once) and, for the wide build,
-    the design's own operation count (`wide_design_ops`, a model's
-    estimate). At each CE of `held` the same checks on WIDE_EDGE_ROWS
-    rows of random and of edge columns, untimed. ptxas' report of the wide
-    build's instances and of the device build: a spill, or a block's
-    static and dynamic shared memory past MAX_SHARED_PER_BLOCK, fails."""
-    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
-    from torch_parity import EDGE_SHIFTS
-
-    if which == "A":
-        stage, plain = pipeline.egress_rank_stage, pipeline.egress_rank_plain
-        builds, name = pipeline.A_BUILD_LAUNCHES, "egress_rank"
-        pick = lambda full: full
-    else:
-        stage, plain = pipeline.egress_order_gate, pipeline.egress_gate_plain
-        builds, name = pipeline.C_BUILD_LAUNCHES, "egress_gate"
-        pick = lambda full: (*full[:5], full[9], full[10])
-    wide_ptxas = check_ptxas(
-        record, name, f"kernel {which}'s wide build",
-        f"kernel_{which.lower()}_wide_ptxas", f"{name}_wide",
-        list(WIDE_BUILD_CES), "CE")
-    for ce in WIDE_BUILD_CES:
-        static = wide_ptxas[str(ce)]["smem"]
-        dynamic = pipeline.egress_shared_bytes(name, ce)
-        print(f"kernel {which}'s wide build CE={ce}: {static} B static + "
-              f"{dynamic} B dynamic shared memory a block (at most "
-              f"{MAX_SHARED_PER_BLOCK})")
-        if static + dynamic > MAX_SHARED_PER_BLOCK:
-            fail(f"kernel {which}'s wide build at CE={ce} takes "
-                 f"{static + dynamic} B of shared memory a block")
+    against the plain version, the build the launcher ran by its launch
+    count, timed beside its bounds (`time_egress`). At each CE of `held`
+    the same checks on WIDE_EDGE_ROWS rows of random and of edge columns;
+    the device build's timed once on the random rows. ptxas' report of
+    the wide and cluster builds' instances and of the device build: a
+    spill, or a block's static and dynamic shared memory past
+    MAX_SHARED_PER_BLOCK, fails."""
+    _stage, _plain, _builds, name, pick = egress_stage(pipeline, which)
+    for build, ces_built in (("wide", WIDE_BUILD_CES),
+                             ("cluster", CLUSTER_BUILD_CES)):
+        report = check_ptxas(
+            record, name, f"kernel {which}'s {build} build",
+            f"kernel_{which.lower()}_{build}_ptxas", f"{name}_{build}",
+            list(ces_built), "CE")
+        for ce in ces_built:
+            static = report[str(ce)]["smem"]
+            dynamic = pipeline.egress_shared_bytes(name, ce)
+            print(f"kernel {which}'s {build} build CE={ce}: {static} B "
+                  f"static + {dynamic} B dynamic shared memory a block (at "
+                  f"most {MAX_SHARED_PER_BLOCK})")
+            if static + dynamic > MAX_SHARED_PER_BLOCK:
+                fail(f"kernel {which}'s {build} build at CE={ce} takes "
+                     f"{static + dynamic} B of shared memory a block")
     check_ptxas(record, name, f"kernel {which}'s device build",
                 f"kernel_{which.lower()}_device_ptxas", f"{name}_device",
                 [None])
 
-    def hold(ce, cases):
-        for what, case in cases:
-            pipeline.reset_launches()
-            got = stage(*case)
-            torch.cuda.synchronize()
-            launched = {k: v for k, v in builds.items() if v}
-            want_build = pipeline.egress_build(name, ce)
-            if launched != {want_build: 1} or pipeline.LAUNCHES[name] != 1:
-                fail(f"kernel {which} at CE={ce} launched {launched} "
-                     f"({pipeline.LAUNCHES[name]} launches), expected one "
-                     f"of its {want_build} build")
-            ref = plain(*case)
-            err = max_abs_err(torch, got, ref)
-            if err != 0:
-                fail(f"kernel {which} ({name}) at CE={ce} ({what} inputs) "
-                     f"disagrees with its plain version (max abs err {err})")
-            if what == "random":
-                outs = got
-            del got, ref
-        return want_build, outs
-
-    def edge_cases(ce):
-        return [(f"edge shift={shift}", pick(egress_edge_inputs(
-            torch, WIDE_EDGE_ROWS, ce, ce + 3, shift)))
-            for shift in EDGE_SHIFTS]
-
     rows = []
     for ce in ces:
-        n = WIDE_SLOTS[which] // ce
-        cases = [("random", pick(egress_inputs(torch, n, ce,
-                                                       seed=7 * ce + 1)))]
-        cases += edge_cases(ce)
-        want_build, outs = hold(ce, cases)
-        args = cases[0][1]
-        warm_ms, ms, clean_ms = time_device(
-            torch, lambda: stage(*args), reps=WIDE_REPS)
-        _, plain_ms, _ = time_device(torch, lambda: plain(*args), reps=2)
-        moved = nbytes(a for a in args if isinstance(a, torch.Tensor)) + \
-            nbytes(outs)
-        bound_ms, bound_by = bound(moved, 0)
-        row = dict(ce=ce, n=n, build=want_build, max_abs_err=0, ms=ms,
-                   warm_ms=warm_ms, cold_clean_ms=clean_ms,
-                   plain_ms=plain_ms, bytes=moved, bound_ms=bound_ms,
-                   bound_by=bound_by, share_of_bound=bound_ms / ms)
-        design = ""
-        if want_build == "wide":
-            ops = wide_design_ops(which, ce, n * ce)
-            row.update(design_ops=ops)
-            st = ops["stages"]
-            side = "above" if ops["ms"] > bound_ms else "below"
-            design = (f" design: {st['registers']} register / "
-                      f"{st['shuffles']} shuffle / {st['shared']} shared-"
-                      f"memory stages a network, {ops['int_ops']} int ops"
-                      f" and {ops['shuffles']} shuffles, {ops['ms']:.5f} "
-                      f"ms at the peak rates (a model's estimate, {side} "
-                      f"the byte bound);")
-        rows.append(row)
-        print(f"{which} (d) {name} CE={ce} N={n} ({want_build} build, one "
-              f"launch a call): bitwise ok on random inputs and int32 edge "
-              f"inputs (N={WIDE_EDGE_ROWS}, shifts {EDGE_SHIFTS}); "
-              f"kernel_ms={ms:.5f} (cold L2; clean {clean_ms:.5f}; warm "
-              f"{warm_ms:.5f}) plain_ms={plain_ms:.5f} bound_ms="
-              f"{bound_ms:.5f} ({bound_by}, {moved} B) share="
-              f"{bound_ms / ms:.3f};{design}  [{ident}]")
-        del cases, args, outs
+        rows.append(time_egress(torch, pipeline, which, ce,
+                                WIDE_SLOTS[which] // ce, ident))
         torch.cuda.empty_cache()
     for ce in held:
-        cases = [("random", pick(egress_inputs(torch, WIDE_EDGE_ROWS, ce,
-                                                       seed=7 * ce + 1)))]
-        want_build, _ = hold(ce, cases + edge_cases(ce))
-        print(f"{which} (d) {name} CE={ce} ({want_build} build, one launch "
-              f"a call): bitwise ok on random and int32 edge inputs "
-              f"(N={WIDE_EDGE_ROWS}, shifts {EDGE_SHIFTS}); untimed")
+        if pipeline.egress_build(name, ce) == "device":
+            rows.append(time_egress(torch, pipeline, which, ce,
+                                    WIDE_EDGE_ROWS, ident, reps=1))
+        else:
+            cases = [("random", pick(egress_inputs(
+                torch, WIDE_EDGE_ROWS, ce, seed=7 * ce + 1)))]
+            want_build, _ = hold_egress(
+                torch, pipeline, which, ce,
+                cases + egress_edge_cases(torch, pipeline, which, ce))
+            print(f"{which} (d) {name} CE={ce} ({want_build} build, one "
+                  f"launch a call): bitwise ok on random and int32 edge "
+                  f"inputs (N={WIDE_EDGE_ROWS}); untimed")
         torch.cuda.empty_cache()
     record[f"kernel_{which.lower()}_widths"] = rows
     return rows
@@ -6087,64 +6138,88 @@ def profiled_launches(torch, pipeline, name, symbol, run):
     return out, sizes, [ev.time_range.elapsed_us() for ev in ran]
 
 
+def phold_width_run(torch, bench, convert, pipeline, size: dict,
+                    kernel: str, want: str, ident: str) -> dict:
+    """One 22 (d) PHOLD run of `size` through `kernel` ("pallas_fused" or
+    "pallas"): its state's digest must be `want` ("xla"'s), each kernel
+    of the pair launched once a round, A's or C's launches all of the
+    build its launcher picks at the egress capacity. Past 1024 slots the
+    run goes under torch.profiler: each launch of that build (its
+    `<name>_<build>` kernel), its µs on the card in the window beside its
+    byte bound, and launches x (time - bound). Prints and returns the
+    row."""
+    size = dict(size)
+    n = size.pop("n_hosts")
+    cap, rounds = size["egress_cap"], size["rounds"]
+    pair = (("egress_rank", "route_place") if kernel == "pallas_fused"
+            else ("egress_gate", "route_scatter"))
+    letter = "A" if kernel == "pallas_fused" else "C"
+    build = pipeline.egress_build(pair[0], cap)
+    run = lambda: bench.run_phold(n, warmup=False, kernel=kernel, **size)
+    pipeline.reset_launches()
+    if cap > 1024:
+        out, sizes, us = profiled_launches(
+            torch, pipeline, pair[0], f"{pair[0]}_{build}", run)
+    else:
+        out = run()
+    builds = {**{f"A:{k}": v for k, v in
+                 pipeline.A_BUILD_LAUNCHES.items() if v},
+              **{f"C:{k}": v for k, v in
+                 pipeline.C_BUILD_LAUNCHES.items() if v}}
+    launches = {k: v for k, v in pipeline.LAUNCHES.items() if v}
+    got = convert.state_digest(out["state"])
+    key = f"{kernel}@CE={cap},CI={size['ingress_cap']}"
+    if got != want or launches != {p: rounds for p in pair} or \
+            builds != {f"{letter}:{build}": rounds}:
+        fail(f"22 (d) PHOLD {key}: digest {got[:16]} vs xla {want[:16]}, "
+             f"launches {launches}, by build {builds}")
+    row = dict(builds=builds, launches=launches, delivered=out["delivered"])
+    timing = ""
+    if cap > 1024:
+        if len(us) != len(sizes) or len(set(sizes)) != 1:
+            fail(f"22 (d) PHOLD {key}: the profiler saw {len(us)} kernels "
+                 f"of {pair[0]}'s {build} build for {len(sizes)} launches "
+                 f"of sizes {set(sizes)}")
+        bound_us = bound(sizes[0], 0)[0] * 1e3
+        lost_us = sum(u - bound_us for u in us)
+        row.update(in_window_us=us, bound_us=bound_us, bytes=sizes[0],
+                   lost_us=lost_us)
+        timing = (f"; {pair[0]}_{build} in the window (torch.profiler's "
+                  f"kernel events): {len(us)} launches, "
+                  f"{min(us):.2f}-{max(us):.2f} µs (median "
+                  f"{sorted(us)[len(us) // 2]:.2f}, mean "
+                  f"{sum(us) / len(us):.2f}) against a byte bound of "
+                  f"{bound_us:.2f} µs ({sizes[0]} B): launches x (time - "
+                  f"bound) {lost_us:.1f} µs")
+    print(f"22 (d) PHOLD N={n} R={rounds} {key}: state == xla's "
+          f"({out['delivered']} delivered); launches {launches}, by build "
+          f"{builds}{timing}  [{ident}]")
+    return row
+
+
+def phold_width_digest(bench, convert, size: dict) -> str:
+    """The state digest of 22 (d)'s PHOLD `size` through "xla"."""
+    size = dict(size)
+    n = size.pop("n_hosts")
+    return convert.state_digest(
+        bench.run_phold(n, warmup=False, kernel="xla", **size)["state"])
+
+
 def check_phold_widths(torch, bench, convert, pipeline, record, ident):
-    """22 (d): PHOLD_WIDE through "pallas_fused" and "pallas" (kernels A
-    and C in their wide build, every window) and PHOLD_CI1 through
-    "pallas_fused" (kernel B with one-slot rings), each state equal to
-    the "xla" run's. PHOLD_WIDE's runs go under torch.profiler: each
-    launch of A's and C's wide build, its µs on the card in the window
-    beside its byte bound, and launches x (time - bound)."""
+    """22 (d): PHOLD_WIDE and PHOLD_CLUSTER through "pallas_fused" and
+    "pallas" (kernels A and C in their wide and in their cluster build,
+    every window) and PHOLD_CI1 through "pallas_fused" (kernel B with
+    one-slot rings), each state equal to the "xla" run's
+    (`phold_width_run`)."""
     rows = {}
     for size, paths in ((PHOLD_WIDE, ("pallas_fused", "pallas")),
+                        (PHOLD_CLUSTER, ("pallas_fused", "pallas")),
                         (PHOLD_CI1, ("pallas_fused",))):
-        size = dict(size)
-        n = size.pop("n_hosts")
-        ref = bench.run_phold(n, warmup=False, kernel="xla", **size)
-        want = convert.state_digest(ref["state"])
+        want = phold_width_digest(bench, convert, size)
         for kernel in paths:
-            pair = (("egress_rank", "route_place") if kernel == "pallas_fused"
-                    else ("egress_gate", "route_scatter"))
-            run = lambda: bench.run_phold(n, warmup=False, kernel=kernel,
-                                          **size)
-            pipeline.reset_launches()
-            if size["egress_cap"] > 1024:
-                out, sizes, us = profiled_launches(
-                    torch, pipeline, pair[0], f"{pair[0]}_wide", run)
-            else:
-                out = run()
-            builds = {**{f"A:{k}": v for k, v in
-                         pipeline.A_BUILD_LAUNCHES.items() if v},
-                      **{f"C:{k}": v for k, v in
-                         pipeline.C_BUILD_LAUNCHES.items() if v}}
-            launches = {k: v for k, v in pipeline.LAUNCHES.items() if v}
-            got = convert.state_digest(out["state"])
-            key = f"{kernel}@CE={size['egress_cap']},CI={size['ingress_cap']}"
-            if got != want or launches != {p: size["rounds"] for p in pair}:
-                fail(f"22 (d) PHOLD {key}: digest {got[:16]} vs xla "
-                     f"{want[:16]}, launches {launches}")
-            row = dict(builds=builds, launches=launches,
-                       delivered=out["delivered"])
-            timing = ""
-            if size["egress_cap"] > 1024:
-                if len(us) != len(sizes) or len(set(sizes)) != 1:
-                    fail(f"22 (d) PHOLD {key}: the profiler saw {len(us)} "
-                         f"kernels of {pair[0]}'s wide build for "
-                         f"{len(sizes)} launches of sizes {set(sizes)}")
-                bound_us = bound(sizes[0], 0)[0] * 1e3
-                lost_us = sum(u - bound_us for u in us)
-                row.update(in_window_us=us, bound_us=bound_us,
-                           bytes=sizes[0], lost_us=lost_us)
-                timing = (f"; {pair[0]} in the window (torch.profiler's "
-                          f"kernel events): {len(us)} launches, "
-                          f"{min(us):.2f}-{max(us):.2f} µs (median "
-                          f"{sorted(us)[len(us) // 2]:.2f}, mean "
-                          f"{sum(us) / len(us):.2f}) against a byte bound "
-                          f"of {bound_us:.2f} µs ({sizes[0]} B): "
-                          f"launches x (time - bound) {lost_us:.1f} µs")
-            rows[key] = row
-            print(f"22 (d) PHOLD N={n} R={size['rounds']} {key}: state == "
-                  f"xla's ({out['delivered']} delivered); launches "
-                  f"{launches}, by build {builds}{timing}  [{ident}]")
+            rows[f"{kernel}@CE={size['egress_cap']},"
+                 f"CI={size['ingress_cap']}"] = phold_width_run(
+                torch, bench, convert, pipeline, size, kernel, want, ident)
     record["phold_widths"] = rows
     return rows
 
@@ -6336,18 +6411,20 @@ def run_phases(torch, workers: int, cores: int):
 
     widths = lambda rows: [{k: r[k] for k in (
         "ce", "n", "build", "ms", "cold_clean_ms", "warm_ms", "plain_ms",
-        "bound_ms", "bound_by")} for r in rows]
-    in_window = lambda key: {k: phold_widths[key].get(k) for k in (
-        "builds", "in_window_us", "bound_us", "lost_us")}
+        "bound_ms", "bound_by", "blocks_a_cluster", "max_active_clusters")
+        if k in r} for r in rows]
+    in_window = lambda size, kernel: {k: phold_widths[
+        f"{kernel}@CE={size['egress_cap']},CI={size['ingress_cap']}"].get(k)
+        for k in ("builds", "in_window_us", "bound_us", "lost_us")}
     kernels = [
         dict(kernel_entry("egress_rank_kernel",
                           "shadow_tpu_torch/csrc/egress_rank.cu",
                           "shadow_tpu/tpu/pallas_pipeline.py:77",
                           fused["egress_rank"], a, ens["egress_rank"],
                           sec["egress_rank"], mesh_l["egress_rank"]),
-             widths=widths(a_widths), phold_wide=in_window(
-                 f"pallas_fused@CE={PHOLD_WIDE['egress_cap']},"
-                 f"CI={PHOLD_WIDE['ingress_cap']}")),
+             widths=widths(a_widths),
+             phold_wide=in_window(PHOLD_WIDE, "pallas_fused"),
+             phold_cluster=in_window(PHOLD_CLUSTER, "pallas_fused")),
         kernel_entry("route_place_kernel",
                      "shadow_tpu_torch/csrc/route_place.cu",
                      "shadow_tpu/tpu/pallas_pipeline.py:188",
@@ -6358,9 +6435,9 @@ def run_phases(torch, workers: int, cores: int):
                           "shadow_tpu/tpu/pallas_egress.py:91",
                           split["egress_gate"], c, ens["egress_gate"],
                           sec["egress_gate"], mesh_l["egress_gate"]),
-             widths=widths(c_widths), phold_wide=in_window(
-                 f"pallas@CE={PHOLD_WIDE['egress_cap']},"
-                 f"CI={PHOLD_WIDE['ingress_cap']}")),
+             widths=widths(c_widths),
+             phold_wide=in_window(PHOLD_WIDE, "pallas"),
+             phold_cluster=in_window(PHOLD_CLUSTER, "pallas")),
         kernel_entry("route_scatter_kernel",
                      "shadow_tpu_torch/csrc/route_scatter.cu",
                      "shadow_tpu/tpu/pallas_route.py:48",

@@ -18,9 +18,10 @@
 // Unlike kernel A it permutes no other column and returns no row_perm: the
 // caller gathers prio/sock/dst/seq/ctrl through `perm`.
 //
-// It has three builds, which the launcher picks by CE (`egress_gate_build`
-// reports it): "tile" up to 1024 slots, "wide" up to 16384, "device"
-// beyond (the last two at the end of this header).
+// It has four builds, which the launcher picks by CE (`egress_gate_build`
+// reports it): "tile" up to 1024 slots, "wide" up to 16384, "cluster" at
+// 32768 and 65536, "device" beyond (the last three at the end of this
+// header).
 //
 // What bounds the tile build on the card: memory bytes. Each slot reads 4
 // int32 and 1 bool column and writes 4 int32 and 2 bool columns (35 B),
@@ -69,11 +70,23 @@
 // the sorted slots' source columns and written coalesced. Operations
 // bound it: a network of 66-105 stages costs more than the 35 B a slot
 // move.
-// Rows of 32768 slots and more, past what a block's shared memory holds,
+// Rows of 32768 and 65536 slots, past what a block's shared memory holds,
+// take the "cluster" build: a thread-block cluster a row (row_bitonic's
+// `ClusterRow`: 2 blocks of 16384 slots at 32768, 8 of 8192 at 65536),
+// each block holding its share of the row as the wide build holds a row
+// and running the wide build's strides within it; the 1 and 6 stages
+// whose stride spans blocks exchange words over distributed shared
+// memory, a cluster barrier a stage. Each block stages its share of bytes
+// and tsend (side by side) and clamp, and every block gathers its sorted
+// slots' values over distributed shared memory from the block that owns
+// the source slot; the token gate's prefix starts from the lower-ranked
+// blocks' totals. Operations and those gathers bound it.
+// Rows of 131072 slots and more, past the portable cluster of 8 blocks,
 // take the "device" build: a block of 1024 threads a row, the network
 // sorting column indices in perm in device memory with each key read
 // through the inputs, a block barrier a stage.
 
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -512,7 +525,99 @@ cudaError_t launch_wide(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// The device build, CE >= 32768 (no block's shared memory holds the row):
+// The cluster build, CE = 32768 and 65536: a cluster of K::kBlocks
+// blocks a row, block r holding the row's slots [r * kS, (r + 1) * kS) in
+// its shared memory as the wide build holds a row (row_bitonic's
+// `ClusterRow`, `Layout<kS>`). After the sort each block stages its share
+// of bytes and the rebased tsend side by side in the word buffer and the
+// rebased clamp in col(2); every block gathers its sorted slots' values
+// over distributed shared memory through their source columns (one
+// 8-byte load a slot for the pair), between two cluster barriers. The
+// token gate reads the sorted bytes back from this thread's own runs of
+// bytes_o. Ends with a cluster barrier, so no block exits while another
+// may read its shared memory.
+template <int CE>
+__global__ void __launch_bounds__(row_bitonic::ClusterRow<CE>::W::kThreads)
+    egress_gate_cluster(const Args a) {
+  using K = row_bitonic::ClusterRow<CE>;
+  using W = typename K::W;
+  using row_bitonic::row_start;
+  constexpr int kS = K::kS, kRun = W::kV, kP = W::kPasses;
+  extern __shared__ __align__(16) uint64_t wide_smem[];
+  __shared__ uint32_t wsum[(kP + 1) * W::kWarps];
+  __shared__ uint32_t n_valid_s, xs[2];
+  cooperative_groups::cluster_group cl = cooperative_groups::this_cluster();
+  const row_bitonic::Layout<kS> L(wide_smem);
+  int2* pairs = reinterpret_cast<int2*>(wide_smem);
+  const uint64_t pol = evict_first_policy();
+  const int off = static_cast<int>(cl.block_rank()) * kS;
+  const int row = static_cast<int>(blockIdx.x) / K::kBlocks;
+  if (threadIdx.x == 0) n_valid_s = 0;
+
+#pragma unroll 1
+  for (int pass = 0; pass < kP; ++pass) {
+    const int base = W::base(pass);
+    const uint32_t vin = row_bitonic::load_bits<kRun>(
+        a.valid + row_start<kS>() + base, pol);
+    uint64_t k[kRun];
+    row_bitonic::load_keys<kRun>(k, vin, a.prio + row_start<kS>() + base,
+                                 base, pol, nullptr);
+    // each word's column is its row column
+#pragma unroll
+    for (int j = 0; j < kRun; ++j) k[j] += static_cast<uint64_t>(off);
+    row_bitonic::put_words<kRun>(L.words, base, k);
+  }
+  row_bitonic::cluster_sort<CE>(L.words, cl);
+  row_bitonic::sorted_columns<kS>(L, &n_valid_s);
+  __syncthreads();  // every thread has read its words; n_valid_s summed
+  const int n_valid = static_cast<int>(n_valid_s);
+
+  // bytes and tsend side by side, clamp; perm and valid
+#pragma unroll 1
+  for (int pass = 0; pass < kP; ++pass) {
+    const int base = W::base(pass);
+    // the inputs' validity, for the rebase
+    const uint32_t v = row_bitonic::load_bits<kRun>(
+        a.valid + row_start<kS>() + base, pol);
+    row_bitonic::stage_pair_from<kRun>(
+        pairs, base, a.nbytes + row_start<kS>() + base,
+        a.tsend + row_start<kS>() + base, pol, [](int, int x) { return x; },
+        [&](int j, int x) { return rebase_tsend((v >> j) & 1u, x, a.shift); });
+    row_bitonic::stage_from<kRun>(
+        L.col(2), base, a.clamp + row_start<kS>() + base, pol,
+        [&](int j, int x) { return rebase_clamp((v >> j) & 1u, x, a.shift); });
+  }
+  cl.sync();
+#pragma unroll 1
+  for (int pass = 0; pass < kP; ++pass) {
+    const int base = W::base(pass);
+    const int64_t e0 = row_start<kS>() + base;
+    row_bitonic::store_columns<kRun>(a.perm_o + e0, L.src(), base);
+    row_bitonic::gather_pair_cluster<kS, kRun>(
+        cl, a.bytes_o + e0, a.tsend_o + e0, pairs, L.src(), base);
+    row_bitonic::gather_cluster<kS, kRun>(cl, a.clamp_o + e0, L.col(2),
+                                          L.src(), base);
+    row_bitonic::store_bits<kRun>(
+        a.valid_o + e0, row_bitonic::prefix_bits<kRun>(n_valid, base));
+  }
+  // its first cluster barrier follows every block's gathers
+  row_bitonic::cluster_gate<CE>(
+      cl, a.bytes_o + row_start<kS>(), n_valid, __ldg(a.balance + row), wsum,
+      xs, a.spent_o + row, [&](int base, uint32_t sendable) {
+        row_bitonic::store_bits<kRun>(a.sendable_o + row_start<kS>() + base,
+                                      sendable);
+      });
+  cl.sync();
+}
+
+template <int CE>
+cudaError_t launch_cluster(const Args& a, cudaStream_t stream) {
+  static bool allowed[64];
+  return row_bitonic::launch_clusters<row_bitonic::ClusterRow<CE>>(
+      egress_gate_cluster<CE>, a.n_rows, a, stream, allowed);
+}
+
+// The device build, CE >= 131072 (past the portable cluster of 8 blocks):
 // one block of kDeviceBlock threads a row; the network runs over device
 // memory through perm_o (row_bitonic::device_bitonic), its keys read from
 // the inputs, and each thread gathers, scans and writes its own run of CE
@@ -553,11 +658,13 @@ __global__ void __launch_bounds__(row_bitonic::kDeviceBlock)
 }
 
 // The build a row of ce slots runs: 1 the tile design (ce <= 1024), 2 the
-// wide build (ce <= 16384), 3 the device build; 0 for a ce the kernel does
-// not take (not a power of two, or not positive).
+// wide build (ce <= 16384), 3 the cluster build (ce <= 65536), 4 the
+// device build; 0 for a ce the kernel does not take (not a power of two,
+// or not positive).
 int build_of(int ce) {
   if (ce <= 0 || (ce & (ce - 1)) != 0) return 0;
-  return ce <= 1024 ? 1 : ce <= row_bitonic::kMaxWideCE ? 2 : 3;
+  return ce <= 1024 ? 1 : ce <= row_bitonic::kMaxWideCE ? 2
+         : ce <= row_bitonic::kMaxClusterCE ? 3 : 4;
 }
 
 bool aligned16(const void* p) {
@@ -570,9 +677,32 @@ bool aligned16(const void* p) {
 extern "C" int egress_gate_build(int ce) { return build_of(ce); }
 
 // The dynamic shared memory a wide-build launch for rows of ce slots
-// requests, in bytes (0 for a ce another build runs).
+// requests, or a cluster-build launch a block, in bytes (0 for a ce
+// another build runs).
 extern "C" int egress_gate_shared_bytes(int ce) {
-  return row_bitonic::wide_shared_bytes(ce);
+  return ce <= row_bitonic::kMaxWideCE ? row_bitonic::wide_shared_bytes(ce)
+                                       : row_bitonic::cluster_shared_bytes(ce);
+}
+
+// The blocks a cluster of a cluster-build launch for rows of ce slots (0
+// for a ce another build runs).
+extern "C" int egress_gate_cluster_blocks(int ce) {
+  return row_bitonic::cluster_blocks(ce);
+}
+
+// cudaOccupancyMaxActiveClusters of the cluster build for rows of ce
+// slots on the current device (0 for a ce another build runs; minus the
+// CUDA error if the query fails).
+extern "C" int egress_gate_max_clusters(int ce) {
+  using row_bitonic::ClusterRow;
+  using row_bitonic::max_active_clusters;
+  switch (ce) {
+    case 32768:
+      return max_active_clusters<ClusterRow<32768>>(egress_gate_cluster<32768>);
+    case 65536:
+      return max_active_clusters<ClusterRow<65536>>(egress_gate_cluster<65536>);
+    default: return 0;
+  }
 }
 
 // Inputs: valid (bool), prio, bytes, tsend, clamp (int32), all [n_rows, ce]
@@ -625,6 +755,8 @@ extern "C" int egress_gate_launch(
     case 4096: return static_cast<int>(launch_wide<4096>(a, stream));
     case 8192: return static_cast<int>(launch_wide<8192>(a, stream));
     case 16384: return static_cast<int>(launch_wide<16384>(a, stream));
+    case 32768: return static_cast<int>(launch_cluster<32768>(a, stream));
+    case 65536: return static_cast<int>(launch_cluster<65536>(a, stream));
     default:
       egress_gate_device<<<n_rows, row_bitonic::kDeviceBlock, 0, stream>>>(
           a, ce);

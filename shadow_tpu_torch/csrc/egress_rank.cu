@@ -43,7 +43,22 @@
 //     words come from the gathered seq: no scattered read of device
 //     memory. 14 B a slot of dynamic shared memory (224 KB at 16384: one
 //     block an SM).
-//   - "device" (CE >= 32768, past what a block's shared memory holds):
+//   - "cluster" (CE = 32768 and 65536, past what a block's shared memory
+//     holds): operations, as the wide build, and the gathers over
+//     distributed shared memory. A thread-block cluster a row
+//     (row_bitonic's `ClusterRow`: 2 blocks of 16384 slots at 32768, 8 of
+//     8192 at 65536, the geometry that won on the card), each block
+//     holding its share of the row as the wide build holds a row and
+//     running the wide build's strides within it; the 1 and 6 stages a
+//     network whose stride spans blocks exchange words over distributed
+//     shared memory, a cluster barrier a stage. Each block stages its
+//     share of the payload columns, two side by side, and every block
+//     gathers its sorted slots' values from whichever block owns the
+//     source slot, over distributed shared memory (one 8-byte load a slot
+//     fetches a pair, at the cost of one 4-byte load): no scattered read
+//     of device memory. The token gate's prefix starts from the
+//     lower-ranked blocks' totals.
+//   - "device" (CE >= 131072, past the portable cluster of 8 blocks):
 //     a block of 1024 threads a row, its two networks sorting column
 //     indices in place in row_perm with each key read through the inputs
 //     and seq_o, a block barrier a stage; barriers and scattered reads
@@ -52,6 +67,7 @@
 // The sorting networks, the scans and the rebase are row_bitonic.cuh's,
 // shared with kernel C (egress_gate.cu).
 
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -372,8 +388,173 @@ __global__ void __launch_bounds__(Wide<CE>::kThreads)
   }
 }
 
-// The device build, CE >= 32768 (no block's shared memory holds the
-// row): one block of kDeviceBlock threads a row; both networks run over
+// The cluster build, CE = 32768 and 65536: a cluster of K::kBlocks
+// blocks a row, block r holding the row's slots [r * kS, (r + 1) * kS) in
+// its shared memory as the wide build holds a row (row_bitonic's
+// `ClusterRow`, `Layout<kS>`; every [n_rows, CE] column on 16 bytes).
+// prio is staged before the sort in col(2); the other seven payload
+// columns after it, in three groups (sock and dst; tsend, clamp and
+// ctrl; bytes and seq), two of each group side by side in the word
+// buffer and the third in col(2). Every block stages its share of a
+// group, then gathers its sorted slots' values over distributed shared
+// memory through their source columns (one 8-byte load a slot for a
+// pair), with a cluster barrier after the staging and after the gathers.
+// The token gate reads the sorted bytes back from this thread's own runs
+// of bytes_o, and the second network's (seq ^ SIGN, column) words are
+// built from its own runs of seq_o. Ends with a cluster barrier, so no
+// block exits while another may read its shared memory.
+template <int CE>
+__global__ void __launch_bounds__(ClusterRow<CE>::W::kThreads)
+    egress_rank_cluster(const WideArgs a) {
+  using K = ClusterRow<CE>;
+  using W = typename K::W;
+  constexpr int kS = K::kS, kRun = W::kV, kP = W::kPasses;
+  extern __shared__ __align__(16) uint64_t wide_smem[];
+  __shared__ uint32_t wsum[(kP + 1) * W::kWarps];
+  __shared__ uint32_t n_valid_s, xs[2];
+  cooperative_groups::cluster_group cl = cooperative_groups::this_cluster();
+  const Layout<kS> L(wide_smem);
+  int2* pairs = reinterpret_cast<int2*>(wide_smem);
+  const uint64_t pol = evict_first_policy();
+  const int off = static_cast<int>(cl.block_rank()) * kS;
+  const int row = static_cast<int>(blockIdx.x) / K::kBlocks;
+  const auto as_is = [](int, int v) { return v; };
+  if (threadIdx.x == 0) n_valid_s = 0;
+
+#pragma unroll 1
+  for (int pass = 0; pass < kP; ++pass) {
+    const int base = W::base(pass);
+    const uint32_t vin = load_bits<kRun>(a.valid + row_start<kS>() + base,
+                                         pol);
+    uint64_t k[kRun];
+    load_keys<kRun>(k, vin, a.prio + row_start<kS>() + base, base, pol,
+                    L.col(2));
+    // each word's column is its row column
+#pragma unroll
+    for (int j = 0; j < kRun; ++j) k[j] += static_cast<uint64_t>(off);
+    put_words<kRun>(L.words, base, k);
+  }
+  cluster_sort<CE>(L.words, cl);
+  sorted_columns<kS>(L, &n_valid_s);
+  __syncthreads();  // every thread has read its words; n_valid_s summed
+  const int n_valid = static_cast<int>(n_valid_s);
+
+  // prio (staged), sock and dst
+#pragma unroll 1
+  for (int pass = 0; pass < kP; ++pass) {
+    const int base = W::base(pass);
+    stage_pair_from<kRun>(pairs, base, a.sock + row_start<kS>() + base,
+                          a.dst + row_start<kS>() + base, pol, as_is, as_is);
+  }
+  cl.sync();
+#pragma unroll 1
+  for (int pass = 0; pass < kP; ++pass) {
+    const int base = W::base(pass);
+    const int64_t e0 = row_start<kS>() + base;
+    gather_cluster<kS, kRun>(cl, a.prio_o + e0, L.col(2), L.src(), base);
+    gather_pair_cluster<kS, kRun>(cl, a.sock_o + e0, a.dst_o + e0, pairs,
+                                  L.src(), base);
+    store_bits<kRun>(a.valid_o + e0, prefix_bits<kRun>(n_valid, base));
+  }
+  cl.sync();
+
+  // tsend and clamp rebased, ctrl
+#pragma unroll 1
+  for (int pass = 0; pass < kP; ++pass) {
+    const int base = W::base(pass);
+    // the inputs' validity, read again for the rebase
+    const uint32_t v = load_bits<kRun>(a.valid + row_start<kS>() + base, pol);
+    stage_pair_from<kRun>(
+        pairs, base, a.tsend + row_start<kS>() + base,
+        a.clamp + row_start<kS>() + base, pol,
+        [&](int j, int x) { return rebase_tsend((v >> j) & 1u, x, a.shift); },
+        [&](int j, int x) {
+          return rebase_clamp((v >> j) & 1u, x, a.shift);
+        });
+    const uint32_t ctrl =
+        load_bits<kRun>(a.ctrl + row_start<kS>() + base, pol);
+#pragma unroll
+    for (int q = 0; q < kRun / 4; ++q)
+      *reinterpret_cast<int4*>(L.col(2) + col_at(base + 4 * q)) =
+          make_int4(static_cast<int>((ctrl >> (4 * q)) & 1u),
+                    static_cast<int>((ctrl >> (4 * q + 1)) & 1u),
+                    static_cast<int>((ctrl >> (4 * q + 2)) & 1u),
+                    static_cast<int>((ctrl >> (4 * q + 3)) & 1u));
+  }
+  cl.sync();
+#pragma unroll 1
+  for (int pass = 0; pass < kP; ++pass) {
+    const int base = W::base(pass);
+    const int64_t e0 = row_start<kS>() + base;
+    gather_pair_cluster<kS, kRun>(cl, a.tsend_o + e0, a.clamp_o + e0, pairs,
+                                  L.src(), base);
+    store_bits<kRun>(a.ctrl_o + e0, gather_bits_cluster<kS, kRun>(
+                                        cl, L.col(2), L.src(), base));
+  }
+  cl.sync();
+
+  // bytes -> the token gate; seq -> the second network
+#pragma unroll 1
+  for (int pass = 0; pass < kP; ++pass) {
+    const int base = W::base(pass);
+    stage_pair_from<kRun>(pairs, base, a.nbytes + row_start<kS>() + base,
+                          a.seq + row_start<kS>() + base, pol, as_is, as_is);
+  }
+  cl.sync();
+#pragma unroll 1
+  for (int pass = 0; pass < kP; ++pass) {
+    const int base = W::base(pass);
+    const int64_t e0 = row_start<kS>() + base;
+    gather_pair_cluster<kS, kRun>(cl, a.bytes_o + e0, a.seq_o + e0, pairs,
+                                  L.src(), base);
+  }
+  // its first cluster barrier follows every block's gathers of the pairs
+  cluster_gate<CE>(cl, a.bytes_o + row_start<kS>(), n_valid,
+                   __ldg(a.balance + row), wsum, xs, a.spent_o + row,
+                   [&](int base, uint32_t sendable) {
+                     store_bits<kRun>(
+                         a.sendable_o + row_start<kS>() + base, sendable);
+                   });
+
+  // routing phase A: the sorted row's (seq, column) order, its words
+  // built from this thread's own runs of seq_o in the word buffer (no
+  // block reads it after the gate's barriers)
+#pragma unroll 1
+  for (int pass = 0; pass < kP; ++pass) {
+    const int base = W::base(pass);
+    const int4* seq_s =
+        reinterpret_cast<const int4*>(a.seq_o + row_start<kS>() + base);
+#pragma unroll
+    for (int q = 0; q < kRun / 4; ++q) {
+      const int4 v4 = seq_s[q];
+      const int v[4] = {v4.x, v4.y, v4.z, v4.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        L.words[word_at<kRun>(base + 4 * q + i)] =
+            pack(static_cast<uint32_t>(v[i]) ^ kSign,
+                 off + base + 4 * q + i);
+    }
+  }
+  cluster_sort<CE>(L.words, cl);
+#pragma unroll 1
+  for (int pass = 0; pass < kP; ++pass) {
+    const int base = W::base(pass);
+    int* out = a.row_perm_o + row_start<kS>() + base;
+#pragma unroll
+    for (int q = 0; q < kRun / 4; ++q) {
+      int v[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        v[i] = static_cast<int>(static_cast<uint32_t>(
+            L.words[word_at<kRun>(base + 4 * q + i)]));
+      reinterpret_cast<int4*>(out)[q] = make_int4(v[0], v[1], v[2], v[3]);
+    }
+  }
+  cl.sync();
+}
+
+// The device build, CE >= 131072 (past the portable cluster of 8 blocks):
+// one block of kDeviceBlock threads a row; both networks run over
 // device memory through row_perm_o (device_bitonic), their keys read from
 // the inputs and from seq_o, and each thread permutes, scans and writes
 // its own run of CE / kDeviceBlock consecutive slots.
@@ -474,16 +655,15 @@ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
 
-template <int CE>
-cudaError_t launch_wide(int n_rows, int shift, const void* const* in,
-                        void* const* out, cudaStream_t stream) {
-  using W = Wide<CE>;
-  // the columns move as 16-byte vectors
+// The wide and cluster builds' arguments; false if a [n_rows, CE] column
+// does not start on 16 bytes (they move as 16-byte vectors).
+bool wide_args(int shift, const void* const* in, void* const* out,
+               WideArgs* args) {
   for (int i = 0; i < 9; ++i)
-    if (!aligned16(in[i])) return cudaErrorMisalignedAddress;
+    if (!aligned16(in[i])) return false;
   for (int i = 0; i < 12; ++i)
-    if (i != 10 && !aligned16(out[i])) return cudaErrorMisalignedAddress;
-  const WideArgs a{shift,
+    if (i != 10 && !aligned16(out[i])) return false;
+  *args = WideArgs{shift,
                    static_cast<const uint8_t*>(in[0]),
                    static_cast<const int*>(in[1]),
                    static_cast<const int*>(in[2]),
@@ -506,12 +686,31 @@ cudaError_t launch_wide(int n_rows, int shift, const void* const* in,
                    static_cast<uint8_t*>(out[9]),
                    static_cast<int*>(out[10]),
                    static_cast<int*>(out[11])};
+  return true;
+}
+
+template <int CE>
+cudaError_t launch_wide(int n_rows, int shift, const void* const* in,
+                        void* const* out, cudaStream_t stream) {
+  using W = Wide<CE>;
+  WideArgs a;
+  if (!wide_args(shift, in, out, &a)) return cudaErrorMisalignedAddress;
   static bool allowed[64];
   const cudaError_t err =
       allow_shared(egress_rank_wide<CE>, W::kSmem, allowed);
   if (err != cudaSuccess) return err;
   egress_rank_wide<CE><<<n_rows, W::kThreads, W::kSmem, stream>>>(a);
   return cudaGetLastError();
+}
+
+template <int CE>
+cudaError_t launch_cluster(int n_rows, int shift, const void* const* in,
+                           void* const* out, cudaStream_t stream) {
+  WideArgs a;
+  if (!wide_args(shift, in, out, &a)) return cudaErrorMisalignedAddress;
+  static bool allowed[64];
+  return launch_clusters<ClusterRow<CE>>(egress_rank_cluster<CE>, n_rows, a,
+                                         stream, allowed);
 }
 
 cudaError_t launch_device(int n_rows, int ce, int shift,
@@ -535,11 +734,12 @@ cudaError_t launch_device(int n_rows, int ce, int shift,
 
 // The build a row of ce slots runs: 1 warp segments (ce <= 32), 2 a block
 // in shared memory (64 <= ce <= 1024), 3 the wide build (ce <= 16384), 4
-// the device build; 0 for a ce the kernel does not take (not a power of
-// two, or not positive).
+// the cluster build (ce <= 65536), 5 the device build; 0 for a ce the
+// kernel does not take (not a power of two, or not positive).
 int build_of(int ce) {
   if (ce <= 0 || (ce & (ce - 1)) != 0) return 0;
-  return ce <= 32 ? 1 : ce <= 1024 ? 2 : ce <= kMaxWideCE ? 3 : 4;
+  return ce <= 32 ? 1 : ce <= 1024 ? 2 : ce <= kMaxWideCE ? 3
+         : ce <= kMaxClusterCE ? 4 : 5;
 }
 
 }  // namespace
@@ -548,9 +748,29 @@ int build_of(int ce) {
 extern "C" int egress_rank_build(int ce) { return build_of(ce); }
 
 // The dynamic shared memory a wide-build launch for rows of ce slots
-// requests, in bytes (0 for a ce another build runs).
+// requests, or a cluster-build launch a block, in bytes (0 for a ce
+// another build runs).
 extern "C" int egress_rank_shared_bytes(int ce) {
-  return wide_shared_bytes(ce);
+  return ce <= kMaxWideCE ? wide_shared_bytes(ce) : cluster_shared_bytes(ce);
+}
+
+// The blocks a cluster of a cluster-build launch for rows of ce slots (0
+// for a ce another build runs).
+extern "C" int egress_rank_cluster_blocks(int ce) {
+  return cluster_blocks(ce);
+}
+
+// cudaOccupancyMaxActiveClusters of the cluster build for rows of ce
+// slots on the current device (0 for a ce another build runs; minus the
+// CUDA error if the query fails).
+extern "C" int egress_rank_max_clusters(int ce) {
+  switch (ce) {
+    case 32768:
+      return max_active_clusters<ClusterRow<32768>>(egress_rank_cluster<32768>);
+    case 65536:
+      return max_active_clusters<ClusterRow<65536>>(egress_rank_cluster<65536>);
+    default: return 0;
+  }
 }
 
 // Inputs: valid (bool), prio, bytes, tsend, clamp, dst, seq, sock (int32),
@@ -583,6 +803,8 @@ extern "C" int egress_rank_launch(
     case 4096: return static_cast<int>(launch_wide<4096>(n_rows, shift, in, out, stream));
     case 8192: return static_cast<int>(launch_wide<8192>(n_rows, shift, in, out, stream));
     case 16384: return static_cast<int>(launch_wide<16384>(n_rows, shift, in, out, stream));
+    case 32768: return static_cast<int>(launch_cluster<32768>(n_rows, shift, in, out, stream));
+    case 65536: return static_cast<int>(launch_cluster<65536>(n_rows, shift, in, out, stream));
     default:
       return static_cast<int>(
           build_of(ce) == 2 ? launch_block(n_rows, ce, shift, in, out, stream)

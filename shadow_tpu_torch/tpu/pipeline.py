@@ -80,11 +80,14 @@ E_BUILD_LAUNCHES = {"staged": 0, "device": 0}
 # the egress capacity (`egress_build`), in the launcher's order: "warp"
 # segments up to 32 slots, a "block" a row in shared memory up to 1024,
 # "wide" (a block a row, the row's packed words in shared memory) up to
-# 16384, "device" (a block a row over device memory) beyond
-A_BUILD_LAUNCHES = {"warp": 0, "block": 0, "wide": 0, "device": 0}
+# 16384, "cluster" (a thread-block cluster a row, the row's words over
+# its blocks' shared memory) at 32768 and 65536, "device" (a block a row
+# over device memory) beyond
+A_BUILD_LAUNCHES = {"warp": 0, "block": 0, "wide": 0, "cluster": 0,
+                    "device": 0}
 # kernel C's: the "tile" design up to 1024 slots, "wide" up to 16384,
-# "device" beyond
-C_BUILD_LAUNCHES = {"tile": 0, "wide": 0, "device": 0}
+# "cluster" at 32768 and 65536, "device" beyond
+C_BUILD_LAUNCHES = {"tile": 0, "wide": 0, "cluster": 0, "device": 0}
 _BUILD_LAUNCHES = {"egress_rank": A_BUILD_LAUNCHES,
                    "egress_gate": C_BUILD_LAUNCHES}
 
@@ -103,16 +106,20 @@ def _require_pow2(cap: int, what: str):
             f"(the bitonic network width), got {cap}")
 
 
+def _int_export(name: str, what: str, ce: int) -> int:
+    fn = getattr(load_kernel(name), f"{name}_{what}")
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return int(fn(int(ce)))
+
+
 @functools.lru_cache(maxsize=64)
 def egress_build(name: str, ce: int) -> str:
     """The build of kernel A (`name` "egress_rank") or C ("egress_gate")
     that its launcher runs for rows of `ce` slots, as the launcher's
     `<name>_build` reports it (see `A_BUILD_LAUNCHES`,
     `C_BUILD_LAUNCHES`); RuntimeError for a width it does not take."""
-    fn = getattr(load_kernel(name), f"{name}_build")
-    fn.argtypes = [ctypes.c_int]
-    fn.restype = ctypes.c_int
-    code = fn(int(ce))
+    code = _int_export(name, "build", ce)
     if code == 0:
         raise RuntimeError(f"{name}_kernel takes no rows of {ce} slots")
     return list(_BUILD_LAUNCHES[name])[code - 1]
@@ -120,14 +127,28 @@ def egress_build(name: str, ce: int) -> str:
 
 @functools.lru_cache(maxsize=64)
 def egress_shared_bytes(name: str, ce: int) -> int:
-    """The dynamic shared memory (bytes) a wide-build launch of kernel A
-    (`name` "egress_rank") or C ("egress_gate") requests a block for rows
-    of `ce` slots, as its launcher's `<name>_shared_bytes` reports it (0
-    for a width another build runs)."""
-    fn = getattr(load_kernel(name), f"{name}_shared_bytes")
-    fn.argtypes = [ctypes.c_int]
-    fn.restype = ctypes.c_int
-    return int(fn(int(ce)))
+    """The dynamic shared memory (bytes) a wide-build or cluster-build
+    launch of kernel A (`name` "egress_rank") or C ("egress_gate")
+    requests a block for rows of `ce` slots, as its launcher's
+    `<name>_shared_bytes` reports it (0 for a width another build
+    runs)."""
+    return _int_export(name, "shared_bytes", ce)
+
+
+@functools.lru_cache(maxsize=64)
+def egress_cluster_occupancy(name: str, ce: int) -> tuple[int, int]:
+    """The cluster build of kernel A (`name` "egress_rank") or C
+    ("egress_gate") for rows of `ce` slots on the current device: (blocks
+    a cluster, `cudaOccupancyMaxActiveClusters`, the rows that run at
+    once), as its launcher's `<name>_cluster_blocks` and
+    `<name>_max_clusters` report them; (0, 0) for a width another build
+    runs; RuntimeError if the query fails."""
+    blocks = _int_export(name, "cluster_blocks", ce)
+    clusters = _int_export(name, "max_clusters", ce)
+    if clusters < 0:
+        raise RuntimeError(f"{name}_kernel: CUDA error {-clusters} asking "
+                           f"the clusters of rows of {ce} slots")
+    return blocks, clusters
 
 
 def _check(name: str, t: torch.Tensor, dtype, shape, device):
@@ -272,11 +293,13 @@ def _egress_rank_impl(valid, prio, nbytes, tsend, clamp, dst, seq, sock,
         return egress_rank_plain(*ins, shift_ns)
     N, CE = valid.shape
     dev = valid.device
-    if egress_build("egress_rank", CE) == "wide":
+    build = egress_build("egress_rank", CE)
+    if build in ("wide", "cluster"):
         for name, t in zip(_EGRESS_RANK_INS, ins[:9]):
-            # the wide build moves each thread's run as 16-byte vectors
+            # the wide and cluster builds move each thread's run as
+            # 16-byte vectors
             if t.data_ptr() % 16:
-                raise ValueError(f"{name}: kernel A's wide build reads "
+                raise ValueError(f"{name}: kernel A's {build} build reads "
                                  f"16-byte vectors, and this tensor does "
                                  f"not start on 16 bytes")
     i32 = lambda: torch.empty((N, CE), dtype=torch.int32, device=dev)
@@ -284,7 +307,7 @@ def _egress_rank_impl(valid, prio, nbytes, tsend, clamp, dst, seq, sock,
     outs = (i32(), i32(), i32(), i32(), i32(), b8(), i32(), i32(), b8(),
             b8(), torch.empty(N, dtype=torch.int32, device=dev), i32())
     _launch("egress_rank", N, CE, int(shift_ns), *ins, *outs)
-    A_BUILD_LAUNCHES[egress_build("egress_rank", CE)] += 1
+    A_BUILD_LAUNCHES[build] += 1
     return outs
 
 

@@ -96,8 +96,10 @@ def test_egress_gate_kernel_matches_plain_on_edge_values(cuda, n, ce):
 def egress_build_name(name, ce):
     """The build of kernel A (`name` "egress_rank") or C that its
     launcher must pick for rows of `ce` slots."""
-    if ce > 16384:
+    if ce > 65536:
         return "device"
+    if ce > 16384:
+        return "cluster"
     if ce > 1024:
         return "wide"
     return "warp" if name == "egress_rank" else "tile"
@@ -105,14 +107,16 @@ def egress_build_name(name, ce):
 
 @pytest.mark.parametrize("ce,n", [
     *((ce, n) for ce in (1, 2048, 4096, 8192, 16384) for n in (1, 37)),
-    (32768, 1), (32768, 3), (65536, 1), (65536, 3)])
+    (32768, 1), (32768, 3), (65536, 1), (65536, 3), (131072, 1)])
 def test_egress_kernels_match_plain_on_edge_values_at_new_widths(cuda, n,
                                                                   ce):
     """Kernels A and C at a one-slot row, in their wide build (the row in
-    a block's shared memory) and in their device build (rows past what
-    shared memory holds), on the int32 edge columns (prefix sums past
-    2^31 across rows of 2^11-2^16 slots), with both shifts; each launch
-    counted under the build its launcher picks by the width."""
+    a block's shared memory), in their cluster build (a row over the
+    shared memory of a thread-block cluster) and in their device build
+    (rows past the portable cluster), on the int32 edge columns (prefix
+    sums past 2^31 across rows of 2^11-2^17 slots), with both shifts;
+    each launch counted under the build its launcher picks by the
+    width."""
     cols = gate_edge_columns(n, ce, seed=3 * n + ce)
     rng = np.random.default_rng(ce)
     extra = [torch.from_numpy(np.asarray(a, dt)).to(cuda) for a, dt in (
@@ -148,7 +152,24 @@ def test_egress_kernels_hold_prefix_sums_past_2_31_at_the_widest_wide_build(
     bytes in [2^30, 2^31), so the token gate's uint32 prefix wraps within
     a row; kernels A and C in their wide build, bitwise their plain
     versions."""
-    ce = 16384
+    hold_prefix_sums_past_2_31(cuda, 16384, n, "wide")
+
+
+@pytest.mark.parametrize("ce,n", [(32768, 1), (32768, 3), (65536, 1),
+                                  (65536, 2)])
+def test_egress_kernels_hold_prefix_sums_past_2_31_across_cluster_blocks(
+        cuda, ce, n):
+    """The same rows at the cluster build's widths: each block's prefix
+    starts from the lower-ranked blocks' wrapped uint32 totals, so the
+    wrap crosses block boundaries; kernels A and C in their cluster
+    build, bitwise their plain versions."""
+    hold_prefix_sums_past_2_31(cuda, ce, n, "cluster")
+
+
+def hold_prefix_sums_past_2_31(cuda, ce, n, build):
+    """Kernels A and C on n rows of ce slots, all valid with bytes in
+    [2^30, 2^31) and random balances, both shifts: launched in `build`,
+    bitwise their plain versions."""
     cols = gate_edge_columns(n, ce, seed=n)
     rng = np.random.default_rng(n)
     cols["valid"][:] = True
@@ -171,15 +192,49 @@ def test_egress_kernels_hold_prefix_sums_past_2_31_at_the_widest_wide_build(
                 (pipeline.egress_rank_stage, pipeline.egress_rank_plain,
                  (*c[:5], *extra, c[5], shift), "egress_rank",
                  pipeline.A_BUILD_LAUNCHES)):
-            assert pipeline.egress_build(name, ce) == "wide"
-            before = builds["wide"]
+            assert pipeline.egress_build(name, ce) == build
+            before = builds[build]
             got = stage(*args)
             ref = plain(*args)
             torch.cuda.synchronize()
-            assert builds["wide"] == before + 1
+            assert builds[build] == before + 1
             for g, r in zip(got, ref):
                 assert g.dtype == r.dtype and torch.equal(g, r), (
-                    name, shift, n)
+                    name, shift, n, ce)
+
+
+@pytest.mark.parametrize("ce", [32768, 65536])
+def test_egress_cluster_build_repeats_its_output(cuda, ce):
+    """Kernels A and C in their cluster build, run 20 times on one input
+    (random rows and the int32 edge rows side by side): every run's
+    outputs equal the first run's and the plain version's. A missing
+    cluster barrier shows as a race that one run can miss."""
+    n = 6
+    args = egress_args(n, ce, cuda, seed=ce)
+    edge = [torch.from_numpy(v).to(cuda)
+            for v in gate_edge_columns(n, ce, seed=ce + 1).values()]
+    both = lambda a, e: torch.cat([a, e]).contiguous()
+    args = (*(both(a, e) for a, e in zip(args[:5], edge[:5])), *(
+        torch.cat([a, a]).contiguous() for a in args[5:9]),
+        both(args[9], edge[5]), args[10])
+    gate_args = (*args[:5], args[9], args[10])
+    for stage, plain, a, name, builds in (
+            (pipeline.egress_order_gate, pipeline.egress_gate_plain,
+             gate_args, "egress_gate", pipeline.C_BUILD_LAUNCHES),
+            (pipeline.egress_rank_stage, pipeline.egress_rank_plain, args,
+             "egress_rank", pipeline.A_BUILD_LAUNCHES)):
+        assert pipeline.egress_build(name, ce) == "cluster"
+        before = builds["cluster"]
+        ref = plain(*a)
+        first = stage(*a)
+        for _ in range(19):
+            again = stage(*a)
+            for g, f in zip(again, first):
+                assert torch.equal(g, f), name
+        torch.cuda.synchronize()
+        assert builds["cluster"] == before + 20
+        for g, r in zip(first, ref):
+            assert g.dtype == r.dtype and torch.equal(g, r), name
 
 
 def test_egress_kernels_read_negative_priorities_as_invalid(cuda):

@@ -252,20 +252,24 @@ def test_library_path_hashes_included_headers(tmp_path, monkeypatch):
         assert again[name] == after[name], name
 
 
-@pytest.mark.parametrize("ce", [1, 2048, 16384])
+@pytest.mark.parametrize("ce", [1, 2048, 16384, 32768])
 def test_egress_kernels_take_every_width_jax_takes(ce):
-    """Kernels A and C at a row of one slot, at one wider than 1024 and
-    at the widest row a block's shared memory holds (the kernels' wide
-    build on the card), widths JAX's Pallas kernels take: the port's
-    wrappers (the plain versions on the CPU) against JAX's
-    `egress_rank_stage` and `egress_order_gate` in interpret mode, on
-    random rows (2 at 16384) and on the int32 edge rows, every output
-    bitwise; no launch and no build counted."""
+    """Kernels A and C at a row of one slot, at one wider than 1024, at
+    the widest row a block's shared memory holds (the kernels' wide build
+    on the card) and at a row over a thread-block cluster (their cluster
+    build), widths JAX's Pallas kernels take: the port's wrappers (the
+    plain versions on the CPU) against JAX's `egress_rank_stage` and
+    `egress_order_gate` in interpret mode, on random rows (2 at 16384, 1
+    at 32768) and on the int32 edge rows (3 at 32768: a mixed row, an
+    all-invalid one and an all-valid one under the largest balance, so
+    the gate sends some and not all), every output bitwise; no launch and
+    no build counted."""
     from test_torch_pipeline import egress_columns
 
     from shadow_tpu.tpu import pallas_pipeline
 
-    rows, edge_rows = (2, 6) if ce > 2048 else (8, 12)
+    rows, edge_rows = {1: (8, 12), 2048: (8, 12), 16384: (2, 6),
+                       32768: (1, 3)}[ce]
     before = [dict(d) for d in (pipeline.LAUNCHES, pipeline.A_BUILD_LAUNCHES,
                                 pipeline.C_BUILD_LAUNCHES)]
     cols = egress_columns(rows, ce, seed=ce)
@@ -294,8 +298,9 @@ def test_egress_build_names_follow_the_launchers_codes(monkeypatch):
     ...), which `egress_build` reads by position; `reset_launches` zeroes
     them. (The card test holds `egress_build` to the real launchers.)"""
     assert list(pipeline.A_BUILD_LAUNCHES) == ["warp", "block", "wide",
+                                               "cluster", "device"]
+    assert list(pipeline.C_BUILD_LAUNCHES) == ["tile", "wide", "cluster",
                                                "device"]
-    assert list(pipeline.C_BUILD_LAUNCHES) == ["tile", "wide", "device"]
 
     class Lib:
         # a launcher whose `<name>_build` reports the code it is given
